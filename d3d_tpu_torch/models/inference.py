@@ -1,0 +1,92 @@
+"""End-to-end inference: points in, detections out (port of the PointPillars
+part of ``d3d_tpu.models.inference``).
+
+One request runs points -> pillarize -> PointPillars -> top-k decode ->
+rotated NMS on one device with fixed shapes; only the final selection of
+kept rows runs on the host. The JAX package assembles a ``Target3DArray``
+there; until ``abstraction.py`` is ported, ``detect`` returns the kept
+rows as numpy columns.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from ..ops.nms import nms2d
+from ..utils import EDict, as_tensor, resolve_device
+from .pointpillars import decode_boxes, pillarize
+
+__all__ = ["make_pointpillars_detector"]
+
+
+def _bev(boxes):
+    return torch.cat([boxes[:, 0:2], boxes[:, 3:5], boxes[:, 6:7]],
+                     dim=-1).to(torch.float32)
+
+
+def _make_anchor_detector(model, variables, cfg, anchors, classes,
+                          voxelize_fn, score_threshold, iou_threshold,
+                          top_k, device):
+    """Shared factory for the anchor-head families: voxelize -> heads ->
+    top-k decode (incl. the direction classifier: arcsin only recovers yaw
+    up to pi, the dir head supplies the flip) -> rotated NMS."""
+    dev = resolve_device(device)
+    if variables is not None:
+        model.load_state_dict(variables)
+    model = model.to(dev).eval()
+    anchors = as_tensor(anchors, device=dev, dtype=torch.float32)
+
+    @torch.inference_mode()
+    def device_fn(points):
+        points = as_tensor(points, device=dev, dtype=torch.float32)
+        feats, coords, valid = voxelize_fn(points, cfg)
+        cls_logits, box_preds, dir_logits = model(
+            feats[None], coords[None], valid[None])
+        scores_all = torch.sigmoid(cls_logits[0])        # (N, C)
+        best = scores_all.max(dim=-1).values
+        # lax.top_k order: descending, equal scores lowest index first
+        idx = torch.sort(best, descending=True, stable=True).indices[:top_k]
+        top_scores = best[idx]
+        boxes = decode_boxes(anchors[idx], box_preds[0][idx])
+        # direction head disambiguates the arcsin yaw (residual mod 2pi >
+        # pi -> class 1 -> add pi)
+        flip = dir_logits[0][idx].argmax(dim=-1).to(boxes.dtype)
+        boxes[:, 6] = boxes[:, 6] + flip * math.pi
+        labels = scores_all.argmax(dim=-1)[idx]
+        keep = ~nms2d(_bev(boxes), top_scores.to(torch.float32),
+                      iou_threshold=iou_threshold, iou_method="rbox")
+        return boxes, top_scores, labels, keep
+
+    def detect(points):
+        """Kept detections of one frame as numpy columns: positions (K, 3),
+        dimensions (K, 3), yaws (K,), labels (K,), scores (K,) and the
+        matching ``classes`` entries — the rows the JAX detector turns into
+        a Target3DArray."""
+        boxes, scores, labels, keep = (t.cpu().numpy()
+                                       for t in device_fn(points))
+        sel = (keep & (scores >= score_threshold)
+               & np.all(np.isfinite(boxes), axis=-1))
+        boxes, scores, labels = boxes[sel], scores[sel], labels[sel]
+        return EDict(positions=boxes[:, 0:3], dimensions=boxes[:, 3:6],
+                     yaws=boxes[:, 6], labels=labels, scores=scores,
+                     classes=[classes[int(l)] for l in labels])
+
+    detect.device_fn = device_fn
+    return detect
+
+
+def make_pointpillars_detector(model, variables, cfg, anchors, classes,
+                               score_threshold=0.3, iou_threshold=0.5,
+                               top_k=100, device=None):
+    """Build ``detect(points)`` for a PointPillars model.
+
+    :param variables: a state_dict to load into ``model`` (e.g. from
+        :func:`d3d_tpu_torch.models.convert.pointpillars_state_from_flax`),
+        or None to keep the model's own weights
+    :param device: where the model and every request run (default CUDA;
+        raises when CUDA is missing and no device is given)
+    """
+    return _make_anchor_detector(model, variables, cfg, anchors, classes,
+                                 pillarize, score_threshold, iou_threshold,
+                                 top_k, device)

@@ -1,0 +1,36 @@
+"""Ready-made model configurations (port of ``d3d_tpu.models.presets``).
+
+Ported so far: the KITTI PointPillars presets. Like the JAX package's,
+they default to ``bfloat16`` compute; pass ``dtype="float32"`` to override.
+"""
+
+from dataclasses import replace
+
+from .pointpillars import PointPillarsConfig
+
+__all__ = ["pointpillars_kitti", "pointpillars_kitti_3class"]
+
+# KITTI car/pedestrian/cyclist anchor sizes (l, w, h) from the
+# PointPillars paper (Lang et al., CVPR 2019, Sec. 4.1)
+_KITTI_CAR = (3.9, 1.6, 1.56)
+_KITTI_PED = (0.8, 0.6, 1.73)
+_KITTI_CYC = (1.76, 0.6, 1.73)
+
+
+def pointpillars_kitti(**overrides):
+    """Single-class (car) KITTI PointPillars: 0.16 m pillars, 432x496."""
+    cfg = PointPillarsConfig(
+        bounds=(0.0, 69.12, -39.68, 39.68, -3.0, 1.0), grid=(432, 496),
+        max_pillars=12000, max_points_per_pillar=32, pfn_features=64,
+        backbone_channels=(64, 128, 256), backbone_blocks=(3, 5, 5),
+        upsample_channels=128, num_classes=1, anchor_sizes=(_KITTI_CAR,),
+        pos_iou=0.6, neg_iou=0.45, dtype="bfloat16")
+    return replace(cfg, **overrides)
+
+
+def pointpillars_kitti_3class(**overrides):
+    """Three-class KITTI PointPillars (car/pedestrian/cyclist anchors)."""
+    cfg = pointpillars_kitti(
+        num_classes=3, anchor_sizes=(_KITTI_CAR, _KITTI_PED, _KITTI_CYC),
+        pos_iou=0.5, neg_iou=0.35)
+    return replace(cfg, **overrides)

@@ -1,0 +1,57 @@
+"""Rotated 2D NMS (port of ``d3d_tpu.ops.nms``).
+
+The pairwise IoU matrix is built in score order (K1 on CUDA) and the greedy
+scan runs as one kernel (K2 up to 1024 boxes, K3 above; the sequential
+plain scan on the CPU). Semantics matched to the reference and to the JAX
+module:
+
+  * boxes with ``score <= score_threshold`` are pre-suppressed, except the
+    top-scoring box is never pre-suppressed (an artifact of the reference's
+    bottom-up pre-pass loop, nms.cpp:23-29 — kept for bit-exact parity);
+  * hard NMS: scanning boxes in descending-score order (stable, so tied
+    scores keep input order), an unsuppressed box suppresses every
+    lower-ranked box with ``iou > iou_threshold``.
+
+``soft_nms2d`` (kernel K4) and ``iou_method="box"`` are not ported yet.
+"""
+
+import torch
+
+from ..utils import as_tensor
+from . import geometry_soa as GS
+from .nms_cuda import nms_scan, nms_scan_blocked
+
+__all__ = ["nms2d"]
+
+
+def nms2d(boxes, scores, iou_threshold=0.0, score_threshold=0.0,
+          iou_method="rbox"):
+    """Hard NMS. Returns the *suppressed* mask (callers invert, matching the
+    reference's ``nms2d`` returning ``suppressed``).
+
+    :param boxes: (N, 5) xywhr; a tensor stays on its device, anything
+        else goes to CUDA
+    :param scores: (N,)
+    """
+    if iou_method != "rbox":
+        raise NotImplementedError(
+            f"iou_method={iou_method!r} is not ported yet (only 'rbox')")
+    boxes = as_tensor(boxes)
+    scores = as_tensor(scores, device=boxes.device)
+    n = boxes.shape[0]
+    # stable descending order, as jnp.argsort(-scores, stable=True)
+    order = torch.sort(-scores, stable=True).indices
+    boxes_o = boxes[order]
+    overlap = GS.rbox_iou_matrix(boxes_o, boxes_o) > iou_threshold
+
+    # pre-suppression by score (in score order); rank 0 exempt
+    pre = scores[order] <= score_threshold
+    if n:
+        pre[0] = False
+
+    scan = nms_scan if n <= 1024 else nms_scan_blocked
+    suppressed_o = scan(overlap, pre)
+    # scatter back to original index order
+    out = torch.zeros(n, dtype=torch.bool, device=boxes.device)
+    out[order] = suppressed_o
+    return out

@@ -1,0 +1,109 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, runs
+on the CPU only when asked, and its kernel wrappers take the plain version
+for CPU tensors without counting a launch."""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import d3d_tpu_torch
+from d3d_tpu_torch.models import PointPillars, presets
+from d3d_tpu_torch.models import make_anchors, make_pointpillars_detector
+from d3d_tpu_torch.ops import geometry_cuda, nms_cuda
+from d3d_tpu_torch.ops.nms import nms2d
+from d3d_tpu_torch.ops.voxel import voxelize_dense_padded, voxelize_mean_fm
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "d3d_tpu")
+
+
+def _submodules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        d3d_tpu_torch.__path__, "d3d_tpu_torch."))
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in ['d3d_tpu_torch'] + {_submodules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT).as_posix()
+     for p in (ROOT / "d3d_tpu_torch").rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_source_imports_no_jax(path):
+    bad = [m for m in _imported_roots(ROOT / path) if m in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_entry_points_need_cuda_or_an_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour without CUDA")
+    cfg = presets.pointpillars_kitti(dtype="float32", grid=(8, 8),
+                                     max_pillars=16)
+    pts = np.zeros((10, 4), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PointPillars(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_anchors(cfg)
+    model = PointPillars(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_pointpillars_detector(model, None, cfg,
+                                   make_anchors(cfg, device="cpu"), ["Car"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        nms2d(np.zeros((3, 5), np.float32), np.zeros(3, np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        voxelize_mean_fm(pts.T, (8, 8, 1), cfg.bounds, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        voxelize_dense_padded(pts, (8, 8, 1), cfg.bounds, 4, 4, "none",
+                              order_mode="sorted")
+    # asked for the CPU, the same entry points run there
+    det = make_pointpillars_detector(model, None, cfg,
+                                     make_anchors(cfg, device="cpu"),
+                                     ["Car"], device="cpu")
+    boxes, scores, labels, keep = det.device_fn(pts)
+    assert boxes.device.type == "cpu"
+
+
+def test_wrappers_on_cpu_tensors_take_the_plain_version():
+    counts = (geometry_cuda.rbox_iou_matrix.launches,
+              nms_cuda.nms_scan.launches, nms_cuda.nms_scan_blocked.launches)
+    boxes = torch.tensor([[0.0, 0.0, 2.0, 2.0, 0.0],
+                          [0.5, 0.0, 2.0, 2.0, 0.1],
+                          [9.0, 9.0, 1.0, 1.0, 0.0]])
+    iou = geometry_cuda.rbox_iou_matrix(boxes, boxes)
+    assert iou.device.type == "cpu" and iou.shape == (3, 3)
+    overlap = iou > 0.3
+    pre = torch.zeros(3, dtype=torch.bool)
+    for scan in (nms_cuda.nms_scan, nms_cuda.nms_scan_blocked):
+        assert scan(overlap, pre).tolist() == [False, True, False]
+    suppressed = nms2d(boxes, torch.tensor([0.9, 0.8, 0.7]),
+                       iou_threshold=0.3)
+    assert suppressed.tolist() == [False, True, False]
+    assert (geometry_cuda.rbox_iou_matrix.launches,
+            nms_cuda.nms_scan.launches,
+            nms_cuda.nms_scan_blocked.launches) == counts

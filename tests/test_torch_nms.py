@@ -1,0 +1,98 @@
+"""The port's NMS against the JAX package: the plain suppression scan (the
+plain version of kernels K2/K3) against the Pallas kernels in interpret
+mode, and ``nms2d`` against ``d3d_tpu.ops.nms.nms2d``, all exact."""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from d3d_tpu.ops import geometry_soa as S
+from d3d_tpu.ops import nms as N
+from d3d_tpu.ops.nms_pallas import nms_scan, nms_scan_blocked
+
+from d3d_tpu_torch.ops import nms as TN
+from d3d_tpu_torch.ops import nms_cuda as TK
+
+
+def _overlap(rng, n):
+    ov = rng.random((n, n)) < 0.07
+    return ov | ov.T, rng.random(n) < 0.1
+
+
+@pytest.mark.parametrize("n", [5, 128, 160, 200, 515, 1025])
+def test_plain_scan_matches_pallas(rng, n):
+    ov, pre = _overlap(rng, n)
+    if n <= 1024:
+        want = np.asarray(nms_scan(jnp.asarray(ov), jnp.asarray(pre),
+                                   interpret=True))
+    else:
+        want = np.asarray(nms_scan_blocked(jnp.asarray(ov), jnp.asarray(pre),
+                                           interpret=True))
+    counts = TK.nms_scan.launches, TK.nms_scan_blocked.launches
+    for scan in (TK.nms_scan, TK.nms_scan_blocked):
+        got = scan(torch.from_numpy(ov), torch.from_numpy(pre)).numpy()
+        np.testing.assert_array_equal(got, want)
+    assert (TK.nms_scan.launches, TK.nms_scan_blocked.launches) == counts
+
+
+def _boxes(rng, n, spread):
+    return np.stack([rng.random(n) * spread, rng.random(n) * spread,
+                     rng.random(n) * 3 + 1, rng.random(n) * 3 + 1,
+                     rng.random(n) * np.pi], axis=1).astype(np.float32)
+
+
+def _clear_of_threshold(boxes, thr, margin=1e-4):
+    """Drop boxes until no pairwise IoU lies within ``margin`` of ``thr``,
+    where one f32 rounding could flip a keep bit."""
+    iou = np.asarray(S.rbox_iou(jnp.asarray(boxes, jnp.float64)[:, None],
+                                jnp.asarray(boxes, jnp.float64)[None, :]))
+    near = np.abs(iou - thr) < margin
+    np.fill_diagonal(near, False)
+    drop = np.unique(np.nonzero(np.triu(near))[1])
+    return np.delete(boxes, drop, axis=0)
+
+
+@pytest.mark.parametrize("n,thr,score_thr", [(80, 0.3, 0.0),
+                                             (300, 0.1, 0.2),
+                                             (1100, 0.25, 0.0)])
+def test_nms2d_matches_jax(rng, n, thr, score_thr):
+    boxes = _clear_of_threshold(_boxes(rng, n, np.sqrt(n) * 2.0), thr)
+    scores = rng.random(len(boxes)).astype(np.float32)
+    want = np.asarray(N.nms2d(jnp.asarray(boxes), jnp.asarray(scores),
+                              iou_threshold=thr, score_threshold=score_thr))
+    got = TN.nms2d(torch.from_numpy(boxes), torch.from_numpy(scores),
+                   iou_threshold=thr, score_threshold=score_thr).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < (~got).sum() < len(boxes)
+
+
+def test_top_box_never_pre_suppressed(rng):
+    # every score below the threshold: only rank 0 escapes pre-suppression
+    boxes = _boxes(rng, 40, 12.0)
+    scores = (rng.random(40) * 0.1).astype(np.float32)
+    want = np.asarray(N.nms2d(jnp.asarray(boxes), jnp.asarray(scores),
+                              iou_threshold=0.5, score_threshold=0.5))
+    got = TN.nms2d(torch.from_numpy(boxes), torch.from_numpy(scores),
+                   iou_threshold=0.5, score_threshold=0.5).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (~got).sum() == 1 and not got[np.argmax(scores)]
+
+
+def test_tied_scores_keep_input_order(rng):
+    # identical boxes with tied scores: the lowest index wins each tie
+    base = _boxes(rng, 10, 30.0)
+    boxes = np.repeat(base, 3, axis=0)
+    scores = np.repeat(rng.random(10).astype(np.float32), 3)
+    want = np.asarray(N.nms2d(jnp.asarray(boxes), jnp.asarray(scores),
+                              iou_threshold=0.5))
+    got = TN.nms2d(torch.from_numpy(boxes), torch.from_numpy(scores),
+                   iou_threshold=0.5).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(np.nonzero(~got)[0] % 3, 0)
+
+
+def test_box_method_not_ported():
+    with pytest.raises(NotImplementedError):
+        TN.nms2d(torch.zeros(2, 5), torch.zeros(2), iou_method="box")
