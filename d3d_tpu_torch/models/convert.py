@@ -1,4 +1,5 @@
-"""Carry weights from the JAX package's flax PointPillars to the port.
+"""Carry weights from the JAX package's flax PointPillars and SECOND to the
+port.
 
 The flax variables are a ``{"params", "batch_stats"}`` tree of nested dicts
 of arrays (numpy, or anything ``np.asarray`` takes); nothing here imports
@@ -12,11 +13,42 @@ through tap ``f-1-r`` where torch uses tap ``r``.
 import numpy as np
 import torch
 
-__all__ = ["pointpillars_state_from_flax"]
+__all__ = ["pointpillars_state_from_flax", "second_state_from_flax"]
 
 
 def _oihw(kernel):
     return np.asarray(kernel).transpose(3, 2, 0, 1)
+
+
+def _bn(sd, prefix, p, s, tracked=True):
+    """One flax BatchNorm's scale/bias and mean/var into ``sd``."""
+    sd[prefix + ".weight"] = p["scale"]
+    sd[prefix + ".bias"] = p["bias"]
+    sd[prefix + ".running_mean"] = s["mean"]
+    sd[prefix + ".running_var"] = s["var"]
+    if tracked:  # torch's BatchNorm modules count batches
+        sd[prefix + ".num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def _conv_block(sd, prefix, blk, st):
+    """A flax ``_ConvBlock`` (Conv_j + BatchNorm_j) into ``sd``."""
+    j = 0
+    while f"Conv_{j}" in blk:
+        sd[f"{prefix}.convs.{j}.weight"] = _oihw(blk[f"Conv_{j}"]["kernel"])
+        _bn(sd, f"{prefix}.bns.{j}", blk[f"BatchNorm_{j}"],
+            st[f"BatchNorm_{j}"])
+        j += 1
+
+
+def _heads(sd, params):
+    for name in ("head_cls", "head_box", "head_dir"):
+        sd[name + ".weight"] = _oihw(params[name]["kernel"])
+        sd[name + ".bias"] = params[name]["bias"]
+
+
+def _tensors(sd):
+    return {k: torch.as_tensor(np.ascontiguousarray(v))
+            for k, v in sd.items()}
 
 
 def pointpillars_state_from_flax(variables):
@@ -24,38 +56,40 @@ def pointpillars_state_from_flax(variables):
     params = variables["params"]
     stats = variables["batch_stats"]
     sd = {}
-
-    def bn(prefix, p, s):
-        sd[prefix + ".weight"] = p["scale"]
-        sd[prefix + ".bias"] = p["bias"]
-        sd[prefix + ".running_mean"] = s["mean"]
-        sd[prefix + ".running_var"] = s["var"]
-        sd[prefix + ".num_batches_tracked"] = np.zeros((), np.int64)
-
     pfn = params["_PFN_0"]
     sd["pfn.dense.weight"] = np.asarray(pfn["Dense_0"]["kernel"]).T
-    bn("pfn.bn", pfn["BatchNorm_0"], stats["_PFN_0"]["BatchNorm_0"])
+    _bn(sd, "pfn.bn", pfn["BatchNorm_0"], stats["_PFN_0"]["BatchNorm_0"])
 
     i = 0
     while f"_ConvBlock_{i}" in params:
-        blk, st = params[f"_ConvBlock_{i}"], stats[f"_ConvBlock_{i}"]
-        j = 0
-        while f"Conv_{j}" in blk:
-            sd[f"blocks.{i}.convs.{j}.weight"] = _oihw(blk[f"Conv_{j}"]["kernel"])
-            bn(f"blocks.{i}.bns.{j}", blk[f"BatchNorm_{j}"],
-               st[f"BatchNorm_{j}"])
-            j += 1
+        _conv_block(sd, f"blocks.{i}", params[f"_ConvBlock_{i}"],
+                    stats[f"_ConvBlock_{i}"])
         up, st = params[f"_Upsample_{i}"], stats[f"_Upsample_{i}"]
         if "ConvTranspose_0" in up:
             k = np.asarray(up["ConvTranspose_0"]["kernel"])
             sd[f"ups.{i}.conv.weight"] = k[::-1, ::-1].transpose(2, 3, 0, 1)
         else:
             sd[f"ups.{i}.conv.weight"] = _oihw(up["Conv_0"]["kernel"])
-        bn(f"ups.{i}.bn", up["BatchNorm_0"], st["BatchNorm_0"])
+        _bn(sd, f"ups.{i}.bn", up["BatchNorm_0"], st["BatchNorm_0"])
         i += 1
 
-    for name in ("head_cls", "head_box", "head_dir"):
-        sd[name + ".weight"] = _oihw(params[name]["kernel"])
-        sd[name + ".bias"] = params[name]["bias"]
-    return {k: torch.as_tensor(np.ascontiguousarray(v))
-            for k, v in sd.items()}
+    _heads(sd, params)
+    return _tensors(sd)
+
+
+def second_state_from_flax(variables):
+    """flax SECOND variables -> the port's ``state_dict``. The sparse
+    layers ``subm{s}_{i}`` / ``down{s}`` keep their (K, C, Cout) kernels
+    as they are; the BEV block and the heads convert as PointPillars'."""
+    params = variables["params"]
+    stats = variables["batch_stats"]
+    sd = {}
+    for name, p in params.items():
+        if name.startswith(("subm", "down")):
+            sd[f"middle.{name}.weight"] = p["kernel"]
+            _bn(sd, f"middle.{name}.bn", p["_MaskedBN_0"],
+                stats[name]["_MaskedBN_0"], tracked=False)
+    _conv_block(sd, "head_block", params["_ConvBlock_0"],
+                stats["_ConvBlock_0"])
+    _heads(sd, params)
+    return _tensors(sd)

@@ -1,5 +1,5 @@
 """End-to-end inference: points in, detections out (port of the PointPillars
-part of ``d3d_tpu.models.inference``).
+and SECOND part of ``d3d_tpu.models.inference``).
 
 One request runs points -> pillarize -> PointPillars -> top-k decode ->
 rotated NMS on one device with fixed shapes; only the final selection of
@@ -16,8 +16,9 @@ import torch
 from ..ops.nms import nms2d
 from ..utils import EDict, as_tensor, resolve_device
 from .pointpillars import decode_boxes, pillarize
+from .second import second_voxelize
 
-__all__ = ["make_pointpillars_detector"]
+__all__ = ["make_pointpillars_detector", "make_second_detector"]
 
 
 def _bev(boxes):
@@ -90,3 +91,15 @@ def make_pointpillars_detector(model, variables, cfg, anchors, classes,
     return _make_anchor_detector(model, variables, cfg, anchors, classes,
                                  pillarize, score_threshold, iou_threshold,
                                  top_k, device)
+
+
+def make_second_detector(model, variables, cfg, anchors, classes,
+                         score_threshold=0.3, iou_threshold=0.5, top_k=100,
+                         device=None):
+    """Build ``detect(points)`` for a SECOND model (head outputs are
+    PointPillars-compatible; only the voxelization front end differs).
+    Arguments as :func:`make_pointpillars_detector`; ``anchors`` come from
+    ``make_anchors(head_config(cfg))``."""
+    return _make_anchor_detector(model, variables, cfg, anchors, classes,
+                                 second_voxelize, score_threshold,
+                                 iou_threshold, top_k, device)

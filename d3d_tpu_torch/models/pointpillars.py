@@ -287,15 +287,18 @@ class PointPillars(nn.Module):
             ups.append(up(x))
         feat = torch.cat(ups, dim=1).to(dt)  # (B, 3*U, W, H)
 
-        # SSD head (per cell: A anchors), back to the JAX module's NHWC
-        # order before the reshape so logits line up with make_anchors
-        def head(conv, c):
-            out = F.conv2d(feat, conv.weight.to(dt), conv.bias.to(dt))
-            return out.permute(0, 2, 3, 1).reshape(b, -1, c).to(torch.float32)
+        return (_head(feat, self.head_cls, cfg.num_classes, dt),
+                _head(feat, self.head_box, 7, dt),
+                _head(feat, self.head_dir, 2, dt))
 
-        return (head(self.head_cls, cfg.num_classes),
-                head(self.head_box, 7),
-                head(self.head_dir, 2))
+
+def _head(feat, conv, c, dt):
+    """SSD head (per cell: A anchors): a 1x1 conv in ``dt`` on the NCHW
+    map, back to the JAX module's NHWC order before the reshape so the
+    outputs line up with :func:`make_anchors`; float32 out."""
+    out = F.conv2d(feat, conv.weight.to(dt), conv.bias.to(dt))
+    return out.permute(0, 2, 3, 1).reshape(feat.shape[0], -1, c).to(
+        torch.float32)
 
 
 # ---------------------------------------------------------------------------

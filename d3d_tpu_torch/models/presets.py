@@ -1,14 +1,16 @@
 """Ready-made model configurations (port of ``d3d_tpu.models.presets``).
 
-Ported so far: the KITTI PointPillars presets. Like the JAX package's,
-they default to ``bfloat16`` compute; pass ``dtype="float32"`` to override.
+Ported so far: the KITTI PointPillars and SECOND presets. Like the JAX
+package's, they default to ``bfloat16`` compute; pass ``dtype="float32"``
+to override.
 """
 
 from dataclasses import replace
 
 from .pointpillars import PointPillarsConfig
+from .second import SECONDConfig
 
-__all__ = ["pointpillars_kitti", "pointpillars_kitti_3class"]
+__all__ = ["pointpillars_kitti", "pointpillars_kitti_3class", "second_kitti"]
 
 # KITTI car/pedestrian/cyclist anchor sizes (l, w, h) from the
 # PointPillars paper (Lang et al., CVPR 2019, Sec. 4.1)
@@ -33,4 +35,15 @@ def pointpillars_kitti_3class(**overrides):
     cfg = pointpillars_kitti(
         num_classes=3, anchor_sizes=(_KITTI_CAR, _KITTI_PED, _KITTI_CYC),
         pos_iou=0.5, neg_iou=0.35)
+    return replace(cfg, **overrides)
+
+
+def second_kitti(**overrides):
+    """KITTI SECOND: 0.2 m voxels, 20 z-layers, sparse middle extractor."""
+    cfg = SECONDConfig(
+        bounds=(0.0, 70.4, -40.0, 40.0, -3.0, 1.0), grid=(352, 400, 20),
+        max_voxels=16000, stage_channels=(16, 32, 64),
+        stage_sites=(16000, 8000, 4000), subm_per_stage=2,
+        head_channels=128, num_classes=1, anchor_sizes=(_KITTI_CAR,),
+        dtype="bfloat16")
     return replace(cfg, **overrides)

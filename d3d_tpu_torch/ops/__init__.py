@@ -1,6 +1,6 @@
 from .geometry_soa import intersect_area, rbox_iou, rbox_iou_matrix
-from .nms import nms2d
+from .nms import nms2d, soft_nms2d
 from .voxel import voxelize_dense_padded, voxelize_mean_fm
 
 __all__ = ["intersect_area", "rbox_iou", "rbox_iou_matrix", "nms2d",
-           "voxelize_dense_padded", "voxelize_mean_fm"]
+           "soft_nms2d", "voxelize_dense_padded", "voxelize_mean_fm"]

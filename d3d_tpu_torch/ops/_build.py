@@ -28,6 +28,7 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 # library -> (source, extra nvcc flags, {C function: argtypes}); every C
 # function returns the launch's cudaGetLastError() as an int
@@ -37,6 +38,13 @@ _LIBRARIES = {
                  {"d3d_rbox_iou_matrix": [_P, _P, _P, _I, _I, _P]}),
     "nms_scan": ("nms_scan.cu", [],
                  {"d3d_nms_scan": [_P, _P, _P, _P, _I, _P]}),
+    # -fmad=false: see the note on rounding at the top of soft_nms.cu
+    "soft_nms": ("soft_nms.cu", ["-fmad=false"],
+                 {"d3d_soft_nms_scan": [_P, _P, _P, _P, _I, _F, _F, _F, _I,
+                                        _P]}),
+    "subm_conv": ("subm_conv.cu", [],
+                  {"d3d_subm_conv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _P]}),
 }
 
 _lock = threading.Lock()

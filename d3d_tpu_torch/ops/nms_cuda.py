@@ -1,22 +1,26 @@
-"""The greedy NMS suppression scan through the CUDA kernels K2/K3
-(``csrc/nms_scan.cu``), the port of ``d3d_tpu.ops.nms_pallas``.
+"""The NMS scans through the CUDA kernels K2/K3 (``csrc/nms_scan.cu``) and
+K4 (``csrc/soft_nms.cu``), the port of ``d3d_tpu.ops.nms_pallas``.
 
 ``nms_scan`` (K2, used by ``nms2d`` up to 1024 boxes) and
 ``nms_scan_blocked`` (K3, above) compute the same mask, so both launch the
-same bitmask kernels; each keeps its own ``launches`` count. A CPU tensor
-goes to the plain version, the sequential greedy scan
-(:func:`_nms_scan_plain`); a CUDA tensor goes to the kernel or the call
-raises. ``soft_nms_scan`` (K4) is not ported yet.
+same bitmask kernels; each keeps its own ``launches`` count.
+``soft_nms_scan`` (K4) runs the soft-NMS pick/decay cascade. A CPU tensor
+goes to the plain version (:func:`_nms_scan_plain`,
+:func:`_soft_nms_scan_plain`); a CUDA tensor goes to the kernel or the call
+raises.
 """
 
 import torch
 
 from ._build import load_library
 
-__all__ = ["nms_scan", "nms_scan_blocked"]
+__all__ = ["nms_scan", "nms_scan_blocked", "soft_nms_scan"]
 
 # the scan keeps ceil(N / 64) suppression words in 48 KB of shared memory
 _MAX_N = 48 * 1024 * 8
+# K4's one block: 1024 threads, each holding the state of up to 8 boxes
+_SOFT_MAX_N = 1024 * 8
+_SOFT_METHODS = {"linear": 0, "gaussian": 1}
 
 
 def _nms_scan_plain(overlap, pre):
@@ -42,14 +46,13 @@ def _check(overlap, pre):
 
 
 def _launch(overlap, pre):
+    """K2/K3 on CUDA tensors with N > 0 -> (N,) bool suppressed."""
     n = overlap.shape[0]
     if n > _MAX_N:
         raise ValueError(f"NMS scan kernel takes at most {_MAX_N} boxes")
     overlap = overlap.contiguous()
     pre = pre.contiguous()
     out = torch.empty(n, dtype=torch.bool, device=overlap.device)
-    if n == 0:
-        return out
     mask = torch.empty((n, (n + 63) // 64), dtype=torch.int64,
                        device=overlap.device)
     lib = load_library("nms_scan")
@@ -67,6 +70,8 @@ def nms_scan(overlap, pre):
     _check(overlap, pre)
     if overlap.device.type == "cpu":
         return _nms_scan_plain(overlap, pre)
+    if overlap.shape[0] == 0:  # nothing to launch
+        return pre.clone()
     out = _launch(overlap, pre)
     nms_scan.launches += 1
     return out
@@ -77,6 +82,8 @@ def nms_scan_blocked(overlap, pre):
     _check(overlap, pre)
     if overlap.device.type == "cpu":
         return _nms_scan_plain(overlap, pre)
+    if overlap.shape[0] == 0:  # nothing to launch
+        return pre.clone()
     out = _launch(overlap, pre)
     nms_scan_blocked.launches += 1
     return out
@@ -84,3 +91,99 @@ def nms_scan_blocked(overlap, pre):
 
 nms_scan.launches = 0
 nms_scan_blocked.launches = 0
+
+
+def _soft_nms_scan_plain(iou, scores0, pre, iou_threshold, score_threshold,
+                         param, method):
+    """The soft-NMS cascade of ``nms_pallas.py`` ``_soft_nms_kernel``, one
+    step per box, in its operation order and in the matrix's dtype. The
+    parameters are tensors on the matrix's device (so a division by
+    ``param`` is a true division there, as in the kernel)."""
+    n = iou.shape[0]
+    dev, dt = iou.device, iou.dtype
+    iou_t, score_t, p = (torch.tensor(v, dtype=dt, device=dev)
+                         for v in (iou_threshold, score_threshold, param))
+    tiny = torch.tensor(1e-38, dtype=dt, device=dev)
+    iota = torch.arange(n, device=dev)
+    sc, su = scores0.clone(), pre.clone()
+    fr = torch.zeros(n, dtype=torch.bool, device=dev)
+    for _ in range(n):
+        avail = ~fr & ~su
+        any_avail = avail.any()
+        masked = torch.where(avail, sc, -torch.inf)
+        # first argmax
+        pick = torch.where(masked == masked.max(), iota, n).min()
+        pick = torch.clamp(pick, max=n - 1)
+        row = iou[pick]
+        mask_row = (row > iou_t) & ~fr & (iota != pick)
+        if method == "linear":
+            # x**p as exp(p log x), with power(0, 0) == 1
+            pw = torch.where(p == 0, 1.0,
+                             torch.exp(p * torch.log(torch.maximum(row,
+                                                                   tiny))))
+            decay = 1.0 - pw
+        else:
+            decay = torch.exp(-(row * row) / p)
+        nsc = torch.where(mask_row & any_avail, sc * decay, sc)
+        dead = mask_row & (nsc < score_t)
+        su = su | (any_avail & dead)
+        fr = fr | ((iota == pick) & any_avail)
+        sc = nsc
+    return su
+
+
+def soft_nms_scan(iou, scores0, pre, iou_threshold, score_threshold, param,
+                  method):
+    """Soft-NMS cascade (K4): (N, N) IoU in input order, (N,) starting
+    scores (pre-suppressed boxes at -inf), (N,) bool pre-suppression ->
+    (N,) bool suppressed. ``method`` is "linear" or "gaussian". IoU and
+    scores share float32 (K4 on CUDA takes at most 8192 boxes), or float64
+    on the CPU."""
+    n = iou.shape[0]
+    if iou.shape != (n, n) or scores0.shape != (n,) or pre.shape != (n,):
+        raise ValueError(f"expected (N, N) iou, (N,) scores0 and (N,) pre, "
+                         f"got {tuple(iou.shape)}, {tuple(scores0.shape)}, "
+                         f"{tuple(pre.shape)}")
+    dtypes = (torch.float32,) if iou.is_cuda else (torch.float32,
+                                                   torch.float64)
+    if (iou.dtype not in dtypes or scores0.dtype != iou.dtype
+            or pre.dtype != torch.bool):
+        raise ValueError(f"iou and scores0 must share one of {dtypes} on "
+                         f"{iou.device.type}, pre bool; got {iou.dtype}, "
+                         f"{scores0.dtype}, {pre.dtype}")
+    if method not in _SOFT_METHODS:
+        raise ValueError(f"unknown soft-NMS method {method!r}")
+    if len({iou.device, scores0.device, pre.device}) != 1:
+        raise ValueError("iou, scores0 and pre on different devices")
+    if iou.device.type == "cpu":
+        return _soft_nms_scan_plain(iou, scores0, pre, iou_threshold,
+                                    score_threshold, param, method)
+    if iou.device.type != "cuda":
+        raise ValueError(f"no soft-NMS kernel for device {iou.device}")
+    if n == 0:  # nothing to launch
+        return pre.clone()
+    out = _soft_launch(iou, scores0, pre, iou_threshold, score_threshold,
+                       param, method)
+    soft_nms_scan.launches += 1
+    return out
+
+
+def _soft_launch(iou, scores0, pre, iou_threshold, score_threshold, param,
+                 method):
+    """K4 on checked CUDA tensors with N > 0 -> (N,) bool suppressed."""
+    n = iou.shape[0]
+    if n > _SOFT_MAX_N:
+        raise ValueError(f"soft-NMS kernel takes at most {_SOFT_MAX_N} boxes")
+    out = torch.empty(n, dtype=torch.bool, device=iou.device)
+    iou, scores0, pre = iou.contiguous(), scores0.contiguous(), pre.contiguous()
+    err = load_library("soft_nms").d3d_soft_nms_scan(
+        iou.data_ptr(), scores0.data_ptr(), pre.data_ptr(), out.data_ptr(),
+        n, float(iou_threshold), float(score_threshold), float(param),
+        _SOFT_METHODS[method],
+        torch.cuda.current_stream(iou.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"soft_nms kernel launch failed: CUDA error {err}")
+    return out
+
+
+soft_nms_scan.launches = 0

@@ -1,0 +1,172 @@
+"""Sparse 3D convolution on active-site lists (port of
+``d3d_tpu.ops.sparse_conv``).
+
+Active voxels are a fixed-capacity list of rows, padded with invalid rows.
+For each kernel offset, the neighbour map holds the input row at the
+query site plus that offset, or -1 where it is absent, out of bounds or
+invalid. The map is built once per point cloud and stage and reused by
+every layer of the stage. Building it scatters the active row ids onto a
+dense int32 canvas of the grid and reads the whole (N, K) map back with
+one gather.
+
+The convolution itself, ``out[n] = valid[n] * sum_k W[k]^T feat[nbr[n, k]]``,
+runs as the CUDA kernel K5 (:mod:`d3d_tpu_torch.ops.sparse_conv_cuda`) on
+CUDA tensors, for submanifold and strided maps alike, and as its plain
+version on CPU tensors.
+
+Ported: the dense-canvas neighbour maps up to ``_DENSE_CANVAS_MAX_CELLS``
+(2^26 cells, a 268 MB int32 transient). Larger grids raise
+``NotImplementedError``: the JAX module's tagged sort join
+(``match_sorted``) is not ported yet.
+"""
+
+import numpy as np
+import torch
+
+from ..utils import as_tensor
+from .sparse_conv_cuda import subm_conv
+
+__all__ = ["kernel_offsets", "linearize", "build_neighbor_map",
+           "build_neighbor_map_strided", "subm_conv_apply",
+           "downsample_coords", "sparse_to_dense"]
+
+_DENSE_CANVAS_MAX_CELLS = 1 << 26
+_BIG_KEY = 2 ** 30 - 1
+
+
+def kernel_offsets(kernel_size=3, ndim=3):
+    """All integer offsets of a cubic kernel in raster (ij) order,
+    (K, ndim) int32 numpy, K = kernel_size**ndim. The list is
+    centrosymmetric: ``offs[K-1-k] == -offs[k]``."""
+    r = np.arange(kernel_size) - kernel_size // 2
+    grids = np.meshgrid(*([r] * ndim), indexing="ij")
+    return np.stack([g.ravel() for g in grids], axis=1).astype(np.int32)
+
+
+def linearize(coords, grid):
+    """Linear int32 keys of (..., 3) integer coords on ``grid``
+    (D0, D1, D2); the grid volume must stay below 2**30."""
+    d0, d1, d2 = grid
+    if d0 * d1 * d2 >= 1 << 30:
+        raise ValueError(f"sparse grid {grid} too large for int32 keys")
+    coords = coords.to(torch.int32)
+    return coords[..., 0] * (d1 * d2) + coords[..., 1] * d2 + coords[..., 2]
+
+
+def _dense_row_canvas(keys, valid, volume):
+    """(V + 1,) int32 canvas holding the active row index at each occupied
+    cell (-1 empty). Invalid rows all write the overflow slot, which is
+    then reset to -1: it answers every out-of-bounds or invalid query."""
+    n = keys.shape[0]
+    idx = torch.where(valid, keys, volume).to(torch.int64)
+    canvas = torch.full((volume + 1,), -1, dtype=torch.int32,
+                        device=keys.device)
+    canvas[idx] = torch.arange(n, dtype=torch.int32, device=keys.device)
+    canvas[volume] = -1
+    return canvas
+
+
+def _neighbor_map_impl(query_coords, query_valid, ref_keys, ref_valid, grid,
+                       kernel_size, stride=1):
+    """Query site q looks up the input row at ``q * stride + off`` for
+    every kernel offset: (Nq, K) int32, -1 where absent."""
+    volume = int(np.prod(grid))
+    if volume > _DENSE_CANVAS_MAX_CELLS:
+        raise NotImplementedError(
+            f"grid {grid} has {volume} cells, over the dense-canvas cap of "
+            f"{_DENSE_CANVAS_MAX_CELLS}; the sort-join neighbour map is not "
+            "ported yet")
+    dev = query_coords.device
+    offs = torch.as_tensor(kernel_offsets(kernel_size), device=dev)
+    gmax = torch.tensor(grid, dtype=torch.int32, device=dev)
+    canvas = _dense_row_canvas(ref_keys, ref_valid, volume)
+    qc = query_coords.to(torch.int32)[:, None, :] * stride + offs[None]
+    inb = ((qc >= 0) & (qc < gmax)).all(dim=-1) & query_valid[:, None]
+    d0, d1, d2 = grid
+    qk = qc[..., 0] * (d1 * d2) + qc[..., 1] * d2 + qc[..., 2]
+    return canvas[torch.where(inb, qk, volume).to(torch.int64)]
+
+
+def build_neighbor_map(coords, valid, grid, kernel_size=3):
+    """Neighbour map of a submanifold conv on active sites.
+
+    :param coords: (N, 3) int active-voxel coords (padded rows arbitrary)
+    :param valid: (N,) bool active mask
+    :param grid: (D0, D1, D2) grid shape
+    :returns: (N, K) int32 input row of each kernel-offset neighbour, -1
+        where absent, out of bounds or invalid
+    """
+    keys = linearize(coords, grid)
+    return _neighbor_map_impl(coords, valid, keys, valid, grid, kernel_size)
+
+
+def build_neighbor_map_strided(out_coords, out_valid, in_coords, in_valid,
+                               grid, stride=2, kernel_size=3):
+    """Neighbour map of a strided sparse conv: for each OUTPUT site, the
+    input row at ``out * stride + off`` per kernel offset (``grid`` is the
+    INPUT grid). Returns (M, K) int32, -1 where absent."""
+    in_keys = linearize(in_coords, grid)
+    return _neighbor_map_impl(out_coords, out_valid, in_keys, in_valid,
+                              grid, kernel_size, stride=stride)
+
+
+def subm_conv_apply(features, nbr, weights, valid, symmetric=False):
+    """Sparse conv on a neighbour map:
+    ``out[n] = valid[n] * sum_k weights[k]^T features[nbr[n, k]]``.
+
+    The weights are cast to the features' dtype, the sum accumulates in
+    float32 and the output comes back in the features' dtype. A CUDA
+    tensor launches K5 (submanifold and strided maps alike; Nq may differ
+    from N); a CPU tensor runs K5's plain version.
+
+    :param features: (N, C) active-site features (padded rows zero); a
+        tensor stays on its device, anything else goes to CUDA, and the
+        other operands follow it
+    :param nbr: (Nq, K) int32 neighbour map
+    :param weights: (K, C, C') kernel
+    :param valid: (Nq,) bool output-site mask
+    :param symmetric: True when ``nbr`` is a submanifold map; the forward
+        does not read it (the backward of the JAX module routes the
+        features' gradient through the same kernel when it is set)
+    :returns: (Nq, C') features
+    """
+    del symmetric
+    features = as_tensor(features)
+    nbr, weights, valid = (as_tensor(t, device=features.device)
+                           for t in (nbr, weights, valid))
+    return subm_conv(features, nbr, weights.to(features.dtype), valid)
+
+
+def downsample_coords(coords, valid, grid, stride=2, max_out=None):
+    """Active sites of a stride-``s`` sparse conv output: the unique
+    ``coords // s`` in ascending key order, capped to the first ``max_out``
+    (default N) keys.
+
+    :returns: (out_coords (M, 3) int32, out_valid (M,) bool). Rows past
+        the last unique site are padding in no meaningful order.
+    """
+    n = coords.shape[0]
+    m = max_out or n
+    og = tuple(-(-g // stride) for g in grid)
+    down = torch.div(coords.to(torch.int32), stride, rounding_mode="floor")
+    keys = torch.where(valid, linearize(down, og), _BIG_KEY)
+    sk, perm = torch.sort(keys, stable=True)
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=sk.device),
+                       sk[1:] != sk[:-1]]) & (sk < _BIG_KEY)
+    # compact the first row of each key to the front, keys ascending
+    pos = torch.arange(n, dtype=torch.int32, device=sk.device)
+    _, perm2 = torch.sort(torch.where(first, pos, _BIG_KEY), stable=True)
+    rows = perm[perm2][:m]
+    return down[rows], first[perm2][:m]
+
+
+def sparse_to_dense(features, coords, valid, grid):
+    """Densify (N, C) site features to (D0, D1, D2, C), invalid rows
+    dropped. Valid coords must be unique."""
+    d0, d1, d2 = grid
+    volume = d0 * d1 * d2
+    flat = torch.where(valid, linearize(coords, grid), volume)
+    canvas = features.new_zeros((volume + 1, features.shape[1]))
+    canvas.index_add_(0, flat.to(torch.int64),
+                      features * valid[:, None].to(features.dtype))
+    return canvas[:-1].reshape(d0, d1, d2, features.shape[1])

@@ -5,12 +5,13 @@ Run from the root of a checkout, on a machine with CUDA and nvcc::
     python3 scripts/profile_port.py
 
 For bench.py's north-star frame (``voxelize_mean_fm`` + ``nms2d`` of 512
-boxes) and for one serving request (``make_pointpillars_detector`` on
-``presets.pointpillars_kitti`` at full width, seeded random weights as in
-chip_smoke.py) it prints the device time of each stage (CUDA events,
-median of 20), the top kernels by device time over 5 runs of each path
-(torch.profiler), and the share of those runs' wall clock in which a
-kernel ran. Imports no JAX.
+boxes) and for one serving request of PointPillars
+(``make_pointpillars_detector`` on ``presets.pointpillars_kitti``) and of
+SECOND (``make_second_detector`` on ``presets.second_kitti``), at full
+width with seeded random weights as in chip_smoke.py, it prints the device
+time of each stage (CUDA events, median of 20), the top kernels by device
+time over 5 runs of each path (torch.profiler), and the share of those
+runs' wall clock in which a kernel ran. Imports no JAX.
 """
 
 import statistics
@@ -27,13 +28,17 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as smoke  # noqa: E402
-from d3d_tpu_torch.models import (PointPillars, decode_boxes,  # noqa: E402
-                                  make_anchors, make_pointpillars_detector,
-                                  pillarize, presets)
+from d3d_tpu_torch.models import (SECOND, PointPillars,  # noqa: E402
+                                  decode_boxes, head_config, make_anchors,
+                                  make_pointpillars_detector,
+                                  make_second_detector, pillarize, presets,
+                                  second_voxelize)
 from d3d_tpu_torch.models.inference import _bev  # noqa: E402
+from d3d_tpu_torch.models.second import _run_stages, _stage_maps  # noqa: E402
 from d3d_tpu_torch.ops import geometry_cuda, nms_cuda  # noqa: E402
 from d3d_tpu_torch.ops._build import build  # noqa: E402
 from d3d_tpu_torch.ops.nms import nms2d  # noqa: E402
+from d3d_tpu_torch.ops.sparse_conv import sparse_to_dense  # noqa: E402
 from d3d_tpu_torch.ops.voxel import voxelize_mean_fm  # noqa: E402
 
 
@@ -62,8 +67,9 @@ def profile_path(name, fn, runs=5):
           f"({100 * busy_us / wall_us:.1f}% of the wall clock)")
     for e in averages:
         for k in ("rbox_iou_tile_kernel", "pack_overlap_kernel",
-                  "scan_kernel"):
-            if e.device_type == DeviceType.CUDA and k + "(" in e.key:
+                  "scan_kernel", "subm_conv_kernel", "soft_nms_kernel"):
+            if e.device_type == DeviceType.CUDA and (k + "(" in e.key
+                                                     or k + "<" in e.key):
                 print(f"  port kernel {k}: "
                       f"{e.self_device_time_total / e.count:.2f} us per "
                       f"launch ({e.count} launches)")
@@ -156,7 +162,62 @@ def main():
         print(f"  request wall clock (numpy in and out): "
               f"{statistics.median(walls):.3f} ms median of 20")
         profile_path(f"serving {dtype}", lambda: detect.device_fn(points))
+
+    # --- SECOND serving -----------------------------------------------------
+    # TF32 off, as chip_smoke.py times SECOND (only the BEV block's
+    # convolutions would take it)
+    torch.backends.cudnn.allow_tf32 = False
+    frame = smoke.bench_points(np.random.default_rng(200))
+    points = torch.from_numpy(frame).to(dev)
+    seeded, _ = smoke.second_model(dev)
+    for dtype in ("float32", "bfloat16"):
+        cfg = presets.second_kitti(dtype=dtype)
+        model = SECOND(cfg, device=dev)
+        model.load_state_dict(seeded.state_dict())
+        anchors = make_anchors(head_config(cfg), device=dev)
+        detect = make_second_detector(model, None, cfg, anchors, ["Car"],
+                                      device=dev)
+        feats, coords, valid = second_voxelize(points, cfg)
+        maps, (fc, fv, fg) = _stage_maps(cfg, coords, valid)
+        with torch.inference_mode():
+            x = _run_stages(cfg, model.middle, feats, maps)
+            raw = model.bev_head(sparse_to_dense(x, fc, fv, fg)[None])
+        best = torch.sigmoid(raw[0][0]).max(dim=-1).values
+        idx = torch.sort(best, descending=True, stable=True).indices[:100]
+        det_boxes = decode_boxes(anchors[idx], raw[1][0][idx])
+
+        def middle():
+            with torch.inference_mode():
+                _run_stages(cfg, model.middle, feats, maps)
+
+        def head():
+            with torch.inference_mode():
+                model.bev_head(sparse_to_dense(x, fc, fv, fg)[None])
+
+        def topk_decode():
+            b = torch.sigmoid(raw[0][0]).max(dim=-1).values
+            i = torch.sort(b, descending=True, stable=True).indices[:100]
+            decode_boxes(anchors[i], raw[1][0][i])
+
+        print(f"SECOND serving stages, {dtype} (device ms, CUDA events; "
+              "TF32 off):")
+        stage_times([
+            ("request: device_fn (points on card)",
+             lambda: detect.device_fn(points)),
+            ("voxelize (second_voxelize)",
+             lambda: second_voxelize(points, cfg)),
+            ("neighbour maps + downsampling",
+             lambda: _stage_maps(cfg, coords, valid)),
+            ("middle extractor (8 x K5 + BN)", middle),
+            ("densify + BEV block + heads", head),
+            ("top-k + decode", topk_decode),
+            ("nms2d (100 boxes)",
+             lambda: nms2d(_bev(det_boxes), best[idx], iou_threshold=0.5)),
+        ])
+        profile_path(f"SECOND serving {dtype}",
+                     lambda: detect.device_fn(points))
     return 0
+
 
 
 if __name__ == "__main__":

@@ -13,10 +13,12 @@ import pytest
 import torch
 
 import d3d_tpu_torch
-from d3d_tpu_torch.models import PointPillars, presets
-from d3d_tpu_torch.models import make_anchors, make_pointpillars_detector
-from d3d_tpu_torch.ops import geometry_cuda, nms_cuda
-from d3d_tpu_torch.ops.nms import nms2d
+from d3d_tpu_torch.models import SECOND, PointPillars, head_config, presets
+from d3d_tpu_torch.models import (make_anchors, make_pointpillars_detector,
+                                  make_second_detector)
+from d3d_tpu_torch.ops import geometry_cuda, nms_cuda, sparse_conv_cuda
+from d3d_tpu_torch.ops.nms import nms2d, soft_nms2d
+from d3d_tpu_torch.ops.sparse_conv import subm_conv_apply
 from d3d_tpu_torch.ops.voxel import voxelize_dense_padded, voxelize_mean_fm
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -107,3 +109,67 @@ def test_wrappers_on_cpu_tensors_take_the_plain_version():
     assert (geometry_cuda.rbox_iou_matrix.launches,
             nms_cuda.nms_scan.launches,
             nms_cuda.nms_scan_blocked.launches) == counts
+
+
+def _tiny_second():
+    return presets.second_kitti(
+        dtype="float32", bounds=(0.0, 6.4, -3.2, 3.2, -3.0, 1.0),
+        grid=(16, 16, 8), max_voxels=64, stage_sites=(64, 32, 16),
+        head_channels=8)
+
+
+def test_second_entry_points_need_cuda_or_an_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour without CUDA")
+    cfg = _tiny_second()
+    pts = np.random.default_rng(0).uniform(-3, 3, (200, 4)).astype(
+        np.float32) + np.array([3.2, 0, 1, 3], np.float32)
+    feats = np.ones((4, 2), np.float32)
+    nbr = np.full((4, 27), -1, np.int32)
+    w = np.ones((27, 2, 3), np.float32)
+    valid = np.ones(4, bool)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SECOND(cfg)
+    model = SECOND(cfg, device="cpu")
+    anchors = make_anchors(head_config(cfg), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_second_detector(model, None, cfg, anchors, ["Car"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        soft_nms2d(np.zeros((3, 5), np.float32), np.zeros(3, np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        subm_conv_apply(feats, nbr, w, valid)
+    # asked for the CPU, the same entry points run there
+    det = make_second_detector(model, None, cfg, anchors, ["Car"],
+                               device="cpu")
+    boxes, scores, labels, keep = det.device_fn(pts)
+    assert boxes.device.type == "cpu" and boxes.shape == (32, 7)
+    out = subm_conv_apply(*(torch.from_numpy(a)
+                            for a in (feats, nbr, w, valid)))
+    assert out.device.type == "cpu" and out.shape == (4, 3)
+
+
+def test_new_wrappers_on_cpu_tensors_take_the_plain_version():
+    counts = (nms_cuda.soft_nms_scan.launches,
+              sparse_conv_cuda.subm_conv.launches,
+              geometry_cuda.rbox_iou_matrix.launches)
+    iou = torch.tensor([[1.0, 0.6, 0.0], [0.6, 1.0, 0.1], [0.0, 0.1, 1.0]])
+    scores = torch.tensor([0.9, 0.8, 0.7])
+    pre = torch.zeros(3, dtype=torch.bool)
+    for method, param in (("linear", 1.0), ("gaussian", 0.1)):
+        sup = nms_cuda.soft_nms_scan(iou, scores, pre, 0.3, 0.5, param,
+                                     method)
+        assert sup.tolist() == [False, True, False]
+    boxes = torch.tensor([[0.0, 0.0, 2.0, 2.0, 0.0],
+                          [0.5, 0.0, 2.0, 2.0, 0.1],
+                          [9.0, 9.0, 1.0, 1.0, 0.0]])
+    assert soft_nms2d(boxes, scores, iou_threshold=0.3, score_threshold=0.5,
+                      supression_param=1.0).tolist() == [False, True, False]
+    feats = torch.arange(6.0).reshape(3, 2)
+    nbr = torch.full((2, 27), -1, dtype=torch.int32)
+    nbr[0, 13], nbr[1, 0] = 2, 1
+    out = sparse_conv_cuda.subm_conv(feats, nbr, torch.ones(27, 2, 1),
+                                     torch.tensor([True, False]))
+    assert out.tolist() == [[9.0], [0.0]]
+    assert (nms_cuda.soft_nms_scan.launches,
+            sparse_conv_cuda.subm_conv.launches,
+            geometry_cuda.rbox_iou_matrix.launches) == counts

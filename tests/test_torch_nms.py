@@ -1,6 +1,9 @@
 """The port's NMS against the JAX package: the plain suppression scan (the
 plain version of kernels K2/K3) against the Pallas kernels in interpret
-mode, and ``nms2d`` against ``d3d_tpu.ops.nms.nms2d``, all exact."""
+mode, ``nms2d`` against ``d3d_tpu.ops.nms.nms2d``, and ``soft_nms2d`` and
+the plain soft-NMS cascade (kernel K4's plain version) against
+``d3d_tpu.ops.nms.soft_nms2d`` and ``soft_nms_scan(interpret=True)``, all
+exact."""
 
 import numpy as np
 import pytest
@@ -10,7 +13,7 @@ import torch
 
 from d3d_tpu.ops import geometry_soa as S
 from d3d_tpu.ops import nms as N
-from d3d_tpu.ops.nms_pallas import nms_scan, nms_scan_blocked
+from d3d_tpu.ops.nms_pallas import nms_scan, nms_scan_blocked, soft_nms_scan
 
 from d3d_tpu_torch.ops import nms as TN
 from d3d_tpu_torch.ops import nms_cuda as TK
@@ -96,3 +99,75 @@ def test_tied_scores_keep_input_order(rng):
 def test_box_method_not_ported():
     with pytest.raises(NotImplementedError):
         TN.nms2d(torch.zeros(2, 5), torch.zeros(2), iou_method="box")
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("method,param", [("linear", 0.5), ("linear", 0.0),
+                                          ("gaussian", 0.4)])
+def test_soft_nms_matches_jax(rng, method, param, tied):
+    """f32: soft_nms2d against the JAX loop, and the plain cascade against
+    the Pallas kernel on the same IoU matrix. p = 0 makes the linear decay
+    1 - 1 = 0; tied scores must pick the lowest index first."""
+    n = 64
+    boxes = _boxes(rng, n, 14.0)
+    scores = rng.random(n).astype(np.float32)
+    if tied:
+        scores = np.repeat(scores[:16], 4)
+    kw = dict(iou_threshold=0.2, score_threshold=0.1,
+              supression_param=param, supression_method=method)
+    want = np.asarray(N.soft_nms2d(jnp.asarray(boxes), jnp.asarray(scores),
+                                   **kw))
+    got = TN.soft_nms2d(torch.from_numpy(boxes), torch.from_numpy(scores),
+                        **kw).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < want.sum() < n
+
+    iou = np.array(N._iou_matrix(jnp.asarray(boxes), "rbox"), np.float32)
+    pre = scores <= 0.1
+    pre[np.argsort(-scores, kind="stable")[0]] = False
+    init = np.where(pre, -np.inf, scores).astype(np.float32)
+    args = (0.2, 0.1, param, method)
+    pallas = np.asarray(soft_nms_scan(jnp.asarray(iou), jnp.asarray(init),
+                                      jnp.asarray(pre), *args,
+                                      interpret=True))
+    launches = TK.soft_nms_scan.launches
+    plain = TK.soft_nms_scan(torch.from_numpy(iou), torch.from_numpy(init),
+                             torch.from_numpy(pre), *args).numpy()
+    assert TK.soft_nms_scan.launches == launches
+    np.testing.assert_array_equal(plain, pallas)
+    np.testing.assert_array_equal(plain, want)
+
+
+@pytest.mark.parametrize("method,param", [("linear", 0.5), ("gaussian", 0.4)])
+def test_soft_nms_float64_runs_the_loop(rng, method, param):
+    """f64 input on the CPU runs the plain cascade in float64 against the
+    JAX module's loop, and launches nothing."""
+    boxes = _boxes(rng, 40, 12.0).astype(np.float64)
+    scores = rng.random(40)
+    kw = dict(iou_threshold=0.15, score_threshold=0.2,
+              supression_param=param, supression_method=method)
+    want = np.asarray(N.soft_nms2d(jnp.asarray(boxes), jnp.asarray(scores),
+                                   **kw))
+    launches = TK.soft_nms_scan.launches
+    got = TN.soft_nms2d(torch.from_numpy(boxes), torch.from_numpy(scores),
+                        **kw).numpy()
+    assert TK.soft_nms_scan.launches == launches
+    np.testing.assert_array_equal(got, want)
+    assert 0 < want.sum() < 40
+
+
+@pytest.mark.parametrize("iou_dtype,score_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float64)])
+def test_soft_nms_scan_takes_one_float_dtype(iou_dtype, score_dtype):
+    """The cascade takes float32 or float64 IoU and scores of the same
+    dtype; anything else raises instead of running another loop."""
+    iou = torch.eye(3, dtype=iou_dtype)
+    scores = torch.tensor([0.9, 0.8, 0.7], dtype=score_dtype)
+    with pytest.raises(ValueError, match="must share"):
+        TK.soft_nms_scan(iou, scores, torch.zeros(3, dtype=torch.bool),
+                         0.3, 0.5, 1.0, "linear")
+
+
+def test_soft_nms_box_method_not_ported():
+    with pytest.raises(NotImplementedError):
+        TN.soft_nms2d(torch.zeros(2, 5), torch.zeros(2), iou_method="box")
