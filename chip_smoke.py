@@ -13,19 +13,27 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    K1 (rotated IoU matrix) to atol 2e-5, K2/K3 (greedy NMS scan) and K4
    (soft-NMS cascade, linear and gaussian, n = 100 to 2048) exactly, K5
    (sparse-conv gather-GEMM) at every layer shape of SECOND serving, in
-   f32 and bf16, at the tolerances stated in ``check_k5``;
+   f32 and bf16, at the tolerances stated in ``check_k5``, K6 (its weight
+   gradient) at every layer shape of SECOND training, f32 and bf16
+   features, bit-equal across two runs (``check_k6``), and K5 as the
+   features' gradient of the submanifold layers (``check_k5_backward``);
 3. drives the port's paths with every launch count set to 0 just before
    and read just after: PointPillars serving (``make_pointpillars_detector``
    on the KITTI preset at full width, random seeded weights, 4 requests of
    different 120k-point frames), the north-star frame of ``bench.py``
    (``voxelize_mean_fm`` + ``nms2d`` of 512 boxes), ``nms2d`` of 2048
    boxes (K3), SECOND serving (``make_second_detector`` on
-   ``presets.second_kitti`` at full width, 4 requests) and ``soft_nms2d``
-   of the north star's 512 boxes (K4); each path must launch its kernels;
+   ``presets.second_kitti`` at full width, 4 requests), ``soft_nms2d``
+   of the north star's 512 boxes (K4) and SECOND training
+   (``make_train_step`` + ``make_optimizer`` on ``presets.second_kitti``
+   at full width, batch 2, 5 steps in f32 with TF32 off and 5 in bf16,
+   counts read per step: K5 13, K6 8); each path must launch its kernels;
 4. checks the outputs: finite, of the expected shape, the keep masks equal
    to the plain scans on the kernels' own IoU matrices, the voxelizer
-   equal to the port's CPU run, and both serving paths' outputs equal to a
-   CPU run of the same weights at a stated tolerance (TF32 off);
+   equal to the port's CPU run, both serving paths' outputs equal to a
+   CPU run of the same weights at a stated tolerance (TF32 off), the
+   training loss finite and falling, and one training step's gradients
+   equal to the CPU's (plain versions) at a stated tolerance;
 5. times the kernels, their plain versions and the paths with CUDA events.
 
 Any failed check raises, and the run exits nonzero. The second-to-last
@@ -356,21 +364,31 @@ def second_model(dev):
 def second_layer_inputs(model, pts, dev):
     """Each K5 layer's inputs on one frame of the SECOND path, in path
     order: {layer: (features, nbr, valid, weight)}."""
-    from d3d_tpu_torch.models import second_voxelize, sparse_stage_loop
+    from d3d_tpu_torch.models import second_voxelize
+
+    with torch.inference_mode():
+        f, c, v = second_voxelize(torch.from_numpy(pts).to(dev), model.cfg)
+    return stage_layer_inputs(model, f[None], c[None], v[None])
+
+
+def stage_layer_inputs(model, feats, coords, valid):
+    """Each sparse layer's inputs when the (B, V, ...) batch runs through
+    the stage loop as one joined site list, in path order: {layer:
+    (features, nbr, valid, weight)}."""
+    from d3d_tpu_torch.models import sparse_stage_loop
 
     seen = {}
 
     def recording(name, layer):
-        def run(x, nbr, valid):
+        def run(x, nbr, valid, train=False):
             seen[name] = (x, nbr, valid, layer.weight.detach())
-            return layer(x, nbr, valid)
+            return layer(x, nbr, valid, train)
         return run
 
     with torch.inference_mode():
-        f, c, v = second_voxelize(torch.from_numpy(pts).to(dev), model.cfg)
         sparse_stage_loop(model.cfg, {n: recording(n, l)
                                       for n, l in model.middle.items()},
-                          f, c, v)
+                          feats, coords, valid)
     check(tuple(seen) == K5_LAYERS, f"SECOND layers {tuple(seen)}")
     return seen
 
@@ -433,12 +451,316 @@ def check_k5(layers):
     return worst, shapes
 
 
+def k6_work(feats, nbr, cout):
+    """K6's (bytes, operations) on these inputs. Bytes: features, map and the
+    f32 cotangent read once, the f32 (K, C, Cout) gradient written once;
+    operations: one multiply-add (2 operations) per channel pair of each
+    neighbour that exists in this run's map."""
+    n, c = feats.shape
+    nq, k = nbr.shape
+    nbytes = (n * c * feats.element_size() + nq * k * 4 + nq * cout * 4
+              + k * c * cout * 4)
+    return nbytes, 2 * int((nbr >= 0).sum()) * c * cout
+
+
+def train_cotangent(layers, seed):
+    """A seeded f32 cotangent for each layer's output, masked by its valid
+    sites as the backward masks it: {layer: (Nq, Cout)}."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, (_, nbr, valid, w) in layers.items():
+        g = torch.randn((nbr.shape[0], w.shape[2]), generator=gen)
+        out[name] = g.to(valid.device) * valid[:, None]
+    return out
+
+
+def check_k6(layers):
+    """K6 against its plain version on the card at every layer shape of the
+    SECOND training path (two frames joined), with f32 and with bf16
+    features and a seeded f32 cotangent; two launches on the same inputs
+    must give the same bits. Stated tolerance, elementwise: 1e-5 of the
+    entry's sum of |terms| (the two sum over up to 32 000 rows in other
+    orders). Returns the largest |kernel - plain| per dtype and the
+    shapes."""
+    from d3d_tpu_torch.ops import sparse_conv_cuda as K
+
+    grads = train_cotangent(layers, 6)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    shapes = {}
+    for name, (x, nbr, valid, w) in layers.items():
+        g = grads[name]
+        present = int((nbr >= 0).sum())
+        shapes[name] = dict(nq=nbr.shape[0], n=x.shape[0], c=x.shape[1],
+                            cout=w.shape[2], valid=int(valid.sum()),
+                            present=present)
+        errs = []
+        for dt in (torch.float32, torch.bfloat16):
+            xd = x.to(dt)
+            got = K._dw_launch(xd, nbr, g)
+            again = K._dw_launch(xd, nbr, g)
+            want = K._subm_conv_dw_plain(xd, nbr, g)
+            scale = K._subm_conv_dw_plain(xd.float().abs(), nbr, g.abs())
+            torch.cuda.synchronize()
+            check(got.shape == want.shape == (27,) + tuple(w.shape[1:])
+                  and got.dtype == torch.float32,
+                  f"K6 {name} {dt}: {got.shape} {got.dtype}")
+            check(torch.equal(got, again),
+                  f"K6 {name} {dt}: two runs on the same inputs differ")
+            check(bool(torch.isfinite(got).all()), f"K6 {name}: not finite")
+            err = (got - want).abs()
+            bad = int((err > 1e-5 * scale).sum())
+            check(bad == 0, f"K6 {name} {dt}: {bad} entries out of "
+                            f"tolerance, max error {float(err.max())}")
+            key = str(dt).split(".")[1]
+            worst[key] = max(worst[key], float(err.max()))
+            errs.append(float(err.max()))
+        log(f"K6 {name} (Nq {nbr.shape[0]}, N {x.shape[0]}, C {x.shape[1]}, "
+            f"Cout {w.shape[2]}, {present} of {nbr.numel()} neighbours "
+            f"present): max |kernel - plain| f32 {errs[0]:.3g}, bf16 "
+            f"{errs[1]:.3g}; bit-equal across two runs")
+    return worst, shapes
+
+
+def k5_backward_inputs(layers):
+    """The features'-gradient K5 launches of a train step: the submanifold
+    layers after the first (whose input, the voxel means, needs no
+    gradient), each with the seeded cotangent and the mirrored, transposed
+    f32 weights: {layer: (cotangent, nbr, valid, weights)}."""
+    grads = train_cotangent(layers, 5)
+    return {name: (grads[name], nbr, valid,
+                   w.float().flip(0).transpose(1, 2).contiguous())
+            for name, (_, nbr, valid, w) in layers.items()
+            if name.startswith("subm") and name != "subm0_0"}
+
+
+def check_k5_backward(layers):
+    """K5 as the features' gradient of the five submanifold layers of the
+    training path: against the plain scatter-add (the transposed map, which
+    needs no symmetry) at 1e-5 of each entry's sum of |terms|, and the
+    adjoint identity <K5(x; W), g> = <x, K5^T(g)> to 1e-5 of the sum of
+    |terms| (f32 rounding). Returns the largest |kernel - plain|."""
+    from d3d_tpu_torch.ops import sparse_conv_cuda as K
+
+    worst = 0.0
+    for name, (g, nbr, valid, wt) in k5_backward_inputs(layers).items():
+        x, _, _, w = layers[name]
+        w = w.float()
+        got = K._launch(g, nbr, wt, valid)
+        want = K._scatter_dfeat(g, nbr, w, x.shape[0])
+        scale = K._scatter_dfeat(g.abs(), nbr, w.abs(), x.shape[0])
+        fwd = K._launch(x.float(), nbr, w, valid)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        bad = int((err > 1e-5 * scale).sum())
+        check(bad == 0, f"K5 backward {name}: {bad} entries out of "
+                        f"tolerance, max error {float(err.max())}")
+        lhs = float((fwd.double() * g.double()).sum())
+        rhs = float((x.double() * got.double()).sum())
+        terms = float((fwd.double() * g.double()).abs().sum())
+        check(abs(lhs - rhs) <= 1e-5 * terms,
+              f"K5 backward {name}: <K5 x, g> {lhs} != <x, K5^T g> {rhs}")
+        worst = max(worst, float(err.max()))
+        log(f"K5 backward {name} (N {x.shape[0]}, {w.shape[2]} -> "
+            f"{w.shape[1]} channels): max |kernel - plain| "
+            f"{float(err.max()):.3g}; <K5 x, g> - <x, K5^T g> = "
+            f"{lhs - rhs:.3g} of {terms:.4g}")
+    return worst
+
+
+def train_batch(dev, cfg, frames):
+    """Two frames of bench.py's recipe through second_voxelize, stacked, and
+    six car-like ground-truth boxes a frame across the field (seeded; the
+    last box of frame 0 padded): the training batch."""
+    from d3d_tpu_torch.models import second_voxelize
+
+    with torch.inference_mode():
+        vox = [second_voxelize(torch.from_numpy(p).to(dev), cfg)
+               for p in frames]
+    rng = np.random.default_rng(400)
+    b, m = len(frames), 6
+    gt = np.stack([
+        rng.uniform(2, 60, (b, m)), rng.uniform(-35, 35, (b, m)),
+        np.full((b, m), -1.0), rng.uniform(3.5, 4.3, (b, m)),
+        rng.uniform(1.5, 1.8, (b, m)), rng.uniform(1.4, 1.7, (b, m)),
+        rng.uniform(-np.pi, np.pi, (b, m))], -1).astype(np.float32)
+    mask = np.ones((b, m), bool)
+    mask[0, -1] = False
+    batch = {k: torch.stack([v[i] for v in vox]).clone()
+             for i, k in enumerate(("features", "coords", "valid"))}
+    batch.update(gt_boxes=torch.from_numpy(gt).to(dev),
+                 gt_labels=torch.zeros((b, m), dtype=torch.int32,
+                                       device=dev),
+                 gt_mask=torch.from_numpy(mask).to(dev))
+    return batch
+
+
+TRAIN_STEPS = 5
+RIOU_WEIGHT = 0.1  # as tests/test_second.py's training test
+
+
+def train_model(cfg, state, dev):
+    from d3d_tpu_torch.models import SECOND
+
+    model = SECOND(cfg, device=dev)
+    model.load_state_dict(state)
+    return model
+
+
+def second_training(dev, state, batch, dtype):
+    """make_train_step on presets.second_kitti at full width (``dtype``
+    compute) from the serving model's weights, make_optimizer over 5
+    steps, 5 steps on one fixed batch of 2 frames. Every count is set to 0
+    just before each step and read just after: each step must launch K5 13
+    times (8 forward, 5 features' gradients), K6 8 times and K1 never. The
+    loss must be finite every step and lower at step 5 than at step 1.
+    Returns (the summed counts, stats)."""
+    from d3d_tpu_torch.models import head_config, make_anchors, presets
+    from d3d_tpu_torch.models import make_train_step
+    from d3d_tpu_torch.train import make_optimizer
+
+    cfg = presets.second_kitti(dtype=dtype)
+    model = train_model(cfg, state, dev)
+    opt, lr = make_optimizer(model.parameters(), total_steps=TRAIN_STEPS)
+    step = make_train_step(model, opt, cfg,
+                           make_anchors(head_config(cfg), device=dev),
+                           riou_weight=RIOU_WEIGHT)
+    total = {}
+    losses, step_ms, wall_ms = [], [], []
+    for i in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        start.record()
+        aux = step(batch)
+        end.record()
+        end.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        step_ms.append(start.elapsed_time(end))
+        want = dict(rbox_iou_matrix=0, nms_scan=0, nms_scan_blocked=0,
+                    soft_nms_scan=0, subm_conv=13, subm_conv_dw=8)
+        check(counts == want, f"SECOND training {dtype} step {i + 1}: "
+                              f"launches {counts}, want {want}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        losses.append({k: float(v) for k, v in aux.items()})
+        check(all(math.isfinite(v) for v in losses[-1].values()),
+              f"SECOND training {dtype} step {i + 1}: loss {losses[-1]}")
+    check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+              for p in model.parameters()),
+          f"SECOND training {dtype}: a parameter without a finite gradient")
+    totals = [l["total"] for l in losses]
+    check(totals[-1] < totals[0],
+          f"SECOND training {dtype}: loss did not fall: {totals}")
+    steady = statistics.median(step_ms[1:])
+    log(f"SECOND training {dtype}: losses "
+        + ", ".join(f"{t:.4f}" for t in totals)
+        + f"; step {step_ms[0]:.2f} ms first, {steady:.2f} ms median of "
+        f"steps 2-{TRAIN_STEPS} (CUDA events; host wall clock "
+        f"{statistics.median(wall_ms[1:]):.2f} ms); launches a step "
+        f"K5 13, K6 8, K1 0; lr at the steps "
+        + ", ".join(f"{lr(i):.3g}" for i in range(TRAIN_STEPS)))
+    stages = train_stage_times(model, opt, batch, cfg)
+    return total, dict(losses=totals, loss_terms=losses[-1],
+                       step_ms=step_ms, steady_ms=steady,
+                       wall_ms=wall_ms, stages_ms=stages)
+
+
+def train_stage_times(model, opt, batch, cfg, reps=5):
+    """The train step's body cut into its stages (target assignment,
+    forward, loss, backward, optimizer), device ms between CUDA events,
+    median of ``reps`` more steps on the same batch."""
+    from d3d_tpu_torch.models import head_config, make_anchors
+    from d3d_tpu_torch.models.pointpillars import (detection_loss,
+                                                   prepare_targets)
+
+    hcfg = head_config(cfg)
+    anchors = make_anchors(hcfg, device=batch["features"].device)
+    names = ("assign", "forward", "loss", "backward", "optimizer")
+    times = {n: [] for n in names}
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        with torch.no_grad():
+            targets = prepare_targets(anchors, batch, cfg=hcfg)["targets"]
+        ev[1].record()
+        opt.zero_grad(set_to_none=True)
+        out = model(batch["features"], batch["coords"], batch["valid"],
+                    train=True)
+        ev[2].record()
+        loss, _ = detection_loss(out, targets, hcfg, anchors, RIOU_WEIGHT)
+        ev[3].record()
+        loss.backward()
+        ev[4].record()
+        opt.step()
+        ev[5].record()
+        ev[5].synchronize()
+        for i, n in enumerate(names):
+            times[n].append(ev[i].elapsed_time(ev[i + 1]))
+    stages = {n: statistics.median(t) for n, t in times.items()}
+    log(f"SECOND training {cfg.dtype} stages (median of {reps}): "
+        + ", ".join(f"{n} {ms:.2f} ms" for n, ms in stages.items()))
+    return stages
+
+
+def train_card_vs_cpu(dev, state, batch):
+    """One f32 train step (TF32 off) on the card (K5, K6) and on the CPU
+    (their plain versions) from the same weights and batch, with the
+    targets assigned once (so an IoU that rounds across a threshold on one
+    side cannot change them): every gradient leaf within 1e-4 of the
+    leaf's largest |g| (the two sum in other orders; stated), the loss to
+    rtol 1e-5. Returns the worst leaf's error relative to its max."""
+    from d3d_tpu_torch.models import (head_config, make_anchors,
+                                      make_train_step, presets)
+    from d3d_tpu_torch.models.pointpillars import prepare_targets
+    from d3d_tpu_torch.train import make_optimizer
+
+    cfg = presets.second_kitti(dtype="float32")
+    hcfg = head_config(cfg)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    cpu_batch = prepare_targets(make_anchors(hcfg, device="cpu"), cpu_batch,
+                                cfg=hcfg)
+    dev_batch = dict(batch, targets={k: v.to(dev) for k, v in
+                                     cpu_batch["targets"].items()})
+    grads, losses = [], []
+    t_cpu = 0.0
+    for d, b in ((dev, dev_batch), ("cpu", cpu_batch)):
+        model = train_model(cfg, state, d)
+        opt, _ = make_optimizer(model.parameters(), TRAIN_STEPS)
+        step = make_train_step(model, opt, cfg, make_anchors(hcfg, device=d),
+                               riou_weight=RIOU_WEIGHT,
+                               external_targets=True)
+        t0 = time.perf_counter()
+        aux = step(b)
+        if d == "cpu":
+            t_cpu = (time.perf_counter() - t0) * 1e3
+        losses.append(float(aux["total"]))
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    worst, worst_name = 0.0, ""
+    for name, g in grads[0].items():
+        c = grads[1][name]
+        rel = float((g - c).abs().max() / c.abs().max())
+        if rel > worst:
+            worst, worst_name = rel, name
+    check(worst <= 1e-4, f"SECOND training gradients card vs CPU: {worst} "
+                         f"of the largest |g| at {worst_name}")
+    check(abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1]),
+          f"SECOND training loss card vs CPU: {losses}")
+    log(f"SECOND training card vs CPU (f32, TF32 off, one step): loss "
+        f"{losses[0]:.6f} / {losses[1]:.6f}; worst gradient leaf "
+        f"{worst_name} at {worst:.3g} of its largest |g| (stated 1e-4); the "
+        f"CPU step {t_cpu:.0f} ms")
+    return worst
+
+
 def counters():
     from d3d_tpu_torch.ops import geometry_cuda, nms_cuda, sparse_conv_cuda
 
     return (geometry_cuda.rbox_iou_matrix, nms_cuda.nms_scan,
             nms_cuda.nms_scan_blocked, nms_cuda.soft_nms_scan,
-            sparse_conv_cuda.subm_conv)
+            sparse_conv_cuda.subm_conv, sparse_conv_cuda.subm_conv_dw)
 
 
 def reset_counts():
@@ -753,7 +1075,8 @@ def second_serving(dev, model, frames):
     log(f"SECOND serving launches (4 requests): {counts}; detections kept "
         f"per request: {kept}")
     want = dict(rbox_iou_matrix=4, nms_scan=4, nms_scan_blocked=0,
-                soft_nms_scan=0, subm_conv=4 * len(K5_LAYERS))
+                soft_nms_scan=0, subm_conv=4 * len(K5_LAYERS),
+                subm_conv_dw=0)
     check(counts == want, f"SECOND serving: launches {counts}, want {want}: "
                           "8 of K5, 1 of K1 and 1 of K2 per request")
     log("SECOND serving f32: " + ", ".join(f"{ms:.2f}" for ms in request_ms)
@@ -813,7 +1136,7 @@ def soft_nms_path(dev):
     counts = read_counts()
     log(f"soft_nms2d launches (linear + gaussian): {counts}")
     check(counts == dict(rbox_iou_matrix=2, nms_scan=0, nms_scan_blocked=0,
-                         soft_nms_scan=2, subm_conv=0),
+                         soft_nms_scan=2, subm_conv=0, subm_conv_dw=0),
           f"soft_nms2d did not run K1 and K4 once per call: {counts}")
     iou = geometry_cuda.rbox_iou_matrix(tb, tb)
     thr = SOFT_NMS_ARGS["score_threshold"]
@@ -835,8 +1158,76 @@ def soft_nms_path(dev):
     return counts, stats, (iou, init, pre)
 
 
+def train_layers_k5_backward_times(train_layers):
+    """K5 as the features' gradient: device ms of the five launches of one
+    training step (two frames joined, f32), summed, with its plain version
+    (the scatter-add) and the bound of the summed bytes and operations."""
+    from d3d_tpu_torch.ops import sparse_conv_cuda as K
+
+    tot = dict(ms=0.0, plain_ms=0.0, nbytes=0, ops=0)
+    for name, (g, nbr, valid, wt) in k5_backward_inputs(train_layers).items():
+        w = train_layers[name][3].float()
+        ms = time_launches(lambda: K._launch(g, nbr, wt, valid), batch=20)
+        plain = time_each(lambda: K._scatter_dfeat(g, nbr, w, g.shape[0]),
+                          reps=5, warmup=1)
+        nbytes, ops = k5_work(g, nbr, wt.shape[2])
+        for k, v in (("ms", ms), ("plain_ms", plain), ("nbytes", nbytes),
+                     ("ops", ops)):
+            tot[k] += v
+        log(f"subm_conv backward {name}: {ms:.4f} ms per launch, plain "
+            f"(scatter-add) {plain:.4f} ms")
+    b_ms, b_by = bound(tot["nbytes"], tot["ops"])
+    return dict(ms_backward_step=tot["ms"],
+                plain_ms_backward_step=tot["plain_ms"],
+                bound_ms_backward_step=b_ms, bound_by_backward_step=b_by,
+                backward_of="the 5 features'-gradient launches of one "
+                            "training step (2 frames, f32)")
+
+
+def k6_times(train_layers):
+    """K6 at the 8 layers of one SECOND training step (two frames joined),
+    f32 (the path checked against the CPU) and with bf16 features (the
+    preset as pinned): per-launch ms, the plain version (gather +
+    torch.einsum, cuBLAS: also the library call), bounds per layer and of
+    the summed bytes and operations."""
+    from d3d_tpu_torch.ops import sparse_conv_cuda as K
+
+    grads = train_cotangent(train_layers, 6)
+    per_layer, totals = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        key = str(dt).split(".")[1]
+        tot = dict(ms=0.0, plain_ms=0.0, nbytes=0, ops=0)
+        for name, (x, nbr, valid, w) in train_layers.items():
+            xd, g = x.to(dt), grads[name]
+            ms = time_launches(lambda: K._dw_launch(xd, nbr, g), batch=20)
+            plain = time_each(lambda: K._subm_conv_dw_plain(xd, nbr, g),
+                              reps=5, warmup=1)
+            nbytes, ops = k6_work(xd, nbr, w.shape[2])
+            b_ms, b_by = bound(nbytes, ops, k5_rate(dt))
+            per_layer.setdefault(name, {})[key] = dict(
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+            for k, v in (("ms", ms), ("plain_ms", plain), ("nbytes", nbytes),
+                         ("ops", ops)):
+                tot[k] += v
+            log(f"subm_conv_dw {name} {key}: {ms:.4f} ms per launch, plain "
+                f"{plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        tot["bound"] = bound(tot["nbytes"], tot["ops"], k5_rate(dt))
+        totals[key] = tot
+    f32, bf16 = totals["float32"], totals["bfloat16"]
+    return dict(
+        ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound"][0],
+        bound_by=f32["bound"][1], library_ms=f32["plain_ms"],
+        library="index gather + torch.einsum (cuBLAS): the plain version",
+        shape="the 8 layers of one SECOND training step, 2 frames, f32 "
+              "(sum)",
+        ms_of=f"one training step ({len(K5_LAYERS)} launches)",
+        ms_bf16=bf16["ms"], plain_ms_bf16=bf16["plain_ms"],
+        bound_ms_bf16=bf16["bound"][0], bound_by_bf16=bf16["bound"][1],
+        per_layer=per_layer)
+
+
 def kernel_times(dev, ns_inputs, k3_inputs, soft_inputs, soft_stats,
-                 k5_layers):
+                 k5_layers, train_layers):
     """Per-launch device ms of each kernel and its plain version at the
     paths' shapes, with the bounds."""
     from d3d_tpu_torch.ops import (geometry_cuda, geometry_soa, nms_cuda,
@@ -936,6 +1327,8 @@ def kernel_times(dev, ns_inputs, k3_inputs, soft_inputs, soft_stats,
         ms_bf16=bf16["ms"], plain_ms_bf16=bf16["plain_ms"],
         bound_ms_bf16=bf16["bound"][0], bound_by_bf16=bf16["bound"][1],
         per_layer=per_layer)
+    out["subm_conv"].update(train_layers_k5_backward_times(train_layers))
+    out["subm_conv_dw"] = k6_times(train_layers)
     for name, row in out.items():
         log(f"{name}: {row['ms']:.4f} ms for {row['ms_of']} at "
             f"{row['shape']}, plain {row['plain_ms']:.3f} ms, bound "
@@ -969,20 +1362,37 @@ def main():
     second, second_frames = second_model(dev)
     k5_layers = second_layer_inputs(second, second_frames[0], dev)
     k5_err, k5_shapes = check_k5(k5_layers)
+    state = {k: v.clone() for k, v in second.state_dict().items()}
+    batch = train_batch(dev, second.cfg, [bench_points(
+        np.random.default_rng(300 + i)) for i in range(2)])
+    train_layers = stage_layer_inputs(second, batch["features"],
+                                      batch["coords"], batch["valid"])
+    k6_err, k6_shapes = check_k6(train_layers)
+    k5_bwd_err = check_k5_backward(train_layers)
 
     serve_counts, serve = serving(dev)
     ns_counts, ns, ns_inputs = north_star(dev)
     k3_counts, tb2048, ts2048 = k3_path(dev)
     second_counts, second_stats = second_serving(dev, second, second_frames)
     soft_counts, soft_stats, soft_inputs = soft_nms_path(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    train_counts, train_stats = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        counts, train_stats[dtype] = second_training(dev, state, batch, dtype)
+        for k, v in counts.items():
+            train_counts[k] = train_counts.get(k, 0) + v
+    train_stats["card_vs_cpu_grad_err"] = train_card_vs_cpu(dev, state,
+                                                            batch)
     times = kernel_times(dev, ns_inputs, (tb2048, ts2048), soft_inputs,
-                         soft_stats, k5_layers)
+                         soft_stats, k5_layers, train_layers)
 
     by_path = {name: {"serving": serve_counts[name],
                       "north_star": ns_counts[name],
                       "nms2d_2048": k3_counts[name],
                       "second_serving": second_counts[name],
-                      "soft_nms": soft_counts[name]}
+                      "soft_nms": soft_counts[name],
+                      "second_training": train_counts[name]}
                for name in serve_counts}
     meta = {
         "rbox_iou_matrix": ("cuda", "d3d_tpu_torch/csrc/rbox_iou.cu",
@@ -998,6 +1408,9 @@ def main():
         "subm_conv": ("cuda", "d3d_tpu_torch/csrc/subm_conv.cu",
                       "d3d_tpu/ops/sparse_conv_pallas.py:118",
                       k5_err["float32"]),
+        "subm_conv_dw": ("cuda", "d3d_tpu_torch/csrc/subm_conv_dw.cu",
+                         "d3d_tpu/ops/sparse_conv_pallas.py:139",
+                         k6_err["float32"]),
     }
     kernels = []
     for name, (route, source, replaces, err) in meta.items():
@@ -1013,11 +1426,17 @@ def main():
             **{k: v for k, v in row.items()
                if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
                             "library_ms", "shape")}))
-    kernels[-1]["max_abs_err_bf16"] = k5_err["bfloat16"]
-    kernels[-1]["layer_shapes"] = k5_shapes
+    rows = {row["name"]: row for row in kernels}
+    rows["subm_conv"].update(max_abs_err_bf16=k5_err["bfloat16"],
+                             layer_shapes=k5_shapes,
+                             max_abs_err_backward=k5_bwd_err)
+    rows["subm_conv_dw"].update(max_abs_err_bf16=k6_err["bfloat16"],
+                                layer_shapes=k6_shapes,
+                                bit_equal_across_runs=True)
     log(json.dumps({"paths": {"serving": serve, "north_star": ns,
                               "second_serving": second_stats,
-                              "soft_nms": soft_stats},
+                              "soft_nms": soft_stats,
+                              "second_training": train_stats},
                     "card": card}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

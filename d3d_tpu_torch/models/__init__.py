@@ -1,15 +1,20 @@
-from .pointpillars import (PointPillars, PointPillarsConfig, decode_boxes,
-                           make_anchors, pillarize, scatter_to_bev)
-from .second import (SECOND, SECONDConfig, head_config, second_voxelize,
-                     sparse_stage_loop)
+from .pointpillars import (PointPillars, PointPillarsConfig, assign_targets,
+                           decode_boxes, detection_loss, encode_boxes,
+                           make_anchors, pillarize, prepare_targets,
+                           scatter_to_bev)
+from .second import (SECOND, SECONDConfig, head_config, make_train_step,
+                     second_voxelize, sparse_stage_loop)
 from . import presets
 from .inference import make_pointpillars_detector, make_second_detector
-from .convert import pointpillars_state_from_flax, second_state_from_flax
+from .convert import (pointpillars_state_from_flax, second_params_from_flax,
+                      second_state_from_flax)
 
 __all__ = [
     "PointPillars", "PointPillarsConfig", "pillarize", "scatter_to_bev",
-    "make_anchors", "decode_boxes", "SECOND", "SECONDConfig", "head_config",
-    "second_voxelize", "sparse_stage_loop", "presets",
-    "make_pointpillars_detector", "make_second_detector",
+    "make_anchors", "decode_boxes", "encode_boxes", "assign_targets",
+    "detection_loss", "prepare_targets", "SECOND", "SECONDConfig",
+    "head_config", "second_voxelize", "sparse_stage_loop", "make_train_step",
+    "presets", "make_pointpillars_detector", "make_second_detector",
     "pointpillars_state_from_flax", "second_state_from_flax",
+    "second_params_from_flax",
 ]

@@ -13,7 +13,8 @@ through tap ``f-1-r`` where torch uses tap ``r``.
 import numpy as np
 import torch
 
-__all__ = ["pointpillars_state_from_flax", "second_state_from_flax"]
+__all__ = ["pointpillars_state_from_flax", "second_state_from_flax",
+           "second_params_from_flax"]
 
 
 def _oihw(kernel):
@@ -21,9 +22,12 @@ def _oihw(kernel):
 
 
 def _bn(sd, prefix, p, s, tracked=True):
-    """One flax BatchNorm's scale/bias and mean/var into ``sd``."""
+    """One flax BatchNorm's scale/bias and (where ``s`` is given)
+    mean/var into ``sd``."""
     sd[prefix + ".weight"] = p["scale"]
     sd[prefix + ".bias"] = p["bias"]
+    if s is None:
+        return
     sd[prefix + ".running_mean"] = s["mean"]
     sd[prefix + ".running_var"] = s["var"]
     if tracked:  # torch's BatchNorm modules count batches
@@ -36,7 +40,7 @@ def _conv_block(sd, prefix, blk, st):
     while f"Conv_{j}" in blk:
         sd[f"{prefix}.convs.{j}.weight"] = _oihw(blk[f"Conv_{j}"]["kernel"])
         _bn(sd, f"{prefix}.bns.{j}", blk[f"BatchNorm_{j}"],
-            st[f"BatchNorm_{j}"])
+            st and st[f"BatchNorm_{j}"])
         j += 1
 
 
@@ -47,8 +51,7 @@ def _heads(sd, params):
 
 
 def _tensors(sd):
-    return {k: torch.as_tensor(np.ascontiguousarray(v))
-            for k, v in sd.items()}
+    return {k: torch.as_tensor(np.array(v)) for k, v in sd.items()}
 
 
 def pointpillars_state_from_flax(variables):
@@ -77,19 +80,30 @@ def pointpillars_state_from_flax(variables):
     return _tensors(sd)
 
 
-def second_state_from_flax(variables):
-    """flax SECOND variables -> the port's ``state_dict``. The sparse
-    layers ``subm{s}_{i}`` / ``down{s}`` keep their (K, C, Cout) kernels
-    as they are; the BEV block and the heads convert as PointPillars'."""
-    params = variables["params"]
-    stats = variables["batch_stats"]
+def _second(params, stats):
+    """SECOND's entries; without ``stats`` the parameters only."""
     sd = {}
     for name, p in params.items():
         if name.startswith(("subm", "down")):
             sd[f"middle.{name}.weight"] = p["kernel"]
             _bn(sd, f"middle.{name}.bn", p["_MaskedBN_0"],
-                stats[name]["_MaskedBN_0"], tracked=False)
+                stats and stats[name]["_MaskedBN_0"], tracked=False)
     _conv_block(sd, "head_block", params["_ConvBlock_0"],
-                stats["_ConvBlock_0"])
+                stats and stats["_ConvBlock_0"])
     _heads(sd, params)
     return _tensors(sd)
+
+
+def second_state_from_flax(variables):
+    """flax SECOND variables -> the port's ``state_dict``. The sparse
+    layers ``subm{s}_{i}`` / ``down{s}`` keep their (K, C, Cout) kernels
+    as they are; the BEV block and the heads convert as PointPillars'."""
+    return _second(variables["params"], variables["batch_stats"])
+
+
+def second_params_from_flax(params):
+    """A flax SECOND ``params`` tree alone (the parameters, or anything of
+    their structure, such as a gradient tree) -> ``{name: tensor}`` under
+    the port's ``named_parameters()`` names, in its layouts (the
+    gradient of a transposed kernel is the transposed gradient)."""
+    return _second(params, None)

@@ -1,5 +1,4 @@
-"""PointPillars 3D detector, inference half (port of
-``d3d_tpu.models.pointpillars``).
+"""PointPillars 3D detector (port of ``d3d_tpu.models.pointpillars``).
 
 Pillarization reuses the sort-based voxelizer; the pillar feature net, BEV
 backbone and SSD head are ``nn.Module`` s whose parameters stay float32 and
@@ -8,7 +7,12 @@ as the flax modules do). The network runs NCHW internally with x along the
 first spatial axis; its public layout is the JAX module's: head outputs
 ``(B, W*H*A, C)`` in the same anchor order as :func:`make_anchors`.
 
-Not ported yet: target assignment, the losses and the train step.
+The training half (target assignment, the losses, ``prepare_targets``,
+``make_train_step``) is ported and is what SECOND trains with; the BEV
+block (``_ConvBlock``) has flax's training BatchNorm. PointPillars' own
+network trains only once the PFN's and upsampling's training BatchNorm and
+the ``scatter_to_bev`` backward are ported: until then
+``PointPillars(..., train=True)`` raises.
 
 Reference: Lang et al., "PointPillars: Fast Encoders for Object Detection
 from Point Clouds", CVPR 2019 (arXiv:1812.05784).
@@ -23,11 +27,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.geometry import aabox_iou
+from ..ops.geometry_soa import rbox_iou
 from ..ops.voxel import voxelize_dense_padded
 from ..utils import as_tensor, resolve_device
 
 __all__ = ["PointPillarsConfig", "PointPillars", "pillarize", "scatter_to_bev",
-           "make_anchors", "decode_boxes"]
+           "make_anchors", "decode_boxes", "encode_boxes", "assign_targets",
+           "detection_loss", "prepare_targets", "make_train_step"]
 
 _BN_EPS = 1e-3  # the JAX package's BatchNorm epsilon, every layer
 
@@ -129,6 +136,27 @@ def _bn(x, bn):
                         bn.bias, training=False, eps=bn.eps)
 
 
+def _bn_train(x, bn):
+    """Training BatchNorm over dim 1 with flax ``nn.BatchNorm``'s semantics
+    (momentum 0.99, ``use_fast_variance``): float32 batch statistics over
+    every other dim, ``var = max(E[x^2] - E[x]^2, 0)``, normalisation by
+    that biased variance in float32 and output in x's dtype; the running
+    statistics move ``0.99 * old + 0.01 * batch``, the variance biased.
+    (``F.batch_norm(training=True)`` moves the running variance by 0.1 of
+    the unbiased one.)"""
+    xf = x.float()
+    dims = [d for d in range(x.ndim) if d != 1]
+    mean = xf.mean(dim=dims)
+    var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(0.99 * bn.running_mean + 0.01 * mean)
+        bn.running_var.copy_(0.99 * bn.running_var + 0.01 * var)
+    shape = [1, -1] + [1] * (x.ndim - 2)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+    return y.to(x.dtype)
+
+
 def _same_padding(size, k, stride):
     """flax/XLA "SAME" padding of one spatial dim: (before, after). For an
     even input at stride 2 this is (0, 1) — asymmetric, unlike
@@ -176,12 +204,13 @@ class _ConvBlock(nn.Module):
         self.bns = nn.ModuleList(nn.BatchNorm2d(channels, eps=_BN_EPS)
                                  for _ in range(blocks))
 
-    def forward(self, x):
+    def forward(self, x, train=False):
         dt = self.dtype
+        norm = _bn_train if train else _bn
         for i, (conv, bn) in enumerate(zip(self.convs, self.bns)):
             x = _conv_same(x.to(dt), conv.weight.to(dt),
                            self.stride if i == 0 else 1)
-            x = F.relu(_bn(x, bn))
+            x = F.relu(norm(x, bn))
         return x
 
 
@@ -267,9 +296,16 @@ class PointPillars(nn.Module):
             elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
                 mod.reset_parameters()
 
-    def forward(self, features, coords, valid):
+    def forward(self, features, coords, valid, train=False):
+        """Inference only: ``train=True`` raises ``NotImplementedError``
+        (the PFN's and upsampling's training BatchNorm and the
+        ``scatter_to_bev`` backward are ROADMAP queue 1 item 9)."""
+        if train:
+            raise NotImplementedError(
+                "PointPillars training (the PFN and upsampling BatchNorm "
+                "statistics, the scatter_to_bev backward) is not ported yet: "
+                "ROADMAP queue 1 item 9")
         cfg = self.cfg
-        b = features.shape[0]
         dt = getattr(torch, cfg.dtype)
 
         # pillar encoder
@@ -344,3 +380,231 @@ def decode_boxes(anchors, deltas):
         torch.arcsin(torch.clamp(deltas[..., 6], -1 + 1e-4, 1 - 1e-4))
         + anchors[..., 6],
     ], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# target assignment, loss and the train step
+# ---------------------------------------------------------------------------
+
+def _bev_iou(anchors, gt):
+    """BEV axis-aligned IoU between anchors (N, 7) and gt boxes (M, 7)."""
+    a2 = torch.cat([anchors[:, 0:2], anchors[:, 3:5], anchors[:, 6:7]], dim=1)
+    g2 = torch.cat([gt[:, 0:2], gt[:, 3:5], gt[:, 6:7]], dim=1)
+    return aabox_iou(a2[:, None, :], g2[None, :, :])
+
+
+def encode_boxes(anchors, gt):
+    """The PointPillars residual encoding (sin of the yaw residual)."""
+    da = torch.sqrt(anchors[..., 3] ** 2 + anchors[..., 4] ** 2)
+    return torch.stack([
+        (gt[..., 0] - anchors[..., 0]) / da,
+        (gt[..., 1] - anchors[..., 1]) / da,
+        (gt[..., 2] - anchors[..., 2]) / anchors[..., 5],
+        torch.log(torch.clamp_min(gt[..., 3], 1e-3) / anchors[..., 3]),
+        torch.log(torch.clamp_min(gt[..., 4], 1e-3) / anchors[..., 4]),
+        torch.log(torch.clamp_min(gt[..., 5], 1e-3) / anchors[..., 5]),
+        torch.sin(gt[..., 6] - anchors[..., 6]),
+    ], dim=-1)
+
+
+def assign_targets(anchors, gt_boxes, gt_labels, gt_mask, pos_iou=0.6,
+                   neg_iou=0.45):
+    """Anchor assignment for one frame.
+
+    :param gt_boxes: (M, 7) padded ground truth
+    :param gt_labels: (M,) int class ids (0-based)
+    :param gt_mask: (M,) bool validity
+    :return: dict(cls_target (N,), reg_target (N, 7), dir_target (N,) int32,
+        pos (N,), neg (N,)); cls_target is -1 for ignored anchors. Ties take
+        the lowest index, as ``jnp.argmax`` does; where two gts force-match
+        the same anchor, the later gt wins.
+    """
+    n = anchors.shape[0]
+    iou = torch.where(gt_mask[None, :], _bev_iou(anchors, gt_boxes), -1.0)
+    best_gt = iou.argmax(dim=1)
+    best_iou = iou.amax(dim=1)
+
+    pos = best_iou >= pos_iou
+    # force-match: every valid gt that overlaps something gets its best
+    # anchor (a padded or non-overlapping gt would land on anchor 0)
+    can_force = gt_mask & (iou.amax(dim=0) > 0)
+    best_anchor = torch.where(can_force, iou.argmax(dim=0), n)
+    force = torch.zeros(n + 1, dtype=torch.bool, device=anchors.device)
+    force[best_anchor] = True
+    gt_ids = torch.arange(gt_boxes.shape[0], device=anchors.device)
+    forced_gt = torch.zeros(n + 1, dtype=torch.int64,
+                            device=anchors.device).scatter_reduce(
+                                0, best_anchor, gt_ids, "amax")
+    force, forced_gt = force[:n], forced_gt[:n]
+    best_gt = torch.where(force & ~pos, forced_gt, best_gt)
+    pos = pos | force
+    neg = (best_iou < neg_iou) & ~pos
+
+    matched = gt_boxes[best_gt]
+    dir_target = (torch.remainder(matched[..., 6] - anchors[..., 6],
+                                  2 * math.pi) > math.pi).to(torch.int32)
+    cls_target = torch.where(pos, gt_labels[best_gt], -1)
+    return dict(cls_target=cls_target,
+                reg_target=encode_boxes(anchors, matched),
+                dir_target=dir_target, pos=pos, neg=neg)
+
+
+def _focal_loss(logits, labels, pos, neg, num_classes, alpha=0.25,
+                gamma=2.0):
+    """Sigmoid focal loss over anchors; negatives train all classes to 0."""
+    onehot = F.one_hot(labels.clamp_min(0).long(), num_classes).float()
+    target = torch.where(pos[..., None], onehot, 0.0)
+    weight = (pos | neg)[..., None].float()
+    return _focal_terms(logits, target, weight, alpha, gamma)
+
+
+def _focal_terms(logits, target, weight, alpha=0.25, gamma=2.0):
+    p = torch.sigmoid(logits)
+    ce = -(target * F.logsigmoid(logits)
+           + (1 - target) * F.logsigmoid(-logits))
+    pt = torch.where(target == 1, p, 1 - p)
+    af = torch.where(target == 1, alpha, 1 - alpha)
+    return torch.sum(af * (1 - pt) ** gamma * ce * weight)
+
+
+def _smooth_l1(pred, target, beta=1.0 / 9):
+    d = (pred - target).abs()
+    return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta)
+
+
+def detection_loss(outputs, targets, cfg: PointPillarsConfig, anchors=None,
+                   riou_weight=0.0):
+    """Total loss = focal cls + 2 x smooth-L1 box + 0.2 x direction CE
+    (+ ``riou_weight`` x the rotated-IoU loss of the positive anchors, by
+    autograd through :func:`d3d_tpu_torch.ops.geometry_soa.rbox_iou`).
+    ``targets`` is either form :func:`prepare_targets` makes.
+
+    :returns: (total, dict(cls, reg, dir[, riou], total))
+    """
+    cls_logits, box_preds, dir_logits = outputs
+    dir_ce = -F.log_softmax(dir_logits, dim=-1)  # (B, N, 2)
+    reg = _smooth_l1(box_preds, targets["reg_target"])
+    if "cls_onehot" in targets:
+        posf = targets["posf"]
+        pos = posf > 0
+        npos = torch.clamp_min(posf.sum(), 1.0)
+        cls_loss = _focal_terms(cls_logits, targets["cls_onehot"],
+                                targets["weight"][..., None]) / npos
+        reg_loss = torch.sum(reg * posf[..., None]) / npos
+        dir_loss = torch.sum((dir_ce * targets["dir_onehot"]).sum(-1)
+                             * posf) / npos
+    else:
+        pos = targets["pos"]
+        npos = torch.clamp_min(pos.sum(), 1).float()
+        cls_loss = _focal_loss(cls_logits, targets["cls_target"], pos,
+                               targets["neg"], cfg.num_classes) / npos
+        reg_loss = torch.sum(reg * pos[..., None]) / npos
+        dir_loss = torch.sum(
+            torch.gather(dir_ce, -1,
+                         targets["dir_target"].long()[..., None])[..., 0]
+            * pos) / npos
+
+    total = cls_loss + 2.0 * reg_loss + 0.2 * dir_loss
+    aux = dict(cls=cls_loss, reg=reg_loss, dir=dir_loss)
+
+    if riou_weight > 0.0 and anchors is not None:
+        # non-positive anchors take their targets as predictions (zero loss,
+        # zero gradient) before the geometry, and the size residuals are
+        # clamped so exp() stays finite
+        safe_tgt = torch.clamp(targets["reg_target"], -4.0, 4.0)
+        safe_pred = torch.where(pos[..., None],
+                                torch.clamp(box_preds, -4.0, 4.0), safe_tgt)
+        dec = decode_boxes(anchors, safe_pred)
+        gt_dec = decode_boxes(anchors, safe_tgt)
+        bev_p = torch.cat([dec[..., 0:2], dec[..., 3:5], dec[..., 6:7]], -1)
+        bev_g = torch.cat([gt_dec[..., 0:2], gt_dec[..., 3:5],
+                           gt_dec[..., 6:7]], -1)
+        riou = rbox_iou(bev_p, bev_g)
+        riou_loss = torch.sum(torch.where(pos, 1.0 - riou, 0.0)) / npos
+        total = total + riou_weight * riou_loss
+        aux["riou"] = riou_loss
+    aux["total"] = total
+    return total, aux
+
+
+def prepare_targets(anchors, batch, pos_iou=None, neg_iou=None,
+                    num_classes=None, dense=False, cfg=None):
+    """Batched anchor-target assignment, apart from the train step (it
+    needs no parameters). Returns ``batch`` with a ``"targets"`` entry for
+    ``make_train_step(..., external_targets=True)``.
+
+    :param dense: the all-float32 form (cls_onehot / weight / posf /
+        dir_onehot) instead of the int/bool one (needs ``num_classes``)
+    :param cfg: PointPillarsConfig supplying pos_iou / neg_iou /
+        num_classes where they are not given
+    """
+    if cfg is not None:
+        pos_iou = cfg.pos_iou if pos_iou is None else pos_iou
+        neg_iou = cfg.neg_iou if neg_iou is None else neg_iou
+        num_classes = (cfg.num_classes if num_classes is None
+                       else num_classes)
+    if pos_iou is None or neg_iou is None:
+        raise ValueError(
+            "prepare_targets needs pos_iou/neg_iou: pass them or cfg=")
+    frames = [assign_targets(anchors, b, l, m, pos_iou, neg_iou)
+              for b, l, m in zip(batch["gt_boxes"], batch["gt_labels"],
+                                 batch["gt_mask"])]
+    targets = {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
+    if dense:
+        if num_classes is None:
+            raise ValueError("dense targets need num_classes")
+        pos = targets["pos"]
+        onehot = F.one_hot(targets["cls_target"].clamp_min(0).long(),
+                           num_classes).float()
+        targets = dict(
+            reg_target=targets["reg_target"],
+            cls_onehot=torch.where(pos[..., None], onehot, 0.0),
+            weight=(pos | targets["neg"]).float(),
+            posf=pos.float(),
+            dir_onehot=F.one_hot(targets["dir_target"].long(), 2).float())
+    return dict(batch, targets=targets)
+
+
+def make_train_step(model, optimizer, cfg: PointPillarsConfig, anchors,
+                    riou_weight=0.0, remat=False, external_targets=False):
+    """Build ``step(batch) -> aux``, one training step that updates
+    ``model`` (its parameters and BatchNorm running statistics) and
+    ``optimizer`` (e.g. from :func:`d3d_tpu_torch.train.make_optimizer`) in
+    place: forward with ``train=True``, :func:`detection_loss`, backward,
+    ``optimizer.step()``. After it each parameter's ``.grad`` holds this
+    step's gradient (before clipping). ``aux`` holds the loss terms as
+    detached 0-d tensors.
+
+    ``batch`` carries the model's stacked inputs (features/coords/valid)
+    and padded gt_boxes (B, M, 7), gt_labels (B, M), gt_mask (B, M); tensors
+    stay on their device, anything else goes to the model's.
+
+    :param external_targets: take ``batch["targets"]`` from
+        :func:`prepare_targets` instead of assigning anchors in the step
+    :param remat: the JAX step's rematerialisation; not ported (raises)
+    """
+    if remat:
+        raise NotImplementedError("remat (jax.checkpoint of the forward) is "
+                                  "not ported")
+    dev = next(model.parameters()).device
+    anchors = as_tensor(anchors, device=dev, dtype=torch.float32)
+
+    def train_step(batch):
+        batch = {k: (v if k == "targets" else as_tensor(v, device=dev))
+                 for k, v in batch.items()}
+        optimizer.zero_grad(set_to_none=True)
+        outputs = model(batch["features"], batch["coords"], batch["valid"],
+                        train=True)
+        if external_targets:
+            targets = {k: as_tensor(v, device=dev).detach()
+                       for k, v in batch["targets"].items()}
+        else:
+            with torch.no_grad():
+                targets = prepare_targets(anchors, batch, cfg=cfg)["targets"]
+        loss, aux = detection_loss(outputs, targets, cfg, anchors,
+                                   riou_weight)
+        loss.backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in aux.items()}
+
+    return train_step

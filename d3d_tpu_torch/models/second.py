@@ -1,20 +1,19 @@
-"""SECOND sparse voxel detector, inference half (port of
-``d3d_tpu.models.second``).
+"""SECOND sparse voxel detector (port of ``d3d_tpu.models.second``).
 
 Yan et al., "SECOND: Sparsely Embedded Convolutional Detection", Sensors
 2018: voxelize -> sparse 3D middle extractor -> collapse z -> 2D RPN with
 anchors. The middle extractor runs on the port's sparse-conv core
 (:mod:`d3d_tpu_torch.ops.sparse_conv`: dense-canvas neighbour maps, the
-gather-GEMM K5 on CUDA, sort-unique downsampling); the anchor head is
+gather-GEMM K5 on CUDA with K6 and K5 in its backward, sort-unique
+downsampling); the anchor head, target assignment, loss and train step are
 PointPillars', so anchors, decoding and the detector factory are shared.
 
 Parameters stay float32 and the compute runs in ``cfg.dtype``. Shapes are
 static: per-stage active-site caps, masked padding. The sparse stages run
-one frame at a time (serving sends one); the BEV head runs batched.
+the frames of a batch as one joined site list; the BEV head runs batched.
 
 Not ported yet: ``middle="dense"`` (``dense_stage_loop``) raises
-``NotImplementedError``; target assignment, the losses, training-mode
-BatchNorm statistics and the train step are absent.
+``NotImplementedError``.
 """
 
 from dataclasses import dataclass
@@ -31,9 +30,10 @@ from ..ops.sparse_conv import (build_neighbor_map, build_neighbor_map_strided,
 from ..ops.voxel import voxelize_dense_padded
 from ..utils import as_tensor, resolve_device
 from .pointpillars import PointPillarsConfig, _ConvBlock, _head
+from .pointpillars import make_train_step as _pp_make_train_step
 
 __all__ = ["SECONDConfig", "SECOND", "second_voxelize", "head_config",
-           "sparse_stage_loop"]
+           "sparse_stage_loop", "make_train_step"]
 
 _K = 27  # 3x3x3 kernel offsets
 
@@ -122,9 +122,13 @@ def second_voxelize(points, cfg: SECONDConfig):
 
 
 class _MaskedBN(nn.Module):
-    """BatchNorm over active sites, inference mode: the running statistics
-    (float32) normalise in the input dtype, in the JAX module's order of
-    casts, and padded rows come out 0."""
+    """BatchNorm over active sites (padded rows excluded from the
+    statistics). The statistics are float32; they normalise in the input
+    dtype, in the JAX module's order of casts, and padded rows come out 0.
+
+    With ``train`` the statistics are the batch's: a masked two-pass mean
+    and (biased) variance over every valid row, and the running statistics
+    move ``0.99 * old + 0.01 * batch``; otherwise the running statistics."""
 
     def __init__(self, channels):
         super().__init__()
@@ -133,10 +137,22 @@ class _MaskedBN(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x, valid):
+    def forward(self, x, valid, train=False):
+        if train:
+            xf = x.float()
+            w = valid[:, None].to(torch.float32)
+            n = torch.clamp_min(w.sum(), 1.0)
+            mean = (xf * w).sum(dim=0) / n
+            var = (((xf - mean) ** 2) * w).sum(dim=0) / n
+            with torch.no_grad():
+                self.running_mean.copy_(0.99 * self.running_mean
+                                        + 0.01 * mean)
+                self.running_var.copy_(0.99 * self.running_var + 0.01 * var)
+        else:
+            mean, var = self.running_mean, self.running_var
         dt = x.dtype
-        mul = (torch.rsqrt(self.running_var + 1e-3) * self.weight).to(dt)
-        y = (x - self.running_mean.to(dt)) * mul + self.bias.to(dt)
+        mul = (torch.rsqrt(var + 1e-3) * self.weight).to(dt)
+        y = (x - mean.to(dt)) * mul + self.bias.to(dt)
         return y * valid[..., None].to(dt)
 
 
@@ -151,10 +167,10 @@ class _SpConv(nn.Module):
         self.weight = nn.Parameter(torch.empty(_K, in_channels, channels))
         self.bn = _MaskedBN(channels)
 
-    def forward(self, x, nbr, valid):
+    def forward(self, x, nbr, valid, train=False):
         y = subm_conv_apply(x.to(self.dtype), nbr, self.weight, valid,
                             symmetric=self.symmetric)
-        return F.relu(self.bn(y, valid))
+        return F.relu(self.bn(y, valid, train))
 
 
 def _stage_maps(cfg, coords, valid):
@@ -179,27 +195,66 @@ def _stage_maps(cfg, coords, valid):
     return maps, (coords, valid, grid)
 
 
-def _run_stages(cfg, layers, x, maps):
-    """The sparse layers on :func:`_stage_maps`' maps, taken from ``layers``
-    by the JAX module's names ``subm{s}_{i}`` / ``down{s}``."""
+def _offset(nbr, base):
+    """A frame's neighbour map moved to its rows in the batch's list."""
+    return torch.where(nbr >= 0, nbr + base, nbr)
+
+
+def _batch_stage_maps(cfg, coords, valid):
+    """:func:`_stage_maps` of each frame of (B, V, 3) coords and (B, V)
+    valid, joined into the maps of ONE site list: frame b's rows of a stage
+    with R rows a frame are rows ``b*R ... b*R + R - 1``, and its neighbour
+    indices move by ``b`` times the rows of the stage they point into (-1
+    stays). Every layer then runs once on the whole batch, and a masked
+    BatchNorm reduces over the whole batch, as the JAX module's statistics
+    over (B, V) do. Returns the joined maps and the final stage's (coords
+    (B, R, 3), valid (B, R), grid)."""
+    frames = [_stage_maps(cfg, c, v) for c, v in zip(coords, valid)]
+    maps = []
+    for s in range(cfg.n_stages):
+        per = [f[0][s] for f in frames]
+        rows = per[0][0].shape[0]
+        nbr = torch.cat([_offset(p[0], b * rows) for b, p in enumerate(per)])
+        valid_s = torch.cat([p[1] for p in per])
+        if per[0][2] is None:
+            maps.append((nbr, valid_s, None, None))
+        else:
+            maps.append((nbr, valid_s,
+                         torch.cat([_offset(p[2], b * rows)
+                                    for b, p in enumerate(per)]),
+                         torch.cat([p[3] for p in per])))
+    final_coords = torch.stack([f[1][0] for f in frames])
+    final_valid = torch.stack([f[1][1] for f in frames])
+    return maps, (final_coords, final_valid, frames[0][1][2])
+
+
+def _run_stages(cfg, layers, x, maps, train=False):
+    """The sparse layers on :func:`_batch_stage_maps`' maps, taken from
+    ``layers`` by the JAX module's names ``subm{s}_{i}`` / ``down{s}``."""
     for s, (nbr, valid, nbr_s, valid_s) in enumerate(maps):
         for i in range(cfg.subm_per_stage):
-            x = layers[f"subm{s}_{i}"](x, nbr, valid)
+            x = layers[f"subm{s}_{i}"](x, nbr, valid, train)
         if nbr_s is not None:
-            x = layers[f"down{s}"](x, nbr_s, valid_s)
+            x = layers[f"down{s}"](x, nbr_s, valid_s, train)
     return x
 
 
-def sparse_stage_loop(cfg, layers, x, coords, valid):
-    """The sparse-backbone stage loop of one frame (SECOND, later
-    VoxelNeXt): submanifold convs on the active set, a strided downsample
-    between stages.
+def sparse_stage_loop(cfg, layers, x, coords, valid, train=False):
+    """The sparse-backbone stage loop (SECOND, later VoxelNeXt): submanifold
+    convs on the active set, a strided downsample between stages. The B
+    frames run as one joined site list (:func:`_batch_stage_maps`): one K5
+    launch a layer for the batch.
 
-    :param x: (V, C) site features; ``coords`` (V, 3) int32; ``valid`` (V,)
-    :returns: (features, coords, valid, final_grid)
+    :param x: (B, V, C) site features; ``coords`` (B, V, 3) int32;
+        ``valid`` (B, V)
+    :param train: BatchNorm with batch statistics (see :class:`_MaskedBN`)
+    :returns: (features (B, R, C'), coords (B, R, 3), valid (B, R),
+        final_grid) of the final stage's R sites a frame
     """
-    maps, final = _stage_maps(cfg, coords, valid)
-    return (_run_stages(cfg, layers, x, maps),) + final
+    b, v = valid.shape
+    maps, (oc, ov, grid) = _batch_stage_maps(cfg, coords, valid)
+    y = _run_stages(cfg, layers, x.reshape(b * v, -1), maps, train)
+    return y.reshape(b, -1, y.shape[-1]), oc, ov, grid
 
 
 class SECOND(nn.Module):
@@ -267,25 +322,41 @@ class SECOND(nn.Module):
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
 
-    def forward(self, features, coords, valid):
+    def forward(self, features, coords, valid, train=False):
         """:param features: (B, V, 4) voxel means
         :param coords: (B, V, 3) int32
         :param valid: (B, V) bool
+        :param train: BatchNorm with batch statistics, updating the running
+            ones (the flag, not ``nn.Module.training``, selects this, as
+            the JAX module's ``train`` argument does)
         """
-        dense = []
-        for f, c, v in zip(features, coords, valid):
-            x, oc, ov, fg = sparse_stage_loop(self.cfg, self.middle, f, c, v)
-            dense.append(sparse_to_dense(x, oc, ov, fg))  # (X, Y, Z, C)
-        return self.bev_head(torch.stack(dense))
+        x, oc, ov, fg = sparse_stage_loop(self.cfg, self.middle, features,
+                                          coords, valid, train)
+        dense = [sparse_to_dense(xi, ci, vi, fg)  # (X, Y, Z, C) a frame
+                 for xi, ci, vi in zip(x, oc, ov)]
+        return self.bev_head(torch.stack(dense), train)
 
-    def bev_head(self, dense):
+    def bev_head(self, dense, train=False):
         """(B, X, Y, Z, C) final-stage canvas -> the three head outputs."""
         cfg = self.cfg
         b, nx, ny = dense.shape[:3]
         dt = getattr(torch, cfg.dtype)
         # fold z into channels z-major, as the JAX module's reshape does,
         # then NCHW with x along the first spatial axis
-        bev = self.head_block(dense.reshape(b, nx, ny, -1).permute(0, 3, 1, 2))
+        bev = self.head_block(
+            dense.reshape(b, nx, ny, -1).permute(0, 3, 1, 2), train)
         return (_head(bev, self.head_cls, cfg.num_classes, dt),
                 _head(bev, self.head_box, 7, dt),
                 _head(bev, self.head_dir, 2, dt))
+
+
+def make_train_step(model, optimizer, cfg: SECONDConfig, anchors,
+                    riou_weight=0.0, remat=False, external_targets=False):
+    """:func:`d3d_tpu_torch.models.pointpillars.make_train_step` with the
+    head config (:func:`head_config`) carrying the anchor and loss
+    settings; ``batch`` carries features/coords/valid from
+    :func:`second_voxelize` (stacked) plus padded
+    gt_boxes/gt_labels/gt_mask."""
+    return _pp_make_train_step(model, optimizer, head_config(cfg), anchors,
+                               riou_weight=riou_weight, remat=remat,
+                               external_targets=external_targets)

@@ -45,6 +45,9 @@ _LIBRARIES = {
     "subm_conv": ("subm_conv.cu", [],
                   {"d3d_subm_conv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _I, _P]}),
+    "subm_conv_dw": ("subm_conv_dw.cu", [],
+                     {"d3d_subm_conv_dw": [_P, _P, _P, _P, _P, _I, _I, _I,
+                                           _I, _I, _I, _I, _P]}),
 }
 
 _lock = threading.Lock()

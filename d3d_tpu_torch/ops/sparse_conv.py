@@ -12,7 +12,8 @@ one gather.
 The convolution itself, ``out[n] = valid[n] * sum_k W[k]^T feat[nbr[n, k]]``,
 runs as the CUDA kernel K5 (:mod:`d3d_tpu_torch.ops.sparse_conv_cuda`) on
 CUDA tensors, for submanifold and strided maps alike, and as its plain
-version on CPU tensors.
+version on CPU tensors; its weight gradient runs as K6, its features'
+gradient as K5 again on submanifold maps.
 
 Ported: the dense-canvas neighbour maps up to ``_DENSE_CANVAS_MAX_CELLS``
 (2^26 cells, a 268 MB int32 transient). Larger grids raise
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from ..utils import as_tensor
-from .sparse_conv_cuda import subm_conv
+from .sparse_conv_cuda import SubmConv
 
 __all__ = ["kernel_offsets", "linearize", "build_neighbor_map",
            "build_neighbor_map_strided", "subm_conv_apply",
@@ -117,7 +118,10 @@ def subm_conv_apply(features, nbr, weights, valid, symmetric=False):
     The weights are cast to the features' dtype, the sum accumulates in
     float32 and the output comes back in the features' dtype. A CUDA
     tensor launches K5 (submanifold and strided maps alike; Nq may differ
-    from N); a CPU tensor runs K5's plain version.
+    from N); a CPU tensor runs K5's plain version. Gradients flow through
+    :class:`~d3d_tpu_torch.ops.sparse_conv_cuda.SubmConv`, the JAX module's
+    custom VJP: the weights' through K6, the features' through K5 again
+    (``symmetric``) or a scatter-add.
 
     :param features: (N, C) active-site features (padded rows zero); a
         tensor stays on its device, anything else goes to CUDA, and the
@@ -125,16 +129,15 @@ def subm_conv_apply(features, nbr, weights, valid, symmetric=False):
     :param nbr: (Nq, K) int32 neighbour map
     :param weights: (K, C, C') kernel
     :param valid: (Nq,) bool output-site mask
-    :param symmetric: True when ``nbr`` is a submanifold map; the forward
-        does not read it (the backward of the JAX module routes the
-        features' gradient through the same kernel when it is set)
+    :param symmetric: True when ``nbr`` is a submanifold map (Nq == N, the
+        query sites are the input sites): the features' gradient then runs
+        through K5 with mirrored offsets instead of a scatter-add
     :returns: (Nq, C') features
     """
-    del symmetric
     features = as_tensor(features)
     nbr, weights, valid = (as_tensor(t, device=features.device)
                            for t in (nbr, weights, valid))
-    return subm_conv(features, nbr, weights.to(features.dtype), valid)
+    return SubmConv.apply(features, nbr, weights, valid, symmetric)
 
 
 def downsample_coords(coords, valid, grid, stride=2, max_out=None):

@@ -1,32 +1,82 @@
-"""The sparse-conv gather-GEMM through the CUDA kernel K5
-(``csrc/subm_conv.cu``), the port of the forward of
-``d3d_tpu.ops.sparse_conv_pallas.subm_conv_fused``.
+"""The sparse-conv gather-GEMM and its gradient through the CUDA kernels K5
+(``csrc/subm_conv.cu``) and K6 (``csrc/subm_conv_dw.cu``), the port of
+``d3d_tpu.ops.sparse_conv_pallas.subm_conv_fused`` and its custom VJP.
 
-``subm_conv(features, nbr, weights, valid)`` computes
+``subm_conv(features, nbr, weights, valid)`` (K5) computes
 ``out[n] = valid[n] * sum_k weights[k]^T features[nbr[n, k]]``, absent
 (-1) neighbours contributing 0, accumulated in float32 and returned in the
 features' dtype. Features and weights are float32 or bfloat16 (the same
-dtype); the kernel converts bfloat16 to float32 in registers. A CPU tensor
-goes to the plain version (:func:`_subm_conv_plain`); a CUDA tensor goes to
-the kernel or the call raises.
+dtype); the kernel converts bfloat16 to float32 in registers.
+
+``subm_conv_dw(features, nbr, grad)`` (K6) computes the weight gradient
+``dW[k] = sum_n features[nbr[n, k]] (x) grad[n]`` in float32 from float32 or
+bfloat16 features and a float32 cotangent.
+
+:class:`SubmConv` ties them together for autograd, as ``_fused_fwd`` /
+``_fused_bwd`` do in the JAX module: the forward is K5, the weight gradient
+K6, and the features' gradient K5 again with mirrored offsets on a
+submanifold map, or a scatter-add on a strided one.
+
+A CPU tensor goes to the plain versions (:func:`_subm_conv_plain`,
+:func:`_subm_conv_dw_plain`), which also take float64 so that
+``torch.autograd.gradcheck`` can check the gradient; a CUDA tensor goes to
+the kernels or the call raises.
 """
 
 import torch
 
 from ._build import load_library
 
-__all__ = ["subm_conv"]
+__all__ = ["subm_conv", "subm_conv_dw", "SubmConv"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_CPU_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+# query rows per K6 block: fixes how its sums are grouped, so a shape always
+# gives the same bits
+_DW_SLAB = 512
+
+
+def _acc_dtype(*dtypes):
+    """float32, or float64 where an operand is float64."""
+    acc = torch.float32
+    for dt in dtypes:
+        acc = torch.promote_types(acc, dt)
+    return acc
+
+
+def _gather(features, nbr):
+    """(Nq, K, C) rows ``features[nbr]``, absent rows 0."""
+    gathered = features[nbr.clamp(min=0).long()]
+    return torch.where((nbr >= 0)[..., None], gathered, 0)
 
 
 def _subm_conv_plain(features, nbr, weights, valid):
     """Gather ``features[nbr.clamp(min=0)]``, zero the absent rows, one
     float32 einsum over (offset, channel), mask by ``valid``."""
-    gathered = features[nbr.clamp(min=0).long()]              # (Nq, K, C)
-    gathered = torch.where((nbr >= 0)[..., None], gathered, 0)
-    out = torch.einsum("nkc,kcd->nd", gathered.float(), weights.float())
+    acc = _acc_dtype(features.dtype)
+    out = torch.einsum("nkc,kcd->nd", _gather(features, nbr).to(acc),
+                       weights.to(acc))
     return (out * valid[:, None]).to(features.dtype)
+
+
+def _subm_conv_dw_plain(features, nbr, grad):
+    """Gather, zero the absent rows, one float32 einsum over the query rows:
+    (K, C, Cout)."""
+    acc = _acc_dtype(features.dtype, grad.dtype)
+    return torch.einsum("nkc,nd->kcd", _gather(features, nbr).to(acc),
+                        grad.to(acc))
+
+
+def _check_device(name, tensors, dtype):
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {devs}")
+    dev = tensors[0].device
+    allowed = _CPU_DTYPES if dev.type == "cpu" else tuple(_DTYPES)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {name} kernel for device {dev}")
+    if dtype not in allowed:
+        raise ValueError(f"{name} on {dev.type} takes {allowed}, got {dtype}")
 
 
 def _check(features, nbr, weights, valid):
@@ -39,16 +89,12 @@ def _check(features, nbr, weights, valid):
         raise ValueError(f"weights {tuple(weights.shape)} or valid "
                          f"{tuple(valid.shape)} do not match features "
                          f"{tuple(features.shape)} and nbr {tuple(nbr.shape)}")
-    if features.dtype not in _DTYPES or weights.dtype != features.dtype:
-        raise ValueError(f"features and weights must share float32 or "
-                         f"bfloat16, got {features.dtype} and {weights.dtype}")
+    if weights.dtype != features.dtype:
+        raise ValueError(f"features and weights must share a dtype, got "
+                         f"{features.dtype} and {weights.dtype}")
     if nbr.dtype != torch.int32 or valid.dtype != torch.bool:
         raise ValueError("nbr must be int32 and valid bool")
-    devs = {t.device for t in (features, nbr, weights, valid)}
-    if len(devs) != 1:
-        raise ValueError(f"operands on several devices: {devs}")
-    if features.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no K5 kernel for device {features.device}")
+    _check_device("K5", (features, nbr, weights, valid), features.dtype)
 
 
 def _launch(features, nbr, weights, valid):
@@ -90,3 +136,121 @@ def subm_conv(features, nbr, weights, valid):
 
 
 subm_conv.launches = 0
+
+
+def _check_dw(features, nbr, grad):
+    if features.ndim != 2 or nbr.ndim != 2 or grad.ndim != 2:
+        raise ValueError(f"expected (N, C) features, (Nq, K) nbr and "
+                         f"(Nq, Cout) grad, got {tuple(features.shape)}, "
+                         f"{tuple(nbr.shape)}, {tuple(grad.shape)}")
+    if grad.shape[0] != nbr.shape[0]:
+        raise ValueError(f"grad {tuple(grad.shape)} does not match nbr "
+                         f"{tuple(nbr.shape)}")
+    if nbr.dtype != torch.int32:
+        raise ValueError("nbr must be int32")
+    _check_device("K6", (features, nbr, grad), features.dtype)
+    if features.device.type == "cuda" and grad.dtype != torch.float32:
+        raise ValueError(f"K6 takes a float32 cotangent, got {grad.dtype}")
+
+
+def _dw_launch(features, nbr, grad):
+    """K6 on CUDA tensors with Nq > 0 -> (K, C, Cout) float32."""
+    features = features.contiguous()
+    nbr = nbr.contiguous()
+    grad = grad.contiguous()
+    n, c = features.shape
+    nq, k = nbr.shape
+    cout = grad.shape[1]
+    slabs = -(-nq // _DW_SLAB)
+    part = torch.empty((k, slabs, c, cout), dtype=torch.float32,
+                       device=features.device)
+    out = torch.empty((k, c, cout), dtype=torch.float32,
+                      device=features.device)
+    err = load_library("subm_conv_dw").d3d_subm_conv_dw(
+        features.data_ptr(), nbr.data_ptr(), grad.data_ptr(),
+        part.data_ptr(), out.data_ptr(), n, nq, k, c, cout, _DW_SLAB,
+        _DTYPES[features.dtype],
+        torch.cuda.current_stream(features.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"subm_conv_dw kernel launch failed: CUDA error "
+                           f"{err}")
+    return out
+
+
+def subm_conv_dw(features, nbr, grad):
+    """(N, C) features (float32 or bfloat16), (Nq, K) int32 nbr, (Nq, Cout)
+    float32 cotangent (already masked by the output sites' validity) ->
+    (K, C, Cout) float32 weight gradient (K6; launches counted in
+    ``subm_conv_dw.launches``). Runs sum in an order fixed by the shapes,
+    so a repeated call gives the same bits."""
+    _check_dw(features, nbr, grad)
+    if features.device.type == "cpu":
+        return _subm_conv_dw_plain(features, nbr, grad)
+    k, c, cout = nbr.shape[1], features.shape[1], grad.shape[1]
+    if nbr.shape[0] == 0 or k * c * cout == 0:  # nothing to launch
+        return torch.zeros((k, c, cout), dtype=torch.float32,
+                           device=features.device)
+    out = _dw_launch(features, nbr, grad)
+    subm_conv_dw.launches += 1
+    return out
+
+
+subm_conv_dw.launches = 0
+
+
+def _scatter_dfeat(gm, nbr, weights, n):
+    """d/dfeatures of a general (strided) map: every query row's
+    ``weights[k] @ gm[row]`` added into input row ``nbr[row, k]``, as the JAX
+    module's XLA scatter-add does (``index_add_``)."""
+    c = weights.shape[1]
+    contrib = torch.einsum("nd,kcd->nkc", gm, weights.to(gm.dtype))
+    contrib = torch.where((nbr >= 0)[..., None], contrib, 0)
+    rows = torch.where(nbr >= 0, nbr, n).long().reshape(-1)
+    dfeat = gm.new_zeros((n + 1, c))
+    dfeat.index_add_(0, rows, contrib.reshape(-1, c))
+    return dfeat[:-1]
+
+
+class SubmConv(torch.autograd.Function):
+    """``subm_conv`` with the JAX module's custom VJP
+    (``sparse_conv_pallas._fused_bwd``).
+
+    ``apply(features, nbr, weights, valid, symmetric)``: the weights (any
+    float dtype, e.g. the float32 parameter) are cast to the features' dtype
+    for the forward K5 launch. The backward upcasts the cotangent to float32
+    (autograd hands a bfloat16 one to a bfloat16 forward) and masks it by
+    ``valid``; the weight gradient is K6, returned in the weights' dtype; the
+    features' gradient, skipped when the features need none, is K5 on the
+    masked cotangent with the weights mirrored and transposed
+    (``weights.flip(0).transpose(1, 2)`` in float32) where ``symmetric`` says
+    the map is a submanifold one (the offsets are centrosymmetric, so
+    ``nbr[i, k] == j`` iff ``nbr[j, K-1-k] == i``), and a scatter-add
+    otherwise; it comes back in the features' dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, features, nbr, weights, valid, symmetric):
+        if symmetric and nbr.shape[0] != features.shape[0]:
+            raise ValueError(f"a symmetric (submanifold) map has a row per "
+                             f"site: nbr {tuple(nbr.shape)}, features "
+                             f"{tuple(features.shape)}")
+        ctx.save_for_backward(features, nbr, weights, valid)
+        ctx.symmetric = symmetric
+        return subm_conv(features, nbr, weights.to(features.dtype), valid)
+
+    @staticmethod
+    def backward(ctx, grad):
+        features, nbr, weights, valid = ctx.saved_tensors
+        acc = _acc_dtype(grad.dtype)
+        gm = grad.to(acc) * valid[:, None]
+        dw = dfeat = None
+        if ctx.needs_input_grad[2]:
+            dw = subm_conv_dw(features, nbr, gm).to(weights.dtype)
+        if ctx.needs_input_grad[0]:
+            w = weights.to(acc)
+            if ctx.symmetric:
+                dfeat = subm_conv(gm, nbr, w.flip(0).transpose(1, 2), valid)
+            else:
+                dfeat = _scatter_dfeat(gm, nbr, w, features.shape[0])
+            dfeat = dfeat.to(features.dtype)
+        return dfeat, None, dw, None, None

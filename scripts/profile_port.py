@@ -5,13 +5,15 @@ Run from the root of a checkout, on a machine with CUDA and nvcc::
     python3 scripts/profile_port.py
 
 For bench.py's north-star frame (``voxelize_mean_fm`` + ``nms2d`` of 512
-boxes) and for one serving request of PointPillars
+boxes), for one serving request of PointPillars
 (``make_pointpillars_detector`` on ``presets.pointpillars_kitti``) and of
-SECOND (``make_second_detector`` on ``presets.second_kitti``), at full
-width with seeded random weights as in chip_smoke.py, it prints the device
-time of each stage (CUDA events, median of 20), the top kernels by device
-time over 5 runs of each path (torch.profiler), and the share of those
-runs' wall clock in which a kernel ran. Imports no JAX.
+SECOND (``make_second_detector`` on ``presets.second_kitti``), and for one
+SECOND train step (``make_train_step`` on ``presets.second_kitti``, batch
+2), at full width with seeded random weights as in chip_smoke.py, it
+prints the device time of each serving stage (CUDA events, median of 20;
+chip_smoke.py prints the train step's), the top kernels by device time
+over 5 runs of each path (torch.profiler), and the share of those runs'
+wall clock in which a kernel ran. Imports no JAX.
 """
 
 import statistics
@@ -31,8 +33,8 @@ import chip_smoke as smoke  # noqa: E402
 from d3d_tpu_torch.models import (SECOND, PointPillars,  # noqa: E402
                                   decode_boxes, head_config, make_anchors,
                                   make_pointpillars_detector,
-                                  make_second_detector, pillarize, presets,
-                                  second_voxelize)
+                                  make_second_detector, make_train_step,
+                                  pillarize, presets, second_voxelize)
 from d3d_tpu_torch.models.inference import _bev  # noqa: E402
 from d3d_tpu_torch.models.second import _run_stages, _stage_maps  # noqa: E402
 from d3d_tpu_torch.ops import geometry_cuda, nms_cuda  # noqa: E402
@@ -40,6 +42,7 @@ from d3d_tpu_torch.ops._build import build  # noqa: E402
 from d3d_tpu_torch.ops.nms import nms2d  # noqa: E402
 from d3d_tpu_torch.ops.sparse_conv import sparse_to_dense  # noqa: E402
 from d3d_tpu_torch.ops.voxel import voxelize_mean_fm  # noqa: E402
+from d3d_tpu_torch.train import make_optimizer  # noqa: E402
 
 
 def stage_times(stages, reps=20):
@@ -67,7 +70,8 @@ def profile_path(name, fn, runs=5):
           f"({100 * busy_us / wall_us:.1f}% of the wall clock)")
     for e in averages:
         for k in ("rbox_iou_tile_kernel", "pack_overlap_kernel",
-                  "scan_kernel", "subm_conv_kernel", "soft_nms_kernel"):
+                  "scan_kernel", "subm_conv_kernel", "soft_nms_kernel",
+                  "subm_conv_dw_partial", "subm_conv_dw_reduce"):
             if e.device_type == DeviceType.CUDA and (k + "(" in e.key
                                                      or k + "<" in e.key):
                 print(f"  port kernel {k}: "
@@ -216,8 +220,21 @@ def main():
         ])
         profile_path(f"SECOND serving {dtype}",
                      lambda: detect.device_fn(points))
-    return 0
 
+    # --- SECOND training ----------------------------------------------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = smoke.train_batch(dev, seeded.cfg, [smoke.bench_points(
+        np.random.default_rng(300 + i)) for i in range(2)])
+    for dtype in ("float32", "bfloat16"):
+        cfg = presets.second_kitti(dtype=dtype)
+        model = smoke.train_model(cfg, seeded.state_dict(), dev)
+        opt, _ = make_optimizer(model.parameters(), smoke.TRAIN_STEPS)
+        step = make_train_step(model, opt, cfg,
+                               make_anchors(head_config(cfg), device=dev),
+                               riou_weight=smoke.RIOU_WEIGHT)
+        profile_path(f"SECOND training {dtype} (TF32 off)",
+                     lambda: step(batch))
+    return 0
 
 
 if __name__ == "__main__":

@@ -173,3 +173,40 @@ def test_new_wrappers_on_cpu_tensors_take_the_plain_version():
     assert (nms_cuda.soft_nms_scan.launches,
             sparse_conv_cuda.subm_conv.launches,
             geometry_cuda.rbox_iou_matrix.launches) == counts
+
+
+def test_training_runs_on_the_cpu_only_when_asked():
+    """The SECOND train step runs where its model lives: a model made
+    without a device needs CUDA; one made with ``device="cpu"`` trains
+    there on numpy batches (they follow the model), through the plain
+    versions of K5 and K6, which count no launch."""
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour without CUDA")
+    from d3d_tpu_torch.models import make_train_step, second_voxelize
+    from d3d_tpu_torch.train import make_optimizer
+
+    cfg = _tiny_second()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_anchors(head_config(cfg))
+    rng = np.random.default_rng(0)
+    frames = [second_voxelize(torch.from_numpy(
+        (rng.uniform(-3, 3, (300, 4)) + [3.2, 0, 1, 3]).astype(np.float32)),
+        cfg) for _ in range(2)]
+    batch = {k: torch.stack([f[i] for f in frames]).numpy()
+             for i, k in enumerate(("features", "coords", "valid"))}
+    batch.update(gt_boxes=np.array([[[3.0, 0.0, -1.0, 3.9, 1.6, 1.56, 0.3]]]
+                                   * 2, np.float32),
+                 gt_labels=np.zeros((2, 1), np.int32),
+                 gt_mask=np.ones((2, 1), bool))
+    model = SECOND(cfg, device="cpu")
+    opt, _ = make_optimizer(model.parameters(), 3)
+    step = make_train_step(model, opt, cfg,
+                           make_anchors(head_config(cfg), device="cpu"))
+    counts = (sparse_conv_cuda.subm_conv.launches,
+              sparse_conv_cuda.subm_conv_dw.launches)
+    aux = step(batch)
+    assert np.isfinite(float(aux["total"]))
+    assert all(p.grad is not None and p.grad.device.type == "cpu"
+               for p in model.parameters())
+    assert (sparse_conv_cuda.subm_conv.launches,
+            sparse_conv_cuda.subm_conv_dw.launches) == counts

@@ -202,3 +202,54 @@ def test_presets_match(name):
     got = dataclasses.asdict(getattr(t_presets, name)())
     assert got == want
     assert getattr(t_presets, name)(dtype="float32").dtype == "float32"
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 0.016)])
+def test_conv_block_training_batchnorm_matches(dtype, tol):
+    """The BEV block in training mode against the flax one: flax's
+    BatchNorm (momentum 0.99, use_fast_variance: var = E[x^2] - E[x]^2
+    clamped at 0) normalises by the biased batch variance and moves the
+    running variance by 0.01 of it (torch's F.batch_norm would move it by
+    0.1 of the unbiased one). Outputs: f32 atol 1e-5 (8e-7 seen); bf16 one
+    bf16 ulp at their magnitude ~3, 0.016 (equal seen). Running statistics,
+    float32 in both dtypes: rtol/atol 1e-5 (2e-10 seen)."""
+    from d3d_tpu.models.pointpillars import _ConvBlock
+    from d3d_tpu_torch.models.pointpillars import _ConvBlock as TBlock
+
+    rng = np.random.default_rng(4)
+    x = rng.normal(1.0, 2.0, (2, 9, 8, 5)).astype(np.float32)  # NHWC
+    block = _ConvBlock(6, 2, 2, dtype)
+    variables = block.init(jax.random.PRNGKey(0), jnp.asarray(x), False)
+    variables = _randomize(jax.tree.map(np.asarray, variables), rng)
+    want, upd = block.apply(variables, jnp.asarray(x), True,
+                            mutable=["batch_stats"])
+    tblock = TBlock(5, 6, 2, 2, dtype)
+    sd = {}
+    for j in range(2):
+        sd[f"convs.{j}.weight"] = np.asarray(
+            variables["params"][f"Conv_{j}"]["kernel"]).transpose(3, 2, 0, 1)
+        for k, n in (("scale", "weight"), ("bias", "bias")):
+            sd[f"bns.{j}.{n}"] = variables["params"][f"BatchNorm_{j}"][k]
+        for k, n in (("mean", "running_mean"), ("var", "running_var")):
+            sd[f"bns.{j}.{n}"] = variables["batch_stats"][f"BatchNorm_{j}"][k]
+        sd[f"bns.{j}.num_batches_tracked"] = np.zeros((), np.int64)
+    tblock.load_state_dict({k: torch.as_tensor(np.array(v))
+                            for k, v in sd.items()})
+    got = tblock(torch.from_numpy(x).permute(0, 3, 1, 2), train=True)
+    np.testing.assert_allclose(
+        got.detach().float().permute(0, 2, 3, 1).numpy(),
+        np.asarray(want.astype(jnp.float32)), rtol=0, atol=tol)
+    for j in range(2):
+        for k, n in (("mean", "running_mean"), ("var", "running_var")):
+            np.testing.assert_allclose(
+                getattr(tblock.bns[j], n).numpy(),
+                np.asarray(upd["batch_stats"][f"BatchNorm_{j}"][k]),
+                rtol=1e-5, atol=1e-5)
+
+
+def test_pointpillars_training_is_not_ported(pair):
+    _, _, tmodel, pts = pair
+    tf, tc, tv = t_pillarize(torch.from_numpy(pts), tmodel.cfg)
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        tmodel(tf[None], tc[None], tv[None], train=True)

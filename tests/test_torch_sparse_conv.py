@@ -1,11 +1,13 @@
 """The port's sparse-conv core against the JAX package: neighbour maps,
 ``downsample_coords`` and ``sparse_to_dense`` exactly, and the plain
-version of kernel K5 against the XLA ``subm_conv_apply`` and the Pallas
-``subm_conv_fused`` (interpret mode) on the same numpy-seeded inputs."""
+versions of kernels K5 and K6, forward and gradients, against the XLA
+``subm_conv_apply`` and the Pallas ``subm_conv_fused`` (interpret mode) on
+the same numpy-seeded inputs."""
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -183,3 +185,153 @@ def test_conv_plain_matches_bf16(rng, kind, c_in, c_out):
     got = got.float().numpy()
     np.testing.assert_allclose(got, want, rtol=2.0 ** -7,
                                atol=1e-3 * np.abs(want).max())
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _port_grads(feats, nbr, w, valid, cot, symmetric, dtype=torch.float32):
+    """dfeat, dW of sum(subm_conv_apply(...) * cot) through the port's
+    autograd (the plain versions on the CPU)."""
+    tf, tn, tw, tv, tc = _t(feats, nbr, w, valid, cot)
+    tf = tf.to(dtype).requires_grad_()
+    tw.requires_grad_()
+    out = TS.subm_conv_apply(tf, tn, tw, tv, symmetric=symmetric)
+    assert out.grad_fn is not None and "SubmConv" in type(out.grad_fn).__name__
+    (out.float() * tc).sum().backward()
+    return tf.grad, tw.grad
+
+
+@pytest.mark.parametrize("kind,c_in,c_out", [
+    ("subm", 4, 16), ("subm", 16, 8), ("strided", 16, 32),
+    ("strided_nq_lt_n", 32, 8)])
+def test_conv_grads_match(rng, kind, c_in, c_out):
+    """The port's gradients (K6's plain version for dW; K5's with mirrored
+    weights for a submanifold map's dfeat, the scatter-add for a strided
+    one) against jax.grad of the XLA subm_conv_apply and of the Pallas
+    subm_conv_fused in interpret mode (its _dw_call and _fwd_call bodies;
+    Nq < N padded to N for it, as the JAX module does). Sums in other
+    orders: rtol/atol 1e-5, as tests/test_sparse_conv_pallas.py states."""
+    feats, nbr, w, valid = _conv_problem(rng, kind, c_in, c_out)
+    nq, n = nbr.shape[0], feats.shape[0]
+    cot = rng.normal(size=(nq, c_out)).astype(np.float32)
+    symmetric = kind == "subm"
+    jn, jv, jc = jnp.asarray(nbr), jnp.asarray(valid), jnp.asarray(cot)
+    want = jax.grad(lambda f, ww: jnp.sum(S.subm_conv_apply(
+        f, jn, ww, jv) * jc), argnums=(0, 1))(jnp.asarray(feats),
+                                              jnp.asarray(w))
+    pad = n - nq
+    nbr_full = jnp.asarray(np.concatenate([nbr, np.full((pad, 27), -1,
+                                                         np.int32)]))
+    valid_full = jnp.asarray(np.concatenate([valid, np.zeros(pad, bool)]))
+    fused = jax.grad(lambda f, ww: jnp.sum(subm_conv_fused(
+        f, nbr_full, ww, valid_full, symmetric, True)[:nq] * jc),
+        argnums=(0, 1))(jnp.asarray(feats), jnp.asarray(w))
+    launches = (TK.subm_conv.launches, TK.subm_conv_dw.launches)
+    got = _port_grads(feats, nbr, w, valid, cot, symmetric)
+    assert (TK.subm_conv.launches, TK.subm_conv_dw.launches) == launches
+    for g, wa, fu in zip(got, want, fused):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wa), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(g.numpy(), np.asarray(fu), rtol=1e-5,
+                                   atol=1e-5)
+    assert (got[0].numpy()[~np.isin(np.arange(n), nbr)] == 0).all()
+
+
+def test_dw_plain_matches_the_pallas_dw_call(rng):
+    """K6's plain version against the Pallas kernel body of _dw_call run in
+    the interpreter, on the same transposed operands: rtol/atol 1e-5."""
+    from d3d_tpu.ops.sparse_conv_pallas import _dw_call
+
+    feats, nbr, _, valid = _conv_problem(rng, "subm", 16, 8)
+    g = (rng.normal(size=(nbr.shape[0], 8)) * valid[:, None]).astype(
+        np.float32)
+    want = np.asarray(_dw_call(jnp.asarray(feats.T), jnp.asarray(nbr.T),
+                               jnp.asarray(g.T), True))
+    got = TK.subm_conv_dw(*_t(feats, nbr, g))
+    assert got.shape == (27, 16, 8) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_conv_grads_bf16_features(rng):
+    """bf16 features (the layer's compute dtype), f32 weights: autograd hands
+    the backward a bf16 cotangent, which it upcasts, as _fused_bwd does;
+    dW comes back f32 from the f32-converted features (rtol/atol 1e-5
+    against the Pallas route in interpret mode), dfeat in bf16 (the two
+    f32 sums may round to neighbouring bf16 values: one bf16 ulp, 2^-7
+    relative, plus 1e-3 of the largest value)."""
+    feats, nbr, w, valid = _conv_problem(rng, "subm", 8, 8)
+    cot = rng.normal(size=(nbr.shape[0], 8)).astype(np.float32)
+    fb = jnp.asarray(feats, jnp.bfloat16)
+    jc = jnp.asarray(cot)
+    want = jax.grad(lambda f, ww: jnp.sum(subm_conv_fused(
+        f, jnp.asarray(nbr), ww, jnp.asarray(valid), True, True).astype(
+            jnp.float32) * jc), argnums=(0, 1))(fb, jnp.asarray(w))
+    dfeat, dw = _port_grads(feats, nbr, w, valid, cot, True, torch.bfloat16)
+    assert dfeat.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    np.testing.assert_allclose(dw.numpy(), np.asarray(want[1]), rtol=1e-5,
+                               atol=1e-5)
+    wd = np.asarray(want[0].astype(jnp.float32))
+    np.testing.assert_allclose(dfeat.float().numpy(), wd, rtol=2.0 ** -7,
+                               atol=1e-3 * np.abs(wd).max())
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_conv_gradcheck_f64(rng, symmetric):
+    """torch.autograd.gradcheck of the port's gradient (the plain versions,
+    which take float64 on the CPU) against finite differences."""
+    coords, valid = _sites(rng, 20, 24)
+    jc, jv = jnp.asarray(coords), jnp.asarray(valid)
+    if symmetric:
+        nbr, ov = np.array(S.build_neighbor_map(jc, jv, GRID)), valid
+    else:
+        oc, ov = S.downsample_coords(jc, jv, GRID, stride=2, max_out=16)
+        nbr = np.array(S.build_neighbor_map_strided(oc, ov, jc, jv, GRID,
+                                                    stride=2))
+        ov = np.array(ov)
+    feats = torch.from_numpy(rng.normal(size=(24, 3)) * valid[:, None])
+    w = torch.from_numpy(rng.normal(size=(27, 3, 2)))
+    tn, tv = _t(nbr, ov)
+    assert torch.autograd.gradcheck(
+        lambda f, ww: TS.subm_conv_apply(f, tn, ww, tv, symmetric=symmetric),
+        (feats.requires_grad_(), w.requires_grad_()))
+
+
+def test_symmetric_routes_dfeat(rng, monkeypatch):
+    """``symmetric`` reaches the backward: a submanifold map's dfeat runs
+    through K5 (``subm_conv`` on the cotangent with mirrored, transposed
+    weights), a strided map's through the scatter-add; a map without a row
+    per site cannot be symmetric."""
+    calls = []
+    real_conv, real_scatter = TK.subm_conv, TK._scatter_dfeat
+    monkeypatch.setattr(TK, "subm_conv", lambda *a: calls.append(
+        ("conv", a[2].shape)) or real_conv(*a))
+    monkeypatch.setattr(TK, "_scatter_dfeat", lambda *a: calls.append(
+        ("scatter",)) or real_scatter(*a))
+    for kind, symmetric in (("subm", True), ("subm", False),
+                            ("strided_nq_lt_n", False)):
+        feats, nbr, w, valid = _conv_problem(rng, kind, 4, 6)
+        calls.clear()
+        _port_grads(feats, nbr, w, valid,
+                    np.ones((nbr.shape[0], 6), np.float32), symmetric)
+        want = [("conv", (27, 4, 6))] + (
+            [("conv", (27, 6, 4))] if symmetric else [("scatter",)])
+        assert calls == want, (kind, symmetric, calls)
+    feats, nbr, w, valid = _conv_problem(rng, "strided_nq_lt_n", 4, 6)
+    with pytest.raises(ValueError, match="symmetric"):
+        TS.subm_conv_apply(*_t(feats, nbr, w, valid), symmetric=True)
+
+
+def test_first_layer_takes_no_dfeat(rng, monkeypatch):
+    """Features that need no gradient (SECOND's voxel means) get none: the
+    backward runs K6 only, no K5 and no scatter."""
+    calls = []
+    monkeypatch.setattr(TK, "_scatter_dfeat", lambda *a: calls.append(1))
+    feats, nbr, w, valid = _conv_problem(rng, "subm", 4, 6)
+    tf, tn, tw, tv = _t(feats, nbr, w, valid)
+    tw.requires_grad_()
+    out = TS.subm_conv_apply(tf, tn, tw, tv, symmetric=True)
+    monkeypatch.setattr(TK, "subm_conv", lambda *a: calls.append(2))
+    out.sum().backward()
+    assert calls == [] and tw.grad.shape == (27, 4, 6)
