@@ -13,10 +13,16 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    K1 (rotated IoU matrix) to atol 2e-5, K2/K3 (greedy NMS scan) and K4
    (soft-NMS cascade, linear and gaussian, n = 100 to 2048) exactly, K5
    (sparse-conv gather-GEMM) at every layer shape of SECOND serving, in
-   f32 and bf16, at the tolerances stated in ``check_k5``, K6 (its weight
-   gradient) at every layer shape of SECOND training, f32 and bf16
-   features, bit-equal across two runs (``check_k6``), and K5 as the
-   features' gradient of the submanifold layers (``check_k5_backward``);
+   f32 and bf16, at the tolerances stated in ``check_k5``, bit-equal across
+   two launches (the second into a NaN-filled buffer, so an unwritten row
+   fails), K6 (its weight gradient) at every layer shape of SECOND
+   training, f32 and bf16 features, bit-equal across two runs
+   (``check_k6``), and K5 as the features' gradient of the submanifold
+   layers (``check_k5_backward``), all through the maps' rule books; the
+   same on seeded edge-case maps (``check_edge_maps``) and on a KITTI-like
+   seeded frame (``kitti_like_points``); the rule-book build and one
+   stage's launches, forward and backward, run under
+   ``torch.cuda.set_sync_debug_mode("error")`` (``check_sync_free``);
 3. drives the port's paths with every launch count set to 0 just before
    and read just after: PointPillars serving (``make_pointpillars_detector``
    on the KITTI preset at full width, random seeded weights, 4 requests of
@@ -34,7 +40,12 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    CPU run of the same weights at a stated tolerance (TF32 off), the
    training loss finite and falling, and one training step's gradients
    equal to the CPU's (plain versions) at a stated tolerance;
-5. times the kernels, their plain versions and the paths with CUDA events.
+5. times the kernels, their plain versions, the rule-book builds and the
+   paths with CUDA events (the kernels line's ``ms``), gives the sparse
+   kernels' and rule books' own kernel time by CUPTI beside them
+   (``cupti_ms``), and logs each sparse layer's share of
+   multiply-adds on absent neighbours before the rule book (every row at
+   every offset) and under it.
 
 Any failed check raises, and the run exits nonzero. The second-to-last
 line is ``{"kernels": [...]}``, the last ``{"ok": true, "device": ...}``.
@@ -84,6 +95,11 @@ K4_OPS_PER_BOX_STEP = 21
 # the SECOND serving path's K5 launches in order (presets.second_kitti)
 K5_LAYERS = ("subm0_0", "subm0_1", "down0", "subm1_0", "subm1_1", "down1",
              "subm2_0", "subm2_1")
+
+# the CUDA kernels of K5 and K6, by the names CUPTI records
+KERNEL_NAMES = {"subm_conv": ("subm_conv_kernel",),
+                "subm_conv_dw": ("subm_conv_dw_partial",
+                                 "subm_conv_dw_reduce")}
 
 # soft-NMS cases on the north star's boxes: Bodla et al.'s linear decay
 # s * (1 - iou) and gaussian decay with sigma 0.5
@@ -151,6 +167,70 @@ def north_star_frame():
     return pts, boxes, scores
 
 
+def kitti_like_points(seed, objects=16, az_step_deg=0.08):
+    """A seeded frame in the shape of a KITTI scan cropped to the camera's
+    field of view: a 64-beam sensor 1.73 m above a ground plane
+    (elevations -24.8 to +2 degrees, ``az_step_deg`` between azimuths over
+    the camera's 90 degrees, as an HDL-64E at 10 Hz), each ray cast onto
+    the ground, onto a street front each side (façades, and between them
+    trees whose hits scatter up to 5 m deep) and onto ``objects`` car-sized
+    boxes (about 3.9 x 1.6 x 1.56 m, any yaw) standing 5-60 m away; the
+    nearest hit within 80 m is kept, with 2 cm of range noise and a random
+    intensity, inside second_kitti's bounds. ~70k points; under
+    second_kitti's 0.2 m voxels 8 000-13 000 voxels by seed (13 278 at
+    seed 500, 11 648 at 501), below its 16 000 cap."""
+    rng = np.random.default_rng(seed)
+    height = 1.73
+    elev = np.deg2rad(np.linspace(-24.8, 2.0, 64))
+    az = np.deg2rad(np.arange(-45.0, 45.0, az_step_deg))
+    e, a = np.meshgrid(elev, az, indexing="ij")
+    d = np.stack([np.cos(e) * np.cos(a), np.cos(e) * np.sin(a), np.sin(e)],
+                 -1).reshape(-1, 3)
+    t = np.full(len(d), np.inf)
+    down = d[:, 2] < 0
+    t[down] = height / -d[down, 2]
+    # a façade each side of the street, with gaps between buildings
+    for side in (1.0, -1.0):
+        off = side * rng.uniform(6.0, 10.0)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            tw = np.where(d[:, 1] * side > 0, off / d[:, 1], np.inf)
+        hx, hz = d[:, 0] * tw, d[:, 2] * tw
+        with np.errstate(invalid="ignore"):
+            gaps = np.sin(hx * rng.uniform(0.2, 0.4)) > 0.6
+        wall = (hx > 3.0) & (hz < 6.0 - height) & (tw < t)
+        t[wall & gaps] = tw[wall & gaps]
+        # between the buildings, trees: hits scattered up to 5 m deep
+        tree = wall & ~gaps
+        t[tree] = tw[tree] * (1.0 + rng.uniform(0.0, 5.0, tree.sum())
+                              / np.abs(off))
+    r = rng.uniform(5.0, 60.0, objects)
+    ang = rng.uniform(-0.65, 0.65, objects)
+    yaw = rng.uniform(-np.pi, np.pi, objects)
+    half = np.stack([rng.uniform(3.6, 4.3, objects), rng.uniform(1.5, 1.8,
+                     objects), rng.uniform(1.4, 1.7, objects)], -1) / 2
+    for i in range(objects):
+        centre = np.array([r[i] * np.cos(ang[i]), r[i] * np.sin(ang[i]),
+                           -height + half[i, 2]])
+        cy, sy = np.cos(yaw[i]), np.sin(yaw[i])
+        rot = np.array([[cy, sy, 0.0], [-sy, cy, 0.0], [0.0, 0.0, 1.0]])
+        o = rot @ -centre                      # the sensor in box coords
+        dl = d @ rot.T
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t1 = (-half[i] - o) / dl
+            t2 = (half[i] - o) / dl
+        near = np.nanmax(np.minimum(t1, t2), axis=1)
+        far = np.nanmin(np.maximum(t1, t2), axis=1)
+        hit = (near <= far) & (near > 0) & (near < t)
+        t[hit] = near[hit]
+    keep = t < 80.0
+    pts = d[keep] * (t[keep] + rng.normal(0.0, 0.02, keep.sum()))[:, None]
+    inside = ((pts[:, 0] >= 0) & (pts[:, 0] < 70.4) & (np.abs(pts[:, 1]) < 40)
+              & (pts[:, 2] >= -3) & (pts[:, 2] < 1))
+    pts = pts[inside]
+    return np.concatenate([pts, rng.random((len(pts), 1))], 1).astype(
+        np.float32)
+
+
 # ---------------------------------------------------------------------------
 # timing and bounds
 # ---------------------------------------------------------------------------
@@ -188,6 +268,28 @@ def time_launches(fn, batch=50, batches=7):
         end.synchronize()
         times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
+
+
+def cupti_ms(fn, kernels=None, reps=10):
+    """Device ms per call of ``fn`` spent in the kernels whose names hold
+    one of ``kernels`` (default: every kernel), from torch.profiler's CUPTI
+    trace: the kernels' own time, without the host's launch gaps that CUDA
+    events around back-to-back launches include. None where the trace
+    holds no device time. Reported beside the CUDA-event times (the
+    kernels line's ``ms``), never in their place."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and (kernels is None or any(k in e.key for k in kernels)))
+    return us / reps / 1e3 if us > 0 else None
 
 
 def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
@@ -393,61 +495,95 @@ def stage_layer_inputs(model, feats, coords, valid):
     return seen
 
 
-def check_k5(layers):
-    """K5 against its plain version on the card at every layer shape of the
-    SECOND path, in f32 and bf16. Stated tolerance, elementwise: 1e-5 of the
-    output's sum of |terms| (the two sum in other orders), plus in bf16 one
-    bf16 ulp of the value (2^-7 relative: the two f32 sums may round to
-    neighbouring bf16 values). Returns the largest |kernel - plain| per
-    dtype and the shapes."""
+# presets.second_kitti on a 120k-point uniform frame: the voxel cap (16000
+# of ~117k occupied cells) and the first site cap (8000 of ~13.8k) bind; the
+# last (4000) does not: ~3250 sites stay, the rest is padding.
+# (Nq, N, C, Cout) of each layer of one frame
+UNIFORM_SHAPES = {
+    "subm0_0": (16000, 16000, 4, 16), "subm0_1": (16000, 16000, 16, 16),
+    "down0": (8000, 16000, 16, 32), "subm1_0": (8000, 8000, 32, 32),
+    "subm1_1": (8000, 8000, 32, 32), "down1": (4000, 8000, 32, 64),
+    "subm2_0": (4000, 4000, 64, 64), "subm2_1": (4000, 4000, 64, 64)}
+
+
+def absent_shares(rules, cout):
+    """(present pairs, the share of K5's multiply-adds on absent neighbours
+    before the rule book (every row at every offset), and under it (the
+    tiles' union of offsets)) of one layer."""
     from d3d_tpu_torch.ops import sparse_conv_cuda as K
 
-    # presets.second_kitti on a 120k-point frame: the voxel cap (16000 of
-    # ~117k occupied cells) and the first site cap (8000 of ~13.8k) bind;
-    # the last (4000) does not: ~3250 sites stay, the rest is padding
-    want_shapes = {
-        "subm0_0": (16000, 16000, 4, 16), "subm0_1": (16000, 16000, 16, 16),
-        "down0": (8000, 16000, 16, 32), "subm1_0": (8000, 8000, 32, 32),
-        "subm1_1": (8000, 8000, 32, 32), "down1": (4000, 8000, 32, 64),
-        "subm2_0": (4000, 4000, 64, 64), "subm2_1": (4000, 4000, 64, 64)}
+    nq, k = rules.shape
+    present, scheduled = rules.k5_schedule(K.k5_tile_rows(cout))
+    return present, 1 - present / (nq * k), 1 - present / max(scheduled, 1)
+
+
+def k5_compare(name, x, rules, valid, w, dt):
+    """One K5 check in ``dt``: two launches, the second into a NaN-filled
+    buffer, bit-equal (so every row is written, and the same bits come
+    twice), held to the plain version at 1e-5 of each output's sum of
+    |terms| plus, in bf16, one bf16 ulp of the value. Returns the largest
+    |kernel - plain|."""
+    from d3d_tpu_torch.ops import sparse_conv_cuda as K
+
+    xd, wd = x.to(dt), w.to(dt)
+    got = K._launch(xd, rules, wd, valid)
+    again = K._launch(xd, rules, wd, valid,
+                      out=torch.full_like(got, float("nan")))
+    want = K._subm_conv_plain(xd, rules.nbr, wd, valid)
+    scale = K._subm_conv_plain(x.float().abs(), rules.nbr, w.float().abs(),
+                               valid)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == dt,
+          f"K5 {name} {dt}: {got.shape} {got.dtype}")
+    check(torch.equal(got, again),
+          f"K5 {name} {dt}: two launches differ or a row was not written")
+    got, want = got.float(), want.float()
+    check(bool(torch.isfinite(got).all()), f"K5 {name} {dt}: not finite")
+    err = (got - want).abs()
+    tol = 1e-5 * scale
+    if dt == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * want.abs()
+    bad = int((err > tol).sum())
+    check(bad == 0, f"K5 {name} {dt}: {bad} outputs out of tolerance, max "
+                    f"error {float(err.max()) if err.numel() else 0.0}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def check_k5(layers, want_shapes=UNIFORM_SHAPES, label="uniform"):
+    """K5 against its plain version on the card at every layer shape of the
+    SECOND path, in f32 and bf16, through each map's rule book
+    (``k5_compare``: tolerance stated there, bit-equal across launches,
+    every row written). ``want_shapes``, where given, pins the shapes and
+    which caps bind. Returns the largest |kernel - plain| per dtype and
+    the layers' shapes and presence."""
     worst = {"float32": 0.0, "bfloat16": 0.0}
     shapes = {}
-    for name, (x, nbr, valid, w) in layers.items():
-        shape = (nbr.shape[0], x.shape[0], x.shape[1], w.shape[2])
+    for name, (x, rules, valid, w) in layers.items():
+        shape = (rules.shape[0], x.shape[0], x.shape[1], w.shape[2])
         nvalid = int(valid.sum())
-        binds = name not in ("down1", "subm2_0", "subm2_1")
-        check(shape == want_shapes[name]
-              and (nvalid == shape[0] if binds else 0 < nvalid < shape[0]),
-              f"K5 {name}: shape (Nq, N, C, Cout) {shape}, {nvalid} valid")
-        present = int((nbr >= 0).sum())
+        if want_shapes is not None:
+            binds = name not in ("down1", "subm2_0", "subm2_1")
+            check(shape == want_shapes[name]
+                  and (nvalid == shape[0] if binds
+                       else 0 < nvalid < shape[0]),
+                  f"K5 {name}: shape (Nq, N, C, Cout) {shape}, {nvalid} "
+                  "valid")
+        present, before, after = absent_shares(rules, w.shape[2])
         shapes[name] = dict(nq=shape[0], n=shape[1], c=shape[2],
-                            cout=shape[3], valid=nvalid, present=present)
-        scale = K._subm_conv_plain(x.float().abs(), nbr, w.float().abs(),
-                                   valid)
+                            cout=shape[3], valid=nvalid, present=present,
+                            absent_share_before=before,
+                            absent_share_after=after)
         errs = []
         for dt in (torch.float32, torch.bfloat16):
-            xd, wd = x.to(dt), w.to(dt)
-            got = K._launch(xd, nbr, wd, valid)
-            want = K._subm_conv_plain(xd, nbr, wd, valid)
-            torch.cuda.synchronize()
-            check(got.shape == want.shape and got.dtype == dt,
-                  f"K5 {name} {dt}: {got.shape} {got.dtype}")
-            got, want = got.float(), want.float()
-            check(bool(torch.isfinite(got).all()), f"K5 {name}: not finite")
-            err = (got - want).abs()
-            tol = 1e-5 * scale
-            if dt == torch.bfloat16:
-                tol = tol + 2.0 ** -7 * want.abs()
-            bad = int((err > tol).sum())
-            check(bad == 0, f"K5 {name} {dt}: {bad} outputs out of tolerance,"
-                            f" max error {float(err.max())}")
+            errs.append(k5_compare(name, x, rules, valid, w, dt))
             key = str(dt).split(".")[1]
-            worst[key] = max(worst[key], float(err.max()))
-            errs.append(float(err.max()))
-        log(f"K5 {name} (Nq {shape[0]} with {nvalid} valid, N {shape[1]}, "
-            f"C {shape[2]}, Cout {shape[3]}, {present} of {shape[0] * 27} "
-            f"neighbours present): "
-            f"max |kernel - plain| f32 {errs[0]:.3g}, bf16 {errs[1]:.3g}")
+            worst[key] = max(worst[key], errs[-1])
+        log(f"K5 {label} {name} (Nq {shape[0]} with {nvalid} valid, N "
+            f"{shape[1]}, C {shape[2]}, Cout {shape[3]}, {present} of "
+            f"{shape[0] * 27} neighbours present; multiply-adds on absent "
+            f"neighbours {before:.1%} before the rule book, {after:.1%} "
+            f"under it): max |kernel - plain| f32 {errs[0]:.3g}, bf16 "
+            f"{errs[1]:.3g}; bit-equal across two launches")
     return worst, shapes
 
 
@@ -474,50 +610,55 @@ def train_cotangent(layers, seed):
     return out
 
 
-def check_k6(layers):
-    """K6 against its plain version on the card at every layer shape of the
-    SECOND training path (two frames joined), with f32 and with bf16
-    features and a seeded f32 cotangent; two launches on the same inputs
-    must give the same bits. Stated tolerance, elementwise: 1e-5 of the
-    entry's sum of |terms| (the two sum over up to 32 000 rows in other
-    orders). Returns the largest |kernel - plain| per dtype and the
-    shapes."""
+def k6_compare(name, x, rules, g, dt):
+    """One K6 check with ``dt`` features: two launches bit-equal, held to
+    the plain version at 1e-5 of each entry's sum of |terms| (the two sum
+    over up to 32 000 rows in other orders). Returns the largest
+    |kernel - plain|."""
     from d3d_tpu_torch.ops import sparse_conv_cuda as K
 
+    xd = x.to(dt)
+    got = K._dw_launch(xd, rules, g)
+    again = K._dw_launch(xd, rules, g)
+    want = K._subm_conv_dw_plain(xd, rules.nbr, g)
+    scale = K._subm_conv_dw_plain(xd.float().abs(), rules.nbr, g.abs())
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == torch.float32,
+          f"K6 {name} {dt}: {got.shape} {got.dtype}")
+    check(torch.equal(got, again),
+          f"K6 {name} {dt}: two runs on the same inputs differ")
+    check(bool(torch.isfinite(got).all()), f"K6 {name} {dt}: not finite")
+    err = (got - want).abs()
+    bad = int((err > 1e-5 * scale).sum())
+    check(bad == 0, f"K6 {name} {dt}: {bad} entries out of tolerance, max "
+                    f"error {float(err.max())}")
+    return float(err.max())
+
+
+def check_k6(layers, label="uniform"):
+    """K6 against its plain version on the card at every layer shape of the
+    SECOND training path (two frames joined), with f32 and with bf16
+    features and a seeded f32 cotangent, through each map's rule book
+    (``k6_compare``: tolerance stated there, bit-equal across runs).
+    Returns the largest |kernel - plain| per dtype and the shapes."""
     grads = train_cotangent(layers, 6)
     worst = {"float32": 0.0, "bfloat16": 0.0}
     shapes = {}
-    for name, (x, nbr, valid, w) in layers.items():
-        g = grads[name]
-        present = int((nbr >= 0).sum())
-        shapes[name] = dict(nq=nbr.shape[0], n=x.shape[0], c=x.shape[1],
+    for name, (x, rules, valid, w) in layers.items():
+        present = int((rules.nbr >= 0).sum())
+        shapes[name] = dict(nq=rules.shape[0], n=x.shape[0], c=x.shape[1],
                             cout=w.shape[2], valid=int(valid.sum()),
                             present=present)
         errs = []
         for dt in (torch.float32, torch.bfloat16):
-            xd = x.to(dt)
-            got = K._dw_launch(xd, nbr, g)
-            again = K._dw_launch(xd, nbr, g)
-            want = K._subm_conv_dw_plain(xd, nbr, g)
-            scale = K._subm_conv_dw_plain(xd.float().abs(), nbr, g.abs())
-            torch.cuda.synchronize()
-            check(got.shape == want.shape == (27,) + tuple(w.shape[1:])
-                  and got.dtype == torch.float32,
-                  f"K6 {name} {dt}: {got.shape} {got.dtype}")
-            check(torch.equal(got, again),
-                  f"K6 {name} {dt}: two runs on the same inputs differ")
-            check(bool(torch.isfinite(got).all()), f"K6 {name}: not finite")
-            err = (got - want).abs()
-            bad = int((err > 1e-5 * scale).sum())
-            check(bad == 0, f"K6 {name} {dt}: {bad} entries out of "
-                            f"tolerance, max error {float(err.max())}")
+            errs.append(k6_compare(name, x, rules, grads[name], dt))
             key = str(dt).split(".")[1]
-            worst[key] = max(worst[key], float(err.max()))
-            errs.append(float(err.max()))
-        log(f"K6 {name} (Nq {nbr.shape[0]}, N {x.shape[0]}, C {x.shape[1]}, "
-            f"Cout {w.shape[2]}, {present} of {nbr.numel()} neighbours "
-            f"present): max |kernel - plain| f32 {errs[0]:.3g}, bf16 "
-            f"{errs[1]:.3g}; bit-equal across two runs")
+            worst[key] = max(worst[key], errs[-1])
+        log(f"K6 {label} {name} (Nq {rules.shape[0]}, N {x.shape[0]}, C "
+            f"{x.shape[1]}, Cout {w.shape[2]}, {present} of "
+            f"{rules.nbr.numel()} neighbours present, all of them and no "
+            f"other multiplied): max |kernel - plain| f32 {errs[0]:.3g}, "
+            f"bf16 {errs[1]:.3g}; bit-equal across two runs")
     return worst, shapes
 
 
@@ -525,31 +666,37 @@ def k5_backward_inputs(layers):
     """The features'-gradient K5 launches of a train step: the submanifold
     layers after the first (whose input, the voxel means, needs no
     gradient), each with the seeded cotangent and the mirrored, transposed
-    f32 weights: {layer: (cotangent, nbr, valid, weights)}."""
+    f32 weights: {layer: (cotangent, rule book, valid, weights)}."""
     grads = train_cotangent(layers, 5)
-    return {name: (grads[name], nbr, valid,
+    return {name: (grads[name], rules, valid,
                    w.float().flip(0).transpose(1, 2).contiguous())
-            for name, (_, nbr, valid, w) in layers.items()
+            for name, (_, rules, valid, w) in layers.items()
             if name.startswith("subm") and name != "subm0_0"}
 
 
-def check_k5_backward(layers):
+def check_k5_backward(layers, label="uniform"):
     """K5 as the features' gradient of the five submanifold layers of the
-    training path: against the plain scatter-add (the transposed map, which
-    needs no symmetry) at 1e-5 of each entry's sum of |terms|, and the
-    adjoint identity <K5(x; W), g> = <x, K5^T(g)> to 1e-5 of the sum of
-    |terms| (f32 rounding). Returns the largest |kernel - plain|."""
+    training path, through the maps' rule books: against the plain
+    scatter-add (the transposed map, which needs no symmetry) at 1e-5 of
+    each entry's sum of |terms|, bit-equal across two launches (the second
+    into a NaN-filled buffer), and the adjoint identity <K5(x; W), g> =
+    <x, K5^T(g)> to 1e-5 of the sum of |terms| (f32 rounding). Returns the
+    largest |kernel - plain|."""
     from d3d_tpu_torch.ops import sparse_conv_cuda as K
 
     worst = 0.0
-    for name, (g, nbr, valid, wt) in k5_backward_inputs(layers).items():
+    for name, (g, rules, valid, wt) in k5_backward_inputs(layers).items():
         x, _, _, w = layers[name]
         w = w.float()
-        got = K._launch(g, nbr, wt, valid)
-        want = K._scatter_dfeat(g, nbr, w, x.shape[0])
-        scale = K._scatter_dfeat(g.abs(), nbr, w.abs(), x.shape[0])
-        fwd = K._launch(x.float(), nbr, w, valid)
+        got = K._launch(g, rules, wt, valid)
+        again = K._launch(g, rules, wt, valid,
+                          out=torch.full_like(got, float("nan")))
+        want = K._scatter_dfeat(g, rules.nbr, w, x.shape[0])
+        scale = K._scatter_dfeat(g.abs(), rules.nbr, w.abs(), x.shape[0])
+        fwd = K._launch(x.float(), rules, w, valid)
         torch.cuda.synchronize()
+        check(torch.equal(got, again), f"K5 backward {name}: two launches "
+                                       "differ or a row was not written")
         err = (got - want).abs()
         bad = int((err > 1e-5 * scale).sum())
         check(bad == 0, f"K5 backward {name}: {bad} entries out of "
@@ -560,11 +707,155 @@ def check_k5_backward(layers):
         check(abs(lhs - rhs) <= 1e-5 * terms,
               f"K5 backward {name}: <K5 x, g> {lhs} != <x, K5^T g> {rhs}")
         worst = max(worst, float(err.max()))
-        log(f"K5 backward {name} (N {x.shape[0]}, {w.shape[2]} -> "
+        log(f"K5 backward {label} {name} (N {x.shape[0]}, {w.shape[2]} -> "
             f"{w.shape[1]} channels): max |kernel - plain| "
-            f"{float(err.max()):.3g}; <K5 x, g> - <x, K5^T g> = "
-            f"{lhs - rhs:.3g} of {terms:.4g}")
+            f"{float(err.max()):.3g}; bit-equal across two launches; "
+            f"<K5 x, g> - <x, K5^T g> = {lhs - rhs:.3g} of {terms:.4g}")
     return worst
+
+
+EDGE_CASES = ("all_absent", "all_present", "one_offset_empty",
+              "invalid_rows", "ragged", "nq_lt_n")
+# (C, Cout): SECOND's first layer, ragged widths that leave tile columns
+# and staged channels empty, the widest stage, two column tiles
+EDGE_WIDTHS = ((4, 16), (24, 40), (64, 64), (32, 96))
+
+
+def edge_map(rng, kind, dev):
+    """A seeded (nbr, valid, N) edge-case map on the card (30% of the
+    neighbours present where the case does not say otherwise): every
+    neighbour absent, every neighbour present, offset 5 absent everywhere,
+    40% invalid rows that keep their neighbours, Nq = 1037 (no multiple of
+    any tile), Nq = 1000 < N = 3000."""
+    nq, n = {"nq_lt_n": (1000, 3000), "ragged": (1037, 1037)}.get(
+        kind, (2048, 2048))
+    nbr = rng.integers(0, n, (nq, 27)).astype(np.int32)
+    present = rng.random((nq, 27)) < 0.3
+    valid = np.ones(nq, bool)
+    if kind == "all_absent":
+        present[:] = False
+    elif kind == "all_present":
+        present[:] = True
+    elif kind == "one_offset_empty":
+        present[:, 5] = False
+    elif kind == "invalid_rows":
+        valid[rng.random(nq) < 0.4] = False
+    nbr[~present] = -1
+    return (torch.from_numpy(nbr).to(dev), torch.from_numpy(valid).to(dev),
+            n)
+
+
+def check_edge_maps(dev):
+    """K5 (bit-equal across launches, the second into a NaN-filled buffer)
+    and K6 against their plain versions, f32 and bf16, on the seeded edge
+    maps at each of ``EDGE_WIDTHS``, each map through its rule book.
+    Returns the largest |kernel - plain| of K5 and of K6."""
+    from d3d_tpu_torch.ops.sparse_conv import prepare_neighbor_map
+
+    rng = np.random.default_rng(11)
+    worst = {"subm_conv": 0.0, "subm_conv_dw": 0.0}
+    for kind in EDGE_CASES:
+        nbr, valid, n = edge_map(rng, kind, dev)
+        rules = prepare_neighbor_map(nbr)
+        for c, cout in EDGE_WIDTHS:
+            gen = torch.Generator().manual_seed(c * 1000 + cout)
+            x = torch.randn((n, c), generator=gen).to(dev)
+            w = (torch.randn((27, c, cout), generator=gen)
+                 / (27 * c) ** 0.5).to(dev)
+            g = torch.randn((nbr.shape[0], cout), generator=gen).to(dev)
+            g = g * valid[:, None]
+            name = f"edge {kind} {c}->{cout}"
+            for dt in (torch.float32, torch.bfloat16):
+                worst["subm_conv"] = max(worst["subm_conv"], k5_compare(
+                    name, x, rules, valid, w, dt))
+                worst["subm_conv_dw"] = max(worst["subm_conv_dw"],
+                                            k6_compare(name, x, rules, g, dt))
+        log(f"edge map {kind} (Nq {nbr.shape[0]}, N {n}, "
+            f"{int((nbr >= 0).sum())} present, {int(valid.sum())} valid): "
+            f"K5 and K6 within tolerance at (C, Cout) {EDGE_WIDTHS}, f32 "
+            "and bf16; K5 bit-equal across launches, every row written")
+    return worst
+
+
+def distinct_maps(layers):
+    """(layer names, neighbour maps) of the distinct maps these layers use,
+    in path order: the first layer on each map names it."""
+    names, nbrs, seen = [], [], set()
+    for name, (_, rules, _, _) in layers.items():
+        if id(rules) not in seen:
+            seen.add(id(rules))
+            names.append(name)
+            nbrs.append(rules.nbr)
+    return names, nbrs
+
+
+def check_rulebooks(map_sets):
+    """The rule-book kernel against its plain version on the card, each
+    set of maps in one call as the path builds them (``map_sets``:
+    {label: [maps]}): masks and orders equal, bit for bit, over two
+    launches. Returns the largest |kernel - plain| of either (0)."""
+    from d3d_tpu_torch.ops.rulebook import (_subm_conv_rulebook_plain,
+                                            subm_conv_rulebook)
+
+    for label, nbrs in map_sets.items():
+        got, again = subm_conv_rulebook(nbrs), subm_conv_rulebook(nbrs)
+        want = _subm_conv_rulebook_plain(nbrs)
+        torch.cuda.synchronize()
+        for i, nbr in enumerate(nbrs):
+            for part, what in ((0, "masks"), (1, "order")):
+                check(torch.equal(got[part][i], want[part][i])
+                      and torch.equal(got[part][i], again[part][i]),
+                      f"rule-book kernel {label} map {i} (Nq "
+                      f"{nbr.shape[0]}): {what} differ from the plain "
+                      "version or between launches")
+        log(f"rule-book kernels {label}: {len(nbrs)} maps in one call (Nq "
+            f"{[n.shape[0] for n in nbrs]}), masks and orders equal to the "
+            "plain version (torch ops, a stable sort a map), twice")
+    return 0.0
+
+
+def check_sync_free(dev, model, batch):
+    """The rule books of the training batch's first stage (its submanifold
+    and strided maps) are built, and that stage's three layers run forward
+    and backward through K5 and K6, under
+    ``torch.cuda.set_sync_debug_mode("error")``: any call that waits for
+    the device raises."""
+    from d3d_tpu_torch.models.second import _batch_stage_maps
+    from d3d_tpu_torch.ops import sparse_conv_cuda as K
+    from d3d_tpu_torch.ops.rulebook import subm_conv_rulebook
+    from d3d_tpu_torch.ops.sparse_conv import (prepare_neighbor_maps,
+                                               subm_conv_apply)
+
+    maps, _ = _batch_stage_maps(model.cfg, batch["coords"], batch["valid"])
+    raw, valid, raw_s, valid_s = maps[0]
+    raw, raw_s = raw.nbr, raw_s.nbr
+    x = batch["features"].reshape(-1, batch["features"].shape[-1])
+    ws = {n: model.middle[n].weight.detach().clone().requires_grad_()
+          for n in ("subm0_0", "subm0_1", "down0")}
+    counts = (K.subm_conv.launches, K.subm_conv_dw.launches,
+              subm_conv_rulebook.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rules, rules_s = prepare_neighbor_maps([raw, raw_s])
+        y = subm_conv_apply(x, rules, ws["subm0_0"], valid, symmetric=True)
+        y = subm_conv_apply(torch.relu(y), rules, ws["subm0_1"], valid,
+                            symmetric=True)
+        y = subm_conv_apply(torch.relu(y), rules_s, ws["down0"], valid_s)
+        y.sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launched = (K.subm_conv.launches - counts[0],
+                K.subm_conv_dw.launches - counts[1],
+                subm_conv_rulebook.launches - counts[2])
+    check(launched == (4, 3, 1), f"sync-free stage: launches (K5, K6, rule "
+                                 f"books) {launched}, want (4, 3, 1)")
+    check(all(bool(torch.isfinite(w.grad).all()) for w in ws.values()),
+          "sync-free stage: gradients not finite")
+    log("sync debug mode 'error': the rule books of stage 0's two joined "
+        "maps (one rule-book call) and its three layers forward and "
+        "backward (4 K5, 3 K6 launches) ran without a host synchronisation")
 
 
 def train_batch(dev, cfg, frames):
@@ -640,7 +931,8 @@ def second_training(dev, state, batch, dtype):
         counts = read_counts()
         step_ms.append(start.elapsed_time(end))
         want = dict(rbox_iou_matrix=0, nms_scan=0, nms_scan_blocked=0,
-                    soft_nms_scan=0, subm_conv=13, subm_conv_dw=8)
+                    soft_nms_scan=0, subm_conv=13, subm_conv_dw=8,
+                    subm_conv_rulebook=1)
         check(counts == want, f"SECOND training {dtype} step {i + 1}: "
                               f"launches {counts}, want {want}")
         for k, v in counts.items():
@@ -660,7 +952,7 @@ def second_training(dev, state, batch, dtype):
         + f"; step {step_ms[0]:.2f} ms first, {steady:.2f} ms median of "
         f"steps 2-{TRAIN_STEPS} (CUDA events; host wall clock "
         f"{statistics.median(wall_ms[1:]):.2f} ms); launches a step "
-        f"K5 13, K6 8, K1 0; lr at the steps "
+        f"K5 13, K6 8, rule books 1, K1 0; lr at the steps "
         + ", ".join(f"{lr(i):.3g}" for i in range(TRAIN_STEPS)))
     stages = train_stage_times(model, opt, batch, cfg)
     return total, dict(losses=totals, loss_terms=losses[-1],
@@ -756,11 +1048,13 @@ def train_card_vs_cpu(dev, state, batch):
 
 
 def counters():
-    from d3d_tpu_torch.ops import geometry_cuda, nms_cuda, sparse_conv_cuda
+    from d3d_tpu_torch.ops import (geometry_cuda, nms_cuda, rulebook,
+                                   sparse_conv_cuda)
 
     return (geometry_cuda.rbox_iou_matrix, nms_cuda.nms_scan,
             nms_cuda.nms_scan_blocked, nms_cuda.soft_nms_scan,
-            sparse_conv_cuda.subm_conv, sparse_conv_cuda.subm_conv_dw)
+            sparse_conv_cuda.subm_conv, sparse_conv_cuda.subm_conv_dw,
+            rulebook.subm_conv_rulebook)
 
 
 def reset_counts():
@@ -1076,7 +1370,7 @@ def second_serving(dev, model, frames):
         f"per request: {kept}")
     want = dict(rbox_iou_matrix=4, nms_scan=4, nms_scan_blocked=0,
                 soft_nms_scan=0, subm_conv=4 * len(K5_LAYERS),
-                subm_conv_dw=0)
+                subm_conv_dw=0, subm_conv_rulebook=4)
     check(counts == want, f"SECOND serving: launches {counts}, want {want}: "
                           "8 of K5, 1 of K1 and 1 of K2 per request")
     log("SECOND serving f32: " + ", ".join(f"{ms:.2f}" for ms in request_ms)
@@ -1136,7 +1430,8 @@ def soft_nms_path(dev):
     counts = read_counts()
     log(f"soft_nms2d launches (linear + gaussian): {counts}")
     check(counts == dict(rbox_iou_matrix=2, nms_scan=0, nms_scan_blocked=0,
-                         soft_nms_scan=2, subm_conv=0, subm_conv_dw=0),
+                         soft_nms_scan=2, subm_conv=0, subm_conv_dw=0,
+                         subm_conv_rulebook=0),
           f"soft_nms2d did not run K1 and K4 once per call: {counts}")
     iou = geometry_cuda.rbox_iou_matrix(tb, tb)
     thr = SOFT_NMS_ARGS["score_threshold"]
@@ -1158,76 +1453,175 @@ def soft_nms_path(dev):
     return counts, stats, (iou, init, pre)
 
 
+def add_cupti(a, b):
+    """A sum of CUPTI times that is None where a term is."""
+    return None if a is None or b is None else a + b
+
+
+def fmt_ms(ms):
+    return "no device time in the trace" if ms is None else f"{ms:.4f} ms"
+
+
 def train_layers_k5_backward_times(train_layers):
     """K5 as the features' gradient: device ms of the five launches of one
-    training step (two frames joined, f32), summed, with its plain version
-    (the scatter-add) and the bound of the summed bytes and operations."""
+    training step (two frames joined, f32), summed (CUDA events over
+    back-to-back launches, and CUPTI's kernel time apart), with its plain
+    version (the scatter-add) and the bound of the summed bytes and
+    operations."""
     from d3d_tpu_torch.ops import sparse_conv_cuda as K
 
-    tot = dict(ms=0.0, plain_ms=0.0, nbytes=0, ops=0)
-    for name, (g, nbr, valid, wt) in k5_backward_inputs(train_layers).items():
+    tot = dict(ms=0.0, cupti_ms=0.0, plain_ms=0.0, nbytes=0, ops=0)
+    for name, (g, rules, valid, wt) in k5_backward_inputs(
+            train_layers).items():
         w = train_layers[name][3].float()
-        ms = time_launches(lambda: K._launch(g, nbr, wt, valid), batch=20)
-        plain = time_each(lambda: K._scatter_dfeat(g, nbr, w, g.shape[0]),
+        def run():
+            K._launch(g, rules, wt, valid)
+        ms = time_launches(run, batch=20)
+        cupti = cupti_ms(run, KERNEL_NAMES["subm_conv"])
+        plain = time_each(lambda: K._scatter_dfeat(g, rules.nbr, w,
+                                                   g.shape[0]),
                           reps=5, warmup=1)
-        nbytes, ops = k5_work(g, nbr, wt.shape[2])
+        nbytes, ops = k5_work(g, rules.nbr, wt.shape[2])
         for k, v in (("ms", ms), ("plain_ms", plain), ("nbytes", nbytes),
                      ("ops", ops)):
             tot[k] += v
-        log(f"subm_conv backward {name}: {ms:.4f} ms per launch, plain "
-            f"(scatter-add) {plain:.4f} ms")
+        tot["cupti_ms"] = add_cupti(tot["cupti_ms"], cupti)
+        log(f"subm_conv backward {name}: {ms:.4f} ms a launch (CUDA events "
+            f"over back-to-back launches; kernel time by CUPTI "
+            f"{fmt_ms(cupti)}), plain (scatter-add) {plain:.4f} ms")
     b_ms, b_by = bound(tot["nbytes"], tot["ops"])
     return dict(ms_backward_step=tot["ms"],
+                cupti_ms_backward_step=tot["cupti_ms"],
                 plain_ms_backward_step=tot["plain_ms"],
                 bound_ms_backward_step=b_ms, bound_by_backward_step=b_by,
                 backward_of="the 5 features'-gradient launches of one "
                             "training step (2 frames, f32)")
 
 
-def k6_times(train_layers):
-    """K6 at the 8 layers of one SECOND training step (two frames joined),
-    f32 (the path checked against the CPU) and with bf16 features (the
-    preset as pinned): per-launch ms, the plain version (gather +
-    torch.einsum, cuBLAS: also the library call), bounds per layer and of
-    the summed bytes and operations."""
+def layer_times(kernel, layers, label):
+    """Per-launch device ms of K5 (``kernel`` "subm_conv") or K6
+    ("subm_conv_dw", with the seeded cotangent) at each layer, f32 and bf16
+    (features and, for K5, weights), through the maps' rule books: ``ms``
+    by CUDA events over back-to-back launches, ``cupti_ms`` the kernels'
+    own time by CUPTI (None where the trace has none); the plain version's
+    ms (gather + torch.einsum on cuBLAS, which is also the library call);
+    bounds per layer and of the summed bytes and operations (``k5_work`` /
+    ``k6_work``). Returns {"per_layer": {layer: {dtype: ...}}, dtype: {ms,
+    cupti_ms, plain_ms, bound_ms, bound_by}} with the sums over the
+    layers."""
     from d3d_tpu_torch.ops import sparse_conv_cuda as K
 
-    grads = train_cotangent(train_layers, 6)
-    per_layer, totals = {}, {}
+    grads = train_cotangent(layers, 6)
+    out = {"per_layer": {}}
     for dt in (torch.float32, torch.bfloat16):
         key = str(dt).split(".")[1]
-        tot = dict(ms=0.0, plain_ms=0.0, nbytes=0, ops=0)
-        for name, (x, nbr, valid, w) in train_layers.items():
-            xd, g = x.to(dt), grads[name]
-            ms = time_launches(lambda: K._dw_launch(xd, nbr, g), batch=20)
-            plain = time_each(lambda: K._subm_conv_dw_plain(xd, nbr, g),
-                              reps=5, warmup=1)
-            nbytes, ops = k6_work(xd, nbr, w.shape[2])
+        tot = dict(ms=0.0, cupti_ms=0.0, plain_ms=0.0, nbytes=0, ops=0)
+        for name, (x, rules, valid, w) in layers.items():
+            xd, wd, g = x.to(dt), w.to(dt), grads[name]
+            if kernel == "subm_conv":
+                def run():
+                    K._launch(xd, rules, wd, valid)
+
+                def plain_run():
+                    K._subm_conv_plain(xd, rules.nbr, wd, valid)
+                nbytes, ops = k5_work(xd, rules.nbr, w.shape[2])
+            else:
+                def run():
+                    K._dw_launch(xd, rules, g)
+
+                def plain_run():
+                    K._subm_conv_dw_plain(xd, rules.nbr, g)
+                nbytes, ops = k6_work(xd, rules.nbr, w.shape[2])
+            ms = time_launches(run, batch=20)
+            cupti = cupti_ms(run, KERNEL_NAMES[kernel])
+            plain = time_each(plain_run, reps=5, warmup=1)
             b_ms, b_by = bound(nbytes, ops, k5_rate(dt))
-            per_layer.setdefault(name, {})[key] = dict(
-                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
-            for k, v in (("ms", ms), ("plain_ms", plain), ("nbytes", nbytes),
-                         ("ops", ops)):
+            out["per_layer"].setdefault(name, {})[key] = dict(
+                ms=ms, cupti_ms=cupti, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by)
+            for k, v in (("ms", ms), ("plain_ms", plain),
+                         ("nbytes", nbytes), ("ops", ops)):
                 tot[k] += v
-            log(f"subm_conv_dw {name} {key}: {ms:.4f} ms per launch, plain "
-                f"{plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-        tot["bound"] = bound(tot["nbytes"], tot["ops"], k5_rate(dt))
-        totals[key] = tot
-    f32, bf16 = totals["float32"], totals["bfloat16"]
-    return dict(
-        ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound"][0],
-        bound_by=f32["bound"][1], library_ms=f32["plain_ms"],
-        library="index gather + torch.einsum (cuBLAS): the plain version",
-        shape="the 8 layers of one SECOND training step, 2 frames, f32 "
-              "(sum)",
-        ms_of=f"one training step ({len(K5_LAYERS)} launches)",
-        ms_bf16=bf16["ms"], plain_ms_bf16=bf16["plain_ms"],
-        bound_ms_bf16=bf16["bound"][0], bound_by_bf16=bf16["bound"][1],
-        per_layer=per_layer)
+            tot["cupti_ms"] = add_cupti(tot["cupti_ms"], cupti)
+            log(f"{kernel} {label} {name} {key}: {ms:.4f} ms a launch "
+                f"(CUDA events over back-to-back launches; kernel time by "
+                f"CUPTI {fmt_ms(cupti)}), plain {plain:.4f} ms, bound "
+                f"{b_ms:.5f} ms ({b_by})")
+        b_ms, b_by = bound(tot["nbytes"], tot["ops"], k5_rate(dt))
+        out[key] = dict(ms=tot["ms"], cupti_ms=tot["cupti_ms"],
+                        plain_ms=tot["plain_ms"], bound_ms=b_ms,
+                        bound_by=b_by)
+        log(f"{kernel} {label} {key}: {tot['ms']:.4f} ms for the "
+            f"{len(layers)} layers (CUDA events; CUPTI "
+            f"{fmt_ms(tot['cupti_ms'])}), plain {tot['plain_ms']:.3f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by})")
+    return out
+
+
+def rulebook_work(nbrs):
+    """The rule-book build's (bytes, operations): each map read once, its
+    masks (int32) and order (int64) written once; a compare, a shift and
+    an or per (row, offset) entry (the sort's passes are not counted: the
+    bytes bound it either way)."""
+    entries = sum(n.numel() for n in nbrs)
+    rows = sum(n.shape[0] for n in nbrs)
+    return entries * 4 + rows * 12, 3 * entries
+
+
+def rulebook_times(layers, label):
+    """Device ms of building the rule books of the distinct maps these
+    layers use, as the path builds them: K5's part of all of them together
+    (masks and order, ``prepare_neighbor_maps``: one call of the
+    rule-book kernels) and each map's K6 lists (``RuleBook.pairs``, built
+    at the map's first K6 launch). ``ms`` is CUDA events over back-to-back
+    builds (as the kernels' ``ms``), ``one_build_ms`` CUDA events around
+    one build (median of 20), ``cupti_ms`` the kernels' own time by CUPTI;
+    the plain version (torch ops, a stable sort a map) beside them."""
+    from d3d_tpu_torch.ops.rulebook import (_subm_conv_rulebook_plain,
+                                            prepare_neighbor_maps)
+
+    names, nbrs = distinct_maps(layers)
+
+    def build():
+        prepare_neighbor_maps(nbrs)
+
+    def plain():
+        _subm_conv_rulebook_plain(nbrs)
+    b_ms, b_by = bound(*rulebook_work(nbrs))
+    out = dict(ms=time_launches(build, batch=20),
+               one_build_ms=time_each(build, reps=20),
+               cupti_ms=cupti_ms(build),
+               masks_cupti_ms=cupti_ms(build, ("rulebook_masks_kernel",)),
+               sort_cupti_ms=cupti_ms(build, ("rulebook_sort_kernel",)),
+               plain_ms=time_each(plain, reps=20),
+               plain_cupti_ms=cupti_ms(plain), bound_ms=b_ms, bound_by=b_by,
+               maps={n: nbr.shape[0] for n, nbr in zip(names, nbrs)},
+               pairs_ms=0.0, pairs_cupti_ms=0.0, pairs_per_map={})
+    log(f"rule books {label}, the {len(nbrs)} maps together (Nq "
+        f"{list(out['maps'].values())}): {out['ms']:.4f} ms (CUDA events "
+        f"over back-to-back builds; around one build "
+        f"{out['one_build_ms']:.4f} ms; kernel time by CUPTI "
+        f"{fmt_ms(out['cupti_ms'])}: masks {fmt_ms(out['masks_cupti_ms'])}, "
+        f"sort {fmt_ms(out['sort_cupti_ms'])}); plain version "
+        f"{out['plain_ms']:.4f} "
+        f"ms (CUPTI {fmt_ms(out['plain_cupti_ms'])}); bound {b_ms:.5f} ms "
+        f"({b_by})")
+    for name, rb in zip(names, prepare_neighbor_maps(nbrs)):
+        def pairs():
+            rb._pairs = None
+            rb.pairs()
+        ms, cupti = time_each(pairs, reps=20), cupti_ms(pairs)
+        out["pairs_per_map"][name] = dict(ms=ms, cupti_ms=cupti)
+        out["pairs_ms"] += ms
+        out["pairs_cupti_ms"] = add_cupti(out["pairs_cupti_ms"], cupti)
+        log(f"K6's lists {label} {name}'s map (Nq {rb.shape[0]}): "
+            f"{ms:.4f} ms (CUDA events around one build; CUPTI "
+            f"{fmt_ms(cupti)})")
+    return out
 
 
 def kernel_times(dev, ns_inputs, k3_inputs, soft_inputs, soft_stats,
-                 k5_layers, train_layers):
+                 k5_layers, train_layers, kitti_layers, kitti_train_layers):
     """Per-launch device ms of each kernel and its plain version at the
     paths' shapes, with the bounds."""
     from d3d_tpu_torch.ops import (geometry_cuda, geometry_soa, nms_cuda,
@@ -1289,51 +1683,126 @@ def kernel_times(dev, ns_inputs, k3_inputs, soft_inputs, soft_stats,
         row["ms_of"] = "one launch"
 
     # K5: every layer of one SECOND request, f32 (the path checked above)
-    # and bf16 (the preset as pinned); the row sums the 8 layers, its bound
-    # is that of their summed bytes and operations
-    per_layer = {}
-    totals = {}
-    for dt in (torch.float32, torch.bfloat16):
-        key = str(dt).split(".")[1]
-        tot = dict(ms=0.0, plain_ms=0.0, nbytes=0, ops=0)
-        for name, (x, nbr, valid, w) in k5_layers.items():
-            xd, wd = x.to(dt), w.to(dt)
-            ms = time_launches(lambda: sparse_conv_cuda._launch(xd, nbr, wd,
-                                                                valid),
-                               batch=20)
-            plain = time_each(lambda: sparse_conv_cuda._subm_conv_plain(
-                xd, nbr, wd, valid), reps=5, warmup=1)
-            nbytes, ops = k5_work(xd, nbr, w.shape[2])
-            b_ms, b_by = bound(nbytes, ops, k5_rate(dt))
-            per_layer.setdefault(name, {})[key] = dict(
-                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
-            for k, v in (("ms", ms), ("plain_ms", plain), ("nbytes", nbytes),
-                         ("ops", ops)):
-                tot[k] += v
-            log(f"subm_conv {name} {key}: {ms:.4f} ms per launch, plain "
-                f"{plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-        tot["bound"] = bound(tot["nbytes"], tot["ops"], k5_rate(dt))
-        totals[key] = tot
-    f32, bf16 = totals["float32"], totals["bfloat16"]
+    # and bf16 (the preset as pinned), and of one training step's forward;
+    # a row sums the 8 layers, its bound is that of their summed bytes and
+    # operations. The library route, index gather + torch.einsum (cuBLAS),
+    # is timed as the plain version; nothing of the port calls it.
+    serve = layer_times("subm_conv", k5_layers, "serving")
+    train_fwd = layer_times("subm_conv", train_layers, "training forward")
+    kitti = layer_times("subm_conv", kitti_layers, "KITTI-like serving")
+    rb = rulebook_times(k5_layers, "serving")
+    trb = rulebook_times(train_layers, "training")
+    f32, bf16 = serve["float32"], serve["bfloat16"]
     out["subm_conv"] = dict(
-        ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound"][0],
-        bound_by=f32["bound"][1],
-        # the library route: index gather + torch.einsum (cuBLAS), timed
-        # as the plain version; nothing of the port calls it
-        library_ms=f32["plain_ms"],
+        ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
+        bound_by=f32["bound_by"], library_ms=f32["plain_ms"],
         library="index gather + torch.einsum (cuBLAS): the plain version",
         shape="the 8 layers of one SECOND request, f32 (sum)",
-        ms_of=f"one request ({len(K5_LAYERS)} launches)",
-        ms_bf16=bf16["ms"], plain_ms_bf16=bf16["plain_ms"],
-        bound_ms_bf16=bf16["bound"][0], bound_by_bf16=bf16["bound"][1],
-        per_layer=per_layer)
+        ms_of=f"one request ({len(K5_LAYERS)} launches; CUDA events over "
+              "back-to-back launches)",
+        cupti_ms=f32["cupti_ms"], cupti_of="the same launches' kernel time "
+                                           "by CUPTI",
+        ms_bf16=bf16["ms"], cupti_ms_bf16=bf16["cupti_ms"],
+        plain_ms_bf16=bf16["plain_ms"],
+        bound_ms_bf16=bf16["bound_ms"], bound_by_bf16=bf16["bound_by"],
+        per_layer=serve["per_layer"],
+        rulebook_ms=rb["ms"], rulebook_cupti_ms=rb["cupti_ms"],
+        rulebook_of="the 5 maps of one request built together (masks + "
+                    "order, one call; the subm_conv_rulebook row)",
+        ms_with_rulebook=f32["ms"] + rb["ms"],
+        ms_bf16_with_rulebook=bf16["ms"] + rb["ms"],
+        cupti_ms_with_rulebook=add_cupti(f32["cupti_ms"], rb["cupti_ms"]),
+        cupti_ms_bf16_with_rulebook=add_cupti(bf16["cupti_ms"],
+                                              rb["cupti_ms"]),
+        training_forward=dict(
+            ms=train_fwd["float32"]["ms"],
+            cupti_ms=train_fwd["float32"]["cupti_ms"],
+            ms_bf16=train_fwd["bfloat16"]["ms"],
+            cupti_ms_bf16=train_fwd["bfloat16"]["cupti_ms"],
+            bound_ms=train_fwd["float32"]["bound_ms"],
+            bound_ms_bf16=train_fwd["bfloat16"]["bound_ms"],
+            plain_ms=train_fwd["float32"]["plain_ms"],
+            rulebook_ms=trb["ms"], rulebook_cupti_ms=trb["cupti_ms"],
+            rulebook_pairs_ms=trb["pairs_ms"],
+            rulebook_pairs_cupti_ms=trb["pairs_cupti_ms"],
+            rulebook_pairs_per_map=trb["pairs_per_map"],
+            per_layer=train_fwd["per_layer"],
+            of="the 8 forward launches of one training step (2 frames)"),
+        kitti_like=dict(
+            ms=kitti["float32"]["ms"], cupti_ms=kitti["float32"]["cupti_ms"],
+            ms_bf16=kitti["bfloat16"]["ms"],
+            cupti_ms_bf16=kitti["bfloat16"]["cupti_ms"],
+            bound_ms=kitti["float32"]["bound_ms"],
+            plain_ms=kitti["float32"]["plain_ms"],
+            per_layer=kitti["per_layer"],
+            of="the 8 layers of one request on the KITTI-like frame"))
     out["subm_conv"].update(train_layers_k5_backward_times(train_layers))
-    out["subm_conv_dw"] = k6_times(train_layers)
+    dw = layer_times("subm_conv_dw", train_layers, "training")
+    dw_kitti = layer_times("subm_conv_dw", kitti_train_layers,
+                           "KITTI-like training")
+    f32, bf16 = dw["float32"], dw["bfloat16"]
+    out["subm_conv_dw"] = dict(
+        ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
+        bound_by=f32["bound_by"], library_ms=f32["plain_ms"],
+        library="index gather + torch.einsum (cuBLAS): the plain version",
+        shape="the 8 layers of one SECOND training step, 2 frames, f32 "
+              "(sum)",
+        ms_of=f"one training step ({len(K5_LAYERS)} launches; CUDA events "
+              "over back-to-back launches)",
+        cupti_ms=f32["cupti_ms"], cupti_of="the same launches' kernel time "
+                                           "by CUPTI",
+        ms_bf16=bf16["ms"], cupti_ms_bf16=bf16["cupti_ms"],
+        plain_ms_bf16=bf16["plain_ms"],
+        bound_ms_bf16=bf16["bound_ms"], bound_by_bf16=bf16["bound_by"],
+        per_layer=dw["per_layer"],
+        rulebook_pairs_ms=trb["pairs_ms"],
+        rulebook_pairs_cupti_ms=trb["pairs_cupti_ms"],
+        rulebook_pairs_of="K6's lists of the 5 maps of one training step",
+        kitti_like=dict(
+            ms=dw_kitti["float32"]["ms"],
+            cupti_ms=dw_kitti["float32"]["cupti_ms"],
+            ms_bf16=dw_kitti["bfloat16"]["ms"],
+            cupti_ms_bf16=dw_kitti["bfloat16"]["cupti_ms"],
+            bound_ms=dw_kitti["float32"]["bound_ms"],
+            plain_ms=dw_kitti["float32"]["plain_ms"],
+            per_layer=dw_kitti["per_layer"],
+            of="the 8 layers of one training step on 2 KITTI-like frames"))
+    out["subm_conv_rulebook"] = dict(
+        ms=rb["ms"], plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
+        bound_by=rb["bound_by"], library_ms=None,
+        library="none: no one PyTorch call computes the masks and their "
+                "stable order",
+        shape=f"the 5 maps of one SECOND request (Nq "
+              f"{list(rb['maps'].values())})",
+        ms_of="one request's rule books, one call (CUDA events over "
+              "back-to-back builds)",
+        one_build_ms=rb["one_build_ms"], cupti_ms=rb["cupti_ms"],
+        masks_cupti_ms=rb["masks_cupti_ms"],
+        sort_cupti_ms=rb["sort_cupti_ms"],
+        plain_cupti_ms=rb["plain_cupti_ms"],
+        note="K5's rule-book build (csrc/subm_conv.cu rulebook_masks_kernel "
+             "and rulebook_sort_kernel): "
+             "part of K5's port; the Pallas kernel at sparse_conv_pallas.py"
+             ":118 walks every offset and has no rule book",
+        training=dict(ms=trb["ms"], one_build_ms=trb["one_build_ms"],
+                      cupti_ms=trb["cupti_ms"],
+                      sort_cupti_ms=trb["sort_cupti_ms"],
+                      plain_ms=trb["plain_ms"],
+                      bound_ms=trb["bound_ms"],
+                      of=f"the 5 joined maps of one training step (Nq "
+                         f"{list(trb['maps'].values())})"))
     for name, row in out.items():
         log(f"{name}: {row['ms']:.4f} ms for {row['ms_of']} at "
             f"{row['shape']}, plain {row['plain_ms']:.3f} ms, bound "
             f"{row['bound_ms']:.5f} ms "
             f"({row['bound_by']})")
+    k5 = out["subm_conv"]
+    log(f"subm_conv + the request's rule books, CUDA events: f32 "
+        f"{k5['ms_with_rulebook']:.4f} ms, bf16 "
+        f"{k5['ms_bf16_with_rulebook']:.4f} ms ({k5['rulebook_ms']:.4f} ms "
+        f"of rule books for {k5['rulebook_of']}); kernel time by CUPTI: "
+        f"f32 {fmt_ms(k5['cupti_ms_with_rulebook'])}, bf16 "
+        f"{fmt_ms(k5['cupti_ms_bf16_with_rulebook'])}")
     return out
 
 
@@ -1369,6 +1838,25 @@ def main():
                                       batch["coords"], batch["valid"])
     k6_err, k6_shapes = check_k6(train_layers)
     k5_bwd_err = check_k5_backward(train_layers)
+    edge_err = check_edge_maps(dev)
+    check_sync_free(dev, second, batch)
+    kitti_layers = second_layer_inputs(second, kitti_like_points(500), dev)
+    kitti_k5_err, kitti_shapes = check_k5(kitti_layers, None, "KITTI-like")
+    kitti_batch = train_batch(dev, second.cfg, [kitti_like_points(500),
+                                                kitti_like_points(501)])
+    kitti_train_layers = stage_layer_inputs(
+        second, kitti_batch["features"], kitti_batch["coords"],
+        kitti_batch["valid"])
+    kitti_k6_err, kitti_k6_shapes = check_k6(kitti_train_layers, "KITTI-like")
+    kitti_bwd_err = check_k5_backward(kitti_train_layers, "KITTI-like")
+    edge_rng = np.random.default_rng(11)
+    rb_err = check_rulebooks({
+        "serving": distinct_maps(k5_layers)[1],
+        "training": distinct_maps(train_layers)[1],
+        "KITTI-like serving": distinct_maps(kitti_layers)[1],
+        "KITTI-like training": distinct_maps(kitti_train_layers)[1],
+        "edge maps": [edge_map(edge_rng, kind, dev)[0]
+                      for kind in EDGE_CASES]})
 
     serve_counts, serve = serving(dev)
     ns_counts, ns, ns_inputs = north_star(dev)
@@ -1385,7 +1873,8 @@ def main():
     train_stats["card_vs_cpu_grad_err"] = train_card_vs_cpu(dev, state,
                                                             batch)
     times = kernel_times(dev, ns_inputs, (tb2048, ts2048), soft_inputs,
-                         soft_stats, k5_layers, train_layers)
+                         soft_stats, k5_layers, train_layers, kitti_layers,
+                         kitti_train_layers)
 
     by_path = {name: {"serving": serve_counts[name],
                       "north_star": ns_counts[name],
@@ -1411,6 +1900,9 @@ def main():
         "subm_conv_dw": ("cuda", "d3d_tpu_torch/csrc/subm_conv_dw.cu",
                          "d3d_tpu/ops/sparse_conv_pallas.py:139",
                          k6_err["float32"]),
+        "subm_conv_rulebook": ("cuda", "d3d_tpu_torch/csrc/subm_conv.cu",
+                               "d3d_tpu/ops/sparse_conv_pallas.py:118",
+                               rb_err),
     }
     kernels = []
     for name, (route, source, replaces, err) in meta.items():
@@ -1427,12 +1919,18 @@ def main():
                if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
                             "library_ms", "shape")}))
     rows = {row["name"]: row for row in kernels}
-    rows["subm_conv"].update(max_abs_err_bf16=k5_err["bfloat16"],
-                             layer_shapes=k5_shapes,
-                             max_abs_err_backward=k5_bwd_err)
-    rows["subm_conv_dw"].update(max_abs_err_bf16=k6_err["bfloat16"],
-                                layer_shapes=k6_shapes,
-                                bit_equal_across_runs=True)
+    rows["subm_conv"].update(
+        max_abs_err_bf16=k5_err["bfloat16"], layer_shapes=k5_shapes,
+        max_abs_err_backward=k5_bwd_err,
+        max_abs_err_edge_maps=edge_err["subm_conv"],
+        max_abs_err_kitti_like=kitti_k5_err,
+        max_abs_err_backward_kitti_like=kitti_bwd_err,
+        layer_shapes_kitti_like=kitti_shapes, bit_equal_across_runs=True)
+    rows["subm_conv_dw"].update(
+        max_abs_err_bf16=k6_err["bfloat16"], layer_shapes=k6_shapes,
+        max_abs_err_edge_maps=edge_err["subm_conv_dw"],
+        max_abs_err_kitti_like=kitti_k6_err,
+        layer_shapes_kitti_like=kitti_k6_shapes, bit_equal_across_runs=True)
     log(json.dumps({"paths": {"serving": serve, "north_star": ns,
                               "second_serving": second_stats,
                               "soft_nms": soft_stats,

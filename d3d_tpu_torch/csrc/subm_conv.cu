@@ -2,159 +2,740 @@
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` of
 // d3d_tpu/ops/sparse_conv_pallas.py (launched by `_fwd_call`, the
-// pallas_call at :118), the forward of `subm_conv_fused`. The plain PyTorch
-// version is d3d_tpu_torch/ops/sparse_conv_cuda.py `_subm_conv_plain`; the
-// Python wrapper is `subm_conv` there.
+// pallas_call at :118), the forward of `subm_conv_fused`, and serves its
+// backward too: the features' gradient of a submanifold layer is this
+// kernel on the cotangent with mirrored weights. The plain PyTorch version
+// is d3d_tpu_torch/ops/sparse_conv_cuda.py `_subm_conv_plain`; the Python
+// wrapper is `subm_conv` there.
 //
 // What it computes: out[n, d] = valid[n] * sum_k sum_c feat[nbr[n, k], c] *
-// W[k, c, d] for n < Nq, with absent neighbours (nbr < 0) contributing 0,
+// W[k, c, d] for n < Nq, absent neighbours (nbr < 0) contributing 0,
 // accumulated in f32 and stored in the features' type (f32 or bf16; W has
-// the same type). The Pallas kernel needs Nq == N (its lane gather takes
-// indices shaped like the operand); this one takes the strided maps'
-// Nq < N directly.
+// the same type). Strided maps (Nq < N) are taken directly.
 //
-// Design (a simple one, to be right first): one block of 256 threads owns
-// a tile of output rows and up to 64 output columns (16, 32 or 64, the
-// least that covers Cout). It loads the tile's (rows, K) neighbour rows once
-// into shared memory, then for every offset k and every chunk of 32 input
-// channels stages the gathered feature rows and the W[k] chunk in shared
-// memory as f32 (bf16 is converted on the way in, in registers; no f32
-// copy of the features exists in device memory) and accumulates 4 rows x 1
-// column per thread in registers. Each W value read from shared memory
-// feeds 4 FMAs; each feature value is a broadcast within a warp.
+// What bounds it on this card: very little arithmetic (2 * C * Cout per
+// neighbour that exists, 1.4 GFLOP for a SECOND request) on rows gathered
+// from all over an L2-resident feature table. By the card's rates that is
+// tens of microseconds; what costs time is latency (a gather, then the
+// products, with nothing overlapping them) and work on absent neighbours,
+// 41-92% of all (row, offset) pairs at SECOND's layers.
 //
-// What bounds it on this card: the FMAs are few (3.6 GFLOP per SECOND
-// request at every offset, far less for the neighbours that exist) and the
-// bytes fewer, so by the card's rates it would take microseconds. What
-// bounds this design is latency: every (offset, chunk) step is a dependent
-// gather of scattered rows from L2 followed by two barriers, 27 steps per
-// tile, with about one block per SM at the SECOND shapes. It also multiplies
-// the zeros of absent neighbours (at SECOND's density about 90% of the
-// offsets are absent). Tensor cores, cp.async/TMA and a rule book of present
-// pairs are for a later version.
+// Design:
+//  - Output-stationary. A block owns a tile of 2048 outputs: TN = 16, 32
+//    or 64 columns (the least that covers Cout) by TM = 2048 / TN rows.
+//    Its 256 threads form two groups that each hold the whole tile (4 x 4
+//    outputs a thread in f32, m16n8 fragments in bf16) and split every
+//    step's (offset, channel) pairs in halves; at the end the second
+//    group's sums are added to the first's. So each output's sum runs in
+//    one block, over the offsets in ascending order within each half, and
+//    the two halves join in a fixed order: no atomics, the same bits on
+//    every run. (At SECOND's sizes one group alone would leave one warp
+//    per scheduler, and the tile is bound by latency, not arithmetic.)
+//  - The rows come in the rule book's order (ops/rulebook.py: rows stably
+//    sorted by their 27-bit presence mask), so the rows of a tile share
+//    their offsets. The block ORs its rows' masks and walks only the
+//    offsets that some row of the tile has; a tile of rows without
+//    neighbours (padding, invalid sites) does no work and writes zeros.
+//    Every output row is written.
+//  - The tile's work is one axis of (offset, channel) pairs: its present
+//    offsets ascending, each one's C channels ascending. A step stages 64
+//    of them, so where C < 64 one step carries several offsets (C = 4: 16
+//    of them) instead of a mostly idle step per offset.
+//  - Gathers are asynchronous: each step stages the tile's gathered rows
+//    and the matching rows of W in a 3-stage shared-memory ring filled by
+//    cp.async (L2-only for 16-byte copies), so two steps' gathers are in
+//    flight while the block multiplies the third. Each thread's copies in
+//    a step share one column, so a step costs a thread one integer
+//    division, not one a copy. Absent rows and the pairs past the tile's
+//    last offset are zero-filled by the copy itself (src-size 0). Copies
+//    are 16, 8 or 4 bytes, the widest that divides a row (C = 4 in f32 is
+//    one 16-byte copy a row; in bf16 one 8-byte copy).
+//  - f32 multiplies in full-precision FFMA (TF32 would miss the f32
+//    contract), 4 x 4 outputs a thread from float4 shared loads: 8 loads
+//    feed 64 FMAs.
+//  - bf16 multiplies on the tensor cores with f32 accumulators, with
+//    mma.sync m16n8k16 rather than wgmma: the operand tiles are rebuilt
+//    from gathered rows every step and are small (64 pairs, at most 64
+//    columns); wgmma wants 64-row warpgroup tiles in its own swizzled
+//    shared-memory layout, and at these sizes the tensor cores are far
+//    from the limit. C = 4 needs no padding: the step axis packs 16
+//    offsets' channels.
+//  - TMA is not used: it cannot gather arbitrary rows, and W[k]'s chunk is
+//    a few KB that the same cp.async ring carries.
+//
+// The rule book's build for all of a request's maps, two more kernels
+// (`rulebook_masks_kernel`, `rulebook_sort_kernel`), is at the end.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowsPerThread = 4;
-constexpr int kChunk = 32;  // input channels staged per step
-constexpr int kPad = kChunk + 1;  // row stride of the staged features
+constexpr int kGroup = 128;       // threads that hold one copy of the tile
+constexpr int kTileElems = 2048;  // outputs per block
+constexpr int kStages = 3;        // depth of the cp.async ring
+constexpr int kMaxOffsets = 31;   // one bit a row per offset
+// (offset, channel) pairs staged a step, each of the two thread groups
+// taking half (f32: 32 channels; bf16: two k16 fragments)
+constexpr int kStep = 64;
+static_assert((kStep & (kStep - 1)) == 0, "a row's copies are counted by "
+              "shifts: the pairs of a step are a power of two");
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+using bf16 = __nv_bfloat16;
+
+// the tile's columns for `cout` output channels: the least of 16, 32, 64
+// that covers them (wider layers take several column tiles)
+__host__ __device__ constexpr int tile_cols(int cout) {
+  return cout <= 16 ? 16 : cout <= 32 ? 32 : 64;
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    subm_conv_kernel(const T* __restrict__ feat, const int* __restrict__ nbr,
-                     const T* __restrict__ w,
-                     const uint8_t* __restrict__ valid, T* __restrict__ out,
-                     int n, int nq, int k_off, int c, int cout, int tn) {
-  extern __shared__ float smem[];
-  const int tm = (kThreads / tn) * kRowsPerThread;
-  int* nbr_s = reinterpret_cast<int*>(smem);  // (tm, k_off)
-  float* x_s = smem + tm * k_off;             // (tm, kPad)
-  float* w_s = x_s + tm * kPad;               // (kChunk, tn)
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * tm;
-  const int col0 = blockIdx.y * tn;
-  const int col = tid % tn;
-  const int r0 = (tid / tn) * kRowsPerThread;
-
-  // the tile's neighbour rows: one contiguous, coalesced run of nbr; rows
-  // past Nq and out-of-range entries read as absent
-  for (int i = tid; i < tm * k_off; i += kThreads) {
-    const int v = row0 + i / k_off < nq
-                      ? nbr[static_cast<size_t>(row0) * k_off + i] : -1;
-    nbr_s[i] = v < n ? v : -1;
+// f32: rows of KC + 4 floats keep float4 loads aligned and shift the banks;
+// bf16: rows of KC + 8 (and TN + 8) values keep the fragments' 32-bit
+// loads on distinct banks
+template <typename T, int TN>
+struct Tile {
+  static constexpr int KC = kStep;
+  static constexpr int TM = kTileElems / TN;
+  static constexpr int LDX = KC + (std::is_same<T, float>::value ? 4 : 8);
+  static constexpr int LDW = TN + (std::is_same<T, float>::value ? 0 : 8);
+  static size_t smem_bytes(int k_off) {
+    return sizeof(T) * kStages * (static_cast<size_t>(TM) * LDX + KC * LDW)
+           + sizeof(int) * (TM + static_cast<size_t>(TM) * k_off + 33);
   }
+};
 
-  float acc[kRowsPerThread];
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) acc[r] = 0.f;
+// cudaFuncSetAttribute costs host time on every launch it runs in: ask
+// once a device for the most dynamic shared memory `kernel` has needed
+// there (`granted`, one per kernel, counts bytes by device)
+constexpr int kMaxDevices = 64;
 
-  for (int kk = 0; kk < k_off; ++kk) {
-    for (int c0 = 0; c0 < c; c0 += kChunk) {
-      const int cc = min(kChunk, c - c0);
-      __syncthreads();  // the previous step's reads are done
-      for (int i = tid; i < tm * cc; i += kThreads) {
-        const int r = i / cc, ch = i - r * cc;
-        const int src = nbr_s[r * k_off + kk];
-        x_s[r * kPad + ch] =
-            src >= 0 ? to_f32(feat[static_cast<size_t>(src) * c + c0 + ch])
-                     : 0.f;
-      }
-      const T* wk = w + (static_cast<size_t>(kk) * c + c0) * cout + col0;
-      for (int i = tid; i < cc * tn; i += kThreads) {
-        const int ch = i / tn, j = i - ch * tn;
-        w_s[i] = col0 + j < cout ? to_f32(wk[static_cast<size_t>(ch) * cout
-                                             + j])
-                                 : 0.f;
-      }
-      __syncthreads();
-      for (int ch = 0; ch < cc; ++ch) {
-        const float wv = w_s[ch * tn + col];
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, size_t smem,
+                       std::atomic<int>* granted) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const int bytes = static_cast<int>(smem);
+  if (dev < kMaxDevices && granted[dev].load() >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) granted[dev].store(bytes);
+  return err;
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool fill) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(fill ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(BYTES), "r"(fill ? BYTES : 0));
+}
+
+// one copy of `vec` bytes, or `vec` zero bytes where !fill
+__device__ __forceinline__ void copy_unit(void* dst, const void* src,
+                                          int vec, bool fill) {
+  if (vec == 16)
+    cp_async<16>(dst, src, fill);
+  else if (vec == 8)
+    cp_async<8>(dst, src, fill);
+  else
+    cp_async<4>(dst, src, fill);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo))
+         | (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// f32: thread (ty, tx) of a group owns rows 4ty..4ty+3 and columns
+// 4tx..4tx+3 of the tile; acc[4 i + j]. Group grp adds the step's pairs
+// [grp KC/2, (grp + 1) KC/2) one at a time, in order.
+template <int TN>
+__device__ __forceinline__ void step_f32(const float* xs, const float* ws,
+                                         float* acc, int tid, int grp) {
+  using C = Tile<float, TN>;
+  constexpr int kHalf = C::KC / 2;
+  const int tx = tid % (TN / 4), ty = tid / (TN / 4);
+  const float* xa = xs + ty * 4 * C::LDX + grp * kHalf;
+  const float* wb = ws + tx * 4 + grp * kHalf * C::LDW;
 #pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r)
-          acc[r] += x_s[(r0 + r) * kPad + ch] * wv;
+  for (int cc = 0; cc < kHalf; cc += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(xa + i * C::LDX + cc);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(wb + (cc + j) * C::LDW);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float av[4] = {a[i].x, a[i].y, a[i].z, a[i].w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[4 * i + 0] += av[q] * b[q].x;
+        acc[4 * i + 1] += av[q] * b[q].y;
+        acc[4 * i + 2] += av[q] * b[q].z;
+        acc[4 * i + 3] += av[q] * b[q].w;
       }
     }
   }
+}
 
-  if (col0 + col >= cout) return;
+// bf16: warps split the tile into WARPS_M x WARPS_N warp tiles of WM x WN
+// outputs, MT x NT fragments of m16n8; acc[4 (mi NT + ni) + e]
+template <int TN>
+struct WarpLayout {
+  static constexpr int WN = TN >= 32 ? 32 : 16;
+  static constexpr int WARPS_N = TN / WN;
+  static constexpr int WARPS_M = (kGroup / 32) / WARPS_N;
+  static constexpr int WM = (kTileElems / TN) / WARPS_M;
+  static constexpr int MT = WM / 16;
+  static constexpr int NT = WN / 8;
+  static_assert(MT * NT * 4 == 16, "16 accumulators a thread");
+};
+
+template <int TN>
+__device__ __forceinline__ void step_bf16(const bf16* xs, const bf16* ws,
+                                          float* acc, int tid, int grp) {
+  using C = Tile<bf16, TN>;
+  constexpr int kHalf = C::KC / 2;
+  using L = WarpLayout<TN>;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm0 = (warp / L::WARPS_N) * L::WM;
+  const int wn0 = (warp % L::WARPS_N) * L::WN;
 #pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int row = row0 + r0 + r;
-    if (row < nq)
-      store(out + static_cast<size_t>(row) * cout + col0 + col,
-            acc[r] * static_cast<float>(valid[row]));
+  for (int k16 = 0; k16 < kHalf; k16 += 16) {
+    const int kk = grp * kHalf + k16;
+    uint32_t a[L::MT][4];
+#pragma unroll
+    for (int mi = 0; mi < L::MT; ++mi) {
+      const bf16* p = xs + (wm0 + mi * 16 + g) * C::LDX + kk + 2 * t4;
+      a[mi][0] = ld32(p);
+      a[mi][1] = ld32(p + 8 * C::LDX);
+      a[mi][2] = ld32(p + 8);
+      a[mi][3] = ld32(p + 8 * C::LDX + 8);
+    }
+#pragma unroll
+    for (int ni = 0; ni < L::NT; ++ni) {
+      const bf16* q = ws + (kk + 2 * t4) * C::LDW + wn0 + ni * 8 + g;
+      const uint32_t b0 = pack(q[0], q[C::LDW]);
+      const uint32_t b1 = pack(q[8 * C::LDW], q[9 * C::LDW]);
+#pragma unroll
+      for (int mi = 0; mi < L::MT; ++mi)
+        mma_bf16(acc + 4 * (mi * L::NT + ni), a[mi], b0, b1);
+    }
   }
 }
 
-template <typename T>
-int launch(const void* feat, const int* nbr, const void* w,
-           const uint8_t* valid, void* out, int n, int nq, int k_off, int c,
-           int cout, cudaStream_t stream) {
-  const int tn = cout <= 16 ? 16 : cout <= 32 ? 32 : 64;
-  const int tm = (kThreads / tn) * kRowsPerThread;
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(tm) * (k_off + kPad)
-                       + static_cast<size_t>(kChunk) * tn);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        subm_conv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+template <typename T, int TN>
+__global__ void __launch_bounds__(kThreads)
+    subm_conv_kernel(const T* __restrict__ feat, const int* __restrict__ nbr,
+                     const int64_t* __restrict__ order,
+                     const T* __restrict__ w,
+                     const uint8_t* __restrict__ valid, T* __restrict__ out,
+                     int n, int nq, int k_off, int c, int cout, int vec_x,
+                     int vec_w) {
+  using C = Tile<T, TN>;
+  constexpr int TM = C::TM, KC = C::KC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);              // kStages x TM x LDX
+  T* ws = xs + kStages * TM * C::LDX;              // kStages x KC x LDW
+  int* rows_s = reinterpret_cast<int*>(ws + kStages * KC * C::LDW);
+  int* nbr_s = rows_s + TM;                        // TM x k_off
+  int* koff_s = nbr_s + TM * k_off;                // the tile's offsets
+  unsigned* mask_s = reinterpret_cast<unsigned*>(koff_s + 32);
+
+  const int tid = threadIdx.x;
+  const int grp = tid / kGroup, gtid = tid % kGroup;
+  const int t0 = blockIdx.x * TM;
+  const int col0 = blockIdx.y * TN;
+
+  // the tile's output rows in rule-book order, their neighbour rows
+  // (out-of-range entries read as absent) and the union of their offsets
+  if (tid == 0) *mask_s = 0u;
+  for (int i = tid; i < TM; i += kThreads)
+    rows_s[i] = t0 + i < nq ? static_cast<int>(order[t0 + i]) : -1;
+  __syncthreads();
+  // (unrolled, so a thread's loads are in flight together rather than one
+  // L2 round trip each)
+  unsigned bits = 0u;
+#pragma unroll 8
+  for (int i = tid; i < TM * k_off; i += kThreads) {
+    const int r = i / k_off, kk = i - r * k_off;
+    const int row = rows_s[r];
+    int v = row >= 0 ? nbr[static_cast<size_t>(row) * k_off + kk] : -1;
+    v = v < n ? v : -1;
+    nbr_s[i] = v;
+    if (v >= 0) bits |= 1u << kk;
   }
-  const dim3 grid((nq + tm - 1) / tm, (cout + tn - 1) / tn);
-  subm_conv_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(feat), nbr, static_cast<const T*>(w), valid,
-      static_cast<T*>(out), n, nq, k_off, c, cout, tn);
+  bits = __reduce_or_sync(0xffffffffu, bits);
+  if ((tid & 31) == 0 && bits) atomicOr(mask_s, bits);
+  __syncthreads();
+  const unsigned mask = *mask_s;
+  if (tid < k_off && ((mask >> tid) & 1u))
+    koff_s[__popc(mask & ((1u << tid) - 1u))] = tid;
+  __syncthreads();
+
+  // the tile's work runs along one axis of (offset, channel) pairs, the
+  // present offsets ascending and each one's channels ascending; a step
+  // stages KC of them, so a step can span several offsets where C < KC
+  const int nk = __popc(mask);
+  const int steps = (nk * c + KC - 1) / KC;
+  const int epu = vec_x / static_cast<int>(sizeof(T));
+  const int upr_log = __ffs(KC / epu) - 1;           // copies a row
+  const int epw = vec_w / static_cast<int>(sizeof(T));
+  const int upw_log = __ffs(TN / epw) - 1;           // copies a W row
+
+  // stage `step` into the ring: the gathered rows (zero where absent or
+  // past the last offset) and the matching rows of W. The threads cover
+  // whole rows of copies, so a thread's copies of the gathered rows all
+  // take the same columns of the step (one offset, one channel), and its
+  // rows of W advance by a fixed number of (offset, channel) pairs: one
+  // division a step, not one a copy.
+  auto issue = [&](int step) {
+    const int st = step % kStages;
+    const int v0 = step * KC;
+    T* xd = xs + st * TM * C::LDX;
+    {
+      const int u = (tid & ((1 << upr_log) - 1)) * epu;
+      const int oi = (v0 + u) / c, ch = v0 + u - oi * c;
+      const int kk = oi < nk ? koff_s[oi] : -1;
+      for (int r = tid >> upr_log; r < TM; r += kThreads >> upr_log) {
+        const int src = kk >= 0 ? nbr_s[r * k_off + kk] : -1;
+        copy_unit(xd + r * C::LDX + u,
+                  src >= 0 ? feat + static_cast<size_t>(src) * c + ch : feat,
+                  vec_x, src >= 0);
+      }
+    }
+    T* wd = ws + st * KC * C::LDW;
+    {
+      const int j = (tid & ((1 << upw_log) - 1)) * epw;
+      const int dv = kThreads >> upw_log;
+      int vr = tid >> upw_log;
+      int oi = (v0 + vr) / c, ch = v0 + vr - oi * c;
+      for (; vr < KC; vr += dv) {
+        const bool fill = oi < nk && col0 + j < cout;
+        const int kk = fill ? koff_s[oi] : 0;
+        copy_unit(wd + vr * C::LDW + j,
+                  fill ? w + (static_cast<size_t>(kk) * c + ch) * cout + col0
+                             + j
+                       : w,
+                  vec_w, fill);
+        for (ch += dv; ch >= c; ch -= c) ++oi;
+      }
+    }
+  };
+
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) issue(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage s has landed; stage s - 1 is consumed
+    if (s + kStages - 1 < steps) issue(s + kStages - 1);
+    cp_async_commit();
+    const int st = s % kStages;
+    if constexpr (std::is_same<T, float>::value)
+      step_f32<TN>(xs + st * TM * C::LDX, ws + st * KC * C::LDW, acc, gtid,
+                   grp);
+    else
+      step_bf16<TN>(xs + st * TM * C::LDX, ws + st * KC * C::LDW, acc, gtid,
+                    grp);
+  }
+  cp_async_wait<0>();
+
+  // the second group's sums join the first's, in that order, through the
+  // ring (free now: 2048 floats fit every stage's tiles)
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);
+  if (grp == 1) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) red[i * kGroup + gtid] = acc[i];
+  }
+  __syncthreads();
+  if (grp == 1) return;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] += red[i * kGroup + gtid];
+
+  // every row of the tile is written: zeros where no neighbour exists,
+  // times valid as the plain version does
+  if constexpr (std::is_same<T, float>::value) {
+    const int tx = gtid % (TN / 4), ty = gtid / (TN / 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = rows_s[ty * 4 + i];
+      if (row < 0) continue;
+      const float v = static_cast<float>(valid[row]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = col0 + tx * 4 + j;
+        if (col < cout)
+          out[static_cast<size_t>(row) * cout + col] = acc[4 * i + j] * v;
+      }
+    }
+  } else {
+    using L = WarpLayout<TN>;
+    const int warp = gtid >> 5, lane = gtid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int wm0 = (warp / L::WARPS_N) * L::WM;
+    const int wn0 = (warp % L::WARPS_N) * L::WN;
+#pragma unroll
+    for (int mi = 0; mi < L::MT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < L::NT; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = rows_s[wm0 + mi * 16 + g + 8 * h];
+          if (row < 0) continue;
+          const float v = static_cast<float>(valid[row]);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = col0 + wn0 + ni * 8 + 2 * t4 + e;
+            if (col < cout)
+              out[static_cast<size_t>(row) * cout + col] = __float2bfloat16_rn(
+                  acc[4 * (mi * L::NT + ni) + 2 * h + e] * v);
+          }
+        }
+  }
+}
+
+template <typename T, int TN>
+int launch(const void* feat, const int* nbr, const int64_t* order,
+           const void* w, const uint8_t* valid, void* out, int n, int nq,
+           int k_off, int c, int cout, int vec_x, int vec_w,
+           cudaStream_t stream) {
+  using C = Tile<T, TN>;
+  static std::atomic<int> granted[kMaxDevices];
+  const size_t smem = C::smem_bytes(k_off);
+  const cudaError_t err = allow_smem(subm_conv_kernel<T, TN>, smem, granted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((nq + C::TM - 1) / C::TM, (cout + TN - 1) / TN);
+  subm_conv_kernel<T, TN><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(feat), nbr, order, static_cast<const T*>(w),
+      valid, static_cast<T*>(out), n, nq, k_off, c, cout, vec_x, vec_w);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_tn(const void* feat, const int* nbr, const int64_t* order,
+              const void* w, const uint8_t* valid, void* out, int n, int nq,
+              int k_off, int c, int cout, int vec_x, int vec_w,
+              cudaStream_t s) {
+  switch (tile_cols(cout)) {
+    case 16:
+      return launch<T, 16>(feat, nbr, order, w, valid, out, n, nq, k_off, c,
+                           cout, vec_x, vec_w, s);
+    case 32:
+      return launch<T, 32>(feat, nbr, order, w, valid, out, n, nq, k_off, c,
+                           cout, vec_x, vec_w, s);
+    default:
+      return launch<T, 64>(feat, nbr, order, w, valid, out, n, nq, k_off, c,
+                           cout, vec_x, vec_w, s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The rule book's build (ops/rulebook.py `subm_conv_rulebook`; its plain
+// version is `_subm_conv_rulebook_plain` there): for each of up to
+// kMaxMaps neighbour maps, every row's presence mask (bit k set where
+// nbr[n, k] >= 0) and the rows stably sorted by mask, the order K5 walks.
+// In torch that was half a dozen launches and a library sort a request,
+// which the host took longer to launch (~0.4 ms by CUDA events) than the
+// card took to run; here it is two launches for all of a request's maps.
+//
+//  - rulebook_masks_kernel, a thread a row of all the maps: the row's 27
+//    entries in one burst of loads, its mask, and the pair (mask, row)
+//    packed as mask << 32 | row into a 64-bit key.
+//  - rulebook_sort_kernel, one block of 1024 threads a map: an LSD radix
+//    sort of the packed keys on the mask's bits, 4 a pass (7 passes for
+//    27 offsets), ping-ponging through a global scratch that stays in L2.
+//    One sweep first counts every pass's digits. A pass then takes the
+//    keys in index order, 8192 at a time (8 a thread, each load coalesced
+//    across the block); a warp ranks its keys of one digit with
+//    __match_any_sync, one exclusive scan over the (digit, load, warp)
+//    counts places every key, and the digits' running bases carry over
+//    from one 8192 to the next. Every pass is stable and the keys start in
+//    row order, so rows with equal masks keep it: the result equals
+//    torch.sort(masks, stable=True).
+// The maps hold up to 2^29 rows in all; SECOND's largest has 32 000.
+
+constexpr int kMaxMaps = 16;
+constexpr int kMaskThreads = 256;
+constexpr int kSortThreads = 1024;
+constexpr int kWarps = kSortThreads / 32;
+constexpr int kRadixBits = 4;
+constexpr int kRadix = 1 << kRadixBits;
+constexpr int kMaxPasses = (kMaxOffsets + kRadixBits - 1) / kRadixBits;
+constexpr int kLoads = 8;                         // keys a thread takes a round
+constexpr int kRound = kLoads * kSortThreads;     // keys a round
+constexpr int kEntries = kRadix * kLoads * kWarps;  // (digit, load, warp)
+constexpr int kScanPer = kEntries / kSortThreads;
+static_assert(kEntries % kSortThreads == 0, "whole entries a thread");
+
+struct MapSet {
+  const int* nbr[kMaxMaps];
+  int nq[kMaxMaps];
+  int start[kMaxMaps];  // the map's first row in masks / order
+};
+
+__global__ void __launch_bounds__(kMaskThreads)
+    rulebook_masks_kernel(MapSet maps, int n_maps, int total, int k_off,
+                          int* __restrict__ masks,
+                          unsigned long long* __restrict__ keys) {
+  const int r = blockIdx.x * kMaskThreads + threadIdx.x;
+  if (r >= total) return;
+  int m = 0;
+  while (m + 1 < n_maps && r >= maps.start[m + 1]) ++m;
+  const int local = r - maps.start[m];
+  const int* row = maps.nbr[m] + static_cast<size_t>(local) * k_off;
+  unsigned bits = 0u;
+#pragma unroll
+  for (int k = 0; k < kMaxOffsets; ++k)
+    if (k < k_off) bits |= static_cast<unsigned>(row[k] >= 0) << k;
+  masks[r] = static_cast<int>(bits);
+  // map m's keys take scratch [2 start, 2 start + nq), the rest its buffer
+  keys[2 * static_cast<size_t>(maps.start[m]) + local] =
+      (static_cast<unsigned long long>(bits) << 32) | static_cast<unsigned>(local);
+}
+
+__device__ __forceinline__ int digit(unsigned long long key, int shift) {
+  return static_cast<int>(key >> (32 + shift)) & (kRadix - 1);
+}
+
+__global__ void __launch_bounds__(kSortThreads)
+    rulebook_sort_kernel(MapSet maps, int k_off, int64_t* __restrict__ order,
+                         unsigned long long* keys) {
+  __shared__ int base[kMaxPasses * kRadix];  // each pass's digit bases
+  __shared__ int cnt[kEntries];
+  __shared__ int warp_sums[kWarps];
+
+  const int m = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int nq = maps.nq[m];
+  const int passes = (k_off + kRadixBits - 1) / kRadixBits;
+  const size_t start = static_cast<size_t>(maps.start[m]);
+  unsigned long long* src = keys + 2 * start;
+  unsigned long long* dst = src + nq;
+
+  // every pass's digit counts in one sweep (a warp adds each digit once),
+  // then their exclusive scans: where each digit's keys start
+  for (int e = tid; e < kMaxPasses * kRadix; e += kSortThreads) base[e] = 0;
+  __syncthreads();
+  for (int i0 = 0; i0 < nq; i0 += kSortThreads) {
+    const int i = i0 + tid;
+    const unsigned long long key = i < nq ? src[i] : 0ull;
+    for (int p = 0; p < passes; ++p) {
+      const int d = i < nq ? digit(key, p * kRadixBits) : kRadix;
+      const unsigned peers = __match_any_sync(0xffffffffu, d);
+      if (d < kRadix && (peers & below) == 0)
+        atomicAdd(&base[p * kRadix + d], __popc(peers));
+    }
+  }
+  __syncthreads();
+  if (tid < passes) {
+    int run = 0;
+    for (int d = 0; d < kRadix; ++d) {
+      const int c = base[tid * kRadix + d];
+      base[tid * kRadix + d] = run;
+      run += c;
+    }
+  }
+  __syncthreads();
+
+  for (int p = 0; p < passes; ++p) {
+    int* pbase = base + p * kRadix;
+    const int shift = p * kRadixBits;
+    for (int i0 = 0; i0 < nq; i0 += kRound) {
+      // this round's keys: load j of thread tid is key i0 + j kSortThreads
+      // + tid, so the index order is (load, warp, lane)
+      unsigned long long v[kLoads];
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {
+        const int i = i0 + j * kSortThreads + tid;
+        v[j] = i < nq ? src[i] : 0ull;
+      }
+#pragma unroll
+      for (int q = 0; q < kScanPer; ++q) cnt[q * kSortThreads + tid] = 0;
+      __syncthreads();
+      int dg[kLoads];
+      unsigned rank[kLoads];
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {
+        const int i = i0 + j * kSortThreads + tid;
+        dg[j] = i < nq ? digit(v[j], shift) : kRadix;
+        const unsigned peers = __match_any_sync(0xffffffffu, dg[j]);
+        rank[j] = __popc(peers & below);
+        if (dg[j] < kRadix && rank[j] == 0)
+          cnt[(dg[j] * kLoads + j) * kWarps + warp] = __popc(peers);
+      }
+      __syncthreads();
+
+      // exclusive scan of cnt in (digit, load, warp) order: thread tid
+      // takes entries [kScanPer tid, kScanPer tid + kScanPer)
+      int local[kScanPer];
+      int sum = 0;
+#pragma unroll
+      for (int q = 0; q < kScanPer; ++q) {
+        local[q] = cnt[kScanPer * tid + q];
+        sum += local[q];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int x = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += x;
+      }
+      if (lane == 31) warp_sums[warp] = incl;
+      __syncthreads();
+      if (warp == 0) {
+        const int w = warp_sums[lane];
+        int wi = w;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int x = __shfl_up_sync(0xffffffffu, wi, o);
+          if (lane >= o) wi += x;
+        }
+        warp_sums[lane] = wi - w;
+      }
+      __syncthreads();
+      int run = incl - sum + warp_sums[warp];
+#pragma unroll
+      for (int q = 0; q < kScanPer; ++q) {
+        cnt[kScanPer * tid + q] = run;
+        run += local[q];
+      }
+      __syncthreads();
+
+      // a key's slot: its digit's base, the round's keys of that digit
+      // before its (load, warp), its rank in the warp
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j)
+        if (dg[j] < kRadix)
+          dst[pbase[dg[j]] + cnt[(dg[j] * kLoads + j) * kWarps + warp]
+              - cnt[dg[j] * kLoads * kWarps] + rank[j]] = v[j];
+      // the round's count of each digit moves its base on
+      int grow = 0;
+      if (tid < kRadix) {
+        const int next = tid + 1 < kRadix ? cnt[(tid + 1) * kLoads * kWarps]
+                                          : min(kRound, nq - i0);
+        grow = next - cnt[tid * kLoads * kWarps];
+      }
+      __syncthreads();
+      if (tid < kRadix) pbase[tid] += grow;
+    }
+    __syncthreads();
+    unsigned long long* t = src;
+    src = dst;
+    dst = t;
+  }
+  for (int r = tid; r < nq; r += kSortThreads)
+    order[start + r] = static_cast<int64_t>(src[r] & 0xffffffffull);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (features, weights and output alike)
-extern "C" int d3d_subm_conv(const void* feat, const int* nbr, const void* w,
+// the output rows of one tile for `cout` output channels: the schedule's
+// row groups, which ops/rulebook.py `RuleBook.k5_schedule` counts
+extern "C" int d3d_subm_conv_tile_rows(int cout) {
+  return kTileElems / tile_cols(cout);
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (features, weights and output alike);
+// order: the rule book's row order, int64 (a permutation of 0..nq-1); vec_x /
+// vec_w: the bytes of one asynchronous copy (16, 8 or 4) dividing a row of
+// the features / of W and their start addresses
+extern "C" int d3d_subm_conv(const void* feat, const int* nbr,
+                             const int64_t* order, const void* w,
                              const uint8_t* valid, void* out, int n, int nq,
-                             int k_off, int c, int cout, int dtype,
-                             void* stream) {
+                             int k_off, int c, int cout, int dtype, int vec_x,
+                             int vec_w, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int elem = dtype == 0 ? 4 : 2;
+  const bool vec_ok = (vec_x == 4 || vec_x == 8 || vec_x == 16)
+                      && (vec_w == 4 || vec_w == 8 || vec_w == 16)
+                      && (c * elem) % vec_x == 0 && (cout * elem) % vec_w == 0;
+  if (n <= 0 || nq <= 0 || c <= 0 || cout <= 0 || k_off <= 0
+      || k_off > kMaxOffsets || !vec_ok)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch<float>(feat, nbr, w, valid, out, n, nq, k_off, c, cout, s);
+    return launch_tn<float>(feat, nbr, order, w, valid, out, n, nq, k_off, c,
+                            cout, vec_x, vec_w, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(feat, nbr, w, valid, out, n, nq, k_off, c,
-                                 cout, s);
+    return launch_tn<bf16>(feat, nbr, order, w, valid, out, n, nq, k_off, c,
+                           cout, vec_x, vec_w, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the rule books of n_maps <= 16 maps of k_off <= 31 offsets: nbrs[i] an
+// (nqs[i], k_off) int32 map on the card (nbrs and nqs are host arrays);
+// masks (int32) and order (int64, each map's rows 0..nqs[i]-1) take the
+// maps' rows end to end; scratch holds two 64-bit keys a row
+extern "C" int d3d_subm_conv_rulebook(const void* const* nbrs, const int* nqs,
+                                      int n_maps, int k_off, int* masks,
+                                      int64_t* order, void* scratch,
+                                      void* stream) {
+  if (n_maps <= 0 || n_maps > kMaxMaps || k_off <= 0 || k_off > kMaxOffsets)
+    return static_cast<int>(cudaErrorInvalidValue);
+  MapSet set{};
+  int64_t total = 0;
+  for (int i = 0; i < n_maps; ++i) {
+    if (nqs[i] < 0 || nqs[i] > (1 << 29))
+      return static_cast<int>(cudaErrorInvalidValue);
+    set.nbr[i] = static_cast<const int*>(nbrs[i]);
+    set.nq[i] = nqs[i];
+    set.start[i] = static_cast<int>(total);
+    total += nqs[i];
+  }
+  if (total <= 0 || total > (1 << 29))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* keys = static_cast<unsigned long long*>(scratch);
+  const int n = static_cast<int>(total);
+  rulebook_masks_kernel<<<(n + kMaskThreads - 1) / kMaskThreads, kMaskThreads,
+                          0, s>>>(set, n_maps, n, k_off, masks, keys);
+  rulebook_sort_kernel<<<n_maps, kSortThreads, 0, s>>>(set, k_off, order,
+                                                       keys);
+  return static_cast<int>(cudaGetLastError());
 }

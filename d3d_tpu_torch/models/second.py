@@ -25,8 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.sparse_conv import (build_neighbor_map, build_neighbor_map_strided,
-                               downsample_coords, sparse_to_dense,
-                               subm_conv_apply)
+                               downsample_coords, prepare_neighbor_maps,
+                               sparse_to_dense, subm_conv_apply)
 from ..ops.voxel import voxelize_dense_padded
 from ..utils import as_tensor, resolve_device
 from .pointpillars import PointPillarsConfig, _ConvBlock, _head
@@ -207,8 +207,11 @@ def _batch_stage_maps(cfg, coords, valid):
     indices move by ``b`` times the rows of the stage they point into (-1
     stays). Every layer then runs once on the whole batch, and a masked
     BatchNorm reduces over the whole batch, as the JAX module's statistics
-    over (B, V) do. Returns the joined maps and the final stage's (coords
-    (B, R, 3), valid (B, R), grid)."""
+    over (B, V) do. On CUDA the joined maps come with their rule books
+    (:func:`prepare_neighbor_maps`, all maps of the batch in one call),
+    built here once for every launch on them; the CPU's plain versions
+    read the bare maps. Returns the joined maps and the final stage's
+    (coords (B, R, 3), valid (B, R), grid)."""
     frames = [_stage_maps(cfg, c, v) for c, v in zip(coords, valid)]
     maps = []
     for s in range(cfg.n_stages):
@@ -223,9 +226,22 @@ def _batch_stage_maps(cfg, coords, valid):
                          torch.cat([_offset(p[2], b * rows)
                                     for b, p in enumerate(per)]),
                          torch.cat([p[3] for p in per])))
+    if coords.device.type == "cuda":
+        maps = _prepare_maps(maps)
     final_coords = torch.stack([f[1][0] for f in frames])
     final_valid = torch.stack([f[1][1] for f in frames])
     return maps, (final_coords, final_valid, frames[0][1][2])
+
+
+def _prepare_maps(maps):
+    """:func:`_batch_stage_maps`' maps with every neighbour map (each
+    stage's submanifold map and strided map) replaced by its rule book,
+    all built together (:func:`prepare_neighbor_maps`)."""
+    books = iter(prepare_neighbor_maps(
+        [m for nbr, _, nbr_s, _ in maps for m in (nbr, nbr_s)
+         if m is not None]))
+    return [(next(books), valid, None if nbr_s is None else next(books),
+             valid_s) for _, valid, nbr_s, valid_s in maps]
 
 
 def _run_stages(cfg, layers, x, maps, train=False):

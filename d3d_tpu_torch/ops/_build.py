@@ -18,7 +18,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["build", "load_library", "BUILD_DIR"]
+__all__ = ["build", "load_library", "stream_handle", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "d3d_tpu_torch"
@@ -31,7 +31,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 # library -> (source, extra nvcc flags, {C function: argtypes}); every C
-# function returns the launch's cudaGetLastError() as an int
+# function returns an int: a launch's cudaGetLastError(), or the answer of a
+# query (d3d_subm_conv_tile_rows)
 _LIBRARIES = {
     # -fmad=false: see the note on rounding at the top of rbox_iou.cu
     "rbox_iou": ("rbox_iou.cu", ["-fmad=false"],
@@ -43,11 +44,15 @@ _LIBRARIES = {
                  {"d3d_soft_nms_scan": [_P, _P, _P, _P, _I, _F, _F, _F, _I,
                                         _P]}),
     "subm_conv": ("subm_conv.cu", [],
-                  {"d3d_subm_conv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _I, _P]}),
+                  {"d3d_subm_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _I, _I, _I, _I, _P],
+                   "d3d_subm_conv_tile_rows": [_I],
+                   "d3d_subm_conv_rulebook": [_P, _P, _I, _I, _P, _P, _P,
+                                              _P]}),
     "subm_conv_dw": ("subm_conv_dw.cu", [],
-                     {"d3d_subm_conv_dw": [_P, _P, _P, _P, _P, _I, _I, _I,
-                                           _I, _I, _I, _I, _P]}),
+                     {"d3d_subm_conv_dw": [_P, _P, _P, _P, _P, _P, _P, _I,
+                                           _I, _I, _I, _I, _I, _I, _I, _I,
+                                           _P]}),
 }
 
 _lock = threading.Lock()
@@ -143,3 +148,13 @@ def load_library(name):
                 getattr(lib, fn).restype = ctypes.c_int
             _loaded[name] = lib
         return lib
+
+
+def stream_handle(device):
+    """The raw handle of ``device``'s current CUDA stream, as
+    ``torch.cuda.current_stream(device).cuda_stream`` gives it but without
+    building a Stream object, a good part of a launch's host time: the
+    smallest sparse-conv layers run shorter than their launch."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -1,0 +1,192 @@
+"""The rule book of a sparse-conv neighbour map: what the kernels K5
+(``csrc/subm_conv.cu``) and K6 (``csrc/subm_conv_dw.cu``) need to skip the
+neighbours that do not exist.
+
+A neighbour map is (Nq, K) int32: ``nbr[n, k]`` is the input row of query
+row n's k-th kernel offset, or -1 where that neighbour is absent. Its rule
+book holds
+
+- ``masks``: (Nq,) int32, bit k set where ``nbr[n, k] >= 0``;
+- ``order``: (Nq,) int64, the rows stably sorted by mask. K5 takes its
+  output rows in this order, so the rows of one tile share their offsets
+  and the tile skips every offset that none of its rows has;
+- on first use by K6 (:meth:`RuleBook.pairs`), for every offset k the query
+  rows that have it, compacted to the front of row k of a (K, Nq) table
+  (rows Nq + 1 apart) in ascending order, with the counts on the device.
+
+Masks and order come from :func:`subm_conv_rulebook`: on CUDA the
+rule-book kernels of ``csrc/subm_conv.cu``, launched once for all the maps
+of a call (:func:`prepare_neighbor_maps`: a SECOND request's five); on the
+CPU its plain version, torch ops and a stable sort a map. K6's lists are a
+flat scan and a scatter. Nothing waits for the device (no ``nonzero``, no
+boolean indexing, no ``.item()``). One rule book serves every launch on
+its map: the forward and both backward kernels of every layer that shares
+the map.
+"""
+
+import ctypes
+
+import torch
+
+from ._build import load_library, stream_handle
+
+__all__ = ["RuleBook", "prepare_neighbor_map", "prepare_neighbor_maps",
+           "subm_conv_rulebook"]
+
+# the presence mask is one int32 a row
+MAX_OFFSETS = 31
+
+# made once per (K, device): two fewer launches a rule book, and no host
+# copy of a constant (which would wait for the device)
+_BITS = {}
+
+
+def _offset_bits(k, device):
+    """(k,) int32 ``1 << arange(k)`` on ``device``."""
+    key = (k, device)
+    if key not in _BITS:
+        _BITS[key] = 1 << torch.arange(k, dtype=torch.int32, device=device)
+    return _BITS[key]
+
+
+def _check_map(nbr):
+    if not isinstance(nbr, torch.Tensor) or nbr.ndim != 2 \
+            or nbr.dtype != torch.int32:
+        raise ValueError("a neighbour map is an (Nq, K) int32 tensor")
+    if nbr.shape[1] > MAX_OFFSETS and nbr.device.type == "cuda":
+        raise ValueError(f"the sparse-conv kernels take at most "
+                         f"{MAX_OFFSETS} kernel offsets, got {nbr.shape[1]}")
+
+
+def _masks(nbr):
+    """(Nq,) int32 presence masks of an (Nq, K <= 31) map."""
+    return torch.where(nbr >= 0, _offset_bits(nbr.shape[1], nbr.device),
+                       0).sum(dim=1, dtype=torch.int32)
+
+
+def _subm_conv_rulebook_plain(nbrs):
+    """The plain version of :func:`subm_conv_rulebook`: each map's masks
+    and their stable sort (torch ops)."""
+    masks = [_masks(n) for n in nbrs]
+    return masks, [torch.sort(m, stable=True).indices for m in masks]
+
+
+def subm_conv_rulebook(nbrs):
+    """K5's rule-book build: ``([masks], [order])``, one of each per map,
+    of contiguous (Nq_i, K) int32 maps on one device with one K <= 31. On
+    CUDA the rule-book kernels of ``csrc/subm_conv.cu`` (masks, then a
+    radix sort a block a map; up to 16 maps a call; calls counted in
+    ``subm_conv_rulebook.launches``), on the CPU its plain version: both
+    give the masks and the stable sort of each map's rows by mask, bit for
+    bit."""
+    if nbrs[0].device.type == "cpu":
+        return _subm_conv_rulebook_plain(nbrs)
+    nqs = [n.shape[0] for n in nbrs]
+    dev = nbrs[0].device
+    masks = torch.empty(sum(nqs), dtype=torch.int32, device=dev)
+    order = torch.empty(sum(nqs), dtype=torch.int64, device=dev)
+    if sum(nqs):
+        scratch = torch.empty(2 * sum(nqs), dtype=torch.int64, device=dev)
+        err = load_library("subm_conv").d3d_subm_conv_rulebook(
+            (ctypes.c_void_p * len(nbrs))(*(n.data_ptr() for n in nbrs)),
+            (ctypes.c_int * len(nbrs))(*nqs), len(nbrs), nbrs[0].shape[1],
+            masks.data_ptr(), order.data_ptr(), scratch.data_ptr(),
+            stream_handle(dev))
+        if err:
+            raise RuntimeError(f"rule-book kernel launch failed: CUDA error "
+                               f"{err}")
+        subm_conv_rulebook.launches += 1
+    return list(masks.split(nqs)), list(order.split(nqs))
+
+
+subm_conv_rulebook.launches = 0
+
+
+class RuleBook:
+    """A neighbour map with its rule book (see the module docstring).
+    ``masks`` and ``order`` are None where the map has more than
+    ``MAX_OFFSETS`` offsets, which only the plain versions on the CPU
+    take."""
+
+    __slots__ = ("nbr", "masks", "order", "_pairs")
+
+    def __init__(self, nbr, _masks_order=None):
+        _check_map(nbr)
+        self.nbr = nbr.contiguous()
+        self._pairs = None
+        if _masks_order is not None:
+            self.masks, self.order = _masks_order
+        elif nbr.shape[1] > MAX_OFFSETS:
+            self.masks = self.order = None
+        else:
+            (self.masks,), (self.order,) = subm_conv_rulebook([self.nbr])
+
+    @property
+    def shape(self):
+        return self.nbr.shape
+
+    def pairs(self):
+        """K6's lists, built on the first call: ``(out_rows, counts)``, a
+        (K, Nq) int32 view of a (K, Nq + 1) table and (K,) int64 counts.
+        Row k holds, in its first ``counts[k]`` entries, the query rows n
+        (ascending) with ``nbr[n, k] >= 0``; the rest is -1 (the table's
+        column 0, outside the view, takes the absent pairs' writes). K6
+        reads each pair's input row from ``nbr`` itself."""
+        if self._pairs is None:
+            nq, k = self.nbr.shape
+            dev = self.nbr.device
+            # (K, Nq): one scan over all offsets' rows laid end to end, then
+            # each offset's count before its row taken off (a cumsum along
+            # either axis of a 2-D map runs as K or Nq short serial scans)
+            present = (self.nbr >= 0).t().contiguous()
+            pos = present.view(-1).cumsum(0).view(k, nq)       # int64
+            pos = pos - pos[:, :1] + present[:, :1]
+            rows = torch.arange(nq, dtype=torch.int32, device=dev)
+            table = torch.full((k, nq + 1), -1, dtype=torch.int32,
+                               device=dev)
+            table.scatter_(1, torch.where(present, pos, 0),
+                           rows.expand(k, nq))
+            counts = (pos[:, -1].contiguous() if nq else
+                      torch.zeros(k, dtype=torch.int64, device=dev))
+            self._pairs = (table[:, 1:], counts)
+        return self._pairs
+
+    def k5_schedule(self, tile_rows):
+        """(present pairs, pairs that K5's schedule multiplies) with tiles
+        of ``tile_rows`` rows in rule-book order (the kernel's own:
+        ``sparse_conv_cuda.k5_tile_rows``): a tile multiplies each of its
+        rows at every offset that any of its rows has. A count on the host
+        (it reads the device)."""
+        k = self.nbr.shape[1]
+        m = self.masks[self.order.long()]
+        real = torch.ones_like(m, dtype=torch.bool)
+        pad = -m.shape[0] % tile_rows
+        m = torch.cat([m, m.new_zeros(pad)]).view(-1, tile_rows)
+        real = torch.cat([real, real.new_zeros(pad)]).view(-1, tile_rows)
+        bit = (m[..., None] >> torch.arange(k, device=m.device)) & 1
+        union = bit.amax(dim=1).sum(dim=1)                    # per tile
+        scheduled = int((union * real.sum(dim=1)).sum())
+        return int(bit.sum()), scheduled
+
+
+def prepare_neighbor_map(nbr):
+    """The :class:`RuleBook` of an (Nq, K) int32 neighbour map, built on its
+    device (a RuleBook is returned as it is)."""
+    return nbr if isinstance(nbr, RuleBook) else RuleBook(nbr)
+
+
+def prepare_neighbor_maps(nbrs):
+    """The :class:`RuleBook` of each of several (Nq_i, K) int32 neighbour
+    maps on one device with one K, built together: on CUDA one call of the
+    rule-book kernels for all of them (up to 16). The same rule books
+    as :func:`prepare_neighbor_map` of each map."""
+    for nbr in nbrs:
+        _check_map(nbr)
+    nbrs = [n.contiguous() for n in nbrs]
+    if len({(n.shape[1], n.device) for n in nbrs}) > 1:
+        raise ValueError("maps prepared together share K and a device: "
+                         f"{[(tuple(n.shape), str(n.device)) for n in nbrs]}")
+    if not nbrs or nbrs[0].shape[1] > MAX_OFFSETS:
+        return [RuleBook(n) for n in nbrs]
+    masks, orders = subm_conv_rulebook(nbrs)
+    return [RuleBook(n, mo) for n, mo in zip(nbrs, zip(masks, orders))]

@@ -13,7 +13,10 @@ The convolution itself, ``out[n] = valid[n] * sum_k W[k]^T feat[nbr[n, k]]``,
 runs as the CUDA kernel K5 (:mod:`d3d_tpu_torch.ops.sparse_conv_cuda`) on
 CUDA tensors, for submanifold and strided maps alike, and as its plain
 version on CPU tensors; its weight gradient runs as K6, its features'
-gradient as K5 again on submanifold maps.
+gradient as K5 again on submanifold maps. Both kernels walk the map's rule
+book (:func:`prepare_neighbor_map`, :mod:`d3d_tpu_torch.ops.rulebook`):
+built once per map on the device, it lets them skip the neighbours that
+do not exist.
 
 Ported: the dense-canvas neighbour maps up to ``_DENSE_CANVAS_MAX_CELLS``
 (2^26 cells, a 268 MB int32 transient). Larger grids raise
@@ -25,11 +28,13 @@ import numpy as np
 import torch
 
 from ..utils import as_tensor
+from .rulebook import RuleBook, prepare_neighbor_map, prepare_neighbor_maps
 from .sparse_conv_cuda import SubmConv
 
 __all__ = ["kernel_offsets", "linearize", "build_neighbor_map",
-           "build_neighbor_map_strided", "subm_conv_apply",
-           "downsample_coords", "sparse_to_dense"]
+           "build_neighbor_map_strided", "prepare_neighbor_map",
+           "prepare_neighbor_maps", "RuleBook",
+           "subm_conv_apply", "downsample_coords", "sparse_to_dense"]
 
 _DENSE_CANVAS_MAX_CELLS = 1 << 26
 _BIG_KEY = 2 ** 30 - 1
@@ -126,7 +131,9 @@ def subm_conv_apply(features, nbr, weights, valid, symmetric=False):
     :param features: (N, C) active-site features (padded rows zero); a
         tensor stays on its device, anything else goes to CUDA, and the
         other operands follow it
-    :param nbr: (Nq, K) int32 neighbour map
+    :param nbr: (Nq, K) int32 neighbour map, or its rule book from
+        :func:`prepare_neighbor_map` (built once per map; a bare map gets
+        its rule book built in the call)
     :param weights: (K, C, C') kernel
     :param valid: (Nq,) bool output-site mask
     :param symmetric: True when ``nbr`` is a submanifold map (Nq == N, the
@@ -135,8 +142,10 @@ def subm_conv_apply(features, nbr, weights, valid, symmetric=False):
     :returns: (Nq, C') features
     """
     features = as_tensor(features)
-    nbr, weights, valid = (as_tensor(t, device=features.device)
-                           for t in (nbr, weights, valid))
+    weights, valid = (as_tensor(t, device=features.device)
+                      for t in (weights, valid))
+    if not isinstance(nbr, RuleBook):
+        nbr = as_tensor(nbr, device=features.device)
     return SubmConv.apply(features, nbr, weights, valid, symmetric)
 
 

@@ -17,6 +17,12 @@ bfloat16 features and a float32 cotangent.
 K6, and the features' gradient K5 again with mirrored offsets on a
 submanifold map, or a scatter-add on a strided one.
 
+The map ``nbr`` is an (Nq, K) int32 tensor or its
+:class:`~d3d_tpu_torch.ops.rulebook.RuleBook`: the kernels walk the rule
+book to skip absent neighbours, and a bare tensor gets its rule book built
+in the call. :class:`SubmConv` keeps one rule book for the forward and
+both backward kernels.
+
 A CPU tensor goes to the plain versions (:func:`_subm_conv_plain`,
 :func:`_subm_conv_dw_plain`), which also take float64 so that
 ``torch.autograd.gradcheck`` can check the gradient; a CUDA tensor goes to
@@ -25,15 +31,37 @@ the kernels or the call raises.
 
 import torch
 
-from ._build import load_library
+from ._build import load_library, stream_handle
+from .rulebook import RuleBook, prepare_neighbor_map
 
-__all__ = ["subm_conv", "subm_conv_dw", "SubmConv"]
+__all__ = ["subm_conv", "subm_conv_dw", "SubmConv", "k5_tile_rows"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CPU_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
-# query rows per K6 block: fixes how its sums are grouped, so a shape always
-# gives the same bits
+# entries of one offset's list per K6 block: fixes how its sums are grouped,
+# so a map always gives the same bits
 _DW_SLAB = 512
+
+
+def k5_tile_rows(cout):
+    """Output rows of one K5 tile for ``cout`` output channels, as the
+    kernel's library says (``csrc/subm_conv.cu``; built on first use)."""
+    return load_library("subm_conv").d3d_subm_conv_tile_rows(cout)
+
+
+def _nbr_tensor(nbr):
+    return nbr.nbr if isinstance(nbr, RuleBook) else nbr
+
+
+def _vec(t, row_elems, name):
+    """The widest asynchronous copy (16, 8 or 4 bytes) that divides a row
+    of ``t`` and its start address."""
+    row = row_elems * t.element_size()
+    for v in (16, 8, 4):
+        if row % v == 0 and t.data_ptr() % v == 0:
+            return v
+    raise ValueError(f"{name}: rows of {row} bytes; the kernel copies rows "
+                     "in units of 4, 8 or 16 bytes")
 
 
 def _acc_dtype(*dtypes):
@@ -97,40 +125,49 @@ def _check(features, nbr, weights, valid):
     _check_device("K5", (features, nbr, weights, valid), features.dtype)
 
 
-def _launch(features, nbr, weights, valid):
-    """K5 on CUDA tensors with Nq, Cout > 0 -> (Nq, Cout) in the features'
-    dtype."""
+def _launch(features, rules, weights, valid, out=None):
+    """K5 on CUDA tensors with N, C, Nq, Cout > 0 and a
+    :class:`RuleBook` -> (Nq, Cout) in the features' dtype, written into
+    ``out`` where given (every row is written)."""
     features = features.contiguous()
-    nbr = nbr.contiguous()
     weights = weights.contiguous()
     valid = valid.contiguous()
     n, c = features.shape
-    nq, k = nbr.shape
+    nq, k = rules.shape
     cout = weights.shape[2]
-    out = torch.empty((nq, cout), dtype=features.dtype,
-                      device=features.device)
+    if out is None:
+        out = torch.empty((nq, cout), dtype=features.dtype,
+                          device=features.device)
+    elif (out.shape != (nq, cout) or out.dtype != features.dtype
+          or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({nq}, {cout}) "
+                         f"{features.dtype} tensor")
     err = load_library("subm_conv").d3d_subm_conv(
-        features.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
-        valid.data_ptr(), out.data_ptr(), n, nq, k, c, cout,
-        _DTYPES[features.dtype],
-        torch.cuda.current_stream(features.device).cuda_stream)
+        features.data_ptr(), rules.nbr.data_ptr(), rules.order.data_ptr(),
+        weights.data_ptr(), valid.data_ptr(), out.data_ptr(), n, nq, k, c,
+        cout, _DTYPES[features.dtype], _vec(features, c, "K5 features"),
+        _vec(weights, cout, "K5 weights"),
+        stream_handle(features.device))
     if err:
         raise RuntimeError(f"subm_conv kernel launch failed: CUDA error {err}")
     return out
 
 
 def subm_conv(features, nbr, weights, valid):
-    """(N, C) features, (Nq, K) int32 nbr, (K, C, Cout) weights of the same
-    dtype, (Nq,) bool valid -> (Nq, Cout) in the features' dtype (K5;
-    launches counted in ``subm_conv.launches``)."""
-    _check(features, nbr, weights, valid)
+    """(N, C) features, (Nq, K) int32 nbr or its :class:`RuleBook`, (K, C,
+    Cout) weights of the same dtype, (Nq,) bool valid -> (Nq, Cout) in the
+    features' dtype (K5; launches counted in ``subm_conv.launches``)."""
+    _check(features, _nbr_tensor(nbr), weights, valid)
     if features.device.type == "cpu":
-        return _subm_conv_plain(features, nbr, weights, valid)
-    nq, cout = nbr.shape[0], weights.shape[2]
+        return _subm_conv_plain(features, _nbr_tensor(nbr), weights, valid)
+    (n, c), (nq, cout) = features.shape, (nbr.shape[0], weights.shape[2])
     if nq == 0 or cout == 0:  # nothing to launch
         return torch.empty((nq, cout), dtype=features.dtype,
                            device=features.device)
-    out = _launch(features, nbr, weights, valid)
+    if n == 0 or c == 0:  # every sum is empty
+        return torch.zeros((nq, cout), dtype=features.dtype,
+                           device=features.device)
+    out = _launch(features, prepare_neighbor_map(nbr), weights, valid)
     subm_conv.launches += 1
     return out
 
@@ -153,24 +190,26 @@ def _check_dw(features, nbr, grad):
         raise ValueError(f"K6 takes a float32 cotangent, got {grad.dtype}")
 
 
-def _dw_launch(features, nbr, grad):
-    """K6 on CUDA tensors with Nq > 0 -> (K, C, Cout) float32."""
+def _dw_launch(features, rules, grad):
+    """K6 on CUDA tensors with N, Nq > 0 and a :class:`RuleBook` -> (K, C,
+    Cout) float32."""
     features = features.contiguous()
-    nbr = nbr.contiguous()
     grad = grad.contiguous()
     n, c = features.shape
-    nq, k = nbr.shape
+    nq, k = rules.shape
     cout = grad.shape[1]
+    out_rows, counts = rules.pairs()
     slabs = -(-nq // _DW_SLAB)
     part = torch.empty((k, slabs, c, cout), dtype=torch.float32,
                        device=features.device)
     out = torch.empty((k, c, cout), dtype=torch.float32,
                       device=features.device)
     err = load_library("subm_conv_dw").d3d_subm_conv_dw(
-        features.data_ptr(), nbr.data_ptr(), grad.data_ptr(),
-        part.data_ptr(), out.data_ptr(), n, nq, k, c, cout, _DW_SLAB,
-        _DTYPES[features.dtype],
-        torch.cuda.current_stream(features.device).cuda_stream)
+        features.data_ptr(), rules.nbr.data_ptr(), out_rows.data_ptr(),
+        counts.data_ptr(), grad.data_ptr(), part.data_ptr(), out.data_ptr(),
+        n, nq, k, c, cout, _DW_SLAB, _DTYPES[features.dtype],
+        _vec(features, c, "K6 features"), _vec(grad, cout, "K6 cotangent"),
+        stream_handle(features.device))
     if err:
         raise RuntimeError(f"subm_conv_dw kernel launch failed: CUDA error "
                            f"{err}")
@@ -178,19 +217,19 @@ def _dw_launch(features, nbr, grad):
 
 
 def subm_conv_dw(features, nbr, grad):
-    """(N, C) features (float32 or bfloat16), (Nq, K) int32 nbr, (Nq, Cout)
-    float32 cotangent (already masked by the output sites' validity) ->
-    (K, C, Cout) float32 weight gradient (K6; launches counted in
-    ``subm_conv_dw.launches``). Runs sum in an order fixed by the shapes,
-    so a repeated call gives the same bits."""
-    _check_dw(features, nbr, grad)
+    """(N, C) features (float32 or bfloat16), (Nq, K) int32 nbr or its
+    :class:`RuleBook`, (Nq, Cout) float32 cotangent (already masked by the
+    output sites' validity) -> (K, C, Cout) float32 weight gradient (K6;
+    launches counted in ``subm_conv_dw.launches``). Sums run in an order
+    fixed by the map, so a repeated call gives the same bits."""
+    _check_dw(features, _nbr_tensor(nbr), grad)
     if features.device.type == "cpu":
-        return _subm_conv_dw_plain(features, nbr, grad)
+        return _subm_conv_dw_plain(features, _nbr_tensor(nbr), grad)
     k, c, cout = nbr.shape[1], features.shape[1], grad.shape[1]
-    if nbr.shape[0] == 0 or k * c * cout == 0:  # nothing to launch
+    if min(nbr.shape[0], features.shape[0], k * c * cout) == 0:
         return torch.zeros((k, c, cout), dtype=torch.float32,
-                           device=features.device)
-    out = _dw_launch(features, nbr, grad)
+                           device=features.device)  # nothing to launch
+    out = _dw_launch(features, prepare_neighbor_map(nbr), grad)
     subm_conv_dw.launches += 1
     return out
 
@@ -215,7 +254,10 @@ class SubmConv(torch.autograd.Function):
     """``subm_conv`` with the JAX module's custom VJP
     (``sparse_conv_pallas._fused_bwd``).
 
-    ``apply(features, nbr, weights, valid, symmetric)``: the weights (any
+    ``apply(features, nbr, weights, valid, symmetric)``, ``nbr`` a map or
+    its :class:`RuleBook` (built here for a bare map on CUDA, then kept for
+    the backward, so every kernel of the layer walks one rule book): the
+    weights (any
     float dtype, e.g. the float32 parameter) are cast to the features' dtype
     for the forward K5 launch. The backward upcasts the cotangent to float32
     (autograd hands a bfloat16 one to a bfloat16 forward) and masks it by
@@ -234,13 +276,17 @@ class SubmConv(torch.autograd.Function):
             raise ValueError(f"a symmetric (submanifold) map has a row per "
                              f"site: nbr {tuple(nbr.shape)}, features "
                              f"{tuple(features.shape)}")
-        ctx.save_for_backward(features, nbr, weights, valid)
+        if features.device.type == "cuda":
+            nbr = prepare_neighbor_map(nbr)
+        ctx.save_for_backward(features, weights, valid)
+        ctx.nbr = nbr
         ctx.symmetric = symmetric
         return subm_conv(features, nbr, weights.to(features.dtype), valid)
 
     @staticmethod
     def backward(ctx, grad):
-        features, nbr, weights, valid = ctx.saved_tensors
+        features, weights, valid = ctx.saved_tensors
+        nbr = ctx.nbr
         acc = _acc_dtype(grad.dtype)
         gm = grad.to(acc) * valid[:, None]
         dw = dfeat = None
@@ -251,6 +297,7 @@ class SubmConv(torch.autograd.Function):
             if ctx.symmetric:
                 dfeat = subm_conv(gm, nbr, w.flip(0).transpose(1, 2), valid)
             else:
-                dfeat = _scatter_dfeat(gm, nbr, w, features.shape[0])
+                dfeat = _scatter_dfeat(gm, _nbr_tensor(nbr), w,
+                                       features.shape[0])
             dfeat = dfeat.to(features.dtype)
         return dfeat, None, dw, None, None

@@ -36,7 +36,8 @@ from d3d_tpu_torch.models import (SECOND, PointPillars,  # noqa: E402
                                   make_second_detector, make_train_step,
                                   pillarize, presets, second_voxelize)
 from d3d_tpu_torch.models.inference import _bev  # noqa: E402
-from d3d_tpu_torch.models.second import _run_stages, _stage_maps  # noqa: E402
+from d3d_tpu_torch.models.second import (_batch_stage_maps,  # noqa: E402
+                                          _run_stages)
 from d3d_tpu_torch.ops import geometry_cuda, nms_cuda  # noqa: E402
 from d3d_tpu_torch.ops._build import build  # noqa: E402
 from d3d_tpu_torch.ops.nms import nms2d  # noqa: E402
@@ -182,7 +183,9 @@ def main():
         detect = make_second_detector(model, None, cfg, anchors, ["Car"],
                                       device=dev)
         feats, coords, valid = second_voxelize(points, cfg)
-        maps, (fc, fv, fg) = _stage_maps(cfg, coords, valid)
+        maps, (fc, fv, fg) = _batch_stage_maps(cfg, coords[None],
+                                               valid[None])
+        fc, fv = fc[0], fv[0]
         with torch.inference_mode():
             x = _run_stages(cfg, model.middle, feats, maps)
             raw = model.bev_head(sparse_to_dense(x, fc, fv, fg)[None])
@@ -210,8 +213,8 @@ def main():
              lambda: detect.device_fn(points)),
             ("voxelize (second_voxelize)",
              lambda: second_voxelize(points, cfg)),
-            ("neighbour maps + downsampling",
-             lambda: _stage_maps(cfg, coords, valid)),
+            ("neighbour maps + rule books + downsampling",
+             lambda: _batch_stage_maps(cfg, coords[None], valid[None])),
             ("middle extractor (8 x K5 + BN)", middle),
             ("densify + BEV block + heads", head),
             ("top-k + decode", topk_decode),

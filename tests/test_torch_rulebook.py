@@ -1,0 +1,442 @@
+"""The rule book of the port's sparse-conv kernels (``ops/rulebook.py``)
+against the JAX package's neighbour maps: every present (row, offset) pair
+is scheduled exactly once; plain-torch emulations of K5's schedule (rows in
+rule-book order, tiles that skip the offsets none of their rows has) and
+of K6's (per-offset lists of present pairs, slabs summed in order) equal
+the plain versions and the Pallas kernels in interpret mode; edge maps;
+a prepared map gives what a bare one gives, forward and gradients; and
+every C entry point's signature matches the argtypes ``ops/_build.py``
+declares for it."""
+
+import re
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from d3d_tpu.ops import sparse_conv as S
+from d3d_tpu.ops.sparse_conv_pallas import _dw_call, subm_conv_fused
+
+from d3d_tpu_torch.models import second as TSEC
+from d3d_tpu_torch.models import presets
+from d3d_tpu_torch.ops import _build
+from d3d_tpu_torch.ops import sparse_conv as TS
+from d3d_tpu_torch.ops import sparse_conv_cuda as TK
+from d3d_tpu_torch.ops.rulebook import RuleBook, prepare_neighbor_map
+
+GRID = (8, 10, 6)
+K = 27
+
+
+def _sites(rng, n_active, n_pad, grid=GRID):
+    cells = np.stack(np.meshgrid(*[np.arange(g) for g in grid],
+                                 indexing="ij"), -1).reshape(-1, 3)
+    coords = np.full((n_pad, 3), 3, np.int32)
+    coords[:n_active] = cells[rng.choice(len(cells), n_active,
+                                         replace=False)]
+    return coords, np.arange(n_pad) < n_active
+
+
+def _jax_map(rng, kind):
+    """(nbr, valid, N) from the JAX package's map builders: a submanifold
+    map, a strided map capped below N (Nq < N), or two frames' submanifold
+    maps joined as SECOND joins a batch (``_offset``)."""
+    coords, valid = _sites(rng, 150, 192)
+    jc, jv = jnp.asarray(coords), jnp.asarray(valid)
+    if kind == "subm":
+        return np.array(S.build_neighbor_map(jc, jv, GRID)), valid, 192
+    if kind == "strided":
+        oc, ov = S.downsample_coords(jc, jv, GRID, stride=2, max_out=64)
+        nbr = S.build_neighbor_map_strided(oc, ov, jc, jv, GRID, stride=2)
+        return np.array(nbr), np.array(ov), 192
+    c2, v2 = _sites(rng, 120, 192)
+    maps = [np.array(S.build_neighbor_map(jnp.asarray(c), jnp.asarray(v),
+                                          GRID)) for c, v in
+            ((coords, valid), (c2, v2))]
+    joined = torch.cat([TSEC._offset(torch.from_numpy(m), b * 192)
+                        for b, m in enumerate(maps)])
+    return joined.numpy(), np.concatenate([valid, v2]), 384
+
+
+def _edge_map(rng, kind):
+    """(nbr, valid, N) edge maps: every neighbour absent, every neighbour
+    present, one offset absent everywhere, invalid rows that keep their
+    neighbours, Nq not a multiple of any tile, Nq < N."""
+    nq, n = {"nq_lt_n": (20, 50), "ragged": (37, 37)}.get(kind, (40, 40))
+    nbr = rng.integers(0, n, (nq, K)).astype(np.int32)
+    present = rng.random((nq, K)) < 0.3
+    valid = np.ones(nq, bool)
+    if kind == "all_absent":
+        present[:] = False
+    elif kind == "all_present":
+        present[:] = True
+    elif kind == "one_offset_empty":
+        present[:, 5] = False
+    elif kind == "invalid_rows":
+        valid[rng.random(nq) < 0.4] = False
+    nbr[~present] = -1
+    return nbr, valid, n
+
+
+MAPS = ["subm", "strided", "joined"]
+EDGES = ["all_absent", "all_present", "one_offset_empty", "invalid_rows",
+         "ragged", "nq_lt_n"]
+
+
+def _problem(rng, kind, c_in=8, c_out=16):
+    nbr, valid, n = (_jax_map if kind in MAPS else _edge_map)(rng, kind)
+    feats = rng.normal(size=(n, c_in)).astype(np.float32)
+    w = (rng.normal(size=(K, c_in, c_out)) / np.sqrt(K * c_in)).astype(
+        np.float32)
+    return feats, nbr, w, valid
+
+
+def _k5_schedule(feats, rules, w, valid, tile_rows):
+    """K5's schedule in plain torch: output rows in rule-book order, tiles
+    of ``tile_rows`` rows, each tile adding its gathered rows times W[k] for
+    the offsets (ascending) that some row of the tile has, absent rows
+    zero; every row written once (the output starts as NaN). Returns the
+    output and the (row, offset) pairs multiplied."""
+    nq, cout = rules.shape[0], w.shape[2]
+    out = torch.full((nq, cout), float("nan"))
+    order = rules.order.long()
+    done = 0
+    for t0 in range(0, nq, tile_rows):
+        rows = order[t0:t0 + tile_rows]
+        nb = rules.nbr[rows]
+        acc = torch.zeros((len(rows), cout))
+        for k in range(K):
+            if not bool((nb[:, k] >= 0).any()):
+                continue  # no row of the tile has offset k
+            x = torch.where((nb[:, k] >= 0)[:, None],
+                            feats[nb[:, k].clamp(min=0).long()], 0)
+            acc += x @ w[k]
+            done += len(rows)
+        out[rows] = acc * valid[rows, None]
+    return out, done
+
+
+def _k6_schedule(feats, rules, g, slab):
+    """K6's schedule in plain torch: per offset, its list of present pairs
+    in slabs of ``slab`` entries, each slab's partial product summed in
+    slab order. Returns dW and the pairs multiplied."""
+    out_rows, counts = rules.pairs()
+    dw = torch.zeros((K, feats.shape[1], g.shape[1]))
+    done = 0
+    for k in range(K):
+        cnt = int(counts[k])
+        for j0 in range(0, cnt, slab):
+            rows = out_rows[k, j0:min(cnt, j0 + slab)].long()
+            dw[k] += feats[rules.nbr[rows, k].long()].T @ g[rows]
+            done += len(rows)
+    return dw, done
+
+
+@pytest.mark.parametrize("kind", MAPS + EDGES)
+def test_every_present_pair_is_scheduled_once(rng, kind):
+    """K5: the rule-book order is a permutation of the rows, so every
+    present pair lies in exactly one tile, whose offsets include it; the
+    masks are the presence bits. K6: the lists hold each present (query
+    row, offset) exactly once, in ascending query row, and -1 past their
+    counts."""
+    _, nbr, _, _ = _problem(rng, kind)
+    rules = prepare_neighbor_map(torch.from_numpy(nbr))
+    nq = nbr.shape[0]
+    assert rules.masks.dtype == torch.int32
+    assert rules.order.dtype == torch.int64
+    assert sorted(rules.order.tolist()) == list(range(nq))
+    m = rules.masks[rules.order.long()].numpy()
+    assert (np.diff(m) >= 0).all()                       # sorted by mask
+    bits = (nbr >= 0).astype(np.int64) << np.arange(K)
+    np.testing.assert_array_equal(rules.masks.numpy(), bits.sum(1))
+    out_rows, counts = (t.numpy() for t in rules.pairs())
+    assert out_rows.shape == (K, nq) and counts.dtype == np.int64
+    got = set()
+    for k in range(K):
+        cnt = counts[k]
+        assert cnt == (nbr[:, k] >= 0).sum()
+        assert (np.diff(out_rows[k, :cnt]) > 0).all()
+        assert (out_rows[k, cnt:] == -1).all()
+        got |= {(r, k, nbr[r, k]) for r in out_rows[k, :cnt]}
+    want = {(r, k, nbr[r, k]) for r, k in zip(*np.nonzero(nbr >= 0))}
+    assert got == want and len(want) == counts.sum()
+    assert rules.pairs()[0] is rules.pairs()[0]          # built once
+
+
+@pytest.mark.parametrize("kind", MAPS + EDGES)
+def test_k5_schedule_matches_the_plain_version(rng, kind):
+    """The emulated K5 schedule at the kernel's own tile and at small tiles
+    (so that the test maps span several) against ``_subm_conv_plain``:
+    rtol/atol 2e-6 (f32 sums in another order); every row written; the
+    multiplied pairs counted by ``RuleBook.k5_schedule``, never fewer than
+    the present ones."""
+    feats, nbr, w, valid = _problem(rng, kind)
+    tf, tn, tw, tv = (torch.from_numpy(a) for a in (feats, nbr, w, valid))
+    rules = prepare_neighbor_map(tn)
+    want = TK._subm_conv_plain(tf, tn, tw, tv)
+    # 128: the kernel's tile at Cout = 16 (2048 outputs, 16 columns)
+    for tile in (4, 16, 128):
+        got, done = _k5_schedule(tf, rules, tw, tv, tile)
+        assert not bool(torch.isnan(got).any())
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-6,
+                                   atol=2e-6)
+        present, scheduled = rules.k5_schedule(tile)
+        assert present == int((tn >= 0).sum()) and scheduled == done
+        assert present <= scheduled <= nbr.shape[0] * K
+    if kind == "all_absent":
+        assert rules.k5_schedule(4)[1] == 0
+
+
+@pytest.mark.parametrize("kind", MAPS)
+def test_k5_schedule_matches_the_pallas_kernel(rng, kind):
+    """Against ``subm_conv_fused`` in interpret mode (Nq < N padded to N for
+    it, as the JAX module does on the TPU): rtol/atol 2e-6."""
+    feats, nbr, w, valid = _problem(rng, kind)
+    n, nq = feats.shape[0], nbr.shape[0]
+    pad = n - nq
+    fused = np.asarray(subm_conv_fused(
+        jnp.asarray(feats),
+        jnp.asarray(np.concatenate([nbr, np.full((pad, K), -1, np.int32)])),
+        jnp.asarray(w),
+        jnp.asarray(np.concatenate([valid, np.zeros(pad, bool)])),
+        False, True))[:nq]
+    rules = prepare_neighbor_map(torch.from_numpy(nbr))
+    got, _ = _k5_schedule(torch.from_numpy(feats), rules, torch.from_numpy(w),
+                          torch.from_numpy(valid), 16)
+    np.testing.assert_allclose(got.numpy(), fused, rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("kind", MAPS + EDGES)
+def test_k6_schedule_matches_the_plain_version(rng, kind):
+    """The emulated K6 schedule (slabs of 512 entries, as the kernel, and of
+    7, so that lists span several) against ``_subm_conv_dw_plain``:
+    rtol/atol 1e-5 (sums over up to 384 rows in another order); it
+    multiplies exactly the present pairs."""
+    feats, nbr, _, valid = _problem(rng, kind)
+    g = (rng.normal(size=(nbr.shape[0], 16)) * valid[:, None]).astype(
+        np.float32)
+    tf, tn, tg = (torch.from_numpy(a) for a in (feats, nbr, g))
+    rules = prepare_neighbor_map(tn)
+    want = TK._subm_conv_dw_plain(tf, tn, tg)
+    for slab in (7, TK._DW_SLAB):
+        got, done = _k6_schedule(tf, rules, tg, slab)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        assert done == int((tn >= 0).sum())
+
+
+@pytest.mark.parametrize("kind", MAPS)
+def test_k6_schedule_matches_the_pallas_dw_call(rng, kind):
+    """Against the Pallas ``_dw_call`` body in the interpreter, on the same
+    transposed operands (Nq < N padded with absent rows): rtol/atol 1e-5."""
+    feats, nbr, _, valid = _problem(rng, kind)
+    n, nq = feats.shape[0], nbr.shape[0]
+    g = (rng.normal(size=(nq, 16)) * valid[:, None]).astype(np.float32)
+    pad = n - nq
+    nbr_full = np.concatenate([nbr, np.full((pad, K), -1, np.int32)])
+    g_full = np.concatenate([g, np.zeros((pad, 16), np.float32)])
+    want = np.asarray(_dw_call(jnp.asarray(feats.T), jnp.asarray(nbr_full.T),
+                               jnp.asarray(g_full.T), True))
+    rules = prepare_neighbor_map(torch.from_numpy(nbr))
+    got, _ = _k6_schedule(torch.from_numpy(feats), rules, torch.from_numpy(g),
+                          64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_the_first_layer_tile_skips_absent_offsets(rng):
+    """On a sparse map (a few neighbours a row) the sorted tiles multiply
+    far fewer pairs than every row at every offset, and tiles of padding
+    rows none."""
+    coords, valid = _sites(rng, 60, 256)
+    nbr = TS.build_neighbor_map(torch.from_numpy(coords),
+                                torch.from_numpy(valid), GRID)
+    rules = prepare_neighbor_map(nbr)
+    present, scheduled = rules.k5_schedule(16)
+    assert scheduled < 0.5 * 256 * K
+    assert rules.masks[rules.order.long()][:196].eq(0).all()
+
+
+@pytest.mark.parametrize("kind,symmetric", [("subm", True),
+                                            ("strided", False),
+                                            ("joined", True)])
+def test_prepared_map_equals_a_bare_map(rng, kind, symmetric):
+    """``subm_conv_apply`` with a rule book gives the bits a bare map gives,
+    output and both gradients, and the backward sees the same rule book
+    object the forward took."""
+    feats, nbr, w, valid = _problem(rng, kind, 4, 8)
+    cot = torch.from_numpy(rng.normal(size=(nbr.shape[0], 8)).astype(
+        np.float32))
+    results = []
+    for prepared in (False, True):
+        tf, tw = (torch.from_numpy(a).requires_grad_() for a in (feats, w))
+        tn, tv = torch.from_numpy(nbr), torch.from_numpy(valid)
+        m = prepare_neighbor_map(tn) if prepared else tn
+        out = TS.subm_conv_apply(tf, m, tw, tv, symmetric=symmetric)
+        (out * cot).sum().backward()
+        results.append((out.detach(), tf.grad, tw.grad))
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+
+
+def test_backward_reuses_the_forward_rule_book(rng, monkeypatch):
+    """One rule book serves the forward K5, K6 and the mirrored K5."""
+    seen = []
+    real_conv, real_dw = TK.subm_conv, TK.subm_conv_dw
+    monkeypatch.setattr(TK, "subm_conv", lambda *a: seen.append(a[1])
+                        or real_conv(*a))
+    monkeypatch.setattr(TK, "subm_conv_dw", lambda *a: seen.append(a[1])
+                        or real_dw(*a))
+    feats, nbr, w, valid = _problem(rng, "subm", 4, 8)
+    tf, tw = (torch.from_numpy(a).requires_grad_() for a in (feats, w))
+    rules = prepare_neighbor_map(torch.from_numpy(nbr))
+    TS.subm_conv_apply(tf, rules, tw, torch.from_numpy(valid),
+                       symmetric=True).sum().backward()
+    assert len(seen) == 3 and all(s is rules for s in seen)
+
+
+def test_kernel_wrappers_take_a_rule_book_on_the_cpu(rng):
+    """The wrappers take a map or its rule book; on CPU tensors both run
+    the plain versions and count no launch."""
+    feats, nbr, w, valid = _problem(rng, "strided", 8, 4)
+    tf, tn, tw, tv = (torch.from_numpy(a) for a in (feats, nbr, w, valid))
+    rules = prepare_neighbor_map(tn)
+    counts = (TK.subm_conv.launches, TK.subm_conv_dw.launches)
+    assert torch.equal(TK.subm_conv(tf, rules, tw, tv),
+                       TK.subm_conv(tf, tn, tw, tv))
+    g = torch.ones((nbr.shape[0], 4))
+    assert torch.equal(TK.subm_conv_dw(tf, rules, g),
+                       TK.subm_conv_dw(tf, tn, g))
+    assert (TK.subm_conv.launches, TK.subm_conv_dw.launches) == counts
+
+
+def test_more_offsets_than_mask_bits_only_on_the_cpu(rng):
+    """A 5x5x5 map (125 offsets) has no 32-bit mask: its rule book keeps
+    no order (the kernels would refuse it on CUDA) but still lists K6's
+    pairs, and the plain versions take it."""
+    nbr = torch.from_numpy(rng.integers(-1, 6, (6, 125)).astype(np.int32))
+    rules = RuleBook(nbr)
+    assert rules.order is None and rules.masks is None
+    _, counts = rules.pairs()
+    assert counts.tolist() == (nbr >= 0).sum(0).tolist()
+    out = TK.subm_conv(torch.ones(6, 2), rules, torch.ones(125, 2, 3),
+                       torch.ones(6, dtype=torch.bool))
+    assert torch.equal(out[:, 0], 2.0 * (nbr >= 0).sum(1))
+
+
+def test_rule_book_rejects_what_is_not_a_map():
+    with pytest.raises(ValueError, match="int32"):
+        RuleBook(torch.zeros((3, 27), dtype=torch.int64))
+    with pytest.raises(ValueError, match="int32"):
+        RuleBook(torch.zeros(27, dtype=torch.int32))
+
+
+def test_batch_stage_maps_prepare_each_joined_map_once(monkeypatch):
+    """SECOND prepares each joined map of a batch once, all in one call: a
+    submanifold and a strided map for each stage but the last, which has
+    only the former (``_prepare_maps``, which ``_batch_stage_maps`` runs on
+    CUDA). On the CPU the plain versions read bare maps: no rule book."""
+    calls = []
+    real = TSEC.prepare_neighbor_maps
+    monkeypatch.setattr(TSEC, "prepare_neighbor_maps", lambda nbrs: calls.append(
+        [tuple(n.shape) for n in nbrs]) or real(nbrs))
+    cfg = presets.second_kitti(
+        dtype="float32", bounds=(0.0, 6.4, -3.2, 3.2, -3.0, 1.0),
+        grid=(16, 16, 8), max_voxels=64, stage_sites=(64, 32, 16),
+        head_channels=8)
+    rng = np.random.default_rng(3)
+    coords = torch.from_numpy(rng.integers(0, 8, (2, 64, 3)).astype(np.int32))
+    valid = torch.ones((2, 64), dtype=torch.bool)
+    maps, _ = TSEC._batch_stage_maps(cfg, coords, valid)
+    assert calls == []
+    for nbr, _, nbr_s, _ in maps:
+        assert not isinstance(nbr, RuleBook)
+        assert not isinstance(nbr_s, RuleBook)
+    prepared = TSEC._prepare_maps(maps)
+    assert calls == [[(128, 27), (64, 27), (64, 27), (32, 27), (32, 27)]]
+    for (nbr, v, nbr_s, v_s), (rb, pv, rb_s, pv_s) in zip(maps, prepared):
+        assert v is pv and v_s is pv_s
+        for bare, book in ((nbr, rb), (nbr_s, rb_s)):
+            if bare is None:
+                assert book is None
+                continue
+            assert isinstance(book, RuleBook) and torch.equal(book.nbr, bare)
+            assert torch.equal(book.order, RuleBook(bare).order)
+
+
+@pytest.mark.parametrize("kinds", [MAPS, EDGES, ["subm"], MAPS + EDGES])
+def test_maps_prepared_together_equal_each_alone(rng, kinds):
+    """``prepare_neighbor_maps`` (all maps in one call) gives each map the
+    masks, order and K6 lists its own ``prepare_neighbor_map`` gives."""
+    nbrs = [torch.from_numpy(_problem(rng, kind)[1]) for kind in kinds]
+    for nbr, book in zip(nbrs, TS.prepare_neighbor_maps(nbrs)):
+        alone = prepare_neighbor_map(nbr)
+        assert torch.equal(book.nbr, nbr)
+        assert torch.equal(book.masks, alone.masks)
+        assert torch.equal(book.order, alone.order)
+        for a, b in zip(book.pairs(), alone.pairs()):
+            assert torch.equal(a, b)
+
+
+def test_rule_book_wrapper_runs_its_plain_version_on_the_cpu(rng):
+    """``subm_conv_rulebook`` on CPU maps is its plain version and counts
+    no launch: each map's masks are its presence bits and its order the
+    stable sort of its own masks."""
+    from d3d_tpu_torch.ops import rulebook as RB
+
+    nbrs = [torch.from_numpy(_problem(rng, kind)[1]) for kind in MAPS]
+    launches = RB.subm_conv_rulebook.launches
+    masks, orders = RB.subm_conv_rulebook(nbrs)
+    assert RB.subm_conv_rulebook.launches == launches
+    for nbr, m, o in zip(nbrs, masks, orders):
+        bits = ((nbr >= 0).long() << torch.arange(K)).sum(1)
+        assert torch.equal(m.long(), bits)
+        assert torch.equal(o, torch.sort(m, stable=True).indices)
+
+
+def test_maps_prepared_together_share_k():
+    with pytest.raises(ValueError, match="share K"):
+        TS.prepare_neighbor_maps([torch.zeros((3, 27), dtype=torch.int32),
+                                  torch.zeros((3, 8), dtype=torch.int32)])
+    with pytest.raises(ValueError, match="int32"):
+        TS.prepare_neighbor_maps([torch.zeros((3, 27), dtype=torch.int64)])
+
+
+def _c_signatures():
+    """{C function: its parameters as 'P' (pointer), 'I' (int) or 'F'
+    (float)} of every ``extern "C"`` function in csrc/*.cu."""
+    sigs = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        text = src.read_text()
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', text):
+            kinds = []
+            for p in params.split(","):
+                p = " ".join(p.split())
+                kinds.append("P" if "*" in p else
+                             "F" if p.startswith("float") else
+                             "I" if p.startswith("int") else p)
+            sigs[name] = (src.name, "".join(kinds))
+    return sigs
+
+
+def test_argtypes_match_the_c_signatures():
+    """Every C entry point is declared in ``_build._LIBRARIES`` with one
+    argtype per parameter: c_void_p for each pointer (a missing one would
+    cut a pointer to 32 bits), c_int for each int, c_float for each float."""
+    letters = {_build._P: "P", _build._I: "I", _build._F: "F"}
+    declared = {fn: (source, "".join(letters[t] for t in types))
+                for source, _, fns in _build._LIBRARIES.values()
+                for fn, types in fns.items()}
+    sigs = _c_signatures()
+    # K2, K3 share one; K5's library also answers its tile's rows and
+    # builds rule books
+    assert len(sigs) == 7 and set(sigs) == set(declared)
+    for fn, (source, kinds) in sigs.items():
+        assert set(kinds) <= set("PIF"), (fn, kinds)
+        assert declared[fn] == (source, kinds), fn
+    assert sigs["d3d_subm_conv"][1] == "PPPPPP" + "I" * 8 + "P"
+    assert sigs["d3d_subm_conv_dw"][1] == "P" * 7 + "I" * 9 + "P"
+    assert sigs["d3d_subm_conv_tile_rows"][1] == "I"
+    assert sigs["d3d_subm_conv_rulebook"][1] == "PPIIPPPP"
