@@ -10,8 +10,12 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
 1. builds the CUDA kernels from ``d3d_tpu_torch/csrc`` into
    ``build/d3d_tpu_torch/`` (one ``nvcc`` per source, in parallel);
 2. holds each kernel against its plain PyTorch version on the card:
-   K1 (rotated IoU matrix) to atol 2e-5, K2/K3 (greedy NMS scan) and K4
-   (soft-NMS cascade, linear and gaussian, n = 100 to 2048) exactly, K5
+   K1 (rotated IoU matrix) to atol 2e-5 from 100x100 to 2048x2048, +0.0
+   wherever the plain version is 0, every entry written, its pairs that
+   ran the IoU chain those the plain reject test keeps and its descriptors
+   equal to torch's, K2/K3 (greedy NMS scan) and K4 (soft-NMS cascade,
+   linear and gaussian, n = 100 to 8192 and a dense cluster, both of its
+   routes) exactly, K5
    (sparse-conv gather-GEMM) at every layer shape of SECOND serving, in
    f32 and bf16, at the tolerances stated in ``check_k5``, bit-equal across
    two launches (the second into a NaN-filled buffer, so an unwritten row
@@ -84,6 +88,11 @@ BF16_TENSOR_OPS_PER_S = 989e12
 #   collapse: 24 x (compare, 2 selects, 2 subs)                      120
 #   shoelace 24 x 4, then 0.5x, max, union 2, max, division         102
 K1_OPS_PER_PAIR = 2384
+
+# f32 operations of K1's reject test per pair, counted from
+# csrc/rbox_iou.cu `rejects`: gap 4 subs + 3 max, slack add + mul + sub,
+# tolerance max + add + mul, 2 compares, min, mul, 2 x ceps, 3 ands
+K1_REJECT_OPS_PER_PAIR = 21
 
 # f32 operations of K4 per box and serial step, counted from
 # csrc/soft_nms.cu (each compare, select, logic op and arithmetic op counts
@@ -301,8 +310,17 @@ def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_bound(n, m):
-    # descriptors (10 f32 per box) in, the (n, m) f32 matrix out
+def k1_bound(n, m, chains):
+    # boxes (5 f32 each) in, the (n, m) f32 matrix out; the reject test on
+    # every pair and the IoU chain on the pairs this run's boxes needed it
+    # for (the kernel's count, equal to the plain reject test's)
+    return bound((n + m) * 5 * 4 + n * m * 4,
+                 n * m * K1_REJECT_OPS_PER_PAIR + chains * K1_OPS_PER_PAIR)
+
+
+def k1_bound_all_pairs(n, m):
+    # the count of the all-pairs design: descriptors (10 f32 per box) in,
+    # the matrix out, the chain on every pair
     return bound((n + m) * 10 * 4 + n * m * 4, n * m * K1_OPS_PER_PAIR)
 
 
@@ -360,8 +378,42 @@ def build_kernels():
                 log(f"  {name}: {line.strip()}")
 
 
+def near_touching_boxes(rng, count=16):
+    """Pairs (a[i], b[i]) that touch or nearly touch: a shared edge, a
+    nearly parallel neighbour and a turned box corner on corner, moved by
+    gaps of 0, +-1e-6 and +-1e-5 of the coordinates' scale; the K1 reject
+    test must run the chain on all of them."""
+    a, b = [], []
+    for _ in range(count):
+        x, y = rng.random() * 60 + 4, rng.random() * 70 - 35
+        w, h = rng.random(2) * 3 + 1.5
+        r = rng.random() * np.pi
+        scale = abs(x) + abs(y) + w + h
+        ux, uy = math.cos(r), math.sin(r)
+        turn = rng.random() * np.pi
+        for rel in (0.0, 1e-6, -1e-6, 1e-5, -1e-5):
+            gap = rel * scale
+            a += [(x, y, w, h, r)] * 3
+            b.append((x + (w + gap) * ux, y + (w + gap) * uy, w, h, r))
+            b.append((x - (0.85 * h + gap) * uy, y + (0.85 * h + gap) * ux,
+                      w, h * 0.7, r + 1e-5))
+            # corner 2 of a on corner 0 of b (turned), along a's diagonal
+            px = x + ux * w / 2 - uy * h / 2
+            py = y + uy * w / 2 + ux * h / 2
+            c2, s2 = math.cos(r + turn), math.sin(r + turn)
+            qx, qy = -c2 * w / 2 + s2 * h / 2, -s2 * w / 2 - c2 * h / 2
+            d = math.hypot(px - x, py - y)
+            b.append((px - qx + gap * (px - x) / d,
+                      py - qy + gap * (py - y) / d, w, h, r + turn))
+    return np.asarray(a, np.float32), np.asarray(b, np.float32)
+
+
 def check_k1(dev):
-    """K1 against the plain version on the card; returns the max error."""
+    """K1 against the plain version on the card: within 2e-5, exactly +0.0
+    wherever the plain version is 0, every entry written (into a NaN-filled
+    buffer), the pairs that ran the chain those the plain reject test keeps,
+    and the descriptors equal to torch's bit for bit. Returns the max error
+    and each shape's share of pairs that ran the chain."""
     from d3d_tpu_torch.ops import geometry_cuda, geometry_soa
 
     rng = np.random.default_rng(0)
@@ -370,27 +422,61 @@ def check_k1(dev):
                     rng.random(37) * 6 + 1, rng.random(37) * 6 + 1,
                     rng.random(37) * 6 - 3], axis=1).astype(np.float32)
     b155 = np.concatenate([b37[:5], bench_boxes(rng, 150)[0]])
+    boxes2048, _ = bench_boxes(np.random.default_rng(7), 2048)  # k3_path's
+    near_a, near_b = near_touching_boxes(rng)
     cases = {"512x512": (boxes512, boxes512),
              "100x100": (boxes512[:100], boxes512[:100]),
              "37x155": (b37, b155),
-             "adversarial": (ADVERSARIAL[:, 0], ADVERSARIAL[:, 1])}
-    worst = 0.0
+             "adversarial": (ADVERSARIAL[:, 0], ADVERSARIAL[:, 1]),
+             "2048x2048": (boxes2048, boxes2048),
+             "near-touching": (near_a, near_b)}
+    worst, shares = 0.0, {}
     for name, (a, b) in cases.items():
         ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
         got = geometry_cuda.rbox_iou_matrix(ta, tb)
         want = geometry_soa._rbox_iou_matrix_plain(ta, tb)
+        chains = torch.zeros(1, dtype=torch.int32, device=dev)
+        nan_out = torch.full_like(got, float("nan"))
+        geometry_cuda._launch(ta, tb, chains=chains, out=nan_out)
+        keep = ~geometry_cuda._reject_plain(ta, tb)
         torch.cuda.synchronize()
         check(got.shape == want.shape, f"K1 {name}: shape {got.shape}")
         check(bool(torch.isfinite(got).all()), f"K1 {name}: not finite")
+        check(torch.equal(nan_out, got),
+              f"K1 {name}: an entry left unwritten or not repeatable")
         err = float((got - want).abs().max())
         log(f"K1 {name}: max |kernel - plain| = {err:.3g} (atol 2e-5)")
         check(err <= 2e-5, f"K1 {name}: error {err} > 2e-5")
-        if name != "adversarial":
+        zero = want == 0
+        check(bool((got[zero] == 0).all())
+              and not bool(torch.signbit(got[~keep]).any()),
+              f"K1 {name}: not +0.0 where the plain version is 0")
+        check(int(chains) == int(keep.sum()),
+              f"K1 {name}: {int(chains)} pairs ran the chain, the plain "
+              f"reject test keeps {int(keep.sum())}")
+        if name == "near-touching":
+            check(bool(keep.diagonal().all()),
+                  "K1 near-touching: a touching pair was rejected")
+        if name not in ("adversarial", "near-touching"):
             diag = torch.diagonal(got[:5, :5])
             check(bool(((diag - 1).abs() <= 1e-4).all()),
                   f"K1 {name}: diagonal {diag.tolist()}")
+        shares[name] = int(chains) / got.numel()
+        log(f"K1 {name}: {int(chains)} of {got.numel()} pairs ran the chain "
+            f"({100 * shares[name]:.2f}%), the rest +0.0 from the reject "
+            f"test")
         worst = max(worst, err)
-    return worst
+    for name in ("512x512", "2048x2048", "adversarial"):
+        tb = torch.from_numpy(cases[name][0]).to(dev)
+        mine = geometry_cuda._descriptors_cuda(tb)
+        torch_desc = geometry_cuda.box_descriptors(tb)
+        torch.cuda.synchronize()
+        diff = int((mine != torch_desc).sum())
+        log(f"K1 descriptors {name}: {diff} of {mine.numel()} values differ "
+            f"from torch's (max |diff| "
+            f"{float((mine - torch_desc).abs().max()):.3g})")
+        check(diff == 0, f"K1 descriptors {name}: {diff} differ from torch's")
+    return worst, shares
 
 
 def random_overlap(rng, n, dev):
@@ -423,30 +509,49 @@ def check_scans(dev):
 
 def check_k4(dev):
     """K4 against the plain cascade on the card, both methods, on K1's IoU
-    matrices of bench boxes; masks must be equal. Returns the mismatches."""
+    matrices of bench boxes (n = 100 to 8192) and of dense clusters with
+    iou_threshold 0 (every pair overlaps, so every row's marks overflow its
+    list; n = 512 and 2048, where the lists do not fit in shared memory);
+    masks must be equal, and both of K4's routes (lists staged in shared
+    memory, read from L2) must have run. Returns
+    the mismatches and the launches by route."""
     from d3d_tpu_torch.ops import geometry_cuda, nms_cuda
     from d3d_tpu_torch.ops.nms import _soft_nms_init
 
     rng = np.random.default_rng(3)
+    routes0 = dict(nms_cuda._soft_launch.routes)
+    cases = [(f"n={n}", *bench_boxes(rng, n), SOFT_NMS_ARGS["iou_threshold"])
+             for n in (100, 512, 1000, 2048, 8192)]
+    for n in (512, 2048):  # every row's marks overflow its list
+        dense, dense_scores = bench_boxes(rng, n)
+        dense[:, :2] = rng.random((len(dense), 2)) * 0.5 + 20.0
+        cases.append((f"dense n={n}, iou_threshold 0", dense, dense_scores,
+                      0.0))
     worst = 0
-    for n in (100, 512, 1000, 2048):
-        boxes, scores = bench_boxes(rng, n)
+    for name, boxes, scores, iou_t in cases:
         tb = torch.from_numpy(boxes).to(dev)
         ts = torch.from_numpy(scores).to(dev)
         iou = geometry_cuda.rbox_iou_matrix(tb, tb)
         thr = SOFT_NMS_ARGS["score_threshold"]
         pre, init = _soft_nms_init(ts, thr)
         for method, param in SOFT_NMS_CASES:
-            args = (SOFT_NMS_ARGS["iou_threshold"], thr, param, method)
+            args = (iou_t, thr, param, method)
             got = nms_cuda._soft_launch(iou, init, pre, *args)
             want = nms_cuda._soft_nms_scan_plain(iou, init, pre, *args)
             torch.cuda.synchronize()
             bad = int((got != want).sum())
-            log(f"soft_nms_scan {method} n={n}: {bad} of {n} differ from the "
-                f"plain cascade, {int(got.sum())} suppressed")
-            check(bad == 0, f"soft_nms_scan {method} n={n}: {bad} mismatches")
+            log(f"soft_nms_scan {method} {name}: {bad} of {len(boxes)} "
+                f"differ from the plain cascade, {int(got.sum())} "
+                f"suppressed")
+            check(bad == 0, f"soft_nms_scan {method} {name}: {bad} "
+                            f"mismatches")
             worst = max(worst, bad)
-    return worst
+    routes = {k: v - routes0[k]
+              for k, v in nms_cuda._soft_launch.routes.items()}
+    log(f"soft_nms_scan launches by route in the checks: {routes}")
+    check(routes["shared"] > 0 and routes["l2"] > 0,
+          f"K4: a route never ran: {routes}")
+    return worst, routes
 
 
 def second_model(dev):
@@ -1631,19 +1736,39 @@ def kernel_times(dev, ns_inputs, k3_inputs, soft_inputs, soft_stats,
     tb2048, ts2048 = k3_inputs
     out = {}
 
-    def k1(b):
-        d = geometry_cuda.box_descriptors(b).contiguous()
-        ms = time_launches(lambda: geometry_cuda._launch(d, d))
-        plain = time_each(lambda: geometry_soa._rbox_iou_matrix_plain(b, b),
-                          reps=5, warmup=1)
-        return ms, plain
+    def k1(b, plain=True):
+        """Events and CUPTI ms of one K1 launch on boxes x boxes, the plain
+        version's ms, the pairs that ran the chain and both bounds."""
+        n = b.shape[0]
+        ms = time_launches(lambda: geometry_cuda._launch(b, b))
+        row = dict(ms=ms, cupti_ms=cupti_ms(
+            lambda: geometry_cuda._launch(b, b), ("rbox_iou",)))
+        if plain:
+            row["plain_ms"] = time_each(
+                lambda: geometry_soa._rbox_iou_matrix_plain(b, b), reps=5,
+                warmup=1)
+        chains = int((~geometry_cuda._reject_plain(b, b)).sum())
+        row["chain_share"] = chains / (n * n)
+        row["bound_ms"], row["bound_by"] = k1_bound(n, n, chains)
+        row["bound_ms_all_pairs"], _ = k1_bound_all_pairs(n, n)
+        return row
 
-    k1_ms, k1_plain = k1(tb512)
-    k1_serving_ms, _ = k1(tb512[:100])
-    b_ms, b_by = k1_bound(512, 512)
+    r512, r100 = k1(tb512), k1(tb512[:100])
+    r2048 = k1(tb2048, plain=False)
     out["rbox_iou_matrix"] = dict(
-        ms=k1_ms, plain_ms=k1_plain, bound_ms=b_ms, bound_by=b_by,
-        shape="512x512 (north star)", ms_100x100_serving=k1_serving_ms)
+        ms=r512["ms"], plain_ms=r512["plain_ms"], bound_ms=r512["bound_ms"],
+        bound_by=r512["bound_by"],
+        bound_ms_all_pairs=r512["bound_ms_all_pairs"],
+        cupti_ms=r512["cupti_ms"], chain_share=r512["chain_share"],
+        shape="512x512 (north star)",
+        ms_100x100_serving=r100["ms"], cupti_ms_100x100=r100["cupti_ms"],
+        plain_ms_100x100=r100["plain_ms"], bound_ms_100x100=r100["bound_ms"],
+        bound_ms_all_pairs_100x100=r100["bound_ms_all_pairs"],
+        chain_share_100x100=r100["chain_share"],
+        ms_2048x2048=r2048["ms"], cupti_ms_2048x2048=r2048["cupti_ms"],
+        bound_ms_2048x2048=r2048["bound_ms"],
+        bound_ms_all_pairs_2048x2048=r2048["bound_ms_all_pairs"],
+        chain_share_2048x2048=r2048["chain_share"])
 
     k2_ms = time_launches(lambda: nms_cuda._launch(ov512, pre512))
     ov100, pre100 = ov512[:100, :100].contiguous(), pre512[:100].contiguous()
@@ -1664,21 +1789,32 @@ def kernel_times(dev, ns_inputs, k3_inputs, soft_inputs, soft_stats,
                                    bound_ms=b_ms, bound_by=b_by,
                                    shape="n=2048 (nms2d above 1024)")
 
-    # K4 at n = 512, linear (the soft-NMS path's first call); the kernel
-    # takes n minus the suppressed boxes' steps (every step freezes one box)
+    # K4 at n = 512, linear (the soft-NMS path's first call), gaussian
+    # beside it; the cascade takes n minus the suppressed boxes' steps
+    # (every step freezes one box)
     iou, init, pre = soft_inputs
-    method, param = SOFT_NMS_CASES[0]
-    args = (SOFT_NMS_ARGS["iou_threshold"], SOFT_NMS_ARGS["score_threshold"],
-            param, method)
-    k4_ms = time_launches(lambda: nms_cuda._soft_launch(iou, init, pre,
-                                                        *args))
-    k4_plain = time_each(lambda: nms_cuda._soft_nms_scan_plain(
-        iou, init, pre, *args), reps=3, warmup=1)
-    steps = 512 - soft_stats[method]["suppressed"]
-    b_ms, b_by = k4_bound(512, steps)
-    out["soft_nms_scan"] = dict(ms=k4_ms, plain_ms=k4_plain, bound_ms=b_ms,
-                                bound_by=b_by, steps=steps,
-                                shape=f"n=512 (soft_nms2d {method})")
+    k4 = {}
+    for method, param in SOFT_NMS_CASES:
+        args = (SOFT_NMS_ARGS["iou_threshold"],
+                SOFT_NMS_ARGS["score_threshold"], param, method)
+        k4[method] = dict(
+            ms=time_launches(lambda: nms_cuda._soft_launch(iou, init, pre,
+                                                           *args)),
+            cupti_ms=cupti_ms(lambda: nms_cuda._soft_launch(iou, init, pre,
+                                                            *args),
+                              ("soft_nms",)),
+            plain_ms=time_each(lambda: nms_cuda._soft_nms_scan_plain(
+                iou, init, pre, *args), reps=3, warmup=1),
+            steps=512 - soft_stats[method]["suppressed"])
+    lin, gau = k4["linear"], k4["gaussian"]
+    b_ms, b_by = k4_bound(512, lin["steps"])
+    out["soft_nms_scan"] = dict(
+        ms=lin["ms"], plain_ms=lin["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+        cupti_ms=lin["cupti_ms"], steps=lin["steps"],
+        shape="n=512 (soft_nms2d linear)", ms_gaussian=gau["ms"],
+        cupti_ms_gaussian=gau["cupti_ms"], plain_ms_gaussian=gau["plain_ms"],
+        steps_gaussian=gau["steps"],
+        bound_ms_gaussian=k4_bound(512, gau["steps"])[0])
     for row in out.values():
         row["ms_of"] = "one launch"
 
@@ -1825,9 +1961,9 @@ def main():
     print(card, flush=True)
 
     build_kernels()
-    k1_err = check_k1(dev)
+    k1_err, k1_shares = check_k1(dev)
     scan_err = check_scans(dev)
-    k4_err = check_k4(dev)
+    k4_err, k4_routes = check_k4(dev)
     second, second_frames = second_model(dev)
     k5_layers = second_layer_inputs(second, second_frames[0], dev)
     k5_err, k5_shapes = check_k5(k5_layers)
@@ -1919,6 +2055,8 @@ def main():
                if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
                             "library_ms", "shape")}))
     rows = {row["name"]: row for row in kernels}
+    rows["rbox_iou_matrix"]["chain_share_by_check"] = k1_shares
+    rows["soft_nms_scan"]["launches_by_route_in_checks"] = k4_routes
     rows["subm_conv"].update(
         max_abs_err_bf16=k5_err["bfloat16"], layer_shapes=k5_shapes,
         max_abs_err_backward=k5_bwd_err,

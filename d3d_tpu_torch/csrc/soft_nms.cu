@@ -4,173 +4,404 @@
 // d3d_tpu/ops/nms_pallas.py (launched by `soft_nms_scan`, the pallas_call
 // at :222). The plain PyTorch version is d3d_tpu_torch/ops/nms_cuda.py
 // `_soft_nms_scan_plain`; the Python wrapper is `soft_nms_scan` there.
+// tests/test_torch_nms_kernels.py emulates this kernel's schedule on the
+// CPU against the plain version and the Pallas kernel.
 //
 // What it computes (Bodla et al. 2017; semantics of nms_pallas.py:158-210):
 // scores start at scores0 (pre-suppressed boxes at -inf), nothing frozen,
 // suppressed = pre. Each of n steps
 //   - picks the first argmax of the scores of boxes neither frozen nor
 //     suppressed (every other box counts as -inf, so with no box available
-//     the pick is box 0 and `any_avail` gates every update below);
+//     the pick is n - 1 and `any_avail` gates every update below);
 //   - for every unfrozen j != pick with iou[pick, j] > iou_threshold, decays
 //     the score: linear s * (1 - exp(p log max(iou, 1e-38))) with p = 0
 //     giving 1 - 1, gaussian s * exp(-iou^2 / p);
 //   - suppresses such a j if its decayed score is below score_threshold;
 //   - freezes the pick.
 // Once no box is available nothing changes any more, so the kernel stops
-// there; the result is that of all n steps.
+// there; the result is that of all n steps. A suppressed box is never
+// available again, so its score no longer matters: only available boxes
+// are decayed, and the masks are the same.
 //
-// Design: one block runs the serial steps. Thread t owns boxes t, t + T,
-// ..., (ITEMS of them) and keeps their score, frozen and suppressed state in
-// registers. A step is a (max score, min index) reduction: in registers,
-// then across the warp with shuffles, then across warps through a
-// double-buffered slot per warp in shared memory, so one barrier a step
-// suffices (every warp finishes the reduction itself). Then every thread
-// reads its boxes of row `pick` (coalesced: neighbouring threads, neighbouring
-// columns) and updates its own state.
+// What bounds it on this card: latency. Step s + 1 needs the pick of step
+// s, and at a detector's thresholds a pick overlaps few boxes: the work a
+// step depends on is the argmax and those few boxes, not the row of n.
 //
-// What bounds it on this card: latency, not bytes or operations. Step s+1
-// needs the pick of step s; each step costs one block-wide barrier, a
-// shuffle reduction and one dependent read of a row from L2 (the matrix,
-// n^2 f32, is read at most once per row).
+// What the design does about it. The decay factor depends only on
+// iou[pick, j] and the parameter, so it leaves the serial steps:
+//   - pass 1, one warp a row, parallel over the rows: a ballot a 32-column
+//     word marks the j != i with iou[i, j] > iou_threshold (the marks: n
+//     ceil(n / 32) words, n^2 / 8 bytes), counts the marks before each
+//     word (a byte a word, saturated at 255) and keeps the decay factors of
+//     the row's first kListLen marks, computed there by the same expression;
+//   - pass 2, one block: lane g of NW warps owns the C boxes gC .. gC + C -
+//     1 (C <= 32: one warp up to 1024 boxes, 2 to 8 warps above), with
+//     their availability and suppression bits in registers, their scores
+//     and score keys in shared memory, the best key of each group of 4 of
+//     its boxes and its best (key, index). A step is a warp reduction
+//     (`redux.sync`: the largest key, then the least index holding it)
+//     and, for NW > 1, one double-buffered slot a warp, one barrier and the
+//     same reduction over the slots. Then every lane reads its word of the
+//     pick's marks: a marked available box of rank r in the row takes decay
+//     factor r from the list (r < kListLen) or computes it from its IoU.
+//     A lane that decayed or froze a box rescans that box's group (4 keys)
+//     and its C / 4 group bests, not its C boxes. Past the loop over a
+//     lane's hits the step has no branch: in one warp the lanes' paths run
+//     one after another, so every lane takes the same path.
+//   - two routes: up to kStagedMaxN boxes the rows (marks, counts, decays:
+//     n = 512: 56 KB; 1024: 192 KB) are copied into shared memory first;
+//     above it, each step reads the pick's words from L2.
 //
 // Rounding: built with -fmad=false (ops/_build.py) and without
-// --use_fast_math; the operation order is the Pallas body's, and expf/logf
-// and the IEEE division are those of PyTorch's CUDA kernels, so on the card
+// --use_fast_math; the decay is the Pallas body's expression, with
+// expf/logf and the IEEE division of PyTorch's CUDA kernels, so on the card
 // the masks equal the plain version's bit for bit.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxItems = 8;
+constexpr int kMaxN = 8192;
+// the most boxes whose rows pass 2 stages in shared memory (nms_cuda.py
+// `_SOFT_STAGED_MAX_N`): one warp, up to 32 boxes a lane
+constexpr int kStagedMaxN = 1024;
+constexpr int kListLen = 8;         // decay factors kept a row
+constexpr int kRowThreads = 256;    // pass 1: 8 rows a block
+constexpr int kBlockThreads = 256;  // pass 2: all stage, NW warps cascade
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ void better(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
+// the scratch, in int32 words (nms_cuda.py `_soft_scratch_words`): the
+// decay factors (n, kListLen) f32, the marks (n, words) u32, then the
+// marks before each word (n, words) u8
+__host__ __device__ constexpr size_t decs_words(int n) {
+  return static_cast<size_t>(n) * kListLen;
+}
+__host__ __device__ constexpr size_t marks_words(int n) {
+  return static_cast<size_t>(n) * ((n + 31) / 32);
+}
+__host__ __device__ constexpr size_t scratch_words(int n) {
+  return decs_words(n) + marks_words(n) + (marks_words(n) + 3) / 4;
+}
+
+struct Rows {
+  const float* decs;
+  const uint32_t* marks;
+  const uint8_t* before;
+};
+
+__device__ __forceinline__ Rows rows_at(const uint32_t* base, int n) {
+  return {reinterpret_cast<const float*>(base), base + decs_words(n),
+          reinterpret_cast<const uint8_t*>(base + decs_words(n) +
+                                           marks_words(n))};
+}
+
+template <bool GAUSSIAN>
+__device__ __forceinline__ float decay_of(float r, float param) {
+  if (GAUSSIAN) return expf(-(r * r) / param);
+  const float pw =
+      param == 0.f ? 1.f : expf(param * logf(fmaxf(r, 1e-38f)));
+  return 1.f - pw;
+}
+
+template <bool GAUSSIAN>
+__global__ void __launch_bounds__(kRowThreads)
+    soft_nms_rows_kernel(const float* __restrict__ iou,
+                         uint32_t* __restrict__ scratch, int n, int words,
+                         float iou_t, float param) {
+  const int row = blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= n) return;  // the whole warp
+  float* decs = reinterpret_cast<float*>(scratch);
+  uint32_t* marks = scratch + decs_words(n);
+  uint8_t* before =
+      reinterpret_cast<uint8_t*>(scratch + decs_words(n) + marks_words(n));
+  const float* r = iou + static_cast<size_t>(row) * n;
+  const size_t w0 = static_cast<size_t>(row) * words;
+  int cnt = 0;
+#pragma unroll 4
+  for (int w = 0; w < words; ++w) {
+    const int j = w * 32 + lane;
+    const float v = j < n ? r[j] : 0.f;
+    const bool mark = j < n && j != row && v > iou_t;
+    const unsigned bits = __ballot_sync(0xffffffffu, mark);
+    if (lane == 0) {
+      marks[w0 + w] = bits;
+      before[w0 + w] = static_cast<uint8_t>(min(cnt, 255));
+    }
+    const int rank = cnt + __popc(bits & ((1u << lane) - 1u));
+    if (mark && rank < kListLen)
+      decs[static_cast<size_t>(row) * kListLen + rank] =
+          decay_of<GAUSSIAN>(v, param);
+    cnt += __popc(bits);
   }
 }
 
-__device__ __forceinline__ void warp_best(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    better(v, i, ov, oi);
-  }
+// an order-preserving unsigned key of a score, above 1; 1 for NaN, which
+// the Pallas body's `>`/`==` comparisons never pick either (0 is no box);
+// -0 and +0 tie, as they compare equal
+__device__ __forceinline__ unsigned score_key(float v) {
+  if (v != v) return 1u;
+  if (v == 0.f) v = 0.f;
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-template <int ITEMS, bool GAUSSIAN>
-__global__ void __launch_bounds__(kMaxThreads)
-    soft_nms_kernel(const float* __restrict__ iou,
-                    const float* __restrict__ scores0,
-                    const uint8_t* __restrict__ pre,
-                    uint8_t* __restrict__ suppressed, int n, float iou_t,
-                    float score_t, float param) {
-  __shared__ float red_v[2][32];
-  __shared__ int red_i[2][32];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+// a lane's C boxes in groups of kGroup keys: the best of each group is
+// kept, so a step that touches a box scans its group only
+template <int C>
+struct Groups {
+  static constexpr int kGroup = C < 4 ? C : 4;
+  static constexpr int kCount = C / kGroup;
+};
 
-  float sc[ITEMS];
-  bool fr[ITEMS], su[ITEMS];
+// the best (key, slot) of each group in `dirty` anew (usually one group:
+// kGroup loads and selects, no branch), then of the lane: the largest key,
+// and of equal keys the lowest slot (the least index)
+template <int C, int LANES>
+__device__ __forceinline__ void best_of(uint32_t avail, const unsigned* s_kk,
+                                        int g, int j0, uint32_t dirty,
+                                        unsigned* gk, int* gs, unsigned& bk,
+                                        int& bi) {
+  constexpr int kGroup = Groups<C>::kGroup, kGroups = Groups<C>::kCount;
+  while (dirty) {
+    const int q = __ffs(dirty) - 1;
+    dirty &= dirty - 1u;
+    unsigned best = 0u;
+    int slot = 0;
 #pragma unroll
-  for (int it = 0; it < ITEMS; ++it) {
-    const int j = tid + it * nt;
-    sc[it] = j < n ? scores0[j] : -INFINITY;
-    su[it] = j >= n || pre[j];  // padding is never available
-    fr[it] = false;
+    for (int e = 0; e < kGroup; ++e) {
+      const int k = q * kGroup + e;
+      const unsigned key = ((avail >> k) & 1u) ? s_kk[k * LANES + g] : 0u;
+      const bool better = key > best;
+      best = better ? key : best;
+      slot = better ? k : slot;
+    }
+#pragma unroll
+    for (int r = 0; r < kGroups; ++r) {
+      gk[r] = r == q ? best : gk[r];
+      gs[r] = r == q ? slot : gs[r];
+    }
   }
+  bk = gk[0];
+  bi = j0 + gs[0];
+#pragma unroll
+  for (int r = 1; r < kGroups; ++r) {
+    const bool better = gk[r] > bk;
+    bk = better ? gk[r] : bk;
+    bi = better ? j0 + gs[r] : bi;
+  }
+  if (bk == 0u) bi = INT_MAX;
+}
+
+__device__ __forceinline__ void cascade_barrier(int threads) {
+  // barrier 1 (0 is __syncthreads), counted in threads; not .aligned,
+  // so lanes that skipped a step's update may arrive apart
+  asm volatile("barrier.sync 1, %0;" ::"r"(threads) : "memory");
+}
+
+template <int C, int NW, bool GAUSSIAN>
+__global__ void __launch_bounds__(kBlockThreads)
+    soft_nms_cascade_kernel(const float* __restrict__ iou,
+                            const float* __restrict__ scores0,
+                            const uint8_t* __restrict__ pre,
+                            const uint32_t* __restrict__ scratch,
+                            uint8_t* __restrict__ suppressed, int n,
+                            int words, float score_t, float param) {
+  constexpr int kLanes = 32 * NW;
+  constexpr bool kStaged = NW == 1;
+  constexpr int kGroup = Groups<C>::kGroup, kGroups = Groups<C>::kCount;
+  extern __shared__ __align__(16) uint32_t smem[];
+  const size_t staged = kStaged ? scratch_words(n) : 0;
+  float* s_sc = reinterpret_cast<float*>(smem + staged);  // [C][kLanes]
+  unsigned* s_kk = smem + staged + C * kLanes;  // their keys, [C][kLanes]
+  __shared__ unsigned s_key[2][NW];
+  __shared__ int s_idx[2][NW];
+  const int tid = threadIdx.x;
+  for (int e = tid; e < C * kLanes; e += kBlockThreads) {
+    const int j = (e % kLanes) * C + e / kLanes;
+    s_sc[e] = j < n ? scores0[j] : 0.f;
+    s_kk[e] = score_key(s_sc[e]);
+  }
+  Rows rows = rows_at(scratch, n);
+  if constexpr (kStaged) {  // 16 bytes a load, then the odd words
+    const size_t quads = staged / 4;
+    const uint4* src = reinterpret_cast<const uint4*>(scratch);
+    uint4* dst = reinterpret_cast<uint4*>(smem);
+    for (size_t e = tid; e < quads; e += kBlockThreads) dst[e] = src[e];
+    for (size_t e = quads * 4 + tid; e < staged; e += kBlockThreads)
+      smem[e] = scratch[e];
+    rows = rows_at(smem, n);
+  }
+  __syncthreads();
+  if (tid >= kLanes) return;
+
+  const int g = tid, lane = tid & 31, warp = tid >> 5;
+  const int j0 = g * C;
+  uint32_t avail = 0u, supp = 0u;
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    if (j0 + k < n) {
+      if (pre[j0 + k])
+        supp |= 1u << k;
+      else
+        avail |= 1u << k;
+    }
+  }
+  // the best (key, slot) of each group of kGroup boxes, and the lane's
+  unsigned gk[kGroups] = {};
+  int gs[kGroups] = {};
+  unsigned bk;
+  int bi;
+  best_of<C, kLanes>(avail, s_kk, g, j0, (1u << kGroups) - 1u, gk, gs, bk,
+                     bi);
 
   for (int step = 0; step < n; ++step) {
-    float bv = -INFINITY;
-    int bi = n;
-    bool any = false;
-#pragma unroll
-    for (int it = 0; it < ITEMS; ++it) {
-      const int j = tid + it * nt;
-      if (j < n) {
-        const bool avail = !fr[it] && !su[it];
-        any |= avail;
-        better(bv, bi, avail ? sc[it] : -INFINITY, j);
+    unsigned key = __reduce_max_sync(0xffffffffu, bk);
+    int idx = __reduce_min_sync(0xffffffffu, bk == key ? bi : INT_MAX);
+    if (NW > 1) {
+      const int par = step & 1;
+      if (lane == 0) {
+        s_key[par][warp] = key;
+        s_idx[par][warp] = idx;
       }
+      cascade_barrier(kLanes);
+      const unsigned wk = lane < NW ? s_key[par][lane] : 0u;
+      const int wi = lane < NW ? s_idx[par][lane] : INT_MAX;
+      key = __reduce_max_sync(0xffffffffu, wk);
+      idx = __reduce_min_sync(0xffffffffu, wk == key ? wi : INT_MAX);
     }
-    warp_best(bv, bi);
-    const int par = step & 1;
-    if (lane == 0) {
-      red_v[par][warp] = bv;
-      red_i[par][warp] = bi;
-    }
-    if (!__syncthreads_or(any)) break;  // nothing available: nothing changes
-    bv = lane < nwarps ? red_v[par][lane] : -INFINITY;
-    bi = lane < nwarps ? red_i[par][lane] : n;
-    warp_best(bv, bi);
-    const int pick = min(bi, n - 1);
+    if (key == 0u) break;  // nothing available: nothing changes
+    // only NaN scores available: the Pallas body's pick, n - 1
+    const int pick = key == 1u ? n - 1 : idx;
 
-    const float* row = iou + static_cast<size_t>(pick) * n;
-#pragma unroll
-    for (int it = 0; it < ITEMS; ++it) {
-      const int j = tid + it * nt;
-      if (j < n) {
-        const float r = row[j];
-        const bool m = r > iou_t && !fr[it] && j != pick;
-        float decay;
-        if (GAUSSIAN) {
-          decay = expf(-(r * r) / param);
-        } else {
-          const float pw =
-              param == 0.f ? 1.f : expf(param * logf(fmaxf(r, 1e-38f)));
-          decay = 1.f - pw;
-        }
-        const float nsc = m ? sc[it] * decay : sc[it];
-        su[it] = su[it] || (m && nsc < score_t);
-        fr[it] = fr[it] || j == pick;
-        sc[it] = nsc;
+    // every lane, without a branch until its hits: a lane past n reads the
+    // row's last word and owns no available box
+    uint32_t dirty = 0u;  // the groups whose best must be found anew
+    {
+      // this lane's boxes in the pick's marks: C bits of one word
+      const size_t at =
+          static_cast<size_t>(pick) * words + min(j0 >> 5, words - 1);
+      const uint32_t w = rows.marks[at];
+      const int before = rows.before[at];
+      const int bit0 = j0 & 31;
+      uint32_t hit =
+          (C == 32 ? w : (w >> bit0) & ((1u << (C & 31)) - 1u)) & avail;
+      if (hit) {
+        do {
+          const int k = __ffs(hit) - 1;
+          hit &= hit - 1u;
+          const int rank = before + __popc(w & ((1u << (bit0 + k)) - 1u));
+          const float dec =
+              rank < kListLen
+                  ? rows.decs[static_cast<size_t>(pick) * kListLen + rank]
+                  : decay_of<GAUSSIAN>(
+                        iou[static_cast<size_t>(pick) * n + j0 + k], param);
+          const float nsc = s_sc[k * kLanes + g] * dec;
+          const unsigned nk = score_key(nsc);
+          s_sc[k * kLanes + g] = nsc;
+          s_kk[k * kLanes + g] = nk;
+          if (nsc < score_t) {
+            avail &= ~(1u << k);
+            supp |= 1u << k;
+          }
+          dirty |= 1u << (k / kGroup);
+        } while (hit);
+      }
+      if (pick >= j0 && pick < j0 + C) {  // freeze the pick
+        avail &= ~(1u << (pick - j0));
+        dirty |= 1u << ((pick - j0) / kGroup);
       }
     }
+    best_of<C, kLanes>(avail, s_kk, g, j0, dirty, gk, gs, bk, bi);
   }
 
 #pragma unroll
-  for (int it = 0; it < ITEMS; ++it) {
-    const int j = tid + it * nt;
-    if (j < n) suppressed[j] = su[it];
-  }
+  for (int k = 0; k < C; ++k)
+    if (j0 + k < n) suppressed[j0 + k] = (supp >> k) & 1u;
+}
+
+// cudaFuncSetAttribute costs host time on every launch it runs in: ask
+// once a device for the most dynamic shared memory `kernel` has needed
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, size_t smem,
+                       std::atomic<int>* granted) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const int bytes = static_cast<int>(smem);
+  if (dev < kMaxDevices && granted[dev].load() >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) granted[dev].store(bytes);
+  return err;
+}
+
+template <int C, int NW, bool GAUSSIAN>
+cudaError_t cascade(const float* iou, const float* scores0, const uint8_t* pre,
+                    const uint32_t* scratch, uint8_t* suppressed, int n,
+                    int words, float score_t, float param, cudaStream_t s) {
+  static std::atomic<int> granted[kMaxDevices];
+  auto* kernel = soft_nms_cascade_kernel<C, NW, GAUSSIAN>;
+  const size_t smem = sizeof(uint32_t) *
+                      ((NW == 1 ? scratch_words(n) : 0) + 2 * C * 32 * NW);
+  const cudaError_t err = allow_smem(kernel, smem, granted);
+  if (err != cudaSuccess) return err;
+  kernel<<<1, kBlockThreads, smem, s>>>(iou, scores0, pre, scratch,
+                                        suppressed, n, words, score_t, param);
+  return cudaGetLastError();
 }
 
 template <bool GAUSSIAN>
 int launch(const float* iou, const float* scores0, const uint8_t* pre,
-           uint8_t* suppressed, int n, float iou_t, float score_t,
-           float param, cudaStream_t s) {
-  const int threads = n < kMaxThreads ? (n + 31) / 32 * 32 : kMaxThreads;
-  const int need = (n + threads - 1) / threads;
-  const int items = need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : 8;
-#define D3D_SOFT_NMS(I)                                                   \
-  soft_nms_kernel<I, GAUSSIAN><<<1, threads, 0, s>>>(                    \
-      iou, scores0, pre, suppressed, n, iou_t, score_t, param)
-  if (items == 1) D3D_SOFT_NMS(1);
-  else if (items == 2) D3D_SOFT_NMS(2);
-  else if (items == 4) D3D_SOFT_NMS(4);
-  else D3D_SOFT_NMS(8);
-#undef D3D_SOFT_NMS
-  return static_cast<int>(cudaGetLastError());
+           uint8_t* suppressed, uint32_t* scratch, int n, float iou_t,
+           float score_t, float param, cudaStream_t s) {
+  const int words = (n + 31) / 32;
+  constexpr int kRows = kRowThreads / 32;
+  soft_nms_rows_kernel<GAUSSIAN><<<(n + kRows - 1) / kRows, kRowThreads, 0,
+                                   s>>>(iou, scratch, n, words, iou_t, param);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define D3D_CASCADE(C, NW)                                                   \
+  err = cascade<C, NW, GAUSSIAN>(iou, scores0, pre, scratch, suppressed, n, \
+                                 words, score_t, param, s)
+  if (n <= 32) D3D_CASCADE(1, 1);
+  else if (n <= 64) D3D_CASCADE(2, 1);
+  else if (n <= 128) D3D_CASCADE(4, 1);
+  else if (n <= 256) D3D_CASCADE(8, 1);
+  else if (n <= 512) D3D_CASCADE(16, 1);
+  else if (n <= kStagedMaxN) D3D_CASCADE(32, 1);
+  else if (n <= 2048) D3D_CASCADE(32, 2);
+  else if (n <= 4096) D3D_CASCADE(32, 4);
+  else D3D_CASCADE(32, 8);
+#undef D3D_CASCADE
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// method: 0 = linear, 1 = gaussian. n is at most kMaxThreads * kMaxItems
-// (8192; nms_cuda.py `_SOFT_MAX_N`).
+// iou (n, n) f32, scores0 (n,) f32, pre (n,) bool, suppressed (n,) bool
+// out, scratch of scratch_words_given int32 (at least nms_cuda.py
+// `_soft_scratch_words(n)`), all contiguous on the current device;
+// 1 <= n <= kMaxN (nms_cuda.py `_SOFT_MAX_N`). method: 0 = linear,
+// 1 = gaussian. Returns the first launch error.
 extern "C" int d3d_soft_nms_scan(const float* iou, const float* scores0,
                                  const uint8_t* pre, uint8_t* suppressed,
+                                 uint32_t* scratch, int scratch_words_given,
                                  int n, float iou_t, float score_t,
                                  float param, int method, void* stream) {
-  if (n <= 0 || n > kMaxThreads * kMaxItems || (method != 0 && method != 1))
+  if (n <= 0 || n > kMaxN || (method != 0 && method != 1) ||
+      static_cast<size_t>(scratch_words_given) < scratch_words(n))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return method ? launch<true>(iou, scores0, pre, suppressed, n, iou_t,
-                               score_t, param, s)
-                : launch<false>(iou, scores0, pre, suppressed, n, iou_t,
-                                score_t, param, s);
+  return method ? launch<true>(iou, scores0, pre, suppressed, scratch, n,
+                               iou_t, score_t, param, s)
+                : launch<false>(iou, scores0, pre, suppressed, scratch, n,
+                                iou_t, score_t, param, s);
 }

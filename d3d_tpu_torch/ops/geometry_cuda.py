@@ -1,19 +1,24 @@
 """The rotated-box IoU matrix through the CUDA kernel K1 (``csrc/rbox_iou.cu``),
 the port of ``d3d_tpu.ops.geometry_pallas``.
 
-The wrapper computes the (K, 10) box descriptors with torch, so the kernel
-shares the plain version's trigonometry, and launches one thread per output
-pair. A CPU tensor goes to the plain version
+The wrapper hands K1 the (K, 5) boxes; each block computes its boxes'
+descriptors as :func:`box_descriptors` does, rejects the pairs whose extents
+are too far apart to overlap (:func:`_reject_plain` is that test in torch)
+and runs the IoU chain on the rest. A CPU tensor goes to the plain version
 (:func:`d3d_tpu_torch.ops.geometry_soa._rbox_iou_matrix_plain`); a CUDA
 tensor goes to the kernel or the call raises.
 """
 
 import torch
 
-from ._build import load_library
+from ._build import load_library, stream_handle
 from .geometry_soa import _rbox_iou_matrix_plain
 
 __all__ = ["rbox_iou_matrix", "box_descriptors"]
+
+# K1's reject test (csrc/rbox_iou.cu kRejectRel, kRejectMaxScale)
+_REJECT_REL = 0.02
+_REJECT_MAX_SCALE = 1e9
 
 
 def box_descriptors(boxes):
@@ -29,6 +34,42 @@ def box_descriptors(boxes):
     for arr in cx + cy:
         scale = torch.maximum(scale, arr.abs())
     return torch.stack(cx + cy + [w * h, scale], dim=-1)
+
+
+def _reject_info(desc):
+    """Per box of (K, 10) f32 descriptors, what K1's reject test reads:
+    the extent (xlo, xhi, ylo, yhi), its width + height, the shortest edge
+    and whether every corner is finite and below ``_REJECT_MAX_SCALE``."""
+    cx, cy = desc[:, 0:4], desc[:, 4:8]
+    xlo, xhi = cx[:, 0], cx[:, 0]
+    ylo, yhi = cy[:, 0], cy[:, 0]
+    for i in range(1, 4):
+        xlo, xhi = torch.minimum(xlo, cx[:, i]), torch.maximum(xhi, cx[:, i])
+        ylo, yhi = torch.minimum(ylo, cy[:, i]), torch.maximum(yhi, cy[:, i])
+    emin = torch.full_like(xlo, torch.inf)
+    for i in range(4):
+        j = (i + 1) % 4
+        ex, ey = cx[:, j] - cx[:, i], cy[:, j] - cy[:, i]
+        emin = torch.minimum(emin, torch.sqrt(ex * ex + ey * ey))
+    ok = (desc[:, 9] <= _REJECT_MAX_SCALE) & torch.isfinite(desc[:, 8])
+    return xlo, xhi, ylo, yhi, (xhi - xlo) + (yhi - ylo), emin, ok
+
+
+def _reject_plain(b1, b2):
+    """(N, 5) x (M, 5) f32 boxes -> (N, M) bool: the pairs K1 writes +0.0
+    for without running the IoU chain, by the kernel's comparisons in its
+    order (see the note at the top of csrc/rbox_iou.cu)."""
+    da, db = box_descriptors(b1), box_descriptors(b2)
+    axlo, axhi, aylo, ayhi, aext, aemin, aok = (
+        v[:, None] for v in _reject_info(da))
+    bxlo, bxhi, bylo, byhi, bext, bemin, bok = (
+        v[None, :] for v in _reject_info(db))
+    gap = torch.maximum(torch.maximum(bxlo - axhi, axlo - bxhi),
+                        torch.maximum(bylo - ayhi, aylo - byhi))
+    slack = gap - _REJECT_REL * (aext + bext)
+    ceps = (torch.maximum(da[:, 9, None], db[None, :, 9]) + 1.0) * 1e-5
+    return (aok & bok & (slack > 0)
+            & (slack * torch.minimum(aemin, bemin) > 2.0 * ceps))
 
 
 def rbox_iou_matrix(b1, b2):
@@ -51,10 +92,7 @@ def rbox_iou_matrix(b1, b2):
     n, m = b1.shape[0], b2.shape[0]
     if n == 0 or m == 0:
         return torch.empty((n, m), dtype=torch.float32, device=b1.device)
-    da = box_descriptors(b1).contiguous()
-    # NMS asks for boxes x boxes: one set of descriptors (~25 launches)
-    db = da if b2 is b1 else box_descriptors(b2).contiguous()
-    out = _launch(da, db)
+    out = _launch(b1.contiguous(), b2.contiguous())
     rbox_iou_matrix.launches += 1
     return out
 
@@ -62,13 +100,31 @@ def rbox_iou_matrix(b1, b2):
 rbox_iou_matrix.launches = 0
 
 
-def _launch(da, db):
-    """K1 on (N, 10) and (M, 10) contiguous f32 CUDA descriptors -> (N, M)."""
-    n, m = da.shape[0], db.shape[0]
-    out = torch.empty((n, m), dtype=torch.float32, device=da.device)
+def _launch(b1, b2, chains=None, out=None):
+    """K1 on (N, 5) and (M, 5) contiguous f32 CUDA boxes, N, M > 0 ->
+    (N, M), into ``out`` if given. ``chains``, a one-element int32 CUDA
+    tensor, gets the number of pairs that ran the IoU chain added to it."""
+    n, m = b1.shape[0], b2.shape[0]
+    if out is None:
+        out = b1.new_empty((n, m))
     err = load_library("rbox_iou").d3d_rbox_iou_matrix(
-        da.data_ptr(), db.data_ptr(), out.data_ptr(), n, m,
-        torch.cuda.current_stream(da.device).cuda_stream)
+        b1.data_ptr(), b2.data_ptr(), out.data_ptr(), n, m,
+        None if chains is None else chains.data_ptr(),
+        stream_handle(b1.device))
     if err:
         raise RuntimeError(f"rbox_iou kernel launch failed: CUDA error {err}")
     return out
+
+
+def _descriptors_cuda(boxes):
+    """The descriptors K1's blocks compute, for (K, 5) contiguous f32 CUDA
+    boxes with K > 0 (held to :func:`box_descriptors` on the card)."""
+    desc = torch.empty((boxes.shape[0], 10), dtype=torch.float32,
+                       device=boxes.device)
+    err = load_library("rbox_iou").d3d_rbox_descriptors(
+        boxes.data_ptr(), desc.data_ptr(), boxes.shape[0],
+        stream_handle(boxes.device))
+    if err:
+        raise RuntimeError(f"rbox_descriptors launch failed: CUDA error "
+                           f"{err}")
+    return desc

@@ -12,15 +12,28 @@ raises.
 
 import torch
 
-from ._build import load_library
+from ._build import load_library, stream_handle
 
 __all__ = ["nms_scan", "nms_scan_blocked", "soft_nms_scan"]
 
 # the scan keeps ceil(N / 64) suppression words in 48 KB of shared memory
 _MAX_N = 48 * 1024 * 8
-# K4's one block: 1024 threads, each holding the state of up to 8 boxes
-_SOFT_MAX_N = 1024 * 8
+# K4's cascade: up to 8 warps, each lane owning up to 32 boxes
+_SOFT_MAX_N = 8 * 32 * 32
 _SOFT_METHODS = {"linear": 0, "gaussian": 1}
+# up to this many boxes K4 stages its rows in shared memory (one warp);
+# above it, it reads them from L2 (csrc/soft_nms.cu kStagedMaxN)
+_SOFT_STAGED_MAX_N = 1024
+# the decay factors K4 keeps a row (csrc/soft_nms.cu kListLen)
+_SOFT_LIST_LEN = 8
+
+
+def _soft_scratch_words(n):
+    """K4's scratch in int32 words: per row, ``_SOFT_LIST_LEN`` decay
+    factors (f32), ceil(n / 32) words of overlap marks and as many bytes of
+    marks before each word."""
+    marks = n * ((n + 31) // 32)
+    return n * _SOFT_LIST_LEN + marks + (marks + 3) // 4
 
 
 def _nms_scan_plain(overlap, pre):
@@ -58,7 +71,7 @@ def _launch(overlap, pre):
     lib = load_library("nms_scan")
     err = lib.d3d_nms_scan(
         overlap.data_ptr(), pre.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        n, torch.cuda.current_stream(overlap.device).cuda_stream)
+        n, stream_handle(overlap.device))
     if err:
         raise RuntimeError(f"nms_scan kernel launch failed: CUDA error {err}")
     return out
@@ -93,6 +106,17 @@ nms_scan.launches = 0
 nms_scan_blocked.launches = 0
 
 
+def _soft_decay(row, p, tiny, method):
+    """The soft-NMS decay factors of a row of IoU, ``p`` and ``tiny``
+    (1e-38) 0-d tensors on its device."""
+    if method == "linear":
+        # x**p as exp(p log x), with power(0, 0) == 1
+        pw = torch.where(p == 0, 1.0,
+                         torch.exp(p * torch.log(torch.maximum(row, tiny))))
+        return 1.0 - pw
+    return torch.exp(-(row * row) / p)
+
+
 def _soft_nms_scan_plain(iou, scores0, pre, iou_threshold, score_threshold,
                          param, method):
     """The soft-NMS cascade of ``nms_pallas.py`` ``_soft_nms_kernel``, one
@@ -116,14 +140,7 @@ def _soft_nms_scan_plain(iou, scores0, pre, iou_threshold, score_threshold,
         pick = torch.clamp(pick, max=n - 1)
         row = iou[pick]
         mask_row = (row > iou_t) & ~fr & (iota != pick)
-        if method == "linear":
-            # x**p as exp(p log x), with power(0, 0) == 1
-            pw = torch.where(p == 0, 1.0,
-                             torch.exp(p * torch.log(torch.maximum(row,
-                                                                   tiny))))
-            decay = 1.0 - pw
-        else:
-            decay = torch.exp(-(row * row) / p)
+        decay = _soft_decay(row, p, tiny, method)
         nsc = torch.where(mask_row & any_avail, sc * decay, sc)
         dead = mask_row & (nsc < score_t)
         su = su | (any_avail & dead)
@@ -175,15 +192,23 @@ def _soft_launch(iou, scores0, pre, iou_threshold, score_threshold, param,
     if n > _SOFT_MAX_N:
         raise ValueError(f"soft-NMS kernel takes at most {_SOFT_MAX_N} boxes")
     out = torch.empty(n, dtype=torch.bool, device=iou.device)
+    scratch = torch.empty(_soft_scratch_words(n), dtype=torch.int32,
+                          device=iou.device)
     iou, scores0, pre = iou.contiguous(), scores0.contiguous(), pre.contiguous()
     err = load_library("soft_nms").d3d_soft_nms_scan(
         iou.data_ptr(), scores0.data_ptr(), pre.data_ptr(), out.data_ptr(),
-        n, float(iou_threshold), float(score_threshold), float(param),
-        _SOFT_METHODS[method],
-        torch.cuda.current_stream(iou.device).cuda_stream)
+        scratch.data_ptr(), scratch.numel(), n, float(iou_threshold),
+        float(score_threshold), float(param), _SOFT_METHODS[method],
+        stream_handle(iou.device))
     if err:
         raise RuntimeError(f"soft_nms kernel launch failed: CUDA error {err}")
+    _soft_launch.routes["shared" if n <= _SOFT_STAGED_MAX_N else "l2"] += 1
     return out
+
+
+# K4's launches by where its cascade reads the marks (every launch, checks
+# included; ``soft_nms_scan.launches`` counts the path's)
+_soft_launch.routes = {"shared": 0, "l2": 0}
 
 
 soft_nms_scan.launches = 0

@@ -430,9 +430,9 @@ def test_argtypes_match_the_c_signatures():
                 for source, _, fns in _build._LIBRARIES.values()
                 for fn, types in fns.items()}
     sigs = _c_signatures()
-    # K2, K3 share one; K5's library also answers its tile's rows and
-    # builds rule books
-    assert len(sigs) == 7 and set(sigs) == set(declared)
+    # K2, K3 share one; K1's library also gives its descriptors, K5's
+    # answers its tile's rows and builds rule books
+    assert len(sigs) == 8 and set(sigs) == set(declared)
     for fn, (source, kinds) in sigs.items():
         assert set(kinds) <= set("PIF"), (fn, kinds)
         assert declared[fn] == (source, kinds), fn
@@ -440,3 +440,6 @@ def test_argtypes_match_the_c_signatures():
     assert sigs["d3d_subm_conv_dw"][1] == "P" * 7 + "I" * 9 + "P"
     assert sigs["d3d_subm_conv_tile_rows"][1] == "I"
     assert sigs["d3d_subm_conv_rulebook"][1] == "PPIIPPPP"
+    assert sigs["d3d_rbox_iou_matrix"][1] == "PPPIIPP"
+    assert sigs["d3d_rbox_descriptors"][1] == "PPIP"
+    assert sigs["d3d_soft_nms_scan"][1] == "PPPPPIIFFFIP"
