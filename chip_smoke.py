@@ -13,9 +13,14 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    K1 (rotated IoU matrix) to atol 2e-5 from 100x100 to 2048x2048, +0.0
    wherever the plain version is 0, every entry written, its pairs that
    ran the IoU chain those the plain reject test keeps and its descriptors
-   equal to torch's, K2/K3 (greedy NMS scan) and K4 (soft-NMS cascade,
-   linear and gaussian, n = 100 to 8192 and a dense cluster, both of its
-   routes) exactly, K5
+   equal to torch's; K1's bit-row form (nms2d's) equal to its plain version
+   and to K1's f32 form thresholded at n = 1 to 4096 and four thresholds,
+   every word written (``check_k1_bits``); the scan K2/K3 at n = 1 to
+   20 000 through the bool route and nms2d's (bit rows, scores, order),
+   both of its kernels (``check_scans``); K4 (soft-NMS cascade, linear and
+   gaussian, n = 100 to 8192, a dense cluster and a NaN score, both of its
+   routes) exactly; the voxelizers on points with NaNs equal to the CPU's
+   (``check_nan_voxels``); K5
    (sparse-conv gather-GEMM) at every layer shape of SECOND serving, in
    f32 and bf16, at the tolerances stated in ``check_k5``, bit-equal across
    two launches (the second into a NaN-filled buffer, so an unwritten row
@@ -24,7 +29,10 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    (``check_k6``), and K5 as the features' gradient of the submanifold
    layers (``check_k5_backward``), all through the maps' rule books; the
    same on seeded edge-case maps (``check_edge_maps``) and on a KITTI-like
-   seeded frame (``kitti_like_points``); the rule-book build and one
+   seeded frame (``kitti_like_points``); the rule books of every path's maps
+   and of the sort's edge maps (one row to 3 million rows, 16 maps a call,
+   both of the build's routes) equal to the plain stable sort
+   (``check_rulebooks``); the rule-book build and one
    stage's launches, forward and backward, run under
    ``torch.cuda.set_sync_debug_mode("error")`` (``check_sync_free``);
 3. drives the port's paths with every launch count set to 0 just before
@@ -37,7 +45,8 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    of the north star's 512 boxes (K4) and SECOND training
    (``make_train_step`` + ``make_optimizer`` on ``presets.second_kitti``
    at full width, batch 2, 5 steps in f32 with TF32 off and 5 in bf16,
-   counts read per step: K5 13, K6 8); each path must launch its kernels;
+   counts read per step: K5 13, K6 8); each path must launch its kernels,
+   and nms2d K1's bit form and the scan only (``check_nms_routes``);
 4. checks the outputs: finite, of the expected shape, the keep masks equal
    to the plain scans on the kernels' own IoU matrices, the voxelizer
    equal to the port's CPU run, both serving paths' outputs equal to a
@@ -325,8 +334,37 @@ def k1_bound_all_pairs(n, m):
 
 
 def scan_bound(n):
-    # (n, n) bool overlap and (n,) pre in, (n,) bool out; one test per pair
-    return bound(n * n + 2 * n, n * n)
+    # nms2d's scan: the words of the bit rows it reads (each row from its
+    # own word on), the sorted scores (f32) and the order (int64) in, the
+    # (n,) bool mask out; an OR a word
+    words = (n + 63) // 64
+    upper = sum(words - i // 64 for i in range(n))
+    return bound(upper * 8 + n * 13, upper)
+
+
+def k1_bits_bound(n, chains):
+    # nms2d's K1: boxes in, the (n, ceil(n / 64)) bit rows out; the reject
+    # test on the pairs above the diagonal and the chain on those it keeps
+    return bound(n * 5 * 4 + n * ((n + 63) // 64) * 8,
+                 n * (n - 1) // 2 * K1_REJECT_OPS_PER_PAIR
+                 + chains * K1_OPS_PER_PAIR)
+
+
+def kernel_launches(fn):
+    """(kernels, memory operations) one call of ``fn`` puts on the card,
+    counted in torch.profiler's CUPTI trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    mem = sum(e.count for e in rows if e.key.startswith(("Memcpy", "Memset")))
+    return sum(e.count for e in rows) - mem, mem
 
 
 def k4_bound(n, steps):
@@ -479,32 +517,176 @@ def check_k1(dev):
     return worst, shares
 
 
+# the thresholds K1's bit rows are checked at: negative (a rejected pair's
+# +0.0 sets its bit), 0, the paths' 0.25 and 1 (no IoU above it)
+BIT_THRESHOLDS = (-0.1, 0.0, 0.25, 1.0)
+BIT_SIZES = (1, 63, 64, 65, 100, 512, 2048, 4096)
+
+
+def odd_boxes(rng, n):
+    """bench.py-recipe boxes with, from 100 boxes on, a NaN centre, a NaN
+    angle, and a zero-width and a zero-size box away from every other box
+    (where a degenerate box overlaps another, its IoU is rounding noise)."""
+    boxes, _ = bench_boxes(rng, n)
+    if n >= 100:
+        boxes[7, 0] = np.nan
+        boxes[14, 4] = np.nan
+        boxes[21, 2] = 0.0
+        boxes[21, :2] = (-500.0, 900.0)
+        boxes[28, 2:4] = 0.0
+        boxes[28, :2] = (-900.0, 900.0)
+    return boxes
+
+
+def check_k1_bits(dev):
+    """K1's bit-row form against its plain version (the plain IoU matrix
+    thresholded, upper triangle, packed) and against K1's own f32 form
+    thresholded, exactly, at ``BIT_SIZES`` x ``BIT_THRESHOLDS``, into
+    buffers filled with ones (0xFF..., so an unwritten word shows), twice;
+    the pairs that ran the chain those above the diagonal that the plain
+    reject test keeps. Returns the mismatched words (0) and each size's
+    share of upper pairs that ran the chain."""
+    from d3d_tpu_torch.ops import geometry_cuda, geometry_soa, nms_cuda
+
+    rng = np.random.default_rng(5)
+    shares = {}
+    for n in BIT_SIZES:
+        b = torch.from_numpy(odd_boxes(rng, n)).to(dev)
+        iou = geometry_soa._rbox_iou_matrix_plain(b, b)
+        mine = geometry_cuda.rbox_iou_matrix(b, b)
+        upper = torch.ones((n, n), dtype=torch.bool, device=dev).triu(1)
+        keep = int((~geometry_cuda._reject_plain(b, b) & upper).sum())
+        for thr in BIT_THRESHOLDS:
+            want = nms_cuda.pack_rows(torch.triu(iou > thr, 1))
+            own = nms_cuda.pack_rows(torch.triu(mine > thr, 1))
+            chains = torch.zeros(1, dtype=torch.int32, device=dev)
+            ones = torch.full_like(want, -1)
+            geometry_cuda._bits_launch(b, thr, chains=chains, out=ones)
+            again = geometry_cuda._bits_launch(b, thr)
+            torch.cuda.synchronize()
+            bad = int((ones != want).sum())
+            check(bad == 0, f"K1 bits n={n} thr={thr}: {bad} of "
+                            f"{want.numel()} words differ from the plain "
+                            "version or were left unwritten")
+            check(torch.equal(ones, own) and torch.equal(ones, again),
+                  f"K1 bits n={n} thr={thr}: differ from K1's f32 form "
+                  "thresholded or between launches")
+            check(int(chains) == keep, f"K1 bits n={n} thr={thr}: "
+                                       f"{int(chains)} pairs ran the chain, "
+                                       f"the plain reject test keeps {keep}")
+        shares[n] = keep / max(1, n * (n - 1) // 2)
+        log(f"K1 bits n={n}: equal to the plain version and to K1's f32 "
+            f"form at thresholds {BIT_THRESHOLDS}, every word written, "
+            f"{keep} upper pairs ran the chain ({100 * shares[n]:.2f}%)")
+    return 0.0, shares
+
+
 def random_overlap(rng, n, dev):
+    """A seeded (n, n) bool overlap (7% of pairs, symmetric) and a 10% pre
+    mask on the card; above 4096 boxes drawn on the card itself."""
+    if n > 4096:
+        gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1e9)))
+        ov = torch.rand((n, n), generator=gen, device=dev) < 0.07
+        pre = torch.rand(n, generator=gen, device=dev) < 0.1
+        return ov | ov.T, pre
     ov = rng.random((n, n)) < 0.07
     ov = ov | ov.T
     pre = rng.random(n) < 0.1
     return (torch.from_numpy(ov).to(dev), torch.from_numpy(pre).to(dev))
 
 
+SCAN_SIZES = (1, 63, 64, 65, 100, 512, 1000, 1025, 2048, 4096, 20_000)
+
+
 def check_scans(dev):
-    """K2/K3 against the plain scan on the card; returns mismatch counts."""
+    """The scan (K2/K3) against the plain scan on the card at
+    ``SCAN_SIZES``, exactly: the public bool route (pack, then scan) and
+    nms2d's route (bit rows, the pre-suppression from the negated sorted
+    scores with NaNs among them, the mask written through ``order``); both
+    of the scan's routes (one warp up to 2048 boxes, one block above) must
+    have run. Returns mismatch counts and the launches by route."""
     from d3d_tpu_torch.ops import nms_cuda
 
     rng = np.random.default_rng(1)
+    routes0 = dict(nms_cuda._ROUTES)
     worst = {"nms_scan": 0, "nms_scan_blocked": 0}
-    for scan, sizes in ((nms_cuda.nms_scan, (100, 160, 512, 1000)),
-                        (nms_cuda.nms_scan_blocked, (1025, 2048, 4096))):
-        for n in sizes:
-            ov, pre = random_overlap(rng, n, dev)
-            got = scan(ov, pre)
-            want = nms_cuda._nms_scan_plain(ov, pre)
-            torch.cuda.synchronize()
-            bad = int((got != want).sum())
-            log(f"{scan.__name__} n={n}: {bad} of {n} differ from the plain "
-                f"scan, {int((~got).sum())} kept")
-            check(bad == 0, f"{scan.__name__} n={n}: {bad} mismatches")
-            worst[scan.__name__] = max(worst[scan.__name__], bad)
-    return worst
+    for n in SCAN_SIZES:
+        scan = nms_cuda.nms_scan if n <= 1024 else nms_cuda.nms_scan_blocked
+        ov, pre = random_overlap(rng, n, dev)
+        got = scan(ov, pre)
+        want = nms_cuda._nms_scan_plain(ov, pre)
+        scores = torch.rand(n, device=dev)
+        scores[::97] = float("nan")
+        neg, order = torch.sort(-scores, stable=True)
+        bits = nms_cuda.pack_rows(torch.triu(ov, 1))
+        got_s = nms_cuda._nms_scan_sorted(bits, order, neg, 0.1)
+        want_s = nms_cuda._nms_scan_sorted_plain(bits, order, neg, 0.1)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum()) + int((got_s != want_s).sum())
+        log(f"{scan.__name__} n={n}: {bad} of 2 x {n} differ from the "
+            f"plain scan (bool route {int((~got).sum())} kept, nms2d's "
+            f"route {int((~got_s).sum())} kept)")
+        check(bad == 0, f"{scan.__name__} n={n}: {bad} mismatches")
+        worst[scan.__name__] = max(worst[scan.__name__], bad)
+    routes = {k: v - routes0[k] for k, v in nms_cuda._ROUTES.items()}
+    log(f"NMS scan launches by route in the checks: {routes}")
+    check(routes["warp"] > 0 and routes["block"] > 0,
+          f"NMS scan: a route never ran: {routes}")
+    return worst, routes
+
+
+# two-point frames: one good point and one with a NaN x / xyz / intensity
+NAN_POINTS = {"x": (np.nan, 1.5, 1.5, 0.0), "xyz": (np.nan,) * 3 + (0.0,),
+              "intensity": (1.5, 1.5, 1.5, np.nan)}
+
+
+def same_with_nan(a, b, atol=0.0):
+    """NaN exactly where the other is NaN, the rest within ``atol``."""
+    if a.shape != b.shape or not torch.equal(a.isnan(), b.isnan()):
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return a.numel() == 0 or float(
+        (a.nan_to_num(0.0) - b.nan_to_num(0.0)).abs().max()) <= atol
+
+
+def check_nan_voxels(dev):
+    """Both voxelizers on the card against the port's CPU run on points
+    with NaN coordinates: two-point frames (a NaN lands in cell 0
+    of its axis, as XLA's convert puts it) and the north-star frame with
+    100 NaN points; exactly equal, NaN where the CPU has NaN."""
+    from d3d_tpu_torch.ops.voxel import (voxelize_dense_padded,
+                                         voxelize_mean_fm)
+
+    frames = {k: (np.array([(2.5, 2.5, 2.5, 1.0), v], np.float32),
+                  (4, 4, 4), (0.0, 4.0, 0.0, 4.0, 0.0, 4.0), 4)
+              for k, v in NAN_POINTS.items()}
+    pts = north_star_frame()[0].copy()
+    pts[:100:3, 0] = np.nan
+    pts[1:100:3, :3] = np.nan
+    pts[2:100:3, 3] = np.nan
+    frames["north star + 100 NaN points"] = (pts, GRID, BOUNDS, 16000)
+    # the means' last f32 operations may round apart on the two devices:
+    # the north star's stated 8e-6 (``north_star``); the rest exact
+    for name, (p, shape, bounds, cap) in frames.items():
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            tb = torch.tensor(bounds, dtype=torch.float32, device=d)
+            fm = torch.from_numpy(np.ascontiguousarray(p.T)).to(d)
+            outs.append((voxelize_mean_fm(fm, shape, tb, cap),
+                         voxelize_dense_padded(torch.from_numpy(p).to(d),
+                                               shape, tb, 4, cap, "mean",
+                                               order_mode="sorted")))
+        for i, what in enumerate(("voxelize_mean_fm",
+                                  "voxelize_dense_padded")):
+            card, cpu = outs[0][i], outs[1][i]
+            for k in cpu:
+                check(same_with_nan(card[k].cpu(), cpu[k],
+                                    8e-6 if k == "aggregates" else 0.0),
+                      f"NaN voxels {name} {what} {k}: card != CPU")
+        log(f"NaN voxels {name}: card equal to CPU in both voxelizers "
+            f"({int(outs[0][0].nvoxels)} voxels)")
+    return 0.0
 
 
 def check_k4(dev):
@@ -522,6 +704,13 @@ def check_k4(dev):
     routes0 = dict(nms_cuda._soft_launch.routes)
     cases = [(f"n={n}", *bench_boxes(rng, n), SOFT_NMS_ARGS["iou_threshold"])
              for n in (100, 512, 1000, 2048, 8192)]
+    # a NaN pick: 6 boxes 0.3 m apart, one NaN score (a NaN
+    # available makes the pick n - 1, as in the Pallas kernel)
+    cases.append(("6 boxes with a NaN score",
+                  np.array([[0.3 * i, 0.0, 1.0, 1.0, 0.0] for i in range(6)],
+                           np.float32),
+                  np.array([0.5, np.nan, 0.9, 0.2, 0.8, 0.1], np.float32),
+                  0.3))
     for n in (512, 2048):  # every row's marks overflow its list
         dense, dense_scores = bench_boxes(rng, n)
         dense[:, :2] = rng.random((len(dense), 2)) * 0.5 + 20.0
@@ -882,6 +1071,35 @@ def check_edge_maps(dev):
     return worst
 
 
+def sort_edge_maps(dev):
+    """Seeded maps for the rule-book sort's edges, each set built in one
+    call: one row, every mask equal, every mask distinct, a row count no
+    multiple of the sort's chunk, SECOND's 32 000 joined rows, and 16 maps
+    of sizes 0 to 9000 (every map count the call takes)."""
+    rng = np.random.default_rng(13)
+
+    def from_masks(masks):
+        bits = (masks[:, None] >> np.arange(27)) & 1
+        return torch.from_numpy(np.where(bits, 0, -1).astype(np.int32)).to(
+            dev)
+
+    sizes = [0, 1, 5, 2048, 2049, 4100, 700, 64, 3000, 1, 2, 9000, 33, 2047,
+             100, 6000]
+    return {
+        "one row": [from_masks(rng.integers(0, 1 << 27, 1))],
+        "every mask equal": [from_masks(np.full(3000, 0b1011011))],
+        "every mask distinct": [from_masks(rng.choice(1 << 27, 5000,
+                                                      replace=False))],
+        "2049 rows": [from_masks(rng.integers(0, 1 << 6, 2049))],
+        "32 000 rows": [from_masks(((rng.random((32000, 27)) < 0.3)
+                                    << np.arange(27)).sum(1))],
+        "16 maps": [from_masks(rng.integers(0, 1 << int(rng.integers(1, 28)),
+                                            n)) for n in sizes],
+        # more chunks than the card holds blocks at once: a launch a phase
+        "3 000 000 rows": [from_masks(((rng.random((3_000_000, 27)) < 0.3)
+                                       << np.arange(27)).sum(1))]}
+
+
 def distinct_maps(layers):
     """(layer names, neighbour maps) of the distinct maps these layers use,
     in path order: the first layer on each map names it."""
@@ -899,9 +1117,11 @@ def check_rulebooks(map_sets):
     set of maps in one call as the path builds them (``map_sets``:
     {label: [maps]}): masks and orders equal, bit for bit, over two
     launches. Returns the largest |kernel - plain| of either (0)."""
+    from d3d_tpu_torch.ops import rulebook
     from d3d_tpu_torch.ops.rulebook import (_subm_conv_rulebook_plain,
                                             subm_conv_rulebook)
 
+    routes0 = dict(rulebook._ROUTES)
     for label, nbrs in map_sets.items():
         got, again = subm_conv_rulebook(nbrs), subm_conv_rulebook(nbrs)
         want = _subm_conv_rulebook_plain(nbrs)
@@ -916,7 +1136,10 @@ def check_rulebooks(map_sets):
         log(f"rule-book kernels {label}: {len(nbrs)} maps in one call (Nq "
             f"{[n.shape[0] for n in nbrs]}), masks and orders equal to the "
             "plain version (torch ops, a stable sort a map), twice")
-    return 0.0
+    routes = {k: v - routes0[k] for k, v in rulebook._ROUTES.items()}
+    log(f"rule-book builds by route in the checks: {routes}")
+    check(all(routes.values()), f"rule books: a route never ran: {routes}")
+    return 0.0, routes
 
 
 def check_sync_free(dev, model, batch):
@@ -1040,6 +1263,9 @@ def second_training(dev, state, batch, dtype):
                     subm_conv_rulebook=1)
         check(counts == want, f"SECOND training {dtype} step {i + 1}: "
                               f"launches {counts}, want {want}")
+        check(not any(read_routes().values()),
+              f"SECOND training {dtype} step {i + 1}: an NMS kernel ran: "
+              f"{read_routes()}")
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         losses.append({k: float(v) for k, v in aux.items()})
@@ -1162,13 +1388,44 @@ def counters():
             rulebook.subm_conv_rulebook)
 
 
+def route_counters():
+    from d3d_tpu_torch.ops import geometry_cuda, nms_cuda
+
+    return {"k1_matrix": (geometry_cuda._FORMS, "matrix"),
+            "k1_bits": (geometry_cuda._FORMS, "bits"),
+            "pack": (nms_cuda._ROUTES, "pack"),
+            "scan_warp": (nms_cuda._ROUTES, "warp"),
+            "scan_block": (nms_cuda._ROUTES, "block")}
+
+
 def reset_counts():
     for fn in counters():
         fn.launches = 0
+    for table, key in route_counters().values():
+        table[key] = 0
 
 
 def read_counts():
     return {fn.__name__: fn.launches for fn in counters()}
+
+
+def read_routes():
+    """K1's launches by output form, the pack kernel's and the scan's by
+    route, since ``reset_counts``."""
+    return {name: table[key] for name, (table, key) in
+            route_counters().items()}
+
+
+def check_nms_routes(name, calls, scan="scan_warp"):
+    """``calls`` nms2d calls ran K1's bit form and the scan (``scan``
+    route) once each, and neither K1's f32 form nor the pack kernel."""
+    routes = read_routes()
+    want = dict(k1_matrix=0, k1_bits=calls, pack=0, scan_warp=0,
+                scan_block=0)
+    want[scan] = calls
+    check(routes == want, f"{name}: kernel routes {routes}, want {want}: "
+                          "nms2d runs K1's bit rows and the scan only")
+    return routes
 
 
 def nms_inputs(boxes, scores, iou_threshold):
@@ -1217,6 +1474,7 @@ def north_star(dev):
     log(f"north star launches: {counts}")
     check(counts["rbox_iou_matrix"] == 1 and counts["nms_scan"] == 1,
           f"north star did not run K1 and K2 once each: {counts}")
+    log(f"north star routes: {check_nms_routes('north star', 1)}")
 
     keep = ~sup
     check(torch.equal(sup, plain_nms(tb, ts, 0.25)),
@@ -1241,9 +1499,8 @@ def north_star(dev):
     wall = (time.perf_counter() - t0) / 10 * 1e3
     log(f"north star: {ms:.4f} ms device (median of 30, CUDA events), "
         f"{wall:.4f} ms host wall clock per frame")
-    _, overlap, pre = nms_inputs(tb, ts, 0.25)
     return counts, dict(ms=ms, wall_ms=wall, kept=int(keep.sum()),
-                        voxels=nv), (tb, overlap, pre)
+                        voxels=nv), (tb, ts)
 
 
 def k3_path(dev):
@@ -1260,6 +1517,7 @@ def k3_path(dev):
     check(counts["nms_scan_blocked"] == 1 and counts["rbox_iou_matrix"] == 1
           and counts["nms_scan"] == 0,
           f"nms2d n=2048 did not run K1 and K3 once each: {counts}")
+    log(f"nms2d n=2048 routes: {check_nms_routes('nms2d n=2048', 1)}")
     check(torch.equal(sup, plain_nms(tb, ts, 0.25)),
           "nms2d n=2048 keep mask differs from the plain scan")
     log(f"nms2d n=2048: {int((~sup).sum())} kept")
@@ -1406,6 +1664,7 @@ def serving(dev):
         f"request: {kept}")
     check(counts["rbox_iou_matrix"] == 4 and counts["nms_scan"] == 4,
           f"serving did not run K1 and K2 once per request: {counts}")
+    log(f"serving routes: {check_nms_routes('serving', 4)}")
     log("serving f32 (PyTorch defaults, TF32 convolutions allowed): "
         + ", ".join(f"{ms:.2f}" for ms in request_ms) + " ms per request")
 
@@ -1478,6 +1737,7 @@ def second_serving(dev, model, frames):
                 subm_conv_dw=0, subm_conv_rulebook=4)
     check(counts == want, f"SECOND serving: launches {counts}, want {want}: "
                           "8 of K5, 1 of K1 and 1 of K2 per request")
+    log(f"SECOND serving routes: {check_nms_routes('SECOND serving', 4)}")
     log("SECOND serving f32: " + ", ".join(f"{ms:.2f}" for ms in request_ms)
         + " ms per request (the first one cold)")
 
@@ -1538,6 +1798,10 @@ def soft_nms_path(dev):
                          soft_nms_scan=2, subm_conv=0, subm_conv_dw=0,
                          subm_conv_rulebook=0),
           f"soft_nms2d did not run K1 and K4 once per call: {counts}")
+    routes = read_routes()
+    check(routes == dict(k1_matrix=2, k1_bits=0, pack=0, scan_warp=0,
+                         scan_block=0),
+          f"soft_nms2d: kernel routes {routes}: K1's f32 form twice only")
     iou = geometry_cuda.rbox_iou_matrix(tb, tb)
     thr = SOFT_NMS_ARGS["score_threshold"]
     pre, init = _soft_nms_init(ts, thr)
@@ -1686,30 +1950,38 @@ def rulebook_times(layers, label):
                                             prepare_neighbor_maps)
 
     names, nbrs = distinct_maps(layers)
+    masks = _subm_conv_rulebook_plain(nbrs)[0]
 
     def build():
         prepare_neighbor_maps(nbrs)
 
     def plain():
         _subm_conv_rulebook_plain(nbrs)
+
+    def library():  # the sort's part, one library call a map
+        for m in masks:
+            torch.sort(m, stable=True)
     b_ms, b_by = bound(*rulebook_work(nbrs))
     out = dict(ms=time_launches(build, batch=20),
                one_build_ms=time_each(build, reps=20),
                cupti_ms=cupti_ms(build),
-               masks_cupti_ms=cupti_ms(build, ("rulebook_masks_kernel",)),
-               sort_cupti_ms=cupti_ms(build, ("rulebook_sort_kernel",)),
+               kernels_a_build=kernel_launches(build),
                plain_ms=time_each(plain, reps=20),
                plain_cupti_ms=cupti_ms(plain), bound_ms=b_ms, bound_by=b_by,
+               library_cupti_ms=cupti_ms(library),
+               library_events_ms=time_launches(library, batch=20),
                maps={n: nbr.shape[0] for n, nbr in zip(names, nbrs)},
                pairs_ms=0.0, pairs_cupti_ms=0.0, pairs_per_map={})
     log(f"rule books {label}, the {len(nbrs)} maps together (Nq "
         f"{list(out['maps'].values())}): {out['ms']:.4f} ms (CUDA events "
         f"over back-to-back builds; around one build "
         f"{out['one_build_ms']:.4f} ms; kernel time by CUPTI "
-        f"{fmt_ms(out['cupti_ms'])}: masks {fmt_ms(out['masks_cupti_ms'])}, "
-        f"sort {fmt_ms(out['sort_cupti_ms'])}); plain version "
+        f"{fmt_ms(out['cupti_ms'])}; (kernels, memory operations) a build "
+        f"{out['kernels_a_build']}); plain version "
         f"{out['plain_ms']:.4f} "
-        f"ms (CUPTI {fmt_ms(out['plain_cupti_ms'])}); bound {b_ms:.5f} ms "
+        f"ms (CUPTI {fmt_ms(out['plain_cupti_ms'])}); torch.sort(masks, "
+        f"stable=True) a map: CUPTI {fmt_ms(out['library_cupti_ms'])}, "
+        f"events {out['library_events_ms']:.4f} ms; bound {b_ms:.5f} ms "
         f"({b_by})")
     for name, rb in zip(names, prepare_neighbor_maps(nbrs)):
         def pairs():
@@ -1725,6 +1997,57 @@ def rulebook_times(layers, label):
     return out
 
 
+def nms_times(tb, ts, thr=0.25):
+    """nms2d's parts on these boxes and scores: the scan as nms2d launches
+    it (events over back-to-back launches, CUPTI), K1's bit form beside
+    its f32 form (the boxes in score order), the whole nms2d call (events,
+    CUPTI, its kernels and memory operations counted by the profiler) and
+    its torch.sort(-scores, stable=True) by CUPTI."""
+    from d3d_tpu_torch.ops import geometry_cuda, nms_cuda
+    from d3d_tpu_torch.ops.nms import nms2d
+
+    n = tb.shape[0]
+    neg, order = torch.sort(-ts, stable=True)
+    bo = tb[order].contiguous()
+    chains = torch.zeros(1, dtype=torch.int32, device=tb.device)
+    bits = geometry_cuda._bits_launch(bo, thr, chains=chains)
+    out = torch.empty(n, dtype=torch.bool, device=tb.device)
+
+    def scan():
+        nms_cuda._scan_launch(bits, out, neg_scores=neg, order=order)
+
+    def k1_bits():
+        geometry_cuda._bits_launch(bo, thr)
+
+    def k1_matrix():
+        geometry_cuda._launch(bo, bo)
+
+    def call():
+        nms2d(tb, ts, iou_threshold=thr)
+
+    kernels, mem = kernel_launches(call)
+    row = dict(scan_ms=time_launches(scan),
+               scan_cupti_ms=cupti_ms(scan, ("scan_",)),
+               k1_bits_ms=time_launches(k1_bits),
+               k1_bits_cupti_ms=cupti_ms(k1_bits, ("rbox_bits",)),
+               k1_matrix_ms=time_launches(k1_matrix),
+               k1_matrix_cupti_ms=cupti_ms(k1_matrix, ("rbox_iou",)),
+               k1_bits_bound_ms=k1_bits_bound(n, int(chains))[0],
+               nms2d_ms=time_launches(call), nms2d_cupti_ms=cupti_ms(call),
+               nms2d_kernels=kernels, nms2d_memory_ops=mem,
+               sort_cupti_ms=cupti_ms(
+                   lambda: torch.sort(-ts, stable=True)))
+    log(f"nms2d n={n}: scan {row['scan_ms']:.4f} ms (CUDA events; CUPTI "
+        f"{fmt_ms(row['scan_cupti_ms'])}), K1 bits {row['k1_bits_ms']:.4f} "
+        f"(CUPTI {fmt_ms(row['k1_bits_cupti_ms'])}) vs f32 matrix "
+        f"{row['k1_matrix_ms']:.4f} (CUPTI {fmt_ms(row['k1_matrix_cupti_ms'])}"
+        f"); the call {row['nms2d_ms']:.4f} ms (CUPTI "
+        f"{fmt_ms(row['nms2d_cupti_ms'])}), {kernels} kernels and {mem} "
+        f"memory operations; torch.sort(-scores) by CUPTI "
+        f"{fmt_ms(row['sort_cupti_ms'])}")
+    return row
+
+
 def kernel_times(dev, ns_inputs, k3_inputs, soft_inputs, soft_stats,
                  k5_layers, train_layers, kitti_layers, kitti_train_layers):
     """Per-launch device ms of each kernel and its plain version at the
@@ -1732,7 +2055,7 @@ def kernel_times(dev, ns_inputs, k3_inputs, soft_inputs, soft_stats,
     from d3d_tpu_torch.ops import (geometry_cuda, geometry_soa, nms_cuda,
                                    sparse_conv_cuda)
 
-    tb512, ov512, pre512 = ns_inputs
+    tb512, ts512 = ns_inputs
     tb2048, ts2048 = k3_inputs
     out = {}
 
@@ -1770,24 +2093,37 @@ def kernel_times(dev, ns_inputs, k3_inputs, soft_inputs, soft_stats,
         bound_ms_all_pairs_2048x2048=r2048["bound_ms_all_pairs"],
         chain_share_2048x2048=r2048["chain_share"])
 
-    k2_ms = time_launches(lambda: nms_cuda._launch(ov512, pre512))
-    ov100, pre100 = ov512[:100, :100].contiguous(), pre512[:100].contiguous()
-    k2_serving_ms = time_launches(lambda: nms_cuda._launch(ov100, pre100))
-    k2_plain = time_each(lambda: nms_cuda._nms_scan_plain(ov512, pre512),
-                         reps=5, warmup=1)
-    b_ms, b_by = scan_bound(512)
-    out["nms_scan"] = dict(ms=k2_ms, plain_ms=k2_plain, bound_ms=b_ms,
-                           bound_by=b_by, shape="n=512 (north star)",
-                           ms_n100_serving=k2_serving_ms)
-
+    # the scan as nms2d runs it (K1's bit rows, the sorted scores, the
+    # order) at the serving paths' 100 boxes, the north star's 512 and the
+    # 2048 of the K3 path, with K1's two forms and the whole nms2d call
+    scans = {"n100": nms_times(tb512[:100], ts512[:100]),
+             "n512": nms_times(tb512, ts512), "n2048": nms_times(tb2048,
+                                                                ts2048)}
+    _, ov512, pre512 = nms_inputs(tb512, ts512, 0.25)
     _, ov2048, pre2048 = nms_inputs(tb2048, ts2048, 0.25)
-    k3_ms = time_launches(lambda: nms_cuda._launch(ov2048, pre2048))
-    k3_plain = time_each(lambda: nms_cuda._nms_scan_plain(ov2048, pre2048),
-                         reps=5, warmup=1)
-    b_ms, b_by = scan_bound(2048)
-    out["nms_scan_blocked"] = dict(ms=k3_ms, plain_ms=k3_plain,
-                                   bound_ms=b_ms, bound_by=b_by,
-                                   shape="n=2048 (nms2d above 1024)")
+    for name, key, n, ov, pre in (
+            ("nms_scan", "n512", 512, ov512, pre512),
+            ("nms_scan_blocked", "n2048", 2048, ov2048, pre2048)):
+        row = scans[key]
+        b_ms, b_by = scan_bound(n)
+        out[name] = dict(
+            ms=row["scan_ms"], cupti_ms=row["scan_cupti_ms"],
+            plain_ms=time_each(lambda: nms_cuda._nms_scan_plain(ov, pre),
+                               reps=5, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            library="none computes greedy NMS",
+            shape=f"n={n} (nms2d's route: K1's bit rows, the sorted "
+                  "scores, the order)",
+            bool_route_ms=time_launches(lambda: nms_cuda._launch(ov, pre)),
+            bool_route_cupti_ms=cupti_ms(lambda: nms_cuda._launch(ov, pre)))
+    out["nms_scan"]["nms2d_by_size"] = scans
+    out["nms_scan"]["ms_n100_serving"] = scans["n100"]["scan_ms"]
+    out["nms_scan"]["cupti_ms_n100_serving"] = scans["n100"]["scan_cupti_ms"]
+    out["rbox_iou_matrix"]["bits_form"] = {
+        k: {f: v[f] for f in ("k1_bits_ms", "k1_bits_cupti_ms",
+                              "k1_matrix_ms", "k1_matrix_cupti_ms",
+                              "k1_bits_bound_ms")}
+        for k, v in scans.items()}
 
     # K4 at n = 512, linear (the soft-NMS path's first call), gaussian
     # beside it; the cascade takes n minus the suppressed boxes' steps
@@ -1905,24 +2241,26 @@ def kernel_times(dev, ns_inputs, k3_inputs, soft_inputs, soft_stats,
             of="the 8 layers of one training step on 2 KITTI-like frames"))
     out["subm_conv_rulebook"] = dict(
         ms=rb["ms"], plain_ms=rb["plain_ms"], bound_ms=rb["bound_ms"],
-        bound_by=rb["bound_by"], library_ms=None,
-        library="none: no one PyTorch call computes the masks and their "
-                "stable order",
+        bound_by=rb["bound_by"], library_ms=rb["library_cupti_ms"],
+        library="torch.sort(masks, stable=True), one call a map, summed, "
+                "kernel time by CUPTI (the sort's part; the masks are "
+                "extra)",
+        library_events_ms=rb["library_events_ms"],
         shape=f"the 5 maps of one SECOND request (Nq "
               f"{list(rb['maps'].values())})",
         ms_of="one request's rule books, one call (CUDA events over "
               "back-to-back builds)",
         one_build_ms=rb["one_build_ms"], cupti_ms=rb["cupti_ms"],
-        masks_cupti_ms=rb["masks_cupti_ms"],
-        sort_cupti_ms=rb["sort_cupti_ms"],
+        kernels_a_build=rb["kernels_a_build"],
         plain_cupti_ms=rb["plain_cupti_ms"],
-        note="K5's rule-book build (csrc/subm_conv.cu rulebook_masks_kernel "
-             "and rulebook_sort_kernel): "
+        note="K5's rule-book build (csrc/subm_conv.cu rulebook_kernel, one "
+             "cooperative launch a call at these sizes): "
              "part of K5's port; the Pallas kernel at sparse_conv_pallas.py"
              ":118 walks every offset and has no rule book",
         training=dict(ms=trb["ms"], one_build_ms=trb["one_build_ms"],
                       cupti_ms=trb["cupti_ms"],
-                      sort_cupti_ms=trb["sort_cupti_ms"],
+                      kernels_a_build=trb["kernels_a_build"],
+                      library_cupti_ms=trb["library_cupti_ms"],
                       plain_ms=trb["plain_ms"],
                       bound_ms=trb["bound_ms"],
                       of=f"the 5 joined maps of one training step (Nq "
@@ -1962,8 +2300,10 @@ def main():
 
     build_kernels()
     k1_err, k1_shares = check_k1(dev)
-    scan_err = check_scans(dev)
+    k1_bits_err, k1_bits_shares = check_k1_bits(dev)
+    scan_err, scan_routes = check_scans(dev)
     k4_err, k4_routes = check_k4(dev)
+    check_nan_voxels(dev)
     second, second_frames = second_model(dev)
     k5_layers = second_layer_inputs(second, second_frames[0], dev)
     k5_err, k5_shapes = check_k5(k5_layers)
@@ -1986,13 +2326,14 @@ def main():
     kitti_k6_err, kitti_k6_shapes = check_k6(kitti_train_layers, "KITTI-like")
     kitti_bwd_err = check_k5_backward(kitti_train_layers, "KITTI-like")
     edge_rng = np.random.default_rng(11)
-    rb_err = check_rulebooks({
+    rb_err, rb_routes = check_rulebooks({
         "serving": distinct_maps(k5_layers)[1],
         "training": distinct_maps(train_layers)[1],
         "KITTI-like serving": distinct_maps(kitti_layers)[1],
         "KITTI-like training": distinct_maps(kitti_train_layers)[1],
         "edge maps": [edge_map(edge_rng, kind, dev)[0]
-                      for kind in EDGE_CASES]})
+                      for kind in EDGE_CASES],
+        **sort_edge_maps(dev)})
 
     serve_counts, serve = serving(dev)
     ns_counts, ns, ns_inputs = north_star(dev)
@@ -2056,6 +2397,11 @@ def main():
                             "library_ms", "shape")}))
     rows = {row["name"]: row for row in kernels}
     rows["rbox_iou_matrix"]["chain_share_by_check"] = k1_shares
+    rows["rbox_iou_matrix"].update(max_abs_err_bits=k1_bits_err,
+                                   chain_share_bits_by_size=k1_bits_shares)
+    for name in ("nms_scan", "nms_scan_blocked"):
+        rows[name]["launches_by_route_in_checks"] = scan_routes
+    rows["subm_conv_rulebook"]["builds_by_route_in_checks"] = rb_routes
     rows["soft_nms_scan"]["launches_by_route_in_checks"] = k4_routes
     rows["subm_conv"].update(
         max_abs_err_bf16=k5_err["bfloat16"], layer_shapes=k5_shapes,

@@ -290,9 +290,9 @@ __device__ __forceinline__ void stage_box(Side<T>& s, int k,
 }
 
 // true where the pair cannot overlap (see the note at the top)
-template <int T>
-__device__ __forceinline__ bool rejects(const Side<T>& a, int i,
-                                        const Side<T>& b, int j) {
+template <int TA, int TB>
+__device__ __forceinline__ bool rejects(const Side<TA>& a, int i,
+                                        const Side<TB>& b, int j) {
   const float gap = fmaxf(fmaxf(b.xlo[j] - a.xhi[i], a.xlo[i] - b.xhi[j]),
                           fmaxf(b.ylo[j] - a.yhi[i], a.ylo[i] - b.yhi[j]));
   const float slack = gap - kRejectRel * (a.ext[i] + b.ext[j]);
@@ -361,6 +361,140 @@ __global__ void __launch_bounds__(Tile<T>::kThreads, Tile<T>::kMinBlocks)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bit-row form, nms2d's private route (`d3d_rbox_overlap_bits`): for
+// the square case of the boxes in score order it writes the (n,
+// ceil(n/64)) 64-bit rows the NMS scan reads (csrc/nms_scan.cu) instead
+// of the f32 matrix. Bit (i, j) is j > i and iou(i, j) > threshold: the
+// chain runs with the higher-ranked box i first, as the f32 form's (i, j)
+// entry does (the chain is not exactly symmetric in f32); a rejected pair's
+// IoU is +0.0, so its bit is 0.0f > threshold (set for a negative
+// threshold); a NaN IoU sets no bit. The descriptors, the reject test, the
+// queue and `pair_iou` are the f32 form's.
+//
+// A block takes R rows and one 64-column word, on or above the diagonal
+// (the scan never reads j <= i, so those tiles do not run: half the
+// pairs). Phase 1 gives each warp 32 columns of one row, so a rejected
+// pair's bit goes into the tile's word by a ballot, and queues the rest;
+// phase 2 ORs the chain's bits into the word in shared memory; the block
+// then writes each row's word once. The block of a row tile's own word
+// also zeroes its rows' words left of it (never read; written so that
+// every word of the output is written exactly once, as the output is
+// torch.empty).
+
+constexpr int kBitThreads = 256;
+
+// the tiles on or above the diagonal of an n x n bit matrix with R-row
+// tiles: row tile rt lies in word band rt / q (q = 64 / R row tiles a
+// band) and takes the words from its band's on
+struct BitTiles {
+  int words, q, row_tiles;
+  __host__ __device__ BitTiles(int n, int rows)
+      : words((n + 63) / 64), q(64 / rows), row_tiles((n + rows - 1) / rows) {}
+  // tiles before band b
+  __host__ __device__ long long start(int b) const {
+    return static_cast<long long>(q) *
+           (static_cast<long long>(b) * words -
+            static_cast<long long>(b) * (b - 1) / 2);
+  }
+  __host__ __device__ long long total() const {
+    const int last = (row_tiles - 1) / q;
+    return start(last) +
+           static_cast<long long>(row_tiles - last * q) * (words - last);
+  }
+};
+
+template <int R>
+__global__ void __launch_bounds__(kBitThreads, 2)
+    rbox_bits_kernel(const float* __restrict__ boxes,
+                     unsigned long long* __restrict__ bits, int n, float thr,
+                     int* __restrict__ chains) {
+  __shared__ Side<R> sa;
+  __shared__ Side<64> sb;
+  __shared__ unsigned short queue[R * 64];  // (row << 8) | column
+  __shared__ unsigned half[R][2];           // the tile's word, 32 bits a warp
+  __shared__ int count;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const BitTiles tiles(n, R);
+  const int words = tiles.words;
+
+  // this block's tile: its band by bisection, then row tile and word
+  const long long blk = blockIdx.x;
+  int lo = 0, hi = (tiles.row_tiles - 1) / tiles.q;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (tiles.start(mid) <= blk) lo = mid; else hi = mid - 1;
+  }
+  const int per = words - lo;
+  const long long idx = blk - tiles.start(lo);
+  const int row0 = (lo * tiles.q + static_cast<int>(idx / per)) * R;
+  const int w = lo + static_cast<int>(idx % per);
+  const int col0 = w * 64;
+
+  if (tid == 0) count = 0;
+  for (int e = tid; e < R + 64; e += kBitThreads) {
+    if (e < R)
+      stage_box(sa, e, row0 + e < n ? boxes + 5 * (row0 + e) : nullptr);
+    else
+      stage_box(sb, e - R, col0 + e - R < n ? boxes + 5 * (col0 + e - R)
+                                            : nullptr);
+  }
+  if (w == lo) {  // the rows' own word: zero the words left of it
+    for (int e = tid; e < R * w; e += kBitThreads) {
+      const int r = e / w;
+      if (row0 + r < n)
+        bits[static_cast<size_t>(row0 + r) * words + e % w] = 0ull;
+    }
+  }
+  __syncthreads();
+
+  // phase 1: a rejected pair's bit by ballot, the rest into the queue
+  const bool zero_bit = 0.f > thr;
+#pragma unroll 1
+  for (int p = tid; p < R * 64; p += kBitThreads) {
+    const int r = p >> 6, c = p & 63;
+    const bool in = col0 + c > row0 + r && col0 + c < n;
+    const bool rej = in && rejects(sa, r, sb, c);
+    const unsigned set = __ballot_sync(0xffffffffu, rej && zero_bit);
+    if (lane == 0) half[r][c >> 5] = set;
+    const bool keep = in && !rej;
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (ballot) {  // the same on every lane
+      int base = 0;
+      if (lane == 0) base = atomicAdd(&count, __popc(ballot));
+      base = __shfl_sync(0xffffffffu, base, 0);
+      if (keep)
+        queue[base + __popc(ballot & ((1u << lane) - 1u))] =
+            static_cast<unsigned short>((r << 8) | c);
+    }
+  }
+  __syncthreads();
+
+  // phase 2: the chain for the queued pairs, box i (the row) first
+  const int total = count;
+  if (chains != nullptr && tid == 0 && total > 0) atomicAdd(chains, total);
+  for (int q = tid; q < total; q += kBitThreads) {
+    const int r = queue[q] >> 8, c = queue[q] & 0xff;
+    if (pair_iou(sa.desc[r], sb.desc[c]) > thr)
+      atomicOr(&half[r][c >> 5], 1u << (c & 31));
+  }
+  __syncthreads();
+  for (int r = tid; r < R; r += kBitThreads)
+    if (row0 + r < n)
+      bits[static_cast<size_t>(row0 + r) * words + w] =
+          (static_cast<unsigned long long>(half[r][1]) << 32) | half[r][0];
+}
+
+template <int R>
+int launch_bits(const float* boxes, unsigned long long* bits, int n,
+                float thr, int* chains, cudaStream_t s) {
+  const long long grid = BitTiles(n, R).total();
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  rbox_bits_kernel<R><<<static_cast<unsigned>(grid), kBitThreads, 0, s>>>(
+      boxes, bits, n, thr, chains);
+  return static_cast<int>(cudaGetLastError());
+}
+
 __global__ void rbox_descriptor_kernel(const float* __restrict__ boxes,
                                        float* __restrict__ desc, int k) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -405,6 +539,26 @@ extern "C" int d3d_rbox_iou_matrix(const float* boxes_a, const float* boxes_b,
   else
     launch<8>(boxes_a, boxes_b, out, n, m, chains, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// boxes (n, 5) f32 xywhr in score order -> bits (n, ceil(n/64)) 64-bit
+// rows, bit (i, j) = j > i and iou(i, j) > iou_threshold, every word
+// written; chains as in d3d_rbox_iou_matrix (pairs j > i only). The tile
+// is the largest whose grid fills the card's SMs once. Returns the
+// launch's cudaGetLastError().
+extern "C" int d3d_rbox_overlap_bits(const float* boxes, void* bits, int n,
+                                     float iou_threshold, int* chains,
+                                     void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* out = static_cast<unsigned long long*>(bits);
+  if (BitTiles(n, 64).total() >= kFillBlocks)
+    return launch_bits<64>(boxes, out, n, iou_threshold, chains, s);
+  if (BitTiles(n, 32).total() >= kFillBlocks)
+    return launch_bits<32>(boxes, out, n, iou_threshold, chains, s);
+  if (BitTiles(n, 16).total() >= kFillBlocks)
+    return launch_bits<16>(boxes, out, n, iou_threshold, chains, s);
+  return launch_bits<8>(boxes, out, n, iou_threshold, chains, s);
 }
 
 // boxes (k, 5) f32 xywhr -> desc (k, 10) f32: the descriptors K1's blocks

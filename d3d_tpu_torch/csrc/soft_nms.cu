@@ -12,7 +12,8 @@
 // suppressed = pre. Each of n steps
 //   - picks the first argmax of the scores of boxes neither frozen nor
 //     suppressed (every other box counts as -inf, so with no box available
-//     the pick is n - 1 and `any_avail` gates every update below);
+//     the pick is n - 1 and `any_avail` gates every update below; while a
+//     NaN score is available the max is NaN and the pick n - 1 as well);
 //   - for every unfrozen j != pick with iou[pick, j] > iou_threshold, decays
 //     the score: linear s * (1 - exp(p log max(iou, 1e-38))) with p = 0
 //     giving 1 - 1, gaussian s * exp(-iou^2 / p);
@@ -141,11 +142,15 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
-// an order-preserving unsigned key of a score, above 1; 1 for NaN, which
-// the Pallas body's `>`/`==` comparisons never pick either (0 is no box);
-// -0 and +0 tie, as they compare equal
+// a NaN score's key: above every other, because the Pallas body's max over
+// the available scores is NaN as soon as one of them is, and then its `==`
+// matches no box and the pick is n - 1
+constexpr unsigned kNanKey = 0xffffffffu;
+
+// an order-preserving unsigned key of a score, above 0 (no box) and below
+// kNanKey (a NaN); -0 and +0 tie, as they compare equal
 __device__ __forceinline__ unsigned score_key(float v) {
-  if (v != v) return 1u;
+  if (v != v) return kNanKey;
   if (v == 0.f) v = 0.f;
   const unsigned u = __float_as_uint(v);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
@@ -276,8 +281,8 @@ __global__ void __launch_bounds__(kBlockThreads)
       idx = __reduce_min_sync(0xffffffffu, wk == key ? wi : INT_MAX);
     }
     if (key == 0u) break;  // nothing available: nothing changes
-    // only NaN scores available: the Pallas body's pick, n - 1
-    const int pick = key == 1u ? n - 1 : idx;
+    // a NaN score available: the Pallas body's pick, n - 1
+    const int pick = key == kNanKey ? n - 1 : idx;
 
     // every lane, without a branch until its hits: a lane past n reads the
     // row's last word and owns no available box

@@ -64,12 +64,13 @@
 //    a few KB that the same cp.async ring carries.
 //
 // The rule book's build for all of a request's maps, two more kernels
-// (`rulebook_masks_kernel`, `rulebook_sort_kernel`), is at the end.
+// (`rulebook_masks_kernel`, `rulebook_pass_kernel`), is at the end.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <atomic>
 #include <type_traits>
 
@@ -480,198 +481,373 @@ int launch_tn(const void* feat, const int* nbr, const int64_t* order,
 // version is `_subm_conv_rulebook_plain` there): for each of up to
 // kMaxMaps neighbour maps, every row's presence mask (bit k set where
 // nbr[n, k] >= 0) and the rows stably sorted by mask, the order K5 walks.
-// In torch that was half a dozen launches and a library sort a request,
-// which the host took longer to launch (~0.4 ms by CUDA events) than the
-// card took to run; here it is two launches for all of a request's maps.
+// One call for all of a request's maps, with no host synchronisation.
 //
-//  - rulebook_masks_kernel, a thread a row of all the maps: the row's 27
-//    entries in one burst of loads, its mask, and the pair (mask, row)
-//    packed as mask << 32 | row into a 64-bit key.
-//  - rulebook_sort_kernel, one block of 1024 threads a map: an LSD radix
-//    sort of the packed keys on the mask's bits, 4 a pass (7 passes for
-//    27 offsets), ping-ponging through a global scratch that stays in L2.
-//    One sweep first counts every pass's digits. A pass then takes the
-//    keys in index order, 8192 at a time (8 a thread, each load coalesced
-//    across the block); a warp ranks its keys of one digit with
-//    __match_any_sync, one exclusive scan over the (digit, load, warp)
-//    counts places every key, and the digits' running bases carry over
-//    from one 8192 to the next. Every pass is stable and the keys start in
-//    row order, so rows with equal masks keep it: the result equals
-//    torch.sort(masks, stable=True).
+// What bounds it: the bytes are a few hundred KB (each map read once, masks
+// and order written once), so at a request's ~40 000 rows the work is
+// latency: the serial passes of an LSD radix sort, and on the host the
+// launches. A block a map (the first design) left 4-5 of the 132 SMs sorting,
+// 7 passes of 4 bits each, in rounds with block barriers. Here every map's
+// keys (mask << 32 | row) are cut into chunks of kChunk keys, a block a
+// chunk of all the maps at once, with 8-bit digits: 4 passes for 27
+// offsets.
+//  - the masks phase: each row's mask and key, and the chunk's digit counts
+//    of every pass, added into its map's histograms (one global atomic a
+//    digit and block); it also clears the chunk's look-back slots.
+//  - a pass (Merrill and Garland's single-pass scan with decoupled
+//    look-back, as in Onesweep): the block ranks its keys stably (a warp
+//    ranks 256 keys in index order with __match_any_sync and a counter a
+//    digit), publishes its digit counts, and adds up the counts of the
+//    map's earlier chunks from their published slots (8 slots a load
+//    round), stopping at the first inclusive one; then each key goes to
+//    its digit's base in the map (an exclusive scan of the map's
+//    histogram), plus the earlier chunks' count of that digit, plus its
+//    rank in the chunk. Every pass is stable and the keys start in row
+//    order, so rows with equal masks keep it: the result equals
+//    torch.sort(masks, stable=True). The last pass writes the order.
+// When every chunk's block fits on the card at once (a request's ~20-50
+// chunks do), the whole build is ONE cooperative launch (`rulebook_kernel`)
+// whose phases are separated by grid barriers, so the host launches one
+// kernel a call. Larger inputs take one launch a phase (a memset, the
+// masks kernel, a kernel a pass whose blocks take their chunks by ticket,
+// so every chunk they look back on has started).
 // The maps hold up to 2^29 rows in all; SECOND's largest has 32 000.
 
 constexpr int kMaxMaps = 16;
-constexpr int kMaskThreads = 256;
-constexpr int kSortThreads = 1024;
-constexpr int kWarps = kSortThreads / 32;
-constexpr int kRadixBits = 4;
+constexpr int kSortThreads = 256;
+constexpr int kSortWarps = kSortThreads / 32;
+constexpr int kKeysPerThread = 8;
+constexpr int kChunk = 2048;  // keys a block (ops/rulebook.py _SORT_CHUNK)
+static_assert(kChunk == kSortThreads * kKeysPerThread, "whole chunks");
+constexpr int kRadixBits = 8;
 constexpr int kRadix = 1 << kRadixBits;
-constexpr int kMaxPasses = (kMaxOffsets + kRadixBits - 1) / kRadixBits;
-constexpr int kLoads = 8;                         // keys a thread takes a round
-constexpr int kRound = kLoads * kSortThreads;     // keys a round
-constexpr int kEntries = kRadix * kLoads * kWarps;  // (digit, load, warp)
-constexpr int kScanPer = kEntries / kSortThreads;
-static_assert(kEntries % kSortThreads == 0, "whole entries a thread");
+// the passes of 31 offsets' masks (ops/rulebook.py _SORT_MAX_PASSES)
+constexpr int kMaxPasses = 4;
+static_assert(kMaxPasses * kRadixBits >= kMaxOffsets, "every mask bit");
+static_assert(kRadix == kSortThreads, "a thread a digit");
+// a look-back slot: the flag in the top two bits, the count below
+constexpr unsigned kAggregate = 1u << 30;   // this chunk's count
+constexpr unsigned kInclusive = 2u << 30;   // the map's count up to it
+constexpr unsigned kCountMask = (1u << 30) - 1u;
+constexpr int kLookBack = 8;                // slots a load round
 
 struct MapSet {
   const int* nbr[kMaxMaps];
   int nq[kMaxMaps];
-  int start[kMaxMaps];  // the map's first row in masks / order
+  int start[kMaxMaps];            // the map's first row in masks / order
+  int chunk_start[kMaxMaps + 1];  // the map's first chunk; the last: all
+  int piece_start[kMaxMaps + 1];  // the same in the masks phase's pieces
 };
 
-__global__ void __launch_bounds__(kMaskThreads)
-    rulebook_masks_kernel(MapSet maps, int n_maps, int total, int k_off,
-                          int* __restrict__ masks,
-                          unsigned long long* __restrict__ keys) {
-  const int r = blockIdx.x * kMaskThreads + threadIdx.x;
-  if (r >= total) return;
+// the build's global scratch, carved out of the wrapper's buffer
+struct SortScratch {
+  unsigned long long* keys;  // two buffers of keys a map
+  unsigned* status;          // [pass][chunk][digit] look-back slots
+  int* hist;                 // [map][pass][digit] digit counts
+  int* tickets;              // [pass] (the per-phase launches)
+};
+
+union SortSmem {
+  struct {
+    int rows[kSortThreads * kMaxOffsets];  // a piece's map rows
+    int h[kMaxPasses][kRadix];             // the piece's digit counts
+  } masks;
+  struct {
+    int wcnt[kSortWarps][kRadix];  // per warp and digit
+    int base[kRadix];
+    int warp_sums[kSortWarps];
+  } pass;
+};
+
+__device__ __forceinline__ int map_of(const MapSet& maps, int n_maps,
+                                      int chunk) {
   int m = 0;
-  while (m + 1 < n_maps && r >= maps.start[m + 1]) ++m;
-  const int local = r - maps.start[m];
-  const int* row = maps.nbr[m] + static_cast<size_t>(local) * k_off;
-  unsigned bits = 0u;
-#pragma unroll
-  for (int k = 0; k < kMaxOffsets; ++k)
-    if (k < k_off) bits |= static_cast<unsigned>(row[k] >= 0) << k;
-  masks[r] = static_cast<int>(bits);
-  // map m's keys take scratch [2 start, 2 start + nq), the rest its buffer
-  keys[2 * static_cast<size_t>(maps.start[m]) + local] =
-      (static_cast<unsigned long long>(bits) << 32) | static_cast<unsigned>(local);
+  while (m + 1 < n_maps && chunk >= maps.chunk_start[m + 1]) ++m;
+  return m;
 }
 
-__device__ __forceinline__ int digit(unsigned long long key, int shift) {
-  return static_cast<int>(key >> (32 + shift)) & (kRadix - 1);
+__device__ __forceinline__ int map_of_piece(const MapSet& maps, int n_maps,
+                                            int piece) {
+  int m = 0;
+  while (m + 1 < n_maps && piece >= maps.piece_start[m + 1]) ++m;
+  return m;
+}
+
+// the look-back slots start empty: the blocks of a launch clear them in turn
+__device__ __forceinline__ void clear_slots(unsigned* status, size_t count) {
+  for (size_t e = static_cast<size_t>(blockIdx.x) * kSortThreads +
+                  threadIdx.x;
+       e < count; e += static_cast<size_t>(gridDim.x) * kSortThreads)
+    status[e] = 0u;
+}
+
+// one piece of kSortThreads rows of a map: its rows copied into shared
+// memory in one coalesced burst (a thread a row reading its own k_off
+// entries from global memory would touch a line an entry), then a thread a
+// row: the mask, the key, and the piece's digit counts of every pass added
+// into its map's histograms
+__device__ void masks_phase(const MapSet& maps, int n_maps, int k_off,
+                            int passes, int piece, int* __restrict__ masks,
+                            const SortScratch& sc, SortSmem& sm) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int m = map_of_piece(maps, n_maps, piece);
+  const int nq = maps.nq[m], start = maps.start[m];
+  const int r0 = (piece - maps.piece_start[m]) * kSortThreads;
+  const int nrows = min(kSortThreads, nq - r0);
+  const int* src = maps.nbr[m] + static_cast<size_t>(r0) * k_off;
+  const int count = nrows * k_off;
+  int e0 = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
+    e0 = count / 4 * 4;
+    for (int e = 4 * tid; e < e0; e += 4 * kSortThreads)
+      cp_async<16>(&sm.masks.rows[e], src + e, true);
+  }
+  for (int e = e0 + tid; e < count; e += kSortThreads)
+    cp_async<4>(&sm.masks.rows[e], src + e, true);
+  cp_async_commit();
+  for (int p = 0; p < kMaxPasses; ++p) sm.masks.h[p][tid] = 0;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const bool in = tid < nrows;
+  unsigned bits = 0u;
+  if (in) {
+    const int* row = sm.masks.rows + tid * k_off;  // odd k_off: no conflicts
+#pragma unroll
+    for (int k = 0; k < kMaxOffsets; ++k)
+      if (k < k_off) bits |= static_cast<unsigned>(row[k] >= 0) << k;
+    masks[start + r0 + tid] = static_cast<int>(bits);
+    // map m's keys take scratch [2 start, 2 start + nq), the rest its
+    // second buffer
+    sc.keys[2 * static_cast<size_t>(start) + r0 + tid] =
+        (static_cast<unsigned long long>(bits) << 32) |
+        static_cast<unsigned>(r0 + tid);
+  }
+  for (int p = 0; p < passes; ++p) {
+    const int d = in ? static_cast<int>(bits >> (p * kRadixBits)) &
+                           (kRadix - 1)
+                     : kRadix;
+    const unsigned peers = __match_any_sync(0xffffffffu, d);
+    if (in && (peers & ((1u << lane) - 1u)) == 0)
+      atomicAdd(&sm.masks.h[p][d], __popc(peers));
+  }
+  __syncthreads();
+  for (int p = 0; p < passes; ++p)
+    if (sm.masks.h[p][tid] != 0)
+      atomicAdd(&sc.hist[(m * kMaxPasses + p) * kRadix + tid],
+                sm.masks.h[p][tid]);
+  __syncthreads();  // the shared memory is reused by the next piece
+}
+
+// another block's look-back slot, read past the caches that could hold an
+// old value
+__device__ __forceinline__ unsigned read_slot(const unsigned* slots,
+                                              int chunk, int d) {
+  return *reinterpret_cast<const volatile unsigned*>(
+      slots + static_cast<size_t>(chunk) * kRadix + d);
+}
+
+__device__ void pass_phase(const MapSet& maps, int n_maps, int pass,
+                           bool last, int chunk, const SortScratch& sc,
+                           int64_t* __restrict__ order, SortSmem& sm) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int chunks = maps.chunk_start[n_maps];
+  const int m = map_of(maps, n_maps, chunk);
+  const int nq = maps.nq[m], start = maps.start[m];
+  const int first = maps.chunk_start[m];
+  const int r0 = (chunk - first) * kChunk;
+  unsigned long long* buf = sc.keys + 2 * static_cast<size_t>(start);
+  const unsigned long long* src = buf + ((pass & 1) ? nq : 0);
+  unsigned long long* dst = buf + ((pass & 1) ? 0 : nq);
+  const int shift = 32 + pass * kRadixBits;
+  const int d = tid;
+  const int hc = sc.hist[(m * kMaxPasses + pass) * kRadix + d];
+#pragma unroll
+  for (int w = 0; w < kSortWarps; ++w) sm.pass.wcnt[w][tid] = 0;
+
+  // a warp takes 256 consecutive keys, 32 a round: index order is (warp,
+  // round, lane), and a key's rank among the warp's keys of its digit is
+  // the warp's count of that digit so far plus its rank in the round
+  unsigned long long v[kKeysPerThread];
+  int dg[kKeysPerThread], rank[kKeysPerThread];
+#pragma unroll
+  for (int j = 0; j < kKeysPerThread; ++j) {
+    const int i = r0 + warp * (kChunk / kSortWarps) + j * 32 + lane;
+    v[j] = i < nq ? src[i] : 0ull;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kKeysPerThread; ++j) {
+    const int i = r0 + warp * (kChunk / kSortWarps) + j * 32 + lane;
+    dg[j] = i < nq ? static_cast<int>(v[j] >> shift) & (kRadix - 1) : kRadix;
+    const unsigned peers = __match_any_sync(0xffffffffu, dg[j]);
+    const int before = dg[j] < kRadix ? sm.pass.wcnt[warp][dg[j]] : 0;
+    __syncwarp();
+    if (dg[j] < kRadix && (peers & below) == 0)
+      sm.pass.wcnt[warp][dg[j]] = before + __popc(peers);
+    __syncwarp();
+    rank[j] = before + __popc(peers & below);
+  }
+  __syncthreads();
+
+  // thread d: digit d's count before each warp, and the chunk's
+  int count = 0;
+#pragma unroll
+  for (int w = 0; w < kSortWarps; ++w) {
+    const int c = sm.pass.wcnt[w][d];
+    sm.pass.wcnt[w][d] = count;
+    count += c;
+  }
+  unsigned* slots = sc.status + static_cast<size_t>(pass) * chunks * kRadix;
+  const bool head = chunk == first;
+  atomicExch(slots + static_cast<size_t>(chunk) * kRadix + d,
+             (head ? static_cast<unsigned>(kInclusive)
+                   : static_cast<unsigned>(kAggregate)) |
+                 static_cast<unsigned>(count));
+
+  // the digit's base in the map: an exclusive scan of the map's histogram
+  int incl = hc;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += x;
+  }
+  if (lane == 31) sm.pass.warp_sums[warp] = incl;
+
+  // the map's earlier chunks' count of the digit: look back, kLookBack
+  // slots a round of loads, to the first inclusive one
+  int prior = 0;
+  if (!head) {
+    bool done = false;
+    for (int k = chunk - 1; !done; k -= kLookBack) {
+      unsigned sv[kLookBack];
+#pragma unroll
+      for (int i = 0; i < kLookBack; ++i)  // before the map: nothing
+        sv[i] = k - i >= first ? read_slot(slots, k - i, d)
+                               : static_cast<unsigned>(kInclusive);
+#pragma unroll
+      for (int i = 0; i < kLookBack; ++i) {
+        if (!done) {
+          while (sv[i] == 0u)  // not published yet
+            sv[i] = read_slot(slots, k - i, d);
+          prior += static_cast<int>(sv[i] & kCountMask);
+          done = (sv[i] & kInclusive) != 0u;
+        }
+      }
+    }
+    atomicExch(slots + static_cast<size_t>(chunk) * kRadix + d,
+               kInclusive | static_cast<unsigned>(prior + count));
+  }
+  __syncthreads();
+  int before_warp = 0;
+#pragma unroll
+  for (int w = 0; w < kSortWarps; ++w)
+    before_warp += w < warp ? sm.pass.warp_sums[w] : 0;
+  sm.pass.base[d] = before_warp + incl - hc + prior;
+  __syncthreads();
+
+#pragma unroll
+  for (int j = 0; j < kKeysPerThread; ++j) {
+    if (dg[j] < kRadix) {
+      const int pos =
+          sm.pass.base[dg[j]] + sm.pass.wcnt[warp][dg[j]] + rank[j];
+      if (last)
+        order[start + pos] = static_cast<int64_t>(v[j] & 0xffffffffull);
+      else
+        dst[pos] = v[j];
+    }
+  }
+  __syncthreads();  // the shared memory is reused by the next phase
+}
+
+// the one-launch build's grid barrier: every block of the cooperative
+// launch is resident, so all arrive; the last one resets the count and
+// moves the generation on. Per device, one build at a time (a stream).
+__device__ unsigned g_sort_arrived = 0u;
+__device__ unsigned g_sort_generation = 0u;
+
+__device__ __forceinline__ void grid_barrier() {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = &g_sort_generation;
+    const unsigned g = *gen;
+    __threadfence();  // the read above comes before the arrival
+    if (atomicAdd(&g_sort_arrived, 1u) == gridDim.x - 1) {
+      atomicExch(&g_sort_arrived, 0u);
+      __threadfence();
+      atomicAdd(&g_sort_generation, 1u);
+    } else {
+      while (*gen == g) {
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// the one-launch build: the grid holds every chunk's block (and as many
+// more as the masks phase's pieces can use, up to what the card holds)
+__global__ void __launch_bounds__(kSortThreads)
+    rulebook_kernel(MapSet maps, int n_maps, int k_off, int passes,
+                    int* __restrict__ masks, int64_t* __restrict__ order,
+                    SortScratch sc) {
+  __shared__ SortSmem sm;
+  const int chunks = maps.chunk_start[n_maps];
+  const int pieces = maps.piece_start[n_maps];
+  if (blockIdx.x == 0)
+    for (int e = threadIdx.x; e < n_maps * kMaxPasses * kRadix;
+         e += kSortThreads)
+      sc.hist[e] = 0;
+  clear_slots(sc.status, static_cast<size_t>(chunks) * kMaxPasses * kRadix);
+  grid_barrier();
+  for (int piece = blockIdx.x; piece < pieces; piece += gridDim.x)
+    masks_phase(maps, n_maps, k_off, passes, piece, masks, sc, sm);
+  for (int p = 0; p < passes; ++p) {
+    grid_barrier();
+    if (static_cast<int>(blockIdx.x) < chunks)
+      pass_phase(maps, n_maps, p, p == passes - 1, blockIdx.x, sc, order,
+                 sm);
+  }
+}
+
+// the per-phase build's first launch: a block a piece
+__global__ void __launch_bounds__(kSortThreads)
+    rulebook_masks_kernel(MapSet maps, int n_maps, int k_off, int passes,
+                          int* __restrict__ masks, SortScratch sc) {
+  __shared__ SortSmem sm;
+  clear_slots(sc.status, static_cast<size_t>(maps.chunk_start[n_maps]) *
+                             kMaxPasses * kRadix);
+  masks_phase(maps, n_maps, k_off, passes, blockIdx.x, masks, sc, sm);
 }
 
 __global__ void __launch_bounds__(kSortThreads)
-    rulebook_sort_kernel(MapSet maps, int k_off, int64_t* __restrict__ order,
-                         unsigned long long* keys) {
-  __shared__ int base[kMaxPasses * kRadix];  // each pass's digit bases
-  __shared__ int cnt[kEntries];
-  __shared__ int warp_sums[kWarps];
-
-  const int m = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const unsigned below = (1u << lane) - 1u;
-  const int nq = maps.nq[m];
-  const int passes = (k_off + kRadixBits - 1) / kRadixBits;
-  const size_t start = static_cast<size_t>(maps.start[m]);
-  unsigned long long* src = keys + 2 * start;
-  unsigned long long* dst = src + nq;
-
-  // every pass's digit counts in one sweep (a warp adds each digit once),
-  // then their exclusive scans: where each digit's keys start
-  for (int e = tid; e < kMaxPasses * kRadix; e += kSortThreads) base[e] = 0;
+    rulebook_pass_kernel(MapSet maps, int n_maps, int pass, int last,
+                         SortScratch sc, int64_t* __restrict__ order) {
+  __shared__ SortSmem sm;
+  __shared__ int ticket;
+  if (threadIdx.x == 0) ticket = atomicAdd(&sc.tickets[pass], 1);
   __syncthreads();
-  for (int i0 = 0; i0 < nq; i0 += kSortThreads) {
-    const int i = i0 + tid;
-    const unsigned long long key = i < nq ? src[i] : 0ull;
-    for (int p = 0; p < passes; ++p) {
-      const int d = i < nq ? digit(key, p * kRadixBits) : kRadix;
-      const unsigned peers = __match_any_sync(0xffffffffu, d);
-      if (d < kRadix && (peers & below) == 0)
-        atomicAdd(&base[p * kRadix + d], __popc(peers));
-    }
-  }
-  __syncthreads();
-  if (tid < passes) {
-    int run = 0;
-    for (int d = 0; d < kRadix; ++d) {
-      const int c = base[tid * kRadix + d];
-      base[tid * kRadix + d] = run;
-      run += c;
-    }
-  }
-  __syncthreads();
+  pass_phase(maps, n_maps, pass, last != 0, ticket, sc, order, sm);
+}
 
-  for (int p = 0; p < passes; ++p) {
-    int* pbase = base + p * kRadix;
-    const int shift = p * kRadixBits;
-    for (int i0 = 0; i0 < nq; i0 += kRound) {
-      // this round's keys: load j of thread tid is key i0 + j kSortThreads
-      // + tid, so the index order is (load, warp, lane)
-      unsigned long long v[kLoads];
-#pragma unroll
-      for (int j = 0; j < kLoads; ++j) {
-        const int i = i0 + j * kSortThreads + tid;
-        v[j] = i < nq ? src[i] : 0ull;
-      }
-#pragma unroll
-      for (int q = 0; q < kScanPer; ++q) cnt[q * kSortThreads + tid] = 0;
-      __syncthreads();
-      int dg[kLoads];
-      unsigned rank[kLoads];
-#pragma unroll
-      for (int j = 0; j < kLoads; ++j) {
-        const int i = i0 + j * kSortThreads + tid;
-        dg[j] = i < nq ? digit(v[j], shift) : kRadix;
-        const unsigned peers = __match_any_sync(0xffffffffu, dg[j]);
-        rank[j] = __popc(peers & below);
-        if (dg[j] < kRadix && rank[j] == 0)
-          cnt[(dg[j] * kLoads + j) * kWarps + warp] = __popc(peers);
-      }
-      __syncthreads();
-
-      // exclusive scan of cnt in (digit, load, warp) order: thread tid
-      // takes entries [kScanPer tid, kScanPer tid + kScanPer)
-      int local[kScanPer];
-      int sum = 0;
-#pragma unroll
-      for (int q = 0; q < kScanPer; ++q) {
-        local[q] = cnt[kScanPer * tid + q];
-        sum += local[q];
-      }
-      int incl = sum;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int x = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += x;
-      }
-      if (lane == 31) warp_sums[warp] = incl;
-      __syncthreads();
-      if (warp == 0) {
-        const int w = warp_sums[lane];
-        int wi = w;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const int x = __shfl_up_sync(0xffffffffu, wi, o);
-          if (lane >= o) wi += x;
-        }
-        warp_sums[lane] = wi - w;
-      }
-      __syncthreads();
-      int run = incl - sum + warp_sums[warp];
-#pragma unroll
-      for (int q = 0; q < kScanPer; ++q) {
-        cnt[kScanPer * tid + q] = run;
-        run += local[q];
-      }
-      __syncthreads();
-
-      // a key's slot: its digit's base, the round's keys of that digit
-      // before its (load, warp), its rank in the warp
-#pragma unroll
-      for (int j = 0; j < kLoads; ++j)
-        if (dg[j] < kRadix)
-          dst[pbase[dg[j]] + cnt[(dg[j] * kLoads + j) * kWarps + warp]
-              - cnt[dg[j] * kLoads * kWarps] + rank[j]] = v[j];
-      // the round's count of each digit moves its base on
-      int grow = 0;
-      if (tid < kRadix) {
-        const int next = tid + 1 < kRadix ? cnt[(tid + 1) * kLoads * kWarps]
-                                          : min(kRound, nq - i0);
-        grow = next - cnt[tid * kLoads * kWarps];
-      }
-      __syncthreads();
-      if (tid < kRadix) pbase[tid] += grow;
-    }
-    __syncthreads();
-    unsigned long long* t = src;
-    src = dst;
-    dst = t;
-  }
-  for (int r = tid; r < nq; r += kSortThreads)
-    order[start + r] = static_cast<int64_t>(src[r] & 0xffffffffull);
+// the blocks of rulebook_kernel the current device holds at once
+int resident_sort_blocks() {
+  static std::atomic<int> known[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < kMaxDevices && known[dev].load() > 0) return known[dev].load();
+  int per_sm = 0, sms = 0, coop = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, rulebook_kernel, kSortThreads, 0) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev) !=
+          cudaSuccess)
+    return 0;
+  const int blocks = coop ? per_sm * sms : 0;
+  if (dev < kMaxDevices) known[dev].store(blocks);
+  return blocks;
 }
 
 }  // namespace
@@ -708,34 +884,69 @@ extern "C" int d3d_subm_conv(const void* feat, const int* nbr,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// the chunks up to which the rule-book build is one cooperative launch on
+// the current device (ops/rulebook.py counts the builds by route)
+extern "C" int d3d_subm_conv_rulebook_resident() {
+  return resident_sort_blocks();
+}
+
 // the rule books of n_maps <= 16 maps of k_off <= 31 offsets: nbrs[i] an
 // (nqs[i], k_off) int32 map on the card (nbrs and nqs are host arrays);
 // masks (int32) and order (int64, each map's rows 0..nqs[i]-1) take the
-// maps' rows end to end; scratch holds two 64-bit keys a row
+// maps' rows end to end; scratch, scratch_words 64-bit words, holds two
+// keys a row, kMaxPasses look-back slots of kRadix 32-bit words a chunk,
+// kMaxPasses histograms of kRadix ints a map and kMaxPasses tickets
+// (ops/rulebook.py _sort_scratch_words). Returns cudaGetLastError().
 extern "C" int d3d_subm_conv_rulebook(const void* const* nbrs, const int* nqs,
                                       int n_maps, int k_off, int* masks,
                                       int64_t* order, void* scratch,
-                                      void* stream) {
+                                      int scratch_words, void* stream) {
   if (n_maps <= 0 || n_maps > kMaxMaps || k_off <= 0 || k_off > kMaxOffsets)
     return static_cast<int>(cudaErrorInvalidValue);
   MapSet set{};
-  int64_t total = 0;
+  int64_t total = 0, chunks = 0, pieces = 0;
   for (int i = 0; i < n_maps; ++i) {
     if (nqs[i] < 0 || nqs[i] > (1 << 29))
       return static_cast<int>(cudaErrorInvalidValue);
     set.nbr[i] = static_cast<const int*>(nbrs[i]);
     set.nq[i] = nqs[i];
     set.start[i] = static_cast<int>(total);
+    set.chunk_start[i] = static_cast<int>(chunks);
+    set.piece_start[i] = static_cast<int>(pieces);
     total += nqs[i];
+    chunks += (nqs[i] + kChunk - 1) / kChunk;
+    pieces += (nqs[i] + kSortThreads - 1) / kSortThreads;
   }
-  if (total <= 0 || total > (1 << 29))
+  set.chunk_start[n_maps] = static_cast<int>(chunks);
+  set.piece_start[n_maps] = static_cast<int>(pieces);
+  const int64_t need = 2 * total + chunks * kMaxPasses * kRadix / 2 +
+                       n_maps * kMaxPasses * kRadix / 2 + kMaxPasses / 2;
+  if (total <= 0 || total > (1 << 29) || need > scratch_words)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* keys = static_cast<unsigned long long*>(scratch);
-  const int n = static_cast<int>(total);
-  rulebook_masks_kernel<<<(n + kMaskThreads - 1) / kMaskThreads, kMaskThreads,
-                          0, s>>>(set, n_maps, n, k_off, masks, keys);
-  rulebook_sort_kernel<<<n_maps, kSortThreads, 0, s>>>(set, k_off, order,
-                                                       keys);
+  SortScratch sc;
+  sc.keys = static_cast<unsigned long long*>(scratch);
+  sc.status = reinterpret_cast<unsigned*>(sc.keys + 2 * total);
+  sc.hist = reinterpret_cast<int*>(sc.status + chunks * kMaxPasses * kRadix);
+  sc.tickets = sc.hist + n_maps * kMaxPasses * kRadix;
+  int passes = (k_off + kRadixBits - 1) / kRadixBits;
+  const int64_t resident = resident_sort_blocks();
+  if (chunks <= resident) {
+    const unsigned grid =
+        static_cast<unsigned>(std::min(resident, std::max(chunks, pieces)));
+    void* args[] = {&set, &n_maps, &k_off, &passes, &masks, &order, &sc};
+    return static_cast<int>(cudaLaunchCooperativeKernel(
+        reinterpret_cast<void*>(rulebook_kernel), dim3(grid),
+        dim3(kSortThreads), args, 0, s));
+  }
+  cudaError_t err = cudaMemsetAsync(
+      sc.hist, 0, (n_maps * kMaxPasses * kRadix + kMaxPasses) * sizeof(int),
+      s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rulebook_masks_kernel<<<static_cast<unsigned>(pieces), kSortThreads, 0,
+                          s>>>(set, n_maps, k_off, passes, masks, sc);
+  for (int p = 0; p < passes; ++p)
+    rulebook_pass_kernel<<<static_cast<unsigned>(chunks), kSortThreads, 0,
+                           s>>>(set, n_maps, p, p == passes - 1, sc, order);
   return static_cast<int>(cudaGetLastError());
 }

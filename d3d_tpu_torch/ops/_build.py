@@ -37,9 +37,11 @@ _LIBRARIES = {
     # -fmad=false: see the note on rounding at the top of rbox_iou.cu
     "rbox_iou": ("rbox_iou.cu", ["-fmad=false"],
                  {"d3d_rbox_iou_matrix": [_P, _P, _P, _I, _I, _P, _P],
+                  "d3d_rbox_overlap_bits": [_P, _P, _I, _F, _P, _P],
                   "d3d_rbox_descriptors": [_P, _P, _I, _P]}),
     "nms_scan": ("nms_scan.cu", [],
-                 {"d3d_nms_scan": [_P, _P, _P, _P, _I, _P]}),
+                 {"d3d_nms_pack": [_P, _P, _I, _P],
+                  "d3d_nms_scan": [_P, _P, _P, _F, _P, _P, _I, _P]}),
     # -fmad=false: see the note on rounding at the top of soft_nms.cu
     "soft_nms": ("soft_nms.cu", ["-fmad=false"],
                  {"d3d_soft_nms_scan": [_P, _P, _P, _P, _P, _I, _I, _F, _F,
@@ -48,8 +50,9 @@ _LIBRARIES = {
                   {"d3d_subm_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _I, _I, _I, _I, _P],
                    "d3d_subm_conv_tile_rows": [_I],
+                   "d3d_subm_conv_rulebook_resident": [],
                    "d3d_subm_conv_rulebook": [_P, _P, _I, _I, _P, _P, _P,
-                                              _P]}),
+                                              _I, _P]}),
     "subm_conv_dw": ("subm_conv_dw.cu", [],
                      {"d3d_subm_conv_dw": [_P, _P, _P, _P, _P, _P, _P, _I,
                                            _I, _I, _I, _I, _I, _I, _I, _I,

@@ -6,13 +6,16 @@ descriptors as :func:`box_descriptors` does, rejects the pairs whose extents
 are too far apart to overlap (:func:`_reject_plain` is that test in torch)
 and runs the IoU chain on the rest. A CPU tensor goes to the plain version
 (:func:`d3d_tpu_torch.ops.geometry_soa._rbox_iou_matrix_plain`); a CUDA
-tensor goes to the kernel or the call raises.
+tensor goes to the kernel or the call raises. K1 has a second output form
+for ``nms2d`` alone (:func:`_rbox_overlap_bits`): the NMS scan's bit rows,
+thresholded in the kernel, for the pairs above the diagonal only.
 """
 
 import torch
 
 from ._build import load_library, stream_handle
 from .geometry_soa import _rbox_iou_matrix_plain
+from .nms_cuda import pack_rows
 
 __all__ = ["rbox_iou_matrix", "box_descriptors"]
 
@@ -113,6 +116,61 @@ def _launch(b1, b2, chains=None, out=None):
         stream_handle(b1.device))
     if err:
         raise RuntimeError(f"rbox_iou kernel launch failed: CUDA error {err}")
+    _FORMS["matrix"] += 1
+    return out
+
+
+# K1's launches by output form (every launch, checks included; the
+# wrappers' ``rbox_iou_matrix.launches`` counts the paths' calls of both)
+_FORMS = {"matrix": 0, "bits": 0}
+
+
+def _rbox_overlap_bits_plain(boxes, iou_threshold):
+    """The plain version of K1's bit-row form: (N, 5) boxes in score order
+    -> (N, ceil(N / 64)) int64 rows, bit j % 64 of word j // 64 of row i
+    set where j > i and ``iou(i, j) > iou_threshold`` (the IoU matrix in
+    the boxes' dtype); every other bit 0."""
+    iou = _rbox_iou_matrix_plain(boxes, boxes)
+    return pack_rows(torch.triu(iou > iou_threshold, 1))
+
+
+def _rbox_overlap_bits(boxes, iou_threshold):
+    """nms2d's overlaps as the bit rows the NMS scan reads (see
+    :func:`_rbox_overlap_bits_plain`), of (N, 5) boxes in score order, cast
+    to float32: K1's bit-row form on CUDA (counted in
+    ``rbox_iou_matrix.launches``), the plain version on the CPU. Not a
+    public function: the JAX package has none."""
+    boxes = boxes.to(torch.float32)
+    if boxes.ndim != 2 or boxes.shape[1] != 5:
+        raise ValueError(f"expected (N, 5) boxes, got {tuple(boxes.shape)}")
+    if boxes.device.type == "cpu":
+        return _rbox_overlap_bits_plain(boxes, iou_threshold)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"no K1 kernel for device {boxes.device}")
+    n = boxes.shape[0]
+    if n == 0:
+        return torch.empty((0, 0), dtype=torch.int64, device=boxes.device)
+    out = _bits_launch(boxes.contiguous(), iou_threshold)
+    rbox_iou_matrix.launches += 1
+    return out
+
+
+def _bits_launch(boxes, iou_threshold, chains=None, out=None):
+    """K1's bit-row form on (N, 5) contiguous f32 CUDA boxes, N > 0 ->
+    (N, ceil(N / 64)) int64, into ``out`` if given; ``chains`` as in
+    :func:`_launch` (pairs j > i only)."""
+    n = boxes.shape[0]
+    if out is None:
+        out = torch.empty((n, (n + 63) // 64), dtype=torch.int64,
+                          device=boxes.device)
+    err = load_library("rbox_iou").d3d_rbox_overlap_bits(
+        boxes.data_ptr(), out.data_ptr(), n, float(iou_threshold),
+        None if chains is None else chains.data_ptr(),
+        stream_handle(boxes.device))
+    if err:
+        raise RuntimeError(f"rbox_iou bit-row launch failed: CUDA error "
+                           f"{err}")
+    _FORMS["bits"] += 1
     return out
 
 

@@ -1,9 +1,9 @@
 """Rotated 2D NMS (port of ``d3d_tpu.ops.nms``).
 
-The pairwise IoU matrix is built in score order (K1 on CUDA) and the greedy
-scan runs as one kernel (K2 up to 1024 boxes, K3 above; the sequential
-plain scan on the CPU). Semantics matched to the reference and to the JAX
-module:
+The overlaps are built in score order (K1 on CUDA, writing the scan's bit
+rows directly for float32 boxes) and the greedy scan runs as one kernel (K2
+up to 1024 boxes, K3 above; the sequential plain scan on the CPU).
+Semantics matched to the reference and to the JAX module:
 
   * boxes with ``score <= score_threshold`` are pre-suppressed, except the
     top-scoring box is never pre-suppressed (an artifact of the reference's
@@ -24,8 +24,10 @@ module:
 import torch
 
 from ..utils import as_tensor
+from . import geometry_cuda as GC
 from . import geometry_soa as GS
-from .nms_cuda import nms_scan, nms_scan_blocked, soft_nms_scan
+from .nms_cuda import (_K2_MAX_N, _nms_scan_sorted, _pre_suppression,
+                       nms_scan, nms_scan_blocked, soft_nms_scan)
 
 __all__ = ["nms2d", "soft_nms2d"]
 
@@ -46,29 +48,34 @@ def nms2d(boxes, scores, iou_threshold=0.0, score_threshold=0.0,
     scores = as_tensor(scores, device=boxes.device)
     n = boxes.shape[0]
     # stable descending order, as jnp.argsort(-scores, stable=True)
-    order = torch.sort(-scores, stable=True).indices
+    neg, order = torch.sort(-scores, stable=True)
     boxes_o = boxes[order]
+    if boxes.dtype == torch.float32:
+        # K1 writes the scan's bit rows (pairs above the diagonal only);
+        # the scan takes the pre-suppression from the sorted scores and
+        # writes the mask back in input order (plain versions on the CPU)
+        bits = GC._rbox_overlap_bits(boxes_o, iou_threshold)
+        pre = (None if scores.dtype == torch.float32
+               else _pre_suppression(-neg, score_threshold))
+        return _nms_scan_sorted(bits, order, neg, score_threshold, pre)
+    # other box dtypes: the IoU matrix in that dtype, as the JAX module
     overlap = GS.rbox_iou_matrix(boxes_o, boxes_o) > iou_threshold
-
-    # pre-suppression by score (in score order); rank 0 exempt
-    pre = scores[order] <= score_threshold
-    if n:
-        pre[0] = False
-
-    scan = nms_scan if n <= 1024 else nms_scan_blocked
-    suppressed_o = scan(overlap, pre)
+    scan = nms_scan if n <= _K2_MAX_N else nms_scan_blocked
     # scatter back to original index order
     out = torch.zeros(n, dtype=torch.bool, device=boxes.device)
-    out[order] = suppressed_o
+    out[order] = scan(overlap, _pre_suppression(-neg, score_threshold))
     return out
 
 
 def _soft_nms_init(scores, score_threshold):
-    """Pre-suppression identical to hard NMS (the top-scoring box exempt)
-    and the starting scores, pre-suppressed boxes at -inf."""
+    """Pre-suppression identical to hard NMS (the top-ranked box exempt)
+    and the starting scores, pre-suppressed boxes at -inf. The exempt box
+    is rank 0 of the stable descending sort, as in the JAX module: the
+    first largest score that is not NaN (NaN sorts last; ``argmax`` would
+    return the NaN)."""
     pre = scores <= score_threshold
     if scores.shape[0]:
-        pre[torch.argmax(scores)] = False  # the first maximum, as argsort
+        pre[torch.sort(-scores, stable=True).indices[0]] = False
     return pre, torch.where(pre, -torch.inf, scores)
 
 
@@ -82,6 +89,12 @@ def soft_nms2d(boxes, scores, iou_threshold=0.0, score_threshold=0.0,
         else goes to CUDA
     :param scores: (N,)
     :param supression_method: "linear" or "gaussian"
+
+    A NaN score: the JAX package's two routes disagree here. Its XLA loop
+    picks with ``argmax``, which takes the NaN as the maximum; its Pallas
+    kernel (``nms_pallas.soft_nms_scan``) matches no score against a NaN
+    maximum and picks box n - 1. The port follows the Pallas kernel, in K4
+    and in the plain cascade alike.
     """
     if iou_method != "rbox":
         raise NotImplementedError(

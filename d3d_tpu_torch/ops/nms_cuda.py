@@ -1,13 +1,17 @@
 """The NMS scans through the CUDA kernels K2/K3 (``csrc/nms_scan.cu``) and
 K4 (``csrc/soft_nms.cu``), the port of ``d3d_tpu.ops.nms_pallas``.
 
-``nms_scan`` (K2, used by ``nms2d`` up to 1024 boxes) and
-``nms_scan_blocked`` (K3, above) compute the same mask, so both launch the
-same bitmask kernels; each keeps its own ``launches`` count.
+``nms_scan`` (K2, up to 1024 boxes) and ``nms_scan_blocked`` (K3, above)
+compute the same mask, so one scan kernel serves both; it reads the
+overlaps as 64-bit rows (:func:`pack_rows`). The public functions take the
+JAX package's bool (N, N) matrix and pack it on the card first; ``nms2d``
+hands the scan the bit rows K1 writes (:func:`_nms_scan_sorted`), with the
+pre-suppression computed in the kernel from the sorted scores and the mask
+written back in input order. Each launch counts under K2 or K3 by N.
 ``soft_nms_scan`` (K4) runs the soft-NMS pick/decay cascade. A CPU tensor
 goes to the plain version (:func:`_nms_scan_plain`,
-:func:`_soft_nms_scan_plain`); a CUDA tensor goes to the kernel or the call
-raises.
+:func:`_nms_scan_sorted_plain`, :func:`_soft_nms_scan_plain`); a CUDA
+tensor goes to the kernel or the call raises.
 """
 
 import torch
@@ -18,6 +22,11 @@ __all__ = ["nms_scan", "nms_scan_blocked", "soft_nms_scan"]
 
 # the scan keeps ceil(N / 64) suppression words in 48 KB of shared memory
 _MAX_N = 48 * 1024 * 8
+# up to this many boxes one warp runs the scan, a lane a word
+# (csrc/nms_scan.cu kWarpWords * 64); above, one block
+_WARP_MAX_N = 2048
+# nms2d's scan counts under K2 up to this many boxes, K3 above
+_K2_MAX_N = 1024
 # K4's cascade: up to 8 warps, each lane owning up to 32 boxes
 _SOFT_MAX_N = 8 * 32 * 32
 _SOFT_METHODS = {"linear": 0, "gaussian": 1}
@@ -45,6 +54,71 @@ def _nms_scan_plain(overlap, pre):
     return sup
 
 
+def pack_rows(overlap):
+    """(N, N) bool -> the scan's (N, ceil(N / 64)) int64 bit rows: bit
+    j % 64 of word j // 64 of row i is ``overlap[i, j]``."""
+    n = overlap.shape[0]
+    words = (n + 63) // 64
+    padded = torch.nn.functional.pad(overlap, (0, 64 * words - n))
+    bit = torch.arange(64, dtype=torch.int64, device=overlap.device)
+    # distinct bits, so the sum is their OR (bit 63 wraps to the sign)
+    return (padded.view(n, words, 64).to(torch.int64) << bit).sum(-1)
+
+
+def _unpack_rows(bits, n):
+    """The inverse of :func:`pack_rows`: (N, ceil(N / 64)) int64 -> (N, N)
+    bool."""
+    bit = torch.arange(64, dtype=torch.int64, device=bits.device)
+    return ((bits[..., None] >> bit) & 1).bool().view(n, -1)[:, :n]
+
+
+def _pre_suppression(scores_sorted, score_threshold):
+    """nms2d's pre-suppression of the scores in score order: score <=
+    score_threshold (a NaN never), rank 0 exempt."""
+    pre = scores_sorted <= score_threshold
+    if pre.shape[0]:
+        pre[0] = False
+    return pre
+
+
+def _nms_scan_sorted_plain(bits, order, neg_scores, score_threshold,
+                           pre=None):
+    """The plain version of :func:`_nms_scan_sorted`: unpack the rows, the
+    pre-suppression from the sorted scores unless ``pre`` is given, the
+    sequential scan, the mask scattered back through ``order``."""
+    n = bits.shape[0]
+    if pre is None:
+        pre = _pre_suppression(-neg_scores, score_threshold)
+    sup = _nms_scan_plain(_unpack_rows(bits, n), pre)
+    out = torch.empty_like(sup)
+    out[order] = sup
+    return out
+
+
+def _nms_scan_sorted(bits, order, neg_scores, score_threshold, pre=None):
+    """nms2d's scan: (N, ceil(N / 64)) int64 bit rows of the boxes in score
+    order (from K1's bit-row form), ``order`` (N,) int64 and
+    ``neg_scores`` (N,) float32, ``torch.sort(-scores, stable=True)``'s
+    indices and values, -> (N,) bool suppressed in input order. The
+    pre-suppression is nms2d's rule on the sorted scores, computed in the
+    kernel, unless ``pre`` (bool, score order) is given, as for other score
+    dtypes. On CUDA one launch of the scan kernel, counted under K2
+    (``nms_scan``) up to 1024 boxes and K3 above; on the CPU the plain
+    version."""
+    n = bits.shape[0]
+    if bits.device.type == "cpu":
+        return _nms_scan_sorted_plain(bits, order, neg_scores,
+                                      score_threshold, pre)
+    out = torch.empty(n, dtype=torch.bool, device=bits.device)
+    if n == 0:  # nothing to launch
+        return out
+    _scan_launch(bits, out, pre=pre,
+                 neg_scores=neg_scores if pre is None else None,
+                 score_threshold=score_threshold, order=order)
+    (nms_scan if n <= _K2_MAX_N else nms_scan_blocked).launches += 1
+    return out
+
+
 def _check(overlap, pre):
     n = overlap.shape[0]
     if overlap.shape != (n, n) or pre.shape != (n,):
@@ -58,28 +132,60 @@ def _check(overlap, pre):
         raise ValueError(f"no NMS scan kernel for device {overlap.device}")
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _scan_launch(bits, out, pre=None, neg_scores=None, score_threshold=0.0,
+                 order=None):
+    """The scan kernel on N > 0 contiguous CUDA bit rows (see
+    :func:`_nms_scan_sorted` for the arguments) into ``out`` (N,) bool."""
+    n = bits.shape[0]
+    if n > _MAX_N:
+        raise ValueError(f"NMS scan kernel takes at most {_MAX_N} boxes")
+    if neg_scores is not None and neg_scores.dtype != torch.float32:
+        raise ValueError(f"the scan reads float32 scores, got "
+                         f"{neg_scores.dtype}")
+    pre, neg_scores, order = (None if t is None else t.contiguous()
+                              for t in (pre, neg_scores, order))
+    err = load_library("nms_scan").d3d_nms_scan(
+        bits.data_ptr(), _ptr(pre), _ptr(neg_scores), float(score_threshold),
+        _ptr(order), out.data_ptr(), n, stream_handle(bits.device))
+    if err:
+        raise RuntimeError(f"nms_scan kernel launch failed: CUDA error {err}")
+    _ROUTES["warp" if n <= _WARP_MAX_N else "block"] += 1
+    return out
+
+
 def _launch(overlap, pre):
-    """K2/K3 on CUDA tensors with N > 0 -> (N,) bool suppressed."""
+    """The public route on CUDA tensors with N > 0: pack the bool rows,
+    then the scan -> (N,) bool suppressed."""
     n = overlap.shape[0]
     if n > _MAX_N:
         raise ValueError(f"NMS scan kernel takes at most {_MAX_N} boxes")
     overlap = overlap.contiguous()
-    pre = pre.contiguous()
-    out = torch.empty(n, dtype=torch.bool, device=overlap.device)
-    mask = torch.empty((n, (n + 63) // 64), dtype=torch.int64,
+    bits = torch.empty((n, (n + 63) // 64), dtype=torch.int64,
                        device=overlap.device)
-    lib = load_library("nms_scan")
-    err = lib.d3d_nms_scan(
-        overlap.data_ptr(), pre.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        n, stream_handle(overlap.device))
+    err = load_library("nms_scan").d3d_nms_pack(
+        overlap.data_ptr(), bits.data_ptr(), n, stream_handle(overlap.device))
     if err:
-        raise RuntimeError(f"nms_scan kernel launch failed: CUDA error {err}")
-    return out
+        raise RuntimeError(f"nms_pack kernel launch failed: CUDA error {err}")
+    _ROUTES["pack"] += 1
+    out = torch.empty(n, dtype=torch.bool, device=overlap.device)
+    return _scan_launch(bits, out, pre=pre)
+
+
+# the scan's launches by route, and the pack kernel's (every launch, checks
+# included; ``nms_scan.launches`` and ``nms_scan_blocked.launches`` count
+# the paths' calls)
+_ROUTES = {"pack": 0, "warp": 0, "block": 0}
 
 
 def nms_scan(overlap, pre):
     """(N, N) bool overlap in score order + (N,) bool pre-suppression ->
-    (N,) bool suppressed, identical to the sequential greedy scan (K2)."""
+    (N,) bool suppressed, identical to the sequential greedy scan (K2). On
+    CUDA the rows are packed into bits, then scanned: two launches, one
+    call counted."""
     _check(overlap, pre)
     if overlap.device.type == "cpu":
         return _nms_scan_plain(overlap, pre)

@@ -15,7 +15,7 @@ book holds
   (rows Nq + 1 apart) in ascending order, with the counts on the device.
 
 Masks and order come from :func:`subm_conv_rulebook`: on CUDA the
-rule-book kernels of ``csrc/subm_conv.cu``, launched once for all the maps
+rule-book kernels of ``csrc/subm_conv.cu``, called once for all the maps
 of a call (:func:`prepare_neighbor_maps`: a SECOND request's five); on the
 CPU its plain version, torch ops and a stable sort a map. K6's lists are a
 flat scan and a scatter. Nothing waits for the device (no ``nonzero``, no
@@ -35,6 +35,11 @@ __all__ = ["RuleBook", "prepare_neighbor_map", "prepare_neighbor_maps",
 
 # the presence mask is one int32 a row
 MAX_OFFSETS = 31
+# the rule-book sort (csrc/subm_conv.cu): keys a block (kChunk), passes of
+# 8 bits for 31 offsets (kMaxPasses) and digits a pass (kRadix)
+_SORT_CHUNK = 2048
+_SORT_MAX_PASSES = 4
+_SORT_RADIX = 256
 
 # made once per (K, device): two fewer launches a rule book, and no host
 # copy of a constant (which would wait for the device)
@@ -64,6 +69,17 @@ def _masks(nbr):
                        0).sum(dim=1, dtype=torch.int32)
 
 
+def _sort_scratch_words(nqs):
+    """The rule-book kernels' scratch in 64-bit words for maps of ``nqs``
+    rows: two keys a row, a look-back slot per pass, chunk and digit (32
+    bits each), a histogram per map, pass and digit (int32) and a ticket a
+    pass (int32)."""
+    chunks = sum(-(-nq // _SORT_CHUNK) for nq in nqs)
+    slots = _SORT_MAX_PASSES * _SORT_RADIX
+    return (2 * sum(nqs) + chunks * slots // 2 + len(nqs) * slots // 2
+            + _SORT_MAX_PASSES // 2)
+
+
 def _subm_conv_rulebook_plain(nbrs):
     """The plain version of :func:`subm_conv_rulebook`: each map's masks
     and their stable sort (torch ops)."""
@@ -74,11 +90,13 @@ def _subm_conv_rulebook_plain(nbrs):
 def subm_conv_rulebook(nbrs):
     """K5's rule-book build: ``([masks], [order])``, one of each per map,
     of contiguous (Nq_i, K) int32 maps on one device with one K <= 31. On
-    CUDA the rule-book kernels of ``csrc/subm_conv.cu`` (masks, then a
-    radix sort a block a map; up to 16 maps a call; calls counted in
-    ``subm_conv_rulebook.launches``), on the CPU its plain version: both
-    give the masks and the stable sort of each map's rows by mask, bit for
-    bit."""
+    CUDA the rule-book kernels of ``csrc/subm_conv.cu`` (masks and digit
+    counts, then a radix sort of 8-bit passes over every map's chunks of
+    ``_SORT_CHUNK`` rows at once: one cooperative launch where the card
+    holds every chunk's block, else a launch a phase; up to 16 maps a call;
+    calls counted in ``subm_conv_rulebook.launches``), on the CPU its plain
+    version: both give the masks and the stable sort of each map's rows by
+    mask, bit for bit."""
     if nbrs[0].device.type == "cpu":
         return _subm_conv_rulebook_plain(nbrs)
     nqs = [n.shape[0] for n in nbrs]
@@ -86,20 +104,32 @@ def subm_conv_rulebook(nbrs):
     masks = torch.empty(sum(nqs), dtype=torch.int32, device=dev)
     order = torch.empty(sum(nqs), dtype=torch.int64, device=dev)
     if sum(nqs):
-        scratch = torch.empty(2 * sum(nqs), dtype=torch.int64, device=dev)
+        words = _sort_scratch_words(nqs)
+        scratch = torch.empty(words, dtype=torch.int64, device=dev)
         err = load_library("subm_conv").d3d_subm_conv_rulebook(
             (ctypes.c_void_p * len(nbrs))(*(n.data_ptr() for n in nbrs)),
             (ctypes.c_int * len(nbrs))(*nqs), len(nbrs), nbrs[0].shape[1],
-            masks.data_ptr(), order.data_ptr(), scratch.data_ptr(),
+            masks.data_ptr(), order.data_ptr(), scratch.data_ptr(), words,
             stream_handle(dev))
         if err:
             raise RuntimeError(f"rule-book kernel launch failed: CUDA error "
                                f"{err}")
         subm_conv_rulebook.launches += 1
+        chunks = sum(-(-nq // _SORT_CHUNK) for nq in nqs)
+        if dev.index not in _RESIDENT:
+            _RESIDENT[dev.index] = load_library(
+                "subm_conv").d3d_subm_conv_rulebook_resident()
+        _ROUTES["one_launch" if chunks <= _RESIDENT[dev.index]
+                else "per_phase"] += 1
     return list(masks.split(nqs)), list(order.split(nqs))
 
 
 subm_conv_rulebook.launches = 0
+# the chunks up to which a build is one cooperative launch, by device
+_RESIDENT = {}
+# builds by route (every call, checks included): one launch, or a launch a
+# phase for inputs too large for the card to hold every chunk's block
+_ROUTES = {"one_launch": 0, "per_phase": 0}
 
 
 class RuleBook:

@@ -25,6 +25,14 @@ __all__ = ["voxelize_dense_padded", "voxelize_mean_fm"]
 _INT32_MAX = 2 ** 31 - 1
 
 
+def _to_int32(x):
+    """Float -> int32 as XLA's convert does it: NaN becomes 0 (a CUDA cast
+    gives 0 too, torch on an x86 CPU INT_MIN). Callers clamp to int32's
+    range first."""
+    return torch.nan_to_num(x, nan=0.0, posinf=math.inf,
+                            neginf=-math.inf).to(torch.int32)
+
+
 def _sequential_cumsum(x, dim):
     """Inclusive prefix sum along ``dim``, added strictly left to right."""
     cols = [x.select(dim, 0)]
@@ -136,7 +144,7 @@ def voxelize_dense_padded(points, shape, bounds, max_points, max_voxels,
     max_key = shape[0] * shape[1] * shape[2]
     if max_key + 2 >= 1 << 31:
         raise ValueError("voxel grid too large for int32 keys")
-    idx = torch.trunc(torch.clamp(scaled, -2e9, 2e9)).to(torch.int32)
+    idx = _to_int32(torch.trunc(torch.clamp(scaled, -2e9, 2e9)))
     inr = ((idx >= 0) & (idx < sh)).all(dim=1)
     key = (idx[:, 0] * shape[1] + idx[:, 1]) * shape[2] + idx[:, 2]
     key = torch.where(inr, key, max_key + 1)
@@ -253,7 +261,7 @@ def voxelize_mean_fm(points_fm, shape, bounds, max_voxels):
     qscale = float(1 << qbits)
 
     scaled = (points_fm[:3] - b[:, 0:1]) / vsize[:, None]
-    idx = torch.trunc(torch.clamp(scaled, -2e9, 2e9)).to(torch.int32)
+    idx = _to_int32(torch.trunc(torch.clamp(scaled, -2e9, 2e9)))
     inr = ((idx >= 0) & (idx < sh[:, None])).all(dim=0)
     key = (idx[0] * shape[1] + idx[1]) * shape[2] + idx[2]
     key = torch.where(inr, key, max_key + 1)
@@ -264,13 +272,13 @@ def voxelize_mean_fm(points_fm, shape, bounds, max_voxels):
     # Out-of-range values (the sentinels) only ever belong to invalid
     # points, whose columns are zeroed before the sums.
     frac = scaled - idx.to(scaled.dtype)
-    qxyz = torch.round(frac * qscale).to(torch.int32)
+    qxyz = _to_int32(torch.round(frac * qscale))
     extra = points_fm[3:]
     # quantization stats over the REAL columns only
     cmin = extra[:, :n_real].amin(dim=1, keepdim=True)
     crange = torch.clamp_min(
         extra[:, :n_real].amax(dim=1, keepdim=True) - cmin, 1e-30)
-    qextra = torch.round((extra - cmin) / crange * qscale).to(torch.int32)
+    qextra = _to_int32(torch.round((extra - cmin) / crange * qscale))
     qmax = 1 << qbits
     qcols = torch.clamp(torch.cat([qxyz, qextra], dim=0), -qmax, qmax - 1)
 

@@ -38,8 +38,8 @@ PROBES = [
      "  const long long t0 = clock64();\n"
      "  for (int step = 0; step < n; ++step) {\n"
      "    const long long c0 = clock64();\n"),
-    ("    const int pick = key == 1u ? n - 1 : idx;\n",
-     "    const int pick = key == 1u ? n - 1 : idx;\n"
+    ("    const int pick = key == kNanKey ? n - 1 : idx;\n",
+     "    const int pick = key == kNanKey ? n - 1 : idx;\n"
      "    const long long c1 = clock64();\n    a0 += c1 - c0;\n    ++ns;\n"),
     (BEST_OF,
      "    const long long c2 = clock64();\n    a1 += c2 - c1;\n" + BEST_OF

@@ -70,9 +70,12 @@ def profile_path(name, fn, runs=5):
           f"kernels busy {busy_us / runs / 1e3:.3f} ms per run "
           f"({100 * busy_us / wall_us:.1f}% of the wall clock)")
     for e in averages:
-        for k in ("rbox_iou_tile_kernel", "pack_overlap_kernel",
-                  "scan_kernel", "subm_conv_kernel", "soft_nms_kernel",
-                  "subm_conv_dw_partial", "subm_conv_dw_reduce"):
+        for k in ("rbox_iou_kernel", "rbox_bits_kernel",
+                  "pack_overlap_kernel", "scan_warp_kernel",
+                  "scan_block_kernel", "subm_conv_kernel",
+                  "soft_nms_rows_kernel", "soft_nms_cascade_kernel",
+                  "subm_conv_dw_partial", "subm_conv_dw_reduce",
+                  "rulebook_kernel"):
             if e.device_type == DeviceType.CUDA and (k + "(" in e.key
                                                      or k + "<" in e.key):
                 print(f"  port kernel {k}: "
@@ -96,7 +99,10 @@ def main():
     tb, ts = torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
     bounds = torch.tensor(smoke.BOUNDS, device=dev)
     order, ov, pre = smoke.nms_inputs(tb, ts, 0.25)
-    bo = tb[order]
+    bo = tb[order].contiguous()
+    neg = torch.sort(-ts, stable=True).values
+    bits = geometry_cuda._bits_launch(bo, 0.25)
+    scanned = torch.empty(len(tb), dtype=torch.bool, device=dev)
 
     def north_star():
         voxelize_mean_fm(pts_fm, smoke.GRID, bounds, 16000)
@@ -108,9 +114,16 @@ def main():
         ("voxelize_mean_fm", lambda: voxelize_mean_fm(pts_fm, smoke.GRID,
                                                       bounds, 16000)),
         ("nms2d (512 boxes)", lambda: nms2d(tb, ts, iou_threshold=0.25)),
-        ("  K1 wrapper (descriptors + K1)",
+        ("  torch.sort(-scores)", lambda: torch.sort(-ts, stable=True)),
+        ("  K1, bit rows (nms2d's form)",
+         lambda: geometry_cuda._rbox_overlap_bits(bo, 0.25)),
+        ("  K1, f32 matrix (public wrapper)",
          lambda: geometry_cuda.rbox_iou_matrix(bo, bo)),
-        ("  K2 wrapper (pack + scan)", lambda: nms_cuda.nms_scan(ov, pre)),
+        ("  K2 on the bit rows (nms2d's route)",
+         lambda: nms_cuda._scan_launch(bits, scanned, neg_scores=neg,
+                                       order=order)),
+        ("  K2 public wrapper (pack + scan)",
+         lambda: nms_cuda.nms_scan(ov, pre)),
     ])
     profile_path("north star", north_star)
 

@@ -168,6 +168,52 @@ def test_soft_nms_scan_takes_one_float_dtype(iou_dtype, score_dtype):
                          0.3, 0.5, 1.0, "linear")
 
 
+def test_soft_nms_exempts_rank_zero_not_a_nan_score():
+    """A NaN score: the exempt box is rank 0 of the stable descending
+    sort (NaN sorts last), not ``argmax``, which returns the NaN."""
+    boxes = np.array([[0.0, 0.0, 1.0, 1.0, 0.0], [5.0, 0.0, 1.0, 1.0, 0.0],
+                      [10.0, 0.0, 1.0, 1.0, 0.0]], np.float32)
+    scores = np.array([0.2, np.nan, 0.1], np.float32)
+    kw = dict(iou_threshold=0.3, score_threshold=0.5)
+    want = np.asarray(N.soft_nms2d(jnp.asarray(boxes), jnp.asarray(scores),
+                                   **kw))
+    got = TN.soft_nms2d(torch.from_numpy(boxes), torch.from_numpy(scores),
+                        **kw).numpy()
+    np.testing.assert_array_equal(want, [False, False, True])
+    np.testing.assert_array_equal(got, want)
+
+
+# a NaN pick: 6 boxes 0.3 m apart, a NaN score among them
+NAN_PICK_BOXES = np.array([[0.3 * i, 0.0, 1.0, 1.0, 0.0] for i in range(6)],
+                          np.float32)
+NAN_PICK_SCORES = np.array([0.5, np.nan, 0.9, 0.2, 0.8, 0.1], np.float32)
+
+
+def test_soft_nms_nan_pick_follows_the_pallas_kernel():
+    """With a NaN score the JAX package's two routes disagree (its XLA
+    loop's argmax picks the NaN, the Pallas kernel matches no entry against
+    a NaN maximum and picks n - 1); the port follows the kernel, both in
+    ``soft_nms2d`` and in the plain cascade."""
+    kw = dict(iou_threshold=0.3, score_threshold=0.3, supression_param=0.0,
+              supression_method="linear")
+    got = TN.soft_nms2d(torch.from_numpy(NAN_PICK_BOXES),
+                        torch.from_numpy(NAN_PICK_SCORES), **kw).numpy()
+    iou = np.array(N._iou_matrix(jnp.asarray(NAN_PICK_BOXES), "rbox"),
+                   np.float32)
+    pre = NAN_PICK_SCORES <= 0.3
+    pre[np.argsort(-NAN_PICK_SCORES, kind="stable")[0]] = False
+    init = np.where(pre, -np.inf, NAN_PICK_SCORES).astype(np.float32)
+    args = (0.3, 0.3, 0.0, "linear")
+    pallas = np.asarray(soft_nms_scan(jnp.asarray(iou), jnp.asarray(init),
+                                      jnp.asarray(pre), *args,
+                                      interpret=True))
+    plain = TK.soft_nms_scan(torch.from_numpy(iou), torch.from_numpy(init),
+                             torch.from_numpy(pre), *args).numpy()
+    np.testing.assert_array_equal(pallas, [False] * 3 + [True] * 3)
+    np.testing.assert_array_equal(plain, pallas)
+    np.testing.assert_array_equal(got, pallas)
+
+
 def test_soft_nms_box_method_not_ported():
     with pytest.raises(NotImplementedError):
         TN.soft_nms2d(torch.zeros(2, 5), torch.zeros(2), iou_method="box")

@@ -1,12 +1,15 @@
-"""The schedules of the port's K1 (``csrc/rbox_iou.cu``) and K4
-(``csrc/soft_nms.cu``) on the CPU: K1's reject test (its plain version
-``geometry_cuda._reject_plain``) never skips a pair whose IoU is not
-exactly +0.0, in the port's plain version and in the Pallas kernel
-(interpret mode), and K1's tiles write every entry once; a numpy emulation
-of K4's two passes (overlap marks, then the cascade with each lane's cached
-best and updates of marked boxes only) equals the plain cascade and the
-Pallas kernel. The kernels themselves run only on the card
-(``chip_smoke.py``)."""
+"""The schedules of the port's K1 (``csrc/rbox_iou.cu``), K2/K3
+(``csrc/nms_scan.cu``) and K4 (``csrc/soft_nms.cu``) on the CPU: K1's
+reject test (its plain version ``geometry_cuda._reject_plain``) never skips
+a pair whose IoU is not exactly +0.0, in the port's plain version and in
+the Pallas kernel (interpret mode), and K1's tiles write every entry once,
+in both output forms; K1's bit rows equal the JAX package's IoU matrix
+thresholded; a numpy emulation of the scan's schedule (lane ownership, the
+chunk chains, the broadcast, the ORs) equals the plain scan and both Pallas
+scans; a numpy emulation of K4's two passes (overlap marks, then the
+cascade with each lane's cached best and updates of marked boxes only)
+equals the plain cascade and the Pallas kernel. The kernels themselves run
+only on the card (``chip_smoke.py``)."""
 
 import math
 import re
@@ -18,9 +21,12 @@ import jax.numpy as jnp
 import torch
 
 from d3d_tpu.ops import geometry_pallas as P
-from d3d_tpu.ops.nms_pallas import soft_nms_scan
+from d3d_tpu.ops import geometry_soa as S
+from d3d_tpu.ops import nms as N
+from d3d_tpu.ops.nms_pallas import nms_scan, nms_scan_blocked, soft_nms_scan
 
 from d3d_tpu_torch.ops import _build
+from d3d_tpu_torch.ops import nms as TN
 from d3d_tpu_torch.ops import geometry_cuda as TC
 from d3d_tpu_torch.ops import geometry_soa as TS
 from d3d_tpu_torch.ops import nms_cuda as TK
@@ -51,6 +57,8 @@ def test_kernel_constants_match_the_wrappers():
     assert _c_constant("soft_nms.cu", "kStagedMaxN") == TK._SOFT_STAGED_MAX_N
     assert _c_constant("soft_nms.cu", "kMaxN") == TK._SOFT_MAX_N
     assert _c_constant("soft_nms.cu", "kListLen") == TK._SOFT_LIST_LEN
+    assert _c_constant("nms_scan.cu", "kWarpWords") * 64 == TK._WARP_MAX_N
+    assert _c_constant("nms_scan.cu", "kMaxWords") == TK._MAX_N // 64
 
 
 # ---------------------------------------------------------------------------
@@ -230,10 +238,13 @@ def _k4_layout(n):
     return 1 << (-(-n // 32) - 1).bit_length()
 
 
+_NAN_KEY = 0xFFFFFFFF  # csrc/soft_nms.cu kNanKey
+
+
 def _key(v):
     """csrc/soft_nms.cu score_key."""
     if np.isnan(v):
-        return 0
+        return _NAN_KEY
     u = int(np.float32(0.0 if v == 0 else v).view(np.uint32))  # -0 -> +0
     return (~u & 0xFFFFFFFF) if u & 0x80000000 else (u | 0x80000000)
 
@@ -305,7 +316,7 @@ def _emulate_k4(iou, scores0, pre, iou_t, score_t, param, method,
                   default=None)
         if not any(a for _, _, a in warps):
             break
-        pick = n - 1 if key == 0 else idx
+        pick = n - 1 if key == _NAN_KEY else idx
         for t in range(threads):
             if not avail[t]:
                 continue
@@ -397,6 +408,24 @@ def test_k4_schedule_edge_cases(rng, method, param):
     assert sup.any()
 
 
+def test_k4_schedule_nan_pick_follows_the_pallas_kernel():
+    """A NaN score among 6 boxes 0.3 m apart: a NaN
+    maximum matches no key, so the step picks n - 1, as the Pallas kernel
+    does; the emulated K4 and the plain cascade equal it (the JAX package's
+    XLA loop, whose argmax picks the NaN, differs by design)."""
+    boxes = np.array([[0.3 * i, 0.0, 1.0, 1.0, 0.0] for i in range(6)],
+                     np.float32)
+    scores = np.array([0.5, np.nan, 0.9, 0.2, 0.8, 0.1], np.float32)
+    iou = TS._rbox_iou_matrix_plain(torch.from_numpy(boxes),
+                                    torch.from_numpy(boxes)).numpy()
+    pre = scores <= 0.3
+    pre[np.argsort(-scores, kind="stable")[0]] = False
+    init = np.where(pre, -np.inf, scores).astype(np.float32)
+    sup = _check_k4(iou, init, pre, (0.3, 0.3, 0.0, "linear"),
+                    layouts=(None, 1))
+    np.testing.assert_array_equal(sup, [False] * 3 + [True] * 3)
+
+
 def test_k4_layouts_cover_every_n():
     for n in (1, 31, 32, 33, 100, 512, 1000, 1024, 1025, 2048, 4097, 8192):
         c = _k4_layout(n)
@@ -405,3 +434,348 @@ def test_k4_layouts_cover_every_n():
         assert (lanes <= 32) == (n <= TK._SOFT_STAGED_MAX_N)
     with pytest.raises(ValueError):
         _k4_layout(TK._SOFT_MAX_N + 1)
+
+
+# ---------------------------------------------------------------------------
+# K1's bit-row form and the scan (K2/K3) that reads it
+# ---------------------------------------------------------------------------
+
+U64 = (1 << 64) - 1
+THRESHOLDS = [-0.1, 0.0, 0.25, 1.0]
+
+
+def _words(bits):
+    """int64 bit rows -> a list of rows of Python ints in [0, 2^64)."""
+    return [[int(v) & U64 for v in row] for row in bits.tolist()]
+
+
+def _emulate_scan(bits, n, pre=None, neg=None, thr=0.0, order=None,
+                  rng=None, stats=None):
+    """csrc/nms_scan.cu in Python on the bit rows (a list of rows of ints):
+    up to ``_WARP_MAX_N`` boxes one warp, lane l holding suppression word
+    l; per chunk c the warp's fixed-point rounds on the diagonal words, or
+    after 8 rounds the owner lane c's chain in two 32-bit halves (counted
+    in ``stats``), give the alive rows; the later words take their ORs,
+    computed by groups
+    of 1, 2 or 4 lanes a word and shuffled to the word's lane. Above, one
+    block: thread 0's chain on 64-bit words, then the same ORs. Rows past n
+    read what a stale buffer holds (``rng``'s garbage), which only the
+    padding bits may hide."""
+    words = (n + 63) // 64
+    garbage = rng or np.random.default_rng(0)
+    stats = {"owner_chains": 0} if stats is None else stats
+
+    def word(row, w):
+        if row < n:
+            return bits[row][w]
+        return int(garbage.integers(0, 1 << 63)) << 1 | 1
+
+    def presup(j):
+        if j >= n:
+            return True
+        if pre is not None:
+            return bool(pre[j])
+        return j > 0 and bool(-np.float32(neg[j]) <= np.float32(thr))
+
+    s = [sum(presup(64 * w + b) << b for b in range(64))
+         for w in range(words)]
+    warp = n <= TK._WARP_MAX_N
+    for c in range(words):
+        d = [word(64 * c + r, c) for r in range(64)]
+        if warp:
+            # the warp's rounds: alive = ~(entry | OR of the alive rows'
+            # diagonal words; rows 32.. their high halves), to a fixed point
+            alive = ~s[c] & U64
+            for _ in range(8):
+                ored = 0
+                for r in range(64):
+                    if alive >> r & 1:
+                        ored |= d[r] if r < 32 else d[r] & ~0xFFFFFFFF & U64
+                nxt = ~(s[c] | ored) & U64
+                if nxt == alive:
+                    break
+                alive = nxt
+            else:
+                # not settled: the owner's two 32-bit chains
+                stats["owner_chains"] += 1
+                lo, hi = s[c] & 0xFFFFFFFF, s[c] >> 32
+                for r in range(32):
+                    if not lo >> r & 1:
+                        lo |= d[r] & 0xFFFFFFFF
+                for r in range(32):
+                    if not lo >> r & 1:
+                        hi |= d[r] >> 32
+                for r in range(32, 64):
+                    if not hi >> (r - 32) & 1:
+                        hi |= d[r] >> 32
+                alive = ~(hi << 32 | lo) & U64
+            s[c] = ~alive & U64
+            # g lanes a later word, 64 / g rows each, ORed in the group;
+            # lane c + 1 + q takes word q's OR from lane q * g
+            later = words - c - 1
+            g = 4 if later <= 8 else 2 if later <= 16 else 1
+            part = [0] * 32
+            for lane in range(32):
+                w = c + 1 + lane // g
+                r0 = (lane % g) * (64 // g)
+                if w < words:
+                    for r in range(r0, r0 + 64 // g):
+                        if alive >> r & 1:
+                            part[lane] |= word(64 * c + r, w)
+            group = [0] * 32
+            for lane in range(32):
+                for m in range(lane - lane % g, lane - lane % g + g):
+                    group[lane] |= part[m]
+            for lane in range(c + 1, min(words, 32)):
+                s[lane] |= group[((lane - c - 1) * g) & 31]
+        else:
+            alive = 0
+            for r in range(64):
+                if not s[c] >> r & 1:
+                    alive |= 1 << r
+                    s[c] |= d[r]
+            for w in range(c + 1, words):
+                for r in range(64):
+                    if alive >> r & 1:
+                        s[w] |= word(64 * c + r, w)
+    sup = np.array([bool(s[j // 64] >> (j % 64) & 1) for j in range(n)])
+    if order is None:
+        return sup
+    out = np.zeros(n, bool)
+    out[np.asarray(order)] = sup
+    return out
+
+
+def _scan_masks(rng, n, kind):
+    """(overlap, pre): random (7% of pairs), every pair overlapping, none,
+    random with 90% of the boxes pre-suppressed, and a chain (box i
+    overlaps box i + 1 only: every chunk's rounds run out)."""
+    if kind == "all":
+        ov = np.ones((n, n), bool)
+    elif kind == "chain":
+        ov = np.eye(n, k=1, dtype=bool)
+    elif kind == "none":
+        ov = np.zeros((n, n), bool)
+    else:
+        ov = rng.random((n, n)) < 0.07
+        ov = ov | ov.T
+    pre = rng.random(n) < (0.9 if kind == "pre_heavy" else 0.1)
+    return ov, pre
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 100, 512, 1024, 1025, 2048,
+                               2049])
+def test_scan_schedule_matches_plain_and_pallas(rng, n):
+    """The emulated scan (the warp route up to 2048 boxes, the block route
+    above) on the packed rows, with the words left of each row's own word
+    left as garbage (never read), equals the plain scan, and the plain scan
+    equals the Pallas kernels (K2 in interpret mode up to 1024 boxes, K3 at
+    every n) on random, all-overlapping, none-overlapping and pre-suppressed
+    heavy masks."""
+    for kind in ("random", "all", "none", "pre_heavy", "chain"):
+        ov, pre = _scan_masks(rng, n, kind)
+        if kind == "chain":
+            pre[:] = False
+        # the pack kernel's rows: bits j > i only
+        bits = _words(TK.pack_rows(torch.from_numpy(np.triu(ov, 1))))
+        for i in range(n):  # the words left of row i's own word: garbage
+            for w in range(i // 64):
+                bits[i][w] = int(rng.integers(0, 1 << 63))
+        plain = TK._nms_scan_plain(torch.from_numpy(np.triu(ov, 1)),
+                                   torch.from_numpy(pre)).numpy()
+        stats = {"owner_chains": 0}
+        np.testing.assert_array_equal(
+            _emulate_scan(bits, n, pre=pre, stats=stats), plain,
+            err_msg=kind)
+        if kind == "chain" and 64 < n <= TK._WARP_MAX_N:
+            assert stats["owner_chains"] > 0
+        blocked = np.asarray(nms_scan_blocked(jnp.asarray(ov),
+                                              jnp.asarray(pre),
+                                              interpret=True))
+        np.testing.assert_array_equal(plain, blocked, err_msg=kind)
+        if n <= 1024:
+            k2 = np.asarray(nms_scan(jnp.asarray(ov), jnp.asarray(pre),
+                                     interpret=True))
+            np.testing.assert_array_equal(plain, k2, err_msg=kind)
+
+
+def test_scan_takes_pre_from_sorted_scores_and_writes_through_order(rng):
+    """nms2d's form of the scan: the pre-suppression from the negated
+    sorted scores (rank 0 exempt, NaN never pre-suppressed, the threshold
+    compared in float32) and the mask written to suppressed[order[i]], in
+    the emulation and in the plain version, which equals the scan on the
+    explicit mask scattered back."""
+    n = 300
+    ov, _ = _scan_masks(rng, n, "random")
+    scores = rng.random(n).astype(np.float32)
+    scores[[3, 77]] = np.nan
+    scores[10] = np.float32(0.3)  # exactly at the threshold: pre-suppressed
+    neg, order = torch.sort(-torch.from_numpy(scores), stable=True)
+    bits = TK.pack_rows(torch.from_numpy(np.triu(ov, 1)))
+    want_pre = TK._pre_suppression(-neg, 0.3)
+    assert not want_pre[0] and not want_pre[-2:].any()  # NaN sorts last
+    sup = TK._nms_scan_plain(torch.from_numpy(np.triu(ov, 1)), want_pre)
+    want = torch.empty_like(sup)
+    want[order] = sup
+    plain = TK._nms_scan_sorted(bits, order, neg, 0.3)
+    np.testing.assert_array_equal(plain.numpy(), want.numpy())
+    got = _emulate_scan(_words(bits), n, neg=neg.numpy(), thr=0.3,
+                        order=order.numpy())
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_pack_rows_round_trips(rng):
+    for n in (1, 63, 64, 65, 130):
+        ov = rng.random((n, n)) < 0.5
+        bits = TK.pack_rows(torch.from_numpy(ov))
+        assert bits.shape == (n, (n + 63) // 64) and bits.dtype == torch.int64
+        np.testing.assert_array_equal(TK._unpack_rows(bits, n).numpy(), ov)
+
+
+def _bit_tiles(n, rows):
+    """csrc/rbox_iou.cu BitTiles and the block -> tile bisection: every
+    block's (first row, word) of the tiles on or above the diagonal."""
+    words, q = (n + 63) // 64, 64 // rows
+    row_tiles = -(-n // rows)
+
+    def start(b):
+        return q * (b * words - b * (b - 1) // 2)
+    last = (row_tiles - 1) // q
+    total = start(last) + (row_tiles - last * q) * (words - last)
+    tiles = []
+    for blk in range(total):
+        lo, hi = 0, last
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            if start(mid) <= blk:
+                lo = mid
+            else:
+                hi = mid - 1
+        per = words - lo
+        idx = blk - start(lo)
+        tiles.append(((lo * q + idx // per) * rows, lo + idx % per))
+    return tiles
+
+
+def _k1_bit_rows(n):
+    """The tile rows csrc/rbox_iou.cu d3d_rbox_overlap_bits picks."""
+    for rows in (64, 32, 16):
+        if len(_bit_tiles(n, rows)) >= 132:
+            return rows
+    return 8
+
+
+def _emulate_k1_bits(b, thr, rows):
+    """K1's bit-row blocks into a buffer of garbage: the own-word block
+    zeroes its rows' words left of it; phase 1 sets a rejected pair's bit
+    to 0.0 > thr and queues the pairs j > i that are not rejected; phase 2
+    sets the chain's bits (the plain IoU of (row, column)); each block
+    writes its rows' word. Returns the rows and each word's write count."""
+    n = b.shape[0]
+    words = (n + 63) // 64
+    rej = TC._reject_plain(b, b).numpy()
+    iou = TS._rbox_iou_matrix_plain(b, b).numpy()
+    out = [[0xDEAD] * words for _ in range(n)]
+    writes = np.zeros((n, words), np.int64)
+    for row0, w in _bit_tiles(n, rows):
+        rs = range(row0, min(n, row0 + rows))
+        if w == row0 // 64:
+            for i in rs:
+                for ww in range(w):
+                    out[i][ww] = 0
+                    writes[i, ww] += 1
+        for i in rs:
+            word = 0
+            for j in range(64 * w, min(n, 64 * w + 64)):
+                if j <= i:
+                    continue
+                v = np.float32(0.0) if rej[i, j] else iou[i, j]
+                if v > np.float32(thr):
+                    word |= 1 << (j - 64 * w)
+            out[i][w] = word
+            writes[i, w] += 1
+    return out, writes
+
+
+def _boxes_with_odd_ones(rng, n, spread, apart=False):
+    """Random boxes with a NaN coordinate, a NaN angle, a zero-width box
+    and a zero-size box among them. ``apart`` moves the two degenerate
+    boxes away from every other box: where a degenerate box overlaps one,
+    its IoU is rounding noise (an area of collinear points over a union
+    floored at 1e-12) in either package."""
+    b = _random_boxes(rng, n, spread)
+    for k, (col, v) in enumerate([(0, np.nan), (4, np.nan), (2, 0.0),
+                                  (3, 0.0)]):
+        if k < n:
+            b[(k * 7) % n, col] = v
+    b[(3 * 7) % n, 2] = 0.0 if n > 3 else b[0, 2]
+    if apart:
+        for k in (2, 3):
+            if k < n:
+                b[(k * 7) % n, :2] = (-500.0 * k, 900.0)
+    return b
+
+
+@pytest.mark.parametrize("n", [1, 63, 65, 100, 200])
+def test_k1_bit_tiles_write_every_word_once(rng, n):
+    """K1's bit-row tiles cover every (row, word) once, at the tile rows it
+    picks and at every other, and give the plain version's bits at each
+    threshold, NaN and degenerate boxes among them."""
+    b = torch.from_numpy(_boxes_with_odd_ones(rng, n, np.sqrt(n) * 2.0))
+    for rows in sorted({_k1_bit_rows(n), 8, 64}):
+        for thr in THRESHOLDS:
+            got, writes = _emulate_k1_bits(b, thr, rows)
+            assert (writes == 1).all(), (rows, thr)
+            want = _words(TC._rbox_overlap_bits_plain(b, thr))
+            assert got == want, (rows, thr)
+
+
+@pytest.mark.parametrize("thr", THRESHOLDS)
+def test_overlap_bits_plain_matches_jax_thresholded(rng, thr):
+    """The plain bit rows equal the JAX package's IoU matrix (its SoA route,
+    what its nms2d thresholds, and its Pallas kernel in interpret mode) >
+    thr, upper triangle, packed; NaN and degenerate boxes among them."""
+    n = 150
+    b = _boxes_with_odd_ones(rng, n, 25.0, apart=True)
+    got = TC._rbox_overlap_bits_plain(torch.from_numpy(b), thr)
+    for ref in (S.rbox_iou_matrix(jnp.asarray(b), jnp.asarray(b)),
+                P.rbox_iou_matrix(jnp.asarray(b), jnp.asarray(b),
+                                  interpret=True)):
+        want = TK.pack_rows(torch.from_numpy(
+            np.triu(np.asarray(ref, np.float32) > np.float32(thr), 1)))
+        assert torch.equal(got, want)
+    if thr < 0:  # every pair but a NaN box's: 0.0 > thr for rejected ones
+        assert TK._unpack_rows(got, n).sum() > 0.9 * n * (n - 1) / 2
+
+
+def _clear_boxes(rng, n, thr, margin=1e-4):
+    """Random boxes with no pairwise IoU within ``margin`` of ``thr``
+    (other than an exact 0 at thr = 0), where one rounding could flip a
+    keep bit."""
+    boxes = _random_boxes(rng, n, np.sqrt(n) * 2.0)
+    iou = np.asarray(S.rbox_iou(jnp.asarray(boxes, jnp.float64)[:, None],
+                                jnp.asarray(boxes, jnp.float64)[None, :]))
+    near = (np.abs(iou - thr) < margin) & (iou != thr)
+    np.fill_diagonal(near, False)
+    return np.delete(boxes, np.unique(np.nonzero(np.triu(near))[1]), axis=0)
+
+
+@pytest.mark.parametrize("thr", THRESHOLDS)
+def test_nms2d_bit_route_matches_jax(rng, thr):
+    """nms2d (float32 boxes: the bit-row route, plain versions on the CPU)
+    against the JAX package's nms2d at each threshold, with a score
+    threshold and a NaN score; and the same chain of the CUDA route's
+    pieces with the scan emulated."""
+    boxes = _clear_boxes(rng, 260, thr)
+    scores = rng.random(len(boxes)).astype(np.float32)
+    scores[5] = np.nan
+    want = np.asarray(N.nms2d(jnp.asarray(boxes), jnp.asarray(scores),
+                              iou_threshold=thr, score_threshold=0.1))
+    tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
+    got = TN.nms2d(tb, ts, iou_threshold=thr, score_threshold=0.1).numpy()
+    np.testing.assert_array_equal(got, want)
+    neg, order = torch.sort(-ts, stable=True)
+    bits = TC._rbox_overlap_bits(tb[order], thr)
+    emulated = _emulate_scan(_words(bits), len(boxes), neg=neg.numpy(),
+                             thr=0.1, order=order.numpy())
+    np.testing.assert_array_equal(emulated, want)

@@ -4,8 +4,10 @@ is scheduled exactly once; plain-torch emulations of K5's schedule (rows in
 rule-book order, tiles that skip the offsets none of their rows has) and
 of K6's (per-offset lists of present pairs, slabs summed in order) equal
 the plain versions and the Pallas kernels in interpret mode; edge maps;
-a prepared map gives what a bare one gives, forward and gradients; and
-every C entry point's signature matches the argtypes ``ops/_build.py``
+a prepared map gives what a bare one gives, forward and gradients; a numpy
+emulation of the rule-book sort's passes (each chunk's stable ranks, its
+look-back over the earlier chunks, the digit bases) equals a stable argsort;
+and every C entry point's signature matches the argtypes ``ops/_build.py``
 declares for it."""
 
 import re
@@ -24,6 +26,7 @@ from d3d_tpu_torch.models import presets
 from d3d_tpu_torch.ops import _build
 from d3d_tpu_torch.ops import sparse_conv as TS
 from d3d_tpu_torch.ops import sparse_conv_cuda as TK
+from d3d_tpu_torch.ops import rulebook as RB
 from d3d_tpu_torch.ops.rulebook import RuleBook, prepare_neighbor_map
 
 GRID = (8, 10, 6)
@@ -430,16 +433,169 @@ def test_argtypes_match_the_c_signatures():
                 for source, _, fns in _build._LIBRARIES.values()
                 for fn, types in fns.items()}
     sigs = _c_signatures()
-    # K2, K3 share one; K1's library also gives its descriptors, K5's
-    # answers its tile's rows and builds rule books
-    assert len(sigs) == 8 and set(sigs) == set(declared)
+    # K2, K3 share the scan and the pack; K1's library also gives its bit
+    # rows and its descriptors, K5's answers its tile's rows and builds rule
+    # books
+    assert len(sigs) == 11 and set(sigs) == set(declared)
     for fn, (source, kinds) in sigs.items():
         assert set(kinds) <= set("PIF"), (fn, kinds)
         assert declared[fn] == (source, kinds), fn
     assert sigs["d3d_subm_conv"][1] == "PPPPPP" + "I" * 8 + "P"
     assert sigs["d3d_subm_conv_dw"][1] == "P" * 7 + "I" * 9 + "P"
     assert sigs["d3d_subm_conv_tile_rows"][1] == "I"
-    assert sigs["d3d_subm_conv_rulebook"][1] == "PPIIPPPP"
+    assert sigs["d3d_subm_conv_rulebook_resident"][1] == ""
+    assert sigs["d3d_subm_conv_rulebook"][1] == "PPIIPPPIP"
     assert sigs["d3d_rbox_iou_matrix"][1] == "PPPIIPP"
+    assert sigs["d3d_rbox_overlap_bits"][1] == "PPIFPP"
+    assert sigs["d3d_nms_pack"][1] == "PPIP"
+    assert sigs["d3d_nms_scan"][1] == "PPPFPPIP"
     assert sigs["d3d_rbox_descriptors"][1] == "PPIP"
     assert sigs["d3d_soft_nms_scan"][1] == "PPPPPIIFFFIP"
+
+
+# ---------------------------------------------------------------------------
+# the rule-book sort (csrc/subm_conv.cu rulebook_masks_kernel and
+# rulebook_pass_kernel)
+# ---------------------------------------------------------------------------
+
+def _c_int(name):
+    text = (_build.CSRC / "subm_conv.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def test_sort_constants_match_the_wrapper():
+    assert _c_int("kChunk") == RB._SORT_CHUNK
+    assert _c_int("kMaxPasses") == RB._SORT_MAX_PASSES
+    assert 1 << _c_int("kRadixBits") == RB._SORT_RADIX
+    assert _c_int("kSortThreads") * _c_int("kKeysPerThread") == RB._SORT_CHUNK
+
+
+def _emulate_rulebook_sort(masks_list, k_off, rng):
+    """The rule-book kernels in numpy, per map's masks -> per map's order.
+    The masks kernel: keys (mask << 32 | row) and each map's digit counts
+    of every pass. A pass: every chunk of 2048 keys ranks its keys stably
+    (warp w takes keys w * 256 .. + 255 in rounds of 32, a key's rank is
+    its warp's count of its digit so far plus the equal digits on lower
+    lanes), publishes its counts, then (in a random order of the chunks:
+    the look-back does not depend on it) adds the earlier chunks' published
+    counts, back to the first inclusive one, and places each key at its
+    digit's base plus that prior count plus the warps before it plus its
+    rank. Every slot of a pass's output is written exactly once."""
+    chunk, radix, warps = RB._SORT_CHUNK, RB._SORT_RADIX, 8
+    per_warp = chunk // warps
+    passes = -(-k_off // 8)
+    keys = [(m.astype(np.uint64) << np.uint64(32))
+            | np.arange(len(m), dtype=np.uint64) for m in masks_list]
+    for p in range(passes):
+        shift = np.uint64(32 + 8 * p)
+        out = []
+        for src in keys:
+            nq = len(src)
+            digits = ((src >> shift) & np.uint64(radix - 1)).astype(np.int64)
+            hist = np.bincount(digits, minlength=radix)
+            dbase = np.concatenate([[0], np.cumsum(hist)[:-1]])
+            nch = -(-nq // chunk)
+            counts, ranks, wexcl = [], [], []
+            for c in range(nch):
+                wcnt = np.zeros((warps, radix), np.int64)
+                rank = np.full(chunk, -1, np.int64)
+                for w in range(warps):
+                    for j in range(per_warp // 32):
+                        i = c * chunk + w * per_warp + j * 32 + np.arange(32)
+                        ok = i < nq
+                        d = np.where(ok, digits[np.minimum(i, nq - 1)], radix)
+                        same = (d[:, None] == d[None, :]) & np.tri(
+                            32, k=-1, dtype=bool)
+                        loc = w * per_warp + j * 32 + np.arange(32)
+                        for lane in np.nonzero(ok)[0]:
+                            rank[loc[lane]] = (wcnt[w, d[lane]]
+                                               + same[lane].sum())
+                        np.add.at(wcnt[w], d[ok], 1)
+                counts.append(wcnt.sum(0))
+                wexcl.append(np.cumsum(wcnt, 0) - wcnt)
+                ranks.append(rank)
+            # publish aggregates (the map's first chunk: inclusive), then
+            # look back in a random order of the chunks
+            slots = [("inc" if c == 0 else "agg", counts[c])
+                     for c in range(nch)]
+            prior = [None] * nch
+            for c in rng.permutation(nch):
+                acc = np.zeros(radix, np.int64)
+                k = c - 1
+                while k >= 0:
+                    flag, val = slots[k]
+                    acc = acc + val
+                    if flag == "inc":
+                        break
+                    k -= 1
+                prior[c] = acc
+                slots[c] = ("inc", acc + counts[c])
+            dst = np.zeros(nq, np.uint64)
+            writes = np.zeros(nq, np.int64)
+            for c in range(nch):
+                for w in range(warps):
+                    loc = w * per_warp + np.arange(per_warp)
+                    i = c * chunk + loc
+                    ok = i < nq
+                    d = digits[i[ok]]
+                    pos = (dbase[d] + prior[c][d] + wexcl[c][w][d]
+                           + ranks[c][loc[ok]])
+                    dst[pos] = src[i[ok]]
+                    np.add.at(writes, pos, 1)
+            assert (writes == 1).all(), "a slot written twice or never"
+            out.append(dst)
+        keys = out
+    return [(k & np.uint64(0xFFFFFFFF)).astype(np.int64) for k in keys]
+
+
+def _sort_maps(rng, case):
+    """(masks per map, K) for each case of the sort test."""
+    k27 = 1 << 27
+    if case == "one_row":
+        return [rng.integers(0, k27, 1)], 27
+    if case == "all_equal":
+        return [np.full(3000, 0b101101, np.int64)], 27
+    if case == "all_distinct":
+        return [rng.choice(k27, 5000, replace=False)], 27
+    if case == "ragged":
+        return [rng.integers(0, 1 << 6, 2049)], 27
+    if case == "second_rows":  # 32 000 rows, SECOND-like presence
+        present = rng.random((32000, 27)) < 0.3
+        return [(present << np.arange(27)).sum(1)], 27
+    if case == "sixteen_maps":
+        sizes = [0, 1, 5, 2048, 2049, 4100, 700, 64, 3000, 1, 2, 9000, 33,
+                 2047, 100, 6000]
+        return [rng.integers(0, 1 << int(rng.integers(1, 28)), n)
+                for n in sizes], 27
+    if case == "one_pass":
+        return [rng.integers(0, 1 << 8, 3000)], 8
+    return [rng.integers(0, 1 << 31, 4500)], 31   # "bit_30": four passes
+
+
+@pytest.mark.parametrize("case", ["one_row", "all_equal", "all_distinct",
+                                  "ragged", "second_rows", "sixteen_maps",
+                                  "one_pass", "bit_30"])
+def test_rulebook_sort_emulation_is_the_stable_sort(rng, case):
+    """The emulated passes give each map the stable argsort of its masks,
+    as does the plain version on maps with those masks."""
+    masks_list, k_off = _sort_maps(rng, case)
+    got = _emulate_rulebook_sort(masks_list, k_off, rng)
+    for masks, order in zip(masks_list, got):
+        np.testing.assert_array_equal(order,
+                                      np.argsort(masks, kind="stable"))
+    if case in ("sixteen_maps", "ragged"):
+        nbrs = [torch.from_numpy(np.where(
+            (m[:, None] >> np.arange(k_off)) & 1, 0, -1).astype(np.int32))
+            for m in masks_list]
+        for order, plain in zip(got, RB._subm_conv_rulebook_plain(nbrs)[1]):
+            np.testing.assert_array_equal(order, plain.numpy())
+
+
+def test_sort_scratch_holds_every_part():
+    """The wrapper's scratch: two keys a row, then per chunk the look-back
+    slots of every pass, per map the histograms, and the tickets."""
+    nqs = [16000, 8000, 1, 0, 2049]
+    chunks = 8 + 4 + 1 + 0 + 2
+    words = RB._sort_scratch_words(nqs)
+    assert words * 8 == (2 * sum(nqs) * 8 + chunks * 4 * 256 * 4
+                         + len(nqs) * 4 * 256 * 4 + 4 * 4)

@@ -91,3 +91,40 @@ def test_unported_modes_raise(rng):
     with pytest.raises(ValueError):
         TV.voxelize_dense_padded(pts, SHAPE, bounds, 4, 20, "median",
                                  order_mode="sorted")
+
+
+# one good point and one with a NaN, on a 4^3 grid over
+# [0, 4]^3. A float -> int32 cast of NaN gives 0 in XLA (and in CUDA's
+# cvt.rzi), INT_MIN in torch on an x86 CPU: the port maps NaN to 0 first.
+NAN_ROWS = {"x": [np.nan, 1.5, 1.5, 0.0], "xyz": [np.nan, np.nan, np.nan, 0.0],
+            "intensity": [1.5, 1.5, 1.5, np.nan]}
+NAN_SHAPE = (4, 4, 4)
+NAN_BOUNDS = np.array([0.0, 4.0, 0.0, 4.0, 0.0, 4.0], np.float32)
+
+
+@pytest.mark.parametrize("voxelizer", ["mean_fm", "dense_padded"])
+@pytest.mark.parametrize("bad", sorted(NAN_ROWS))
+def test_nan_point_lands_where_xla_puts_it(voxelizer, bad):
+    pts = np.array([[2.5, 2.5, 2.5, 1.0], NAN_ROWS[bad]], np.float32)
+    if voxelizer == "mean_fm":
+        fm = np.ascontiguousarray(pts.T)
+        want = V.voxelize_mean_fm(jnp.asarray(fm), NAN_SHAPE,
+                                  jnp.asarray(NAN_BOUNDS), 4)
+        got = TV.voxelize_mean_fm(torch.from_numpy(fm), NAN_SHAPE,
+                                  torch.from_numpy(NAN_BOUNDS), 4)
+        keys = ("coords", "voxel_npoints", "nvoxels", "aggregates")
+    else:
+        want = V.voxelize_dense_padded(
+            jnp.asarray(pts), NAN_SHAPE, jnp.asarray(NAN_BOUNDS), 4, 4,
+            "mean", order_mode="sorted")
+        got = TV.voxelize_dense_padded(
+            torch.from_numpy(pts), NAN_SHAPE, torch.from_numpy(NAN_BOUNDS),
+            4, 4, "mean", order_mode="sorted")
+        keys = ("coords", "voxel_npoints", "nvoxels", "voxels",
+                "voxel_pmask", "aggregates")
+    assert int(want["nvoxels"]) == int(got["nvoxels"]) == 2
+    for k in keys:
+        # NaN where the reference has NaN (the NaN point's own features),
+        # the rest equal
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
