@@ -18,9 +18,11 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    every word written (``check_k1_bits``); the scan K2/K3 at n = 1 to
    20 000 through the bool route and nms2d's (bit rows, scores, order),
    both of its kernels (``check_scans``); K4 (soft-NMS cascade, linear and
-   gaussian, n = 100 to 8192, a dense cluster and a NaN score, both of its
-   routes) exactly; the voxelizers on points with NaNs equal to the CPU's
-   (``check_nan_voxels``); K5
+   gaussian, float32 and float64, n = 100 to 8192, a dense cluster, a NaN
+   score and +0/-0 scores, both of its routes in each dtype) exactly; the
+   voxelizers on points with NaNs equal to the CPU's
+   (``check_nan_voxels``); K1's float32 matrix raising under autograd
+   (``check_k1_grad_guard``); K5
    (sparse-conv gather-GEMM) at every layer shape of SECOND serving, in
    f32 and bf16, at the tolerances stated in ``check_k5``, bit-equal across
    two launches (the second into a NaN-filled buffer, so an unwritten row
@@ -42,14 +44,23 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    (``voxelize_mean_fm`` + ``nms2d`` of 512 boxes), ``nms2d`` of 2048
    boxes (K3), SECOND serving (``make_second_detector`` on
    ``presets.second_kitti`` at full width, 4 requests), ``soft_nms2d``
-   of the north star's 512 boxes (K4) and SECOND training
+   of the north star's 512 boxes (K4), the public box and voxel API
+   (``VoxelGenerator`` on OpenPCDet's KITTI voxel configuration, dense and
+   sparse with every filter, on the bench and KITTI-like frames;
+   ``box2d_iou``, four methods x precise, 512^2 and rbox 4096^2;
+   ``box2d_nms``, hard/linear/gaussian x box/rbox x precise, n = 512 and
+   4096, launches read per call, K4's float64 entry on both routes; crops
+   and distances of 120k points x 40 boxes) and SECOND training
    (``make_train_step`` + ``make_optimizer`` on ``presets.second_kitti``
    at full width, batch 2, 5 steps in f32 with TF32 off and 5 in bf16,
    counts read per step: K5 13, K6 8); each path must launch its kernels,
    and nms2d K1's bit form and the scan only (``check_nms_routes``);
 4. checks the outputs: finite, of the expected shape, the keep masks equal
    to the plain scans on the kernels' own IoU matrices, the voxelizer
-   equal to the port's CPU run, both serving paths' outputs equal to a
+   equal to the port's CPU run, the box and voxel API's outputs equal to
+   the same calls on the CPU (float64 IoU within 1e-12, float32 within
+   K1's 2e-5, masks, indices and voxels exact), both serving paths'
+   outputs equal to a
    CPU run of the same weights at a stated tolerance (TF32 off), the
    training loss finite and falling, and one training step's gradients
    equal to the CPU's (plain versions) at a stated tolerance;
@@ -82,6 +93,8 @@ ROOT = Path(__file__).resolve().parent
 # tensor-core rate (the bound of K5's bf16 work)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# dense float64 outside the tensor cores (the same data sheet)
+F64_OPS_PER_S = 34e12
 BF16_TENSOR_OPS_PER_S = 989e12
 
 # f32 operations per output pair of K1, counted from csrc/rbox_iou.cu (each
@@ -367,11 +380,14 @@ def kernel_launches(fn):
     return sum(e.count for e in rows) - mem, mem
 
 
-def k4_bound(n, steps):
+def k4_bound(n, steps, itemsize=4):
     # the steps this run's data takes (the kernel stops when no box is
-    # left): each reads the pick's row of the f32 IoU matrix and works on
-    # all n boxes; (n,) f32 scores and (n,) bool pre in, (n,) bool out
-    return bound(steps * n * 4 + n * 6, steps * n * K4_OPS_PER_BOX_STEP)
+    # left): each reads the pick's row of the IoU matrix (``itemsize``
+    # bytes a value: 4 for float32, 8 for float64) and works on all n
+    # boxes; (n,) scores and (n,) bool pre in, (n,) bool out
+    return bound(steps * n * itemsize + n * (itemsize + 2),
+                 steps * n * K4_OPS_PER_BOX_STEP,
+                 F32_OPS_PER_S if itemsize == 4 else F64_OPS_PER_S)
 
 
 def k5_work(feats, nbr, cout):
@@ -690,13 +706,14 @@ def check_nan_voxels(dev):
 
 
 def check_k4(dev):
-    """K4 against the plain cascade on the card, both methods, on K1's IoU
-    matrices of bench boxes (n = 100 to 8192) and of dense clusters with
-    iou_threshold 0 (every pair overlaps, so every row's marks overflow its
-    list; n = 512 and 2048, where the lists do not fit in shared memory);
-    masks must be equal, and both of K4's routes (lists staged in shared
-    memory, read from L2) must have run. Returns
-    the mismatches and the launches by route."""
+    """K4 against the plain cascade on the card, both methods, float32 and
+    float64, on K1's IoU matrices of bench boxes (n = 100 to 8192; float64
+    takes the matrix cast) and of dense clusters with iou_threshold 0
+    (every pair overlaps, so every row's marks overflow its list; n = 512
+    and 2048, where the lists do not fit in shared memory), a NaN score and
+    tied +0/-0 scores; masks must be equal, and both of K4's routes (lists
+    staged in shared memory, read from L2) must have run in each dtype.
+    Returns the mismatches and the launches by route."""
     from d3d_tpu_torch.ops import geometry_cuda, nms_cuda
     from d3d_tpu_torch.ops.nms import _soft_nms_init
 
@@ -704,6 +721,12 @@ def check_k4(dev):
     routes0 = dict(nms_cuda._soft_launch.routes)
     cases = [(f"n={n}", *bench_boxes(rng, n), SOFT_NMS_ARGS["iou_threshold"])
              for n in (100, 512, 1000, 2048, 8192)]
+    # +0 and -0 scores tie: the lower index is picked first
+    zeros, _ = bench_boxes(rng, 64)
+    zeros[:, :2] = rng.random((64, 2)) * 6.0
+    cases.append(("64 boxes with +0/-0 scores", zeros,
+                  np.where(rng.random(64) < 0.5, 0.0, -0.0).astype(
+                      np.float32), 0.1))
     # a NaN pick: 6 boxes 0.3 m apart, one NaN score (a NaN
     # available makes the pick n - 1, as in the Pallas kernel)
     cases.append(("6 boxes with a NaN score",
@@ -720,25 +743,29 @@ def check_k4(dev):
     for name, boxes, scores, iou_t in cases:
         tb = torch.from_numpy(boxes).to(dev)
         ts = torch.from_numpy(scores).to(dev)
-        iou = geometry_cuda.rbox_iou_matrix(tb, tb)
-        thr = SOFT_NMS_ARGS["score_threshold"]
-        pre, init = _soft_nms_init(ts, thr)
-        for method, param in SOFT_NMS_CASES:
-            args = (iou_t, thr, param, method)
-            got = nms_cuda._soft_launch(iou, init, pre, *args)
-            want = nms_cuda._soft_nms_scan_plain(iou, init, pre, *args)
-            torch.cuda.synchronize()
-            bad = int((got != want).sum())
-            log(f"soft_nms_scan {method} {name}: {bad} of {len(boxes)} "
-                f"differ from the plain cascade, {int(got.sum())} "
-                f"suppressed")
-            check(bad == 0, f"soft_nms_scan {method} {name}: {bad} "
-                            f"mismatches")
-            worst = max(worst, bad)
+        iou32 = geometry_cuda.rbox_iou_matrix(tb, tb)
+        # the zeros case keeps its scores above the score threshold
+        thr = -1.0 if name.startswith("64 boxes") else SOFT_NMS_ARGS[
+            "score_threshold"]
+        for dt in (torch.float32, torch.float64):
+            iou = iou32.to(dt)
+            pre, init = _soft_nms_init(ts.to(dt), thr)
+            for method, param in SOFT_NMS_CASES:
+                args = (iou_t, thr, param, method)
+                got = nms_cuda._soft_launch(iou, init, pre, *args)
+                want = nms_cuda._soft_nms_scan_plain(iou, init, pre, *args)
+                torch.cuda.synchronize()
+                bad = int((got != want).sum())
+                log(f"soft_nms_scan {method} {str(dt)[6:]} {name}: {bad} of "
+                    f"{len(boxes)} differ from the plain cascade, "
+                    f"{int(got.sum())} suppressed")
+                check(bad == 0, f"soft_nms_scan {method} {dt} {name}: {bad} "
+                                f"mismatches")
+                worst = max(worst, bad)
     routes = {k: v - routes0[k]
               for k, v in nms_cuda._soft_launch.routes.items()}
     log(f"soft_nms_scan launches by route in the checks: {routes}")
-    check(routes["shared"] > 0 and routes["l2"] > 0,
+    check(all(v > 0 for v in routes.values()),
           f"K4: a route never ran: {routes}")
     return worst, routes
 
@@ -1260,7 +1287,7 @@ def second_training(dev, state, batch, dtype):
         step_ms.append(start.elapsed_time(end))
         want = dict(rbox_iou_matrix=0, nms_scan=0, nms_scan_blocked=0,
                     soft_nms_scan=0, subm_conv=13, subm_conv_dw=8,
-                    subm_conv_rulebook=1)
+                    subm_conv_rulebook=1, soft_nms_scan_f64=0)
         check(counts == want, f"SECOND training {dtype} step {i + 1}: "
                               f"launches {counts}, want {want}")
         check(not any(read_routes().values()),
@@ -1399,14 +1426,25 @@ def route_counters():
 
 
 def reset_counts():
+    from d3d_tpu_torch.ops import nms_cuda
+
     for fn in counters():
         fn.launches = 0
+    nms_cuda.soft_nms_scan.launches_f64 = 0
     for table, key in route_counters().values():
         table[key] = 0
+    for key in nms_cuda._soft_launch.routes:
+        nms_cuda._soft_launch.routes[key] = 0
 
 
 def read_counts():
-    return {fn.__name__: fn.launches for fn in counters()}
+    """Each wrapper's launches since ``reset_counts``; K4's float64 entry
+    point as ``soft_nms_scan_f64``."""
+    from d3d_tpu_torch.ops import nms_cuda
+
+    counts = {fn.__name__: fn.launches for fn in counters()}
+    counts["soft_nms_scan_f64"] = nms_cuda.soft_nms_scan.launches_f64
+    return counts
 
 
 def read_routes():
@@ -1734,7 +1772,7 @@ def second_serving(dev, model, frames):
         f"per request: {kept}")
     want = dict(rbox_iou_matrix=4, nms_scan=4, nms_scan_blocked=0,
                 soft_nms_scan=0, subm_conv=4 * len(K5_LAYERS),
-                subm_conv_dw=0, subm_conv_rulebook=4)
+                subm_conv_dw=0, subm_conv_rulebook=4, soft_nms_scan_f64=0)
     check(counts == want, f"SECOND serving: launches {counts}, want {want}: "
                           "8 of K5, 1 of K1 and 1 of K2 per request")
     log(f"SECOND serving routes: {check_nms_routes('SECOND serving', 4)}")
@@ -1796,7 +1834,7 @@ def soft_nms_path(dev):
     log(f"soft_nms2d launches (linear + gaussian): {counts}")
     check(counts == dict(rbox_iou_matrix=2, nms_scan=0, nms_scan_blocked=0,
                          soft_nms_scan=2, subm_conv=0, subm_conv_dw=0,
-                         subm_conv_rulebook=0),
+                         subm_conv_rulebook=0, soft_nms_scan_f64=0),
           f"soft_nms2d did not run K1 and K4 once per call: {counts}")
     routes = read_routes()
     check(routes == dict(k1_matrix=2, k1_bits=0, pack=0, scan_warp=0,
@@ -1820,6 +1858,409 @@ def soft_nms_path(dev):
             f"cascade; {stats[method]['ms']:.4f} ms per call (device, "
             f"median of 20)")
     return counts, stats, (iou, init, pre)
+
+
+# ---------------------------------------------------------------------------
+# the public box and voxel API (ops/box.py, ops/voxel.py VoxelGenerator)
+# ---------------------------------------------------------------------------
+
+# OpenPCDet tools/cfgs/dataset_configs/kitti_dataset.yaml, the data
+# processor of its SECOND and PV-RCNN KITTI models: POINT_CLOUD_RANGE
+# [0, -40, -3, 70.4, 40, 1], VOXEL_SIZE [0.05, 0.05, 0.1] (a 1408 x 1600 x
+# 40 grid, 90.1M cells), MAX_POINTS_PER_VOXEL 5, MAX_NUMBER_OF_VOXELS test
+# 40000
+KITTI_VOXELS = dict(bounds=(0.0, 70.4, -40.0, 40.0, -3.0, 1.0),
+                    shape=(1408, 1600, 40), max_points=5, max_voxels=40000)
+VOXEL_CASES = (
+    ("dense mean", dict(dense=True, reduction="mean")),
+    ("sparse trim/descending", dict(max_points_filter="trim",
+                                    max_voxels_filter="descending")),
+    ("sparse farthest_sampling", dict(max_points_filter="farthest_sampling",
+                                      max_voxels_filter="trim")),
+)
+IOU_METHODS = ("box", "rbox", "grbox", "drbox")
+NMS_CASES = (("hard", 0.0),) + SOFT_NMS_CASES
+NMS_SIZES = (512, 4096)  # the north star's; OpenPCDet's NMS_PRE_MAXSIZE
+NO_LAUNCHES = dict(rbox_iou_matrix=0, nms_scan=0, nms_scan_blocked=0,
+                   soft_nms_scan=0, subm_conv=0, subm_conv_dw=0,
+                   subm_conv_rulebook=0, soft_nms_scan_f64=0)
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def voxel_generator_path(dev):
+    """``VoxelGenerator`` on OpenPCDet's KITTI voxel configuration: dense
+    with mean reduction, sparse with trim/descending and with
+    farthest_sampling, on the bench frame (120k uniform points) and on the
+    KITTI-like frame; every output array equal to the same call with
+    ``device="cpu"`` (dense means within 8e-6, as ``check_nan_voxels``
+    states); no hand kernel runs. Times: the whole call (host clock, numpy
+    in and out, median of 5) and the padded cores on the card (CUDA
+    events, median of 5)."""
+    from d3d_tpu_torch.ops import voxel as V
+
+    frames = {"bench 120k": bench_points(np.random.default_rng(42)),
+              "KITTI-like": kitti_like_points(500)}
+    size = torch.tensor([0.05, 0.05, 0.1], device=dev)
+    bounds = torch.tensor(KITTI_VOXELS["bounds"], device=dev)
+    stats = {}
+    reset_counts()
+    for fname, pts in frames.items():
+        tp = torch.from_numpy(pts).to(dev)
+        for cname, kw in VOXEL_CASES:
+            gen = V.VoxelGenerator(device=dev, **KITTI_VOXELS, **kw)
+            out = gen(pts)
+            ref = V.VoxelGenerator(device="cpu", **KITTI_VOXELS, **kw)(pts)
+            check(sorted(out) == sorted(ref), f"VoxelGenerator {cname}: "
+                                              f"keys {sorted(out)}")
+            for k in ref:
+                a, b = torch.from_numpy(out[k]), torch.from_numpy(ref[k])
+                check(a.dtype == b.dtype and same_with_nan(
+                    a, b, 8e-6 if k == "aggregates" else 0.0),
+                      f"VoxelGenerator {cname} {fname} {k}: card != CPU")
+            nv = len(out.coords)
+            check(0 < nv <= KITTI_VOXELS["max_voxels"]
+                  and int(out.voxel_npoints.min()) > 0,
+                  f"VoxelGenerator {cname} {fname}: {nv} voxels")
+            if not kw.get("dense"):
+                check(int(out.voxel_npoints.max()) <= 5
+                      and len(out.points) == int(out.voxel_npoints.sum()),
+                      f"VoxelGenerator {cname} {fname}: point counts")
+            wall = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                gen(pts)
+                wall.append((time.perf_counter() - t0) * 1e3)
+            if kw.get("dense"):
+                core = dict(dense_core_ms=time_each(
+                    lambda: V.voxelize_dense_padded(
+                        tp, KITTI_VOXELS["shape"], bounds, 5, 40000,
+                        "mean"), reps=5, warmup=1))
+            else:
+                sp = V.voxelize_sparse_padded(tp, size)
+                vb = torch.from_numpy(gen._vbounds).to(dev)
+                xyz = tp[:, :3] if "farthest" in cname else None
+                core = dict(
+                    sparse_core_ms=time_each(
+                        lambda: V.voxelize_sparse_padded(tp, size), reps=5,
+                        warmup=1),
+                    filter_ms=time_each(lambda: V.voxelize_filter_padded(
+                        sp.points_mapping, sp.coords, sp.voxel_npoints,
+                        sp.nvoxels, vb, 0, 5, 40000, kw["max_points_filter"],
+                        kw["max_voxels_filter"], True, points_xyz=xyz),
+                        reps=5, warmup=1))
+            stats[f"{fname}, {cname}"] = dict(
+                points=len(pts), voxels=nv,
+                kept_points=(int(out.voxel_npoints.sum()) if not
+                             kw.get("dense") else None),
+                call_ms=statistics.median(wall), **core)
+            log(f"VoxelGenerator {cname} on {fname} ({len(pts)} points): "
+                f"{nv} voxels, card equal to CPU; call "
+                f"{statistics.median(wall):.2f} ms (host clock, numpy in "
+                f"and out), cores on the card: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in core.items()))
+    counts = read_counts()
+    check(counts == NO_LAUNCHES,
+          f"VoxelGenerator launched a hand kernel: {counts}")
+    return counts, stats
+
+
+def box_iou_path(dev):
+    """``box2d_iou`` on 512 x 512 bench boxes, four methods x precise, numpy
+    in and out: float64 (precise) within 1e-12 of the CPU's largest value,
+    float32 within K1's 2e-5 (rbox is K1's matrix, one launch); then rbox
+    float32 on 4096 x 4096 (K1) against the plain version on the card, and
+    float64 beside it. Returns the counts, stats and the 4096 boxes."""
+    from d3d_tpu_torch.ops import geometry_soa
+    from d3d_tpu_torch.ops.box import box2d_iou
+
+    rng = np.random.default_rng(71)
+    b512 = bench_boxes(rng, 512)[0]
+    b4096 = bench_boxes(rng, 4096)[0]
+    stats = {}
+    total = {}
+    for method in IOU_METHODS:
+        for precise in (True, False):
+            b = b512.astype(np.float64) if precise else b512
+            reset_counts()
+            got = box2d_iou(b, b, method=method, precise=precise)
+            counts = read_counts()
+            want = box2d_iou(b, b, method=method, precise=precise,
+                             device="cpu")
+            k1 = int(method == "rbox" and not precise)
+            check(counts == dict(NO_LAUNCHES, rbox_iou_matrix=k1),
+                  f"box2d_iou {method} precise={precise}: launches "
+                  f"{counts}")
+            add_counts(total, counts)
+            check(got.dtype == want.dtype == b.dtype
+                  and got.shape == (512, 512)
+                  and np.isfinite(got).all(), f"box2d_iou {method}: output")
+            err = float(np.abs(got.astype(np.float64) - want).max())
+            tol = (1e-12 * float(np.abs(want).max()) if precise else 2e-5)
+            check(err <= tol, f"box2d_iou {method} precise={precise}: card "
+                              f"vs CPU {err} > {tol}")
+            tb = torch.from_numpy(b).to(dev)
+            ms = time_each(lambda: box2d_iou(tb, tb, method=method,
+                                             precise=precise), reps=5,
+                           warmup=1)
+            stats[f"{method}, precise={precise}"] = dict(err=err, ms=ms)
+            log(f"box2d_iou {method} precise={precise} 512x512: card vs "
+                f"CPU {err:.3g} (tolerance {tol:.3g}); {ms:.3f} ms on the "
+                f"card (CUDA events, median of 5)")
+    t4 = torch.from_numpy(b4096).to(dev)
+    reset_counts()
+    k1 = box2d_iou(t4, t4, method="rbox", precise=False)
+    counts = read_counts()
+    check(counts == dict(NO_LAUNCHES, rbox_iou_matrix=1),
+          f"box2d_iou rbox 4096: launches {counts}")
+    add_counts(total, counts)
+    plain = geometry_soa._rbox_iou_matrix_plain(t4, t4)
+    f64 = box2d_iou(t4.double(), t4.double(), method="rbox")
+    err = float((k1 - plain).abs().max())
+    err64 = float((k1.double() - f64).abs().max())
+    check(err <= 2e-5 and err64 <= 2e-5,
+          f"box2d_iou rbox 4096x4096: K1 vs plain {err}, vs float64 {err64}")
+    ms = time_each(lambda: box2d_iou(t4, t4, method="rbox", precise=False),
+                   reps=5, warmup=1)
+    ms64 = time_each(lambda: box2d_iou(t4, t4, method="rbox"), reps=2,
+                     warmup=1)
+    stats["rbox 4096x4096"] = dict(err_vs_plain=err, err_vs_f64=err64,
+                                   ms=ms, ms_precise=ms64)
+    log(f"box2d_iou rbox 4096x4096: K1 vs the plain version on the card "
+        f"{err:.3g}, vs precise {err64:.3g}; precise=False (K1) {ms:.3f} "
+        f"ms, precise=True (the row-blocked float64 torch version) "
+        f"{ms64:.1f} ms (CUDA events)")
+    return total, stats
+
+
+def clear_nms_boxes(rng, n, dev, thr, margin=1e-4):
+    """``bench_boxes`` of n, each box of a pair whose float64 IoU (rotated
+    or axis-aligned) lies within ``margin`` of ``thr`` drawn anew until
+    none does: one rounding there could flip a keep bit between the card
+    and the CPU (the ROADMAP's NMS trap)."""
+    from d3d_tpu_torch.ops import geometry, geometry_soa
+
+    boxes, scores = bench_boxes(rng, n)
+    for _ in range(10):
+        tb = torch.from_numpy(boxes).to(dev, torch.float64)
+        near = torch.zeros((n, n), dtype=torch.bool, device=dev)
+        for iou in (geometry_soa._rbox_iou_matrix_plain(tb, tb),
+                    geometry.aabox_iou(tb[:, None], tb[None])):
+            near |= (iou - thr).abs() < margin
+        bad = torch.triu(near, 1).any(0).nonzero()[:, 0].cpu().numpy()
+        if not len(bad):
+            return boxes, scores
+        boxes[bad] = bench_boxes(rng, len(bad))[0]
+    raise SmokeFailure(f"no {n} boxes clear of IoU {thr} after 10 draws")
+
+
+def cpu_nms_reference(boxes, scores, iou, sup, param):
+    """box2d_nms's keep mask by the port's CPU pipeline, on ``iou``, the
+    boxes' (N, N) IoU matrix in input order computed once on the CPU:
+    hard, the plain scan on the rows in stable score order; soft, the
+    plain cascade."""
+    from d3d_tpu_torch.ops import nms_cuda
+    from d3d_tpu_torch.ops.nms import _soft_nms_init
+
+    args = SOFT_NMS_ARGS
+    if sup == "hard":
+        neg, order = torch.sort(-scores, stable=True)
+        overlap = iou[order][:, order] > args["iou_threshold"]
+        out = torch.empty(len(scores), dtype=torch.bool)
+        out[order] = nms_cuda._nms_scan_plain(
+            overlap, nms_cuda._pre_suppression(-neg,
+                                               args["score_threshold"]))
+        return ~out
+    pre, init = _soft_nms_init(scores, args["score_threshold"])
+    return ~nms_cuda._soft_nms_scan_plain(
+        iou, init, pre, args["iou_threshold"], args["score_threshold"],
+        param, sup)
+
+
+def box_nms_path(dev):
+    """``box2d_nms``, hard/linear/gaussian x box/rbox x precise, on n =
+    512 and 4096 boxes clear of the IoU threshold, numpy in and out; keep
+    masks equal to the CPU's: ``box2d_nms(..., device="cpu")``, and at
+    4096 rotated boxes the same CPU pipeline on one CPU IoU matrix a dtype
+    (``cpu_nms_reference``; the full calls would build six 4096^2 matrices
+    on the host). Launches read per call: K1's bit rows + the scan for
+    float32 rbox hard, the bool route (pack + scan, K2 at 512, K3 at 4096)
+    for the other hard calls, K1's matrix + K4 for float32 rbox soft, K4
+    (float32 or float64) for every soft call, and both of K4's float64
+    routes. Returns the counts, stats and K4's inputs for the timings."""
+    from d3d_tpu_torch.ops import geometry_soa, nms_cuda
+    from d3d_tpu_torch.ops.box import box2d_nms
+    from d3d_tpu_torch.ops.nms import _soft_nms_init
+
+    rng = np.random.default_rng(72)
+    thr = SOFT_NMS_ARGS["iou_threshold"]
+    total, stats, k4_inputs = {}, {}, {}
+    f64_routes = {"shared_f64": 0, "l2_f64": 0}
+    for n in NMS_SIZES:
+        boxes, scores = clear_nms_boxes(rng, n, dev, thr)
+        tb, ts = (torch.from_numpy(a).to(dev) for a in (boxes, scores))
+        cpu_iou = {}
+        if n > 512:
+            bc = torch.from_numpy(boxes)
+            cpu_iou = {p: geometry_soa._rbox_iou_matrix_plain(
+                bc.to(dt), bc.to(dt), pair_budget=1 << 18)
+                for p, dt in ((True, torch.float64),
+                              (False, torch.float32))}
+        for iou_method in ("box", "rbox"):
+            for sup, param in NMS_CASES:
+                for precise in (True, False):
+                    name = (f"n={n} {iou_method} {sup} "
+                            f"{'float64' if precise else 'float32'}")
+                    kw = dict(iou_method=iou_method, supression_method=sup,
+                              supression_param=param, precise=precise,
+                              **SOFT_NMS_ARGS)
+                    reset_counts()
+                    keep = box2d_nms(boxes, scores, **kw)
+                    torch.cuda.synchronize()
+                    counts, routes = read_counts(), read_routes()
+                    for k in f64_routes:
+                        f64_routes[k] += nms_cuda._soft_launch.routes[k]
+                    add_counts(total, counts)
+                    want = dict(NO_LAUNCHES)
+                    f32_rbox = iou_method == "rbox" and not precise
+                    if sup == "hard":
+                        want["nms_scan" if n <= 1024
+                             else "nms_scan_blocked"] = 1
+                        want["rbox_iou_matrix"] = int(f32_rbox)
+                        want_routes = dict(
+                            k1_matrix=0, k1_bits=int(f32_rbox),
+                            pack=int(not f32_rbox), scan_warp=0,
+                            scan_block=0)
+                        want_routes["scan_warp" if n <= 2048
+                                    else "scan_block"] = 1
+                    else:
+                        want["soft_nms_scan_f64" if precise
+                             else "soft_nms_scan"] = 1
+                        want["rbox_iou_matrix"] = int(f32_rbox)
+                        want_routes = dict(k1_matrix=int(f32_rbox),
+                                           k1_bits=0, pack=0, scan_warp=0,
+                                           scan_block=0)
+                    check(counts == want and routes == want_routes,
+                          f"box2d_nms {name}: launches {counts}, routes "
+                          f"{routes}; want {want}, {want_routes}")
+                    if iou_method == "rbox" and n > 512:
+                        dt = torch.float64 if precise else torch.float32
+                        ref = cpu_nms_reference(
+                            torch.from_numpy(boxes), torch.from_numpy(
+                                scores).to(dt), cpu_iou[precise], sup,
+                            param).numpy()
+                    else:
+                        ref = box2d_nms(boxes, scores, device="cpu", **kw)
+                    bad = int((keep != ref).sum())
+                    check(keep.dtype == bool and keep.shape == (n,)
+                          and bad == 0,
+                          f"box2d_nms {name}: {bad} keep bits differ from "
+                          "the CPU's")
+                    ms = time_each(lambda: box2d_nms(tb, ts, **kw), reps=3,
+                                   warmup=1)
+                    stats[name] = dict(kept=int(keep.sum()), ms=ms)
+                    log(f"box2d_nms {name}: {int(keep.sum())} of {n} kept, "
+                        f"equal to the CPU's; launches "
+                        f"{ {k: v for k, v in counts.items() if v} }; "
+                        f"{ms:.3f} ms a call on the card (CUDA events, "
+                        f"median of 3)")
+        # K4's inputs as box2d_nms builds them for rotated soft-NMS, both
+        # dtypes, for the kernels line
+        for dt in (torch.float32, torch.float64):
+            b = tb.to(dt)
+            iou = geometry_soa.rbox_iou_matrix(b, b)
+            pre, init = _soft_nms_init(ts.to(dt), SOFT_NMS_ARGS[
+                "score_threshold"])
+            k4_inputs[n, dt] = (iou, init, pre)
+    log(f"box2d_nms: K4's float64 launches by route {f64_routes}")
+    check(all(f64_routes.values()),
+          f"box2d_nms: a float64 route of K4 never ran: {f64_routes}")
+    return total, stats, k4_inputs
+
+
+def crop_path(dev):
+    """``box2dr_crop``, ``box3dp_crop``, ``box2dr_pdist`` and
+    ``box3dr_pdist`` on the bench frame's 120k points and 40 bench boxes
+    (3D: z centre -1, height 1.6 m), numpy in and out: index lists and masks
+    equal to the CPU's, distances within 1e-4 m (float32 on both)."""
+    from d3d_tpu_torch.ops import box as B
+
+    pts = bench_points(np.random.default_rng(42))
+    b2 = bench_boxes(np.random.default_rng(73), 40)[0]
+    b3 = np.concatenate([b2[:, :2], np.full((40, 1), -1.0, np.float32),
+                         b2[:, 2:4], np.full((40, 1), 1.6, np.float32),
+                         b2[:, 4:5]], 1)
+    calls = {
+        "box2dr_crop": lambda **kw: B.box2dr_crop(pts[:, :2], b2, **kw),
+        "box3dp_crop": lambda **kw: B.box3dp_crop(pts[:, :3], b3, **kw),
+        "box2dr_pdist": lambda **kw: B.box2dr_pdist(pts[:, :2], b2, **kw),
+        "box3dr_pdist": lambda **kw: B.box3dr_pdist(pts[:, :3], b3, **kw),
+    }
+    stats = {}
+    reset_counts()
+    for name, call in calls.items():
+        got, want = call(), call(device="cpu")
+        if name == "box2dr_crop":
+            check(len(got) == 40 and all(np.array_equal(g, w)
+                                         for g, w in zip(got, want)),
+                  "box2dr_crop: card != CPU")
+            val = sum(len(g) for g in got)
+        elif name == "box3dp_crop":
+            check(np.array_equal(got, want), "box3dp_crop: card != CPU")
+            val = int(got.sum())
+        else:
+            val = float(np.abs(got - want).max())
+            check(got.shape == (40, len(pts)) and val <= 1e-4,
+                  f"{name}: card vs CPU {val}")
+        wall = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            call()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        stats[name] = dict(value=val, call_ms=statistics.median(wall))
+        log(f"{name} (120k points x 40 boxes): "
+            + (f"{val} points inside, equal to the CPU's" if "crop" in name
+               else f"card vs CPU {val:.3g} m")
+            + f"; {statistics.median(wall):.2f} ms a call (host clock, "
+              "numpy in and out, median of 5)")
+    counts = read_counts()
+    check(counts == NO_LAUNCHES, f"crops launched a hand kernel: {counts}")
+    return counts, stats
+
+
+def check_k1_grad_guard(dev):
+    """K1's float32 matrix is forward-only: given boxes that require a
+    gradient while grad mode is on, the wrapper and box2d_iou(precise=False)
+    raise instead of returning a matrix with no gradient; precise=True
+    differentiates (finite gradients) and runs no kernel."""
+    from d3d_tpu_torch.ops import geometry_cuda
+    from d3d_tpu_torch.ops.box import box2d_iou
+
+    tb = torch.from_numpy(bench_boxes(np.random.default_rng(74),
+                                      64)[0]).to(dev).requires_grad_()
+    for name, call in (
+            ("rbox_iou_matrix", lambda: geometry_cuda.rbox_iou_matrix(tb,
+                                                                      tb)),
+            ("box2d_iou precise=False",
+             lambda: box2d_iou(tb, tb, method="rbox", precise=False))):
+        try:
+            call()
+        except RuntimeError as e:
+            check("forward-only" in str(e), f"K1 guard {name}: {e}")
+        else:
+            raise SmokeFailure(f"K1 guard: {name} under grad did not raise")
+    reset_counts()
+    box2d_iou(tb, tb.detach(), method="rbox").sum().backward()
+    check(bool(torch.isfinite(tb.grad).all()) and read_counts() ==
+          NO_LAUNCHES, "box2d_iou precise=True: no finite gradient")
+    with torch.no_grad():
+        check(geometry_cuda.rbox_iou_matrix(tb, tb).shape == (64, 64),
+              "K1 under no_grad")
+    log("K1 under grad: rbox_iou_matrix and box2d_iou(precise=False) raise; "
+        "precise=True gives finite gradients")
 
 
 def add_cupti(a, b):
@@ -2049,7 +2490,8 @@ def nms_times(tb, ts, thr=0.25):
 
 
 def kernel_times(dev, ns_inputs, k3_inputs, soft_inputs, soft_stats,
-                 k5_layers, train_layers, kitti_layers, kitti_train_layers):
+                 k4_api_inputs, k5_layers, train_layers, kitti_layers,
+                 kitti_train_layers):
     """Per-launch device ms of each kernel and its plain version at the
     paths' shapes, with the bounds."""
     from d3d_tpu_torch.ops import (geometry_cuda, geometry_soa, nms_cuda,
@@ -2151,6 +2593,7 @@ def kernel_times(dev, ns_inputs, k3_inputs, soft_inputs, soft_stats,
         cupti_ms_gaussian=gau["cupti_ms"], plain_ms_gaussian=gau["plain_ms"],
         steps_gaussian=gau["steps"],
         bound_ms_gaussian=k4_bound(512, gau["steps"])[0])
+    out["soft_nms_scan_f64"] = k4_f64_times(k4_api_inputs)
     for row in out.values():
         row["ms_of"] = "one launch"
 
@@ -2280,6 +2723,55 @@ def kernel_times(dev, ns_inputs, k3_inputs, soft_inputs, soft_stats,
     return out
 
 
+def k4_f64_times(k4_api_inputs):
+    """K4's float64 entry point beside its float32 one on box2d_nms's
+    rotated soft-NMS inputs (linear, p = 1) at n = 512 (float64 rows staged
+    in shared memory) and 4096 (read from L2): CUDA events over
+    back-to-back launches, CUPTI, the plain cascade on the card, and the
+    bound of this run's steps with 8-byte values."""
+    from d3d_tpu_torch.ops import nms_cuda
+
+    args = (SOFT_NMS_ARGS["iou_threshold"], SOFT_NMS_ARGS["score_threshold"],
+            1.0, "linear")
+    rows = {}
+    for n in NMS_SIZES:
+        for dt in (torch.float32, torch.float64):
+            iou, init, pre = k4_api_inputs[n, dt]
+
+            def launch():
+                return nms_cuda._soft_launch(iou, init, pre, *args)
+
+            steps = n - int(launch().sum())
+            b_ms, b_by = k4_bound(n, steps, iou.element_size())
+            rows[n, dt] = dict(
+                ms=time_launches(launch, batch=20, batches=5),
+                cupti_ms=cupti_ms(launch, ("soft_nms",)),
+                plain_ms=time_each(lambda: nms_cuda._soft_nms_scan_plain(
+                    iou, init, pre, *args), reps=1, warmup=0),
+                steps=steps, bound_ms=b_ms, bound_by=b_by)
+            r = rows[n, dt]
+            log(f"K4 {str(dt)[6:]} n={n} ({steps} steps): {r['ms']:.4f} ms "
+                f"a launch (CUDA events; CUPTI {fmt_ms(r['cupti_ms'])}), "
+                f"plain {r['plain_ms']:.1f} ms, bound {b_ms:.6f} ms "
+                f"({b_by})")
+    f64, f32 = torch.float64, torch.float32
+    small, big = (rows[n, f64] for n in NMS_SIZES)
+    return dict(
+        ms=small["ms"], plain_ms=small["plain_ms"],
+        bound_ms=small["bound_ms"], bound_by=small["bound_by"],
+        cupti_ms=small["cupti_ms"], steps=small["steps"], library_ms=None,
+        library="none computes soft-NMS",
+        shape=f"n={NMS_SIZES[0]} float64 (box2d_nms rbox linear, "
+              "precise=True; rows staged in shared memory)",
+        ms_f32=rows[NMS_SIZES[0], f32]["ms"],
+        cupti_ms_f32=rows[NMS_SIZES[0], f32]["cupti_ms"],
+        ms_big=big["ms"], cupti_ms_big=big["cupti_ms"],
+        plain_ms_big=big["plain_ms"], bound_ms_big=big["bound_ms"],
+        steps_big=big["steps"], ms_f32_big=rows[NMS_SIZES[1], f32]["ms"],
+        cupti_ms_f32_big=rows[NMS_SIZES[1], f32]["cupti_ms"],
+        shape_big=f"n={NMS_SIZES[1]} float64 (rows read from L2)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
@@ -2340,6 +2832,14 @@ def main():
     k3_counts, tb2048, ts2048 = k3_path(dev)
     second_counts, second_stats = second_serving(dev, second, second_frames)
     soft_counts, soft_stats, soft_inputs = soft_nms_path(dev)
+    check_k1_grad_guard(dev)
+    vox_counts, vox_stats = voxel_generator_path(dev)
+    iou_counts, iou_stats = box_iou_path(dev)
+    nms_counts, nms_stats, k4_api_inputs = box_nms_path(dev)
+    crop_counts, crop_stats = crop_path(dev)
+    api_counts = {}
+    for c in (vox_counts, iou_counts, nms_counts, crop_counts):
+        add_counts(api_counts, c)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     train_counts, train_stats = {}, {}
@@ -2350,15 +2850,16 @@ def main():
     train_stats["card_vs_cpu_grad_err"] = train_card_vs_cpu(dev, state,
                                                             batch)
     times = kernel_times(dev, ns_inputs, (tb2048, ts2048), soft_inputs,
-                         soft_stats, k5_layers, train_layers, kitti_layers,
-                         kitti_train_layers)
+                         soft_stats, k4_api_inputs, k5_layers, train_layers,
+                         kitti_layers, kitti_train_layers)
 
     by_path = {name: {"serving": serve_counts[name],
                       "north_star": ns_counts[name],
                       "nms2d_2048": k3_counts[name],
                       "second_serving": second_counts[name],
                       "soft_nms": soft_counts[name],
-                      "second_training": train_counts[name]}
+                      "second_training": train_counts[name],
+                      "box_api": api_counts[name]}
                for name in serve_counts}
     meta = {
         "rbox_iou_matrix": ("cuda", "d3d_tpu_torch/csrc/rbox_iou.cu",
@@ -2371,6 +2872,9 @@ def main():
                              float(scan_err["nms_scan_blocked"])),
         "soft_nms_scan": ("cuda", "d3d_tpu_torch/csrc/soft_nms.cu",
                           "d3d_tpu/ops/nms_pallas.py:222", float(k4_err)),
+        "soft_nms_scan_f64": ("cuda", "d3d_tpu_torch/csrc/soft_nms.cu",
+                              "d3d_tpu/ops/nms_pallas.py:222",
+                              float(k4_err)),
         "subm_conv": ("cuda", "d3d_tpu_torch/csrc/subm_conv.cu",
                       "d3d_tpu/ops/sparse_conv_pallas.py:118",
                       k5_err["float32"]),
@@ -2403,6 +2907,7 @@ def main():
         rows[name]["launches_by_route_in_checks"] = scan_routes
     rows["subm_conv_rulebook"]["builds_by_route_in_checks"] = rb_routes
     rows["soft_nms_scan"]["launches_by_route_in_checks"] = k4_routes
+    rows["soft_nms_scan_f64"]["launches_by_route_in_checks"] = k4_routes
     rows["subm_conv"].update(
         max_abs_err_bf16=k5_err["bfloat16"], layer_shapes=k5_shapes,
         max_abs_err_backward=k5_bwd_err,
@@ -2418,7 +2923,11 @@ def main():
     log(json.dumps({"paths": {"serving": serve, "north_star": ns,
                               "second_serving": second_stats,
                               "soft_nms": soft_stats,
-                              "second_training": train_stats},
+                              "second_training": train_stats,
+                              "box_api": {"VoxelGenerator": vox_stats,
+                                          "box2d_iou": iou_stats,
+                                          "box2d_nms": nms_stats,
+                                          "crops": crop_stats}},
                     "card": card}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

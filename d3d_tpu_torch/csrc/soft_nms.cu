@@ -57,6 +57,16 @@
 // --use_fast_math; the decay is the Pallas body's expression, with
 // expf/logf and the IEEE division of PyTorch's CUDA kernels, so on the card
 // the masks equal the plain version's bit for bit.
+//
+// Float64 (d3d_soft_nms_scan_f64): the same two passes on double IoU and
+// scores, with the decay in double (exp/log, the plain version's
+// operation order and 1e-38 floor). The score key is 64 bits wide and
+// `redux.sync` has none, so a warp's pick is three reductions: the largest
+// high word, the largest low word among the lanes holding it, then the
+// least index holding both; the warp stays converged. Doubles take twice
+// the bytes, so the rows are staged in shared memory up to kStagedMaxNF64
+// boxes (nms_cuda.py `_SOFT_STAGED_MAX_N_F64`); from there to 1024 boxes
+// one warp reads them from L2.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -71,33 +81,40 @@ constexpr int kMaxN = 8192;
 // the most boxes whose rows pass 2 stages in shared memory (nms_cuda.py
 // `_SOFT_STAGED_MAX_N`): one warp, up to 32 boxes a lane
 constexpr int kStagedMaxN = 1024;
+// the same for float64 (nms_cuda.py `_SOFT_STAGED_MAX_N_F64`): at 1024
+// boxes the double decay factors and scores would not fit in 227 KB
+constexpr int kStagedMaxNF64 = 512;
 constexpr int kListLen = 8;         // decay factors kept a row
 constexpr int kRowThreads = 256;    // pass 1: 8 rows a block
 constexpr int kBlockThreads = 256;  // pass 2: all stage, NW warps cascade
 constexpr int kMaxDevices = 64;
 
 // the scratch, in int32 words (nms_cuda.py `_soft_scratch_words`): the
-// decay factors (n, kListLen) f32, the marks (n, words) u32, then the
+// decay factors (n, kListLen) of T, the marks (n, words) u32, then the
 // marks before each word (n, words) u8
+template <typename T>
 __host__ __device__ constexpr size_t decs_words(int n) {
-  return static_cast<size_t>(n) * kListLen;
+  return static_cast<size_t>(n) * kListLen * (sizeof(T) / 4);
 }
 __host__ __device__ constexpr size_t marks_words(int n) {
   return static_cast<size_t>(n) * ((n + 31) / 32);
 }
+template <typename T>
 __host__ __device__ constexpr size_t scratch_words(int n) {
-  return decs_words(n) + marks_words(n) + (marks_words(n) + 3) / 4;
+  return decs_words<T>(n) + marks_words(n) + (marks_words(n) + 3) / 4;
 }
 
+template <typename T>
 struct Rows {
-  const float* decs;
+  const T* decs;
   const uint32_t* marks;
   const uint8_t* before;
 };
 
-__device__ __forceinline__ Rows rows_at(const uint32_t* base, int n) {
-  return {reinterpret_cast<const float*>(base), base + decs_words(n),
-          reinterpret_cast<const uint8_t*>(base + decs_words(n) +
+template <typename T>
+__device__ __forceinline__ Rows<T> rows_at(const uint32_t* base, int n) {
+  return {reinterpret_cast<const T*>(base), base + decs_words<T>(n),
+          reinterpret_cast<const uint8_t*>(base + decs_words<T>(n) +
                                            marks_words(n))};
 }
 
@@ -110,24 +127,31 @@ __device__ __forceinline__ float decay_of(float r, float param) {
 }
 
 template <bool GAUSSIAN>
+__device__ __forceinline__ double decay_of(double r, double param) {
+  if (GAUSSIAN) return exp(-(r * r) / param);
+  const double pw = param == 0.0 ? 1.0 : exp(param * log(fmax(r, 1e-38)));
+  return 1.0 - pw;
+}
+
+template <typename T, bool GAUSSIAN>
 __global__ void __launch_bounds__(kRowThreads)
-    soft_nms_rows_kernel(const float* __restrict__ iou,
+    soft_nms_rows_kernel(const T* __restrict__ iou,
                          uint32_t* __restrict__ scratch, int n, int words,
-                         float iou_t, float param) {
+                         T iou_t, T param) {
   const int row = blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= n) return;  // the whole warp
-  float* decs = reinterpret_cast<float*>(scratch);
-  uint32_t* marks = scratch + decs_words(n);
-  uint8_t* before =
-      reinterpret_cast<uint8_t*>(scratch + decs_words(n) + marks_words(n));
-  const float* r = iou + static_cast<size_t>(row) * n;
+  T* decs = reinterpret_cast<T*>(scratch);
+  uint32_t* marks = scratch + decs_words<T>(n);
+  uint8_t* before = reinterpret_cast<uint8_t*>(scratch + decs_words<T>(n) +
+                                               marks_words(n));
+  const T* r = iou + static_cast<size_t>(row) * n;
   const size_t w0 = static_cast<size_t>(row) * words;
   int cnt = 0;
 #pragma unroll 4
   for (int w = 0; w < words; ++w) {
     const int j = w * 32 + lane;
-    const float v = j < n ? r[j] : 0.f;
+    const T v = j < n ? r[j] : T(0);
     const bool mark = j < n && j != row && v > iou_t;
     const unsigned bits = __ballot_sync(0xffffffffu, mark);
     if (lane == 0) {
@@ -142,18 +166,58 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
-// a NaN score's key: above every other, because the Pallas body's max over
-// the available scores is NaN as soon as one of them is, and then its `==`
-// matches no box and the pick is n - 1
-constexpr unsigned kNanKey = 0xffffffffu;
+// a score's order key: an unsigned integer as wide as the score. 0 is no
+// box; a NaN score's key, all ones, lies above every other, because the
+// Pallas body's max over the available scores is NaN as soon as one of
+// them is, and then its `==` matches no box and the pick is n - 1
+template <typename T>
+struct KeyOf;
+template <>
+struct KeyOf<float> {
+  using type = unsigned;
+};
+template <>
+struct KeyOf<double> {
+  using type = unsigned long long;
+};
 
-// an order-preserving unsigned key of a score, above 0 (no box) and below
-// kNanKey (a NaN); -0 and +0 tie, as they compare equal
+// an order-preserving key of a score, above 0 (no box) and below the NaN
+// key; -0 and +0 tie, as they compare equal
 __device__ __forceinline__ unsigned score_key(float v) {
-  if (v != v) return kNanKey;
+  if (v != v) return 0xffffffffu;
   if (v == 0.f) v = 0.f;
   const unsigned u = __float_as_uint(v);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ unsigned long long score_key(double v) {
+  constexpr unsigned long long kSign = 1ull << 63;
+  if (v != v) return ~0ull;
+  if (v == 0.0) v = 0.0;
+  const unsigned long long u =
+      static_cast<unsigned long long>(__double_as_longlong(v));
+  return (u & kSign) ? ~u : (u | kSign);
+}
+
+// the warp's largest key and the least index holding it: a key of 32 bits
+// is one `redux.sync` a step
+__device__ __forceinline__ void warp_pick(unsigned k, int i, unsigned& key,
+                                          int& idx) {
+  key = __reduce_max_sync(0xffffffffu, k);
+  idx = __reduce_min_sync(0xffffffffu, k == key ? i : INT_MAX);
+}
+
+// a key of 64 bits, which `redux.sync` has no form for: the largest high
+// word, then the largest low word among the lanes that hold it (the other
+// lanes give 0, below or equal to any of theirs), then the least index
+__device__ __forceinline__ void warp_pick(unsigned long long k, int i,
+                                          unsigned long long& key, int& idx) {
+  const unsigned hi = static_cast<unsigned>(k >> 32);
+  const unsigned top = __reduce_max_sync(0xffffffffu, hi);
+  const unsigned lo = __reduce_max_sync(
+      0xffffffffu, hi == top ? static_cast<unsigned>(k) : 0u);
+  key = (static_cast<unsigned long long>(top) << 32) | lo;
+  idx = __reduce_min_sync(0xffffffffu, k == key ? i : INT_MAX);
 }
 
 // a lane's C boxes in groups of kGroup keys: the best of each group is
@@ -167,21 +231,20 @@ struct Groups {
 // the best (key, slot) of each group in `dirty` anew (usually one group:
 // kGroup loads and selects, no branch), then of the lane: the largest key,
 // and of equal keys the lowest slot (the least index)
-template <int C, int LANES>
-__device__ __forceinline__ void best_of(uint32_t avail, const unsigned* s_kk,
-                                        int g, int j0, uint32_t dirty,
-                                        unsigned* gk, int* gs, unsigned& bk,
-                                        int& bi) {
+template <int C, int LANES, typename K>
+__device__ __forceinline__ void best_of(uint32_t avail, const K* s_kk, int g,
+                                        int j0, uint32_t dirty, K* gk,
+                                        int* gs, K& bk, int& bi) {
   constexpr int kGroup = Groups<C>::kGroup, kGroups = Groups<C>::kCount;
   while (dirty) {
     const int q = __ffs(dirty) - 1;
     dirty &= dirty - 1u;
-    unsigned best = 0u;
+    K best = 0u;
     int slot = 0;
 #pragma unroll
     for (int e = 0; e < kGroup; ++e) {
       const int k = q * kGroup + e;
-      const unsigned key = ((avail >> k) & 1u) ? s_kk[k * LANES + g] : 0u;
+      const K key = ((avail >> k) & 1u) ? s_kk[k * LANES + g] : K(0);
       const bool better = key > best;
       best = better ? key : best;
       slot = better ? k : slot;
@@ -203,44 +266,53 @@ __device__ __forceinline__ void best_of(uint32_t avail, const unsigned* s_kk,
   if (bk == 0u) bi = INT_MAX;
 }
 
+// the words pass 2 stages in shared memory ahead of its state, rounded up
+// to 16 bytes (the state's doubles stay aligned)
+template <typename T, bool STAGED>
+__host__ __device__ constexpr size_t staged_words(int n) {
+  return STAGED ? (scratch_words<T>(n) + 3) / 4 * 4 : 0;
+}
+
 __device__ __forceinline__ void cascade_barrier(int threads) {
   // barrier 1 (0 is __syncthreads), counted in threads; not .aligned,
   // so lanes that skipped a step's update may arrive apart
   asm volatile("barrier.sync 1, %0;" ::"r"(threads) : "memory");
 }
 
-template <int C, int NW, bool GAUSSIAN>
+template <typename T, int C, int NW, bool STAGED, bool GAUSSIAN>
 __global__ void __launch_bounds__(kBlockThreads)
-    soft_nms_cascade_kernel(const float* __restrict__ iou,
-                            const float* __restrict__ scores0,
+    soft_nms_cascade_kernel(const T* __restrict__ iou,
+                            const T* __restrict__ scores0,
                             const uint8_t* __restrict__ pre,
                             const uint32_t* __restrict__ scratch,
                             uint8_t* __restrict__ suppressed, int n,
-                            int words, float score_t, float param) {
+                            int words, T score_t, T param) {
+  using K = typename KeyOf<T>::type;
+  constexpr K kNanKey = ~K(0);
   constexpr int kLanes = 32 * NW;
-  constexpr bool kStaged = NW == 1;
   constexpr int kGroup = Groups<C>::kGroup, kGroups = Groups<C>::kCount;
   extern __shared__ __align__(16) uint32_t smem[];
-  const size_t staged = kStaged ? scratch_words(n) : 0;
-  float* s_sc = reinterpret_cast<float*>(smem + staged);  // [C][kLanes]
-  unsigned* s_kk = smem + staged + C * kLanes;  // their keys, [C][kLanes]
-  __shared__ unsigned s_key[2][NW];
+  const size_t staged = staged_words<T, STAGED>(n);
+  T* s_sc = reinterpret_cast<T*>(smem + staged);  // [C][kLanes]
+  K* s_kk = reinterpret_cast<K*>(s_sc + C * kLanes);  // their keys
+  __shared__ K s_key[2][NW];
   __shared__ int s_idx[2][NW];
   const int tid = threadIdx.x;
   for (int e = tid; e < C * kLanes; e += kBlockThreads) {
     const int j = (e % kLanes) * C + e / kLanes;
-    s_sc[e] = j < n ? scores0[j] : 0.f;
+    s_sc[e] = j < n ? scores0[j] : T(0);
     s_kk[e] = score_key(s_sc[e]);
   }
-  Rows rows = rows_at(scratch, n);
-  if constexpr (kStaged) {  // 16 bytes a load, then the odd words
-    const size_t quads = staged / 4;
+  Rows<T> rows = rows_at<T>(scratch, n);
+  if constexpr (STAGED) {  // 16 bytes a load, then the odd words
+    const size_t words_in = scratch_words<T>(n);
+    const size_t quads = words_in / 4;
     const uint4* src = reinterpret_cast<const uint4*>(scratch);
     uint4* dst = reinterpret_cast<uint4*>(smem);
     for (size_t e = tid; e < quads; e += kBlockThreads) dst[e] = src[e];
-    for (size_t e = quads * 4 + tid; e < staged; e += kBlockThreads)
+    for (size_t e = quads * 4 + tid; e < words_in; e += kBlockThreads)
       smem[e] = scratch[e];
-    rows = rows_at(smem, n);
+    rows = rows_at<T>(smem, n);
   }
   __syncthreads();
   if (tid >= kLanes) return;
@@ -258,16 +330,17 @@ __global__ void __launch_bounds__(kBlockThreads)
     }
   }
   // the best (key, slot) of each group of kGroup boxes, and the lane's
-  unsigned gk[kGroups] = {};
+  K gk[kGroups] = {};
   int gs[kGroups] = {};
-  unsigned bk;
+  K bk;
   int bi;
   best_of<C, kLanes>(avail, s_kk, g, j0, (1u << kGroups) - 1u, gk, gs, bk,
                      bi);
 
   for (int step = 0; step < n; ++step) {
-    unsigned key = __reduce_max_sync(0xffffffffu, bk);
-    int idx = __reduce_min_sync(0xffffffffu, bk == key ? bi : INT_MAX);
+    K key;
+    int idx;
+    warp_pick(bk, bi, key, idx);
     if (NW > 1) {
       const int par = step & 1;
       if (lane == 0) {
@@ -275,10 +348,9 @@ __global__ void __launch_bounds__(kBlockThreads)
         s_idx[par][warp] = idx;
       }
       cascade_barrier(kLanes);
-      const unsigned wk = lane < NW ? s_key[par][lane] : 0u;
+      const K wk = lane < NW ? s_key[par][lane] : K(0);
       const int wi = lane < NW ? s_idx[par][lane] : INT_MAX;
-      key = __reduce_max_sync(0xffffffffu, wk);
-      idx = __reduce_min_sync(0xffffffffu, wk == key ? wi : INT_MAX);
+      warp_pick(wk, wi, key, idx);
     }
     if (key == 0u) break;  // nothing available: nothing changes
     // a NaN score available: the Pallas body's pick, n - 1
@@ -301,13 +373,13 @@ __global__ void __launch_bounds__(kBlockThreads)
           const int k = __ffs(hit) - 1;
           hit &= hit - 1u;
           const int rank = before + __popc(w & ((1u << (bit0 + k)) - 1u));
-          const float dec =
+          const T dec =
               rank < kListLen
                   ? rows.decs[static_cast<size_t>(pick) * kListLen + rank]
                   : decay_of<GAUSSIAN>(
                         iou[static_cast<size_t>(pick) * n + j0 + k], param);
-          const float nsc = s_sc[k * kLanes + g] * dec;
-          const unsigned nk = score_key(nsc);
+          const T nsc = s_sc[k * kLanes + g] * dec;
+          const K nk = score_key(nsc);
           s_sc[k * kLanes + g] = nsc;
           s_kk[k * kLanes + g] = nk;
           if (nsc < score_t) {
@@ -348,14 +420,15 @@ cudaError_t allow_smem(Kernel* kernel, size_t smem,
   return err;
 }
 
-template <int C, int NW, bool GAUSSIAN>
-cudaError_t cascade(const float* iou, const float* scores0, const uint8_t* pre,
+template <typename T, int C, int NW, bool STAGED, bool GAUSSIAN>
+cudaError_t cascade(const T* iou, const T* scores0, const uint8_t* pre,
                     const uint32_t* scratch, uint8_t* suppressed, int n,
-                    int words, float score_t, float param, cudaStream_t s) {
+                    int words, T score_t, T param, cudaStream_t s) {
   static std::atomic<int> granted[kMaxDevices];
-  auto* kernel = soft_nms_cascade_kernel<C, NW, GAUSSIAN>;
-  const size_t smem = sizeof(uint32_t) *
-                      ((NW == 1 ? scratch_words(n) : 0) + 2 * C * 32 * NW);
+  auto* kernel = soft_nms_cascade_kernel<T, C, NW, STAGED, GAUSSIAN>;
+  const size_t smem =
+      sizeof(uint32_t) * staged_words<T, STAGED>(n) +
+      (sizeof(T) + sizeof(typename KeyOf<T>::type)) * C * 32 * NW;
   const cudaError_t err = allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return err;
   kernel<<<1, kBlockThreads, smem, s>>>(iou, scores0, pre, scratch,
@@ -363,30 +436,51 @@ cudaError_t cascade(const float* iou, const float* scores0, const uint8_t* pre,
   return cudaGetLastError();
 }
 
-template <bool GAUSSIAN>
-int launch(const float* iou, const float* scores0, const uint8_t* pre,
-           uint8_t* suppressed, uint32_t* scratch, int n, float iou_t,
-           float score_t, float param, cudaStream_t s) {
+template <typename T, bool GAUSSIAN>
+int launch(const T* iou, const T* scores0, const uint8_t* pre,
+           uint8_t* suppressed, uint32_t* scratch, int n, T iou_t, T score_t,
+           T param, cudaStream_t s) {
   const int words = (n + 31) / 32;
   constexpr int kRows = kRowThreads / 32;
-  soft_nms_rows_kernel<GAUSSIAN><<<(n + kRows - 1) / kRows, kRowThreads, 0,
-                                   s>>>(iou, scratch, n, words, iou_t, param);
+  soft_nms_rows_kernel<T, GAUSSIAN><<<(n + kRows - 1) / kRows, kRowThreads,
+                                      0, s>>>(iou, scratch, n, words, iou_t,
+                                              param);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-#define D3D_CASCADE(C, NW)                                                   \
-  err = cascade<C, NW, GAUSSIAN>(iou, scores0, pre, scratch, suppressed, n, \
-                                 words, score_t, param, s)
-  if (n <= 32) D3D_CASCADE(1, 1);
-  else if (n <= 64) D3D_CASCADE(2, 1);
-  else if (n <= 128) D3D_CASCADE(4, 1);
-  else if (n <= 256) D3D_CASCADE(8, 1);
-  else if (n <= 512) D3D_CASCADE(16, 1);
-  else if (n <= kStagedMaxN) D3D_CASCADE(32, 1);
-  else if (n <= 2048) D3D_CASCADE(32, 2);
-  else if (n <= 4096) D3D_CASCADE(32, 4);
-  else D3D_CASCADE(32, 8);
+  // one warp stages the rows up to kStaged boxes; float64 reads those past
+  // kStagedMaxNF64 from L2 with the same warp
+  constexpr int kStaged =
+      sizeof(T) == sizeof(float) ? kStagedMaxN : kStagedMaxNF64;
+#define D3D_CASCADE(C, NW, STAGED)                                        \
+  err = cascade<T, C, NW, STAGED, GAUSSIAN>(iou, scores0, pre, scratch,   \
+                                            suppressed, n, words, score_t, \
+                                            param, s)
+  if (n <= 32) D3D_CASCADE(1, 1, true);
+  else if (n <= 64) D3D_CASCADE(2, 1, true);
+  else if (n <= 128) D3D_CASCADE(4, 1, true);
+  else if (n <= 256) D3D_CASCADE(8, 1, true);
+  else if (n <= 512) D3D_CASCADE(16, 1, true);
+  else if (n <= kStaged) D3D_CASCADE(32, 1, true);
+  else if (n <= kStagedMaxN) D3D_CASCADE(32, 1, false);
+  else if (n <= 2048) D3D_CASCADE(32, 2, false);
+  else if (n <= 4096) D3D_CASCADE(32, 4, false);
+  else D3D_CASCADE(32, 8, false);
 #undef D3D_CASCADE
   return static_cast<int>(err);
+}
+
+template <typename T>
+int scan(const T* iou, const T* scores0, const uint8_t* pre,
+         uint8_t* suppressed, uint32_t* scratch, int scratch_words_given,
+         int n, T iou_t, T score_t, T param, int method, void* stream) {
+  if (n <= 0 || n > kMaxN || (method != 0 && method != 1) ||
+      static_cast<size_t>(scratch_words_given) < scratch_words<T>(n))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return method ? launch<T, true>(iou, scores0, pre, suppressed, scratch, n,
+                                  iou_t, score_t, param, s)
+                : launch<T, false>(iou, scores0, pre, suppressed, scratch, n,
+                                   iou_t, score_t, param, s);
 }
 
 }  // namespace
@@ -401,12 +495,20 @@ extern "C" int d3d_soft_nms_scan(const float* iou, const float* scores0,
                                  uint32_t* scratch, int scratch_words_given,
                                  int n, float iou_t, float score_t,
                                  float param, int method, void* stream) {
-  if (n <= 0 || n > kMaxN || (method != 0 && method != 1) ||
-      static_cast<size_t>(scratch_words_given) < scratch_words(n))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return method ? launch<true>(iou, scores0, pre, suppressed, scratch, n,
-                               iou_t, score_t, param, s)
-                : launch<false>(iou, scores0, pre, suppressed, scratch, n,
-                                iou_t, score_t, param, s);
+  return scan<float>(iou, scores0, pre, suppressed, scratch,
+                     scratch_words_given, n, iou_t, score_t, param, method,
+                     stream);
+}
+
+// the same for float64 iou and scores0, the thresholds and parameter in
+// double; scratch of at least `_soft_scratch_words(n, 8)` int32
+extern "C" int d3d_soft_nms_scan_f64(const double* iou, const double* scores0,
+                                     const uint8_t* pre, uint8_t* suppressed,
+                                     uint32_t* scratch,
+                                     int scratch_words_given, int n,
+                                     double iou_t, double score_t,
+                                     double param, int method, void* stream) {
+  return scan<double>(iou, scores0, pre, suppressed, scratch,
+                      scratch_words_given, n, iou_t, score_t, param, method,
+                      stream);
 }

@@ -29,6 +29,7 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 # library -> (source, extra nvcc flags, {C function: argtypes}); every C
 # function returns an int: a launch's cudaGetLastError(), or the answer of a
@@ -45,7 +46,9 @@ _LIBRARIES = {
     # -fmad=false: see the note on rounding at the top of soft_nms.cu
     "soft_nms": ("soft_nms.cu", ["-fmad=false"],
                  {"d3d_soft_nms_scan": [_P, _P, _P, _P, _P, _I, _I, _F, _F,
-                                        _F, _I, _P]}),
+                                        _F, _I, _P],
+                  "d3d_soft_nms_scan_f64": [_P, _P, _P, _P, _P, _I, _I, _D,
+                                            _D, _D, _I, _P]}),
     "subm_conv": ("subm_conv.cu", [],
                   {"d3d_subm_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _I, _I, _I, _I, _P],

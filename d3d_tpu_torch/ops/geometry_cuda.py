@@ -75,12 +75,25 @@ def _reject_plain(b1, b2):
             & (slack * torch.minimum(aemin, bemin) > 2.0 * ceps))
 
 
+def _forward_only(b1, b2):
+    """K1 has no backward: raise rather than hand back a matrix that
+    autograd would treat as a constant (a silent zero gradient)."""
+    if torch.is_grad_enabled() and (b1.requires_grad or b2.requires_grad):
+        raise RuntimeError(
+            "rbox_iou_matrix (kernel K1) is forward-only and gives no "
+            "gradient; for a differentiable IoU use box2d_iou(..., "
+            "precise=True) or geometry_soa.rbox_iou elementwise, or call it "
+            "under torch.no_grad() on detached boxes")
+
+
 def rbox_iou_matrix(b1, b2):
-    """(N, 5) x (M, 5) xywhr -> (N, M) float32 IoU (forward-only).
+    """(N, 5) x (M, 5) xywhr -> (N, M) float32 IoU (forward-only: boxes
+    that require a gradient raise while grad mode is on).
 
     Inputs are cast to float32 like the Pallas version's. CPU tensors take
     the plain version; CUDA tensors launch K1 (counted in
     ``rbox_iou_matrix.launches``)."""
+    _forward_only(b1, b2)
     b1 = b1.to(torch.float32)
     b2 = b2.to(torch.float32)
     if b1.ndim != 2 or b2.ndim != 2 or b1.shape[1] != 5 or b2.shape[1] != 5:

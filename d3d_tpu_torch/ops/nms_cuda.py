@@ -8,7 +8,8 @@ JAX package's bool (N, N) matrix and pack it on the card first; ``nms2d``
 hands the scan the bit rows K1 writes (:func:`_nms_scan_sorted`), with the
 pre-suppression computed in the kernel from the sorted scores and the mask
 written back in input order. Each launch counts under K2 or K3 by N.
-``soft_nms_scan`` (K4) runs the soft-NMS pick/decay cascade. A CPU tensor
+``soft_nms_scan`` (K4) runs the soft-NMS pick/decay cascade, in float32 or
+float64 (one kernel source, a C entry point each). A CPU tensor
 goes to the plain version (:func:`_nms_scan_plain`,
 :func:`_nms_scan_sorted_plain`, :func:`_soft_nms_scan_plain`); a CUDA
 tensor goes to the kernel or the call raises.
@@ -33,16 +34,20 @@ _SOFT_METHODS = {"linear": 0, "gaussian": 1}
 # up to this many boxes K4 stages its rows in shared memory (one warp);
 # above it, it reads them from L2 (csrc/soft_nms.cu kStagedMaxN)
 _SOFT_STAGED_MAX_N = 1024
+# the same for float64, whose decay factors and scores take twice the bytes
+# (csrc/soft_nms.cu kStagedMaxNF64)
+_SOFT_STAGED_MAX_N_F64 = 512
 # the decay factors K4 keeps a row (csrc/soft_nms.cu kListLen)
 _SOFT_LIST_LEN = 8
 
 
-def _soft_scratch_words(n):
+def _soft_scratch_words(n, itemsize=4):
     """K4's scratch in int32 words: per row, ``_SOFT_LIST_LEN`` decay
-    factors (f32), ceil(n / 32) words of overlap marks and as many bytes of
-    marks before each word."""
+    factors (of ``itemsize`` bytes: 4 for float32, 8 for float64),
+    ceil(n / 32) words of overlap marks and as many bytes of marks before
+    each word."""
     marks = n * ((n + 31) // 32)
-    return n * _SOFT_LIST_LEN + marks + (marks + 3) // 4
+    return n * _SOFT_LIST_LEN * (itemsize // 4) + marks + (marks + 3) // 4
 
 
 def _nms_scan_plain(overlap, pre):
@@ -260,20 +265,20 @@ def soft_nms_scan(iou, scores0, pre, iou_threshold, score_threshold, param,
     """Soft-NMS cascade (K4): (N, N) IoU in input order, (N,) starting
     scores (pre-suppressed boxes at -inf), (N,) bool pre-suppression ->
     (N,) bool suppressed. ``method`` is "linear" or "gaussian". IoU and
-    scores share float32 (K4 on CUDA takes at most 8192 boxes), or float64
-    on the CPU."""
+    scores share float32 or float64 (K4 on CUDA takes at most 8192
+    boxes; its launches count in ``soft_nms_scan.launches`` and
+    ``soft_nms_scan.launches_f64``)."""
     n = iou.shape[0]
     if iou.shape != (n, n) or scores0.shape != (n,) or pre.shape != (n,):
         raise ValueError(f"expected (N, N) iou, (N,) scores0 and (N,) pre, "
                          f"got {tuple(iou.shape)}, {tuple(scores0.shape)}, "
                          f"{tuple(pre.shape)}")
-    dtypes = (torch.float32,) if iou.is_cuda else (torch.float32,
-                                                   torch.float64)
+    dtypes = (torch.float32, torch.float64)
     if (iou.dtype not in dtypes or scores0.dtype != iou.dtype
             or pre.dtype != torch.bool):
-        raise ValueError(f"iou and scores0 must share one of {dtypes} on "
-                         f"{iou.device.type}, pre bool; got {iou.dtype}, "
-                         f"{scores0.dtype}, {pre.dtype}")
+        raise ValueError(f"iou and scores0 must share one of {dtypes}, "
+                         f"pre bool; got {iou.dtype}, {scores0.dtype}, "
+                         f"{pre.dtype}")
     if method not in _SOFT_METHODS:
         raise ValueError(f"unknown soft-NMS method {method!r}")
     if len({iou.device, scores0.device, pre.device}) != 1:
@@ -287,7 +292,10 @@ def soft_nms_scan(iou, scores0, pre, iou_threshold, score_threshold, param,
         return pre.clone()
     out = _soft_launch(iou, scores0, pre, iou_threshold, score_threshold,
                        param, method)
-    soft_nms_scan.launches += 1
+    if iou.dtype == torch.float64:
+        soft_nms_scan.launches_f64 += 1
+    else:
+        soft_nms_scan.launches += 1
     return out
 
 
@@ -297,24 +305,31 @@ def _soft_launch(iou, scores0, pre, iou_threshold, score_threshold, param,
     n = iou.shape[0]
     if n > _SOFT_MAX_N:
         raise ValueError(f"soft-NMS kernel takes at most {_SOFT_MAX_N} boxes")
+    f64 = iou.dtype == torch.float64
     out = torch.empty(n, dtype=torch.bool, device=iou.device)
-    scratch = torch.empty(_soft_scratch_words(n), dtype=torch.int32,
-                          device=iou.device)
+    scratch = torch.empty(_soft_scratch_words(n, iou.element_size()),
+                          dtype=torch.int32, device=iou.device)
     iou, scores0, pre = iou.contiguous(), scores0.contiguous(), pre.contiguous()
-    err = load_library("soft_nms").d3d_soft_nms_scan(
+    lib = load_library("soft_nms")
+    err = (lib.d3d_soft_nms_scan_f64 if f64 else lib.d3d_soft_nms_scan)(
         iou.data_ptr(), scores0.data_ptr(), pre.data_ptr(), out.data_ptr(),
         scratch.data_ptr(), scratch.numel(), n, float(iou_threshold),
         float(score_threshold), float(param), _SOFT_METHODS[method],
         stream_handle(iou.device))
     if err:
         raise RuntimeError(f"soft_nms kernel launch failed: CUDA error {err}")
-    _soft_launch.routes["shared" if n <= _SOFT_STAGED_MAX_N else "l2"] += 1
+    staged = n <= (_SOFT_STAGED_MAX_N_F64 if f64 else _SOFT_STAGED_MAX_N)
+    route = ("shared" if staged else "l2") + ("_f64" if f64 else "")
+    _soft_launch.routes[route] += 1
     return out
 
 
-# K4's launches by where its cascade reads the marks (every launch, checks
-# included; ``soft_nms_scan.launches`` counts the path's)
-_soft_launch.routes = {"shared": 0, "l2": 0}
+# K4's launches by where its cascade reads the marks, float32 and float64
+# apart (every launch, checks included; ``soft_nms_scan.launches`` counts
+# the path's)
+_soft_launch.routes = {"shared": 0, "l2": 0, "shared_f64": 0, "l2_f64": 0}
 
 
+# K4's launches on a path, float32 and float64 (its second C entry point)
 soft_nms_scan.launches = 0
+soft_nms_scan.launches_f64 = 0

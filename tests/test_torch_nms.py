@@ -3,7 +3,7 @@ plain version of kernels K2/K3) against the Pallas kernels in interpret
 mode, ``nms2d`` against ``d3d_tpu.ops.nms.nms2d``, and ``soft_nms2d`` and
 the plain soft-NMS cascade (kernel K4's plain version) against
 ``d3d_tpu.ops.nms.soft_nms2d`` and ``soft_nms_scan(interpret=True)``, all
-exact."""
+exact, with rotated and axis-aligned IoU."""
 
 import numpy as np
 import pytest
@@ -11,6 +11,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from d3d_tpu.ops import geometry as G
 from d3d_tpu.ops import geometry_soa as S
 from d3d_tpu.ops import nms as N
 from d3d_tpu.ops.nms_pallas import nms_scan, nms_scan_blocked, soft_nms_scan
@@ -96,9 +97,33 @@ def test_tied_scores_keep_input_order(rng):
     np.testing.assert_array_equal(np.nonzero(~got)[0] % 3, 0)
 
 
-def test_box_method_not_ported():
-    with pytest.raises(NotImplementedError):
-        TN.nms2d(torch.zeros(2, 5), torch.zeros(2), iou_method="box")
+def _clear_of_aabox_threshold(boxes, thr, margin=1e-4):
+    """As :func:`_clear_of_threshold`, for the axis-aligned IoU."""
+    b = jnp.asarray(boxes, jnp.float64)
+    iou = np.asarray(G.aabox_iou(b[:, None], b[None]))
+    near = np.abs(iou - thr) < margin
+    np.fill_diagonal(near, False)
+    return np.delete(boxes, np.unique(np.nonzero(np.triu(near))[1]), axis=0)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_box_method_not_ported(rng, dtype):
+    """``iou_method="box"`` is ported: the axis-aligned IoU matrix of the
+    boxes in score order, thresholded into the bool route of the scan
+    (K2 up to 1024 boxes, K3 above), equal to the JAX module's mask; an
+    unknown method raises."""
+    boxes = _clear_of_aabox_threshold(_boxes(rng, 200, 28.0), 0.3)
+    scores = rng.random(len(boxes)).astype(np.float32)
+    want = np.asarray(N.nms2d(jnp.asarray(boxes.astype(dtype)),
+                              jnp.asarray(scores.astype(dtype)),
+                              iou_threshold=0.3, iou_method="box"))
+    got = TN.nms2d(torch.from_numpy(boxes.astype(dtype)),
+                   torch.from_numpy(scores.astype(dtype)),
+                   iou_threshold=0.3, iou_method="box").numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < got.sum() < len(boxes)
+    with pytest.raises(ValueError, match="iou_method"):
+        TN.nms2d(torch.zeros(2, 5), torch.zeros(2), iou_method="grbox")
 
 
 @pytest.mark.parametrize("tied", [False, True])
@@ -214,6 +239,21 @@ def test_soft_nms_nan_pick_follows_the_pallas_kernel():
     np.testing.assert_array_equal(got, pallas)
 
 
-def test_soft_nms_box_method_not_ported():
-    with pytest.raises(NotImplementedError):
-        TN.soft_nms2d(torch.zeros(2, 5), torch.zeros(2), iou_method="box")
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_soft_nms_box_method_not_ported(rng, dtype):
+    """``iou_method="box"`` is ported to soft-NMS too: the axis-aligned IoU
+    matrix into the cascade (K4's plain version here), float32 and
+    float64, equal to the JAX module's mask."""
+    boxes = _clear_of_aabox_threshold(_boxes(rng, 64, 14.0), 0.2)
+    scores = rng.random(len(boxes))
+    kw = dict(iou_threshold=0.2, score_threshold=0.1, supression_param=0.5,
+              supression_method="linear", iou_method="box")
+    want = np.asarray(N.soft_nms2d(jnp.asarray(boxes.astype(dtype)),
+                                   jnp.asarray(scores.astype(dtype)), **kw))
+    got = TN.soft_nms2d(torch.from_numpy(boxes.astype(dtype)),
+                        torch.from_numpy(scores.astype(dtype)),
+                        **kw).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < want.sum() < len(boxes)
+    with pytest.raises(ValueError, match="iou_method"):
+        TN.soft_nms2d(torch.zeros(2, 5), torch.zeros(2), iou_method="x")

@@ -55,6 +55,8 @@ def test_kernel_constants_match_the_wrappers():
     assert (_c_constant("rbox_iou.cu", "kRejectMaxScale")
             == TC._REJECT_MAX_SCALE)
     assert _c_constant("soft_nms.cu", "kStagedMaxN") == TK._SOFT_STAGED_MAX_N
+    assert (_c_constant("soft_nms.cu", "kStagedMaxNF64")
+            == TK._SOFT_STAGED_MAX_N_F64)
     assert _c_constant("soft_nms.cu", "kMaxN") == TK._SOFT_MAX_N
     assert _c_constant("soft_nms.cu", "kListLen") == TK._SOFT_LIST_LEN
     assert _c_constant("nms_scan.cu", "kWarpWords") * 64 == TK._WARP_MAX_N
@@ -238,15 +240,42 @@ def _k4_layout(n):
     return 1 << (-(-n // 32) - 1).bit_length()
 
 
-_NAN_KEY = 0xFFFFFFFF  # csrc/soft_nms.cu kNanKey
+_NAN_KEY = 0xFFFFFFFF  # csrc/soft_nms.cu kNanKey of a float32 score
+_NAN_KEY64 = (1 << 64) - 1  # and of a float64 score
 
 
 def _key(v):
-    """csrc/soft_nms.cu score_key."""
+    """csrc/soft_nms.cu score_key (float)."""
     if np.isnan(v):
         return _NAN_KEY
     u = int(np.float32(0.0 if v == 0 else v).view(np.uint32))  # -0 -> +0
     return (~u & 0xFFFFFFFF) if u & 0x80000000 else (u | 0x80000000)
+
+
+def _key64(v):
+    """csrc/soft_nms.cu score_key (double)."""
+    if np.isnan(v):
+        return _NAN_KEY64
+    u = int(np.float64(0.0 if v == 0 else v).view(np.uint64))
+    return (~u & _NAN_KEY64) if u >> 63 else (u | 1 << 63)
+
+
+def _warp_pick(lanes, wide):
+    """csrc/soft_nms.cu warp_pick over a warp's (key, index) pairs (index
+    None: no box): a 32-bit key is one max, then the least index holding
+    it; a 64-bit key, which redux.sync has no form for, is the largest
+    high word, the largest low word among the lanes holding it (0 from the
+    rest), then the least index holding both."""
+    if wide:
+        top = max(k >> 32 for k, _ in lanes)
+        lo = max((k & 0xFFFFFFFF) if k >> 32 == top else 0
+                 for k, _ in lanes)
+        key = top << 32 | lo
+    else:
+        key = max(k for k, _ in lanes)
+    idx = min((i for k, i in lanes if k == key and i is not None),
+              default=None)
+    return key, idx
 
 
 def _emulate_k4(iou, scores0, pre, iou_t, score_t, param, method,
@@ -260,18 +289,24 @@ def _emulate_k4(iou, scores0, pre, iou_t, score_t, param, method,
     the pick's marks and decays its marked boxes by the listed factor of
     their rank, or the row's own past the list; only changed threads
     recompute their best. The decay factors are the plain version's
-    (``_soft_decay`` of a row)."""
+    (``_soft_decay`` of a row). The dtype is the matrix's: float64 keeps
+    64-bit keys and reduces them as :func:`_warp_pick` does."""
     n = iou.shape[0]
     c = c or _k4_layout(n)
     threads = -(-n // (32 * c)) * 32
     ll = TK._SOFT_LIST_LEN
-    t32, st = np.float32(iou_t), np.float32(score_t)
-    p = torch.tensor(param, dtype=torch.float32)
-    tiny = torch.tensor(1e-38, dtype=torch.float32)
+    wide = iou.dtype == np.float64
+    ft = iou.dtype.type
+    tdt = torch.float64 if wide else torch.float32
+    key_of = _key64 if wide else _key
+    nan_key = _NAN_KEY64 if wide else _NAN_KEY
+    t32, st = ft(iou_t), ft(score_t)
+    p = torch.tensor(param, dtype=tdt)
+    tiny = torch.tensor(1e-38, dtype=tdt)
     words = (n + 31) // 32
     marks = np.zeros((n, words), np.int64)
     before = np.zeros((n, words), np.int64)
-    decs = np.zeros((n, ll), np.float32)
+    decs = np.zeros((n, ll), iou.dtype)
     dec_rows = [TK._soft_decay(torch.from_numpy(iou[i]), p, tiny,
                                method).numpy() for i in range(n)]
     for i in range(n):
@@ -284,7 +319,7 @@ def _emulate_k4(iou, scores0, pre, iou_t, score_t, param, method,
                     if cnt < ll:
                         decs[i, cnt] = dec_rows[i][j]
                     cnt += 1
-    sc = scores0.astype(np.float32).copy()
+    sc = scores0.astype(iou.dtype).copy()
     avail, supp = [0] * threads, [0] * threads
     for j in range(n):
         t, k = divmod(j, c)
@@ -297,26 +332,19 @@ def _emulate_k4(iou, scores0, pre, iou_t, score_t, param, method,
         bk, bi = 0, None
         for k in range(c):
             if avail[t] >> k & 1:
-                key = _key(sc[t * c + k])
+                key = key_of(sc[t * c + k])
                 if key > bk:
                     bk, bi = key, t * c + k
         return bk, bi
 
     cached = [best(t) for t in range(threads)]
     for _ in range(n):
-        warps = []
-        for w in range(threads // 32):
-            ks = cached[w * 32:(w + 1) * 32]
-            key = max(k for k, _ in ks)
-            idx = min((i for k, i in ks if k == key and i is not None),
-                      default=None)
-            warps.append((key, idx, any(avail[w * 32:(w + 1) * 32])))
-        key = max(k for k, _, _ in warps)
-        idx = min((i for k, i, _ in warps if k == key and i is not None),
-                  default=None)
-        if not any(a for _, _, a in warps):
+        warps = [_warp_pick(cached[w * 32:(w + 1) * 32], wide)
+                 for w in range(threads // 32)]
+        key, idx = _warp_pick(warps, wide)
+        if not any(avail):
             break
-        pick = n - 1 if key == _NAN_KEY else idx
+        pick = n - 1 if key == nan_key else idx
         for t in range(threads):
             if not avail[t]:
                 continue
@@ -424,6 +452,72 @@ def test_k4_schedule_nan_pick_follows_the_pallas_kernel():
     sup = _check_k4(iou, init, pre, (0.3, 0.3, 0.0, "linear"),
                     layouts=(None, 1))
     np.testing.assert_array_equal(sup, [False] * 3 + [True] * 3)
+
+
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("method,param", [("linear", 0.5), ("gaussian", 0.4)])
+def test_k4_f64_schedule_matches_plain_and_pallas(rng, method, param, tied):
+    """The float64 cascade (64-bit keys, three reductions a pick) on
+    float32-representable float64 inputs: the emulation equals the plain
+    cascade in float64, in the kernel's layout for n = 72 and with 1 and 2
+    boxes a lane, and both equal the Pallas kernel's float32 mask."""
+    iou, init, pre = _soft_inputs(rng, 72, 14.0, tied)
+    args = (0.2, 0.1, param, method)
+    ref = np.asarray(soft_nms_scan(jnp.asarray(iou), jnp.asarray(init),
+                                   jnp.asarray(pre), *args, interpret=True))
+    sup = _check_k4(iou.astype(np.float64), init.astype(np.float64), pre,
+                    args, layouts=(None, 1, 2), pallas=False)
+    np.testing.assert_array_equal(sup, ref)
+    assert 0 < sup.sum() < 72
+
+
+def test_k4_f64_schedule_nan_and_signed_zero():
+    """Float64: a NaN score available makes every pick n - 1, as in the
+    float32 kernel and the Pallas one; +0 and -0 keys tie, so the lower
+    index is picked first."""
+    boxes = np.array([[0.3 * i, 0.0, 1.0, 1.0, 0.0] for i in range(6)],
+                     np.float32)
+    scores = np.array([0.5, np.nan, 0.9, 0.2, 0.8, 0.1], np.float32)
+    iou = TS._rbox_iou_matrix_plain(torch.from_numpy(boxes),
+                                    torch.from_numpy(boxes)).numpy()
+    pre = scores <= 0.3
+    pre[np.argsort(-scores, kind="stable")[0]] = False
+    init = np.where(pre, -np.inf, scores).astype(np.float32)
+    args = (0.3, 0.3, 0.0, "linear")
+    ref = np.asarray(soft_nms_scan(jnp.asarray(iou), jnp.asarray(init),
+                                   jnp.asarray(pre), *args, interpret=True))
+    sup = _check_k4(iou.astype(np.float64), init.astype(np.float64), pre,
+                    args, layouts=(None, 1), pallas=False)
+    np.testing.assert_array_equal(sup, [False] * 3 + [True] * 3)
+    np.testing.assert_array_equal(sup, ref)
+    assert _key64(-0.0) == _key64(0.0) == 1 << 63
+    assert _key64(np.nan) == _NAN_KEY64 > _key64(np.inf) > _key64(1.0)
+    assert _key64(-np.inf) > 0
+    # a warp of +0 and -0 scores: the least index, whatever the sign
+    lanes = [(_key64(v), i) for i, v in enumerate([-0.0, 0.0, -0.0])]
+    assert _warp_pick(lanes, True) == (1 << 63, 0)
+    # zeros and negatives: nothing can fall below a lower threshold, and
+    # the cascade agrees with the plain version
+    zeros = np.array([-0.0, 0.0, -0.0, 0.0, -0.5, 0.25], np.float64)
+    _check_k4(iou.astype(np.float64), zeros, np.zeros(6, bool),
+              (0.1, -1.0, 0.5, "linear"), layouts=(None, 1), pallas=False)
+
+
+def test_k4_wide_key_reduction(rng):
+    """The three-step reduction of 64-bit keys equals the largest key and
+    its least index, on keys that share high words (the case the low-word
+    step decides) and with lanes holding no box."""
+    for _ in range(200):
+        highs = rng.integers(0, 4, 32) + (1 << 31)
+        lows = rng.integers(0, 1 << 32, 32, dtype=np.uint64)
+        lows[rng.random(32) < 0.3] = lows[0]
+        lanes = [(int(h) << 32 | int(lo), i)
+                 for i, (h, lo) in enumerate(zip(highs, lows))]
+        lanes = [(0, None) if rng.random() < 0.2 else kv for kv in lanes]
+        key = max(k for k, _ in lanes)
+        want = (key, min((i for k, i in lanes if k == key and i is not None),
+                         default=None))
+        assert _warp_pick(lanes, True) == want
 
 
 def test_k4_layouts_cover_every_n():

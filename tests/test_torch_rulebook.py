@@ -407,8 +407,9 @@ def test_maps_prepared_together_share_k():
 
 
 def _c_signatures():
-    """{C function: its parameters as 'P' (pointer), 'I' (int) or 'F'
-    (float)} of every ``extern "C"`` function in csrc/*.cu."""
+    """{C function: its parameters as 'P' (pointer), 'I' (int), 'F'
+    (float) or 'D' (double)} of every ``extern "C"`` function in
+    csrc/*.cu."""
     sigs = {}
     for src in sorted(_build.CSRC.glob("*.cu")):
         text = src.read_text()
@@ -419,6 +420,7 @@ def _c_signatures():
                 p = " ".join(p.split())
                 kinds.append("P" if "*" in p else
                              "F" if p.startswith("float") else
+                             "D" if p.startswith("double") else
                              "I" if p.startswith("int") else p)
             sigs[name] = (src.name, "".join(kinds))
     return sigs
@@ -427,18 +429,20 @@ def _c_signatures():
 def test_argtypes_match_the_c_signatures():
     """Every C entry point is declared in ``_build._LIBRARIES`` with one
     argtype per parameter: c_void_p for each pointer (a missing one would
-    cut a pointer to 32 bits), c_int for each int, c_float for each float."""
-    letters = {_build._P: "P", _build._I: "I", _build._F: "F"}
+    cut a pointer to 32 bits), c_int for each int, c_float for each float,
+    c_double for each double."""
+    letters = {_build._P: "P", _build._I: "I", _build._F: "F",
+               _build._D: "D"}
     declared = {fn: (source, "".join(letters[t] for t in types))
                 for source, _, fns in _build._LIBRARIES.values()
                 for fn, types in fns.items()}
     sigs = _c_signatures()
     # K2, K3 share the scan and the pack; K1's library also gives its bit
-    # rows and its descriptors, K5's answers its tile's rows and builds rule
-    # books
-    assert len(sigs) == 11 and set(sigs) == set(declared)
+    # rows and its descriptors, K4's has a float64 entry, K5's answers its
+    # tile's rows and builds rule books
+    assert len(sigs) == 12 and set(sigs) == set(declared)
     for fn, (source, kinds) in sigs.items():
-        assert set(kinds) <= set("PIF"), (fn, kinds)
+        assert set(kinds) <= set("PIFD"), (fn, kinds)
         assert declared[fn] == (source, kinds), fn
     assert sigs["d3d_subm_conv"][1] == "PPPPPP" + "I" * 8 + "P"
     assert sigs["d3d_subm_conv_dw"][1] == "P" * 7 + "I" * 9 + "P"
@@ -451,6 +455,7 @@ def test_argtypes_match_the_c_signatures():
     assert sigs["d3d_nms_scan"][1] == "PPPFPPIP"
     assert sigs["d3d_rbox_descriptors"][1] == "PPIP"
     assert sigs["d3d_soft_nms_scan"][1] == "PPPPPIIFFFIP"
+    assert sigs["d3d_soft_nms_scan_f64"][1] == "PPPPPIIDDDIP"
 
 
 # ---------------------------------------------------------------------------
