@@ -53,14 +53,26 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    and distances of 120k points x 40 boxes) and SECOND training
    (``make_train_step`` + ``make_optimizer`` on ``presets.second_kitti``
    at full width, batch 2, 5 steps in f32 with TF32 off and 5 in bf16,
-   counts read per step: K5 13, K6 8); each path must launch its kernels,
-   and nms2d K1's bit form and the scan only (``check_nms_routes``);
+   counts read per step: K5 13, K6 8) and ``kitti_eval`` (8 synthetic
+   KITTI object frames written into ``build/`` and read back by the port's
+   ``KittiObjectLoader``; SECOND, PointPillars and a stand-in detector
+   (the labels jittered, duplicated, with noise boxes, through
+   ``box2d_nms(iou_method="rbox", precise=False)``) into Target3DArrays;
+   ``DetectionEvaluator`` at IoU 0.7 and 0.5 by ``calc_stats`` and
+   ``device_calc_stats``; then ``device_calc_stats`` over the KITTI val
+   split's 3 769 seeded frames in chunks of 512); each path must launch its
+   kernels, and nms2d K1's bit form and the scan only
+   (``check_nms_routes``);
 4. checks the outputs: finite, of the expected shape, the keep masks equal
    to the plain scans on the kernels' own IoU matrices, the voxelizer
    equal to the port's CPU run, the box and voxel API's outputs equal to
    the same calls on the CPU (float64 IoU within 1e-12, float32 within
-   K1's 2e-5, masks, indices and voxels exact), both serving paths'
-   outputs equal to a
+   K1's 2e-5, masks, indices and voxels exact), the loaded labels within
+   1e-4 m and 1e-5 rad of the boxes they were written from, every
+   evaluation equal to the same call with ``device="cpu"`` (counters
+   exact, accuracies within 1e-5 relative; at the val split's scale the
+   first 512 frames), the stand-in's AP(Car) above 0.85, both serving
+   paths' outputs equal to a
    CPU run of the same weights at a stated tolerance (TF32 off), the
    training loss finite and falling, and one training step's gradients
    equal to the CPU's (plain versions) at a stated tolerance;
@@ -198,7 +210,8 @@ def north_star_frame():
     return pts, boxes, scores
 
 
-def kitti_like_points(seed, objects=16, az_step_deg=0.08):
+def kitti_like_points(seed, objects=16, az_step_deg=0.08,
+                      with_boxes=False):
     """A seeded frame in the shape of a KITTI scan cropped to the camera's
     field of view: a 64-beam sensor 1.73 m above a ground plane
     (elevations -24.8 to +2 degrees, ``az_step_deg`` between azimuths over
@@ -209,7 +222,10 @@ def kitti_like_points(seed, objects=16, az_step_deg=0.08):
     nearest hit within 80 m is kept, with 2 cm of range noise and a random
     intensity, inside second_kitti's bounds. ~70k points; under
     second_kitti's 0.2 m voxels 8 000-13 000 voxels by seed (13 278 at
-    seed 500, 11 648 at 501), below its 16 000 cap."""
+    seed 500, 11 648 at 501), below its 16 000 cap. With ``with_boxes``
+    it returns (points, boxes): the cars as (objects, 7) [x, y, z, l, w, h,
+    yaw] float64 rows in the sensor frame (yaw counter-clockwise from x),
+    drawn with the same numbers as without."""
     rng = np.random.default_rng(seed)
     height = 1.73
     elev = np.deg2rad(np.linspace(-24.8, 2.0, 64))
@@ -258,8 +274,13 @@ def kitti_like_points(seed, objects=16, az_step_deg=0.08):
     inside = ((pts[:, 0] >= 0) & (pts[:, 0] < 70.4) & (np.abs(pts[:, 1]) < 40)
               & (pts[:, 2] >= -3) & (pts[:, 2] < 1))
     pts = pts[inside]
-    return np.concatenate([pts, rng.random((len(pts), 1))], 1).astype(
+    pts = np.concatenate([pts, rng.random((len(pts), 1))], 1).astype(
         np.float32)
+    if not with_boxes:
+        return pts
+    centres = np.stack([r * np.cos(ang), r * np.sin(ang),
+                        -height + half[:, 2]], -1)
+    return pts, np.concatenate([centres, 2 * half, yaw[:, None]], 1)
 
 
 # ---------------------------------------------------------------------------
@@ -1665,6 +1686,33 @@ def compare_with_cpu(name, model, cpu_model, frame, detect, anchors, dev,
     return no_tf32_ms, cpu_ms
 
 
+def car_classes():
+    """The detectors' class list: the port's KITTI Car (detect tags its
+    boxes with it)."""
+    from d3d_tpu_torch.dataset.kitti import KittiObjectClass
+
+    return [KittiObjectClass.Car]
+
+
+def check_detections(name, out, score_threshold=0.3, frame=None):
+    """``detect``'s Target3DArray: its columns of the right shapes, finite,
+    above the score threshold, tagged Car, in ``frame``. Returns its
+    length."""
+    k = len(out)
+    c = out.columns()
+    check(c["position"].shape == (k, 3) and c["dimension"].shape == (k, 3)
+          and c["yaw"].shape == (k,) and c["label"].shape == (k,),
+          f"{name}: column shapes")
+    check(all(np.isfinite(c[key]).all() for key in
+              ("position", "dimension", "yaw", "score")),
+          f"{name}: non-finite output")
+    check(bool((c["score"] >= score_threshold).all()),
+          f"{name}: score threshold")
+    check(all(o.tag_top.name == "Car" for o in out) and out.frame == frame,
+          f"{name}: tags or frame")
+    return k
+
+
 def serving(dev):
     """make_pointpillars_detector on the KITTI preset at full width with
     seeded random weights: 4 requests, then the CPU comparison and the
@@ -1678,8 +1726,8 @@ def serving(dev):
                          generator=torch.Generator().manual_seed(0))
     calibrate_heads(model, frames[0], dev)
     anchors = make_anchors(cfg, device=dev)
-    detect = make_pointpillars_detector(model, None, cfg, anchors, ["Car"],
-                                        device=dev)
+    detect = make_pointpillars_detector(model, None, cfg, anchors,
+                                        car_classes(), device=dev)
 
     reset_counts()
     request_ms = []
@@ -1688,15 +1736,7 @@ def serving(dev):
         t0 = time.perf_counter()
         out = detect(pts)
         request_ms.append((time.perf_counter() - t0) * 1e3)
-        k = len(out.scores)
-        kept.append(k)
-        check(out.positions.shape == (k, 3) and out.dimensions.shape == (k, 3)
-              and out.yaws.shape == (k,) and out.labels.shape == (k,),
-              "detect: column shapes")
-        check(all(np.isfinite(out[c]).all() for c in
-                  ("positions", "dimensions", "yaws", "scores")),
-              "detect: non-finite output")
-        check(bool((out.scores >= 0.3).all()), "detect: score threshold")
+        kept.append(check_detections("detect", out))
     counts = read_counts()
     log(f"serving launches (4 requests): {counts}; detections kept per "
         f"request: {kept}")
@@ -1713,14 +1753,14 @@ def serving(dev):
     model16 = PointPillars(cfg16, device=dev)
     model16.load_state_dict(model.state_dict())
     detect16 = make_pointpillars_detector(
-        model16, None, cfg16, make_anchors(cfg16, device=dev), ["Car"],
-        device=dev)
+        model16, None, cfg16, make_anchors(cfg16, device=dev),
+        car_classes(), device=dev)
     bf16_ms = []
     for pts in frames[:2]:
         t0 = time.perf_counter()
         out = detect16(pts)
         bf16_ms.append((time.perf_counter() - t0) * 1e3)
-        check(np.isfinite(out.positions).all(), "bf16 detect: non-finite")
+        check_detections("bf16 detect", out)
     log(f"serving bf16 preset as pinned: first request {bf16_ms[0]:.2f} ms, "
         f"second {bf16_ms[1]:.2f} ms")
 
@@ -1737,7 +1777,8 @@ def serving(dev):
         f"f32 TF32 off {steady['f32_no_tf32']:.2f} ms, "
         f"bf16 {steady['bf16']:.2f} ms")
     return counts, dict(request_ms=request_ms, no_tf32_ms=no_tf32_ms,
-                        bf16_ms=bf16_ms, steady_ms=steady, cpu_ms=cpu_ms)
+                        bf16_ms=bf16_ms, steady_ms=steady,
+                        cpu_ms=cpu_ms), detect
 
 
 def second_serving(dev, model, frames):
@@ -1750,7 +1791,7 @@ def second_serving(dev, model, frames):
 
     cfg = model.cfg
     anchors = make_anchors(head_config(cfg), device=dev)
-    detect = make_second_detector(model, None, cfg, anchors, ["Car"],
+    detect = make_second_detector(model, None, cfg, anchors, car_classes(),
                                   device=dev)
     reset_counts()
     request_ms, kept = [], []
@@ -1758,15 +1799,7 @@ def second_serving(dev, model, frames):
         t0 = time.perf_counter()
         out = detect(pts)
         request_ms.append((time.perf_counter() - t0) * 1e3)
-        k = len(out.scores)
-        kept.append(k)
-        check(out.positions.shape == (k, 3) and out.dimensions.shape == (k, 3)
-              and out.yaws.shape == (k,) and out.labels.shape == (k,),
-              "SECOND detect: column shapes")
-        check(all(np.isfinite(out[c]).all() for c in
-                  ("positions", "dimensions", "yaws", "scores")),
-              "SECOND detect: non-finite output")
-        check(bool((out.scores >= 0.3).all()), "SECOND detect: threshold")
+        kept.append(check_detections("SECOND detect", out))
     counts = read_counts()
     log(f"SECOND serving launches (4 requests): {counts}; detections kept "
         f"per request: {kept}")
@@ -1788,11 +1821,11 @@ def second_serving(dev, model, frames):
     model16.load_state_dict(model.state_dict())
     detect16 = make_second_detector(
         model16, None, cfg16, make_anchors(head_config(cfg16), device=dev),
-        ["Car"], device=dev)
+        car_classes(), device=dev)
     t0 = time.perf_counter()
     out = detect16(frames[1])
     bf16_first = (time.perf_counter() - t0) * 1e3
-    check(np.isfinite(out.positions).all(), "SECOND bf16 detect: non-finite")
+    check_detections("SECOND bf16 detect", out)
     steady = {}
     for name, det in (("f32", detect), ("bf16", detect16)):
         times = []
@@ -2261,6 +2294,430 @@ def check_k1_grad_guard(dev):
               "K1 under no_grad")
     log("K1 under grad: rbox_iou_matrix and box2d_iou(precise=False) raise; "
         "precise=True gives finite gradients")
+
+
+# ---------------------------------------------------------------------------
+# kitti_eval: KITTI frames in, Target3DArray out, both evaluators on the card
+# ---------------------------------------------------------------------------
+
+# tests/kitti_fixture.py's calibration (velodyne FLU -> camera RDF, R0_rect
+# the identity), copied: this script imports nothing of the tests
+KITTI_TR_VELO_TO_CAM = np.array([[0.0, -1.0, 0.0, 0.0],
+                                 [0.0, 0.0, -1.0, -0.08],
+                                 [1.0, 0.0, 0.0, -0.27]])
+KITTI_P_BASE = np.array([[721.5, 0.0, 609.5, 0.0], [0.0, 721.5, 172.8, 0.0],
+                         [0.0, 0.0, 1.0, 0.0]])
+KITTI_FRAMES = 8
+# the KITTI val split's frame count (the 3DOP split, OpenPCDet's
+# kitti_infos_val), evaluated in chunks of 512 frames
+KITTI_VAL_FRAMES = 3769
+EVAL_CHUNK = 512
+# KITTI's Car 3D IoU threshold, and the looser one of tests/test_end_to_end
+EVAL_OVERLAPS = (0.7, 0.5)
+EVAL_COUNTERS = ("ndt", "tp", "fp", "fn")
+EVAL_ACCURACIES = ("acc_iou", "acc_dist", "acc_box", "acc_angular",
+                   "acc_var")
+
+
+def kitti_calib_text():
+    rows = [("P%d" % i, KITTI_P_BASE + [[0, 0, 0, -40.0 * i], [0] * 4,
+                                        [0] * 4]) for i in range(4)]
+    rows += [("R0_rect", np.eye(3)), ("Tr_velo_to_cam", KITTI_TR_VELO_TO_CAM),
+             ("Tr_imu_to_velo", np.hstack([np.eye(3), [[0.8], [-0.3],
+                                                       [0.9]]]))]
+    return "".join("%s: %s\n" % (k, " ".join("%.12e" % v for v in m.ravel()))
+                   for k, m in rows)
+
+
+def kitti_label_text(boxes):
+    """KITTI label lines of sensor-frame cars (x, y, z, l, w, h, yaw): h w
+    l, the bottom centre in the rectified camera frame and rotation_y =
+    -yaw - pi/2, with 8 decimals; then one DontCare line."""
+    rot, t = KITTI_TR_VELO_TO_CAM[:, :3], KITTI_TR_VELO_TO_CAM[:, 3]
+    lines = []
+    for x, y, z, ln, w, h, yaw in boxes:
+        cx, cy, cz = rot @ [x, y, z] + t
+        ry = math.remainder(-yaw - math.pi / 2, 2 * math.pi)
+        lines.append("Car 0.00 0 0.00 100.00 100.00 200.00 200.00 "
+                     + " ".join("%.8f" % v
+                                for v in (h, w, ln, cx, cy + h / 2, cz, ry)))
+    lines.append("DontCare -1 -1 -10 500.00 150.00 560.00 190.00 -1 -1 -1 "
+                 "-1000 -1000 -1000 -10")
+    return "\n".join(lines) + "\n"
+
+
+def write_kitti_split(root):
+    """A KITTI object training split of KITTI_FRAMES KITTI-like frames
+    (``kitti_like_points``, seeds 600-607) under ``root``: calib, label_2
+    (the frames' 16 cars and a DontCare) and velodyne; no images. Returns
+    each frame's car boxes."""
+    for sub in ("calib", "label_2", "velodyne"):
+        (root / "training" / sub).mkdir(parents=True)
+    boxes = []
+    for i in range(KITTI_FRAMES):
+        pts, cars = kitti_like_points(600 + i, with_boxes=True)
+        name = "%06d" % i
+        (root / "training" / "calib" / f"{name}.txt").write_text(
+            kitti_calib_text())
+        (root / "training" / "label_2" / f"{name}.txt").write_text(
+            kitti_label_text(cars))
+        pts.tofile(root / "training" / "velodyne" / f"{name}.bin")
+        boxes.append(cars)
+    return boxes
+
+
+def load_kitti_split(root, boxes):
+    """The split through the port's KittiObjectLoader: each frame's points
+    and labels, the labels held to the boxes they were written from
+    (1e-4 m, 1e-5 rad)."""
+    from d3d_tpu_torch.dataset.kitti import KittiObjectLoader
+
+    loader = KittiObjectLoader(root, trainval_split=1.0)
+    check(len(loader) == KITTI_FRAMES, f"loader: {len(loader)} frames")
+    frames, err = [], [0.0, 0.0, 0.0]
+    for i, want in enumerate(boxes):
+        gt = loader.annotation_3dobject(i)
+        c = gt.columns()
+        check(len(gt) == len(want) and gt.frame == "velo"
+              and gt.dontcare.shape == (1, 4),
+              f"frame {i}: {len(gt)} labels, {gt.dontcare.shape} DontCare")
+        dyaw = np.remainder(c["yaw"] - want[:, 6] + math.pi, 2 * math.pi)
+        for j, e in enumerate((np.abs(c["position"] - want[:, :3]).max(),
+                               np.abs(c["dimension"] - want[:, 3:6]).max(),
+                               np.abs(dyaw - math.pi).max())):
+            err[j] = max(err[j], float(e))
+        frames.append((loader.lidar_data(i), gt))
+    check(err[0] <= 1e-4 and err[1] <= 1e-4 and err[2] <= 1e-5,
+          f"labels against their boxes: position {err[0]} m, size {err[1]} "
+          f"m, yaw {err[2]} rad")
+    return frames, err
+
+
+def stand_in_detections(rng, gt, dev, jitter=0.05, n_noise=6):
+    """tests/test_end_to_end.py's stand-in detector: each GT jittered
+    (score 0.7-0.95) and duplicated (0.3-0.5), plus low-scored noise cars,
+    then box2d_nms(iou_method="rbox", precise=False) on ``dev``; its keep
+    mask must equal the same call's on the CPU."""
+    from d3d_tpu_torch.abstraction import Target3DArray
+    from d3d_tpu_torch.dataset.kitti import KittiObjectClass
+    from d3d_tpu_torch.ops.box import box2d_nms
+
+    c = gt.columns()
+    n = len(gt)
+    pos = c["position"] + rng.normal(0, jitter, (n, 3))
+    dim = c["dimension"] * (1 + rng.normal(0, jitter / 2, (n, 3)))
+    yaw = c["yaw"] + rng.normal(0, 0.02, n)
+    dets = Target3DArray.from_columns(
+        np.concatenate([pos, pos + rng.normal(0, jitter, (n, 3)),
+                        rng.uniform([0, -20, -2], [50, 20, 0],
+                                    (n_noise, 3))]),
+        np.concatenate([dim, dim, np.tile([4.0, 1.8, 1.6], (n_noise, 1))]),
+        yaws=np.concatenate([yaw, yaw, rng.uniform(-np.pi, np.pi,
+                                                   n_noise)]),
+        labels=np.full(2 * n + n_noise, KittiObjectClass.Car.value),
+        scores=np.concatenate([rng.uniform(0.7, 0.95, n),
+                               rng.uniform(0.3, 0.5, n),
+                               rng.uniform(0.05, 0.2, n_noise)]),
+        mapping=KittiObjectClass, frame="velo")
+    rows = dets.to_numpy()
+    bev = np.ascontiguousarray(rows[:, [2, 3, 5, 6, 8]])  # float32
+    keep = [box2d_nms(bev, rows[:, 1], iou_method="rbox", iou_threshold=0.1,
+                      precise=False, device=d) for d in (dev, "cpu")]
+    check(np.array_equal(keep[0], keep[1]), "stand-in NMS: card vs CPU")
+    check(keep[0].sum() < len(dets), "stand-in NMS removed nothing")
+    return Target3DArray([d for d, k in zip(dets, keep[0]) if k],
+                         frame="velo")
+
+
+def same_stats(name, a, b, rtol=1e-5):
+    """Two DetectionEvalStats count the same, and their accuracies agree
+    to ``rtol`` relative (or are non-finite on both). Returns the largest
+    relative difference of the accuracies."""
+    worst = 0.0
+    for k in a.ngt:
+        check(a.ngt[k] == b.ngt[k], f"{name}: ngt {a.ngt[k]} vs {b.ngt[k]}")
+        for fld in EVAL_COUNTERS:
+            check(np.array_equal(getattr(a, fld)[k], getattr(b, fld)[k]),
+                  f"{name}: {fld} differs")
+        for fld in EVAL_ACCURACIES:
+            x, y = getattr(a, fld)[k], getattr(b, fld)[k]
+            fin = np.isfinite(x)
+            check(np.array_equal(fin, np.isfinite(y))
+                  and np.array_equal(np.isnan(x), np.isnan(y)),
+                  f"{name}: {fld} finite entries differ")
+            if fin.any():
+                rel = np.abs(x[fin] - y[fin]) / np.maximum(np.abs(y[fin]),
+                                                           1e-30)
+                worst = max(worst, float(rel.max()))
+    check(worst <= rtol, f"{name}: accuracies differ by {worst} relative")
+    return worst
+
+
+def merged_host_stats(ev, gts, dets):
+    """calc_stats over the frames, merged; and the host ms of each call."""
+    ev.reset()
+    ms = []
+    for gt, dt in zip(gts, dets):
+        t0 = time.perf_counter()
+        stats = ev.calc_stats(gt, dt)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        ev.add_stats(stats)
+    return ev.get_stats(), ms
+
+
+def evaluate_on_card_and_cpu(name, gts, dets, dev):
+    """DetectionEvaluator([Car], t) for t in EVAL_OVERLAPS, by calc_stats
+    and by device_calc_stats, on the card and with device="cpu": every
+    pair equal (counters exact, accuracies 1e-5 relative), host and device
+    counters equal. Returns per threshold the AP(Car), the host ms per
+    frame and the device call's ms."""
+    from d3d_tpu_torch.benchmarks import DetectionEvaluator
+    from d3d_tpu_torch.benchmarks_device import device_calc_stats
+    from d3d_tpu_torch.dataset.kitti import KittiObjectClass
+
+    car = KittiObjectClass.Car
+    out = {}
+    for overlap in EVAL_OVERLAPS:
+        evs = {"card": DetectionEvaluator([car], overlap, device=dev),
+               "cpu": DetectionEvaluator([car], overlap, device="cpu")}
+        host = {k: merged_host_stats(ev, gts, dets) for k, ev in evs.items()}
+        device, device_ms = {}, {}
+        for k, ev in evs.items():
+            t0 = time.perf_counter()
+            device[k] = device_calc_stats(ev, gts, dets)
+            device_ms[k] = (time.perf_counter() - t0) * 1e3
+        err = max(same_stats(f"{name} {overlap} calc_stats card vs CPU",
+                             host["card"][0], host["cpu"][0]),
+                  same_stats(f"{name} {overlap} device_calc_stats card vs "
+                             "CPU", device["card"], device["cpu"]))
+        for k in device["card"].ngt:
+            for fld in EVAL_COUNTERS:
+                check(np.array_equal(getattr(host["card"][0], fld)[k],
+                                     getattr(device["card"], fld)[k]),
+                      f"{name} {overlap}: host and device {fld} differ")
+        ev = evs["card"]
+        ev.reset()
+        ev.add_stats(device["card"])
+        out[overlap] = dict(
+            ap=float(ev.ap()[car]), gt=int(device["card"].ngt[car.value]),
+            tp_at_half=int(ev.tp(0.5)[car]), fp_at_half=int(ev.fp(0.5)[car]),
+            calc_stats_ms_per_frame=statistics.median(host["card"][1]),
+            cpu_calc_stats_ms_per_frame=statistics.median(host["cpu"][1]),
+            device_calc_stats_ms=device_ms["card"],
+            cpu_device_calc_stats_ms=device_ms["cpu"],
+            max_rel_err_card_vs_cpu=err)
+    return out
+
+
+def kitti_eval(dev, second, pp_detect):
+    """The kitti_eval path: a synthetic KITTI split written and loaded with
+    the port's KittiObjectLoader, three detectors (SECOND and PointPillars
+    at full width, seeded weights; the stand-in) returning Target3DArrays,
+    and both evaluators on the card, each held to its CPU run. Every
+    count is set to 0 before the path and read after: K1's bit form, the
+    scan and K5 with its rule books must have launched."""
+    import tempfile
+
+    from d3d_tpu_torch.models import head_config, make_anchors
+    from d3d_tpu_torch.models import make_second_detector
+
+    second_detect = make_second_detector(
+        second, None, second.cfg,
+        make_anchors(head_config(second.cfg), device=dev), car_classes(),
+        device=dev)
+    rng = np.random.default_rng(800)
+    stats = {}
+    reset_counts()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        frames, label_err = load_kitti_split(root, write_kitti_split(root))
+        stats["load_s"] = time.perf_counter() - t0
+        gts = [gt for _, gt in frames]
+        dets = {"second": [], "pointpillars": [], "stand_in": []}
+        for pts, gt in frames:
+            for name, det in (("second", second_detect),
+                              ("pointpillars", pp_detect)):
+                out = det(pts, frame="velo")
+                check_detections(f"kitti_eval {name}", out, frame="velo")
+                dets[name].append(out)
+            dets["stand_in"].append(stand_in_detections(rng, gt, dev))
+        counts = read_counts()
+        for name, arrays in dets.items():
+            stats[name] = evaluate_on_card_and_cpu(name, gts, arrays, dev)
+    for overlap in EVAL_OVERLAPS:
+        check(stats["stand_in"][overlap]["ap"] > 0.85,
+              f"stand-in AP(Car) at {overlap}: "
+              f"{stats['stand_in'][overlap]['ap']}")
+    want = dict(rbox_iou_matrix=3 * KITTI_FRAMES, nms_scan=3 * KITTI_FRAMES,
+                subm_conv=len(K5_LAYERS) * KITTI_FRAMES,
+                subm_conv_rulebook=KITTI_FRAMES)
+    check(all(counts[k] == v for k, v in want.items()),
+          f"kitti_eval launches {counts}, want {want}: K1's bit form and "
+          "the scan per detector and frame, SECOND's K5 layers")
+    routes = check_nms_routes("kitti_eval", 3 * KITTI_FRAMES)
+    stats.update(label_err=dict(zip(("position_m", "size_m", "yaw_rad"),
+                                    label_err)), launches=counts,
+                 routes=routes)
+    log(f"kitti_eval: {KITTI_FRAMES} frames loaded, labels within "
+        f"{label_err} of their boxes; launches {counts}; "
+        + "; ".join(f"{name} AP(Car) " + ", ".join(
+            f"{o}: {v['ap']:.4f}" for o, v in stats[name].items())
+            for name in dets))
+    return counts, stats
+
+
+def val_scale_frames(seed=7):
+    """KITTI_VAL_FRAMES seeded frames at the KITTI val split's scale: 1-20
+    GT cars a frame, 1-100 detections (the detectors' top_k; the first
+    ones jittered GT, scored 0.4-1, the others 0-0.6), variances on half
+    the detections."""
+    from d3d_tpu_torch.abstraction import Target3DArray
+    from d3d_tpu_torch.dataset.kitti import KittiObjectClass
+
+    car = KittiObjectClass.Car.value
+    rng = np.random.default_rng(seed)
+    lo, hi = [3.5, 1.5, 1.4], [4.5, 1.9, 1.7]
+    gts, dts = [], []
+    for _ in range(KITTI_VAL_FRAMES):
+        ng, nd = int(rng.integers(1, 21)), int(rng.integers(1, 101))
+        pos = rng.uniform([5, -30, -2], [65, 30, -1], (ng, 3))
+        dim = rng.uniform(lo, hi, (ng, 3))
+        yaw = rng.uniform(-np.pi, np.pi, ng)
+        gts.append(Target3DArray.from_columns(
+            pos, dim, yaws=yaw, labels=np.full(ng, car), scores=np.ones(ng),
+            mapping=KittiObjectClass, frame="velo"))
+        m = min(ng, nd)
+        var = rng.random(nd) < 0.5
+        eye = np.eye(3)[None]
+        dts.append(Target3DArray.from_columns(
+            np.concatenate([pos[:m] + rng.normal(0, 0.2, (m, 3)),
+                            rng.uniform([0, -40, -3], [70, 40, 1],
+                                        (nd - m, 3))]),
+            np.concatenate([dim[:m] * rng.uniform(0.9, 1.1, (m, 3)),
+                            rng.uniform(lo, hi, (nd - m, 3))]),
+            yaws=np.concatenate([yaw[:m] + rng.normal(0, 0.05, m),
+                                 rng.uniform(-np.pi, np.pi, nd - m)]),
+            labels=np.full(nd, car),
+            scores=np.concatenate([rng.uniform(0.4, 1.0, m),
+                                   rng.uniform(0.0, 0.6, nd - m)]),
+            position_vars=eye * rng.uniform(0.05, 0.5, (nd, 1, 1))
+            * var[:, None, None],
+            dimension_vars=eye * rng.uniform(0.05, 0.5, (nd, 1, 1))
+            * var[:, None, None],
+            orientation_vars=np.where(var, rng.uniform(0.05, 1.0, nd), 0.0),
+            mapping=KittiObjectClass, frame="velo"))
+    return gts, dts
+
+
+def eval_at_scale(dev):
+    """device_calc_stats over the KITTI val split's 3 769 frames (chunks of
+    512): the call's host time, its packing by the host clock and
+    eval_frames_device's chunks by CUDA events, the peak device memory,
+    and one chunk split into its IoU tables, match loop and the rest, with
+    its kernel time by CUPTI. The first 512 frames' stats must equal the
+    CPU's (counters exact, accuracies 1e-5 relative)."""
+    from d3d_tpu_torch import benchmarks_device as bd
+    from d3d_tpu_torch.benchmarks import DetectionEvaluator
+    from d3d_tpu_torch.dataset.kitti import KittiObjectClass
+
+    car = KittiObjectClass.Car
+    t0 = time.perf_counter()
+    gts, dts = val_scale_frames()
+    make_s = time.perf_counter() - t0
+    ev = DetectionEvaluator([car], EVAL_OVERLAPS[0], device=dev)
+    chunk_ms, pack_ms = [], []
+    plain_eval, plain_pack = bd.eval_frames_device, bd.pack_frames
+
+    def timed_eval(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = plain_eval(*args, **kw)
+        end.record()
+        end.synchronize()
+        chunk_ms.append(start.elapsed_time(end))
+        return out
+
+    def timed_pack(*args, **kw):
+        t0 = time.perf_counter()
+        out = plain_pack(*args, **kw)
+        pack_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    bd.device_calc_stats(ev, gts[:EVAL_CHUNK], dts[:EVAL_CHUNK])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bd.eval_frames_device, bd.pack_frames = timed_eval, timed_pack
+    try:
+        t0 = time.perf_counter()
+        full = bd.device_calc_stats(ev, gts, dts, chunk_frames=EVAL_CHUNK)
+        call_s = time.perf_counter() - t0
+    finally:
+        bd.eval_frames_device, bd.pack_frames = plain_eval, plain_pack
+    peak = torch.cuda.max_memory_allocated()
+    check(sum(full.ngt.values()) == sum(len(g) for g in gts),
+          "eval_at_scale: ngt is not the GT count")
+
+    # one chunk's phases
+    packed = bd.pack_frames(gts[:EVAL_CHUNK], dts[:EVAL_CHUNK], [car.value])
+    md, strict = bd.max_dist_arrays(ev)
+    thr = np.ascontiguousarray(ev._pr_thresholds, np.float32)
+    steps = int((packed["dt_label"] >= 0).sum(-1).max())
+    p = {k: torch.as_tensor(v, device=dev) for k, v in packed.items()}
+    valid = p["gt_label"] >= 0
+    md_t, strict_t = (torch.as_tensor(a, device=dev) for a in (md, strict))
+    tables = bd._matching_tables(p["dt_box"], p["gt_box"], p["gt_label"],
+                                 valid, md_t, strict_t)
+    m_all = ((p["dt_label"] >= 0)[:, None, :]
+             & (p["dt_score"][:, None, :]
+                >= torch.as_tensor(thr, device=dev)[None, :, None]))
+    phase_ms = dict(
+        total=time_each(lambda: bd.eval_frames_device(
+            packed, thr, md, strict, 1, device=dev), 3, warmup=1),
+        iou_tables=time_each(lambda: bd._matching_tables(
+            p["dt_box"], p["gt_box"], p["gt_label"], valid, md_t,
+            strict_t), 3, warmup=1),
+        match_loop=time_each(lambda: bd._greedy_match_masked(
+            tables[1], tables[2], m_all, p["dt_label"], p["dt_score"],
+            p["gt_label"], valid, steps), 3, warmup=1))
+    phase_ms["rest"] = (phase_ms["total"] - phase_ms["iou_tables"]
+                        - phase_ms["match_loop"])
+    # the chunk's kernel time (CUPTI): the card's busy share of its events
+    kernel_ms = cupti_ms(lambda: bd.eval_frames_device(
+        packed, thr, md, strict, 1, device=dev), reps=3)
+    # the first chunk, card vs CPU: last, as the CPU run's worker
+    # threads keep cores busy for a while after it
+    card = bd.device_calc_stats(ev, gts[:EVAL_CHUNK], dts[:EVAL_CHUNK])
+    t0 = time.perf_counter()
+    cpu = bd.device_calc_stats(
+        DetectionEvaluator([car], EVAL_OVERLAPS[0], device="cpu"),
+        gts[:EVAL_CHUNK], dts[:EVAL_CHUNK])
+    cpu_s = time.perf_counter() - t0
+    err = same_stats("val-scale first chunk card vs CPU", card, cpu)
+
+    shape = dict(frames=EVAL_CHUNK, thresholds=len(thr),
+                 dt_pad=packed["dt_label"].shape[1],
+                 gt_pad=packed["gt_label"].shape[1], match_steps=steps)
+    ev.reset()
+    ev.add_stats(full)
+    out = dict(frames=KITTI_VAL_FRAMES, chunk=EVAL_CHUNK,
+               gt=sum(len(g) for g in gts), dt=sum(len(d) for d in dts),
+               make_frames_s=make_s, call_s=call_s, chunk_ms=chunk_ms,
+               peak_mib=peak / 2 ** 20, ap=float(ev.ap()[car]),
+               cpu_frames_compared=EVAL_CHUNK, cpu_chunk_s=cpu_s,
+               max_rel_err_card_vs_cpu=err, pack_ms=pack_ms,
+               chunk_phase_ms=phase_ms, chunk_kernel_ms=kernel_ms,
+               chunk_shape=shape)
+    log(f"kitti_eval at the val split's scale: {KITTI_VAL_FRAMES} frames "
+        f"({out['gt']} GT, {out['dt']} detections) in {call_s:.3f} s "
+        f"(chunks {', '.join(f'{t:.1f}' for t in chunk_ms)} ms by events), "
+        f"peak {out['peak_mib']:.0f} MiB; packing in the call "
+        f"{sum(pack_ms):.0f} ms (host); one chunk: " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in phase_ms.items())
+        + f", kernels {kernel_ms} ms (CUPTI) {shape}; the first "
+        f"{EVAL_CHUNK} frames equal the CPU's ({cpu_s:.1f} s there)")
+    return out
 
 
 def add_cupti(a, b):
@@ -2827,7 +3284,7 @@ def main():
                       for kind in EDGE_CASES],
         **sort_edge_maps(dev)})
 
-    serve_counts, serve = serving(dev)
+    serve_counts, serve, pp_detect = serving(dev)
     ns_counts, ns, ns_inputs = north_star(dev)
     k3_counts, tb2048, ts2048 = k3_path(dev)
     second_counts, second_stats = second_serving(dev, second, second_frames)
@@ -2840,6 +3297,8 @@ def main():
     api_counts = {}
     for c in (vox_counts, iou_counts, nms_counts, crop_counts):
         add_counts(api_counts, c)
+    kitti_counts, kitti_stats = kitti_eval(dev, second, pp_detect)
+    kitti_stats["val_scale"] = eval_at_scale(dev)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     train_counts, train_stats = {}, {}
@@ -2859,7 +3318,8 @@ def main():
                       "second_serving": second_counts[name],
                       "soft_nms": soft_counts[name],
                       "second_training": train_counts[name],
-                      "box_api": api_counts[name]}
+                      "box_api": api_counts[name],
+                      "kitti_eval": kitti_counts[name]}
                for name in serve_counts}
     meta = {
         "rbox_iou_matrix": ("cuda", "d3d_tpu_torch/csrc/rbox_iou.cu",
@@ -2927,7 +3387,8 @@ def main():
                               "box_api": {"VoxelGenerator": vox_stats,
                                           "box2d_iou": iou_stats,
                                           "box2d_nms": nms_stats,
-                                          "crops": crop_stats}},
+                                          "crops": crop_stats},
+                              "kitti_eval": kitti_stats},
                     "card": card}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

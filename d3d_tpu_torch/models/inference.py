@@ -1,11 +1,9 @@
-"""End-to-end inference: points in, detections out (port of the PointPillars
-and SECOND part of ``d3d_tpu.models.inference``).
+"""End-to-end inference: points in, :class:`Target3DArray` out (port of the
+PointPillars and SECOND part of ``d3d_tpu.models.inference``).
 
-One request runs points -> pillarize -> PointPillars -> top-k decode ->
-rotated NMS on one device with fixed shapes; only the final selection of
-kept rows runs on the host. The JAX package assembles a ``Target3DArray``
-there; until ``abstraction.py`` is ported, ``detect`` returns the kept
-rows as numpy columns.
+One request runs points -> voxelize -> network -> top-k decode -> rotated
+NMS on one device with fixed shapes; only the final selection of kept rows
+and the ``Target3DArray`` assembly run on the host.
 """
 
 import math
@@ -13,12 +11,30 @@ import math
 import numpy as np
 import torch
 
+from ..abstraction import ObjectTag, Target3DArray
 from ..ops.nms import nms2d
-from ..utils import EDict, as_tensor, resolve_device
+from ..utils import as_tensor, resolve_device
 from .pointpillars import decode_boxes, pillarize
 from .second import second_voxelize
 
 __all__ = ["make_pointpillars_detector", "make_second_detector"]
+
+
+def _to_targets(boxes, scores, labels, keep, classes, frame, timestamp,
+                score_threshold):
+    """Host-side assembly of kept detections into a Target3DArray — one
+    vectorized mask + ``Target3DArray.from_columns`` (the dense decode
+    outputs become the array's struct-of-arrays backing directly)."""
+    boxes, scores, labels, keep = (np.asarray(a) for a in
+                                   (boxes, scores, labels, keep))
+    sel = (keep & (scores >= score_threshold)
+           & np.all(np.isfinite(boxes), axis=-1))
+    boxes, scores, labels = boxes[sel], scores[sel], labels[sel]
+    tags = [ObjectTag(cls := classes[int(l)], type(cls), float(s))
+            for l, s in zip(labels, scores)]
+    return Target3DArray.from_columns(
+        positions=boxes[:, 0:3], dimensions=boxes[:, 3:6],
+        yaws=boxes[:, 6], tags=tags, frame=frame, timestamp=timestamp)
 
 
 def _bev(boxes):
@@ -31,7 +47,8 @@ def _make_anchor_detector(model, variables, cfg, anchors, classes,
                           top_k, device):
     """Shared factory for the anchor-head families: voxelize -> heads ->
     top-k decode (incl. the direction classifier: arcsin only recovers yaw
-    up to pi, the dir head supplies the flip) -> rotated NMS."""
+    up to pi, the dir head supplies the flip) -> rotated NMS ->
+    Target3DArray."""
     dev = resolve_device(device)
     if variables is not None:
         model.load_state_dict(variables)
@@ -59,19 +76,12 @@ def _make_anchor_detector(model, variables, cfg, anchors, classes,
                       iou_threshold=iou_threshold, iou_method="rbox")
         return boxes, top_scores, labels, keep
 
-    def detect(points):
-        """Kept detections of one frame as numpy columns: positions (K, 3),
-        dimensions (K, 3), yaws (K,), labels (K,), scores (K,) and the
-        matching ``classes`` entries — the rows the JAX detector turns into
-        a Target3DArray."""
-        boxes, scores, labels, keep = (t.cpu().numpy()
-                                       for t in device_fn(points))
-        sel = (keep & (scores >= score_threshold)
-               & np.all(np.isfinite(boxes), axis=-1))
-        boxes, scores, labels = boxes[sel], scores[sel], labels[sel]
-        return EDict(positions=boxes[:, 0:3], dimensions=boxes[:, 3:6],
-                     yaws=boxes[:, 6], labels=labels, scores=scores,
-                     classes=[classes[int(l)] for l in labels])
+    def detect(points, frame=None, timestamp=0):
+        """The kept detections of one frame as a Target3DArray: a tag
+        ``ObjectTag(classes[label], type(classes[label]), score)`` per box
+        (``classes`` are Enum members), in ``frame`` at ``timestamp``."""
+        return _to_targets(*(t.cpu().numpy() for t in device_fn(points)),
+                           classes, frame, timestamp, score_threshold)
 
     detect.device_fn = device_fn
     return detect
@@ -80,7 +90,8 @@ def _make_anchor_detector(model, variables, cfg, anchors, classes,
 def make_pointpillars_detector(model, variables, cfg, anchors, classes,
                                score_threshold=0.3, iou_threshold=0.5,
                                top_k=100, device=None):
-    """Build ``detect(points)`` for a PointPillars model.
+    """Build ``detect(points, frame=None, timestamp=0) -> Target3DArray``
+    for a PointPillars model.
 
     :param variables: a state_dict to load into ``model`` (e.g. from
         :func:`d3d_tpu_torch.models.convert.pointpillars_state_from_flax`),
@@ -96,7 +107,7 @@ def make_pointpillars_detector(model, variables, cfg, anchors, classes,
 def make_second_detector(model, variables, cfg, anchors, classes,
                          score_threshold=0.3, iou_threshold=0.5, top_k=100,
                          device=None):
-    """Build ``detect(points)`` for a SECOND model (head outputs are
+    """Build ``detect(points, frame=None, timestamp=0)`` for a SECOND model (head outputs are
     PointPillars-compatible; only the voxelization front end differs).
     Arguments as :func:`make_pointpillars_detector`; ``anchors`` come from
     ``make_anchors(head_config(cfg))``."""

@@ -30,6 +30,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as smoke  # noqa: E402
+from d3d_tpu_torch.dataset.kitti import KittiObjectClass  # noqa: E402
 from d3d_tpu_torch.models import (SECOND, PointPillars,  # noqa: E402
                                   decode_boxes, head_config, make_anchors,
                                   make_pointpillars_detector,
@@ -140,7 +141,7 @@ def main():
         model.load_state_dict(state)
         anchors = make_anchors(cfg, device=dev)
         detect = make_pointpillars_detector(model, None, cfg, anchors,
-                                            ["Car"], device=dev)
+                                            [KittiObjectClass.Car], device=dev)
         points = torch.from_numpy(frame).to(dev)
         feats, coords, valid = pillarize(points, cfg)
         with torch.inference_mode():
@@ -193,8 +194,8 @@ def main():
         model = SECOND(cfg, device=dev)
         model.load_state_dict(seeded.state_dict())
         anchors = make_anchors(head_config(cfg), device=dev)
-        detect = make_second_detector(model, None, cfg, anchors, ["Car"],
-                                      device=dev)
+        detect = make_second_detector(model, None, cfg, anchors,
+                                      [KittiObjectClass.Car], device=dev)
         feats, coords, valid = second_voxelize(points, cfg)
         maps, (fc, fv, fg) = _batch_stage_maps(cfg, coords[None],
                                                valid[None])

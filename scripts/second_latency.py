@@ -21,6 +21,7 @@ each, and compare the runs' medians.
 """
 
 import argparse
+import enum
 import importlib.util
 import json
 import statistics
@@ -31,6 +32,10 @@ from pathlib import Path
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
+
+# the detectors' class list: an Enum, as detect tags its boxes with it (a
+# checkout whose detect returns numpy columns takes it as well)
+CLASSES = list(enum.Enum("Classes", "Car"))
 
 
 def main():
@@ -70,7 +75,7 @@ def main():
     for name, m in (("f32", model), ("bf16", model16)):
         detect = make_second_detector(
             m, None, m.cfg, make_anchors(head_config(m.cfg), device=dev),
-            ["Car"], device=dev)
+            CLASSES, device=dev)
         for i in range(5):
             detect(frames[i % 4])
         times = []

@@ -15,11 +15,13 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from d3d_tpu.dataset.kitti.utils import KittiObjectClass
 from d3d_tpu.models import PointPillars, PointPillarsConfig, make_anchors
 from d3d_tpu.models import presets
 from d3d_tpu.models.inference import make_pointpillars_detector
 from d3d_tpu.models.pointpillars import decode_boxes, pillarize
 
+from d3d_tpu_torch.dataset.kitti.utils import KittiObjectClass as TClass
 from d3d_tpu_torch.models import PointPillars as TPointPillars
 from d3d_tpu_torch.models import PointPillarsConfig as TConfig
 from d3d_tpu_torch.models import decode_boxes as t_decode_boxes
@@ -130,16 +132,18 @@ def test_network_bf16_matches(pair):
 
 
 def _detectors(model, variables):
-    """The JAX detector and the port's, on the same variables."""
+    """The JAX detector and the port's, on the same variables (each tags
+    its boxes with its own package's KITTI Car)."""
     cfg = PointPillarsConfig(**CFG)
     det = make_pointpillars_detector(model, variables, cfg,
-                                     make_anchors(cfg), ["Car"],
+                                     make_anchors(cfg),
+                                     [KittiObjectClass.Car],
                                      score_threshold=0.0, top_k=32)
     tdet = t_make_detector(TPointPillars(TConfig(**CFG), device="cpu"),
                            pointpillars_state_from_flax(variables),
                            TConfig(**CFG),
                            t_make_anchors(TConfig(**CFG), device="cpu"),
-                           ["Car"], score_threshold=0.0, top_k=32,
+                           [TClass.Car], score_threshold=0.0, top_k=32,
                            device="cpu")
     return det, tdet
 
@@ -161,9 +165,30 @@ def test_detector_end_to_end(pair):
     boxes, scores, labels, keep = _compare_detections(det, tdet, pts)
     assert boxes.shape == (32, 7) and keep.dtype == bool
     out = tdet(pts)
-    assert len(out.scores) == int(keep.sum())
-    np.testing.assert_array_equal(out.positions, boxes[keep][:, 0:3])
-    assert out.classes == ["Car"] * len(out.scores)
+    assert len(out) == int(keep.sum()) and out.frame is None
+    np.testing.assert_array_equal(out.columns()["position"],
+                                  boxes[keep][:, 0:3])
+    assert [o.tag_top for o in out] == [TClass.Car] * len(out)
+
+
+def test_detect_returns_equal_target_arrays(pair):
+    """``detect(points, frame, timestamp)`` gives the JAX detector's
+    Target3DArray: the same length, frame and timestamp, positions and
+    dimensions within the boxes' 1e-4, equal labels, scores within
+    1e-5."""
+    model, variables, _, _ = pair
+    det, tdet = _detectors(model, variables)
+    pts = _points(11)
+    want = det(pts, frame="velo", timestamp=7)
+    got = tdet(pts, frame="velo", timestamp=7)
+    assert len(got) == len(want) > 0
+    assert (got.frame, got.timestamp) == (want.frame, want.timestamp)
+    w, g = want.columns(), got.columns()
+    for key in ("position", "dimension"):
+        np.testing.assert_allclose(g[key], w[key], rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(g["label"], w["label"])
+    np.testing.assert_allclose(g["score"], w["score"], rtol=0, atol=1e-5)
+    assert [o.tag_top.name for o in got] == [o.tag_top.name for o in want]
 
 
 def test_detector_ties_take_lowest_index(pair):

@@ -24,6 +24,7 @@ from d3d_tpu.models.second import SECOND, SECONDConfig, _MaskedBN, head_config
 from d3d_tpu.models.second import make_train_step, second_voxelize
 from d3d_tpu.train import make_optimizer
 
+from d3d_tpu_torch.dataset.kitti import KittiObjectClass as TClass
 from d3d_tpu_torch.models import SECOND as TSECOND
 from d3d_tpu_torch.models import SECONDConfig as TConfig
 from d3d_tpu_torch.models import head_config as t_head_config
@@ -162,7 +163,7 @@ def test_detector_matches(pair):
     tdet = t_make_detector(TSECOND(tcfg, device="cpu"),
                            second_state_from_flax(variables), tcfg,
                            t_make_anchors(t_head_config(tcfg), device="cpu"),
-                           ["Car"], score_threshold=0.0, top_k=24,
+                           [TClass.Car], score_threshold=0.0, top_k=24,
                            device="cpu")
     pts = _points(name, 7)
     want = [np.asarray(a) for a in det.device_fn(jnp.asarray(pts))]
@@ -173,7 +174,8 @@ def test_detector_matches(pair):
     np.testing.assert_array_equal(got[3], want[3])                  # keep
     assert got[0].shape == (24, 7) and 0 < got[3].sum() <= 24
     out = tdet(pts)
-    assert len(out.scores) == int(got[3].sum())
+    assert len(out) == int(got[3].sum())
+    assert [o.tag_top for o in out] == [TClass.Car] * len(out)
 
 
 def test_presets_match():
