@@ -60,7 +60,17 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    ``box2d_nms(iou_method="rbox", precise=False)``) into Target3DArrays;
    ``DetectionEvaluator`` at IoU 0.7 and 0.5 by ``calc_stats`` and
    ``device_calc_stats``; then ``device_calc_stats`` over the KITTI val
-   split's 3 769 seeded frames in chunks of 512); each path must launch its
+   split's 3 769 seeded frames in chunks of 512) and ``pointpillars_train``
+   (``examples/train_pointpillars.py`` at full width: the 8 KITTI-like
+   frames through ``KittiObjectLoader``, ``build_gt_database``, then per
+   frame ``sample_ground_truths``, ``perobject_augment`` (K1's f32 form),
+   ``global_augment`` and ``pillarize``, ``batch_frames`` of 2 inside
+   ``prefetch``; ``Trainer`` with a ``prepare_targets(dense=True)``
+   prep_fn, 5 steps f32 (TF32 off) with ``ema_update``, a
+   ``TrainCheckpointer`` in ``build/`` and an ``eval_fn``
+   (``device_calc_stats`` on ``make_pointpillars_detector``: K1's bit
+   form and the scan), then 5 steps bf16; the trained model's folded,
+   int8 and flip-TTA detectors); each path must launch its
    kernels, and nms2d K1's bit form and the scan only
    (``check_nms_routes``);
 4. checks the outputs: finite, of the expected shape, the keep masks equal
@@ -75,7 +85,15 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    paths' outputs equal to a
    CPU run of the same weights at a stated tolerance (TF32 off), the
    training loss finite and falling, and one training step's gradients
-   equal to the CPU's (plain versions) at a stated tolerance;
+   equal to the CPU's (plain versions) at a stated tolerance; for
+   PointPillars training also: a second ``Trainer`` resumed from the step-3
+   checkpoint equal to the straight run tensor for tensor, one step's
+   gradients on the card and on the CPU within stated limits of a float64
+   step (``pp_card_vs_cpu``), K1's f32 form at the augmentation's padded
+   32x32 matrices held as ``check_k1`` holds it, the
+   augmentation on near-touching boxes equal to the CPU's, bf16 within the
+   stated bound of f32, the folded and int8 models within the JAX
+   package's test bounds, the TTA keep mask equal to the plain scan's;
 5. times the kernels, their plain versions, the rule-book builds and the
    paths with CUDA events (the kernels line's ``ms``), gives the sparse
    kernels' and rule books' own kernel time by CUPTI beside them
@@ -87,6 +105,8 @@ Any failed check raises, and the run exits nonzero. The second-to-last
 line is ``{"kernels": [...]}``, the last ``{"ok": true, "device": ...}``.
 """
 
+import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -174,8 +194,13 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """A line of the run's log, after the seconds since the script
+    started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -483,6 +508,51 @@ def near_touching_boxes(rng, count=16):
     return np.asarray(a, np.float32), np.asarray(b, np.float32)
 
 
+def k1_case(name, ta, tb, diagonal=False, touching=False):
+    """One case of ``check_k1`` on the card tensors ``ta`` (N, 5) and ``tb``
+    (M, 5): K1 within 2e-5 of the plain version, exactly +0.0 wherever the
+    plain version is 0, every entry written (into a NaN-filled buffer),
+    the pairs that ran the chain those the plain reject test keeps; with
+    ``diagonal`` the first 5 boxes' self-IoU 1 to 1e-4, with ``touching``
+    every (i, i) pair through the chain. Returns (the max error, the share
+    of pairs that ran the chain)."""
+    from d3d_tpu_torch.ops import geometry_cuda, geometry_soa
+
+    dev = ta.device
+    got = geometry_cuda.rbox_iou_matrix(ta, tb)
+    want = geometry_soa._rbox_iou_matrix_plain(ta, tb)
+    chains = torch.zeros(1, dtype=torch.int32, device=dev)
+    nan_out = torch.full_like(got, float("nan"))
+    geometry_cuda._launch(ta, tb, chains=chains, out=nan_out)
+    keep = ~geometry_cuda._reject_plain(ta, tb)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape, f"K1 {name}: shape {got.shape}")
+    check(bool(torch.isfinite(got).all()), f"K1 {name}: not finite")
+    check(torch.equal(nan_out, got),
+          f"K1 {name}: an entry left unwritten or not repeatable")
+    err = float((got - want).abs().max())
+    log(f"K1 {name}: max |kernel - plain| = {err:.3g} (atol 2e-5)")
+    check(err <= 2e-5, f"K1 {name}: error {err} > 2e-5")
+    zero = want == 0
+    check(bool((got[zero] == 0).all())
+          and not bool(torch.signbit(got[~keep]).any()),
+          f"K1 {name}: not +0.0 where the plain version is 0")
+    check(int(chains) == int(keep.sum()),
+          f"K1 {name}: {int(chains)} pairs ran the chain, the plain "
+          f"reject test keeps {int(keep.sum())}")
+    if touching:
+        check(bool(keep.diagonal().all()),
+              f"K1 {name}: a touching pair was rejected")
+    if diagonal:
+        diag = torch.diagonal(got[:5, :5])
+        check(bool(((diag - 1).abs() <= 1e-4).all()),
+              f"K1 {name}: diagonal {diag.tolist()}")
+    share = int(chains) / got.numel()
+    log(f"K1 {name}: {int(chains)} of {got.numel()} pairs ran the chain "
+        f"({100 * share:.2f}%), the rest +0.0 from the reject test")
+    return err, share
+
+
 def check_k1(dev):
     """K1 against the plain version on the card: within 2e-5, exactly +0.0
     wherever the plain version is 0, every entry written (into a NaN-filled
@@ -507,39 +577,10 @@ def check_k1(dev):
              "near-touching": (near_a, near_b)}
     worst, shares = 0.0, {}
     for name, (a, b) in cases.items():
-        ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
-        got = geometry_cuda.rbox_iou_matrix(ta, tb)
-        want = geometry_soa._rbox_iou_matrix_plain(ta, tb)
-        chains = torch.zeros(1, dtype=torch.int32, device=dev)
-        nan_out = torch.full_like(got, float("nan"))
-        geometry_cuda._launch(ta, tb, chains=chains, out=nan_out)
-        keep = ~geometry_cuda._reject_plain(ta, tb)
-        torch.cuda.synchronize()
-        check(got.shape == want.shape, f"K1 {name}: shape {got.shape}")
-        check(bool(torch.isfinite(got).all()), f"K1 {name}: not finite")
-        check(torch.equal(nan_out, got),
-              f"K1 {name}: an entry left unwritten or not repeatable")
-        err = float((got - want).abs().max())
-        log(f"K1 {name}: max |kernel - plain| = {err:.3g} (atol 2e-5)")
-        check(err <= 2e-5, f"K1 {name}: error {err} > 2e-5")
-        zero = want == 0
-        check(bool((got[zero] == 0).all())
-              and not bool(torch.signbit(got[~keep]).any()),
-              f"K1 {name}: not +0.0 where the plain version is 0")
-        check(int(chains) == int(keep.sum()),
-              f"K1 {name}: {int(chains)} pairs ran the chain, the plain "
-              f"reject test keeps {int(keep.sum())}")
-        if name == "near-touching":
-            check(bool(keep.diagonal().all()),
-                  "K1 near-touching: a touching pair was rejected")
-        if name not in ("adversarial", "near-touching"):
-            diag = torch.diagonal(got[:5, :5])
-            check(bool(((diag - 1).abs() <= 1e-4).all()),
-                  f"K1 {name}: diagonal {diag.tolist()}")
-        shares[name] = int(chains) / got.numel()
-        log(f"K1 {name}: {int(chains)} of {got.numel()} pairs ran the chain "
-            f"({100 * shares[name]:.2f}%), the rest +0.0 from the reject "
-            f"test")
+        err, shares[name] = k1_case(
+            name, torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev),
+            diagonal=name not in ("adversarial", "near-touching"),
+            touching=name == "near-touching")
         worst = max(worst, err)
     for name in ("512x512", "2048x2048", "adversarial"):
         tb = torch.from_numpy(cases[name][0]).to(dev)
@@ -2720,6 +2761,756 @@ def eval_at_scale(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# pointpillars_train: PointPillars training end to end on the card, and the
+# serving tail of a trained model (folding, int8 weights, flip TTA)
+# ---------------------------------------------------------------------------
+
+PP_STEPS = 5
+PP_BATCH = 2
+PP_MAX_GT = 32      # examples/train_pointpillars.py's MAX_GT
+PP_CKPT_STEP = 3
+PP_MAX_PER_CLASS = 20
+# tests/test_torch_pointpillars_train.py's bfloat16 bound at full width:
+# 16 bfloat16 layers on the longest path, sums of up to 9 x 256 terms
+PP_BF16_DEPTH, PP_BF16_WIDTH = 16, 9 * 256
+PP_TTA_MODES = ("none", "flip_y")
+
+
+def bf16_bound(depth, width):
+    """The bfloat16 network's error relative to the largest float32 output
+    (tests/test_torch_pointpillars_train.py): ``D (2^-8 + K 2^-24)``."""
+    return depth * (2.0 ** -8 + width * 2.0 ** -24)
+
+
+def pp_train_frames():
+    """The 8 KITTI-like frames written as a KITTI object split
+    (``write_kitti_split``) and read back by the port's KittiObjectLoader:
+    (points (N, 4) f32, boxes (M, 7) f32, labels (M,)) a frame, and the
+    frames' Target3DArrays."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        root = Path(tmp)
+        loaded, _ = load_kitti_split(root, write_kitti_split(root))
+    frames = []
+    for pts, gt in loaded:
+        c = gt.columns()
+        boxes = np.concatenate([c["position"], c["dimension"],
+                                c["yaw"][:, None]], 1).astype(np.float32)
+        frames.append((np.asarray(pts, np.float32)[:, :4], boxes,
+                       np.zeros(len(boxes), np.int64)))
+    return frames, [gt for _, gt in loaded]
+
+
+def pp_augmented(dev, cfg, frames, db, seed, count):
+    """``count`` training frames, cycling over ``frames``: GT sampling
+    (``sample_ground_truths``, numpy generator ``seed``), the boxes padded
+    to PP_MAX_GT, then on the card ``perobject_augment`` (K1 twice) and
+    ``global_augment`` (a CUDA generator ``seed``) and ``pillarize``."""
+    from d3d_tpu_torch.augment import (global_augment, perobject_augment,
+                                       sample_ground_truths)
+    from d3d_tpu_torch.models import pillarize
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for i in range(count):
+        pts, boxes, labels = sample_ground_truths(
+            rng, db, *frames[i % len(frames)],
+            max_per_class=PP_MAX_PER_CLASS, device=dev)
+        m = min(len(boxes), PP_MAX_GT)
+        gt = np.zeros((PP_MAX_GT, 7), np.float32)
+        gt[:m] = boxes[:m]
+        mask = torch.from_numpy(np.arange(PP_MAX_GT) < m).to(dev)
+        p, g = perobject_augment(gen, torch.from_numpy(pts).to(dev),
+                                 torch.from_numpy(gt).to(dev), mask)
+        p, g = global_augment(gen, p, g)
+        f, c, v = pillarize(p, cfg)
+        yield dict(features=f, coords=c, valid=v, gt_boxes=g,
+                   gt_labels=torch.zeros(PP_MAX_GT, dtype=torch.int32,
+                                         device=dev), gt_mask=mask)
+
+
+def pp_run(dev, cfg, state, frames, db, seed, ckpt=None, eval_fn=None,
+           steps=PP_STEPS, profiled=False):
+    """One Trainer run of ``steps`` steps of batch PP_BATCH from ``state``:
+    make_optimizer over PP_STEPS, make_train_step(external_targets=True),
+    ``batch_frames`` of ``pp_augmented`` inside ``prefetch``, a
+    ``prepare_targets(dense=True)`` prep_fn, ``ema_update`` after each
+    step, checkpoints every PP_CKPT_STEP steps into ``ckpt``, ``eval_fn``
+    at the last step (``eval_fn(step, model, ema)``, with the EMA tree);
+    ``profiled`` runs the Trainer under torch.profiler (CUDA activity) for
+    the card's busy share. Returns (model, optimizer, record): per step
+    the loss terms, CUDA events around the step and its host start time,
+    the prepped batches, the run's wall clock and busy share."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from d3d_tpu_torch.models import (PointPillars, make_anchors,
+                                      prepare_targets)
+    from d3d_tpu_torch.models.pointpillars import make_train_step
+    from d3d_tpu_torch.train import (Trainer, batch_frames, ema_init,
+                                     ema_update, make_optimizer, prefetch)
+
+    model = PointPillars(cfg, device=dev)
+    model.load_state_dict(state)
+    opt, _ = make_optimizer(model.parameters(), steps)
+    anchors = make_anchors(cfg, device=dev)
+    train_step = make_train_step(model, opt, cfg, anchors,
+                                 external_targets=True)
+    ema = ema_init(model)
+    rec = dict(aux=[], events=[], host=[], batches=[])
+
+    def step(batch):
+        rec["host"].append(time.perf_counter())
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        aux = train_step(batch)
+        ema_update(ema, model, step=len(rec["aux"]))
+        ev[1].record()
+        rec["aux"].append(aux)
+        rec["events"].append(ev)
+        rec["batches"].append(batch)
+        return aux
+
+    trainer = Trainer(
+        step, prep_fn=lambda b: prepare_targets(anchors, b, cfg=cfg,
+                                                dense=True),
+        checkpointer=ckpt, log_every=steps, ckpt_every=PP_CKPT_STEP,
+        log_fn=log, eval_every=steps if eval_fn else 0,
+        eval_fn=eval_fn and (lambda step, m: eval_fn(step, m, ema)))
+    batches = prefetch(batch_frames(
+        pp_augmented(dev, cfg, frames, db, seed, PP_BATCH * steps),
+        PP_BATCH), depth=2)
+    with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+          else contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
+        check(trainer.run(model, opt, batches) == steps,
+              f"pointpillars_train {cfg.dtype}: the Trainer stopped early")
+        torch.cuda.synchronize()
+        rec["run_s"] = time.perf_counter() - t0
+    rec["busy_share"] = busy_share(prof, rec["run_s"]) if profiled else None
+    rec["losses"] = [{k: float(v) for k, v in a.items()} for a in rec["aux"]]
+    rec["step_ms"] = [s.elapsed_time(e) for s, e in rec["events"]]
+    return model, opt, rec
+
+
+def pp_check_run(name, rec, counts, want):
+    totals = [l["total"] for l in rec["losses"]]
+    check(all(math.isfinite(v) for l in rec["losses"] for v in l.values()),
+          f"{name}: a loss is not finite: {rec['losses']}")
+    check(totals[-1] < totals[0], f"{name}: loss did not fall: {totals}")
+    routes = read_routes()
+    got = dict(k1_matrix=routes["k1_matrix"], k1_bits=routes["k1_bits"],
+               nms_scan=counts["nms_scan"],
+               rbox_iou_matrix=counts["rbox_iou_matrix"])
+    check(got == want and counts["subm_conv"] == 0
+          and counts["soft_nms_scan"] == 0,
+          f"{name}: launches {got}, want {want}; all counts {counts}")
+    steady = statistics.median(rec["step_ms"][1:])
+    wall = statistics.median(np.diff(rec["host"]))
+    log(f"{name}: losses " + ", ".join(f"{t:.4f}" for t in totals)
+        + f"; step {rec['step_ms'][0]:.2f} ms first, {steady:.2f} ms median "
+        f"of steps 2-{PP_STEPS} (CUDA events, with ema_update); Trainer "
+        f"wall clock {wall * 1e3:.2f} ms a step (median of the host "
+        f"intervals between step starts); run {rec['run_s']:.2f} s; "
+        f"launches {got}")
+    return dict(losses=totals, loss_terms=rec["losses"][-1],
+                step_ms=rec["step_ms"], steady_ms=steady,
+                trainer_wall_ms=wall * 1e3, run_s=rec["run_s"],
+                launches=got)
+
+
+def pp_stage_times(model, opt, batch, cfg, reps=4):
+    """A train step cut into stages (prep: prepare_targets dense, forward,
+    loss, backward, optimizer), device ms between CUDA events, median of
+    ``reps`` steps on one batch."""
+    from d3d_tpu_torch.models import make_anchors, prepare_targets
+    from d3d_tpu_torch.models.pointpillars import detection_loss
+
+    anchors = make_anchors(cfg, device=batch["features"].device)
+    raw = {k: v for k, v in batch.items() if k != "targets"}
+    names = ("prep", "forward", "loss", "backward", "optimizer")
+    times = {n: [] for n in names}
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        targets = prepare_targets(anchors, raw, cfg=cfg,
+                                  dense=True)["targets"]
+        ev[1].record()
+        opt.zero_grad(set_to_none=True)
+        out = model(raw["features"], raw["coords"], raw["valid"], train=True)
+        ev[2].record()
+        loss, _ = detection_loss(out, targets, cfg, anchors)
+        ev[3].record()
+        loss.backward()
+        ev[4].record()
+        opt.step()
+        ev[5].record()
+        ev[5].synchronize()
+        for i, n in enumerate(names):
+            times[n].append(ev[i].elapsed_time(ev[i + 1]))
+    return {n: statistics.median(t) for n, t in times.items()}
+
+
+def busy_share(prof, wall_s):
+    """The card's busy share over a profiled stretch of ``wall_s`` seconds:
+    the union of the trace's device activity intervals (kernels, copies
+    and sets, on every stream; overlap counted once) over the wall clock.
+    Reads the raw trace events: key_averages() would take tens of seconds
+    over a Trainer run's ~10^5 events."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    busy_ns, end = 0, None
+    for s0, s1 in spans:
+        if end is None or s0 >= end:
+            busy_ns, end = busy_ns + s1 - s0, s1
+        elif s1 > end:
+            busy_ns, end = busy_ns + s1 - end, s1
+    return busy_ns / 1e9 / wall_s if busy_ns else None
+
+
+def pp_input_times(dev, cfg, frames, db, count=4):
+    """The input pipeline's time a frame, as ``pp_augmented`` makes one,
+    on the main thread alone: GT sampling (host clock, its float64 IoUs
+    on the card included) and the card's part (perobject_augment,
+    global_augment, pillarize; host clock to a synchronise). Medians of
+    ``count`` frames."""
+    from d3d_tpu_torch.augment import (global_augment, perobject_augment,
+                                       sample_ground_truths)
+    from d3d_tpu_torch.models import pillarize
+
+    rng = np.random.default_rng(970)
+    gen = torch.Generator(device=dev).manual_seed(970)
+    sample_ms, device_ms, gts = [], [], []
+    for i in range(count):
+        t0 = time.perf_counter()
+        pts, boxes, _ = sample_ground_truths(
+            rng, db, *frames[i % len(frames)],
+            max_per_class=PP_MAX_PER_CLASS, device=dev)
+        t1 = time.perf_counter()
+        gt = np.zeros((PP_MAX_GT, 7), np.float32)
+        gt[:min(len(boxes), PP_MAX_GT)] = boxes[:PP_MAX_GT]
+        mask = torch.from_numpy(np.arange(PP_MAX_GT) < len(boxes)).to(dev)
+        gts.append(torch.from_numpy(gt).to(dev))
+        p, g = perobject_augment(gen, torch.from_numpy(pts).to(dev), gts[-1],
+                                 mask)
+        pillarize(global_augment(gen, p, g)[0], cfg)
+        torch.cuda.synchronize()
+        sample_ms.append((t1 - t0) * 1e3)
+        device_ms.append((time.perf_counter() - t1) * 1e3)
+    return dict(gt_sampling_ms=statistics.median(sample_ms),
+                augment_pillarize_ms=statistics.median(device_ms)), gts
+
+
+def pp_k1_augment(gts):
+    """K1's f32 form at perobject_augment's shape, on the card: for each
+    frame's GT boxes as the path pads them (``gts``: (PP_MAX_GT, 7), zero
+    rows after the frame's boxes), proposals drawn as perobject_augment
+    draws them (its defaults: yaw U(-0.3925, 0.3925), shift N(0, (1, 1,
+    0.5))), and both of its matrices, proposals x proposals and proposals
+    x originals, held to the plain version by ``k1_case`` (check_k1's
+    limits). Times the last frame's proposals x proposals call. Returns
+    its stats."""
+    from d3d_tpu_torch.models.inference import _bev
+    from d3d_tpu_torch.ops import geometry_cuda
+
+    gen = torch.Generator(device=gts[0].device).manual_seed(980)
+    worst = 0.0
+    for i, g in enumerate(gts):
+        m = g.shape[0]
+        prop = g.clone()
+        prop[:, 6] += torch.empty(m, device=g.device).uniform_(
+            -0.3925, 0.3925, generator=gen)
+        prop[:, :3] += torch.randn((m, 3), device=g.device, generator=gen) \
+            * torch.tensor([1.0, 1.0, 0.5], device=g.device)
+        a, b = _bev(prop), _bev(g)
+        for name, other in (("proposals x proposals", a),
+                            ("proposals x originals", b)):
+            err, _ = k1_case(f"augment frame {i} {name} "
+                             f"({int((g[:, 3] > 0).sum())} boxes of {m})",
+                             a, other)
+            worst = max(worst, err)
+    return dict(
+        ms=time_launches(lambda: geometry_cuda.rbox_iou_matrix(a, a)),
+        cupti_ms=cupti_ms(lambda: geometry_cuda.rbox_iou_matrix(a, a)),
+        max_abs_err=worst, frames=len(gts), shape=list(a.shape),
+        launches_a_step=2 * PP_BATCH)
+
+
+# one f32 step's gradients against the float64 step, each leaf's max
+# error over its largest |g|, card and CPU alike. Readings of
+# scripts/torch_pp_train_tolerances.py (NVIDIA H100 80GB HBM3, 700 W):
+# over seeds 0-4 (this script's run is seed 0) the card 1.3e-3 to 1.04e-2,
+# the CPU 2.7e-3 to 7.0e-3; the planted faults (BatchNorm statistics per
+# frame, one transposed leaf) 0.105 or more. The limit is about 3 times
+# the largest reading.
+PP_GRAD_LIMIT = 3e-2
+
+
+def pp_grad_runs(dev, cfg, state, batch, runs=("f64", "card", "cpu")):
+    """One step from the weights ``state`` on the prepped ``batch``, as
+    ``runs`` asks: "f64" the float64 step on the card (the network, its
+    BatchNorm statistics, the heads, the loss and so the cotangent in
+    float64), "card" the float32 step on the card (TF32 off), "cpu" the
+    float32 step on the CPU. Returns ({run: (loss, {leaf: float64
+    gradient on the CPU}, model)}, the CPU step's ms)."""
+    from d3d_tpu_torch.models import PointPillars, make_anchors
+    from d3d_tpu_torch.models.pointpillars import make_train_step
+    from d3d_tpu_torch.train import make_optimizer
+
+    where = dict(f64=(dev, "float64"), card=(dev, "float32"),
+                 cpu=(torch.device("cpu"), "float32"))
+    out, cpu_ms = {}, 0.0
+    for name in runs:
+        d, dtype = where[name]
+        c = dataclasses.replace(cfg, dtype=dtype)
+        b = {k: ({t: u.to(d) for t, u in v.items()} if k == "targets"
+                 else v.to(d)) for k, v in batch.items()}
+        model = PointPillars(c, device=d)
+        model.load_state_dict(state)
+        opt, _ = make_optimizer(model.parameters(), PP_STEPS)
+        step = make_train_step(model, opt, c, make_anchors(c, device=d),
+                               external_targets=True)
+        t0 = time.perf_counter()
+        aux = step(b)
+        if d.type == "cpu":
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+        out[name] = (float(aux["total"]),
+                     {n: p.grad.double().cpu()
+                      for n, p in model.named_parameters()}, model)
+    return out, cpu_ms
+
+
+def grad_err(grads, ref):
+    """The worst leaf's max |g - ref| over its largest |ref|: (error,
+    leaf)."""
+    worst, at = 0.0, ""
+    for leaf, g in grads.items():
+        rel = float((g - ref[leaf]).abs().max() / ref[leaf].abs().max())
+        if rel > worst:
+            worst, at = rel, leaf
+    return worst, at
+
+
+def pp_card_vs_cpu(dev, cfg, state, batch):
+    """One f32 step (TF32 off) on the card and on the CPU against the
+    float64 step on the card, from the same weights, batch and targets
+    (``pp_grad_runs``). At full width card and CPU do not agree to
+    SECOND's 1e-4 of each leaf's max: the loss pushes every anchor's
+    logit the same way and BatchNorm's backward subtracts that common
+    part from each layer's cotangent, which amplifies f32 rounding there
+    (cuDNN's FFT convolutions are not ruled out; PERF.md, section 6).
+    Held instead: every leaf of the card's step and of the CPU's within
+    PP_GRAD_LIMIT of its largest |g| of the float64 step's (set between
+    the seeds' readings and planted faults' errors), and the f32 losses
+    to rtol 1e-5. Returns (the errors, the CPU step's ms)."""
+    runs, cpu_ms = pp_grad_runs(dev, cfg, state, batch)
+    ref = runs["f64"][1]
+    err = {name: grad_err(runs[name][1], ref) for name in ("card", "cpu")}
+    losses = (runs["card"][0], runs["cpu"][0])
+    check(all(e <= PP_GRAD_LIMIT for e, _ in err.values()),
+          f"PointPillars training gradients against float64: card {err['card']}"
+          f", CPU {err['cpu']} of the largest |g|, limit {PP_GRAD_LIMIT}")
+    check(abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1]),
+          f"PointPillars training loss card vs CPU: {losses}")
+    log(f"pointpillars_train gradients against the float64 step (f32 TF32 "
+        f"off, one step): card {err['card'][0]:.3g} (at {err['card'][1]}), "
+        f"CPU {err['cpu'][0]:.3g} (at {err['cpu'][1]}) of each leaf's "
+        f"largest |g| (limit {PP_GRAD_LIMIT}); loss {losses[0]:.6f} / "
+        f"{losses[1]:.6f}, float64 {runs['f64'][0]:.6f}; the CPU step "
+        f"{cpu_ms:.0f} ms")
+    return dict(card_vs_f64=err["card"][0], cpu_vs_f64=err["cpu"][0]), cpu_ms
+
+
+def pp_bf16_bound(dev, cfg32, state, batch):
+    """bf16 against f32 (TF32 off) on one batch at full width, training
+    forward from the same weights: the loss and each head output within
+    ``bf16_bound(16, 2304)`` of the f32 one, relative to its largest
+    magnitude. Returns the observed relative errors and the bound."""
+    from d3d_tpu_torch.models import PointPillars, make_anchors
+    from d3d_tpu_torch.models.pointpillars import detection_loss
+
+    outs, losses = [], []
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(cfg32, dtype=dtype)
+        model = PointPillars(cfg, device=dev)
+        model.load_state_dict(state)
+        with torch.no_grad():
+            out = model(batch["features"], batch["coords"], batch["valid"],
+                        train=True)
+            loss, _ = detection_loss(out, batch["targets"], cfg,
+                                     make_anchors(cfg, device=dev))
+        outs.append(out)
+        losses.append(float(loss))
+    limit = bf16_bound(PP_BF16_DEPTH, PP_BF16_WIDTH)
+    errs = [float((b - a).abs().max() / a.abs().max())
+            for a, b in zip(*outs)]
+    loss_err = abs(losses[1] - losses[0]) / abs(losses[0])
+    check(max(errs) <= limit and loss_err <= limit,
+          f"bf16 vs f32 at full width: heads {errs}, loss {loss_err}, "
+          f"bound {limit}")
+    log(f"pointpillars_train bf16 vs f32 (one batch, training forward): "
+        f"heads {', '.join(f'{e:.3g}' for e in errs)}, loss {loss_err:.3g} "
+        f"of the f32 magnitudes; bound D (2^-8 + K 2^-24) = {limit:.4f} "
+        f"(D {PP_BF16_DEPTH}, K {PP_BF16_WIDTH})")
+    return dict(head_rel_err=errs, loss_rel_err=loss_err, bound=limit)
+
+
+def pp_resume(dev, cfg, state, ckpt_dir, straight, batches):
+    """A second Trainer, given a checkpointer that holds the straight run's
+    step-PP_CKPT_STEP checkpoint, restores it into a new model and
+    optimizer and runs the straight run's last batches: parameters and
+    BatchNorm buffers equal the straight run's, tensor for tensor (cuDNN
+    deterministic in both)."""
+    import shutil
+
+    from d3d_tpu_torch.checkpoint import TrainCheckpointer
+    from d3d_tpu_torch.models import PointPillars, make_anchors
+    from d3d_tpu_torch.models.pointpillars import make_train_step
+    from d3d_tpu_torch.train import Trainer, make_optimizer
+
+    model = PointPillars(cfg, device=dev)
+    model.load_state_dict(state)
+    opt, _ = make_optimizer(model.parameters(), PP_STEPS)
+    step = make_train_step(model, opt, cfg, make_anchors(cfg, device=dev),
+                           external_targets=True)
+    resume_dir = ckpt_dir.parent / "resume"
+    resume_dir.mkdir()
+    shutil.copy(ckpt_dir / f"step_{PP_CKPT_STEP}.pt", resume_dir)
+    trainer = Trainer(step, checkpointer=TrainCheckpointer(resume_dir),
+                      log_every=0, ckpt_every=0)
+    start = trainer.restore_or(model, opt)
+    check(start == PP_CKPT_STEP and opt.count == PP_CKPT_STEP,
+          f"resume: start {start}, optimizer count {opt.count}")
+    check(trainer.run(model, opt, iter(batches), start_step=start)
+          == PP_STEPS, "resume: the Trainer stopped early")
+    differ = [k for k, v in model.state_dict().items()
+              if not torch.equal(v, straight[k])]
+    check(not differ, f"resume: {len(differ)} tensors differ from the "
+                      f"straight run, e.g. {differ[:3]}")
+    log(f"pointpillars_train resume: restored step {start} (optimizer count "
+        f"{PP_CKPT_STEP}), ran to {PP_STEPS}: all {len(straight)} tensors of "
+        f"the state equal the straight run's")
+
+
+def pp_augment_card_vs_cpu(dev):
+    """perobject_augment's transform on near-touching boxes and
+    global_augment's on a bench frame, on the card and the CPU from the
+    same draws: the accepted boxes equal (the collision test is IoU > 0,
+    so K1 must give +0.0 exactly where the plain version does), the points
+    within 2e-5 (CUDA's and the CPU's sin/cos may differ by an ulp); a
+    point inside two accepted boxes moves with the first. Returns the
+    counts of accepted and rejected boxes and the largest point error."""
+    from d3d_tpu_torch import augment
+
+    rng = np.random.default_rng(960)
+    a, b = near_touching_boxes(rng, count=16)
+    pick = [i * 15 + (i % 5) * 3 + i % 3 for i in range(16)]
+    bev = np.concatenate([a[pick], b[pick]])
+    boxes = np.concatenate([bev[:, :2], np.full((32, 1), -1.0), bev[:, 2:4],
+                            np.full((32, 1), 1.5), bev[:, 4:5]],
+                           1).astype(np.float32)
+    mask = np.ones(32, bool)
+    mask[-2:] = False
+    pts = [bench_points(rng, 4000)]
+    for bx in boxes:
+        c, s = math.cos(bx[6]), math.sin(bx[6])
+        loc = rng.uniform(-0.45, 0.45, (40, 3)) * bx[3:6]
+        pts.append(np.stack([c * loc[:, 0] - s * loc[:, 1] + bx[0],
+                             s * loc[:, 0] + c * loc[:, 1] + bx[1],
+                             loc[:, 2] + bx[2], rng.random(40)], 1))
+    pts = np.concatenate(pts).astype(np.float32)
+    # half the boxes stay put (their near-touching partners decide), half
+    # move a little
+    dtheta = (rng.uniform(-0.02, 0.02, 32) * (np.arange(32) % 2)).astype(
+        np.float32)
+    shift = (rng.normal(0, 0.05, (32, 3))
+             * (np.arange(32) % 2)[:, None]).astype(np.float32)
+    outs = []
+    for d in (dev, "cpu"):
+        t = [torch.from_numpy(x).to(d) for x in (pts, boxes, mask, dtheta,
+                                                   shift)]
+        outs.append([o.cpu() for o in augment._perobject_transform(*t)])
+    check(torch.equal(outs[0][1], outs[1][1]),
+          "perobject_augment card vs CPU: the accepted boxes differ")
+    err = float((outs[0][0] - outs[1][0]).abs().max())
+    moved = (outs[0][1] != torch.from_numpy(boxes)).any(dim=1)
+    accepted, rejected = int(moved.sum()), int((~moved[:30]).sum())
+
+    two = torch.tensor([[0.0, 0.0, -0.5, 4.0, 2.0, 1.6, 0.0],
+                        [3.0, 0.0, -0.5, 4.0, 2.0, 1.6, 0.0]])
+    inner = torch.from_numpy(np.concatenate([
+        rng.uniform([1.1, -0.8, -1.0], [1.9, 0.8, 0.0], (20, 3)),
+        rng.random((20, 1))], 1).astype(np.float32))
+    draws = (torch.tensor([0.1, -0.2]),
+             torch.tensor([[-10.0, 0, 0], [10.0, 0, 0]]))
+    first = [augment._perobject_transform(
+        inner.to(d), two.to(d), torch.ones(2, dtype=torch.bool, device=d),
+        *(x.to(d) for x in draws))[0].cpu() for d in (dev, "cpu")]
+    err = max(err, float((first[0] - first[1]).abs().max()))
+    check(bool((first[0][:, 0] < -5).all()),
+          "perobject_augment: a point in two boxes did not go with the first")
+
+    frame = torch.from_numpy(bench_points(rng))
+    gdraws = (torch.tensor(True), torch.tensor(0.3), torch.tensor(1.02),
+              torch.tensor([0.1, -0.2, 0.05]))
+    glob = [[o.cpu() for o in augment._global_transform(
+        frame.to(d), torch.from_numpy(boxes).to(d),
+        *(x.to(d) for x in gdraws))] for d in (dev, "cpu")]
+    err = max(err, *(float((g - c).abs().max())
+                     for g, c in zip(*glob)))
+    check(err <= 2e-5, f"augmentation card vs CPU: points differ by {err}")
+    log(f"pointpillars_train augmentation card vs CPU: near-touching boxes "
+        f"{accepted} accepted, {rejected} rejected, equal; points within "
+        f"{err:.3g}; the first owner wins on the card")
+    return dict(accepted=accepted, rejected=rejected, max_abs_err=err)
+
+
+def host_ms(fn, reps=5):
+    """Median host ms of ``fn`` (numpy in and out, so each call ends on
+    the host) after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+# the folded model's raw outputs against the unfolded one's, max |f - b| /
+# (1 + |b|), after five f32 steps. Readings of
+# scripts/torch_pp_train_tolerances.py (NVIDIA H100 80GB HBM3, 700 W):
+# seeds 0-4 1.8e-4 to 1.38e-3 (tests/test_model.py's 2e-4 holds the tiny
+# model only), the planted fault (square convolutions scaled along their
+# input axis) 5.05 or more. The limit is about 3 times the largest reading.
+PP_FOLD_TOL = 4e-3
+
+
+def fold_rel_err(folded, base):
+    """The folded model's raw outputs against the unfolded one's: max |f -
+    b| / (1 + |b|) over every output."""
+    return max(float(((f - b).abs() / (1 + b.abs())).max())
+               for f, b in zip(folded, base))
+
+
+def pp_serving_tail(dev, cfg, model, frame):
+    """The trained f32 model's serving tail (TF32 off): BatchNorm folded
+    (raw outputs within PP_FOLD_TOL absolute + relative, detect's sorted
+    scores within the sigmoid's slope, 1/4, of that at the largest class
+    logit), int8 weights (raw outputs within 0.1 of their largest
+    magnitude, tests/test_quantize.py:61), and the flip ensemble
+    (``make_tta_detector``, modes none and flip_y: K1's bit form and the
+    scan once for each mode and once for the merge, and its keep mask
+    equal to the plain scan's on its boxes). Request latencies by the
+    host clock. Returns (stats, counts of the TTA request)."""
+    from d3d_tpu_torch.models import (PointPillars, make_anchors,
+                                      make_pointpillars_detector,
+                                      make_tta_detector)
+    from d3d_tpu_torch.models.fold import fold_batchnorm
+    from d3d_tpu_torch.models.inference import _bev
+    from d3d_tpu_torch.ops.nms import nms2d
+    from d3d_tpu_torch.quantize import (dequantize_params, quantize_params,
+                                        quantized_bytes)
+
+    anchors = make_anchors(cfg, device=dev)
+
+    def detector(sd):
+        m = PointPillars(cfg, device=dev)
+        m.load_state_dict(sd)
+        return m, make_pointpillars_detector(m, None, cfg, anchors,
+                                             car_classes(), device=dev)
+
+    base_model, base = detector(model.state_dict())
+    t0 = time.perf_counter()
+    folded_sd = fold_batchnorm(base_model)
+    fold_s = time.perf_counter() - t0
+    fold_model, fold = detector(folded_sd)
+    t0 = time.perf_counter()
+    q = quantize_params(base_model)
+    quant_s = time.perf_counter() - t0
+    q_model, qdet = detector(dequantize_params(q))
+    raw = {name: [o.float() for o in forward(m, frame, dev)]
+           for name, m in (("base", base_model), ("fold", fold_model),
+                           ("int8", q_model))}
+    fold_err = fold_rel_err(raw["fold"], raw["base"])
+    check(fold_err <= PP_FOLD_TOL, f"folded outputs off by {fold_err} "
+                                   f"(1 + |x|), limit {PP_FOLD_TOL}")
+    s_base = torch.sort(base.device_fn(frame)[1], descending=True).values
+    s_fold = torch.sort(fold.device_fn(frame)[1], descending=True).values
+    score_err = float((s_base - s_fold).abs().max())
+    score_tol = PP_FOLD_TOL * (1 + float(raw["base"][0].abs().max())) / 4
+    check(score_err <= score_tol,
+          f"folded detect's scores off by {score_err} (bound {score_tol})")
+    q_err = max(float((a - b).abs().max() / max(float(b.abs().max()), 1e-3))
+                for a, b in zip(raw["int8"], raw["base"]))
+    check(q_err < 0.1, f"int8 outputs off by {q_err} of their magnitude")
+    check_detections("int8 detect", qdet(frame))
+    ratio = quantized_bytes(q) / quantized_bytes(base_model.state_dict())
+
+    tta = make_tta_detector(base, car_classes(), modes=PP_TTA_MODES)
+    reset_counts()
+    boxes, scores, labels, keep = tta.device_fn(frame)
+    counts = read_counts()
+    n = len(PP_TTA_MODES) + 1
+    check(counts["rbox_iou_matrix"] == n and counts["nms_scan"] == n,
+          f"TTA request launches {counts}, want K1 and the scan {n} times")
+    routes = check_nms_routes("tta", n)
+    plain = ~nms2d(_bev(boxes.cpu()), scores.cpu(), iou_threshold=0.5) \
+        & (scores.cpu() > 0)
+    check(torch.equal(plain, keep.cpu()),
+          "TTA keep mask differs from the plain scan's")
+    check_detections("tta detect", tta(frame))
+    lat = {name: host_ms(lambda d=d: d(frame))
+           for name, d in (("detect", base), ("folded", fold),
+                           ("int8", qdet), ("tta", tta))}
+    log(f"pointpillars_train serving tail: fold {fold_s * 1e3:.1f} ms "
+        f"(outputs within {fold_err:.3g} (1 + |x|), limit {PP_FOLD_TOL:.2g}, "
+        f"scores "
+        f"{score_err:.3g}), int8 {quant_s * 1e3:.1f} ms (outputs "
+        f"{q_err:.3g} of their magnitude, {ratio:.3f} of the bytes), TTA "
+        f"{dict(counts=counts, routes=routes)}, kept {int(keep.sum())}; "
+        "request ms " + ", ".join(f"{k} {v:.2f}" for k, v in lat.items()))
+    return dict(fold_err=fold_err, fold_score_err=score_err,
+                int8_rel_err=q_err, int8_bytes_ratio=ratio,
+                fold_ms=fold_s * 1e3, quantize_ms=quant_s * 1e3,
+                request_ms=lat, tta_routes=routes), counts
+
+
+def pointpillars_train(dev):
+    """The pointpillars_train path (examples/train_pointpillars.py at full
+    width, presets.pointpillars_kitti): 8 KITTI-like frames through the
+    port's KittiObjectLoader, build_gt_database; the Trainer runs 5 f32
+    steps (TF32 off, cuDNN deterministic; a TrainCheckpointer in build/
+    saves at step 3, an eval_fn at step 5 runs device_calc_stats on
+    make_pointpillars_detector with the EMA weights over the 8 frames)
+    and 5 bf16 steps, each over batch_frames of augmented frames inside
+    prefetch. Every count is set to 0 just before each run and read just
+    after: K1's f32 form twice a frame (perobject_augment), its bit form
+    and the scan once a frame of the evaluation. Then the checks: losses
+    finite and falling, the resume, the card's and the CPU's gradients
+    against a float64 step, augmentation card vs CPU, K1's f32 form
+    against its plain version at the augmentation's 32x32 shape, the bf16
+    bound, and the serving tail. Returns (the summed counts of the two
+    runs and the TTA request, stats)."""
+    import tempfile
+
+    from d3d_tpu_torch.augment import build_gt_database
+    from d3d_tpu_torch.benchmarks import DetectionEvaluator
+    from d3d_tpu_torch.benchmarks_device import device_calc_stats
+    from d3d_tpu_torch.checkpoint import TrainCheckpointer
+    from d3d_tpu_torch.dataset.kitti import KittiObjectClass
+    from d3d_tpu_torch.models import (PointPillars, make_anchors,
+                                      make_pointpillars_detector, presets)
+    from d3d_tpu_torch.train import train_state
+
+    stats = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = presets.pointpillars_kitti(dtype="float32")
+    t0 = time.perf_counter()
+    frames, gts = pp_train_frames()
+    db = build_gt_database(frames, device=dev)
+    stats["data_s"] = time.perf_counter() - t0
+    init = PointPillars(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    calibrate_heads(init, frames[0][0], dev)
+    state = {k: v.clone() for k, v in init.state_dict().items()}
+    anchors = make_anchors(cfg, device=dev)
+    car = KittiObjectClass.Car
+    evals = {}
+
+    def eval_fn(step, model, ema):
+        t_eval = time.perf_counter()
+        ema_model = PointPillars(cfg, device=dev)
+        ema_model.load_state_dict(dict(model.state_dict(), **ema))
+        detect = make_pointpillars_detector(ema_model, None, cfg, anchors,
+                                            [car], device=dev)
+        dets = [detect(pts, frame="velo") for pts, _, _ in frames]
+        ev = DetectionEvaluator([car], 0.7, device=dev)
+        ev.add_stats(device_calc_stats(ev, gts, dets))
+        evals.update(ap=float(ev.ap()[car]), detections=sum(map(len, dets)),
+                     eval_s=time.perf_counter() - t_eval)
+        return {"AP(Car)": evals["ap"]}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            ckpt_dir = Path(tmp) / "pp"
+            ckpt = TrainCheckpointer(ckpt_dir, keep=3)
+            reset_counts()
+            model, opt, rec = pp_run(dev, cfg, state, frames, db, 900, ckpt,
+                                     eval_fn)
+            counts32 = read_counts()
+            stats["float32"] = pp_check_run(
+                "pointpillars_train float32", rec, counts32,
+                dict(k1_matrix=4 * PP_STEPS, k1_bits=KITTI_FRAMES,
+                     nms_scan=KITTI_FRAMES,
+                     rbox_iou_matrix=4 * PP_STEPS + KITTI_FRAMES))
+            check(ckpt.all_steps() == [PP_CKPT_STEP, PP_STEPS],
+                  f"checkpoints {ckpt.all_steps()}")
+            check(evals.get("detections", 0) > 0,
+                  f"eval_fn: no detections {evals}")
+            t_save = time.perf_counter()
+            ckpt.save(PP_STEPS + 1, *train_state(model, opt))
+            save_call = time.perf_counter() - t_save
+            ckpt.wait()
+            stats["checkpoint_ms"] = dict(
+                save_call=save_call * 1e3,
+                save_and_write=(time.perf_counter() - t_save) * 1e3)
+            straight = {k: v.clone() for k, v in model.state_dict().items()}
+            pp_resume(dev, cfg, state, ckpt_dir, straight,
+                      rec["batches"][PP_CKPT_STEP:])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    stats["eval"] = evals
+    stats["stages_float32"] = pp_stage_times(model, opt, rec["batches"][0],
+                                             cfg)
+    first_batch = rec["batches"][0]
+    stats["grad_err"], stats["cpu_step_ms"] = pp_card_vs_cpu(
+        dev, cfg, state, first_batch)
+    stats["bf16_bound"] = pp_bf16_bound(dev, cfg, state, first_batch)
+
+    cfg16 = presets.pointpillars_kitti()
+    reset_counts()
+    model16, opt16, rec16 = pp_run(dev, cfg16, state, frames, db, 901,
+                                   profiled=True)
+    counts16 = read_counts()
+    stats["busy_share"] = dict(
+        share=rec16["busy_share"], run_s=rec16["run_s"],
+        of="the bfloat16 Trainer run under torch.profiler (CUDA activity "
+           "only): the union of device activity over its wall clock")
+    stats["bfloat16"] = pp_check_run(
+        "pointpillars_train bfloat16", rec16, counts16,
+        dict(k1_matrix=4 * PP_STEPS, k1_bits=0, nms_scan=0,
+             rbox_iou_matrix=4 * PP_STEPS))
+    stats["stages_bfloat16"] = pp_stage_times(model16, opt16,
+                                              rec16["batches"][0], cfg16)
+    stats["input_a_frame"], padded = pp_input_times(dev, cfg, frames, db)
+    stats["augment"] = pp_augment_card_vs_cpu(dev)
+    stats["k1_f32_32x32"] = pp_k1_augment(padded)
+    tail, tta_counts = pp_serving_tail(dev, cfg, model, frames[0][0])
+    stats["serving_tail"] = tail
+    log("pointpillars_train stages (median of 4, CUDA events): "
+        + "; ".join(f"{dt}: " + ", ".join(
+            f"{n} {ms:.2f}" for n, ms in stats[f'stages_{dt}'].items())
+            + " ms" for dt in ("float32", "bfloat16"))
+        + f"; busy {stats['busy_share']['share']}; input a frame "
+        f"{stats['input_a_frame']}; checkpoint "
+        f"{stats['checkpoint_ms']}; K1 f32 form at 32x32: "
+        f"{stats['k1_f32_32x32']}; eval {evals}")
+    counts = {}
+    for c in (counts32, counts16, tta_counts):
+        add_counts(counts, c)
+    return counts, stats
+
+
 def add_cupti(a, b):
     """A sum of CUPTI times that is None where a term is."""
     return None if a is None or b is None else a + b
@@ -3299,6 +4090,7 @@ def main():
         add_counts(api_counts, c)
     kitti_counts, kitti_stats = kitti_eval(dev, second, pp_detect)
     kitti_stats["val_scale"] = eval_at_scale(dev)
+    pp_counts, pp_stats = pointpillars_train(dev)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     train_counts, train_stats = {}, {}
@@ -3319,7 +4111,8 @@ def main():
                       "soft_nms": soft_counts[name],
                       "second_training": train_counts[name],
                       "box_api": api_counts[name],
-                      "kitti_eval": kitti_counts[name]}
+                      "kitti_eval": kitti_counts[name],
+                      "pointpillars_train": pp_counts[name]}
                for name in serve_counts}
     meta = {
         "rbox_iou_matrix": ("cuda", "d3d_tpu_torch/csrc/rbox_iou.cu",
@@ -3362,7 +4155,8 @@ def main():
     rows = {row["name"]: row for row in kernels}
     rows["rbox_iou_matrix"]["chain_share_by_check"] = k1_shares
     rows["rbox_iou_matrix"].update(max_abs_err_bits=k1_bits_err,
-                                   chain_share_bits_by_size=k1_bits_shares)
+                                   chain_share_bits_by_size=k1_bits_shares,
+                                   augment_32x32=pp_stats["k1_f32_32x32"])
     for name in ("nms_scan", "nms_scan_blocked"):
         rows[name]["launches_by_route_in_checks"] = scan_routes
     rows["subm_conv_rulebook"]["builds_by_route_in_checks"] = rb_routes
@@ -3388,7 +4182,8 @@ def main():
                                           "box2d_iou": iou_stats,
                                           "box2d_nms": nms_stats,
                                           "crops": crop_stats},
-                              "kitti_eval": kitti_stats},
+                              "kitti_eval": kitti_stats,
+                              "pointpillars_train": pp_stats},
                     "card": card}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

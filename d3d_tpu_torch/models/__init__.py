@@ -6,7 +6,9 @@ from .second import (SECOND, SECONDConfig, head_config, make_train_step,
                      second_voxelize, sparse_stage_loop)
 from . import presets
 from .inference import make_pointpillars_detector, make_second_detector
-from .convert import (pointpillars_state_from_flax, second_params_from_flax,
+from .tta import make_tta_detector
+from .convert import (pointpillars_params_from_flax,
+                      pointpillars_state_from_flax, second_params_from_flax,
                       second_state_from_flax)
 
 __all__ = [
@@ -15,6 +17,8 @@ __all__ = [
     "detection_loss", "prepare_targets", "SECOND", "SECONDConfig",
     "head_config", "second_voxelize", "sparse_stage_loop", "make_train_step",
     "presets", "make_pointpillars_detector", "make_second_detector",
-    "pointpillars_state_from_flax", "second_state_from_flax",
+    "make_tta_detector",
+    "pointpillars_state_from_flax", "pointpillars_params_from_flax",
+    "second_state_from_flax",
     "second_params_from_flax",
 ]

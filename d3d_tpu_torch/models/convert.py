@@ -13,8 +13,8 @@ through tap ``f-1-r`` where torch uses tap ``r``.
 import numpy as np
 import torch
 
-__all__ = ["pointpillars_state_from_flax", "second_state_from_flax",
-           "second_params_from_flax"]
+__all__ = ["pointpillars_state_from_flax", "pointpillars_params_from_flax",
+           "second_state_from_flax", "second_params_from_flax"]
 
 
 def _oihw(kernel):
@@ -54,30 +54,44 @@ def _tensors(sd):
     return {k: torch.as_tensor(np.array(v)) for k, v in sd.items()}
 
 
-def pointpillars_state_from_flax(variables):
-    """flax PointPillars variables -> the port's ``state_dict``."""
-    params = variables["params"]
-    stats = variables["batch_stats"]
+def _pointpillars(params, stats):
+    """PointPillars' entries; without ``stats`` the parameters only."""
     sd = {}
     pfn = params["_PFN_0"]
     sd["pfn.dense.weight"] = np.asarray(pfn["Dense_0"]["kernel"]).T
-    _bn(sd, "pfn.bn", pfn["BatchNorm_0"], stats["_PFN_0"]["BatchNorm_0"])
+    _bn(sd, "pfn.bn", pfn["BatchNorm_0"],
+        stats and stats["_PFN_0"]["BatchNorm_0"])
 
     i = 0
     while f"_ConvBlock_{i}" in params:
         _conv_block(sd, f"blocks.{i}", params[f"_ConvBlock_{i}"],
-                    stats[f"_ConvBlock_{i}"])
-        up, st = params[f"_Upsample_{i}"], stats[f"_Upsample_{i}"]
+                    stats and stats[f"_ConvBlock_{i}"])
+        up = params[f"_Upsample_{i}"]
         if "ConvTranspose_0" in up:
             k = np.asarray(up["ConvTranspose_0"]["kernel"])
             sd[f"ups.{i}.conv.weight"] = k[::-1, ::-1].transpose(2, 3, 0, 1)
         else:
             sd[f"ups.{i}.conv.weight"] = _oihw(up["Conv_0"]["kernel"])
-        _bn(sd, f"ups.{i}.bn", up["BatchNorm_0"], st["BatchNorm_0"])
+        _bn(sd, f"ups.{i}.bn", up["BatchNorm_0"],
+            stats and stats[f"_Upsample_{i}"]["BatchNorm_0"])
         i += 1
 
     _heads(sd, params)
     return _tensors(sd)
+
+
+def pointpillars_state_from_flax(variables):
+    """flax PointPillars variables -> the port's ``state_dict``."""
+    return _pointpillars(variables["params"], variables["batch_stats"])
+
+
+def pointpillars_params_from_flax(params):
+    """A flax PointPillars ``params`` tree alone (the parameters, or
+    anything of their structure, such as a gradient tree) -> ``{name:
+    tensor}`` under the port's ``named_parameters()`` names, in its
+    layouts (the gradient of a flipped or transposed kernel is the
+    gradient flipped or transposed alike)."""
+    return _pointpillars(params, None)
 
 
 def _second(params, stats):

@@ -83,6 +83,7 @@ def _make_anchor_detector(model, variables, cfg, anchors, classes,
         return _to_targets(*(t.cpu().numpy() for t in device_fn(points)),
                            classes, frame, timestamp, score_threshold)
 
+    device_fn.device = dev
     detect.device_fn = device_fn
     return detect
 

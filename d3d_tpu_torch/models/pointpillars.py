@@ -8,16 +8,16 @@ first spatial axis; its public layout is the JAX module's: head outputs
 ``(B, W*H*A, C)`` in the same anchor order as :func:`make_anchors`.
 
 The training half (target assignment, the losses, ``prepare_targets``,
-``make_train_step``) is ported and is what SECOND trains with; the BEV
-block (``_ConvBlock``) has flax's training BatchNorm. PointPillars' own
-network trains only once the PFN's and upsampling's training BatchNorm and
-the ``scatter_to_bev`` backward are ported: until then
-``PointPillars(..., train=True)`` raises.
+``make_train_step``) is shared with SECOND. Training runs flax's
+BatchNorm semantics in every layer (``_bn_train``), the PFN's masked max
+routes its whole cotangent to the first maximal point, and the BEV
+densification is a gather both ways (``scatter_to_bev``).
 
 Reference: Lang et al., "PointPillars: Fast Encoders for Object Detection
 from Point Clouds", CVPR 2019 (arXiv:1812.05784).
 """
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Tuple
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.geometry import aabox_iou
 from ..ops.geometry_soa import rbox_iou
@@ -111,18 +112,55 @@ def pillarize(points, cfg: PointPillarsConfig):
     return out, coords, valid
 
 
+class _BevGather(torch.autograd.Function):
+    """Gather-formulated BEV densification with a gather-only backward
+    (the JAX module's ``_bev_gather``). Pillar cells are unique per frame,
+    so the scatter is a permutation: one small int32 scatter builds the
+    (W*H,) inverse index, the canvas is a row gather of the pillar
+    features (cells without a pillar read an appended zero row), and the
+    backward is the mirror gather ``d_pf[p] = d_canvas[flat[p]]`` (invalid
+    pillars read the trash row: gradient 0). No F-wide scatter runs in
+    either direction."""
+
+    @staticmethod
+    def forward(ctx, pf, flat, grid):
+        b, p, nf = pf.shape
+        w, h = grid
+        dev = pf.device
+        inv = torch.full((b, w * h + 1), p, dtype=torch.int32, device=dev)
+        inv.scatter_(1, flat, torch.arange(p, dtype=torch.int32,
+                                           device=dev).expand(b, p))
+        rows = (inv[:, :w * h].to(torch.int64)
+                + torch.arange(b, device=dev)[:, None] * (p + 1))
+        pf_pad = torch.cat([pf, pf.new_zeros((b, 1, nf))], dim=1)
+        canvas = pf_pad.reshape(b * (p + 1), nf)[rows.reshape(-1)]
+        ctx.save_for_backward(flat)
+        ctx.grid = grid
+        return canvas.reshape(b, w, h, nf)
+
+    @staticmethod
+    def backward(ctx, g):
+        (flat,) = ctx.saved_tensors
+        w, h = ctx.grid
+        b, p = flat.shape
+        nf = g.shape[-1]
+        g_pad = torch.cat([g.reshape(b, w * h, nf),
+                           g.new_zeros((b, 1, nf))], dim=1)
+        rows = (flat.to(torch.int64)
+                + torch.arange(b, device=g.device)[:, None] * (w * h + 1))
+        d_pf = g_pad.reshape(b * (w * h + 1), nf)[rows.reshape(-1)]
+        return d_pf.reshape(b, p, nf), None, None
+
+
 def scatter_to_bev(pf, coords, valid, grid):
     """Densify per-pillar features (B, P, F) onto the BEV canvas
     (B, W, H, F); invalid pillars land on a discarded trash row. Pillar
     coords must be unique per frame (voxelizer output — one pillar per
-    cell). Forward only."""
+    cell). Differentiable through :class:`_BevGather`."""
     w, h = grid
-    b, p, nf = pf.shape
     flat = coords[..., 0] * h + coords[..., 1]
     flat = torch.where(valid, flat, w * h).to(torch.int64)
-    canvas = pf.new_zeros((b, w * h + 1, nf))
-    canvas.scatter_(1, flat[..., None].expand(b, p, nf), pf)
-    return canvas[:, :w * h].reshape(b, w, h, nf)
+    return _BevGather.apply(pf, flat, (w, h))
 
 
 # ---------------------------------------------------------------------------
@@ -138,13 +176,14 @@ def _bn(x, bn):
 
 def _bn_train(x, bn):
     """Training BatchNorm over dim 1 with flax ``nn.BatchNorm``'s semantics
-    (momentum 0.99, ``use_fast_variance``): float32 batch statistics over
-    every other dim, ``var = max(E[x^2] - E[x]^2, 0)``, normalisation by
-    that biased variance in float32 and output in x's dtype; the running
+    (momentum 0.99, ``use_fast_variance``): batch statistics over every
+    other dim in float32 (float64 for a float64 ``x``, as flax promotes),
+    ``var = max(E[x^2] - E[x]^2, 0)``, normalisation by that biased
+    variance in that precision and output in x's dtype; the running
     statistics move ``0.99 * old + 0.01 * batch``, the variance biased.
     (``F.batch_norm(training=True)`` moves the running variance by 0.1 of
     the unbiased one.)"""
-    xf = x.float()
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     dims = [d for d in range(x.ndim) if d != 1]
     mean = xf.mean(dim=dims)
     var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
@@ -183,13 +222,19 @@ class _PFN(nn.Module):
         self.dense = nn.Linear(in_features, features, bias=False)
         self.bn = nn.BatchNorm1d(features, eps=_BN_EPS)
 
-    def forward(self, x, pmask):
+    def forward(self, x, pmask, train=False):
         dt = self.dtype
+        norm = _bn_train if train else _bn
         x = F.linear(x.to(dt), self.dense.weight.to(dt))
-        x = F.relu(_bn(x.reshape(-1, x.shape[-1]), self.bn).reshape(x.shape))
+        x = F.relu(norm(x.reshape(-1, x.shape[-1]), self.bn).reshape(x.shape))
         # masked max over points: post-relu values are >= 0, so -1 is a
-        # safe sentinel and empty pillars come out exactly 0 via the clamp
-        x = torch.where(pmask[..., None], x, -1.0).amax(dim=-2)
+        # safe sentinel and empty pillars come out exactly 0 via the clamp.
+        # The max is an integer argmax (the first maximal point) and a
+        # gather, so a tie's whole cotangent goes to its first point, as
+        # the JAX module's CPU route does (amax would split it evenly)
+        x = torch.where(pmask[..., None], x, -1.0)
+        idx = x.detach().argmax(dim=-2, keepdim=True)
+        x = x.gather(-2, idx).squeeze(-2)
         return torch.where(x >= 0, x, 0.0)
 
 
@@ -229,14 +274,14 @@ class _Upsample(nn.Module):
             self.conv = nn.Conv2d(in_channels, channels, 1, bias=False)
         self.bn = nn.BatchNorm2d(channels, eps=_BN_EPS)
 
-    def forward(self, x):
+    def forward(self, x, train=False):
         dt = self.dtype
         w = self.conv.weight.to(dt)
         if self.factor > 1:
             x = F.conv_transpose2d(x.to(dt), w, stride=self.factor)
         else:
             x = F.conv2d(x.to(dt), w)
-        return F.relu(_bn(x, self.bn))
+        return F.relu((_bn_train if train else _bn)(x, self.bn))
 
 
 class PointPillars(nn.Module):
@@ -297,20 +342,16 @@ class PointPillars(nn.Module):
                 mod.reset_parameters()
 
     def forward(self, features, coords, valid, train=False):
-        """Inference only: ``train=True`` raises ``NotImplementedError``
-        (the PFN's and upsampling's training BatchNorm and the
-        ``scatter_to_bev`` backward are ROADMAP queue 1 item 9)."""
-        if train:
-            raise NotImplementedError(
-                "PointPillars training (the PFN and upsampling BatchNorm "
-                "statistics, the scatter_to_bev backward) is not ported yet: "
-                "ROADMAP queue 1 item 9")
+        """Head outputs ``(cls (B, N, C), box (B, N, 7), dir (B, N, 2))``,
+        float32 (float64 for a float64 model, :func:`_head`). ``train=True`` normalises by batch statistics and moves
+        the BatchNorm running statistics (flax's ``train`` argument, not
+        ``nn.Module.training``, selects it)."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
 
         # pillar encoder
         pmask = (features != 0).any(dim=-1)  # (B, P, K)
-        pf = self.pfn(features, pmask)
+        pf = self.pfn(features, pmask, train)
         pf = pf * valid[..., None].to(pf.dtype)  # (B, P, F)
 
         # BEV canvas, NCHW with x along the first spatial axis
@@ -319,8 +360,8 @@ class PointPillars(nn.Module):
         # backbone + FPN-style upsampling
         ups = []
         for block, up in zip(self.blocks, self.ups):
-            x = block(x)
-            ups.append(up(x))
+            x = block(x, train)
+            ups.append(up(x, train))
         feat = torch.cat(ups, dim=1).to(dt)  # (B, 3*U, W, H)
 
         return (_head(feat, self.head_cls, cfg.num_classes, dt),
@@ -331,10 +372,13 @@ class PointPillars(nn.Module):
 def _head(feat, conv, c, dt):
     """SSD head (per cell: A anchors): a 1x1 conv in ``dt`` on the NCHW
     map, back to the JAX module's NHWC order before the reshape so the
-    outputs line up with :func:`make_anchors`; float32 out."""
+    outputs line up with :func:`make_anchors`; float32 out, float64 for a
+    float64 model (the JAX module casts to float32 there too; the port
+    keeps float64 so a float64 step is a float64 reference end to end:
+    heads, loss and cotangent)."""
     out = F.conv2d(feat, conv.weight.to(dt), conv.bias.to(dt))
     return out.permute(0, 2, 3, 1).reshape(feat.shape[0], -1, c).to(
-        torch.float32)
+        torch.promote_types(dt, torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -565,6 +609,21 @@ def prepare_targets(anchors, batch, pos_iou=None, neg_iou=None,
     return dict(batch, targets=targets)
 
 
+@contextlib.contextmanager
+def _buffers_kept(model):
+    """Put every buffer of ``model`` (the BatchNorm running statistics)
+    back as it was on entry, also when the block exits early (a
+    non-reentrant checkpoint stops its recompute once it has what the
+    backward needs)."""
+    saved = [b.clone() for b in model.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, s in zip(model.buffers(), saved):
+                b.copy_(s)
+
+
 def make_train_step(model, optimizer, cfg: PointPillarsConfig, anchors,
                     riou_weight=0.0, remat=False, external_targets=False):
     """Build ``step(batch) -> aux``, one training step that updates
@@ -581,20 +640,35 @@ def make_train_step(model, optimizer, cfg: PointPillarsConfig, anchors,
 
     :param external_targets: take ``batch["targets"]`` from
         :func:`prepare_targets` instead of assigning anchors in the step
-    :param remat: the JAX step's rematerialisation; not ported (raises)
+    :param remat: recompute the forward in the backward instead of keeping
+        its activations (the JAX step's ``jax.checkpoint``), through
+        ``torch.utils.checkpoint`` (non-reentrant). The recompute would
+        move the BatchNorm running statistics a second time, so the
+        model's buffers are put back as they were after it
+        (:func:`_buffers_kept`): loss, gradients and statistics equal the
+        step without ``remat``.
     """
-    if remat:
-        raise NotImplementedError("remat (jax.checkpoint of the forward) is "
-                                  "not ported")
     dev = next(model.parameters()).device
     anchors = as_tensor(anchors, device=dev, dtype=torch.float32)
+
+    def forward(features, coords, valid):
+        return model(features, coords, valid, train=True)
+
+    if remat:
+        def run_forward(*inputs):
+            return checkpoint(forward, *inputs, use_reentrant=False,
+                              context_fn=lambda: (
+                                  contextlib.nullcontext(),
+                                  _buffers_kept(model)))
+    else:
+        run_forward = forward
 
     def train_step(batch):
         batch = {k: (v if k == "targets" else as_tensor(v, device=dev))
                  for k, v in batch.items()}
         optimizer.zero_grad(set_to_none=True)
-        outputs = model(batch["features"], batch["coords"], batch["valid"],
-                        train=True)
+        outputs = run_forward(batch["features"], batch["coords"],
+                              batch["valid"])
         if external_targets:
             targets = {k: as_tensor(v, device=dev).detach()
                        for k, v in batch["targets"].items()}

@@ -210,3 +210,34 @@ def test_training_runs_on_the_cpu_only_when_asked():
                for p in model.parameters())
     assert (sparse_conv_cuda.subm_conv.launches,
             sparse_conv_cuda.subm_conv_dw.launches) == counts
+
+
+def test_training_tail_is_covered_and_needs_cuda_or_an_explicit_cpu():
+    """The training pipeline's modules are among those the import checks
+    walk, and their entry points that make tensors need CUDA unless given
+    the CPU: ``init_variables``, the GT database's crops and the GT
+    sampler's IoUs."""
+    assert {"d3d_tpu_torch.augment", "d3d_tpu_torch.checkpoint",
+            "d3d_tpu_torch.profiler", "d3d_tpu_torch.quantize",
+            "d3d_tpu_torch.train", "d3d_tpu_torch.models.fold",
+            "d3d_tpu_torch.models.tta"} <= set(_submodules())
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour without CUDA")
+    from d3d_tpu_torch.augment import build_gt_database, sample_ground_truths
+    from d3d_tpu_torch.train import init_variables
+
+    cfg = presets.pointpillars_kitti(dtype="float32", grid=(8, 8),
+                                     max_pillars=16)
+    model = PointPillars(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_variables(model)
+    assert init_variables(model, device="cpu") is model
+    pts = np.zeros((10, 4), np.float32)
+    box = np.array([[0, 0, 0, 4, 2, 2, 0]], np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_gt_database([(pts, box, np.array([0]))], min_points=1)
+    db = build_gt_database([(pts, box, np.array([0]))], min_points=1,
+                           device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sample_ground_truths(np.random.default_rng(0), db, pts, box + 9,
+                             np.array([0]))

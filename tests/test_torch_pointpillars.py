@@ -271,10 +271,3 @@ def test_conv_block_training_batchnorm_matches(dtype, tol):
                 getattr(tblock.bns[j], n).numpy(),
                 np.asarray(upd["batch_stats"][f"BatchNorm_{j}"][k]),
                 rtol=1e-5, atol=1e-5)
-
-
-def test_pointpillars_training_is_not_ported(pair):
-    _, _, tmodel, pts = pair
-    tf, tc, tv = t_pillarize(torch.from_numpy(pts), tmodel.cfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tmodel(tf[None], tc[None], tv[None], train=True)
