@@ -70,9 +70,18 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    ``TrainCheckpointer`` in ``build/`` and an ``eval_fn``
    (``device_calc_stats`` on ``make_pointpillars_detector``: K1's bit
    form and the scan), then 5 steps bf16; the trained model's folded,
-   int8 and flip-TTA detectors); each path must launch its
-   kernels, and nms2d K1's bit form and the scan only
-   (``check_nms_routes``);
+   int8 and flip-TTA detectors) and ``voxelnext_track``
+   (``presets.voxelnext_nuscenes`` uncut on six seeded nuScenes-like
+   keyframes of 10 sweeps, 5 columns: K5 and K6 checked at its widths,
+   C = 5 padded; ``make_voxelnext_detector`` requests, one held to the
+   CPU; ``make_tracking_step`` over the keyframes, detect and tracker
+   timed apart; ``tracker_update`` on stand-in detections, card equal to
+   CPU and trajectories matching ``CenterTracker``'s; 3 f32 + 3 bf16
+   training steps; the sort join's maps equal to the canvas's and a
+   request on a 90.5M-cell grid; SECOND's dense middle and SECOND on
+   KITTI-like frames, each held to the CPU; a 5-column bf16 SECOND
+   request); each path must launch its kernels, and nms2d K1's bit form
+   and the scan only (``check_nms_routes``);
 4. checks the outputs: finite, of the expected shape, the keep masks equal
    to the plain scans on the kernels' own IoU matrices, the voxelizer
    equal to the port's CPU run, the box and voxel API's outputs equal to
@@ -107,6 +116,7 @@ line is ``{"kernels": [...]}``, the last ``{"ok": true, "device": ...}``.
 
 import contextlib
 import dataclasses
+import enum
 import json
 import math
 import statistics
@@ -235,6 +245,24 @@ def north_star_frame():
     return pts, boxes, scores
 
 
+def hit_box(d, t, centre, half, yaw):
+    """The ray caster's box test: rays ``d`` (R, 3) from the sensor (the
+    origin) against a box of half extents ``half`` at ``centre`` turned by
+    ``yaw`` about z (slabs in the box's frame); a ray that enters it nearer
+    than its current range ``t`` (R,) gets that range, in place."""
+    cy, sy = np.cos(yaw), np.sin(yaw)
+    rot = np.array([[cy, sy, 0.0], [-sy, cy, 0.0], [0.0, 0.0, 1.0]])
+    o = rot @ -centre                      # the sensor in box coords
+    dl = d @ rot.T
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t1 = (-half - o) / dl
+        t2 = (half - o) / dl
+    near = np.nanmax(np.minimum(t1, t2), axis=1)
+    far = np.nanmin(np.maximum(t1, t2), axis=1)
+    hit = (near <= far) & (near > 0) & (near < t)
+    t[hit] = near[hit]
+
+
 def kitti_like_points(seed, objects=16, az_step_deg=0.08,
                       with_boxes=False):
     """A seeded frame in the shape of a KITTI scan cropped to the camera's
@@ -283,17 +311,7 @@ def kitti_like_points(seed, objects=16, az_step_deg=0.08,
     for i in range(objects):
         centre = np.array([r[i] * np.cos(ang[i]), r[i] * np.sin(ang[i]),
                            -height + half[i, 2]])
-        cy, sy = np.cos(yaw[i]), np.sin(yaw[i])
-        rot = np.array([[cy, sy, 0.0], [-sy, cy, 0.0], [0.0, 0.0, 1.0]])
-        o = rot @ -centre                      # the sensor in box coords
-        dl = d @ rot.T
-        with np.errstate(divide="ignore", invalid="ignore"):
-            t1 = (-half[i] - o) / dl
-            t2 = (half[i] - o) / dl
-        near = np.nanmax(np.minimum(t1, t2), axis=1)
-        far = np.nanmin(np.maximum(t1, t2), axis=1)
-        hit = (near <= far) & (near > 0) & (near < t)
-        t[hit] = near[hit]
+        hit_box(d, t, centre, half[i], yaw[i])
     keep = t < 80.0
     pts = d[keep] * (t[keep] + rng.normal(0.0, 0.02, keep.sum()))[:, None]
     inside = ((pts[:, 0] >= 0) & (pts[:, 0] < 70.4) & (np.abs(pts[:, 1]) < 40)
@@ -856,10 +874,10 @@ def second_layer_inputs(model, pts, dev):
     return stage_layer_inputs(model, f[None], c[None], v[None])
 
 
-def stage_layer_inputs(model, feats, coords, valid):
+def stage_layer_inputs(model, feats, coords, valid, names=K5_LAYERS):
     """Each sparse layer's inputs when the (B, V, ...) batch runs through
     the stage loop as one joined site list, in path order: {layer:
-    (features, nbr, valid, weight)}."""
+    (features, nbr, valid, weight)}; the layers must be ``names``."""
     from d3d_tpu_torch.models import sparse_stage_loop
 
     seen = {}
@@ -874,7 +892,7 @@ def stage_layer_inputs(model, feats, coords, valid):
         sparse_stage_loop(model.cfg, {n: recording(n, l)
                                       for n, l in model.middle.items()},
                           feats, coords, valid)
-    check(tuple(seen) == K5_LAYERS, f"SECOND layers {tuple(seen)}")
+    check(tuple(seen) == names, f"sparse layers {tuple(seen)}")
     return seen
 
 
@@ -1636,7 +1654,8 @@ def forward(model, pts, dev, voxelize=None):
         return model(feats[None], coords[None], valid[None])
 
 
-def calibrate_heads(model, pts, dev, voxelize=None, occupied_only=False):
+def calibrate_heads(model, pts, dev, voxelize=None, occupied_only=False,
+                    box_bound=None):
     """Rescale the random heads so their outputs on one frame spread like a
     trained model's (class logits sd 2, box residuals sd 0.3, direction
     logits sd 1). Raw lidar coordinates through random weights give
@@ -1644,13 +1663,20 @@ def calibrate_heads(model, pts, dev, voxelize=None, occupied_only=False):
     ``occupied_only`` the spread is taken over the anchors whose outputs
     are not exactly 0 (the biases are 0): SECOND's site caps leave most of
     its BEV map empty, and cells that no point reaches say nothing of the
-    scale."""
+    scale. With ``box_bound`` the box residuals are then scaled down, if
+    need be, until none exceeds it on this frame: on frames whose every
+    voxel reaches the BEV map (the dense middle, KITTI-like scans) the
+    random model's tails reach 20 sd, boxes of e^7 times an anchor, where
+    a trained model's residuals stay within a few units."""
     heads = (model.head_cls, model.head_box, model.head_dir)
     for head, out, sd in zip(heads, forward(model, pts, dev, voxelize),
                              (2.0, 0.3, 1.0)):
         spread = out[out != 0] if occupied_only else out
+        scale = sd / float(spread.std())
+        if box_bound is not None and head is model.head_box:
+            scale = min(scale, box_bound / float(out.abs().max()))
         with torch.no_grad():
-            head.weight.mul_(sd / float(spread.std()))
+            head.weight.mul_(scale)
 
 
 def decode_at(raw, anchors, idx):
@@ -1677,7 +1703,8 @@ def compare_with_cpu(name, model, cpu_model, frame, detect, anchors, dev,
     t0 = time.perf_counter()
     gpu = [t.cpu() for t in detect.device_fn(frame)]
     no_tf32_ms = (time.perf_counter() - t0) * 1e3
-    raw_gpu = [o.cpu() for o in forward(model, frame, dev, voxelize)]
+    raw_dev = forward(model, frame, dev, voxelize)
+    raw_gpu = [o.cpu() for o in raw_dev]
     cpu_model.load_state_dict({k: v.cpu()
                                for k, v in model.state_dict().items()})
     t0 = time.perf_counter()
@@ -1695,10 +1722,12 @@ def compare_with_cpu(name, model, cpu_model, frame, detect, anchors, dev,
     # (4.2 m), sizes by that relative, the clipped arcsin yaw by up to 70x;
     # yaw is compared modulo pi (a near-tie of the direction logits flips
     # the heading). Stated: 2e-3 m / 2e-3 relative / 2e-2 rad.
-    best = torch.sigmoid(raw_gpu[0][0]).max(dim=-1).values
+    # detect's own decode of the card's raw outputs, on the card (the
+    # CPU's sigmoid and exp may differ from the card's by an ulp): equal
+    best = torch.sigmoid(raw_dev[0][0]).max(dim=-1).values
     idx = torch.sort(best, descending=True, stable=True).indices[:100]
-    anchors_cpu = anchors.cpu()
-    boxes_g, scores_g = decode_at(raw_gpu, anchors_cpu, idx)
+    boxes_g, scores_g = (t.cpu() for t in decode_at(raw_dev, anchors, idx))
+    idx, anchors_cpu = idx.cpu(), anchors.cpu()
     check(torch.equal(scores_g, gpu[1]) and
           float((boxes_g - gpu[0]).abs().max()) <= 1e-5,
           f"{name}: detect.device_fn disagrees with its own raw outputs: "
@@ -3511,6 +3540,813 @@ def pointpillars_train(dev):
     return counts, stats
 
 
+# ---------------------------------------------------------------------------
+# voxelnext_track: VoxelNeXt on nuScenes-like frames, the device tracker,
+# VoxelNeXt training, the sort-join maps, SECOND's dense middle
+# ---------------------------------------------------------------------------
+
+class NuscClass(enum.Enum):
+    """nuScenes' ten detection classes, in CenterPoint's head order."""
+
+    car = 0
+    truck = 1
+    construction_vehicle = 2
+    bus = 3
+    trailer = 4
+    barrier = 5
+    motorcycle = 6
+    bicycle = 7
+    pedestrian = 8
+    traffic_cone = 9
+
+
+# CenterPoint's nuScenes tracking gates (m), in NuscClass order
+NUSC_GATES = (4.0, 4.0, 1.0, 5.5, 3.0, 1.0, 13.0, 3.0, 1.0, 1.0)
+# class: (l, w, h) in m
+NUSC_SIZES = {NuscClass.car: (4.6, 1.95, 1.7), NuscClass.truck: (8.0, 2.5, 3.2),
+              NuscClass.bus: (11.0, 2.9, 3.4),
+              NuscClass.pedestrian: (0.75, 0.7, 1.75),
+              NuscClass.bicycle: (1.8, 0.6, 1.3),
+              NuscClass.traffic_cone: (0.4, 0.4, 0.9)}
+KEYFRAMES = 6
+KEY_DT = 0.5          # nuScenes keyframes: 2 Hz
+SWEEPS = 10           # CenterPoint's 10-sweep input
+SWEEP_DT = 0.05       # the lidar at 20 Hz
+LIDAR_HEIGHT = 1.8
+EGO_SPEED = 5.0       # m/s along x
+TRACK_LOST_TIME = 1.0
+TRACK_CAPACITY = 128
+STAND_IN_ROWS = 128
+VN_LAYERS = ("subm0_0", "subm0_1", "down0", "subm1_0", "subm1_1", "down1",
+             "subm2_0", "subm2_1", "down2", "subm3_0", "subm3_1")
+VN_TRAIN_STEPS = 3
+VN_MAX_GT = 128
+
+
+def nuscenes_scene(seed):
+    """A seeded street scene in a world frame whose ground lies 1.8 m
+    below the sensor: four lanes of cars (with a truck and a bus) along x
+    at 3-12 m/s a lane, pedestrians on the sidewalks at 1-1.6 m/s, a
+    bicycle, parked cars and traffic cones. Returns (classes, sizes (M, 3),
+    centres at t = 0 (M, 3), yaws (M,), velocities (M, 3))."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for lane, sign in ((-5.5, 1.0), (-2.0, 1.0), (2.0, -1.0), (5.5, -1.0)):
+        speed = sign * rng.uniform(3.0, 12.0)
+        x = -70.0 + rng.uniform(0.0, 8.0)
+        while x < 90.0:
+            cls = (NuscClass.car if rng.random() < 0.85 else
+                   NuscClass.truck if rng.random() < 0.5 else NuscClass.bus)
+            rows.append((cls, (x, lane), 0.0 if sign > 0 else np.pi,
+                         (speed, 0.0)))
+            x += NUSC_SIZES[cls][0] + rng.uniform(5.0, 14.0)
+    for side in (-1.0, 1.0):
+        for x in rng.uniform(-70.0, 90.0, 12):
+            v = rng.choice([-1.0, 1.0]) * rng.uniform(1.0, 1.6)
+            rows.append((NuscClass.pedestrian,
+                         (x, side * rng.uniform(9.0, 10.5)),
+                         0.0 if v > 0 else np.pi, (v, 0.0)))
+        for x in np.arange(-60.0, 80.0, 17.0) + rng.uniform(0, 3):
+            rows.append((NuscClass.car, (x, side * 8.0), 0.0, (0.0, 0.0)))
+        for x in rng.uniform(-40.0, 60.0, 4):
+            rows.append((NuscClass.traffic_cone, (x, side * 7.2), 0.0,
+                         (0.0, 0.0)))
+    rows.append((NuscClass.bicycle, (-30.0, -7.0), 0.0, (4.0, 0.0)))
+    classes = [r[0] for r in rows]
+    sizes = np.array([NUSC_SIZES[c] for c in classes])
+    centres = np.array([[x, y, -LIDAR_HEIGHT + s[2] / 2]
+                        for (_, (x, y), _, _), s in zip(rows, sizes)])
+    yaws = np.array([r[2] for r in rows])
+    vel = np.array([[vx, vy, 0.0] for *_, (vx, vy) in rows])
+    return classes, sizes, centres, yaws, vel
+
+
+def ego_x(t):
+    return -20.0 + EGO_SPEED * t
+
+
+def key_time(k):
+    return (SWEEPS - 1) * SWEEP_DT + k * KEY_DT
+
+
+def nuscenes_like_sweeps(scene, k, seed=0):
+    """Keyframe ``k`` of a nuScenes-like sequence: the keyframe sweep and
+    the 9 before it (a 32-beam sensor, HDL-32E's elevations -30.67 to
+    +10.67 degrees, 360 degrees at 0.3 degree steps, 20 Hz, 1.8 m above
+    the ground), each ray cast onto the ground, a building front each side
+    of the street (with gaps) and the scene's boxes where they stand at
+    that sweep's time (``hit_box``, kitti_like_points' caster), the
+    nearest hit within 70 m kept with 2 cm of range noise. The ego drives
+    along x at 5 m/s; every sweep's points are moved into the keyframe's
+    sensor frame and tagged with their age, as ``sweeps.accumulate_sweeps``
+    lays them out: (N, 5) float32 [x, y, z, intensity, dt]."""
+    classes, sizes, centres, yaws, vel = scene
+    rng = np.random.default_rng(1000 * seed + k)
+    elev = np.deg2rad(np.linspace(-30.67, 10.67, 32))
+    az = np.deg2rad(np.arange(0.0, 360.0, 0.3))
+    e, a = np.meshgrid(elev, az, indexing="ij")
+    d = np.stack([np.cos(e) * np.cos(a), np.cos(e) * np.sin(a), np.sin(e)],
+                 -1).reshape(-1, 3)
+    ray_az = np.arctan2(d[:, 1], d[:, 0])
+    tk = key_time(k)
+    out = []
+    for s in range(SWEEPS):
+        ts = tk - s * SWEEP_DT
+        origin = np.array([ego_x(ts), 0.0, 0.0])
+        t = np.full(len(d), np.inf)
+        down = d[:, 2] < 0
+        t[down] = LIDAR_HEIGHT / -d[down, 2]
+        for side, phase in ((1.0, 0.3), (-1.0, 1.9)):
+            with np.errstate(divide="ignore", invalid="ignore"):
+                tw = np.where(d[:, 1] * side > 0, 13.0 / np.abs(d[:, 1]),
+                              np.inf)
+                hx = origin[0] + d[:, 0] * tw
+                wall = ((d[:, 2] * tw < 8.0 - LIDAR_HEIGHT) & (tw < t)
+                        & (np.sin(hx * 0.25 + phase) > -0.4))
+            t[wall] = tw[wall]
+        rel = centres + ts * vel - origin
+        dist = np.hypot(rel[:, 0], rel[:, 1])
+        reach = np.hypot(sizes[:, 0], sizes[:, 1]) / 2 + 0.1
+        for i in np.flatnonzero(dist < 75.0):
+            # only the rays whose azimuth can reach the box
+            span = np.arcsin(min(1.0, reach[i] / dist[i]))
+            off = (ray_az - np.arctan2(rel[i, 1], rel[i, 0]) + np.pi) \
+                % (2 * np.pi) - np.pi
+            sel = np.flatnonzero(np.abs(off) <= span + 0.01)
+            ts_sel = t[sel]
+            hit_box(d[sel], ts_sel, rel[i], sizes[i] / 2, yaws[i])
+            t[sel] = ts_sel
+        keep = t < 70.0
+        pts = origin + d[keep] * (t[keep] + rng.normal(0.0, 0.02,
+                                                        keep.sum()))[:, None]
+        pts[:, 0] -= ego_x(tk)
+        out.append(np.concatenate([pts, rng.random((len(pts), 1)),
+                                   np.full((len(pts), 1), tk - ts)], 1))
+    return np.concatenate(out).astype(np.float32)
+
+
+def scene_boxes(scene, k, bounds):
+    """The scene's objects at keyframe ``k`` inside ``bounds`` (x, y), in
+    the keyframe's sensor frame and in the world frame: (labels (M,),
+    boxes (M, 7), velocities (M, 3), world boxes (M, 7))."""
+    classes, sizes, centres, yaws, vel = scene
+    tk = key_time(k)
+    world = centres + tk * vel
+    local = world - [ego_x(tk), 0.0, 0.0]
+    inside = ((local[:, 0] > bounds[0]) & (local[:, 0] < bounds[1])
+              & (local[:, 1] > bounds[2]) & (local[:, 1] < bounds[3]))
+    labels = np.array([c.value for c in classes])[inside]
+
+    def boxes(c):
+        return np.concatenate([c[inside], sizes[inside],
+                               yaws[inside, None]], 1)
+    return labels, boxes(local), vel[inside], boxes(world)
+
+
+def voxelnext_frames(seed=700):
+    """The scene and its keyframes' clouds."""
+    t0 = time.perf_counter()
+    scene = nuscenes_scene(seed)
+    clouds = [nuscenes_like_sweeps(scene, k) for k in range(KEYFRAMES)]
+    sizes = [len(c) for c in clouds]
+    log(f"nuScenes-like frames: {KEYFRAMES} keyframes of {SWEEPS} sweeps, "
+        f"{len(scene[0])} objects, {min(sizes)}-{max(sizes)} points a "
+        f"keyframe, {time.perf_counter() - t0:.1f} s on the host")
+    check(all(200_000 <= n <= 400_000 for n in sizes),
+          f"nuScenes-like keyframes of {sizes} points")
+    return scene, clouds
+
+
+def calibrate_voxelnext(model, pts, dev):
+    """Rescale VoxelNeXt's random heads so their outputs over the valid BEV
+    sites spread like a trained model's (heatmap logits sd 2 about the
+    -2.19 bias, regression sd 0.3): random weights on raw coordinates give
+    saturated scores and boxes of e^20 m. Returns the valid sites' share
+    of ``bev_sites`` and their x range (m)."""
+    from d3d_tpu_torch.models import voxelnext_voxelize
+
+    cfg = model.cfg
+    with torch.inference_mode():
+        f, c, v = voxelnext_voxelize(torch.from_numpy(pts).to(dev), cfg)
+        out = model(f[None], c[None], v[None])
+    valid = out["site_valid"][0]
+    for head, key, sd in ((model.head_hm, "heatmap", 2.0),
+                          (model.head_reg, "reg", 0.3)):
+        spread = (out[key][0][valid] - head.bias.detach()).std()
+        with torch.no_grad():
+            head.weight.mul_(sd / float(spread))
+    xs = out["site_xy"][0][valid][:, 0].float() * cfg.bev_voxel[0] \
+        + cfg.bounds[0]
+    return (float(valid.float().mean()), float(xs.min()), float(xs.max()),
+            int(v.sum()))
+
+
+def voxelnext_setup(dev):
+    """VoxelNeXt on presets.voxelnext_nuscenes at full width, f32 and the
+    bf16 preset on the same seeded weights (heads calibrated over the
+    occupied sites of keyframe 0), the nuScenes-like frames, and each
+    sparse layer's inputs for the kernel checks: serving (one keyframe)
+    and training (keyframes 0 and 3 joined)."""
+    from d3d_tpu_torch.models import VoxelNeXt, presets, voxelnext_voxelize
+
+    cfg32 = presets.voxelnext_nuscenes(dtype="float32")
+    scene, clouds = voxelnext_frames()
+    model32 = VoxelNeXt(cfg32, point_features=5, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    share, x0, x1, nvox = calibrate_voxelnext(model32, clouds[0], dev)
+    log(f"VoxelNeXt heads calibrated over the valid BEV sites of keyframe "
+        f"0: {share:.1%} of the {cfg32.bev_sites} sites valid, x from "
+        f"{x0:.1f} to {x1:.1f} m ({nvox} voxels: the sorted voxelizer keeps "
+        "the lowest keys, so the sites sit on the scene's -x side)")
+    model16 = VoxelNeXt(presets.voxelnext_nuscenes(), point_features=5,
+                        device=dev)
+    model16.load_state_dict(model32.state_dict())
+    with torch.inference_mode():
+        vox = [voxelnext_voxelize(torch.from_numpy(clouds[k]).to(dev),
+                                  cfg32) for k in (0, 3)]
+    layers = stage_layer_inputs(model32, *(v[None] for v in vox[0]),
+                                names=VN_LAYERS)
+    batch = voxelnext_batch(dev, cfg32, scene, vox, (0, 3))
+    train_layers = stage_layer_inputs(model32, batch["features"],
+                                      batch["coords"], batch["valid"],
+                                      names=VN_LAYERS)
+    return dict(scene=scene, clouds=clouds, model32=model32,
+                model16=model16, layers=layers, train_layers=train_layers,
+                batch=batch, occupied_share=share, occupied_x=(x0, x1))
+
+
+def voxelnext_batch(dev, cfg, scene, vox, keys):
+    """The training batch: two keyframes' voxels stacked, their objects as
+    ground truth (boxes in the keyframe's sensor frame, labels, BEV
+    velocities), padded to VN_MAX_GT rows a frame."""
+    b = len(keys)
+    gt = np.zeros((b, VN_MAX_GT, 7), np.float32)
+    labels = np.zeros((b, VN_MAX_GT), np.int32)
+    vel = np.zeros((b, VN_MAX_GT, 2), np.float32)
+    mask = np.zeros((b, VN_MAX_GT), bool)
+    for i, k in enumerate(keys):
+        lab, boxes, v, _ = scene_boxes(scene, k, cfg.bounds)
+        m = min(len(lab), VN_MAX_GT)
+        gt[i, :m], labels[i, :m], vel[i, :m] = boxes[:m], lab[:m], v[:m, :2]
+        mask[i, :m] = True
+    batch = {key: torch.stack([v[j] for v in vox]).clone()
+             for j, key in enumerate(("features", "coords", "valid"))}
+    batch.update({k: torch.from_numpy(v).to(dev) for k, v in dict(
+        gt_boxes=gt, gt_labels=labels, gt_velocity=vel,
+        gt_mask=mask).items()})
+    return batch
+
+
+def timed(fn):
+    """(result, device ms by CUDA events, host ms) of one call that ends
+    in a synchronise."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def want_counts(**kw):
+    want = dict(rbox_iou_matrix=0, nms_scan=0, nms_scan_blocked=0,
+                soft_nms_scan=0, subm_conv=0, subm_conv_dw=0,
+                subm_conv_rulebook=0, soft_nms_scan_f64=0)
+    want.update(kw)
+    return want
+
+
+def nusc_classes():
+    return list(NuscClass)
+
+
+def voxelnext_serving(dev, vn):
+    """make_voxelnext_detector on the bf16 preset: a request per keyframe
+    (counts read over them: K5 11, one rule-book call, K1's bit rows and
+    the scan once a request), the outputs TrackingTarget3Ds, then the
+    steady request time and the card's busy share over 5 requests."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from d3d_tpu_torch.models import make_voxelnext_detector, presets
+
+    cfg = presets.voxelnext_nuscenes()
+    detect = make_voxelnext_detector(vn["model16"], None, cfg,
+                                     nusc_classes(), device=dev)
+    reset_counts()
+    ms, host, kept = [], [], []
+    for k, pts in enumerate(vn["clouds"]):
+        out, dev_ms, host_ms = timed(lambda: detect(pts, frame="velo",
+                                                    timestamp=k))
+        ms.append(dev_ms)
+        host.append(host_ms)
+        kept.append(len(out))
+        check(all(type(o).__name__ == "TrackingTarget3D" for o in out)
+              and all(np.isfinite(o.velocity).all()
+                      and np.isfinite(o.position).all() for o in out),
+              "VoxelNeXt detect: not finite TrackingTarget3Ds")
+    n = len(vn["clouds"])
+    counts = read_counts()
+    want = want_counts(rbox_iou_matrix=n, nms_scan=n,
+                       subm_conv=len(VN_LAYERS) * n, subm_conv_rulebook=n)
+    check(counts == want, f"VoxelNeXt serving: launches {counts}, want "
+                          f"{want}: 11 of K5, 1 rule-book call, 1 K1 and "
+                          "1 K2 a request")
+    check_nms_routes("VoxelNeXt serving", n)
+    steady = [timed(lambda: detect.device_fn(vn["clouds"][i % n]))
+              for i in range(10)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(5):
+            detect.device_fn(vn["clouds"][i % n])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = busy_share(prof, wall)
+    stats = dict(request_ms=ms, request_host_ms=host, kept=kept,
+                 steady_ms=statistics.median(s[1] for s in steady),
+                 steady_host_ms=statistics.median(s[2] for s in steady),
+                 busy_share=busy)
+    log(f"VoxelNeXt serving (bf16 preset, 5-column clouds): requests "
+        + ", ".join(f"{m:.2f}" for m in ms) + " ms by CUDA events (host "
+        + ", ".join(f"{m:.2f}" for m in host) + " ms; the first cold), "
+        f"steady {stats['steady_ms']:.2f} ms (host "
+        f"{stats['steady_host_ms']:.2f} ms, median of 10); busy share "
+        f"{busy if busy is None else round(busy, 3)}; kept {kept}; "
+        f"launches over {n} requests {counts}")
+    return counts, stats, detect
+
+
+def voxelnext_card_vs_cpu(dev, vn):
+    """One keyframe through the f32 detector on the card (TF32 off) and the
+    same weights on the CPU: the active sites exact, heatmap and
+    regression within 1e-4 of each output's largest magnitude, the card's
+    top-k decoded from the CPU's outputs within 2e-3 m / 2e-3 relative /
+    2e-2 rad / 1e-4 of score, and the CPU's NMS on the card's boxes equal
+    to the card's keep mask. Returns (the card's f32 request ms, the CPU
+    network's ms)."""
+    from d3d_tpu_torch.models import (VoxelNeXt, make_voxelnext_detector,
+                                      voxelnext_voxelize)
+    from d3d_tpu_torch.models.inference import _bev
+    from d3d_tpu_torch.models.voxelnext import decode_voxelnext
+    from d3d_tpu_torch.ops.nms import nms2d
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = vn["model32"]
+    cfg = model.cfg
+    pts = vn["clouds"][2]
+    detect = make_voxelnext_detector(model, None, cfg, nusc_classes(),
+                                     device=dev)
+    gpu, f32_ms, _ = timed(lambda: [t.cpu() for t in detect.device_fn(pts)])
+    cpu_model = VoxelNeXt(cfg, point_features=5, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    raw = []
+    for m, d in ((model, dev), (cpu_model, "cpu")):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            f, c, v = voxelnext_voxelize(torch.from_numpy(pts).to(d), cfg)
+            raw.append({k: t[0] for k, t in
+                        m(f[None], c[None], v[None]).items()})
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+    # the card's top-k as its decode ranks it (the same ops on the card)
+    flat = torch.sigmoid(raw[0]["heatmap"]) * raw[0]["site_valid"][:, None]
+    idx = torch.sort(flat.reshape(-1), descending=True,
+                     stable=True).indices[:cfg.top_k].cpu()
+    g, c = ({k: t.cpu() for k, t in r.items()} for r in raw)
+    check(torch.equal(g["site_valid"], c["site_valid"])
+          and torch.equal(g["site_xy"], c["site_xy"]),
+          "VoxelNeXt card vs CPU: active BEV sites differ")
+    raw_err = max(float((g[k] - c[k]).abs().max() / c[k].abs().max())
+                  for k in ("heatmap", "reg"))
+    check(raw_err <= 1e-4, f"VoxelNeXt card vs CPU: outputs {raw_err}")
+    # the card's top-k decoded from either side's outputs at the card's
+    # ranking (a near-tie may rank two sites apart on the two sides): a
+    # heatmap that ranks exactly those (site, class) pairs, in that order
+    def at(o):
+        heat = torch.full((o["heatmap"].numel(),), -1e4)
+        heat[idx] = 10.0 - 0.05 * torch.arange(len(idx), dtype=heat.dtype)
+        sub = dict(o, heatmap=heat.reshape(o["heatmap"].shape),
+                   site_valid=torch.ones_like(o["site_valid"]))
+        return decode_voxelnext(cfg, sub)[0]
+    boxes_g = at(g)
+    check(float((boxes_g - gpu[0]).abs().max()) <= 1e-4,
+          "VoxelNeXt detect.device_fn disagrees with its own raw outputs")
+    boxes_c = at(c)
+    pos_err = float((boxes_c[:, :3] - gpu[0][:, :3]).abs().max())
+    size_err = float(((boxes_c[:, 3:6] - gpu[0][:, 3:6])
+                      / gpu[0][:, 3:6]).abs().max())
+    dyaw = torch.remainder(boxes_c[:, 6] - gpu[0][:, 6] + math.pi,
+                           2 * math.pi) - math.pi
+    yaw_err = float(dyaw.abs().max())
+    scores_c = torch.sigmoid(c["heatmap"]).reshape(-1)[idx]
+    score_err = float((scores_c - gpu[1]).abs().max())
+    check(pos_err <= 2e-3 and size_err <= 2e-3 and yaw_err <= 2e-2
+          and score_err <= 1e-4,
+          f"VoxelNeXt card vs CPU: position {pos_err}, size {size_err}, "
+          f"yaw {yaw_err}, score {score_err}")
+    keep_cpu = ~nms2d(_bev(gpu[0]), gpu[1], iou_threshold=0.5)
+    check(torch.equal(keep_cpu, gpu[3]), "VoxelNeXt keep mask card vs CPU")
+    log(f"VoxelNeXt card vs CPU (f32, TF32 off): sites equal "
+        f"({int(g['site_valid'].sum())} valid), outputs {raw_err:.3g} "
+        f"relative; at the card's top-{cfg.top_k}: positions {pos_err:.3g} "
+        f"m, sizes {size_err:.3g}, yaw {yaw_err:.3g} rad, scores "
+        f"{score_err:.3g}; keep mask equal ({int(gpu[3].sum())} kept). f32 "
+        f"request {f32_ms:.2f} ms; the CPU network {cpu_ms:.0f} ms")
+    return f32_ms, cpu_ms
+
+
+def voxelnext_tracking(dev, detect, clouds):
+    """make_tracking_step(detect.device_fn, CenterPoint's nuScenes gates)
+    over the keyframes at dt = 0.5 s, counts read over the run (K5 11,
+    one rule-book call, K1's bit rows and the scan once a frame); then
+    each frame again with detect and the tracker timed apart, the
+    tracker's rows walked and its kernels counted by CUPTI."""
+    from d3d_tpu_torch.tracking import make_tracking_step
+    from d3d_tpu_torch.tracking.device_tracker import tracker_update
+
+    step = make_tracking_step(detect.device_fn, NUSC_GATES,
+                              lost_time=TRACK_LOST_TIME,
+                              capacity=TRACK_CAPACITY, score_threshold=0.3)
+    state = step.init()
+    check(state["boxes"].device.type == "cuda", "tracker state off the card")
+    reset_counts()
+    frame_ms, frame_host, active = [], [], []
+    for k, pts in enumerate(clouds):
+        (state, out), ms, host = timed(
+            lambda: step(state, pts, 0.0 if k == 0 else KEY_DT))
+        frame_ms.append(ms)
+        frame_host.append(host)
+        active.append(int(state["active"].sum()))
+        check(len(out) == 5 and all(bool(torch.isfinite(t.float()).all())
+                                    for t in out),
+              "tracking step: outputs not finite")
+    n = len(clouds)
+    counts = read_counts()
+    want = want_counts(rbox_iou_matrix=n, nms_scan=n,
+                       subm_conv=len(VN_LAYERS) * n, subm_conv_rulebook=n)
+    check(counts == want, f"tracking step: launches {counts}, want {want}")
+    check_nms_routes("tracking step", n)
+    check(int(state["next_tid"]) > 1 and active[-1] > 0,
+          f"tracking step: no track ({active})")
+    # detect and the tracker apart
+    state = step.init()
+    det_ms, trk_ms, trk_host, rows, kernels = [], [], [], [], []
+    for k, pts in enumerate(clouds):
+        out, ms, _ = timed(lambda: detect.device_fn(pts))
+        det_ms.append(ms)
+        boxes, scores, labels, keep, vel = out
+        admit = keep & (scores.float() >= 0.3)
+        args = (boxes, scores.float(), labels, vel, admit,
+                0.0 if k == 0 else KEY_DT, step_thresholds(dev),
+                TRACK_LOST_TIME)
+        r0 = tracker_update.rows
+        new, ms, host = timed(lambda: tracker_update(state, *args))
+        rows.append(tracker_update.rows - r0)
+        trk_ms.append(ms)
+        trk_host.append(host)
+        if k in (1, n - 1):
+            kernels.append(kernel_launches(lambda: tracker_update(state,
+                                                                  *args))[0])
+        state = new
+    stats = dict(frame_ms=frame_ms, frame_host_ms=frame_host,
+                 active=active, detect_ms=det_ms, tracker_ms=trk_ms,
+                 tracker_host_ms=trk_host, tracker_rows=rows,
+                 tracker_kernels=kernels)
+    log(f"VoxelNeXt tracking (fused step, bf16): frame "
+        + ", ".join(f"{m:.2f}" for m in frame_ms) + " ms by CUDA events "
+        f"(host " + ", ".join(f"{m:.2f}" for m in frame_host)
+        + f" ms); active tracks {active}; apart: detect "
+        + ", ".join(f"{m:.2f}" for m in det_ms) + " ms, tracker "
+        + ", ".join(f"{m:.2f}" for m in trk_ms) + f" ms (host "
+        + ", ".join(f"{m:.2f}" for m in trk_host) + f" ms) walking {rows} "
+        f"admitted rows; the tracker's kernels (CUPTI) {kernels} a frame "
+        f"(frames 2 and {n})")
+    return counts, stats
+
+
+def step_thresholds(dev):
+    return torch.tensor(NUSC_GATES, dtype=torch.float32, device=dev)
+
+
+def stand_in_tracks(rng, scene, k):
+    """Stand-in detections of keyframe ``k`` in the world frame (the
+    tracker's frame, as nuScenes tracking runs in global coordinates):
+    each object within 50 m of the ego, jittered by 5 cm and 0.1 m/s,
+    scored 0.5-0.95, plus 8 noise detections scored 0.3-0.5, padded to
+    STAND_IN_ROWS rows: (boxes, scores, labels, vel, valid) numpy."""
+    classes, sizes, centres, yaws, vel = scene
+    tk = key_time(k)
+    world = centres + tk * vel
+    near = np.flatnonzero(np.abs(world[:, 0] - ego_x(tk)) < 50.0)
+    n = len(near) + 8
+    check(n <= STAND_IN_ROWS, f"stand-in frame of {n} detections")
+    boxes = np.zeros((STAND_IN_ROWS, 7), np.float32)
+    boxes[:, 3:6] = 1.0
+    v = np.zeros((STAND_IN_ROWS, 3), np.float32)
+    labels = np.zeros(STAND_IN_ROWS, np.int32)
+    scores = np.zeros(STAND_IN_ROWS, np.float32)
+    valid = np.zeros(STAND_IN_ROWS, bool)
+    m = len(near)
+    boxes[:m, :3] = world[near] + rng.normal(0, 0.05, (m, 3))
+    boxes[:m, 3:6] = sizes[near]
+    boxes[:m, 6] = yaws[near]
+    v[:m] = vel[near] + rng.normal(0, 0.1, (m, 3)) * [1, 1, 0]
+    labels[:m] = [classes[i].value for i in near]
+    scores[:m] = rng.uniform(0.5, 0.95, m)
+    boxes[m:n, :3] = np.c_[ego_x(tk) + rng.uniform(-45, 45, 8),
+                           rng.uniform(-12, 12, 8), np.full(8, -1.0)]
+    labels[m:n] = rng.integers(0, 10, 8)
+    scores[m:n] = rng.uniform(0.3, 0.5, 8)
+    valid[:n] = True
+    return boxes, scores, labels, v, valid
+
+
+def tracker_card_vs_cpu(dev, scene):
+    """tracker_update on stand-in detections of every keyframe on the card
+    and on the CPU: ids, labels, active masks and the next id exact, the
+    slot boxes, velocities, scores and clocks within 1e-5 (f32); the
+    card's reports' trajectories isomorphic with CenterTracker's on the
+    same detections (positions within 1e-3 m)."""
+    from d3d_tpu_torch.abstraction import (ObjectTag, Target3DArray,
+                                           TrackingTarget3D)
+    from d3d_tpu_torch.tracking import CenterTracker
+    from d3d_tpu_torch.tracking.device_tracker import (tracker_init,
+                                                       tracker_report,
+                                                       tracker_update)
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.default_rng(710)
+    frames = [stand_in_tracks(rng, scene, k) for k in range(KEYFRAMES)]
+    states = {d: tracker_init(TRACK_CAPACITY, d) for d in (dev, "cpu")}
+    host = CenterTracker({c.value: g for c, g in zip(NuscClass, NUSC_GATES)},
+                         lost_time=TRACK_LOST_TIME)
+    worst = 0.0
+    traj = ({}, {})
+    for k, fr in enumerate(frames):
+        dt = 0.0 if k == 0 else KEY_DT
+        for d in states:
+            states[d] = tracker_update(states[d], *fr, dt, NUSC_GATES,
+                                       TRACK_LOST_TIME)
+        a = {key: t.cpu() for key, t in states[dev].items()}
+        b = states["cpu"]
+        for key in ("tid", "label", "active", "next_tid"):
+            check(torch.equal(a[key], b[key]),
+                  f"tracker card vs CPU frame {k}: {key} differ")
+        for key in ("boxes", "vel", "score", "lost", "history"):
+            err = float((a[key] - b[key]).abs().max())
+            worst = max(worst, err)
+            check(err <= 1e-5, f"tracker card vs CPU frame {k}: {key} {err}")
+        boxes, scores, labels, vel, valid = fr
+        dets = Target3DArray([
+            TrackingTarget3D(boxes[i, :3], Rotation.from_euler(
+                "Z", boxes[i, 6]), boxes[i, 3:6], vel[i], [0, 0, 0],
+                ObjectTag(NuscClass(int(labels[i])), NuscClass,
+                          float(scores[i])))
+            for i in np.flatnonzero(valid)], frame="world",
+            timestamp=int(round(k * KEY_DT * 1e6)))
+        host.update(dets)
+        reps = (host.report(), tracker_report(states[dev], nusc_classes(),
+                                              "world"))
+        for rep, tr in zip(reps, traj):
+            for o in rep:
+                tr.setdefault(o.tid, []).append((k, np.asarray(
+                    o.position[:2], np.float64)))
+    sig = [sorted(((tuple(f for f, _ in v), np.stack([p for _, p in v]))
+                   for v in tr.values()), key=lambda s: (s[0], *s[1][0]))
+           for tr in traj]
+    check(len(sig[0]) == len(sig[1]) and all(
+        fa == fb and np.abs(pa - pb).max() <= 1e-3
+        for (fa, pa), (fb, pb) in zip(*sig)),
+        "tracker trajectories differ from CenterTracker's")
+    log(f"tracker card vs CPU on stand-in detections: {KEYFRAMES} frames "
+        f"of {[int(f[4].sum()) for f in frames]} detections, ids, labels "
+        f"and masks equal, slot values within {worst:.3g}; "
+        f"{len(sig[0])} trajectories isomorphic with CenterTracker's "
+        f"(final next id {int(states['cpu']['next_tid'])})")
+    return worst
+
+
+def voxelnext_training(dev, vn, dtype):
+    """make_train_step at full width, batch 2 (keyframes 0 and 3, their
+    objects with velocities as ground truth), ``dtype`` compute from the
+    f32 serving weights, VN_TRAIN_STEPS steps, counts read per step: K5
+    18 (11 forward, 7 features' gradients), K6 11, one rule-book call, K1
+    never. Losses finite. Returns (summed counts, stats)."""
+    from d3d_tpu_torch.models import VoxelNeXt, presets
+    from d3d_tpu_torch.models.voxelnext import make_train_step
+    from d3d_tpu_torch.train import make_optimizer
+
+    cfg = presets.voxelnext_nuscenes(dtype=dtype)
+    model = VoxelNeXt(cfg, point_features=5, device=dev)
+    model.load_state_dict(vn["model32"].state_dict())
+    opt, _ = make_optimizer(model.parameters(), total_steps=VN_TRAIN_STEPS)
+    step = make_train_step(model, opt, cfg)
+    total, losses, step_ms = {}, [], []
+    want = want_counts(subm_conv=18, subm_conv_dw=11, subm_conv_rulebook=1)
+    for i in range(VN_TRAIN_STEPS):
+        reset_counts()
+        aux, ms, _ = timed(lambda: step(vn["batch"]))
+        counts = read_counts()
+        check(counts == want, f"VoxelNeXt training {dtype} step {i + 1}: "
+                              f"launches {counts}, want {want}")
+        for key, v in counts.items():
+            total[key] = total.get(key, 0) + v
+        step_ms.append(ms)
+        losses.append({k: float(v) for k, v in aux.items()})
+        check(all(math.isfinite(v) for v in losses[-1].values()),
+              f"VoxelNeXt training {dtype}: loss {losses[-1]}")
+    check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+              for p in model.parameters()),
+          f"VoxelNeXt training {dtype}: a gradient not finite")
+    log(f"VoxelNeXt training {dtype}: losses "
+        + ", ".join(f"{l['total']:.4f}" for l in losses) + "; step "
+        + ", ".join(f"{m:.2f}" for m in step_ms) + " ms (CUDA events); "
+        "launches a step K5 18, K6 11 (subm0_0's C = 5 padded), rule "
+        "books 1")
+    return total, dict(losses=[l["total"] for l in losses], step_ms=step_ms)
+
+
+def sort_join_path(dev, vn, detect):
+    """The tagged sort join: on keyframe 0's voxels (nuScenes grid, under
+    the canvas cap) the stage maps built by the canvas and by the sort
+    join (forced by ``_DENSE_CANVAS_MAX_CELLS`` = 0) equal, each build
+    timed; then one request on a 150.4 m extent at 0.1 m (1504 x 1504 x
+    40, 90.5M cells, over the cap), which takes the sort join, with its
+    launches counted."""
+    from d3d_tpu_torch.models import (VoxelNeXt, make_voxelnext_detector,
+                                      presets, voxelnext_voxelize)
+    from d3d_tpu_torch.models.second import _stage_maps
+    from d3d_tpu_torch.ops import sparse_conv
+
+    cfg = presets.voxelnext_nuscenes()
+    with torch.inference_mode():
+        _, c, v = voxelnext_voxelize(
+            torch.from_numpy(vn["clouds"][0]).to(dev), cfg)
+    cap = sparse_conv._DENSE_CANVAS_MAX_CELLS
+    built = {}
+    try:
+        for route, cells in (("canvas", cap), ("sort_join", 0)):
+            sparse_conv._DENSE_CANVAS_MAX_CELLS = cells
+            _stage_maps(cfg, c, v)
+            built[route] = timed(lambda: _stage_maps(cfg, c, v))
+    finally:
+        sparse_conv._DENSE_CANVAS_MAX_CELLS = cap
+    (maps_a, _), ms_a, _ = built["canvas"]
+    (maps_b, _), ms_b, _ = built["sort_join"]
+    nmaps = 0
+    for sa, sb in zip(maps_a, maps_b):
+        for x, y in ((sa[0], sb[0]), (sa[2], sb[2])):
+            if x is not None:
+                nmaps += 1
+                check(torch.equal(x, y), "sort join and canvas maps differ")
+    wcfg = presets.voxelnext_nuscenes(
+        bounds=(-75.2, 75.2, -75.2, 75.2, -2.0, 4.0), grid=(1504, 1504, 40))
+    cells = int(np.prod(wcfg.grid))
+    check(cells > cap, f"{cells} cells do not take the sort join")
+    model = VoxelNeXt(wcfg, point_features=5, device=dev)
+    model.load_state_dict(vn["model16"].state_dict())
+    wdet = make_voxelnext_detector(model, None, wcfg, nusc_classes(),
+                                   device=dev)
+    wdet.device_fn(vn["clouds"][1])
+    reset_counts()
+    out, ms, host = timed(lambda: wdet.device_fn(vn["clouds"][1]))
+    counts = read_counts()
+    want = want_counts(rbox_iou_matrix=1, nms_scan=1,
+                       subm_conv=len(VN_LAYERS), subm_conv_rulebook=1)
+    check(counts == want, f"sort-join request: launches {counts}")
+    check(all(bool(torch.isfinite(t.float()).all()) for t in out),
+          "sort-join request: outputs not finite")
+    log(f"sort join: keyframe 0's {nmaps} stage maps equal by both routes "
+        f"(canvas {ms_a:.2f} ms, sort join {ms_b:.2f} ms a build of all "
+        f"four stages, CUDA events); a request on the {wcfg.grid} grid "
+        f"({cells} cells) {ms:.2f} ms (host {host:.2f} ms), launches "
+        f"{counts}")
+    return counts, dict(maps=nmaps, canvas_build_ms=ms_a,
+                        sort_join_build_ms=ms_b, request_ms=ms,
+                        request_host_ms=host)
+
+
+def second_more(dev, second):
+    """SECOND's other routes: middle="dense" serving on
+    presets.second_kitti (f32) with the sparse model's weights, held to
+    the CPU (compare_with_cpu); SECOND serving on 4 KITTI-like frames,
+    held to the CPU on one; and the bf16 preset on a 5-column cloud
+    (K5's first layer at C = 5, padded). Launches read per route."""
+    from d3d_tpu_torch.models import (SECOND, head_config, make_anchors,
+                                      make_second_detector, presets,
+                                      second_voxelize)
+
+    stats, counts = {}, {}
+    frames = [kitti_like_points(500 + i) for i in range(4)]
+    # the dense middle
+    cfg = presets.second_kitti(dtype="float32", middle="dense")
+    model = SECOND(cfg, device=dev)
+    model.load_state_dict(second.state_dict())
+    # no site cap: data reaches every BEV cell, so the heads take their
+    # spread from the dense outputs (the sparse model's would saturate
+    # many scores at 1.0, whose ties rank by index)
+    calibrate_heads(model, frames[0], dev, second_voxelize,
+                    occupied_only=True, box_bound=2.0)
+    anchors = make_anchors(head_config(cfg), device=dev)
+    detect = make_second_detector(model, None, cfg, anchors, car_classes(),
+                                  device=dev)
+    reset_counts()
+    ms = [timed(lambda: detect(p))[1] for p in frames[:3]]
+    c = read_counts()
+    check(c == want_counts(rbox_iou_matrix=3, nms_scan=3),
+          f"SECOND dense: launches {c}: no K5, 1 K1 and 1 K2 a request")
+    check_nms_routes("SECOND dense", 3)
+    add_counts(counts, c)
+    no_tf32, cpu_ms = compare_with_cpu(
+        "SECOND dense middle", model, SECOND(cfg, device="cpu"), frames[0],
+        detect, anchors, dev, second_voxelize)
+    steady = [timed(lambda: detect(p))[1] for p in frames[1:4]]
+    stats["dense"] = dict(request_ms=ms, no_tf32_ms=no_tf32,
+                          no_tf32_steady_ms=steady, cpu_ms=cpu_ms)
+    # the sparse model on KITTI-like frames, its heads calibrated there
+    sparse = SECOND(second.cfg, device=dev)
+    sparse.load_state_dict(second.state_dict())
+    calibrate_heads(sparse, frames[0], dev, second_voxelize,
+                    occupied_only=True, box_bound=2.0)
+    detect = make_second_detector(sparse, None, sparse.cfg, anchors,
+                                  car_classes(), device=dev)
+    reset_counts()
+    ms, kept = [], []
+    for p in frames:
+        out, m, _ = timed(lambda: detect(p))
+        ms.append(m)
+        kept.append(check_detections("SECOND KITTI-like", out))
+    c = read_counts()
+    check(c == want_counts(rbox_iou_matrix=4, nms_scan=4,
+                           subm_conv=4 * len(K5_LAYERS),
+                           subm_conv_rulebook=4),
+          f"SECOND KITTI-like: launches {c}")
+    add_counts(counts, c)
+    no_tf32, cpu_ms = compare_with_cpu(
+        "SECOND KITTI-like", sparse, SECOND(sparse.cfg, device="cpu"),
+        frames[1], detect, anchors, dev, second_voxelize)
+    stats["kitti_like"] = dict(request_ms=ms, kept=kept, no_tf32_ms=no_tf32,
+                               cpu_ms=cpu_ms)
+    # the bf16 preset on a 5-column cloud
+    cfg16 = presets.second_kitti()
+    model5 = SECOND(cfg16, point_features=5, device=dev,
+                    generator=torch.Generator().manual_seed(5))
+    pts5 = np.concatenate([frames[2], np.random.default_rng(5).uniform(
+        0, 0.45, (len(frames[2]), 1)).astype(np.float32)], 1)
+    calibrate_heads(model5, pts5, dev, second_voxelize, occupied_only=True)
+    layers5 = second_layer_inputs(model5, pts5, dev)
+    k5_err5, _ = check_k5({"subm0_0": layers5["subm0_0"]}, None,
+                          "SECOND 5-column")
+    det5 = make_second_detector(model5, None, cfg16,
+                                make_anchors(head_config(cfg16), device=dev),
+                                car_classes(), device=dev)
+    reset_counts()
+    out, m5, _ = timed(lambda: det5(pts5))
+    c = read_counts()
+    check(c == want_counts(rbox_iou_matrix=1, nms_scan=1,
+                           subm_conv=len(K5_LAYERS), subm_conv_rulebook=1),
+          f"SECOND 5-column bf16: launches {c}")
+    add_counts(counts, c)
+    stats["five_column_bf16"] = dict(request_ms=m5,
+                                     kept=check_detections("SECOND 5-column",
+                                                           out),
+                                     k5_err_c5=k5_err5)
+    log(f"SECOND dense middle: requests "
+        + ", ".join(f"{x:.2f}" for x in stats["dense"]["request_ms"])
+        + " ms (cuDNN 3D convolutions, no K5; TF32 off: "
+        + ", ".join(f"{x:.2f}" for x in steady) + " ms); KITTI-like requests "
+        + ", ".join(f"{x:.2f}" for x in stats["kitti_like"]["request_ms"])
+        + f" ms, kept {kept}; 5-column bf16 request {m5:.2f} ms")
+    return counts, stats
+
+
+def voxelnext_track(dev, vn, second):
+    """The voxelnext_track path and SECOND's other routes. Returns
+    ({path: counts}, stats)."""
+    counts, stats = {}, {}
+    c, stats["serving"], detect = voxelnext_serving(dev, vn)
+    counts["voxelnext_serving"] = c
+    stats["f32_no_tf32_ms"], stats["cpu_ms"] = voxelnext_card_vs_cpu(dev,
+                                                                     vn)
+    counts["voxelnext_track"], stats["tracking"] = voxelnext_tracking(
+        dev, detect, vn["clouds"])
+    stats["tracker_card_vs_cpu_err"] = tracker_card_vs_cpu(dev, vn["scene"])
+    total = {}
+    for dtype in ("float32", "bfloat16"):
+        c, stats[f"train_{dtype}"] = voxelnext_training(dev, vn, dtype)
+        add_counts(total, c)
+    counts["voxelnext_train"] = total
+    counts["sort_join"], stats["sort_join"] = sort_join_path(dev, vn,
+                                                             detect)
+    counts["second_more"], stats["second_more"] = second_more(dev, second)
+    stats["occupied_share"] = vn["occupied_share"]
+    stats["occupied_x_m"] = vn["occupied_x"]
+    return counts, stats
+
+
 def add_cupti(a, b):
     """A sum of CUPTI times that is None where a term is."""
     return None if a is None or b is None else a + b
@@ -4065,12 +4901,18 @@ def main():
         kitti_batch["valid"])
     kitti_k6_err, kitti_k6_shapes = check_k6(kitti_train_layers, "KITTI-like")
     kitti_bwd_err = check_k5_backward(kitti_train_layers, "KITTI-like")
+    vn = voxelnext_setup(dev)
+    vn_k5_err, vn_shapes = check_k5(vn["layers"], None, "VoxelNeXt")
+    vn_k6_err, vn_k6_shapes = check_k6(vn["train_layers"], "VoxelNeXt")
+    vn_bwd_err = check_k5_backward(vn["train_layers"], "VoxelNeXt")
     edge_rng = np.random.default_rng(11)
     rb_err, rb_routes = check_rulebooks({
         "serving": distinct_maps(k5_layers)[1],
         "training": distinct_maps(train_layers)[1],
         "KITTI-like serving": distinct_maps(kitti_layers)[1],
         "KITTI-like training": distinct_maps(kitti_train_layers)[1],
+        "VoxelNeXt serving": distinct_maps(vn["layers"])[1],
+        "VoxelNeXt training": distinct_maps(vn["train_layers"])[1],
         "edge maps": [edge_map(edge_rng, kind, dev)[0]
                       for kind in EDGE_CASES],
         **sort_edge_maps(dev)})
@@ -4091,6 +4933,7 @@ def main():
     kitti_counts, kitti_stats = kitti_eval(dev, second, pp_detect)
     kitti_stats["val_scale"] = eval_at_scale(dev)
     pp_counts, pp_stats = pointpillars_train(dev)
+    vn_counts, vn_stats = voxelnext_track(dev, vn, second)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     train_counts, train_stats = {}, {}
@@ -4112,7 +4955,8 @@ def main():
                       "second_training": train_counts[name],
                       "box_api": api_counts[name],
                       "kitti_eval": kitti_counts[name],
-                      "pointpillars_train": pp_counts[name]}
+                      "pointpillars_train": pp_counts[name],
+                      **{path: c[name] for path, c in vn_counts.items()}}
                for name in serve_counts}
     meta = {
         "rbox_iou_matrix": ("cuda", "d3d_tpu_torch/csrc/rbox_iou.cu",
@@ -4168,12 +5012,17 @@ def main():
         max_abs_err_edge_maps=edge_err["subm_conv"],
         max_abs_err_kitti_like=kitti_k5_err,
         max_abs_err_backward_kitti_like=kitti_bwd_err,
-        layer_shapes_kitti_like=kitti_shapes, bit_equal_across_runs=True)
+        layer_shapes_kitti_like=kitti_shapes,
+        max_abs_err_voxelnext=vn_k5_err,
+        max_abs_err_backward_voxelnext=vn_bwd_err,
+        layer_shapes_voxelnext=vn_shapes, bit_equal_across_runs=True)
     rows["subm_conv_dw"].update(
         max_abs_err_bf16=k6_err["bfloat16"], layer_shapes=k6_shapes,
         max_abs_err_edge_maps=edge_err["subm_conv_dw"],
         max_abs_err_kitti_like=kitti_k6_err,
-        layer_shapes_kitti_like=kitti_k6_shapes, bit_equal_across_runs=True)
+        layer_shapes_kitti_like=kitti_k6_shapes,
+        max_abs_err_voxelnext=vn_k6_err, layer_shapes_voxelnext=vn_k6_shapes,
+        bit_equal_across_runs=True)
     log(json.dumps({"paths": {"serving": serve, "north_star": ns,
                               "second_serving": second_stats,
                               "soft_nms": soft_stats,
@@ -4183,7 +5032,8 @@ def main():
                                           "box2d_nms": nms_stats,
                                           "crops": crop_stats},
                               "kitti_eval": kitti_stats,
-                              "pointpillars_train": pp_stats},
+                              "pointpillars_train": pp_stats,
+                              "voxelnext_track": vn_stats},
                     "card": card}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

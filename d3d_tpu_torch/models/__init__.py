@@ -4,12 +4,16 @@ from .pointpillars import (PointPillars, PointPillarsConfig, assign_targets,
                            scatter_to_bev)
 from .second import (SECOND, SECONDConfig, head_config, make_train_step,
                      second_voxelize, sparse_stage_loop)
+from .voxelnext import (VoxelNeXt, VoxelNeXtConfig, decode_voxelnext,
+                        voxelnext_voxelize)
 from . import presets
-from .inference import make_pointpillars_detector, make_second_detector
+from .inference import (make_pointpillars_detector, make_second_detector,
+                        make_voxelnext_detector)
 from .tta import make_tta_detector
 from .convert import (pointpillars_params_from_flax,
                       pointpillars_state_from_flax, second_params_from_flax,
-                      second_state_from_flax)
+                      second_state_from_flax, voxelnext_params_from_flax,
+                      voxelnext_state_from_flax)
 
 __all__ = [
     "PointPillars", "PointPillarsConfig", "pillarize", "scatter_to_bev",
@@ -17,8 +21,10 @@ __all__ = [
     "detection_loss", "prepare_targets", "SECOND", "SECONDConfig",
     "head_config", "second_voxelize", "sparse_stage_loop", "make_train_step",
     "presets", "make_pointpillars_detector", "make_second_detector",
-    "make_tta_detector",
+    "make_tta_detector", "VoxelNeXt", "VoxelNeXtConfig",
+    "voxelnext_voxelize", "decode_voxelnext", "make_voxelnext_detector",
     "pointpillars_state_from_flax", "pointpillars_params_from_flax",
     "second_state_from_flax",
-    "second_params_from_flax",
+    "second_params_from_flax", "voxelnext_state_from_flax",
+    "voxelnext_params_from_flax",
 ]

@@ -1,5 +1,5 @@
-"""Carry weights from the JAX package's flax PointPillars and SECOND to the
-port.
+"""Carry weights from the JAX package's flax PointPillars, SECOND and
+VoxelNeXt to the port.
 
 The flax variables are a ``{"params", "batch_stats"}`` tree of nested dicts
 of arrays (numpy, or anything ``np.asarray`` takes); nothing here imports
@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 __all__ = ["pointpillars_state_from_flax", "pointpillars_params_from_flax",
-           "second_state_from_flax", "second_params_from_flax"]
+           "second_state_from_flax", "second_params_from_flax",
+           "voxelnext_state_from_flax", "voxelnext_params_from_flax"]
 
 
 def _oihw(kernel):
@@ -94,14 +95,20 @@ def pointpillars_params_from_flax(params):
     return _pointpillars(params, None)
 
 
-def _second(params, stats):
-    """SECOND's entries; without ``stats`` the parameters only."""
-    sd = {}
+def _sparse_middle(sd, params, stats):
+    """The sparse layers ``subm{s}_{i}`` / ``down{s}``: (K, C, Cout)
+    kernels as they are, each layer's masked BatchNorm."""
     for name, p in params.items():
         if name.startswith(("subm", "down")):
             sd[f"middle.{name}.weight"] = p["kernel"]
             _bn(sd, f"middle.{name}.bn", p["_MaskedBN_0"],
                 stats and stats[name]["_MaskedBN_0"], tracked=False)
+
+
+def _second(params, stats):
+    """SECOND's entries; without ``stats`` the parameters only."""
+    sd = {}
+    _sparse_middle(sd, params, stats)
     _conv_block(sd, "head_block", params["_ConvBlock_0"],
                 stats and stats["_ConvBlock_0"])
     _heads(sd, params)
@@ -121,3 +128,29 @@ def second_params_from_flax(params):
     the port's ``named_parameters()`` names, in its layouts (the
     gradient of a transposed kernel is the transposed gradient)."""
     return _second(params, None)
+
+
+def _voxelnext(params, stats):
+    """VoxelNeXt's entries; without ``stats`` the parameters only."""
+    sd = {}
+    _sparse_middle(sd, params, stats)
+    for name in ("head1", "head_hm", "head_reg"):
+        sd[name + ".weight"] = np.asarray(params[name]["kernel"]).T
+        sd[name + ".bias"] = params[name]["bias"]
+    _bn(sd, "head_bn", params["head_bn"], stats and stats["head_bn"],
+        tracked=False)
+    return _tensors(sd)
+
+
+def voxelnext_state_from_flax(variables):
+    """flax VoxelNeXt variables -> the port's ``state_dict``: the sparse
+    layers as SECOND's, the per-site Dense heads (in, out) transposed to
+    ``Linear`` (out, in), ``head_bn`` a masked BatchNorm."""
+    return _voxelnext(variables["params"], variables["batch_stats"])
+
+
+def voxelnext_params_from_flax(params):
+    """A flax VoxelNeXt ``params`` tree alone (or a gradient tree of its
+    structure) -> ``{name: tensor}`` under the port's
+    ``named_parameters()`` names, in its layouts."""
+    return _voxelnext(params, None)

@@ -1,5 +1,5 @@
 """End-to-end inference: points in, :class:`Target3DArray` out (port of the
-PointPillars and SECOND part of ``d3d_tpu.models.inference``).
+PointPillars, SECOND and VoxelNeXt part of ``d3d_tpu.models.inference``).
 
 One request runs points -> voxelize -> network -> top-k decode -> rotated
 NMS on one device with fixed shapes; only the final selection of kept rows
@@ -17,7 +17,8 @@ from ..utils import as_tensor, resolve_device
 from .pointpillars import decode_boxes, pillarize
 from .second import second_voxelize
 
-__all__ = ["make_pointpillars_detector", "make_second_detector"]
+__all__ = ["make_pointpillars_detector", "make_second_detector",
+           "make_voxelnext_detector"]
 
 
 def _to_targets(boxes, scores, labels, keep, classes, frame, timestamp,
@@ -40,6 +41,45 @@ def _to_targets(boxes, scores, labels, keep, classes, frame, timestamp,
 def _bev(boxes):
     return torch.cat([boxes[:, 0:2], boxes[:, 3:5], boxes[:, 6:7]],
                      dim=-1).to(torch.float32)
+
+
+def _to_tracking_targets(boxes, scores, labels, keep, vel, classes, frame,
+                         timestamp, score_threshold):
+    """Like :func:`_to_targets`, but :class:`TrackingTarget3D` elements
+    carrying the decoded BEV velocities (the input of
+    :class:`~d3d_tpu_torch.tracking.CenterTracker` and the tracking
+    evaluator), built column by column."""
+    from ..abstraction import TrackingTarget3D
+
+    boxes, scores, labels, keep, vel = (np.asarray(a) for a in
+                                        (boxes, scores, labels, keep, vel))
+    sel = (keep & (scores >= score_threshold)
+           & np.all(np.isfinite(boxes), axis=-1))
+    boxes, scores, labels, vel = boxes[sel], scores[sel], labels[sel], \
+        vel[sel]
+    n = len(boxes)
+    y = boxes[:, 6].astype(np.float64)
+    quats = np.zeros((n, 4), np.float32)
+    quats[:, 2] = np.sin(y / 2)
+    quats[:, 3] = np.cos(y / 2)
+    vel3 = np.zeros((n, 3), np.float32)
+    vel3[:, :2] = vel
+    cols = dict(
+        position=np.ascontiguousarray(boxes[:, 0:3], np.float32),
+        dimension=np.ascontiguousarray(boxes[:, 3:6], np.float32),
+        quat=quats,
+        position_var=np.zeros((n, 3, 3), np.float32),
+        dimension_var=np.zeros((n, 3, 3), np.float32),
+        velocity=vel3,
+        angular_velocity=np.zeros((n, 3), np.float32),
+        velocity_var=np.zeros((n, 3, 3), np.float32),
+        angular_velocity_var=np.zeros((n, 3, 3), np.float32),
+    )
+    tags = [ObjectTag(cls := classes[int(l)], type(cls), float(s))
+            for l, s in zip(labels, scores)]
+    return Target3DArray._from_backed_columns(
+        TrackingTarget3D, cols, tags, np.zeros(n, np.float32),
+        frame=frame, timestamp=timestamp)
 
 
 def _make_anchor_detector(model, variables, cfg, anchors, classes,
@@ -115,3 +155,49 @@ def make_second_detector(model, variables, cfg, anchors, classes,
     return _make_anchor_detector(model, variables, cfg, anchors, classes,
                                  second_voxelize, score_threshold,
                                  iou_threshold, top_k, device)
+
+
+def make_voxelnext_detector(model, variables, cfg, classes,
+                            score_threshold=0.3, iou_threshold=0.5,
+                            device=None):
+    """Build ``detect(points, frame=None, timestamp=0)`` for a VoxelNeXt
+    model: voxelize -> network -> flat top-k decode over the active BEV
+    sites (``cfg.top_k``) -> rotated NMS (``nms2d``: K1's bit rows and
+    the scan on the card). With ``cfg.predict_velocity`` the detector
+    returns ``TrackingTarget3D`` elements and its ``device_fn`` the
+    5-output contract ``(boxes, scores, labels, keep, vel)``, the input of
+    :func:`~d3d_tpu_torch.tracking.make_tracking_step`; otherwise a
+    ``Target3DArray`` and 4 outputs. Arguments as
+    :func:`make_pointpillars_detector`."""
+    from .voxelnext import decode_voxelnext, voxelnext_voxelize
+
+    dev = resolve_device(device)
+    if variables is not None:
+        model.load_state_dict(variables)
+    model = model.to(dev).eval()
+
+    @torch.inference_mode()
+    def device_fn(points):
+        points = as_tensor(points, device=dev, dtype=torch.float32)
+        feats, coords, valid = voxelnext_voxelize(points, cfg)
+        outputs = model(feats[None], coords[None], valid[None])
+        dec = decode_voxelnext(cfg, {k: v[0] for k, v in outputs.items()})
+        boxes, scores, labels = dec[:3]
+        keep = ~nms2d(_bev(boxes), scores.to(torch.float32),
+                      iou_threshold=iou_threshold, iou_method="rbox")
+        if cfg.predict_velocity:
+            return boxes, scores, labels, keep, dec[3]
+        return boxes, scores, labels, keep
+
+    def detect(points, frame=None, timestamp=0):
+        """The kept detections of one frame as a Target3DArray (of
+        ``TrackingTarget3D`` with the velocity head)."""
+        out = [t.cpu().numpy() for t in device_fn(points)]
+        if len(out) > 4:
+            return _to_tracking_targets(*out, classes, frame, timestamp,
+                                        score_threshold)
+        return _to_targets(*out, classes, frame, timestamp, score_threshold)
+
+    device_fn.device = dev
+    detect.device_fn = device_fn
+    return detect

@@ -1,6 +1,7 @@
 """Ready-made model configurations (port of ``d3d_tpu.models.presets``).
 
-Ported so far: the KITTI PointPillars and SECOND presets. Like the JAX
+Ported so far: the KITTI PointPillars and SECOND presets and nuScenes
+VoxelNeXt. Like the JAX
 package's, they default to ``bfloat16`` compute; pass ``dtype="float32"``
 to override.
 """
@@ -9,8 +10,10 @@ from dataclasses import replace
 
 from .pointpillars import PointPillarsConfig
 from .second import SECONDConfig
+from .voxelnext import VoxelNeXtConfig
 
-__all__ = ["pointpillars_kitti", "pointpillars_kitti_3class", "second_kitti"]
+__all__ = ["pointpillars_kitti", "pointpillars_kitti_3class", "second_kitti",
+           "voxelnext_nuscenes"]
 
 # KITTI car/pedestrian/cyclist anchor sizes (l, w, h) from the
 # PointPillars paper (Lang et al., CVPR 2019, Sec. 4.1)
@@ -46,4 +49,19 @@ def second_kitti(**overrides):
         stage_sites=(16000, 8000, 4000), subm_per_stage=2,
         head_channels=128, num_classes=1, anchor_sizes=(_KITTI_CAR,),
         dtype="bfloat16")
+    return replace(cfg, **overrides)
+
+
+def voxelnext_nuscenes(**overrides):
+    """nuScenes VoxelNeXt: 0.1 m voxels over the 108 m square, 10
+    classes, velocity head on (the paper's detection-and-tracking
+    configuration); fully sparse, so the long-range grid costs active
+    sites, not canvas memory."""
+    cfg = VoxelNeXtConfig(
+        bounds=(-54.0, 54.0, -54.0, 54.0, -5.0, 3.0),
+        grid=(1080, 1080, 40), max_voxels=60000,
+        stage_channels=(16, 32, 64, 128),
+        stage_sites=(60000, 30000, 15000, 8000), subm_per_stage=2,
+        bev_sites=8000, head_channels=128, num_classes=10, top_k=200,
+        predict_velocity=True, dtype="bfloat16")
     return replace(cfg, **overrides)

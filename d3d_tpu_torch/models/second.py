@@ -12,8 +12,11 @@ Parameters stay float32 and the compute runs in ``cfg.dtype``. Shapes are
 static: per-stage active-site caps, masked padding. The sparse stages run
 the frames of a batch as one joined site list; the BEV head runs batched.
 
-Not ported yet: ``middle="dense"`` (``dense_stage_loop``) raises
-``NotImplementedError``.
+``middle="dense"`` runs the same layers (the same parameters) on a dense
+canvas instead (:func:`dense_stage_loop`): a masked 3D convolution a layer,
+``F.conv3d``, as the JAX module's ``lax.conv_general_dilated``. It never
+truncates, so it equals the sparse path wherever the site caps do not
+bind.
 """
 
 from dataclasses import dataclass
@@ -33,7 +36,7 @@ from .pointpillars import PointPillarsConfig, _ConvBlock, _head
 from .pointpillars import make_train_step as _pp_make_train_step
 
 __all__ = ["SECONDConfig", "SECOND", "second_voxelize", "head_config",
-           "sparse_stage_loop", "make_train_step"]
+           "sparse_stage_loop", "dense_stage_loop", "make_train_step"]
 
 _K = 27  # 3x3x3 kernel offsets
 
@@ -56,8 +59,8 @@ class SECONDConfig:
     pos_iou: float = 0.6
     neg_iou: float = 0.45
     dtype: str = "float32"
-    # "sparse" or "auto" (= sparse) run the active-site stage loop; the
-    # JAX module's "dense" canvas strategy is not ported
+    # "sparse" or "auto" (= sparse) run the active-site stage loop,
+    # "dense" the dense-canvas one (dense_stage_loop)
     middle: str = "auto"
     dense_max_cells: int = 8_000_000
 
@@ -171,6 +174,74 @@ class _SpConv(nn.Module):
         y = subm_conv_apply(x.to(self.dtype), nbr, self.weight, valid,
                             symmetric=self.symmetric)
         return F.relu(self.bn(y, valid, train))
+
+
+def _pool_mask(mask, stride):
+    """Active set of a strided conv's output on (B, X, Y, Z) masks: a cell
+    is active iff its ``stride``-window holds an active input (the dense
+    twin of :func:`downsample_coords`); odd dims are padded up so their
+    last partial window counts (ceil-division)."""
+    pad = []
+    for d in reversed(mask.shape[1:]):
+        pad += [0, (-d) % stride]
+    m = F.pad(mask[:, None].to(torch.float32), pad)
+    return F.max_pool3d(m, stride, stride)[:, 0] > 0
+
+
+class _SpConvDense(_SpConv):
+    """Dense-canvas twin of :class:`_SpConv` (the same parameters: the
+    (K, C, Cout) kernel in ``kernel_offsets``' raster order is the
+    (3, 3, 3, C, Cout) DHWIO kernel): one 3D convolution (padding 1,
+    stride 1 or 2) on a (B, X, Y, Z, C) canvas, the masked BatchNorm over
+    the active cells (the pooled mask after a strided layer), ReLU."""
+
+    def __init__(self, in_channels, channels, dtype, stride=1):
+        super().__init__(in_channels, channels, dtype)
+        self.stride = stride
+
+    def forward(self, x, mask, train=False):
+        c_in, c_out = self.weight.shape[1:]
+        kern = self.weight.reshape(3, 3, 3, c_in, c_out).permute(
+            4, 3, 0, 1, 2).to(self.dtype)              # DHWIO -> OIDHW
+        y = F.conv3d(x.to(self.dtype).permute(0, 4, 1, 2, 3), kern,
+                     stride=self.stride, padding=1).permute(0, 2, 3, 4, 1)
+        if self.stride > 1:
+            mask = _pool_mask(mask, self.stride)
+        shape = y.shape
+        y = self.bn(y.reshape(-1, c_out), mask.reshape(-1), train)
+        return F.relu(y).reshape(shape), mask
+
+
+def dense_stage_loop(cfg, layers, x, coords, valid, train=False):
+    """Dense-canvas execution of the middle extractor: scatter the voxel
+    features once, then every submanifold layer as a masked convolution
+    and every downsample as a strided one with the pooled mask. Layers
+    and parameters are :func:`sparse_stage_loop`'s (``layers`` maps the
+    names ``subm{s}_{i}`` / ``down{s}`` to :class:`_SpConvDense`).
+
+    The sparse path's site caps (``cfg.stage_sites``) truncate; this one
+    never does, so the two agree wherever the caps do not bind.
+
+    :param x: (B, V, C) site features; ``coords`` (B, V, 3) int32;
+        ``valid`` (B, V)
+    :returns: (canvas (B, X', Y', Z', C'), mask (B, X', Y', Z'))
+    """
+    b = x.shape[0]
+    canvas = torch.stack([sparse_to_dense(f, c, v, cfg.grid)
+                          for f, c, v in zip(x, coords, valid)])
+    mask = torch.zeros((b,) + tuple(cfg.grid), dtype=torch.bool,
+                       device=x.device)
+    frame = torch.arange(b, device=x.device)[:, None].expand_as(valid)
+    c = coords.long()
+    mask[frame[valid], c[..., 0][valid], c[..., 1][valid],
+         c[..., 2][valid]] = True
+    canvas = canvas * mask[..., None].to(canvas.dtype)
+    for s in range(cfg.n_stages):
+        for i in range(cfg.subm_per_stage):
+            canvas, _ = layers[f"subm{s}_{i}"](canvas, mask, train)
+        if s + 1 < cfg.n_stages:
+            canvas, mask = layers[f"down{s}"](canvas, mask, train)
+    return canvas, mask
 
 
 def _stage_maps(cfg, coords, valid):
@@ -290,20 +361,21 @@ class SECOND(nn.Module):
                  generator=None):
         super().__init__()
         dev = resolve_device(device)
-        if cfg.middle_mode() == "dense":
-            raise NotImplementedError(
-                "middle='dense' (dense_stage_loop) is not ported yet")
         self.cfg = cfg
+        dense = cfg.middle_mode() == "dense"
         layers = {}
         c_in = point_features
         for s, ch in enumerate(cfg.stage_channels):
             for i in range(cfg.subm_per_stage):
-                layers[f"subm{s}_{i}"] = _SpConv(c_in, ch, cfg.dtype,
-                                                 symmetric=True)
+                layers[f"subm{s}_{i}"] = (
+                    _SpConvDense(c_in, ch, cfg.dtype) if dense
+                    else _SpConv(c_in, ch, cfg.dtype, symmetric=True))
                 c_in = ch
             if s + 1 < cfg.n_stages:
                 c_out = cfg.stage_channels[s + 1]
-                layers[f"down{s}"] = _SpConv(c_in, c_out, cfg.dtype)
+                layers[f"down{s}"] = (
+                    _SpConvDense(c_in, c_out, cfg.dtype, stride=2) if dense
+                    else _SpConv(c_in, c_out, cfg.dtype))
                 c_in = c_out
         self.middle = nn.ModuleDict(layers)
         self.head_block = _ConvBlock(cfg.final_grid[2] * c_in,
@@ -346,6 +418,10 @@ class SECOND(nn.Module):
             ones (the flag, not ``nn.Module.training``, selects this, as
             the JAX module's ``train`` argument does)
         """
+        if self.cfg.middle_mode() == "dense":
+            dense, _ = dense_stage_loop(self.cfg, self.middle, features,
+                                        coords, valid, train)
+            return self.bev_head(dense, train)
         x, oc, ov, fg = sparse_stage_loop(self.cfg, self.middle, features,
                                           coords, valid, train)
         dense = [sparse_to_dense(xi, ci, vi, fg)  # (X, Y, Z, C) a frame

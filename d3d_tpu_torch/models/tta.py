@@ -9,7 +9,8 @@ runs on the host.
 
 It wraps the ``device_fn`` of a detector from
 :mod:`d3d_tpu_torch.models.inference` (``points -> (boxes, scores,
-labels, keep)``) and returns a ``detect`` with the same contract.
+labels, keep[, vel])``) and returns a ``detect`` with the same contract;
+velocities are mirrored back with the boxes.
 """
 
 import math
@@ -34,11 +35,12 @@ def _flip_points(points, mode):
     return points * scale
 
 
-def _unflip_boxes(boxes, mode):
-    """Mirror detector boxes back to the original frame. For a y-flip the
-    yaw negates; for an x-flip it reflects to pi - yaw."""
+def _unflip_boxes(boxes, vel, mode):
+    """Mirror detector outputs back to the original frame. For a y-flip
+    the yaw negates; for an x-flip it reflects to pi - yaw; a velocity's
+    component along a flipped axis negates."""
     if mode == "none":
-        return boxes
+        return boxes, vel
     fx = mode in ("flip_x", "flip_xy")
     fy = mode in ("flip_y", "flip_xy")
     x = -boxes[:, 0] if fx else boxes[:, 0]
@@ -48,8 +50,13 @@ def _unflip_boxes(boxes, mode):
         yaw = -yaw
     if fx:
         yaw = math.pi - yaw
-    return torch.stack([x, y, boxes[:, 2], boxes[:, 3], boxes[:, 4],
-                        boxes[:, 5], yaw], dim=-1)
+    out = torch.stack([x, y, boxes[:, 2], boxes[:, 3], boxes[:, 4],
+                       boxes[:, 5], yaw], dim=-1)
+    if vel is None:
+        return out, None
+    vx = -vel[:, 0] if fx else vel[:, 0]
+    vy = -vel[:, 1] if fy else vel[:, 1]
+    return out, torch.stack([vx, vy], dim=-1)
 
 
 def make_tta_detector(detect, classes, modes=("none", "flip_y"),
@@ -62,13 +69,10 @@ def make_tta_detector(detect, classes, modes=("none", "flip_y"),
     :param modes: a subset of :data:`FLIP_MODES`; "none" should normally
         be included
     :returns: ``tta(points, frame=None, timestamp=0) -> Target3DArray``
-        with ``.device_fn``
-    :raises NotImplementedError: when the base detector returns
-        velocities (a 5-tuple): their ``TrackingTarget3D`` assembly
-        (``inference._to_tracking_targets``) is not ported yet, nor is any
-        detector with a velocity head
+        with ``.device_fn``; a velocity-head base detector keeps its
+        5-output contract and ``TrackingTarget3D`` elements
     """
-    from .inference import _bev, _to_targets
+    from .inference import _bev, _to_targets, _to_tracking_targets
 
     base = detect.device_fn
     for m in modes:
@@ -78,30 +82,36 @@ def make_tta_detector(detect, classes, modes=("none", "flip_y"),
     @torch.inference_mode()
     def device(points):
         points = as_tensor(points, device=base.device, dtype=torch.float32)
-        all_boxes, all_scores, all_labels = [], [], []
+        all_boxes, all_scores, all_labels, all_vel = [], [], [], []
+        has_vel = False
         for mode in modes:
             out = base(_flip_points(points, mode))
-            if len(out) > 4:
-                raise NotImplementedError(
-                    "make_tta_detector: the base detector returns "
-                    "velocities, and their TrackingTarget3D assembly "
-                    "(inference._to_tracking_targets) is not ported yet")
-            boxes, scores, labels, keep = out
-            boxes = _unflip_boxes(boxes, mode)
+            boxes, scores, labels, keep = out[:4]
+            vel = out[4] if len(out) > 4 else None
+            has_vel = has_vel or vel is not None
+            boxes, vel = _unflip_boxes(boxes, vel, mode)
             # suppressed candidates drop out of the merge via score 0
             all_boxes.append(boxes)
             all_scores.append(torch.where(keep, scores, 0.0))
             all_labels.append(labels)
+            all_vel.append(boxes.new_zeros((boxes.shape[0], 2))
+                           if vel is None else vel)
         boxes = torch.cat(all_boxes)
         scores = torch.cat(all_scores).to(torch.float32)
         labels = torch.cat(all_labels)
         keep = ~nms2d(_bev(boxes), scores, iou_threshold=iou_threshold,
                       iou_method="rbox")
-        return boxes, scores, labels, keep & (scores > 0)
+        keep = keep & (scores > 0)
+        if has_vel:  # velocity-head detectors keep their 5-output contract
+            return boxes, scores, labels, keep, torch.cat(all_vel)
+        return boxes, scores, labels, keep
 
     def tta(points, frame=None, timestamp=0):
-        return _to_targets(*(t.cpu().numpy() for t in device(points)),
-                           classes, frame, timestamp, score_threshold)
+        out = [t.cpu().numpy() for t in device(points)]
+        if len(out) > 4:
+            return _to_tracking_targets(*out, classes, frame, timestamp,
+                                        score_threshold)
+        return _to_targets(*out, classes, frame, timestamp, score_threshold)
 
     device.device = base.device
     tta.device_fn = device

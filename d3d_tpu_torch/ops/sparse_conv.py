@@ -18,10 +18,11 @@ book (:func:`prepare_neighbor_map`, :mod:`d3d_tpu_torch.ops.rulebook`):
 built once per map on the device, it lets them skip the neighbours that
 do not exist.
 
-Ported: the dense-canvas neighbour maps up to ``_DENSE_CANVAS_MAX_CELLS``
-(2^26 cells, a 268 MB int32 transient). Larger grids raise
-``NotImplementedError``: the JAX module's tagged sort join
-(``match_sorted``) is not ported yet.
+Grids up to ``_DENSE_CANVAS_MAX_CELLS`` (2^26 cells, a 268 MB int32
+transient) build their maps on the canvas; larger ones (a 150 m Waymo
+extent at 0.1 m is 90.5M cells) take the JAX module's tagged sort join
+(:func:`match_sorted`), all kernel offsets in one batched stable sort.
+Both routes give the same map.
 """
 
 import numpy as np
@@ -31,7 +32,7 @@ from ..utils import as_tensor
 from .rulebook import RuleBook, prepare_neighbor_map, prepare_neighbor_maps
 from .sparse_conv_cuda import SubmConv
 
-__all__ = ["kernel_offsets", "linearize", "build_neighbor_map",
+__all__ = ["kernel_offsets", "linearize", "match_sorted", "build_neighbor_map",
            "build_neighbor_map_strided", "prepare_neighbor_map",
            "prepare_neighbor_maps", "RuleBook",
            "subm_conv_apply", "downsample_coords", "sparse_to_dense"]
@@ -59,6 +60,37 @@ def linearize(coords, grid):
     return coords[..., 0] * (d1 * d2) + coords[..., 1] * d2 + coords[..., 2]
 
 
+def match_sorted(ref_keys, ref_valid, query_keys, query_valid):
+    """Exact-match join of two key lists: for each query, the matching ref
+    ROW or -1, (M,) int32, as the JAX module's tagged sort gives it.
+
+    ``2 * ref`` and ``2 * query + 1`` (invalid rows keyed ``2^30 - 1``)
+    are sorted together, stably; a query matches iff its predecessor in
+    that order is a ref of the same key: the last of equal refs in row
+    order, and only the first of equal queries. Invalid queries give -1.
+    Leading dimensions of the queries batch independent joins against the
+    same refs (one sort along the last axis)."""
+    n, m = ref_keys.shape[-1], query_keys.shape[-1]
+    batch = query_keys.shape[:-1]
+    rk = torch.where(ref_valid, ref_keys.to(torch.int32), _BIG_KEY) * 2
+    qk = torch.where(query_valid, query_keys.to(torch.int32), _BIG_KEY) * 2 + 1
+    keys = torch.cat([rk.expand(batch + (n,)), qk], dim=-1)
+    sk, perm = torch.sort(keys, dim=-1, stable=True)
+    is_query = perm >= n
+    row = torch.where(is_query, perm - n, perm).to(torch.int32)
+    half = torch.div(sk, 2, rounding_mode="floor")
+    hit = torch.zeros_like(is_query)
+    hit[..., 1:] = (is_query[..., 1:] & ~is_query[..., :-1]
+                    & (half[..., 1:] == half[..., :-1]))
+    prev = torch.cat([row[..., :1], row[..., :-1]], dim=-1)
+    val = torch.where(hit, prev, -1)
+    # back to query-row order: each query row sits once among the queries
+    out = torch.empty(batch + (m,), dtype=torch.int32, device=qk.device)
+    out.scatter_(-1, row[is_query].reshape(batch + (m,)).to(torch.int64),
+                 val[is_query].reshape(batch + (m,)))
+    return torch.where(query_valid, out, -1)
+
+
 def _dense_row_canvas(keys, valid, volume):
     """(V + 1,) int32 canvas holding the active row index at each occupied
     cell (-1 empty). Invalid rows all write the overflow slot, which is
@@ -77,19 +109,17 @@ def _neighbor_map_impl(query_coords, query_valid, ref_keys, ref_valid, grid,
     """Query site q looks up the input row at ``q * stride + off`` for
     every kernel offset: (Nq, K) int32, -1 where absent."""
     volume = int(np.prod(grid))
-    if volume > _DENSE_CANVAS_MAX_CELLS:
-        raise NotImplementedError(
-            f"grid {grid} has {volume} cells, over the dense-canvas cap of "
-            f"{_DENSE_CANVAS_MAX_CELLS}; the sort-join neighbour map is not "
-            "ported yet")
     dev = query_coords.device
     offs = torch.as_tensor(kernel_offsets(kernel_size), device=dev)
     gmax = torch.tensor(grid, dtype=torch.int32, device=dev)
-    canvas = _dense_row_canvas(ref_keys, ref_valid, volume)
     qc = query_coords.to(torch.int32)[:, None, :] * stride + offs[None]
     inb = ((qc >= 0) & (qc < gmax)).all(dim=-1) & query_valid[:, None]
     d0, d1, d2 = grid
     qk = qc[..., 0] * (d1 * d2) + qc[..., 1] * d2 + qc[..., 2]
+    if volume > _DENSE_CANVAS_MAX_CELLS:
+        # one join per kernel offset, (K, Nq) -> (Nq, K)
+        return match_sorted(ref_keys, ref_valid, qk.T, inb.T).T.contiguous()
+    canvas = _dense_row_canvas(ref_keys, ref_valid, volume)
     return canvas[torch.where(inb, qk, volume).to(torch.int64)]
 
 

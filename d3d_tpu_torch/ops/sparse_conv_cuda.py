@@ -34,7 +34,8 @@ import torch
 from ._build import load_library, stream_handle
 from .rulebook import RuleBook, prepare_neighbor_map
 
-__all__ = ["subm_conv", "subm_conv_dw", "SubmConv", "k5_tile_rows"]
+__all__ = ["subm_conv", "subm_conv_dw", "SubmConv", "k5_tile_rows",
+           "pad_channels"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CPU_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
@@ -62,6 +63,24 @@ def _vec(t, row_elems, name):
             return v
     raise ValueError(f"{name}: rows of {row} bytes; the kernel copies rows "
                      "in units of 4, 8 or 16 bytes")
+
+
+def pad_channels(features, weights=None):
+    """Features whose rows are no whole number of the kernels' 4-byte copy
+    unit (a 5-channel bf16 row is 10 bytes) widened with zero columns to
+    the next 16 bytes, and the weights' input rows ``(K, C, Cout) -> (K,
+    C', Cout)`` with zeros to match. A zero column adds exact zeros, so
+    the padded sums equal the unpadded ones. Rows that already fit come
+    back as they are. Returns ``(features, weights)``."""
+    c = features.shape[1]
+    size = features.element_size()
+    if c * size % 4 == 0:
+        return features, weights
+    pad = -(-c * size // 16) * 16 // size - c
+    features = torch.nn.functional.pad(features, (0, pad))
+    if weights is not None:
+        weights = torch.nn.functional.pad(weights, (0, 0, 0, pad))
+    return features, weights
 
 
 def _acc_dtype(*dtypes):
@@ -128,7 +147,9 @@ def _check(features, nbr, weights, valid):
 def _launch(features, rules, weights, valid, out=None):
     """K5 on CUDA tensors with N, C, Nq, Cout > 0 and a
     :class:`RuleBook` -> (Nq, Cout) in the features' dtype, written into
-    ``out`` where given (every row is written)."""
+    ``out`` where given (every row is written). Features whose rows are
+    no whole number of 4-byte copies run padded (:func:`pad_channels`)."""
+    features, weights = pad_channels(features, weights)
     features = features.contiguous()
     weights = weights.contiguous()
     valid = valid.contiguous()
@@ -192,8 +213,11 @@ def _check_dw(features, nbr, grad):
 
 def _dw_launch(features, rules, grad):
     """K6 on CUDA tensors with N, Nq > 0 and a :class:`RuleBook` -> (K, C,
-    Cout) float32."""
-    features = features.contiguous()
+    Cout) float32. Features whose rows are no whole number of 4-byte
+    copies run padded (:func:`pad_channels`); the gradient of the padded
+    rows is sliced off."""
+    c_in = features.shape[1]
+    features = pad_channels(features)[0].contiguous()
     grad = grad.contiguous()
     n, c = features.shape
     nq, k = rules.shape
@@ -213,7 +237,7 @@ def _dw_launch(features, rules, grad):
     if err:
         raise RuntimeError(f"subm_conv_dw kernel launch failed: CUDA error "
                            f"{err}")
-    return out
+    return out if c == c_in else out[:, :c_in].contiguous()
 
 
 def subm_conv_dw(features, nbr, grad):

@@ -229,11 +229,18 @@ def test_quantized_model_stays_close(pp):
 
 def test_unflip_boxes_matches(rng):
     boxes = rng.normal(0, 10, (6, 7)).astype(np.float32)
+    vel = rng.normal(0, 5, (6, 2)).astype(np.float32)
     for mode in FLIP_MODES:
         want, _ = j_unflip(jnp.asarray(boxes), None, mode)
-        got = _unflip_boxes(torch.from_numpy(boxes), mode)
+        got, none = _unflip_boxes(torch.from_numpy(boxes), None, mode)
+        assert none is None
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                    atol=1e-6)
+        # velocities mirror exactly (sign changes only)
+        _, want_v = j_unflip(jnp.asarray(boxes), jnp.asarray(vel), mode)
+        _, got_v = _unflip_boxes(torch.from_numpy(boxes),
+                                 torch.from_numpy(vel), mode)
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
         pts = torch.from_numpy(boxes[:, :4].copy())
         assert torch.equal(_flip_points(_flip_points(pts, mode), mode), pts)
 
@@ -272,17 +279,53 @@ def test_tta_matches_jax(pp):
 
 
 def test_tta_velocity_route_is_not_ported(pp):
-    def device_fn(points):
-        n = 4
-        return (torch.zeros(n, 7), torch.zeros(n), torch.zeros(n),
-                torch.ones(n, dtype=torch.bool), torch.zeros(n, 2))
+    """The velocity route (ported since): a 5-output base detector keeps
+    its contract through the flip ensemble, velocities mirrored back as
+    the JAX module's, the merge equal to JAX's on the same base outputs
+    (boxes within 1e-6, masks and velocities exact), TrackingTarget3D
+    elements out."""
+    boxes = np.array([[1.0, 2.0, -1.0, 4.0, 1.8, 1.6, 0.3],
+                      [10.0, -6.0, -1.0, 4.2, 1.7, 1.5, -1.0],
+                      [20.0, 5.0, -1.0, 0.8, 0.6, 1.7, 2.0],
+                      [1.2, 2.1, -1.0, 4.0, 1.8, 1.6, 0.35]], np.float32)
+    scores = np.array([0.9, 0.6, 0.4, 0.8], np.float32)
+    vel = np.array([[3.0, -1.0], [0.5, 2.0], [-1.0, 0.0], [2.5, -1.5]],
+                   np.float32)
+
+    def base(lib):
+        def fn(points):
+            # the base sees the flipped cloud: it reports the boxes
+            # mirrored in y (y, yaw and vy negated) when the point is
+            s = points[0, 1] / abs(float(pts[0, 1])) - 1.0   # 0 or -2
+            b = lib(boxes) * (1.0 + s * lib(np.float32([0, 1, 0, 0, 0, 0,
+                                                        1])))
+            v = lib(vel) * (1.0 + s * lib(np.float32([0, 1])))
+            return (b, lib(scores), lib(np.zeros(4, np.int32)),
+                    lib(np.ones(4, bool)), v)
+        return fn
+
+    pts = np.array([[1.0, 1.0, 0.0, 0.5]], np.float32)
+    device_fn = base(torch.from_numpy)
     device_fn.device = torch.device("cpu")
 
     def detect(points):
         raise AssertionError("not called")
     detect.device_fn = device_fn
     tta = make_tta_detector(detect, [TClass.Car])
-    with pytest.raises(NotImplementedError, match="_to_tracking_targets"):
-        tta.device_fn(np.zeros((3, 4), np.float32))
+    got = [t.numpy() for t in tta.device_fn(pts)]
+
+    def jdetect(points):
+        raise AssertionError("not called")
+    jdetect.device_fn = base(jnp.asarray)
+    want = [np.asarray(a) for a in j_tta(
+        jdetect, [KittiObjectClass.Car]).device_fn(jnp.asarray(pts))]
+    assert len(got) == len(want) == 5
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got[3], want[3])
+    np.testing.assert_array_equal(got[4], want[4])
+    np.testing.assert_array_equal(got[4][4:], vel)  # the flip undone
+    out = tta(pts, frame="velo", timestamp=3)
+    assert len(out) == int(got[3].sum()) and out.timestamp == 3
+    assert all(type(o).__name__ == "TrackingTarget3D" for o in out)
     with pytest.raises(ValueError, match="unknown TTA mode"):
         make_tta_detector(detect, [TClass.Car], modes=("mirror",))

@@ -187,8 +187,17 @@ def test_presets_match():
 
 
 def test_dense_middle_is_not_ported():
-    with pytest.raises(NotImplementedError, match="dense"):
-        TSECOND(TConfig(**CONFIGS["tiny"], middle="dense"), device="cpu")
+    """The dense middle (ported since; held to JAX in
+    tests/test_torch_second_dense.py) keeps the sparse path's parameter
+    tree, so one state_dict serves both, and its cell budget still
+    raises."""
+    dense = TSECOND(TConfig(**CONFIGS["tiny"], middle="dense"), device="cpu")
+    sparse = TSECOND(TConfig(**CONFIGS["tiny"]), device="cpu")
+    assert ({k: v.shape for k, v in dense.state_dict().items()}
+            == {k: v.shape for k, v in sparse.state_dict().items()})
+    with pytest.raises(ValueError, match="dense_max_cells"):
+        TSECOND(TConfig(**CONFIGS["tiny"], middle="dense",
+                        dense_max_cells=100), device="cpu")
 
 
 def test_masked_bn_batch_statistics():

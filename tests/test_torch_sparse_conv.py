@@ -84,11 +84,21 @@ def test_big_grid_map_matches_the_sort_join(rng):
         TS.build_neighbor_map(tc, tv, grid).numpy(), want)
 
 
-def test_grid_over_the_canvas_cap_is_not_ported():
-    coords = torch.zeros((4, 3), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="sort-join"):
-        TS.build_neighbor_map(coords, torch.ones(4, dtype=torch.bool),
-                              (1024, 1024, 128))
+def test_grid_over_the_canvas_cap_is_not_ported(rng):
+    """A grid over the canvas cap (ported since) takes the sort join and
+    gives the JAX package's map (its CPU route for this grid is its own
+    sort join)."""
+    grid = (1024, 1024, 128)
+    coords = np.stack([rng.integers(0, 5, 200), rng.integers(1018, 1024, 200),
+                       rng.integers(0, 6, 200)], 1).astype(np.int32)
+    coords = np.unique(coords, axis=0)
+    valid = np.ones(len(coords), bool)
+    valid[::7] = False
+    (jc, jv), (tc, tv) = _jt(coords, valid)
+    want = np.asarray(S.build_neighbor_map(jc, jv, grid))
+    got = TS.build_neighbor_map(tc, tv, grid)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want >= 0).sum() > len(coords)
 
 
 @pytest.mark.parametrize("max_out", [None, 40, 10])
@@ -335,3 +345,100 @@ def test_first_layer_takes_no_dfeat(rng, monkeypatch):
     monkeypatch.setattr(TK, "subm_conv", lambda *a: calls.append(2))
     out.sum().backward()
     assert calls == [] and tw.grad.shape == (27, 4, 6)
+
+
+@pytest.mark.parametrize("case", ["repeats", "unique", "empty_refs"])
+def test_match_sorted_matches(case):
+    """The tagged sort join against the JAX package's, exactly: repeated
+    refs give the last of them in row order, a repeated query only its
+    first occurrence, invalid rows -1; a batch of query lists (one per
+    kernel offset) gives each list's own join."""
+    rng = np.random.default_rng(31)
+    if case == "repeats":
+        rk, qk = rng.integers(0, 30, 60), rng.integers(0, 30, (3, 50))
+    elif case == "unique":
+        rk, qk = rng.permutation(200)[:80], rng.permutation(200)[None, :90]
+    else:
+        rk, qk = np.arange(10), rng.integers(0, 10, (2, 20))
+    rk, qk = rk.astype(np.int32), qk.astype(np.int32)
+    rv = rng.random(rk.shape) < (0.0 if case == "empty_refs" else 0.8)
+    qv = rng.random(qk.shape) < 0.8
+    want = np.stack([np.asarray(S.match_sorted(*map(jnp.asarray,
+                                                    (rk, rv, q, v))))
+                     for q, v in zip(qk, qv)])
+    got = TS.match_sorted(*map(torch.from_numpy, (rk, rv, qk, qv)))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want >= 0).any() == (case != "empty_refs")
+
+
+@pytest.mark.parametrize("strided", [False, True])
+def test_sort_join_and_canvas_routes_agree(rng, monkeypatch, strided):
+    """Both routes of the port's neighbour maps give the same map, and the
+    JAX package's (as tests/test_sparse_conv.py::TestSortJoinFallback
+    forces its routes with the cap)."""
+    coords, valid = _sites(rng, 150, 192)
+    (jc, jv), (tc, tv) = _jt(coords, valid)
+    if strided:
+        joc, jov = S.downsample_coords(jc, jv, GRID, stride=2)
+        oc, ov = torch.from_numpy(np.array(joc)), torch.from_numpy(
+            np.array(jov))
+        want = np.asarray(S.build_neighbor_map_strided(joc, jov, jc, jv,
+                                                       GRID, stride=2))
+
+        def build():
+            return TS.build_neighbor_map_strided(oc, ov, tc, tv, GRID, 2)
+    else:
+        want = np.asarray(S.build_neighbor_map(jc, jv, GRID))
+
+        def build():
+            return TS.build_neighbor_map(tc, tv, GRID)
+    canvas = build()
+    monkeypatch.setattr(TS, "_DENSE_CANVAS_MAX_CELLS", 0)
+    sort_join = build()
+    np.testing.assert_array_equal(canvas.numpy(), want)
+    np.testing.assert_array_equal(sort_join.numpy(), want)
+    assert sort_join.dtype == torch.int32 and sort_join.is_contiguous()
+
+
+@pytest.mark.parametrize("c_in,c_out,dtype", [
+    (5, 16, torch.bfloat16), (3, 7, torch.bfloat16), (5, 16, torch.float32),
+    (6, 8, torch.bfloat16)])
+def test_pad_channels_keeps_the_conv_and_its_gradients(rng, c_in, c_out,
+                                                       dtype):
+    """The K5/K6 wrappers pad feature rows that are no whole number of
+    4-byte copies (a 5-column bf16 cloud: 10 bytes) with zero columns and
+    the weights with zero input rows. The padded plain versions equal the
+    unpadded ones exactly: the forward, K6's weight gradient sliced back
+    to (K, C, Cout), and the features' and weights' gradients through
+    autograd. Rows that already fit are left as they are."""
+    feats, nbr, w, valid = _conv_problem(rng, "subm", c_in, c_out)
+    tf, tn, tw, tv = _t(feats, nbr, w, valid)
+    tf, tw = tf.to(dtype), tw.to(dtype)
+    pf, pw = TK.pad_channels(tf, tw)
+    if c_in * tf.element_size() % 4 == 0:
+        assert pf is tf and pw is tw
+    else:
+        assert pf.shape[1] * pf.element_size() % 16 == 0
+        assert pw.shape == (27, pf.shape[1], c_out)
+        assert torch.equal(pf[:, :c_in], tf) and not pf[:, c_in:].any()
+        assert torch.equal(pw[:, :c_in], tw) and not pw[:, c_in:].any()
+    out = TK._subm_conv_plain(tf, tn, tw, tv)
+    assert torch.equal(out, TK._subm_conv_plain(pf, tn, pw, tv))
+    g = torch.from_numpy(rng.normal(size=(nbr.shape[0], c_out)).astype(
+        np.float32)) * tv[:, None]
+    assert torch.equal(TK._subm_conv_dw_plain(tf, tn, g),
+                       TK._subm_conv_dw_plain(pf, tn, g)[:, :c_in])
+
+    def grads(pad):
+        f = tf.detach().clone().requires_grad_()
+        ww = tw.detach().float().clone().requires_grad_()
+        if pad:
+            fp, wp = TK.pad_channels(f, ww)
+            y = TS.subm_conv_apply(fp, tn, wp, tv, symmetric=True)
+        else:
+            y = TS.subm_conv_apply(f, tn, ww, tv, symmetric=True)
+        (y.float() * g).sum().backward()
+        return y.detach(), f.grad, ww.grad
+    for a, b in zip(grads(False), grads(True)):
+        assert torch.equal(a, b)
