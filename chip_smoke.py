@@ -18,8 +18,10 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    every word written (``check_k1_bits``); the scan K2/K3 at n = 1 to
    20 000 through the bool route and nms2d's (bit rows, scores, order),
    both of its kernels (``check_scans``); K4 (soft-NMS cascade, linear and
-   gaussian, float32 and float64, n = 100 to 8192, a dense cluster, a NaN
-   score and +0/-0 scores, both of its routes in each dtype) exactly; the
+   gaussian, float32 and float64, n = 100 to 16 384, a dense cluster, a NaN
+   score and +0/-0 scores, all three of its routes in each dtype: rows in
+   shared memory, rows from L2, and above 8192 boxes the scores in global
+   memory) exactly; the
    voxelizers on points with NaNs equal to the CPU's
    (``check_nan_voxels``); K1's float32 matrix raising under autograd
    (``check_k1_grad_guard``); K5
@@ -30,10 +32,13 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    training, f32 and bf16 features, bit-equal across two runs
    (``check_k6``), and K5 as the features' gradient of the submanifold
    layers (``check_k5_backward``), all through the maps' rule books; the
-   same on seeded edge-case maps (``check_edge_maps``) and on a KITTI-like
-   seeded frame (``kitti_like_points``); the rule books of every path's maps
-   and of the sort's edge maps (one row to 3 million rows, 16 maps a call,
-   both of the build's routes) equal to the plain stable sort
+   same on seeded edge-case maps (``check_edge_maps``), on a KITTI-like
+   seeded frame (``kitti_like_points``) and on maps of more offsets than a
+   mask word holds (kernel_size 4, 5 and 7: 64, 125 and 343 offsets, at
+   SECOND's first layer's 16 000 sites, ``wide_kernel_layers``); the rule
+   books of every path's maps and of the sort's edge maps (one row to 3
+   million rows, 16 maps a call, both of the build's routes) equal to the
+   plain stable sort
    (``check_rulebooks``); the rule-book build and one
    stage's launches, forward and backward, run under
    ``torch.cuda.set_sync_debug_mode("error")`` (``check_sync_free``);
@@ -59,8 +64,11 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    (the labels jittered, duplicated, with noise boxes, through
    ``box2d_nms(iou_method="rbox", precise=False)``) into Target3DArrays;
    ``DetectionEvaluator`` at IoU 0.7 and 0.5 by ``calc_stats`` and
-   ``device_calc_stats``; then ``device_calc_stats`` over the KITTI val
-   split's 3 769 seeded frames in chunks of 512) and ``pointpillars_train``
+   ``device_calc_stats``, ``kitti_official_summary`` (bev and 3d) for SECOND
+   and the stand-in, ``evaluate_waymo_detection`` on the stand-in with
+   point counts from the clouds; then ``device_calc_stats`` over the KITTI
+   val split's 3 769 seeded frames in chunks of 512) and
+   ``pointpillars_train``
    (``examples/train_pointpillars.py`` at full width: the 8 KITTI-like
    frames through ``KittiObjectLoader``, ``build_gt_database``, then per
    frame ``sample_ground_truths``, ``perobject_augment`` (K1's f32 form),
@@ -80,7 +88,16 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    training steps; the sort join's maps equal to the canvas's and a
    request on a 90.5M-cell grid; SECOND's dense middle and SECOND on
    KITTI-like frames, each held to the CPU; a 5-column bf16 SECOND
-   request); each path must launch its kernels, and nms2d K1's bit form
+   request) and ``nuscenes_track_eval`` (that scene written as raw nuScenes
+   tables and blobs under ``build/``, converted by the port's converter,
+   loaded by ``NuscenesLoader``, each keyframe accumulated by
+   ``accumulate_sweeps`` and held to the direct cloud; VoxelNeXt (bf16)
+   through ``make_tracking_step``, counts read per request; the tracks
+   scored by ``TrackingEvaluator.calc_stats_sequence`` and the detections
+   by ``evaluate_nuscenes_detection`` / ``evaluate_nuscenes_official``,
+   each equal to the CPU's; stand-in tracks held to their stated floors;
+   a seeded tracking set of nuScenes val's shape scored and timed, cut to
+   its budget); each path must launch its kernels, and nms2d K1's bit form
    and the scan only (``check_nms_routes``);
 4. checks the outputs: finite, of the expected shape, the keep masks equal
    to the plain scans on the kernels' own IoU matrices, the voxelizer
@@ -787,20 +804,30 @@ def check_nan_voxels(dev):
 
 def check_k4(dev):
     """K4 against the plain cascade on the card, both methods, float32 and
-    float64, on K1's IoU matrices of bench boxes (n = 100 to 8192; float64
-    takes the matrix cast) and of dense clusters with iou_threshold 0
-    (every pair overlaps, so every row's marks overflow its list; n = 512
-    and 2048, where the lists do not fit in shared memory), a NaN score and
-    tied +0/-0 scores; masks must be equal, and both of K4's routes (lists
-    staged in shared memory, read from L2) must have run in each dtype.
-    Returns the mismatches and the launches by route."""
+    float64, on K1's IoU matrices of bench boxes (n = 100 to 8192, and
+    10 000 and 16 384 above the shared-memory state's 8192; float64 takes
+    the matrix cast) and of dense clusters with iou_threshold 0 (every pair
+    overlaps, so every row's marks overflow its list; n = 512 and 2048,
+    where the lists do not fit in shared memory), a NaN score and tied
+    +0/-0 scores; masks must be equal, and all three of K4's routes (lists
+    staged in shared memory, read from L2, and above 8192 boxes the scores
+    in global memory) must have run in each dtype. Returns the mismatches,
+    the launches by route, and the >8192 route's times at 16 384 boxes
+    (linear, p = 1, float32 and float64: CUDA events, the plain cascade on
+    the card, the bound of this run's steps)."""
     from d3d_tpu_torch.ops import geometry_cuda, nms_cuda
     from d3d_tpu_torch.ops.nms import _soft_nms_init
 
     rng = np.random.default_rng(3)
     routes0 = dict(nms_cuda._soft_launch.routes)
     cases = [(f"n={n}", *bench_boxes(rng, n), SOFT_NMS_ARGS["iou_threshold"])
-             for n in (100, 512, 1000, 2048, 8192)]
+             for n in (100, 512, 1000, 2048, 8192, 10000, 16384)]
+    # above 8192 boxes the plain cascade takes seconds a call on the card:
+    # each (size, dtype) once, both methods at 16 384 in float32
+    f32, f64 = torch.float32, torch.float64
+    only = {"n=10000": {(f32, "gaussian"), (f64, "linear")},
+            "n=16384": {(f32, "linear"), (f32, "gaussian"), (f64, "linear")}}
+    wide = {}
     # +0 and -0 scores tie: the lower index is picked first
     zeros, _ = bench_boxes(rng, 64)
     zeros[:, :2] = rng.random((64, 2)) * 6.0
@@ -831,10 +858,14 @@ def check_k4(dev):
             iou = iou32.to(dt)
             pre, init = _soft_nms_init(ts.to(dt), thr)
             for method, param in SOFT_NMS_CASES:
+                if name in only and (dt, method) not in only[name]:
+                    continue
                 args = (iou_t, thr, param, method)
                 got = nms_cuda._soft_launch(iou, init, pre, *args)
+                t0 = time.perf_counter()
                 want = nms_cuda._soft_nms_scan_plain(iou, init, pre, *args)
                 torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
                 bad = int((got != want).sum())
                 log(f"soft_nms_scan {method} {str(dt)[6:]} {name}: {bad} of "
                     f"{len(boxes)} differ from the plain cascade, "
@@ -842,12 +873,31 @@ def check_k4(dev):
                 check(bad == 0, f"soft_nms_scan {method} {dt} {name}: {bad} "
                                 f"mismatches")
                 worst = max(worst, bad)
+                if name == "n=16384" and method == "linear":
+                    wide[str(dt)[6:]] = k4_wide_times(
+                        lambda: nms_cuda._soft_launch(iou, init, pre, *args),
+                        plain_ms, len(boxes), got, iou.element_size())
     routes = {k: v - routes0[k]
               for k, v in nms_cuda._soft_launch.routes.items()}
     log(f"soft_nms_scan launches by route in the checks: {routes}")
     check(all(v > 0 for v in routes.values()),
           f"K4: a route never ran: {routes}")
-    return worst, routes
+    return worst, routes, wide
+
+
+def k4_wide_times(launch, plain_ms, n, suppressed, itemsize):
+    """K4's route above 8192 boxes at ``n``: CUDA events a launch (median
+    of 5), the plain cascade's one checked call (host clock around the
+    call and a synchronize: it runs n steps of a dozen launches), and the
+    bound of this run's steps (the boxes frozen: those not suppressed)."""
+    steps = n - int(suppressed.sum())
+    b_ms, b_by = k4_bound(n, steps, itemsize)
+    row = dict(n=n, steps=steps, ms=time_each(launch, reps=5, warmup=1),
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"K4 n={n} ({itemsize * 8}-bit, scores in global memory, {steps} "
+        f"steps): {row['ms']:.3f} ms a launch (CUDA events), plain "
+        f"{row['plain_ms']:.1f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return row
 
 
 def second_model(dev):
@@ -981,11 +1031,39 @@ def check_k5(layers, want_shapes=UNIFORM_SHAPES, label="uniform"):
             worst[key] = max(worst[key], errs[-1])
         log(f"K5 {label} {name} (Nq {shape[0]} with {nvalid} valid, N "
             f"{shape[1]}, C {shape[2]}, Cout {shape[3]}, {present} of "
-            f"{shape[0] * 27} neighbours present; multiply-adds on absent "
+            f"{rules.nbr.numel()} neighbours present; multiply-adds on absent "
             f"neighbours {before:.1%} before the rule book, {after:.1%} "
             f"under it): max |kernel - plain| f32 {errs[0]:.3g}, bf16 "
             f"{errs[1]:.3g}; bit-equal across two launches")
     return worst, shapes
+
+
+def wide_kernel_layers(model, pts, dev):
+    """Maps of more offsets than a 32-bit mask holds, at a SECOND-sized
+    layer: the submanifold maps of kernel_size 4 (64 offsets), 5 (125) and
+    7 (343: K5's tile can no longer stage its neighbour rows in shared
+    memory and reads them from L2) over the 16 000 sites of SECOND's first
+    layer on a uniform frame, with seeded (N, 16) features and (K, 16, 16)
+    weights, each through its rule book: {"k64" / "k125" / "k343":
+    (features, rule book, valid, weights)}."""
+    from d3d_tpu_torch.models import second_voxelize
+    from d3d_tpu_torch.ops.sparse_conv import (build_neighbor_map,
+                                               prepare_neighbor_map)
+
+    _, coords, valid = second_voxelize(torch.from_numpy(pts).to(dev),
+                                       model.cfg)
+    gen = torch.Generator().manual_seed(125)
+    out = {}
+    for size in (4, 5, 7):
+        nbr = build_neighbor_map(coords, valid, model.cfg.grid,
+                                 kernel_size=size)
+        k = nbr.shape[1]
+        check(k == size ** 3, f"kernel_size {size}: {k} offsets")
+        x = torch.randn((coords.shape[0], 16), generator=gen).to(dev)
+        w = (torch.randn((k, 16, 16), generator=gen) / (k * 16) ** 0.5).to(
+            dev)
+        out[f"k{k}"] = (x, prepare_neighbor_map(nbr), valid, w)
+    return out
 
 
 def k6_work(feats, nbr, cout):
@@ -2579,6 +2657,75 @@ def evaluate_on_card_and_cpu(name, gts, dets, dev):
     return out
 
 
+def kitti_official_card_vs_cpu(name, gts, dets, dev):
+    """kitti_official_summary (Car, bev and 3d, every difficulty) on the
+    card and with device="cpu": the same table, and every cell's counts
+    at each recall threshold, thresholds and APs equal. Returns the card's
+    AP_R40 and AP_R11 per metric and difficulty and the ms of each call."""
+    from d3d_tpu_torch.benchmarks_kitti import kitti_official_summary
+    from d3d_tpu_torch.dataset.kitti import KittiObjectClass
+
+    car = KittiObjectClass.Car
+    res, ms = {}, {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        res[d] = kitti_official_summary(gts, dets, [car], metrics=("bev",
+                                                                   "3d"),
+                                        device=d)
+        ms["card" if d == dev else "cpu"] = (time.perf_counter() - t0) * 1e3
+    check(res[dev][0] == res["cpu"][0],
+          f"{name} KITTI official table card vs CPU:\n{res[dev][0]}\n"
+          f"{res['cpu'][0]}")
+    out = {}
+    for metric in ("bev", "3d"):
+        for diff in range(3):
+            a, b = res[dev][1][car][metric][diff], res["cpu"][1][car][
+                metric][diff]
+            for key in ("tp", "fp", "fn", "precision"):
+                check(np.array_equal(a[key], b[key]),
+                      f"{name} KITTI official {metric} {diff}: {key}")
+            check(a["ap_r40"] == b["ap_r40"] and a["ap_r11"] == b["ap_r11"]
+                  and list(a["thresholds"]) == list(b["thresholds"]),
+                  f"{name} KITTI official {metric} {diff}: APs differ")
+            out[f"{metric}_{diff}"] = dict(ap_r40=a["ap_r40"],
+                                           ap_r11=a["ap_r11"])
+    out["ms"] = ms
+    log(f"kitti_eval {name}: KITTI official AP_R40 (Car, easy/mod/hard) "
+        + "; ".join(f"{m} " + "/".join(f"{out[f'{m}_{d}']['ap_r40']:.4f}"
+                                       for d in range(3))
+                    for m in ("bev", "3d"))
+        + f", card equal to CPU ({ms['card']:.0f} ms on the card, "
+        f"{ms['cpu']:.0f} ms on the CPU)")
+    return out
+
+
+def waymo_card_vs_cpu(gts, dets, clouds, dev):
+    """evaluate_waymo_detection of the stand-in (Car at 0.7, LEVEL_1/2 by
+    range, the boxes' point counts from the clouds by crop_points on the
+    evaluators' device) on the card and on the CPU: every stratum's
+    counters equal. Returns the card's AP and APH per stratum."""
+    from d3d_tpu_torch.benchmarks import DetectionEvaluator
+    from d3d_tpu_torch.benchmarks_waymo import evaluate_waymo_detection
+    from d3d_tpu_torch.dataset.kitti import KittiObjectClass
+
+    car = KittiObjectClass.Car
+    res = {d: evaluate_waymo_detection(
+        lambda: DetectionEvaluator([car], 0.7, device=d), gts, dets,
+        clouds=clouds) for d in (dev, "cpu")}
+    check(list(res[dev]) == list(res["cpu"]), "Waymo strata differ")
+    out = {}
+    for name, ev in res[dev].items():
+        same_stats(f"Waymo {name} card vs CPU", ev.get_stats(),
+                   res["cpu"][name].get_stats())
+        check(ev.ap() == res["cpu"][name].ap(), f"Waymo {name}: AP differs")
+        out[name] = dict(ap=float(ev.ap()[car]), aph=float(ev.aph()[car]))
+    log("kitti_eval stand-in, Waymo protocol (point counts from the "
+        "clouds): " + "; ".join(f"{n} AP {v['ap']:.4f} APH {v['aph']:.4f}"
+                                for n, v in out.items())
+        + "; card equal to CPU")
+    return out
+
+
 def kitti_eval(dev, second, pp_detect):
     """The kitti_eval path: a synthetic KITTI split written and loaded with
     the port's KittiObjectLoader, three detectors (SECOND and PointPillars
@@ -2615,6 +2762,11 @@ def kitti_eval(dev, second, pp_detect):
         counts = read_counts()
         for name, arrays in dets.items():
             stats[name] = evaluate_on_card_and_cpu(name, gts, arrays, dev)
+        official = {name: kitti_official_card_vs_cpu(name, gts, dets[name],
+                                                     dev)
+                    for name in ("second", "stand_in")}
+        waymo = waymo_card_vs_cpu(gts, dets["stand_in"],
+                                  [pts for pts, _ in frames], dev)
     for overlap in EVAL_OVERLAPS:
         check(stats["stand_in"][overlap]["ap"] > 0.85,
               f"stand-in AP(Car) at {overlap}: "
@@ -2628,7 +2780,8 @@ def kitti_eval(dev, second, pp_detect):
     routes = check_nms_routes("kitti_eval", 3 * KITTI_FRAMES)
     stats.update(label_err=dict(zip(("position_m", "size_m", "yaw_rad"),
                                     label_err)), launches=counts,
-                 routes=routes)
+                 routes=routes, kitti_official=official,
+                 waymo_stand_in=waymo)
     log(f"kitti_eval: {KITTI_FRAMES} frames loaded, labels within "
         f"{label_err} of their boxes; launches {counts}; "
         + "; ".join(f"{name} AP(Car) " + ", ".join(
@@ -3630,6 +3783,21 @@ def key_time(k):
 
 
 def nuscenes_like_sweeps(scene, k, seed=0):
+    """Keyframe ``k``'s cloud from :func:`nuscenes_sweep_parts`: every
+    sweep's points moved into the keyframe's sensor frame and tagged with
+    their age, as ``sweeps.accumulate_sweeps`` lays them out: (N, 5)
+    float32 [x, y, z, intensity, dt]."""
+    tk = key_time(k)
+    out = []
+    for ts, pts, inten in nuscenes_sweep_parts(scene, k, seed):
+        pts = pts.copy()
+        pts[:, 0] -= ego_x(tk)
+        out.append(np.concatenate([pts, inten[:, None],
+                                   np.full((len(pts), 1), tk - ts)], 1))
+    return np.concatenate(out).astype(np.float32)
+
+
+def nuscenes_sweep_parts(scene, k, seed=0):
     """Keyframe ``k`` of a nuScenes-like sequence: the keyframe sweep and
     the 9 before it (a 32-beam sensor, HDL-32E's elevations -30.67 to
     +10.67 degrees, 360 degrees at 0.3 degree steps, 20 Hz, 1.8 m above
@@ -3637,9 +3805,8 @@ def nuscenes_like_sweeps(scene, k, seed=0):
     of the street (with gaps) and the scene's boxes where they stand at
     that sweep's time (``hit_box``, kitti_like_points' caster), the
     nearest hit within 70 m kept with 2 cm of range noise. The ego drives
-    along x at 5 m/s; every sweep's points are moved into the keyframe's
-    sensor frame and tagged with their age, as ``sweeps.accumulate_sweeps``
-    lays them out: (N, 5) float32 [x, y, z, intensity, dt]."""
+    along x at 5 m/s. Returns per sweep, newest first, (time s, (n, 3)
+    float64 points in the world frame, (n,) intensities)."""
     classes, sizes, centres, yaws, vel = scene
     rng = np.random.default_rng(1000 * seed + k)
     elev = np.deg2rad(np.linspace(-30.67, 10.67, 32))
@@ -3679,10 +3846,8 @@ def nuscenes_like_sweeps(scene, k, seed=0):
         keep = t < 70.0
         pts = origin + d[keep] * (t[keep] + rng.normal(0.0, 0.02,
                                                         keep.sum()))[:, None]
-        pts[:, 0] -= ego_x(tk)
-        out.append(np.concatenate([pts, rng.random((len(pts), 1)),
-                                   np.full((len(pts), 1), tk - ts)], 1))
-    return np.concatenate(out).astype(np.float32)
+        out.append((ts, pts, rng.random(len(pts))))
+    return out
 
 
 def scene_boxes(scene, k, bounds):
@@ -4347,6 +4512,625 @@ def voxelnext_track(dev, vn, second):
     return counts, stats
 
 
+# ---------------------------------------------------------------------------
+# nuscenes_track_eval: raw nuScenes tables -> converter -> loader ->
+# accumulate_sweeps -> VoxelNeXt -> device tracker -> TrackingEvaluator and
+# the nuScenes protocol
+# ---------------------------------------------------------------------------
+
+# the scene's classes as nuScenes categories
+NUSC_CATEGORY = {NuscClass.car: "vehicle.car",
+                 NuscClass.truck: "vehicle.truck",
+                 NuscClass.bus: "vehicle.bus.rigid",
+                 NuscClass.pedestrian: "human.pedestrian.adult",
+                 NuscClass.bicycle: "vehicle.bicycle",
+                 NuscClass.traffic_cone: "movable_object.trafficcone"}
+# the scene's t = 0 in microseconds (a date in nuScenes' range)
+NUSC_EPOCH_US = 1_533_151_603_000_000
+# objects annotated: within this many metres of the ego along x (the
+# stand-ins' window)
+NUSC_WINDOW_M = 50.0
+# the nuScenes tracking challenge's seven classes
+NUSC_TRACKING = ("bicycle", "bus", "car", "motorcycle", "pedestrian",
+                 "trailer", "truck")
+# the tracking evaluators of the phase: 3D IoU 0.5 for every class, 20
+# score thresholds 0, 0.05, ..., 0.95 (0.5 exactly among them: the
+# stand-ins' true detections score 0.5-0.95, their noise 0.3-0.5)
+NUSC_TRACK_OVERLAP = 0.5
+NUSC_TRACK_SAMPLES = 20
+# nuScenes val's shape: 150 scenes of 40 keyframes
+VAL_SCENES = 150
+VAL_KEYFRAMES = 40
+VAL_CHECKED_SCENES = 10
+# the at-scale evaluation's budget on the card (the scenes are cut to fit,
+# so that the phase stays near 40 s)
+VAL_BUDGET_S = 15.0
+
+
+def nusc_us(t):
+    return NUSC_EPOCH_US + int(round(t * 1e6))
+
+
+def head_classes():
+    """The port's nuScenes detection classes in the head's order."""
+    from d3d_tpu_torch.dataset.nuscenes import NuscenesDetectionClass
+
+    return [NuscenesDetectionClass[c.name] for c in NuscClass]
+
+
+def write_nuscenes_raw(root, scene, parts):
+    """The scene as a raw nuScenes distribution (v1.0-trainval tables and
+    samples/sweeps blobs) after tests/test_dataset.py's ``_raw``: one scene
+    "scene-0001" of KEYFRAMES samples at 2 Hz, each with its keyframe sweep
+    and the SWEEPS - 1 sweeps before it at 20 Hz, every sweep's points in
+    its own sensor frame ((N, 5) float32 x, y, z, intensity, ring) with
+    its own ego pose (the ego on the ground at (ego_x(t), 0), the lidar
+    1.8 m above it, identity rotations); one annotation a keyframe for
+    each object within NUSC_WINDOW_M of the ego along x (global centre,
+    wlh size, wxyz rotation), linked prev/next through its instance, whose
+    token's first 8 hex digits are the object's index + 1."""
+    import json
+
+    classes, sizes, centres, yaws, vel = scene
+    v = root / "v1.0-trainval"
+    for sub in (v, root / "samples/LIDAR_TOP", root / "sweeps/LIDAR_TOP"):
+        sub.mkdir(parents=True)
+
+    def wxyz(yaw):
+        return [math.cos(yaw / 2), 0.0, 0.0, math.sin(yaw / 2)]
+
+    samples, sdata, poses, anns = [], [], [], []
+    last = {}
+    for k in range(KEYFRAMES):
+        tk = key_time(k)
+        stok = f"sample{k:02d}"
+        for s, (ts, pts, inten) in enumerate(parts[k]):
+            tok = f"lidar{k:02d}_{s}"
+            poses.append(dict(token=f"pose_{tok}", timestamp=nusc_us(ts),
+                              rotation=[1.0, 0.0, 0.0, 0.0],
+                              translation=[ego_x(ts), 0.0, -LIDAR_HEIGHT]))
+            fname = (f"samples/LIDAR_TOP/{tok}.pcd.bin" if s == 0
+                     else f"sweeps/LIDAR_TOP/{tok}.pcd.bin")
+            cloud = np.zeros((len(pts), 5), np.float32)
+            cloud[:, :3] = pts - [ego_x(ts), 0.0, 0.0]
+            cloud[:, 3] = inten
+            cloud.tofile(root / fname)
+            sdata.append(dict(token=tok, sample_token=stok,
+                              ego_pose_token=f"pose_{tok}",
+                              calibrated_sensor_token="cs_lidar",
+                              filename=fname, is_key_frame=s == 0,
+                              timestamp=nusc_us(ts), fileformat="pcd",
+                              prev="", next=""))
+        world = centres + tk * vel
+        ann_tokens = []
+        for i in np.flatnonzero(np.abs(world[:, 0] - ego_x(tk))
+                                < NUSC_WINDOW_M):
+            atok = f"ann{k:02d}_{i:03d}"
+            prev = last.get(i, (None, ""))
+            prev = prev[1] if prev[0] == k - 1 else ""
+            if prev:
+                anns[[a["token"] for a in anns].index(prev)]["next"] = atok
+            last[i] = (k, atok)
+            anns.append(dict(
+                token=atok, sample_token=stok,
+                instance_token=f"{i + 1:08x}" + "0" * 24,
+                attribute_tokens=[], translation=world[i].tolist(),
+                size=[sizes[i, 1], sizes[i, 0], sizes[i, 2]],
+                rotation=wxyz(yaws[i]), num_lidar_pts=1, num_radar_pts=0,
+                prev=prev, next=""))
+            ann_tokens.append(atok)
+        samples.append(dict(token=stok, scene_token="scene_token",
+                            timestamp=nusc_us(tk),
+                            prev=f"sample{k - 1:02d}" if k else "",
+                            next=f"sample{k + 1:02d}"
+                            if k + 1 < KEYFRAMES else "",
+                            anns=ann_tokens))
+    cats = sorted(set(NUSC_CATEGORY.values()))
+    tables = dict(
+        log=[dict(token="log", logfile="synthetic", date_captured="2018-08-01",
+                  vehicle="ego", location="street")],
+        scene=[dict(token="scene_token", name="scene-0001", log_token="log",
+                    nbr_samples=KEYFRAMES, description="nuScenes-like street",
+                    first_sample_token="sample00",
+                    last_sample_token=f"sample{KEYFRAMES - 1:02d}")],
+        sample=samples,
+        sensor=[dict(token="sensor_lidar", channel="LIDAR_TOP",
+                     modality="lidar")],
+        calibrated_sensor=[dict(token="cs_lidar", sensor_token="sensor_lidar",
+                                rotation=[1.0, 0.0, 0.0, 0.0],
+                                translation=[0.0, 0.0, LIDAR_HEIGHT],
+                                camera_intrinsic=[])],
+        ego_pose=poses, sample_data=sdata,
+        category=[dict(token=f"cat{j}", name=c) for j, c in enumerate(cats)],
+        attribute=[],
+        instance=[dict(token=f"{i + 1:08x}" + "0" * 24,
+                       category_token=f"cat{cats.index(NUSC_CATEGORY[c])}",
+                       nbr_annotations=0)
+                  for i, c in enumerate(classes)],
+        sample_annotation=anns)
+    for name, rows in tables.items():
+        (v / f"{name}.json").write_text(json.dumps(rows))
+    return len(anns)
+
+
+def nuscenes_input(vn):
+    """The scene written as raw tables under build/, converted with the
+    port's converter (the intermediate sweeps kept), loaded with
+    NuscenesLoader, each keyframe accumulated with accumulate_sweeps and
+    held to the cloud the voxelnext_track phase built directly
+    (nuscenes_like_sweeps): the same points within 1e-4 m and the same
+    intensities and ages. Returns (loader, clouds, stats)."""
+    import shutil
+
+    from d3d_tpu_torch.dataset.nuscenes import NuscenesLoader
+    from d3d_tpu_torch.dataset.nuscenes.converter import (
+        convert_dataset_inpath)
+    from d3d_tpu_torch.models.sweeps import accumulate_sweeps
+
+    base = ROOT / "build" / "nuscenes_track_eval"
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    parts = [nuscenes_sweep_parts(vn["scene"], k) for k in range(KEYFRAMES)]
+    nann = write_nuscenes_raw(base / "raw", vn["scene"], parts)
+    t1 = time.perf_counter()
+    convert_dataset_inpath(base / "raw", base / "converted",
+                           store_inter=SWEEPS - 1)
+    t2 = time.perf_counter()
+    loader = NuscenesLoader(base / "converted", phase="training",
+                            trainval_split="official")
+    check(len(loader) == KEYFRAMES, f"loader: {len(loader)} frames")
+    clouds = [accumulate_sweeps(loader, k, nsweeps=SWEEPS)
+              for k in range(KEYFRAMES)]
+    t3 = time.perf_counter()
+    err = dt_err = 0.0
+    for k, (got, want) in enumerate(zip(clouds, vn["clouds"])):
+        check(got.shape == want.shape and got.dtype == np.float32,
+              f"accumulated keyframe {k}: {got.shape} vs {want.shape}")
+        err = max(err, float(np.abs(got[:, :3] - want[:, :3]).max()))
+        dt_err = max(dt_err, float(np.abs(got[:, 4] - want[:, 4]).max()))
+        check(np.array_equal(got[:, 3], want[:, 3]),
+              f"accumulated keyframe {k}: intensities differ")
+    check(err <= 1e-4 and dt_err == 0.0,
+          f"accumulated clouds off the direct ones by {err} m, ages by "
+          f"{dt_err} s")
+    stats = dict(annotations=nann, write_s=t1 - t0, convert_s=t2 - t1,
+                 load_accumulate_s=t3 - t2, max_point_err_m=err,
+                 points=[len(c) for c in clouds])
+    log(f"nuScenes input: {KEYFRAMES} keyframes x {SWEEPS} sweeps and "
+        f"{nann} annotations written as raw tables ({stats['write_s']:.1f} "
+        f"s), converted ({stats['convert_s']:.1f} s), loaded and "
+        f"accumulated ({stats['load_accumulate_s']:.1f} s): "
+        f"{stats['points']} points, within {err:.3g} m of the direct "
+        "clouds, ages and intensities equal")
+    return loader, clouds, stats
+
+
+def tracking_evaluators(dev):
+    """The phase's TrackingEvaluator on the card and with device="cpu"."""
+    from d3d_tpu_torch.benchmarks import TrackingEvaluator
+    from d3d_tpu_torch.dataset.nuscenes import NuscenesDetectionClass as N
+
+    return {d: TrackingEvaluator([N[c] for c in NUSC_TRACKING],
+                                 NUSC_TRACK_OVERLAP,
+                                 pr_sample_count=NUSC_TRACK_SAMPLES,
+                                 pr_sample_scale="lin", device=d)
+            for d in (dev, "cpu")}
+
+
+TRACK_FIELDS = ("id_switches", "fragments", "gt_frames", "gt_tracked",
+                "dt_frames")
+
+
+def same_tracking_stats(name, a, b):
+    """same_stats plus the tracking counters and trajectory tables."""
+    worst = same_stats(name, a, b)
+    for k in a.ngt:
+        for fld in TRACK_FIELDS:
+            check(np.array_equal(getattr(a, fld)[k], getattr(b, fld)[k]),
+                  f"{name}: {fld} differs")
+        for tids in ("gt_tids", "dt_tids"):
+            check(np.array_equal(getattr(a, tids)[k], getattr(b, tids)[k]),
+                  f"{name}: {tids} differ")
+    return worst
+
+
+def score_tracks(name, gts, tracks, dev, calib=None):
+    """calc_stats_sequence of the tracks on the card and on the CPU,
+    equal. Returns the card's evaluator."""
+    evs = tracking_evaluators(dev)
+    for ev in evs.values():
+        ev.calc_stats_sequence(gts, tracks, calib=calib)
+    same_tracking_stats(f"{name} card vs CPU", evs[dev].get_stats(),
+                        evs["cpu"].get_stats())
+    return evs[dev]
+
+
+def tracking_metrics(ev, score=None):
+    car = [c for c in ev._classes if ev._class_type(c).name == "car"][0]
+    c = ev._class_type(car)
+    return dict(mota_car=ev.mota(score)[c], amota_car=ev.amota()[c],
+                amotp_car=ev.amotp()[c], ids_car=ev.id_switches(score)[c],
+                tp_car=ev.tp(score)[c], fp_car=ev.fp(score)[c],
+                fn_car=ev.fn(score)[c], gt_car=int(ev.gt_count()[car]))
+
+
+def nuscenes_protocols(name, gts, dets, classes, dev):
+    """evaluate_nuscenes_detection and evaluate_nuscenes_official on the
+    card and on the CPU: counters, APs, TP errors and NDS equal (the
+    score-threshold evaluators' accuracies within 1e-5 relative). Returns
+    the card's (mean AP, NDS) of each and their host ms."""
+    from d3d_tpu_torch.benchmarks_nuscenes import (
+        evaluate_nuscenes_detection, evaluate_nuscenes_official)
+
+    out = {}
+    res = {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        res[d, "official"] = evaluate_nuscenes_official(gts, dets, classes,
+                                                        device=d)
+        t1 = time.perf_counter()
+        res[d, "detection"] = evaluate_nuscenes_detection(gts, dets, classes,
+                                                          device=d)
+        out[f"{'card' if d == dev else 'cpu'}_ms"] = dict(
+            official=(t1 - t0) * 1e3,
+            detection=(time.perf_counter() - t1) * 1e3)
+    a, b = res[dev, "official"], res["cpu", "official"]
+    check(a["ap"] == b["ap"] and a["tp_errors"] == b["tp_errors"]
+          and a["nds"] == b["nds"],
+          f"{name}: the official nuScenes metrics differ card vs CPU")
+    a, b = res[dev, "detection"], res["cpu", "detection"]
+    for thr, ev in a["evaluators"].items():
+        same_stats(f"{name} nuScenes detection {thr} m card vs CPU",
+                   ev.get_stats(), b["evaluators"][thr].get_stats())
+    check(a["ap"] == b["ap"], f"{name}: nuScenes detection APs differ")
+    out.update(official_map=res[dev, "official"]["mean_ap"],
+               official_nds=res[dev, "official"]["nds"],
+               detection_map=a["mean_ap"], detection_nds=a["nds"])
+    return out
+
+
+def stand_in_floor(scene, ev, noise_cars):
+    """The floors of the stand-ins' MOTA(car) at score 0.5 and AMOTA(car),
+    from how they are made (``stand_in_tracks``): every object within
+    NUSC_WINDOW_M of the ego is detected, jittered 5 cm (3D IoU with its
+    box far above 0.5), scored 0.5-0.95, so at 0.5 every annotated car is
+    tracked and keeps its track (FN = IDS = 0: a true detection is matched
+    first, in score order, within CenterPoint's 4 m car gate of its own
+    track's backcast position, 0.1 m off); the only false tracks are
+    those coasting (up to TRACK_LOST_TIME, 2 keyframes) after their car
+    leaves the window: FP <= 2 L, L the car exits between keyframes. So
+    MOTA(car) >= 1 - 2 L / ngt. Above 0.5 a car is tracked in a frame iff
+    its detection scores above the threshold (recall r); a present car
+    untracked after a tracked frame counts at most one switch, so
+    IDS <= FN = (1 - r) ngt, and MOTAR >= 1 - ((1 - r) ngt + FP) / (r
+    ngt); below 0.5 the noise detections (8 a frame, scored 0.3-0.5, one
+    in ten a car) add at most 3 each (detected, then coasting twice).
+    AMOTA(car) >= the mean of those bounds, clipped to [0, 1], over the
+    thresholds with r >= 0.1. Returns (MOTA floor, AMOTA floor, L)."""
+    classes, sizes, centres, yaws, vel = scene
+    inside = []
+    for k in range(KEYFRAMES):
+        x = centres[:, 0] + key_time(k) * vel[:, 0] - ego_x(key_time(k))
+        inside.append(np.abs(x) < NUSC_WINDOW_M)
+    car = np.array([c is NuscClass.car for c in classes])
+    exits = int(sum((inside[k - 1] & ~inside[k] & car).sum()
+                    for k in range(1, KEYFRAMES)))
+    st = ev.get_stats()
+    ck = [k for k in ev._classes if ev._class_type(k).name == "car"][0]
+    ngt = st.ngt[ck]
+    thr = ev.score_thresholds
+    r = st.tp[ck] / ngt
+    fp = 2 * exits + np.where(thr < 0.5, 3 * noise_cars, 0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        motar = 1 - ((1 - r) * ngt + fp) / (r * ngt)
+    valid = r >= 0.1
+    amota = float(np.mean(np.clip(motar[valid], 0, 1))) if valid.any() \
+        else 0.0
+    return 1 - 2 * exits / ngt, amota, exits
+
+
+def stand_in_scoring(dev, scene, gts):
+    """The stand-ins (``stand_in_tracks``, world frame) through the device
+    tracker, its reports moved into each keyframe's ego frame, scored on
+    the card and on the CPU (equal), held to their floors."""
+    from d3d_tpu_torch.tracking.device_tracker import (tracker_init,
+                                                       tracker_report,
+                                                       tracker_update)
+
+    rng = np.random.default_rng(710)
+    classes = head_classes()
+    state = tracker_init(TRACK_CAPACITY, dev)
+    tracks, noise_cars = [], 0
+    for k in range(KEYFRAMES):
+        boxes, scores, labels, vel, valid = stand_in_tracks(rng, scene, k)
+        noise_cars += int(((labels == NuscClass.car.value) & valid
+                           & (scores < 0.5)).sum())
+        state = tracker_update(state, boxes, scores, labels, vel, valid,
+                               0.0 if k == 0 else KEY_DT, NUSC_GATES,
+                               TRACK_LOST_TIME)
+        # the world-frame tracks in the keyframe's ego frame (the ego pose
+        # is a translation)
+        ego = dict(state)
+        ego["boxes"] = state["boxes"] - torch.tensor(
+            [ego_x(key_time(k)), 0.0, -LIDAR_HEIGHT, 0.0, 0.0, 0.0, 0.0],
+            device=dev)
+        tracks.append(tracker_report(ego, classes, "ego",
+                                     nusc_us(key_time(k))))
+    ev = score_tracks("stand-in tracks", gts, tracks, dev)
+    mota_floor, amota_floor, exits = stand_in_floor(scene, ev, noise_cars)
+    m = tracking_metrics(ev, 0.5)
+    check(m["mota_car"] >= mota_floor and m["fn_car"] == 0
+          and m["ids_car"] == 0,
+          f"stand-in MOTA(car) {m['mota_car']} below its floor {mota_floor} "
+          f"(FN {m['fn_car']}, IDS {m['ids_car']})")
+    check(m["amota_car"] >= amota_floor,
+          f"stand-in AMOTA(car) {m['amota_car']} below its floor "
+          f"{amota_floor}")
+    m.update(mota_floor=mota_floor, amota_floor=amota_floor,
+             car_exits=exits, noise_cars=noise_cars)
+    log(f"stand-in tracks: MOTA(car) at 0.5 {m['mota_car']:.4f} (floor "
+        f"{mota_floor:.4f}: {exits} car exits), AMOTA(car) "
+        f"{m['amota_car']:.4f} (floor {amota_floor:.4f}), AMOTP(car) "
+        f"{m['amotp_car']:.4f} m; TP {m['tp_car']}, FP {m['fp_car']}, FN "
+        f"{m['fn_car']}, IDS {m['ids_car']} of {m['gt_car']} cars; card "
+        "equal to CPU")
+    return m
+
+
+def val_scale_scenes(first, last, seed=11):
+    """Scenes ``first`` to ``last`` - 1 of a seeded tracking set of nuScenes
+    val's shape (VAL_SCENES scenes of VAL_KEYFRAMES keyframes; each scene
+    from its own seed, so a cut set is a prefix of the whole): 30 objects a
+    scene of the 7 tracking classes moving at constant velocity within
+    50 m; each keyframe's GT the objects present (8% drop out), its tracks
+    85% of them jittered (the tid of the object's track) plus 5 false
+    tracks with fresh tids. Ego frame, ObjectTarget3D rows with tids."""
+    from d3d_tpu_torch.abstraction import Target3DArray
+    from d3d_tpu_torch.dataset.nuscenes import NuscenesDetectionClass as N
+
+    labels = np.array([N[c].value for c in NUSC_TRACKING])
+    scenes = []
+    for s in range(first, last):
+        rng = np.random.default_rng((seed, s))
+        n = 30
+        pos = np.c_[rng.uniform(-45, 45, (n, 2)), rng.uniform(-1, 0, n)]
+        vel = np.c_[rng.normal(0, 3, (n, 2)), np.zeros(n)]
+        dim = rng.uniform(0.6, 5.0, (n, 3))
+        yaw = rng.uniform(-np.pi, np.pi, n)
+        lab = rng.choice(labels, n)
+        noise = 1_000_000
+        gts, dts = [], []
+        for k in range(VAL_KEYFRAMES):
+            p = pos + k * KEY_DT * vel
+            g = rng.random(n) < 0.92
+            d = rng.random(n) < 0.85
+            nd = int(d.sum())
+            ts = nusc_us(k * KEY_DT)
+            gts.append(Target3DArray.from_columns(
+                p[g], dim[g], yaws=yaw[g], labels=lab[g],
+                scores=np.ones(int(g.sum())), mapping=N,
+                tids=np.flatnonzero(g) + 1, frame="ego", timestamp=ts))
+            dts.append(Target3DArray.from_columns(
+                np.r_[p[d] + rng.normal(0, 0.15, (nd, 3)),
+                      np.c_[rng.uniform(-45, 45, (5, 2)), np.zeros(5)]],
+                np.r_[dim[d] * rng.uniform(0.95, 1.05, (nd, 3)),
+                      rng.uniform(0.6, 5.0, (5, 3))],
+                yaws=np.r_[yaw[d] + rng.normal(0, 0.05, nd),
+                           rng.uniform(-np.pi, np.pi, 5)],
+                labels=np.r_[lab[d], rng.choice(labels, 5)],
+                scores=np.r_[rng.uniform(0.3, 1.0, nd),
+                             rng.uniform(0.05, 0.6, 5)], mapping=N,
+                tids=np.r_[np.flatnonzero(d) + 1001,
+                           noise + 10 * k + np.arange(5)],
+                frame="ego", timestamp=ts))
+        scenes.append((gts, dts))
+    return scenes
+
+
+@contextlib.contextmanager
+def timed_sequence_parts(dev, parts):
+    """Adds the seconds of TrackingEvaluator's table chunks and of the
+    sequence scan (each ending in a synchronise) into ``parts``."""
+    from d3d_tpu_torch import benchmarks as BM
+    from d3d_tpu_torch import benchmarks_device as BD
+
+    real_scan, real_chunks = (BD.tracking_match_scan,
+                              BM.TrackingEvaluator._table_chunks)
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+
+    def scan(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_scan(*a, **kw)
+        sync()
+        parts["scan"] += time.perf_counter() - t0
+        return out
+
+    def chunks(self, *a, **kw):
+        it = real_chunks(self, *a, **kw)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            sync()
+            parts["tables"] += time.perf_counter() - t0
+            yield item
+
+    BD.tracking_match_scan = scan
+    BM.TrackingEvaluator._table_chunks = chunks
+    try:
+        yield parts
+    finally:
+        BD.tracking_match_scan = real_scan
+        BM.TrackingEvaluator._table_chunks = real_chunks
+
+
+def eval_scenes(ev, scenes, dev):
+    """calc_stats_sequence over scenes, one sequence each; (seconds, the
+    table chunks' and the scan's seconds)."""
+    parts = dict(tables=0.0, scan=0.0)
+    with timed_sequence_parts(dev, parts):
+        t0 = time.perf_counter()
+        for gts, dts in scenes:
+            ev.calc_stats_sequence(gts, dts)
+        total = time.perf_counter() - t0
+    return total, parts
+
+
+def tracking_at_scale(dev):
+    """The tracking evaluator and the nuScenes protocol at nuScenes val's
+    shape: the first VAL_CHECKED_SCENES scenes on the card and on the CPU
+    (counters exact), then the rest on the card while the budget lasts
+    (the scene count cut and printed where it does not), timed as ms a
+    frame with the table chunks, the scan and the host bookkeeping apart;
+    the official nuScenes protocol over the same frames, its first
+    scenes' results equal to the CPU's."""
+    from d3d_tpu_torch.benchmarks_nuscenes import evaluate_nuscenes_official
+    from d3d_tpu_torch.dataset.nuscenes import NuscenesDetectionClass as N
+
+    t0 = time.perf_counter()
+    head = val_scale_scenes(0, VAL_CHECKED_SCENES)
+    gen_s = time.perf_counter() - t0
+    evs = tracking_evaluators(dev)
+    cpu_s, _ = eval_scenes(evs["cpu"], head, "cpu")
+    card_s, card_parts = eval_scenes(evs[dev], head, dev)
+    same_tracking_stats(f"val scale, first {VAL_CHECKED_SCENES} scenes, "
+                        "card vs CPU", evs[dev].get_stats(),
+                        evs["cpu"].get_stats())
+    per_scene = card_s / len(head)
+    n = min(VAL_SCENES, VAL_CHECKED_SCENES
+            + int(max(0.0, VAL_BUDGET_S - card_s) / per_scene))
+    if n < VAL_SCENES:
+        log(f"val-scale tracking: cut to {n} of {VAL_SCENES} scenes "
+            f"({per_scene:.2f} s a scene on the card; budget "
+            f"{VAL_BUDGET_S:.0f} s)")
+    t0 = time.perf_counter()
+    scenes = head + val_scale_scenes(VAL_CHECKED_SCENES, n)
+    gen_s += time.perf_counter() - t0
+    rest_s, rest_parts = eval_scenes(evs[dev], scenes[VAL_CHECKED_SCENES:],
+                                     dev)
+    frames = n * VAL_KEYFRAMES
+    total_s = card_s + rest_s
+    tables_s = card_parts["tables"] + rest_parts["tables"]
+    scan_s = card_parts["scan"] + rest_parts["scan"]
+    classes = [N[c] for c in NUSC_TRACKING]
+    gts = [g for s in scenes for g in s[0]]
+    dts = [d for s in scenes for d in s[1]]
+    hg = [g for s in head for g in s[0]]
+    hd = [d for s in head for d in s[1]]
+    res = {d: evaluate_nuscenes_official(hg, hd, classes, device=d)
+           for d in (dev, "cpu")}
+    check(res[dev]["ap"] == res["cpu"]["ap"]
+          and res[dev]["tp_errors"] == res["cpu"]["tp_errors"],
+          "val scale: the official nuScenes metrics differ card vs CPU")
+    t1 = time.perf_counter()
+    official = evaluate_nuscenes_official(gts, dts, classes, device=dev)
+    official_s = time.perf_counter() - t1
+    m = tracking_metrics(evs[dev])
+    stats = dict(
+        scenes=n, frames=frames, generate_s=gen_s,
+        ms_per_frame=total_s / frames * 1e3,
+        tables_ms_per_frame=tables_s / frames * 1e3,
+        scan_ms_per_frame=scan_s / frames * 1e3,
+        host_ms_per_frame=(total_s - tables_s - scan_s) / frames * 1e3,
+        cpu_ms_per_frame=cpu_s / (len(head) * VAL_KEYFRAMES) * 1e3,
+        official_ms_per_frame=official_s / frames * 1e3,
+        official_map=official["mean_ap"], official_nds=official["nds"],
+        **m)
+    log(f"val-scale tracking: {n} scenes x {VAL_KEYFRAMES} keyframes "
+        f"({frames} frames, generated in {gen_s:.1f} s): "
+        f"{stats['ms_per_frame']:.2f} ms a frame on the card (table chunks "
+        f"{stats['tables_ms_per_frame']:.2f}, scan "
+        f"{stats['scan_ms_per_frame']:.2f}, host bookkeeping "
+        f"{stats['host_ms_per_frame']:.2f}; the CPU "
+        f"{stats['cpu_ms_per_frame']:.2f} ms a frame on the first "
+        f"{VAL_CHECKED_SCENES} scenes, equal); MOTA(car) "
+        f"{m['mota_car']:.4f}, AMOTA(car) {m['amota_car']:.4f}; official "
+        f"nuScenes protocol {stats['official_ms_per_frame']:.3f} ms a frame,"
+        f" mAP {official['mean_ap']:.4f}, NDS {official['nds']:.4f}")
+    return stats
+
+
+def nuscenes_track_eval(dev, vn):
+    """The nuscenes_track_eval path: raw nuScenes tables of the
+    voxelnext_track scene -> the port's converter -> NuscenesLoader ->
+    accumulate_sweeps -> presets.voxelnext_nuscenes uncut (bf16, the
+    phase's seeded weights) through make_tracking_step, counts read per
+    request (K5 11, one rule-book call, K1's bit form and the scan once)
+    -> the tracks (the device tracker's reports, keyframe sensor frames)
+    scored by TrackingEvaluator.calc_stats_sequence against the loader's
+    annotations (ego frame, through the loader's calibration) and the
+    detections by evaluate_nuscenes_detection and
+    evaluate_nuscenes_official, each equal to the same call on the CPU;
+    the stand-in tracks held to their floors; then the evaluators at
+    nuScenes val's shape. Returns (counts, stats)."""
+    from d3d_tpu_torch.models import make_voxelnext_detector, presets
+    from d3d_tpu_torch.models.inference import _to_tracking_targets
+    from d3d_tpu_torch.tracking import make_tracking_step
+    from d3d_tpu_torch.tracking.device_tracker import tracker_report
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    loader, clouds, stats = nuscenes_input(vn)
+    classes = head_classes()
+    cfg = presets.voxelnext_nuscenes()
+    detect = make_voxelnext_detector(vn["model16"], None, cfg, classes,
+                                     device=dev)
+    step = make_tracking_step(detect.device_fn, NUSC_GATES,
+                              lost_time=TRACK_LOST_TIME,
+                              capacity=TRACK_CAPACITY, score_threshold=0.3)
+    state = step.init()
+    calib = loader.calibration_data(0)
+    total = {}
+    per_request = []
+    tracks, dets_ego, gts = [], [], []
+    want = want_counts(rbox_iou_matrix=1, nms_scan=1,
+                       subm_conv=len(VN_LAYERS), subm_conv_rulebook=1)
+    for k, pts in enumerate(clouds):
+        before = read_counts()
+        state, out = step(state, pts, 0.0 if k == 0 else KEY_DT)
+        after = read_counts()
+        c = {key: after[key] - before[key] for key in after}
+        check(c == want, f"nuscenes_track_eval request {k}: launches {c}, "
+                         f"want {want}")
+        per_request.append(c)
+        ts = loader.timestamp(k)
+        tracks.append(tracker_report(state, classes, "lidar_top", ts))
+        det = _to_tracking_targets(*(t.cpu().numpy() for t in out), classes,
+                                   "lidar_top", ts, 0.3)
+        dets_ego.append(calib.transform_objects(det, frame_to="ego"))
+        gts.append(loader.annotation_3dobject(k))
+    counts = read_counts()
+    check_nms_routes("nuscenes_track_eval", KEYFRAMES)
+    check(all(len(g) > 0 for g in gts) and sum(len(t) for t in tracks) > 0,
+          "nuscenes_track_eval: no annotations or no tracks")
+    t0 = time.perf_counter()
+    ev = score_tracks("VoxelNeXt tracks", gts, tracks, dev, calib=calib)
+    stats["track_eval_ms"] = (time.perf_counter() - t0) * 1e3
+    stats["voxelnext_tracks"] = tracking_metrics(ev)
+    det_classes = classes
+    stats["voxelnext_protocols"] = nuscenes_protocols(
+        "VoxelNeXt detections", gts, dets_ego, det_classes, dev)
+    stats["stand_in"] = stand_in_scoring(dev, vn["scene"], gts)
+    stats["val_scale"] = tracking_at_scale(dev)
+    stats.update(launches=counts, launches_per_request=per_request[0],
+                 phase_s=time.perf_counter() - t_phase)
+    vt = stats["voxelnext_tracks"]
+    log(f"nuscenes_track_eval: {KEYFRAMES} requests, launches {counts} "
+        f"({per_request[0]} each); VoxelNeXt tracks (random weights) "
+        f"MOTA(car) {vt['mota_car']:.4f}, AMOTA(car) {vt['amota_car']:.4f}"
+        f", scored in {stats['track_eval_ms']:.1f} ms on the card, equal "
+        f"to the CPU; detections: nuScenes mAP "
+        f"{stats['voxelnext_protocols']['official_map']:.4f}, NDS "
+        f"{stats['voxelnext_protocols']['official_nds']:.4f}; phase "
+        f"{stats['phase_s']:.1f} s")
+    return counts, stats
+
+
 def add_cupti(a, b):
     """A sum of CUPTI times that is None where a term is."""
     return None if a is None or b is None else a + b
@@ -4878,7 +5662,7 @@ def main():
     k1_err, k1_shares = check_k1(dev)
     k1_bits_err, k1_bits_shares = check_k1_bits(dev)
     scan_err, scan_routes = check_scans(dev)
-    k4_err, k4_routes = check_k4(dev)
+    k4_err, k4_routes, k4_wide = check_k4(dev)
     check_nan_voxels(dev)
     second, second_frames = second_model(dev)
     k5_layers = second_layer_inputs(second, second_frames[0], dev)
@@ -4889,6 +5673,9 @@ def main():
     train_layers = stage_layer_inputs(second, batch["features"],
                                       batch["coords"], batch["valid"])
     k6_err, k6_shapes = check_k6(train_layers)
+    wide_layers = wide_kernel_layers(second, second_frames[0], dev)
+    wide_k5_err, wide_k5_shapes = check_k5(wide_layers, None, "K > 31")
+    wide_k6_err, wide_k6_shapes = check_k6(wide_layers, "K > 31")
     k5_bwd_err = check_k5_backward(train_layers)
     edge_err = check_edge_maps(dev)
     check_sync_free(dev, second, batch)
@@ -4915,6 +5702,8 @@ def main():
         "VoxelNeXt training": distinct_maps(vn["train_layers"])[1],
         "edge maps": [edge_map(edge_rng, kind, dev)[0]
                       for kind in EDGE_CASES],
+        **{f"{name[1:]} offsets": [rules.nbr] for name, (_, rules, _, _)
+           in wide_layers.items()},
         **sort_edge_maps(dev)})
 
     serve_counts, serve, pp_detect = serving(dev)
@@ -4934,6 +5723,7 @@ def main():
     kitti_stats["val_scale"] = eval_at_scale(dev)
     pp_counts, pp_stats = pointpillars_train(dev)
     vn_counts, vn_stats = voxelnext_track(dev, vn, second)
+    nte_counts, nte_stats = nuscenes_track_eval(dev, vn)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     train_counts, train_stats = {}, {}
@@ -4946,6 +5736,8 @@ def main():
     times = kernel_times(dev, ns_inputs, (tb2048, ts2048), soft_inputs,
                          soft_stats, k4_api_inputs, k5_layers, train_layers,
                          kitti_layers, kitti_train_layers)
+    wide_times = {k: layer_times(k, wide_layers, "K > 31")["per_layer"]
+                  for k in ("subm_conv", "subm_conv_dw")}
 
     by_path = {name: {"serving": serve_counts[name],
                       "north_star": ns_counts[name],
@@ -4956,7 +5748,8 @@ def main():
                       "box_api": api_counts[name],
                       "kitti_eval": kitti_counts[name],
                       "pointpillars_train": pp_counts[name],
-                      **{path: c[name] for path, c in vn_counts.items()}}
+                      **{path: c[name] for path, c in vn_counts.items()},
+                      "nuscenes_track_eval": nte_counts[name]}
                for name in serve_counts}
     meta = {
         "rbox_iou_matrix": ("cuda", "d3d_tpu_torch/csrc/rbox_iou.cu",
@@ -5006,6 +5799,8 @@ def main():
     rows["subm_conv_rulebook"]["builds_by_route_in_checks"] = rb_routes
     rows["soft_nms_scan"]["launches_by_route_in_checks"] = k4_routes
     rows["soft_nms_scan_f64"]["launches_by_route_in_checks"] = k4_routes
+    rows["soft_nms_scan"]["global_state_16384"] = k4_wide["float32"]
+    rows["soft_nms_scan_f64"]["global_state_16384"] = k4_wide["float64"]
     rows["subm_conv"].update(
         max_abs_err_bf16=k5_err["bfloat16"], layer_shapes=k5_shapes,
         max_abs_err_backward=k5_bwd_err,
@@ -5015,7 +5810,14 @@ def main():
         layer_shapes_kitti_like=kitti_shapes,
         max_abs_err_voxelnext=vn_k5_err,
         max_abs_err_backward_voxelnext=vn_bwd_err,
-        layer_shapes_voxelnext=vn_shapes, bit_equal_across_runs=True)
+        layer_shapes_voxelnext=vn_shapes, bit_equal_across_runs=True,
+        max_abs_err_k_above_31=wide_k5_err,
+        layer_shapes_k_above_31=wide_k5_shapes,
+        times_k_above_31=wide_times["subm_conv"])
+    rows["subm_conv_dw"].update(
+        max_abs_err_k_above_31=wide_k6_err,
+        layer_shapes_k_above_31=wide_k6_shapes,
+        times_k_above_31=wide_times["subm_conv_dw"])
     rows["subm_conv_dw"].update(
         max_abs_err_bf16=k6_err["bfloat16"], layer_shapes=k6_shapes,
         max_abs_err_edge_maps=edge_err["subm_conv_dw"],
@@ -5033,7 +5835,8 @@ def main():
                                           "crops": crop_stats},
                               "kitti_eval": kitti_stats,
                               "pointpillars_train": pp_stats,
-                              "voxelnext_track": vn_stats},
+                              "voxelnext_track": vn_stats,
+                              "nuscenes_track_eval": nte_stats},
                     "card": card}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,4 @@
-"""Batched detection evaluation on one device (port of the detection half of
+"""Batched detection and tracking evaluation on one device (port of
 ``d3d_tpu.benchmarks_device``).
 
 The reference evaluates detections with a compiled Cython loop over the 40
@@ -20,6 +20,10 @@ at once:
     quaternion angle, multivariate-normal + von-Mises log-likelihood) are
     dense (F, D, G) tensors computed once per batch.
 
+The tracking evaluator's sequence scan (:func:`tracking_match_scan`) chains
+the CLEAR-MOT matching of a chunk of frames on the same device: a Python
+loop over the chunk's frames in place of ``lax.scan``, one fetch a chunk.
+
 Packing stays host numpy. Counter outputs (ngt/ndt/tp/fp/fn) are
 integer-exact against the host ``DetectionEvaluator.calc_stats``; accuracy
 sums are float32 (the host accumulates in float64). Where the JAX module
@@ -39,7 +43,7 @@ from .utils import as_tensor, resolve_device
 __all__ = ["pack_frames", "eval_frames_device", "device_calc_stats",
            "match_subsets_device", "matching_tables_device",
            "batched_matching_tables", "match_subsets_with_tables",
-           "max_dist_arrays"]
+           "max_dist_arrays", "tracking_match_scan"]
 
 _LOG_2PI = float(np.log(2.0 * np.pi))
 _BIG_RANK = 2 ** 30
@@ -299,6 +303,126 @@ def match_subsets_device(dt_box, dt_label, dt_score, gt_box, gt_label,
     match = match_subsets_with_tables(dist_ok, rank, dt_label, dt_score,
                                       gt_label, subset_masks, device=device)
     return match, dist
+
+
+# ---------------------------------------------------------------------------
+# tracking: whole-chunk CLEAR-MOT matching on the device
+# ---------------------------------------------------------------------------
+
+def _first_true(mask):
+    """Index of the first True along the last axis (0 where none), as
+    ``jnp.argmax`` of a bool row: an ``amin`` of the masked indices."""
+    n = mask.shape[-1]
+    idx = torch.arange(n, device=mask.device)
+    return torch.where(mask, idx, n).amin(-1).clamp(max=n - 1)
+
+
+def _tracking_scan_step(md, md_strict, carry, xs, steps=None):
+    """One frame of the CLEAR-MOT matching chain (TrackingEvaluator
+    pass 1 + greedy re-match, reference benchmarks.pyx:560-700): preserve
+    last frame's assignments that still pass the dt-class distance cap,
+    greedy-match the rest, and carry this frame's assignment forward.
+
+    Carry is the previous frame's per-dt-slot state: the compact
+    trajectory id per slot (``prev_ctid``, 0 = padding) and the assigned
+    gt's compact-id code per (threshold, slot) (``prev_assign``, 0 =
+    unassigned) — only the immediately-previous frame matters, exactly
+    like the host's ``_last_dt_gt`` matrix which is rewritten per frame.
+    ``steps`` bounds the greedy match (no subset holds more detections)."""
+    prev_ctid, prev_assign = carry
+    dist, dist_ok, rank, dtl, dts, gtl, passing, dct, gct = xs
+    D, G = dtl.shape[0], gtl.shape[0]
+    S = passing.shape[0]
+    dev = dtl.device
+    gt_valid = gtl >= 0
+    d_idx = torch.arange(D, dtype=torch.int32, device=dev)
+    g_idx = torch.arange(G, dtype=torch.int32, device=dev)
+
+    # tid join: current dt slot -> same-trajectory slot of the prev frame
+    eq = (dct[:, None] == prev_ctid[None, :]) & (dct > 0)[:, None]
+    has_prev = eq.any(dim=1)
+    prev_slot = _first_true(eq)
+    code = torch.where(has_prev[None, :], prev_assign[:, prev_slot], 0)
+
+    # prev gt code -> current-frame gt index (host dict semantics: the
+    # LAST eligible gt with that trajectory id wins)
+    eqg = (((code - 1)[:, :, None] == gct[None, None, :])
+           & gt_valid[None, None, :] & (code > 0)[:, :, None])
+    gi = torch.where(eqg, g_idx, -1).amax(-1)                   # (S, D)
+
+    # preserved: still within the dt class's max distance (f32 cap with
+    # the strict-tie rejection reproducing the host's f64 compare)
+    safe_dtl = torch.where(dtl >= 0, dtl, 0).long()
+    maxd = md[safe_dtl][None, :]
+    strict = md_strict[safe_dtl][None, :]
+    dval = dist[d_idx.long()[None, :], torch.where(gi >= 0, gi, 0).long()]
+    ok = (dval <= maxd) & ~((dval == maxd) & strict)
+    pres = passing & (gi >= 0) & ok
+
+    # cur_gt (S, G): preserved dt per gt (largest dt index wins, matching
+    # the host's write order)
+    cur_gt = torch.full((S, G), -1, dtype=torch.int32, device=dev)
+    cur_gt = cur_gt.scatter_reduce(
+        1, torch.where(pres, gi, 0).long(),
+        torch.where(pres, d_idx[None, :], -1), "amax")
+
+    rematch = passing & ~pres
+    new_match = _greedy_match_masked(
+        dist_ok[None], rank[None], rematch[None], dtl[None], dts[None],
+        gtl[None], gt_valid[None], steps)[0]                    # (S, G)
+
+    # carry: this frame's final dt -> gt-code assignment per slot
+    final = torch.where(new_match >= 0, new_match, cur_gt)
+    best_g = torch.full((S, D), -1, dtype=torch.int32, device=dev)
+    best_g = best_g.scatter_reduce(
+        1, torch.where(final >= 0, final, 0).long(),
+        torch.where(final >= 0, g_idx[None, :], -1), "amax")
+    new_assign = torch.where(
+        best_g >= 0, gct[torch.where(best_g >= 0, best_g, 0).long()] + 1, 0)
+    return (dct, new_assign.to(torch.int32)), (new_match, cur_gt)
+
+
+def tracking_match_scan(dist, dist_ok, rank, dt_label, dt_score, gt_label,
+                        passing, dt_ctid, gt_ctid, max_dist, max_dist_strict,
+                        prev_ctid, prev_assign, device=None):
+    """Chain :func:`_tracking_scan_step` over a chunk of frames on one
+    device (a Python loop over the frames, the JAX module's ``lax.scan``):
+    the per-frame pass-1 + match round trips of
+    ``TrackingEvaluator.calc_stats`` become one fetch a chunk. Tensors stay
+    on their device; numpy goes to ``device`` (default CUDA).
+
+    :param dist/dist_ok/rank: (F, D, G) stacked matching tables
+    :param passing: (F, S, D) bool — host-computed score/tag admission
+        (f64 threshold semantics preserved exactly)
+    :param dt_ctid/gt_ctid: (F, D)/(F, G) int32 compact trajectory ids
+        (host-assigned, 0 = padding; equality within a sequence is all
+        the chain needs)
+    :returns: (prev_ctid, prev_assign, new_match (F, S, G),
+        cur_gt (F, S, G)) — the first two feed the next chunk's carry
+    """
+    dev = dist.device if isinstance(dist, torch.Tensor) \
+        else resolve_device(device)
+    # the greedy match of a frame takes at most its most passing detections
+    steps = None
+    if isinstance(passing, np.ndarray):
+        steps = passing.sum(-1).max(-1, initial=0).tolist()
+    (dist, dist_ok, rank, dt_label, dt_score, gt_label, passing, dt_ctid,
+     gt_ctid, max_dist, max_dist_strict, prev_ctid, prev_assign) = (
+        as_tensor(x, dev) for x in (
+            dist, dist_ok, rank, dt_label, dt_score, gt_label, passing,
+            dt_ctid, gt_ctid, max_dist, max_dist_strict, prev_ctid,
+            prev_assign))
+    carry = (prev_ctid.to(torch.int32), prev_assign.to(torch.int32))
+    new_match, cur_gt = [], []
+    for f in range(dist.shape[0]):
+        carry, (nm, cg) = _tracking_scan_step(
+            max_dist, max_dist_strict, carry,
+            (dist[f], dist_ok[f], rank[f], dt_label[f], dt_score[f],
+             gt_label[f], passing[f], dt_ctid[f], gt_ctid[f]),
+            None if steps is None else steps[f])
+        new_match.append(nm)
+        cur_gt.append(cg)
+    return carry[0], carry[1], torch.stack(new_match), torch.stack(cur_gt)
 
 
 def eval_frames_device(packed, thresholds, max_dist, max_dist_strict,

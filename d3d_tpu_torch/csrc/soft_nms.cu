@@ -49,9 +49,15 @@
 //     and its C / 4 group bests, not its C boxes. Past the loop over a
 //     lane's hits the step has no branch: in one warp the lanes' paths run
 //     one after another, so every lane takes the same path.
-//   - two routes: up to kStagedMaxN boxes the rows (marks, counts, decays:
-//     n = 512: 56 KB; 1024: 192 KB) are copied into shared memory first;
-//     above it, each step reads the pick's words from L2.
+//   - three routes: up to kStagedMaxN boxes the rows (marks, counts,
+//     decays: n = 512: 56 KB; 1024: 192 KB) are copied into shared memory
+//     first; above it, each step reads the pick's words from L2. Above
+//     kSharedStateMaxN boxes (8 warps of 32 boxes a lane) the block grows
+//     to 16 or 32 warps (1024 threads: up to kMaxN boxes), and the scores
+//     and keys, 128 KB at 16 384 boxes in f32 and 256 KB in f64, leave
+//     shared memory for a slice of the scratch in global memory: each lane
+//     reads and writes only its own boxes' entries there (coalesced across
+//     the warp), so they stay in L2 from step to step.
 //
 // Rounding: built with -fmad=false (ops/_build.py) and without
 // --use_fast_math; the decay is the Pallas body's expression, with
@@ -77,7 +83,10 @@
 
 namespace {
 
-constexpr int kMaxN = 8192;
+constexpr int kMaxN = 32768;  // 32 warps of 32 boxes a lane
+// the most boxes whose scores and keys pass 2 keeps in shared memory (8
+// warps; nms_cuda.py `_SOFT_SHARED_STATE_MAX_N`); above, in global memory
+constexpr int kSharedStateMaxN = 8192;
 // the most boxes whose rows pass 2 stages in shared memory (nms_cuda.py
 // `_SOFT_STAGED_MAX_N`): one warp, up to 32 boxes a lane
 constexpr int kStagedMaxN = 1024;
@@ -100,8 +109,25 @@ __host__ __device__ constexpr size_t marks_words(int n) {
   return static_cast<size_t>(n) * ((n + 31) / 32);
 }
 template <typename T>
-__host__ __device__ constexpr size_t scratch_words(int n) {
+__host__ __device__ constexpr size_t rows_words(int n) {
   return decs_words<T>(n) + marks_words(n) + (marks_words(n) + 3) / 4;
+}
+// above kSharedStateMaxN boxes: the cascade's warps (16 up to 16 384
+// boxes, else 32), and its scores and keys (C = 32 boxes a lane, T and a
+// key as wide a box) after the rows, from a 16-byte boundary
+__host__ __device__ constexpr int wide_warps(int n) {
+  return n <= 2 * kSharedStateMaxN ? 16 : 32;
+}
+template <typename T>
+__host__ __device__ constexpr size_t state_offset_of(int n) {
+  return (rows_words<T>(n) + 3) / 4 * 4;
+}
+template <typename T>
+__host__ __device__ constexpr size_t scratch_words(int n) {
+  return n <= kSharedStateMaxN
+             ? rows_words<T>(n)
+             : state_offset_of<T>(n) + static_cast<size_t>(wide_warps(n)) *
+                                           32 * 32 * 2 * (sizeof(T) / 4);
 }
 
 template <typename T>
@@ -270,8 +296,18 @@ __device__ __forceinline__ void best_of(uint32_t avail, const K* s_kk, int g,
 // to 16 bytes (the state's doubles stay aligned)
 template <typename T, bool STAGED>
 __host__ __device__ constexpr size_t staged_words(int n) {
-  return STAGED ? (scratch_words<T>(n) + 3) / 4 * 4 : 0;
+  return STAGED ? (rows_words<T>(n) + 3) / 4 * 4 : 0;
 }
+
+// the block of NW warps: at least kBlockThreads to stage, all lanes above;
+// above 8 warps (kSharedStateMaxN boxes) the scores and keys live in the
+// scratch's state slice
+template <int NW>
+struct Block {
+  static constexpr int kThreads =
+      32 * NW > kBlockThreads ? 32 * NW : kBlockThreads;
+  static constexpr bool kGlobalState = NW > 8;
+};
 
 __device__ __forceinline__ void cascade_barrier(int threads) {
   // barrier 1 (0 is __syncthreads), counted in threads; not .aligned,
@@ -280,37 +316,42 @@ __device__ __forceinline__ void cascade_barrier(int threads) {
 }
 
 template <typename T, int C, int NW, bool STAGED, bool GAUSSIAN>
-__global__ void __launch_bounds__(kBlockThreads)
+__global__ void __launch_bounds__(Block<NW>::kThreads)
     soft_nms_cascade_kernel(const T* __restrict__ iou,
                             const T* __restrict__ scores0,
                             const uint8_t* __restrict__ pre,
                             const uint32_t* __restrict__ scratch,
+                            uint32_t* state,
                             uint8_t* __restrict__ suppressed, int n,
                             int words, T score_t, T param) {
   using K = typename KeyOf<T>::type;
   constexpr K kNanKey = ~K(0);
   constexpr int kLanes = 32 * NW;
+  constexpr int kThreads = Block<NW>::kThreads;
   constexpr int kGroup = Groups<C>::kGroup, kGroups = Groups<C>::kCount;
   extern __shared__ __align__(16) uint32_t smem[];
   const size_t staged = staged_words<T, STAGED>(n);
-  T* s_sc = reinterpret_cast<T*>(smem + staged);  // [C][kLanes]
-  K* s_kk = reinterpret_cast<K*>(s_sc + C * kLanes);  // their keys
+  // the scores and their keys, [C][kLanes] each: in shared memory, or in
+  // the scratch's state slice
+  T* s_sc =
+      reinterpret_cast<T*>(Block<NW>::kGlobalState ? state : smem + staged);
+  K* s_kk = reinterpret_cast<K*>(s_sc + C * kLanes);
   __shared__ K s_key[2][NW];
   __shared__ int s_idx[2][NW];
   const int tid = threadIdx.x;
-  for (int e = tid; e < C * kLanes; e += kBlockThreads) {
+  for (int e = tid; e < C * kLanes; e += kThreads) {
     const int j = (e % kLanes) * C + e / kLanes;
     s_sc[e] = j < n ? scores0[j] : T(0);
     s_kk[e] = score_key(s_sc[e]);
   }
   Rows<T> rows = rows_at<T>(scratch, n);
   if constexpr (STAGED) {  // 16 bytes a load, then the odd words
-    const size_t words_in = scratch_words<T>(n);
+    const size_t words_in = rows_words<T>(n);
     const size_t quads = words_in / 4;
     const uint4* src = reinterpret_cast<const uint4*>(scratch);
     uint4* dst = reinterpret_cast<uint4*>(smem);
-    for (size_t e = tid; e < quads; e += kBlockThreads) dst[e] = src[e];
-    for (size_t e = quads * 4 + tid; e < words_in; e += kBlockThreads)
+    for (size_t e = tid; e < quads; e += kThreads) dst[e] = src[e];
+    for (size_t e = quads * 4 + tid; e < words_in; e += kThreads)
       smem[e] = scratch[e];
     rows = rows_at<T>(smem, n);
   }
@@ -422,17 +463,22 @@ cudaError_t allow_smem(Kernel* kernel, size_t smem,
 
 template <typename T, int C, int NW, bool STAGED, bool GAUSSIAN>
 cudaError_t cascade(const T* iou, const T* scores0, const uint8_t* pre,
-                    const uint32_t* scratch, uint8_t* suppressed, int n,
-                    int words, T score_t, T param, cudaStream_t s) {
+                    uint32_t* scratch, uint8_t* suppressed, int n, int words,
+                    T score_t, T param, cudaStream_t s) {
   static std::atomic<int> granted[kMaxDevices];
+  constexpr bool kGlobalState = Block<NW>::kGlobalState;
   auto* kernel = soft_nms_cascade_kernel<T, C, NW, STAGED, GAUSSIAN>;
   const size_t smem =
       sizeof(uint32_t) * staged_words<T, STAGED>(n) +
-      (sizeof(T) + sizeof(typename KeyOf<T>::type)) * C * 32 * NW;
+      (kGlobalState ? 0
+                    : (sizeof(T) + sizeof(typename KeyOf<T>::type)) * C *
+                          32 * NW);
   const cudaError_t err = allow_smem(kernel, smem, granted);
   if (err != cudaSuccess) return err;
-  kernel<<<1, kBlockThreads, smem, s>>>(iou, scores0, pre, scratch,
-                                        suppressed, n, words, score_t, param);
+  uint32_t* state = kGlobalState ? scratch + state_offset_of<T>(n) : nullptr;
+  kernel<<<1, Block<NW>::kThreads, smem, s>>>(
+      iou, scores0, pre, scratch, state, suppressed, n, words, score_t,
+      param);
   return cudaGetLastError();
 }
 
@@ -464,7 +510,9 @@ int launch(const T* iou, const T* scores0, const uint8_t* pre,
   else if (n <= kStagedMaxN) D3D_CASCADE(32, 1, false);
   else if (n <= 2048) D3D_CASCADE(32, 2, false);
   else if (n <= 4096) D3D_CASCADE(32, 4, false);
-  else D3D_CASCADE(32, 8, false);
+  else if (n <= kSharedStateMaxN) D3D_CASCADE(32, 8, false);
+  else if (wide_warps(n) == 16) D3D_CASCADE(32, 16, false);
+  else D3D_CASCADE(32, 32, false);
 #undef D3D_CASCADE
   return static_cast<int>(err);
 }
@@ -487,7 +535,8 @@ int scan(const T* iou, const T* scores0, const uint8_t* pre,
 
 // iou (n, n) f32, scores0 (n,) f32, pre (n,) bool, suppressed (n,) bool
 // out, scratch of scratch_words_given int32 (at least nms_cuda.py
-// `_soft_scratch_words(n)`), all contiguous on the current device;
+// `_soft_scratch_words(n)`: above kSharedStateMaxN boxes it holds the
+// cascade's scores and keys too), all contiguous on the current device;
 // 1 <= n <= kMaxN (nms_cuda.py `_SOFT_MAX_N`). method: 0 = linear,
 // 1 = gaussian. Returns the first launch error.
 extern "C" int d3d_soft_nms_scan(const float* iou, const float* scores0,

@@ -33,10 +33,17 @@
 //    per scheduler, and the tile is bound by latency, not arithmetic.)
 //  - The rows come in the rule book's order (ops/rulebook.py: rows stably
 //    sorted by their 27-bit presence mask), so the rows of a tile share
-//    their offsets. The block ORs its rows' masks and walks only the
-//    offsets that some row of the tile has; a tile of rows without
-//    neighbours (padding, invalid sites) does no work and writes zeros.
-//    Every output row is written.
+//    their offsets. The block ORs its rows' presence into ceil(K / 32)
+//    mask words and walks only the offsets that some row of the tile has;
+//    a tile of rows without neighbours (padding, invalid sites) does no
+//    work and writes zeros. Every output row is written. Any K: a map of
+//    more than 31 offsets (kernel_size 4: 64, 5: 125) sorts its rows by a
+//    31-bit fold of their masks (offset k on bit k mod 31), which still
+//    groups rows of like offsets; the order only groups rows, the sums
+//    run over each tile's present offsets ascending all the same. The
+//    tile's neighbour rows are staged in shared memory while they fit
+//    (up to ~200 offsets at 2048 outputs a tile); past that, each step
+//    reads its rows' entries from the map in L2.
 //  - The tile's work is one axis of (offset, channel) pairs: its present
 //    offsets ascending, each one's C channels ascending. A step stages 64
 //    of them, so where C < 64 one step carries several offsets (C = 4: 16
@@ -80,7 +87,11 @@ constexpr int kThreads = 256;
 constexpr int kGroup = 128;       // threads that hold one copy of the tile
 constexpr int kTileElems = 2048;  // outputs per block
 constexpr int kStages = 3;        // depth of the cp.async ring
-constexpr int kMaxOffsets = 31;   // one bit a row per offset
+// the rule book's presence mask: one bit a row per offset, 31 of them;
+// a map of more offsets folds offset k onto bit k mod 31
+constexpr int kMaxOffsets = 31;
+// the most dynamic shared memory a block may take on this card
+constexpr size_t kMaxSmem = 227 * 1024;
 // (offset, channel) pairs staged a step, each of the two thread groups
 // taking half (f32: 32 channels; bf16: two k16 fragments)
 constexpr int kStep = 64;
@@ -104,9 +115,13 @@ struct Tile {
   static constexpr int TM = kTileElems / TN;
   static constexpr int LDX = KC + (std::is_same<T, float>::value ? 4 : 8);
   static constexpr int LDW = TN + (std::is_same<T, float>::value ? 0 : 8);
-  static size_t smem_bytes(int k_off) {
+  // the ring, the tile's rows, their neighbour rows where staged, the
+  // tile's present offsets (k_off) and its mask words
+  static size_t smem_bytes(int k_off, bool stage_nbr) {
     return sizeof(T) * kStages * (static_cast<size_t>(TM) * LDX + KC * LDW)
-           + sizeof(int) * (TM + static_cast<size_t>(TM) * k_off + 33);
+           + sizeof(int) * (TM + (stage_nbr ? static_cast<size_t>(TM) * k_off
+                                            : 0)
+                            + k_off + (k_off + 31) / 32);
   }
 };
 
@@ -270,16 +285,17 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ w,
                      const uint8_t* __restrict__ valid, T* __restrict__ out,
                      int n, int nq, int k_off, int c, int cout, int vec_x,
-                     int vec_w) {
+                     int vec_w, int stage_nbr) {
   using C = Tile<T, TN>;
   constexpr int TM = C::TM, KC = C::KC;
   extern __shared__ __align__(16) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem);              // kStages x TM x LDX
   T* ws = xs + kStages * TM * C::LDX;              // kStages x KC x LDW
   int* rows_s = reinterpret_cast<int*>(ws + kStages * KC * C::LDW);
-  int* nbr_s = rows_s + TM;                        // TM x k_off
-  int* koff_s = nbr_s + TM * k_off;                // the tile's offsets
-  unsigned* mask_s = reinterpret_cast<unsigned*>(koff_s + 32);
+  int* nbr_s = rows_s + TM;              // TM x k_off where staged
+  int* koff_s = nbr_s + (stage_nbr ? TM * k_off : 0);  // present offsets
+  unsigned* mask_s = reinterpret_cast<unsigned*>(koff_s + k_off);
+  const int mask_words = (k_off + 31) >> 5;
 
   const int tid = threadIdx.x;
   const int grp = tid / kGroup, gtid = tid % kGroup;
@@ -288,34 +304,59 @@ __global__ void __launch_bounds__(kThreads)
 
   // the tile's output rows in rule-book order, their neighbour rows
   // (out-of-range entries read as absent) and the union of their offsets
-  if (tid == 0) *mask_s = 0u;
+  for (int i = tid; i < mask_words; i += kThreads) mask_s[i] = 0u;
   for (int i = tid; i < TM; i += kThreads)
     rows_s[i] = t0 + i < nq ? static_cast<int>(order[t0 + i]) : -1;
   __syncthreads();
-  // (unrolled, so a thread's loads are in flight together rather than one
-  // L2 round trip each)
-  unsigned bits = 0u;
-#pragma unroll 8
-  for (int i = tid; i < TM * k_off; i += kThreads) {
-    const int r = i / k_off, kk = i - r * k_off;
+  // an entry of the map: out-of-range rows read as absent
+  auto entry = [&](int r, int kk) {
     const int row = rows_s[r];
-    int v = row >= 0 ? nbr[static_cast<size_t>(row) * k_off + kk] : -1;
-    v = v < n ? v : -1;
-    nbr_s[i] = v;
-    if (v >= 0) bits |= 1u << kk;
+    const int v = row >= 0 ? nbr[static_cast<size_t>(row) * k_off + kk] : -1;
+    return v < n ? v : -1;
+  };
+  if (k_off <= 32) {
+    // one mask word: a thread ORs its entries' bits, a warp its threads'
+    // (unrolled, so a thread's loads are in flight together rather than
+    // one L2 round trip each)
+    unsigned bits = 0u;
+#pragma unroll 8
+    for (int i = tid; i < TM * k_off; i += kThreads) {
+      const int r = i / k_off, kk = i - r * k_off;
+      const int v = entry(r, kk);
+      if (stage_nbr) nbr_s[i] = v;
+      if (v >= 0) bits |= 1u << kk;
+    }
+    bits = __reduce_or_sync(0xffffffffu, bits);
+    if ((tid & 31) == 0 && bits) atomicOr(mask_s, bits);
+  } else {
+    // several words: an entry sets its offset's bit unless it is set
+#pragma unroll 8
+    for (int i = tid; i < TM * k_off; i += kThreads) {
+      const int r = i / k_off, kk = i - r * k_off;
+      const int v = entry(r, kk);
+      if (stage_nbr) nbr_s[i] = v;
+      const unsigned bit = 1u << (kk & 31);
+      if (v >= 0 && !(mask_s[kk >> 5] & bit)) atomicOr(&mask_s[kk >> 5], bit);
+    }
   }
-  bits = __reduce_or_sync(0xffffffffu, bits);
-  if ((tid & 31) == 0 && bits) atomicOr(mask_s, bits);
   __syncthreads();
-  const unsigned mask = *mask_s;
-  if (tid < k_off && ((mask >> tid) & 1u))
-    koff_s[__popc(mask & ((1u << tid) - 1u))] = tid;
+  // the present offsets ascending: offset k goes after the present ones
+  // of the words before its own and below it in its word
+  for (int k = tid; k < k_off; k += kThreads) {
+    const unsigned word = mask_s[k >> 5];
+    if ((word >> (k & 31)) & 1u) {
+      int at = __popc(word & ((1u << (k & 31)) - 1u));
+      for (int q = 0; q < (k >> 5); ++q) at += __popc(mask_s[q]);
+      koff_s[at] = k;
+    }
+  }
+  int nk = 0;
+  for (int q = 0; q < mask_words; ++q) nk += __popc(mask_s[q]);
   __syncthreads();
 
   // the tile's work runs along one axis of (offset, channel) pairs, the
   // present offsets ascending and each one's channels ascending; a step
   // stages KC of them, so a step can span several offsets where C < KC
-  const int nk = __popc(mask);
   const int steps = (nk * c + KC - 1) / KC;
   const int epu = vec_x / static_cast<int>(sizeof(T));
   const int upr_log = __ffs(KC / epu) - 1;           // copies a row
@@ -337,7 +378,8 @@ __global__ void __launch_bounds__(kThreads)
       const int oi = (v0 + u) / c, ch = v0 + u - oi * c;
       const int kk = oi < nk ? koff_s[oi] : -1;
       for (int r = tid >> upr_log; r < TM; r += kThreads >> upr_log) {
-        const int src = kk >= 0 ? nbr_s[r * k_off + kk] : -1;
+        const int src =
+            kk < 0 ? -1 : stage_nbr ? nbr_s[r * k_off + kk] : entry(r, kk);
         copy_unit(xd + r * C::LDX + u,
                   src >= 0 ? feat + static_cast<size_t>(src) * c + ch : feat,
                   vec_x, src >= 0);
@@ -448,13 +490,17 @@ int launch(const void* feat, const int* nbr, const int64_t* order,
            cudaStream_t stream) {
   using C = Tile<T, TN>;
   static std::atomic<int> granted[kMaxDevices];
-  const size_t smem = C::smem_bytes(k_off);
+  // the neighbour rows staged while they fit; the rest needs k_off ints
+  const bool stage_nbr = C::smem_bytes(k_off, true) <= kMaxSmem;
+  const size_t smem = C::smem_bytes(k_off, stage_nbr);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_smem(subm_conv_kernel<T, TN>, smem, granted);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((nq + C::TM - 1) / C::TM, (cout + TN - 1) / TN);
   subm_conv_kernel<T, TN><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(feat), nbr, order, static_cast<const T*>(w),
-      valid, static_cast<T*>(out), n, nq, k_off, c, cout, vec_x, vec_w);
+      valid, static_cast<T*>(out), n, nq, k_off, c, cout, vec_x, vec_w,
+      stage_nbr ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -595,7 +641,9 @@ __device__ void masks_phase(const MapSet& maps, int n_maps, int k_off,
   const int r0 = (piece - maps.piece_start[m]) * kSortThreads;
   const int nrows = min(kSortThreads, nq - r0);
   const int* src = maps.nbr[m] + static_cast<size_t>(r0) * k_off;
-  const int count = nrows * k_off;
+  // a map of more than kMaxOffsets offsets is read from L2, a thread a row
+  const bool staged = k_off <= kMaxOffsets;
+  const int count = staged ? nrows * k_off : 0;
   int e0 = 0;
   if ((reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
     e0 = count / 4 * 4;
@@ -611,11 +659,17 @@ __device__ void masks_phase(const MapSet& maps, int n_maps, int k_off,
 
   const bool in = tid < nrows;
   unsigned bits = 0u;
-  if (in) {
+  if (in && staged) {
     const int* row = sm.masks.rows + tid * k_off;  // odd k_off: no conflicts
 #pragma unroll
     for (int k = 0; k < kMaxOffsets; ++k)
       if (k < k_off) bits |= static_cast<unsigned>(row[k] >= 0) << k;
+  } else if (in) {  // offset k onto bit k mod kMaxOffsets
+    const int* row = src + static_cast<size_t>(tid) * k_off;
+    for (int k = 0, b = 0; k < k_off; ++k, b = b + 1 < kMaxOffsets ? b + 1 : 0)
+      bits |= static_cast<unsigned>(row[k] >= 0) << b;
+  }
+  if (in) {
     masks[start + r0 + tid] = static_cast<int>(bits);
     // map m's keys take scratch [2 start, 2 start + nq), the rest its
     // second buffer
@@ -872,8 +926,7 @@ extern "C" int d3d_subm_conv(const void* feat, const int* nbr,
   const bool vec_ok = (vec_x == 4 || vec_x == 8 || vec_x == 16)
                       && (vec_w == 4 || vec_w == 8 || vec_w == 16)
                       && (c * elem) % vec_x == 0 && (cout * elem) % vec_w == 0;
-  if (n <= 0 || nq <= 0 || c <= 0 || cout <= 0 || k_off <= 0
-      || k_off > kMaxOffsets || !vec_ok)
+  if (n <= 0 || nq <= 0 || c <= 0 || cout <= 0 || k_off <= 0 || !vec_ok)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return launch_tn<float>(feat, nbr, order, w, valid, out, n, nq, k_off, c,
@@ -890,8 +943,9 @@ extern "C" int d3d_subm_conv_rulebook_resident() {
   return resident_sort_blocks();
 }
 
-// the rule books of n_maps <= 16 maps of k_off <= 31 offsets: nbrs[i] an
-// (nqs[i], k_off) int32 map on the card (nbrs and nqs are host arrays);
+// the rule books of n_maps <= 16 maps of k_off offsets (above 31, the masks
+// fold offset k onto bit k mod 31): nbrs[i] an (nqs[i], k_off) int32 map
+// on the card (nbrs and nqs are host arrays);
 // masks (int32) and order (int64, each map's rows 0..nqs[i]-1) take the
 // maps' rows end to end; scratch, scratch_words 64-bit words, holds two
 // keys a row, kMaxPasses look-back slots of kRadix 32-bit words a chunk,
@@ -901,7 +955,7 @@ extern "C" int d3d_subm_conv_rulebook(const void* const* nbrs, const int* nqs,
                                       int n_maps, int k_off, int* masks,
                                       int64_t* order, void* scratch,
                                       int scratch_words, void* stream) {
-  if (n_maps <= 0 || n_maps > kMaxMaps || k_off <= 0 || k_off > kMaxOffsets)
+  if (n_maps <= 0 || n_maps > kMaxMaps || k_off <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   MapSet set{};
   int64_t total = 0, chunks = 0, pieces = 0;
@@ -929,7 +983,7 @@ extern "C" int d3d_subm_conv_rulebook(const void* const* nbrs, const int* nqs,
   sc.status = reinterpret_cast<unsigned*>(sc.keys + 2 * total);
   sc.hist = reinterpret_cast<int*>(sc.status + chunks * kMaxPasses * kRadix);
   sc.tickets = sc.hist + n_maps * kMaxPasses * kRadix;
-  int passes = (k_off + kRadixBits - 1) / kRadixBits;
+  int passes = (std::min(k_off, kMaxOffsets) + kRadixBits - 1) / kRadixBits;
   const int64_t resident = resident_sort_blocks();
   if (chunks <= resident) {
     const unsigned grid =

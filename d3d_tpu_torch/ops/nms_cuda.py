@@ -28,8 +28,12 @@ _MAX_N = 48 * 1024 * 8
 _WARP_MAX_N = 2048
 # nms2d's scan counts under K2 up to this many boxes, K3 above
 _K2_MAX_N = 1024
-# K4's cascade: up to 8 warps, each lane owning up to 32 boxes
-_SOFT_MAX_N = 8 * 32 * 32
+# K4's cascade: up to 32 warps, each lane owning up to 32 boxes
+_SOFT_MAX_N = 32 * 32 * 32
+# up to this many boxes (8 warps) the cascade keeps its scores and keys in
+# shared memory; above it, 16 or 32 warps keep them in a slice of the
+# scratch in global memory (csrc/soft_nms.cu kSharedStateMaxN)
+_SOFT_SHARED_STATE_MAX_N = 8 * 32 * 32
 _SOFT_METHODS = {"linear": 0, "gaussian": 1}
 # up to this many boxes K4 stages its rows in shared memory (one warp);
 # above it, it reads them from L2 (csrc/soft_nms.cu kStagedMaxN)
@@ -41,13 +45,27 @@ _SOFT_STAGED_MAX_N_F64 = 512
 _SOFT_LIST_LEN = 8
 
 
+def _soft_warps(n):
+    """The warps of K4's cascade for ``n`` boxes (csrc/soft_nms.cu
+    `launch`): one up to 1024 boxes, then a warp a 1024 boxes up to 8,
+    then 16 up to 16 384 boxes and 32 above."""
+    if n <= _SOFT_SHARED_STATE_MAX_N:
+        return 1 << max(0, (-(-n // 1024) - 1).bit_length())
+    return 16 if n <= 2 * _SOFT_SHARED_STATE_MAX_N else 32
+
+
 def _soft_scratch_words(n, itemsize=4):
     """K4's scratch in int32 words: per row, ``_SOFT_LIST_LEN`` decay
     factors (of ``itemsize`` bytes: 4 for float32, 8 for float64),
     ceil(n / 32) words of overlap marks and as many bytes of marks before
-    each word."""
+    each word; above ``_SOFT_SHARED_STATE_MAX_N`` boxes, from the next
+    16-byte boundary, the cascade's scores and keys (32 boxes a lane of
+    its warps, ``itemsize`` bytes each)."""
     marks = n * ((n + 31) // 32)
-    return n * _SOFT_LIST_LEN * (itemsize // 4) + marks + (marks + 3) // 4
+    rows = n * _SOFT_LIST_LEN * (itemsize // 4) + marks + (marks + 3) // 4
+    if n <= _SOFT_SHARED_STATE_MAX_N:
+        return rows
+    return -(-rows // 4) * 4 + _soft_warps(n) * 32 * 32 * 2 * (itemsize // 4)
 
 
 def _nms_scan_plain(overlap, pre):
@@ -265,8 +283,9 @@ def soft_nms_scan(iou, scores0, pre, iou_threshold, score_threshold, param,
     """Soft-NMS cascade (K4): (N, N) IoU in input order, (N,) starting
     scores (pre-suppressed boxes at -inf), (N,) bool pre-suppression ->
     (N,) bool suppressed. ``method`` is "linear" or "gaussian". IoU and
-    scores share float32 or float64 (K4 on CUDA takes at most 8192
-    boxes; its launches count in ``soft_nms_scan.launches`` and
+    scores share float32 or float64 (K4 on CUDA takes at most
+    ``_SOFT_MAX_N``, 32 768 boxes, where the (N, N) IoU matrix alone is 4
+    GB in float32; its launches count in ``soft_nms_scan.launches`` and
     ``soft_nms_scan.launches_f64``)."""
     n = iou.shape[0]
     if iou.shape != (n, n) or scores0.shape != (n,) or pre.shape != (n,):
@@ -319,15 +338,18 @@ def _soft_launch(iou, scores0, pre, iou_threshold, score_threshold, param,
     if err:
         raise RuntimeError(f"soft_nms kernel launch failed: CUDA error {err}")
     staged = n <= (_SOFT_STAGED_MAX_N_F64 if f64 else _SOFT_STAGED_MAX_N)
-    route = ("shared" if staged else "l2") + ("_f64" if f64 else "")
+    route = ("shared" if staged else "l2" if n <= _SOFT_SHARED_STATE_MAX_N
+             else "global") + ("_f64" if f64 else "")
     _soft_launch.routes[route] += 1
     return out
 
 
-# K4's launches by where its cascade reads the marks, float32 and float64
-# apart (every launch, checks included; ``soft_nms_scan.launches`` counts
-# the path's)
-_soft_launch.routes = {"shared": 0, "l2": 0, "shared_f64": 0, "l2_f64": 0}
+# K4's launches by where its cascade reads the marks (shared memory, L2)
+# and, above ``_SOFT_SHARED_STATE_MAX_N`` boxes, keeps its scores
+# ("global": in the scratch, from L2), float32 and float64 apart (every
+# launch, checks included; ``soft_nms_scan.launches`` counts the path's)
+_soft_launch.routes = {"shared": 0, "l2": 0, "global": 0, "shared_f64": 0,
+                       "l2_f64": 0, "global_f64": 0}
 
 
 # K4's launches on a path, float32 and float64 (its second C entry point)

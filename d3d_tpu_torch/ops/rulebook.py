@@ -6,10 +6,12 @@ A neighbour map is (Nq, K) int32: ``nbr[n, k]`` is the input row of query
 row n's k-th kernel offset, or -1 where that neighbour is absent. Its rule
 book holds
 
-- ``masks``: (Nq,) int32, bit k set where ``nbr[n, k] >= 0``;
+- ``masks``: (Nq,) int32, bit k set where ``nbr[n, k] >= 0``; a map of
+  more than ``MAX_OFFSETS`` (31) offsets folds offset k onto bit k mod 31;
 - ``order``: (Nq,) int64, the rows stably sorted by mask. K5 takes its
   output rows in this order, so the rows of one tile share their offsets
-  and the tile skips every offset that none of its rows has;
+  and the tile skips every offset that none of its rows has (K5 finds a
+  tile's offsets from the map itself, so the fold only groups rows);
 - on first use by K6 (:meth:`RuleBook.pairs`), for every offset k the query
   rows that have it, compacted to the front of row k of a (K, Nq) table
   (rows Nq + 1 apart) in ascending order, with the counts on the device.
@@ -33,7 +35,8 @@ from ._build import load_library, stream_handle
 __all__ = ["RuleBook", "prepare_neighbor_map", "prepare_neighbor_maps",
            "subm_conv_rulebook"]
 
-# the presence mask is one int32 a row
+# the presence mask is one int32 a row: 31 offsets a bit each, more folded
+# (offset k onto bit k mod 31)
 MAX_OFFSETS = 31
 # the rule-book sort (csrc/subm_conv.cu): keys a block (kChunk), passes of
 # 8 bits for 31 offsets (kMaxPasses) and digits a pass (kRadix)
@@ -58,14 +61,18 @@ def _check_map(nbr):
     if not isinstance(nbr, torch.Tensor) or nbr.ndim != 2 \
             or nbr.dtype != torch.int32:
         raise ValueError("a neighbour map is an (Nq, K) int32 tensor")
-    if nbr.shape[1] > MAX_OFFSETS and nbr.device.type == "cuda":
-        raise ValueError(f"the sparse-conv kernels take at most "
-                         f"{MAX_OFFSETS} kernel offsets, got {nbr.shape[1]}")
 
 
 def _masks(nbr):
-    """(Nq,) int32 presence masks of an (Nq, K <= 31) map."""
-    return torch.where(nbr >= 0, _offset_bits(nbr.shape[1], nbr.device),
+    """(Nq,) int32 presence masks of an (Nq, K) map; above 31 offsets,
+    offset k sets bit k mod 31 (an OR of the folded columns)."""
+    nq, k = nbr.shape
+    present = nbr >= 0
+    if k > MAX_OFFSETS:
+        pad = -k % MAX_OFFSETS
+        present = torch.nn.functional.pad(present, (0, pad)).view(
+            nq, -1, MAX_OFFSETS).any(dim=1)
+    return torch.where(present, _offset_bits(present.shape[1], nbr.device),
                        0).sum(dim=1, dtype=torch.int32)
 
 
@@ -89,7 +96,7 @@ def _subm_conv_rulebook_plain(nbrs):
 
 def subm_conv_rulebook(nbrs):
     """K5's rule-book build: ``([masks], [order])``, one of each per map,
-    of contiguous (Nq_i, K) int32 maps on one device with one K <= 31. On
+    of contiguous (Nq_i, K) int32 maps on one device with one K. On
     CUDA the rule-book kernels of ``csrc/subm_conv.cu`` (masks and digit
     counts, then a radix sort of 8-bit passes over every map's chunks of
     ``_SORT_CHUNK`` rows at once: one cooperative launch where the card
@@ -133,10 +140,7 @@ _ROUTES = {"one_launch": 0, "per_phase": 0}
 
 
 class RuleBook:
-    """A neighbour map with its rule book (see the module docstring).
-    ``masks`` and ``order`` are None where the map has more than
-    ``MAX_OFFSETS`` offsets, which only the plain versions on the CPU
-    take."""
+    """A neighbour map with its rule book (see the module docstring)."""
 
     __slots__ = ("nbr", "masks", "order", "_pairs")
 
@@ -146,8 +150,6 @@ class RuleBook:
         self._pairs = None
         if _masks_order is not None:
             self.masks, self.order = _masks_order
-        elif nbr.shape[1] > MAX_OFFSETS:
-            self.masks = self.order = None
         else:
             (self.masks,), (self.order,) = subm_conv_rulebook([self.nbr])
 
@@ -187,15 +189,14 @@ class RuleBook:
         ``sparse_conv_cuda.k5_tile_rows``): a tile multiplies each of its
         rows at every offset that any of its rows has. A count on the host
         (it reads the device)."""
-        k = self.nbr.shape[1]
-        m = self.masks[self.order.long()]
-        real = torch.ones_like(m, dtype=torch.bool)
-        pad = -m.shape[0] % tile_rows
-        m = torch.cat([m, m.new_zeros(pad)]).view(-1, tile_rows)
-        real = torch.cat([real, real.new_zeros(pad)]).view(-1, tile_rows)
-        bit = (m[..., None] >> torch.arange(k, device=m.device)) & 1
-        union = bit.amax(dim=1).sum(dim=1)                    # per tile
-        scheduled = int((union * real.sum(dim=1)).sum())
+        nq, k = self.nbr.shape
+        bit = self.nbr[self.order.long()] >= 0                 # (Nq, K)
+        pad = -nq % tile_rows
+        bit = torch.cat([bit, bit.new_zeros((pad, k))]).view(-1, tile_rows, k)
+        real = (torch.arange(nq + pad, device=bit.device) < nq).view(
+            -1, tile_rows).sum(dim=1)                         # rows a tile
+        union = bit.any(dim=1).sum(dim=1)                     # per tile
+        scheduled = int((union * real).sum())
         return int(bit.sum()), scheduled
 
 
@@ -216,7 +217,7 @@ def prepare_neighbor_maps(nbrs):
     if len({(n.shape[1], n.device) for n in nbrs}) > 1:
         raise ValueError("maps prepared together share K and a device: "
                          f"{[(tuple(n.shape), str(n.device)) for n in nbrs]}")
-    if not nbrs or nbrs[0].shape[1] > MAX_OFFSETS:
-        return [RuleBook(n) for n in nbrs]
+    if not nbrs:
+        return []
     masks, orders = subm_conv_rulebook(nbrs)
     return [RuleBook(n, mo) for n, mo in zip(nbrs, zip(masks, orders))]

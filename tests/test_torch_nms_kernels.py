@@ -58,6 +58,8 @@ def test_kernel_constants_match_the_wrappers():
     assert (_c_constant("soft_nms.cu", "kStagedMaxNF64")
             == TK._SOFT_STAGED_MAX_N_F64)
     assert _c_constant("soft_nms.cu", "kMaxN") == TK._SOFT_MAX_N
+    assert (_c_constant("soft_nms.cu", "kSharedStateMaxN")
+            == TK._SOFT_SHARED_STATE_MAX_N)
     assert _c_constant("soft_nms.cu", "kListLen") == TK._SOFT_LIST_LEN
     assert _c_constant("nms_scan.cu", "kWarpWords") * 64 == TK._WARP_MAX_N
     assert _c_constant("nms_scan.cu", "kMaxWords") == TK._MAX_N // 64
@@ -240,6 +242,17 @@ def _k4_layout(n):
     return 1 << (-(-n // 32) - 1).bit_length()
 
 
+def _k4_warps(n):
+    """Warps of K4's cascade, as csrc/soft_nms.cu `launch` picks them: the
+    fewest power of two that covers the lanes up to 8 warps (scores in
+    shared memory), then 16 up to 16 384 boxes and 32 up to 32 768 (scores
+    in the scratch)."""
+    lanes = -(-n // _k4_layout(n))
+    if n <= TK._SOFT_SHARED_STATE_MAX_N:
+        return 1 << (-(-lanes // 32) - 1).bit_length()
+    return 16 if n <= 16384 else 32
+
+
 _NAN_KEY = 0xFFFFFFFF  # csrc/soft_nms.cu kNanKey of a float32 score
 _NAN_KEY64 = (1 << 64) - 1  # and of a float64 score
 
@@ -293,7 +306,9 @@ def _emulate_k4(iou, scores0, pre, iou_t, score_t, param, method,
     64-bit keys and reduces them as :func:`_warp_pick` does."""
     n = iou.shape[0]
     c = c or _k4_layout(n)
-    threads = -(-n // (32 * c)) * 32
+    # the kernel's lanes: at least the boxes' (a layout of fewer boxes a
+    # lane than the kernel's takes more), at most 32 warps
+    threads = max(-(-n // (32 * c)) * 32, 32 * _k4_warps(n))
     ll = TK._SOFT_LIST_LEN
     wide = iou.dtype == np.float64
     ft = iou.dtype.type
@@ -303,22 +318,27 @@ def _emulate_k4(iou, scores0, pre, iou_t, score_t, param, method,
     t32, st = ft(iou_t), ft(score_t)
     p = torch.tensor(param, dtype=tdt)
     tiny = torch.tensor(1e-38, dtype=tdt)
+
+    def decay(vals):  # the plain version's factors, element by element
+        return TK._soft_decay(torch.from_numpy(np.ascontiguousarray(vals)),
+                              p, tiny, method).numpy()
+
     words = (n + 31) // 32
     marks = np.zeros((n, words), np.int64)
     before = np.zeros((n, words), np.int64)
     decs = np.zeros((n, ll), iou.dtype)
-    dec_rows = [TK._soft_decay(torch.from_numpy(iou[i]), p, tiny,
-                               method).numpy() for i in range(n)]
-    for i in range(n):
-        cnt = 0
-        for w in range(words):
-            before[i, w] = min(cnt, 255)
-            for j in range(w * 32, min(n, w * 32 + 32)):
-                if j != i and iou[i, j] > t32:
-                    marks[i, w] |= 1 << (j % 32)
-                    if cnt < ll:
-                        decs[i, cnt] = dec_rows[i][j]
-                    cnt += 1
+    for r0 in range(0, n, 512):  # pass 1 in blocks of rows
+        rows = np.arange(r0, min(n, r0 + 512))
+        m = iou[rows] > t32
+        m[np.arange(len(rows)), rows] = False
+        mw = np.pad(m, ((0, 0), (0, words * 32 - n))).reshape(
+            len(rows), words, 32)
+        marks[rows] = (mw.astype(np.int64) << np.arange(32)).sum(-1)
+        cnt = mw.sum(-1)
+        before[rows] = np.minimum(np.cumsum(cnt, 1) - cnt, 255)
+        rank = np.cumsum(m, 1) - 1
+        ri, j = np.nonzero(m & (rank < ll))
+        decs[rows[ri], rank[ri, j]] = decay(iou[rows[ri], j])
     sc = scores0.astype(iou.dtype).copy()
     avail, supp = [0] * threads, [0] * threads
     for j in range(n):
@@ -358,7 +378,7 @@ def _emulate_k4(iou, scores0, pre, iou_t, score_t, param, method,
                     rank = before[pick, j0 // 32] + bin(
                         word & ((1 << (bit0 + k)) - 1)).count("1")
                     dec = (decs[pick, rank] if rank < ll
-                           else dec_rows[pick][j0 + k])
+                           else decay(iou[pick, j0 + k:j0 + k + 1])[0])
                     sc[j0 + k] = sc[j0 + k] * dec
                     if sc[j0 + k] < st:
                         avail[t] &= ~(1 << k)
@@ -521,13 +541,70 @@ def test_k4_wide_key_reduction(rng):
 
 
 def test_k4_layouts_cover_every_n():
-    for n in (1, 31, 32, 33, 100, 512, 1000, 1024, 1025, 2048, 4097, 8192):
-        c = _k4_layout(n)
+    """Every n up to 32 768 has a layout: up to 8192 boxes at most 8 warps
+    with the scores in shared memory, above them 16 warps up to 16 384
+    boxes and 32 up to 32 768 (1024 threads) with the scores in the
+    scratch, whose words the wrapper sizes for them; only above 32 768 the
+    kernel refuses."""
+    for n in (1, 31, 32, 33, 100, 512, 1000, 1024, 1025, 2048, 4097, 8192,
+              8193, 16384, 16385, 32768):
+        c, warps = _k4_layout(n), _k4_warps(n)
         lanes = -(-n // c)
-        assert c <= 32 and lanes <= 256
+        assert c <= 32 and lanes <= 32 * warps <= 1024
+        assert warps == TK._soft_warps(n)
         assert (lanes <= 32) == (n <= TK._SOFT_STAGED_MAX_N)
+        assert (warps > 8) == (n > TK._SOFT_SHARED_STATE_MAX_N)
+        for itemsize in (4, 8):
+            marks = n * -(-n // 32)
+            rows = (n * TK._SOFT_LIST_LEN * itemsize // 4 + marks
+                    + -(-marks // 4))
+            # above 8192 boxes: the scores and keys of every lane's 32 boxes
+            state = (-(-rows // 4) * 4 - rows
+                     + warps * 1024 * 2 * itemsize // 4) if warps > 8 else 0
+            assert TK._soft_scratch_words(n, itemsize) == rows + state
     with pytest.raises(ValueError):
         _k4_layout(TK._SOFT_MAX_N + 1)
+
+
+def _sparse_k4_inputs(rng, n, dtype, available=160):
+    """An (n, n) IoU matrix of clusters of 4 boxes that span lanes and
+    warps (members i, i + 37, i + 1029 and i + n / 2), with ``available``
+    boxes above the score threshold and the rest pre-suppressed, so that
+    the cascade's steps stay few at n above 8192."""
+    iou = np.zeros((n, n), dtype)
+    np.fill_diagonal(iou, 1.0)
+    heads = rng.choice(n, available // 4, replace=False)
+    live = np.zeros(n, bool)
+    for h in heads:
+        members = (h + np.array([0, 37, 1029, n // 2])) % n
+        live[members] = True
+        vals = rng.uniform(0.05, 0.95, (4, 4))
+        vals = (vals + vals.T) / 2
+        np.fill_diagonal(vals, 1.0)
+        iou[np.ix_(members, members)] = np.maximum(
+            iou[np.ix_(members, members)], vals.astype(dtype))
+    scores = np.where(live, rng.uniform(0.2, 1.0, n), 0.05).astype(dtype)
+    pre = ~live
+    init = np.where(pre, -np.inf, scores).astype(dtype)
+    return iou, init, pre
+
+
+@pytest.mark.parametrize("n,dtype,method,param", [
+    (8193, np.float64, "linear", 0.5), (16384, np.float32, "gaussian", 0.4)])
+def test_k4_wide_layout_matches_plain(rng, n, dtype, method, param):
+    """Above 8192 boxes (16 warps of 32 boxes a lane, the scores in the
+    scratch), the emulated schedule equals the plain cascade on sparse
+    clusters whose picks decay boxes of other lanes and warps (float64
+    linear at 8193 boxes, float32 gaussian at 16 384)."""
+    iou, init, pre = _sparse_k4_inputs(rng, n, dtype)
+    assert _k4_warps(n) == 16
+    args = (0.3, 0.35, param, method)
+    plain = TK._soft_nms_scan_plain(torch.from_numpy(iou),
+                                    torch.from_numpy(init),
+                                    torch.from_numpy(pre), *args).numpy()
+    got = _emulate_k4(iou, init, pre, *args)
+    np.testing.assert_array_equal(got, plain)
+    assert pre.sum() < plain.sum() < n
 
 
 # ---------------------------------------------------------------------------

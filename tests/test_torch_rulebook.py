@@ -102,7 +102,7 @@ def _k5_schedule(feats, rules, w, valid, tile_rows):
     the offsets (ascending) that some row of the tile has, absent rows
     zero; every row written once (the output starts as NaN). Returns the
     output and the (row, offset) pairs multiplied."""
-    nq, cout = rules.shape[0], w.shape[2]
+    (nq, k_off), cout = rules.shape, w.shape[2]
     out = torch.full((nq, cout), float("nan"))
     order = rules.order.long()
     done = 0
@@ -110,7 +110,7 @@ def _k5_schedule(feats, rules, w, valid, tile_rows):
         rows = order[t0:t0 + tile_rows]
         nb = rules.nbr[rows]
         acc = torch.zeros((len(rows), cout))
-        for k in range(K):
+        for k in range(k_off):
             if not bool((nb[:, k] >= 0).any()):
                 continue  # no row of the tile has offset k
             x = torch.where((nb[:, k] >= 0)[:, None],
@@ -315,17 +315,45 @@ def test_kernel_wrappers_take_a_rule_book_on_the_cpu(rng):
 
 
 def test_more_offsets_than_mask_bits_only_on_the_cpu(rng):
-    """A 5x5x5 map (125 offsets) has no 32-bit mask: its rule book keeps
-    no order (the kernels would refuse it on CUDA) but still lists K6's
-    pairs, and the plain versions take it."""
-    nbr = torch.from_numpy(rng.integers(-1, 6, (6, 125)).astype(np.int32))
-    rules = RuleBook(nbr)
-    assert rules.order is None and rules.masks is None
-    _, counts = rules.pairs()
-    assert counts.tolist() == (nbr >= 0).sum(0).tolist()
-    out = TK.subm_conv(torch.ones(6, 2), rules, torch.ones(125, 2, 3),
-                       torch.ones(6, dtype=torch.bool))
-    assert torch.equal(out[:, 0], 2.0 * (nbr >= 0).sum(1))
+    """Maps of 4x4x4 (64) and 5x5x5 (125) offsets, more than a 31-bit mask
+    holds, have a rule book like any other (the kernels take them on CUDA
+    too): offset k folds onto mask bit k mod 31, the order is the stable
+    sort of the folded masks, the emulated K5 schedule (tiles walking the
+    offsets present in the map, in several mask words) equals the plain
+    version at the kernel's tile and at small tiles, and K6's lists hold
+    every present pair. The name is kept from when only the CPU took
+    them."""
+    for k, size in ((64, 4), (125, 5)):
+        coords, valid = _sites(rng, 150, 192)
+        nbr = TS.build_neighbor_map(torch.from_numpy(coords),
+                                    torch.from_numpy(valid), GRID,
+                                    kernel_size=size)
+        assert nbr.shape == (192, k)
+        rules = RuleBook(nbr)
+        present = (nbr >= 0).numpy()
+        fold = np.zeros((192, 31), bool)
+        for j in range(k):
+            fold[:, j % 31] |= present[:, j]
+        np.testing.assert_array_equal(rules.masks.numpy(),
+                                      (fold << np.arange(31)).sum(1))
+        np.testing.assert_array_equal(
+            rules.order.numpy(), np.argsort(rules.masks.numpy(),
+                                            kind="stable"))
+        _, counts = rules.pairs()
+        assert counts.tolist() == present.sum(0).tolist()
+        feats = torch.from_numpy(rng.normal(size=(192, 8)).astype(
+            np.float32))
+        w = torch.from_numpy((rng.normal(size=(k, 8, 16)) / np.sqrt(
+            k * 8)).astype(np.float32))
+        tv = torch.from_numpy(valid)
+        want = TK._subm_conv_plain(feats, nbr, w, tv)
+        assert torch.equal(TK.subm_conv(feats, rules, w, tv), want)
+        for tile in (4, 16, 128):
+            got, done = _k5_schedule(feats, rules, w, tv, tile)
+            assert not bool(torch.isnan(got).any())
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-6,
+                                       atol=2e-6)
+            assert rules.k5_schedule(tile) == (int(present.sum()), done)
 
 
 def test_rule_book_rejects_what_is_not_a_map():
