@@ -19,9 +19,11 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    20 000 through the bool route and nms2d's (bit rows, scores, order),
    both of its kernels (``check_scans``); K4 (soft-NMS cascade, linear and
    gaussian, float32 and float64, n = 100 to 16 384, a dense cluster, a NaN
-   score and +0/-0 scores, all three of its routes in each dtype: rows in
-   shared memory, rows from L2, and above 8192 boxes the scores in global
-   memory) exactly; the
+   score and +0/-0 scores, all four of its routes in each dtype: rows in
+   shared memory, rows from L2, above 8192 boxes the scores in global
+   memory, and above 32 768 boxes lanes of 64 or more boxes: 40 000 boxes
+   in float32 and 32 769 in float64, few above the score threshold, and a
+   dense 40 000-box case timed only) exactly; the
    voxelizers on points with NaNs equal to the CPU's
    (``check_nan_voxels``); K1's float32 matrix raising under autograd
    (``check_k1_grad_guard``); K5
@@ -97,8 +99,20 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    by ``evaluate_nuscenes_detection`` / ``evaluate_nuscenes_official``,
    each equal to the CPU's; stand-in tracks held to their stated floors;
    a seeded tracking set of nuScenes val's shape scored and timed, cut to
-   its budget); each path must launch its kernels, and nms2d K1's bit form
-   and the scan only (``check_nms_routes``);
+   its budget) and ``centerpoint_track`` (``presets.centerpoint_nuscenes_10sweep``
+   uncut, bf16, on the same keyframes: one- and two-stage
+   ``make_centerpoint_detector`` requests, counts read per request, card
+   against CPU with TF32 off; the two-stage detector through
+   ``make_tracking_step``, its slot tables equal to a CPU tracker's on
+   the same detections; 3 f32 + 3 bf16 training steps and 3 of the refine
+   stage (K1's f32 form on its targets, held to its plain version); two
+   boxes in one centre cell assigned as on the CPU; PointPainting: a
+   Seg2D segmenter on six 448 x 800 images, ``painting_rig`` of a
+   nuScenes-like rig, ``paint_points_multi`` card vs CPU, the painted
+   15-column sweep through SECOND in bf16 (K5 at C = 15, padded);
+   ``aligned_scatter`` and ``nearest_neighbor`` at scale, card vs CPU);
+   each path must launch its kernels, and nms2d K1's bit form and the
+   scan only (``check_nms_routes``);
 4. checks the outputs: finite, of the expected shape, the keep masks equal
    to the plain scans on the kernels' own IoU matrices, the voxelizer
    equal to the port's CPU run, the box and voxel API's outputs equal to
@@ -877,12 +891,95 @@ def check_k4(dev):
                     wide[str(dt)[6:]] = k4_wide_times(
                         lambda: nms_cuda._soft_launch(iou, init, pre, *args),
                         plain_ms, len(boxes), got, iou.element_size())
+    wide["above_32768"] = check_k4_wide(dev, rng)
     routes = {k: v - routes0[k]
               for k, v in nms_cuda._soft_launch.routes.items()}
     log(f"soft_nms_scan launches by route in the checks: {routes}")
     check(all(v > 0 for v in routes.values()),
           f"K4: a route never ran: {routes}")
     return worst, routes, wide
+
+
+# K4 above 32 768 boxes (lanes of 64 boxes): float32 at 40 000 boxes (a
+# 6.4 GB matrix), float64 at 32 769 (8.6 GB); few boxes start above the
+# score threshold, so the cascade's steps stay few
+K4_WIDE_CASES = ((40_000, torch.float32), (32_769, torch.float64))
+K4_WIDE_LIVE = 400
+
+
+def check_k4_wide(dev, rng):
+    """K4's layout above 32 768 boxes against the plain cascade (which
+    stops, as the kernel, when no box is left): per case of
+    K4_WIDE_CASES the bench recipe's boxes with all but K4_WIDE_LIVE
+    scores below the threshold, linear and gaussian, masks equal; then
+    at 40 000 float32 boxes all above it (a step a box kept), timed only
+    (the plain cascade takes ~10 s a call at 16 384 boxes). Each matrix
+    is freed before the next. Returns the times: the sparse cases' and
+    the dense one's (CUDA events, median of 3), the plain cascade's
+    (host clock), the bounds of this run's steps."""
+    from d3d_tpu_torch.ops import geometry_cuda, nms_cuda
+    from d3d_tpu_torch.ops.nms import _soft_nms_init
+
+    out = {}
+    thr = SOFT_NMS_ARGS["score_threshold"]
+    iou_t = SOFT_NMS_ARGS["iou_threshold"]
+    for n, dt in K4_WIDE_CASES:
+        boxes, scores = bench_boxes(rng, n)
+        scores = np.where(np.arange(n) < K4_WIDE_LIVE, scores * 0.5 + 0.5,
+                          scores * 0.25).astype(np.float32)
+        scores = scores[rng.permutation(n)]
+        tb = torch.from_numpy(boxes).to(dev)
+        iou = geometry_cuda.rbox_iou_matrix(tb, tb)
+        if dt == torch.float64:
+            iou32, iou = iou, iou.to(dt)
+            del iou32
+        pre, init = _soft_nms_init(torch.from_numpy(scores).to(dev, dt), thr)
+        for method, param in SOFT_NMS_CASES:
+            args = (iou_t, thr, param, method)
+            got = nms_cuda._soft_launch(iou, init, pre, *args)
+            t0 = time.perf_counter()
+            want = nms_cuda._soft_nms_scan_plain(iou, init, pre, *args)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            bad = int((got != want).sum())
+            steps = n - int(got.sum())
+            log(f"soft_nms_scan {method} {str(dt)[6:]} n={n} ({K4_WIDE_LIVE} "
+                f"above the threshold, {nms_cuda._soft_boxes(n)} boxes a "
+                f"lane): {bad} differ from the plain cascade, {steps} steps")
+            check(bad == 0, f"soft_nms_scan {method} {dt} n={n}: {bad} "
+                            "mismatches")
+            check(0 < steps <= K4_WIDE_LIVE, f"K4 n={n}: {steps} steps")
+            if method == "linear":
+                b_ms, b_by = k4_bound(n, steps, iou.element_size())
+                out[f"sparse_{n}_{str(dt)[6:]}"] = dict(
+                    n=n, steps=steps, ms=time_each(
+                        lambda: nms_cuda._soft_launch(iou, init, pre, *args),
+                        reps=3, warmup=1),
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        if n == K4_WIDE_CASES[0][0]:
+            # every box above the threshold: as many steps as boxes kept
+            dense = (0.5 + 0.5 * rng.random(n)).astype(np.float32)
+            pre, init = _soft_nms_init(torch.from_numpy(dense).to(dev), thr)
+            args = (iou_t, thr, 1.0, "linear")
+            got = nms_cuda._soft_launch(iou, init, pre, *args)
+            steps = n - int(got.sum())
+            b_ms, b_by = k4_bound(n, steps)
+            ms = time_each(lambda: nms_cuda._soft_launch(iou, init, pre,
+                                                         *args),
+                           reps=3, warmup=0)
+            out[f"dense_{n}_float32"] = dict(
+                n=n, steps=steps, ms=ms, plain_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
+            log(f"K4 n={n} float32, every score above the threshold: "
+                f"{steps} steps, {ms:.2f} ms a launch (CUDA events, median "
+                f"of 3; not compared: the plain cascade would take minutes),"
+                f" bound {b_ms:.4f} ms ({b_by})")
+        del iou, pre, init
+        torch.cuda.empty_cache()
+    for name, row in out.items():
+        log(f"K4 {name}: {row['ms']:.3f} ms (CUDA events), plain "
+            f"{row['plain_ms']} ms, bound {row['bound_ms']:.6f} ms")
+    return out
 
 
 def k4_wide_times(launch, plain_ms, n, suppressed, itemsize):
@@ -5131,6 +5228,662 @@ def nuscenes_track_eval(dev, vn):
     return counts, stats
 
 
+# ---------------------------------------------------------------------------
+# centerpoint_track: CenterPoint (one- and two-stage) at the nuScenes
+# 10-sweep preset's full width into the device tracker, its training and
+# the refine stage's, PointPainting (Seg2D -> a camera rig -> SECOND), and
+# aligned_scatter / nearest_neighbor at scale
+# ---------------------------------------------------------------------------
+
+CP_STEPS = 3          # training steps a dtype, and of the refine stage
+CAMERAS = (("CAM_FRONT", 0.0), ("CAM_FRONT_RIGHT", -55.0),
+           ("CAM_FRONT_LEFT", 55.0), ("CAM_BACK_RIGHT", -110.0),
+           ("CAM_BACK_LEFT", 110.0), ("CAM_BACK", 180.0))
+CAM_SIZE = (448, 800)   # nuScenes' 900 x 1600 halved, divisible by 8
+SEG_CLASSES = 11        # nuScenes-lidarseg's 10 detection classes + other
+NN_QUERIES, NN_REFS, NN_CPU_QUERIES = 100_000, 500_000, 2048
+SCATTER_POINTS = 100_000
+CP_HEAD_SD = dict(hm=2.0, reg=0.3, height=0.3, dim=0.3, rot=0.3, vel=0.3)
+
+
+def cp_preset(**kw):
+    """The phase's configuration: the nuScenes 10-sweep preset, uncut."""
+    from d3d_tpu_torch.models import presets
+
+    return presets.centerpoint_nuscenes_10sweep(**kw)
+
+
+def calibrate_centerpoint(model, refine, pts, dev):
+    """Rescale the random heads so their outputs over the occupied BEV
+    cells (those whose shared feature is not 0) spread like a trained
+    model's (heatmap logits sd 2 about the -2.19 bias, regressions sd
+    0.3), and the refine stage's output so its confidence logits spread
+    with sd 1 and its residuals with sd 0.05 on this frame's proposals.
+    Returns (occupied share of the canvas, peaks above 0.3)."""
+    from d3d_tpu_torch.models import pillarize, roi_grid_features
+    from d3d_tpu_torch.models.centerpoint import _heads, decode_centers
+
+    cfg = model.cfg
+    keys = dict(hm="heatmap")
+    with torch.inference_mode():
+        f, c, v = pillarize(torch.from_numpy(pts).to(dev), cfg)
+        out = {k: t[0] for k, t in model(f[None], c[None], v[None]).items()}
+    occupied = (out["feat"] != 0).any(dim=-1)
+    for name, _ in _heads(cfg):
+        last = model.heads[f"{name}_out"]
+        o = out[keys.get(name, name)][occupied] - last.bias.detach()
+        with torch.no_grad():
+            last.weight.mul_(CP_HEAD_SD[name] / float(o.std()))
+    with torch.inference_mode():
+        out = {k: t[0] for k, t in model(f[None], c[None], v[None]).items()}
+        boxes, scores = decode_centers(cfg, out)[:2]
+        pooled = roi_grid_features(out["feat"], boxes, cfg.bounds, cfg.grid,
+                                   refine.cfg.grid_points)
+        r = refine(pooled, boxes)
+    with torch.no_grad():
+        refine.out.weight[0].mul_(1.0 / float(r["conf"].std()))
+        refine.out.weight[1:].mul_(0.05 / float(r["deltas"].std()))
+    return float(occupied.float().mean()), int((scores > 0.3).sum())
+
+
+def centerpoint_setup(dev, vn):
+    """CenterPoint on the 10-sweep preset at full width: f32 and the bf16
+    preset on the same seeded weights (heads calibrated on keyframe 0),
+    the refine stage (RefineConfig's defaults), on VoxelNeXt's
+    nuScenes-like keyframes (5 columns)."""
+    from d3d_tpu_torch.models import CenterPoint, CenterPointRefine
+    from d3d_tpu_torch.models import RefineConfig
+
+    cfg32 = cp_preset(dtype="float32")
+    feat_c = cfg32.upsample_channels * len(cfg32.backbone_channels)
+    model32 = CenterPoint(cfg32, return_feat=True, point_features=5,
+                          device=dev,
+                          generator=torch.Generator().manual_seed(12))
+    refine = CenterPointRefine(RefineConfig(), feat_c, device=dev,
+                               generator=torch.Generator().manual_seed(13))
+    share, peaks = calibrate_centerpoint(model32, refine, vn["clouds"][0],
+                                         dev)
+    model16 = CenterPoint(cp_preset(), return_feat=True, point_features=5,
+                          device=dev)
+    model16.load_state_dict(model32.state_dict())
+    log(f"CenterPoint ({cfg32.grid[0]} x {cfg32.grid[1]} canvas, "
+        f"{cfg32.max_pillars} pillars x {cfg32.max_points_per_pillar} "
+        f"points, {feat_c}-channel BEV map) heads calibrated over keyframe "
+        f"0's occupied cells ({share:.1%} of the canvas; {peaks} peaks "
+        "above 0.3)")
+    return dict(cfg32=cfg32, model32=model32, model16=model16,
+                refine=refine, feat_c=feat_c, occupied_share=share,
+                peaks=peaks)
+
+
+def cp_detectors(cp, dev, dtype="bfloat16"):
+    """The one- and two-stage detectors of the ``dtype`` model."""
+    from d3d_tpu_torch.models import make_centerpoint_detector
+
+    model = cp["model16" if dtype == "bfloat16" else "model32"]
+    rcfg = cp["refine"].cfg
+    return {stages: make_centerpoint_detector(
+        model, None, model.cfg, model.cfg, nusc_classes(), device=dev,
+        refine=(cp["refine"], None, rcfg) if stages == "two" else None)
+        for stages in ("one", "two")}
+
+
+def centerpoint_serving(dev, cp, clouds):
+    """One- and two-stage requests (bf16 preset) per keyframe, counts read
+    per request (K1's bit rows and the scan once each, nms2d's route),
+    the outputs TrackingTarget3Ds; then each route's steady request
+    (host clock and CUDA events, median of 10 after a warm-up) and the
+    card's busy share over 5 requests."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dets = cp_detectors(cp, dev)
+    counts, stats = {}, {}
+    for stages, detect in dets.items():
+        ms, kept = [], []
+        for k, pts in enumerate(clouds):
+            reset_counts()
+            out, dev_ms, _ = timed(lambda: detect(pts, frame="velo",
+                                                  timestamp=k))
+            c = read_counts()
+            check(c == want_counts(rbox_iou_matrix=1, nms_scan=1),
+                  f"CenterPoint {stages}-stage request {k}: launches {c}")
+            check_nms_routes(f"CenterPoint {stages}-stage request", 1)
+            add_counts(counts, c)
+            check(all(type(o).__name__ == "TrackingTarget3D" for o in out)
+                  and all(np.isfinite(o.velocity).all()
+                          and np.isfinite(o.position).all() for o in out),
+                  f"CenterPoint {stages}-stage: not finite TrackingTarget3Ds")
+            ms.append(dev_ms)
+            kept.append(len(out))
+        n = len(clouds)
+        for i in range(3):
+            detect.device_fn(clouds[i % n])
+        steady = [timed(lambda: detect.device_fn(clouds[i % n]))
+                  for i in range(10)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(5):
+                detect.device_fn(clouds[i % n])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = busy_share(prof, wall)
+        stats[stages] = dict(
+            request_ms=ms, kept=kept,
+            steady_ms=statistics.median(s[1] for s in steady),
+            steady_host_ms=statistics.median(s[2] for s in steady),
+            busy_share=busy)
+        log(f"CenterPoint {stages}-stage serving (bf16 preset): requests "
+            + ", ".join(f"{m:.2f}" for m in ms) + " ms by CUDA events (the "
+            f"first cold), steady {stats[stages]['steady_ms']:.2f} ms (host "
+            f"{stats[stages]['steady_host_ms']:.2f} ms, median of 10); busy "
+            f"share {busy if busy is None else round(busy, 3)}; kept {kept}")
+    return counts, stats, dets
+
+
+def cp_top_indices(cfg, heads):
+    """decode_centers' flat top-k indices over (W, H, C) (its first
+    steps), to compare two sides' selections."""
+    hm = torch.sigmoid(heads["heatmap"])
+    pooled = torch.nn.functional.max_pool2d(hm.permute(2, 0, 1)[None], 3, 1,
+                                            1)[0].permute(1, 2, 0)
+    flat = torch.where(hm >= pooled, hm, 0.0).reshape(-1)
+    return torch.sort(flat, descending=True, stable=True).indices[:cfg.top_k]
+
+
+def centerpoint_card_vs_cpu(dev, cp, pts):
+    """Keyframe ``pts`` through the f32 model on the card (TF32 off) and
+    the same weights on the CPU: every head and the BEV map within 1e-4
+    of its largest magnitude, the decode's top-k indices equal; the
+    one- and two-stage detectors' boxes from the CPU's outputs at those
+    indices within 2e-3 m / 2e-3 relative / 2e-2 rad, scores within
+    1e-4; the CPU's NMS on the card's boxes equal to the card's keep
+    masks. Returns the f32 request ms and the CPU network's ms."""
+    from d3d_tpu_torch.models import (CenterPoint, CenterPointRefine,
+                                      pillarize)
+    from d3d_tpu_torch.models.inference import _bev
+    from d3d_tpu_torch.ops.nms import nms2d
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cp["cfg32"]
+    cpu_model = CenterPoint(cfg, return_feat=True, point_features=5,
+                            device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               cp["model32"].state_dict().items()})
+    cpu_refine = CenterPointRefine(cp["refine"].cfg, cp["feat_c"],
+                                   device="cpu")
+    cpu_refine.load_state_dict({k: v.cpu() for k, v in
+                                cp["refine"].state_dict().items()})
+    raw, ms = [], []
+    for m, d in ((cp["model32"], dev), (cpu_model, "cpu")):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            f, c, v = pillarize(torch.from_numpy(pts).to(d), cfg)
+            raw.append({k: t[0] for k, t in
+                        m(f[None], c[None], v[None]).items()})
+        if d != "cpu":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    g, c = {k: t.cpu() for k, t in raw[0].items()}, raw[1]
+    errs = {k: float((g[k] - c[k]).abs().max() / c[k].abs().max())
+            for k in c}
+    check(max(errs.values()) <= 1e-4, f"CenterPoint card vs CPU: {errs}")
+    heads_g = {k: v for k, v in g.items() if k != "feat"}
+    heads_c = {k: v for k, v in c.items() if k != "feat"}
+    idx = cp_top_indices(cfg, heads_g)
+    check(torch.equal(idx, cp_top_indices(cfg, heads_c)),
+          "CenterPoint card vs CPU: the decode's top-k indices differ")
+    dets = cp_detectors(cp, dev, "float32")
+    stats = dict(head_err=errs, cpu_network_ms=ms[1], f32_network_ms=ms[0])
+    for stages, detect in dets.items():
+        out, f32_ms, _ = timed(lambda: [t.cpu() for t in
+                                        detect.device_fn(pts)])
+        stats[f"{stages}_stage_f32_request_ms"] = f32_ms
+        boxes_c, scores_c = cpu_decode(cfg, heads_c, c["feat"], cpu_refine
+                                       if stages == "two" else None)
+        pos_err = float((boxes_c[:, :3] - out[0][:, :3]).abs().max())
+        size_err = float(((boxes_c[:, 3:6] - out[0][:, 3:6])
+                          / out[0][:, 3:6]).abs().max())
+        dyaw = torch.remainder(boxes_c[:, 6] - out[0][:, 6] + math.pi,
+                               2 * math.pi) - math.pi
+        yaw_err = float(dyaw.abs().max())
+        score_err = float((scores_c - out[1]).abs().max())
+        check(pos_err <= 2e-3 and size_err <= 2e-3 and yaw_err <= 2e-2
+              and score_err <= 1e-4,
+              f"CenterPoint {stages}-stage card vs CPU: position {pos_err}, "
+              f"size {size_err}, yaw {yaw_err}, score {score_err}")
+        keep_cpu = ~nms2d(_bev(out[0]), out[1].float(), iou_threshold=0.5)
+        check(torch.equal(keep_cpu, out[3]),
+              f"CenterPoint {stages}-stage keep mask card vs CPU")
+        stats[f"{stages}_stage_errors"] = dict(
+            position_m=pos_err, size=size_err, yaw_rad=yaw_err,
+            score=score_err, kept=int(out[3].sum()))
+        log(f"CenterPoint {stages}-stage card vs CPU (f32, TF32 off): top-"
+            f"{cfg.top_k} indices equal; positions {pos_err:.3g} m, sizes "
+            f"{size_err:.3g}, yaw {yaw_err:.3g} rad, scores {score_err:.3g}; "
+            f"keep mask equal ({int(out[3].sum())} kept); f32 request "
+            f"{f32_ms:.2f} ms")
+    log(f"CenterPoint card vs CPU: heads and BEV map within "
+        f"{max(errs.values()):.3g} of their largest magnitudes; the f32 "
+        f"network {ms[0]:.1f} ms on the card (first call), {ms[1]:.0f} ms "
+        "on the CPU")
+    return stats
+
+
+def cpu_decode(cfg, heads, feat, refine=None):
+    """The detector's boxes and scores from one side's raw outputs (the
+    refine stage on that side when given)."""
+    from d3d_tpu_torch.models import apply_refinements, roi_grid_features
+    from d3d_tpu_torch.models.centerpoint import decode_centers
+
+    with torch.inference_mode():
+        boxes, scores = decode_centers(cfg, heads)[:2]
+        if refine is not None:
+            pooled = roi_grid_features(feat, boxes, cfg.bounds, cfg.grid,
+                                       refine.cfg.grid_points)
+            out = refine(pooled, boxes)
+            boxes = apply_refinements(boxes, out["deltas"])
+            a = refine.cfg.score_alpha
+            scores = scores ** (1 - a) * torch.sigmoid(out["conf"]) ** a
+    return boxes, scores
+
+
+def centerpoint_tracking(dev, detect, clouds):
+    """make_tracking_step over the two-stage detector (bf16) at dt = 0.5 s,
+    counts read over the run (K1's bit rows and the scan once a frame);
+    the same detections through tracker_update on the CPU, the slot
+    tables equal frame by frame (ids, labels, masks, next id exact; the
+    floats within 1e-5, as ``tracker_card_vs_cpu``); then detect and the
+    tracker timed apart."""
+    from d3d_tpu_torch.tracking import make_tracking_step
+    from d3d_tpu_torch.tracking.device_tracker import (tracker_init,
+                                                       tracker_update)
+
+    step = make_tracking_step(detect.device_fn, NUSC_GATES,
+                              lost_time=TRACK_LOST_TIME,
+                              capacity=TRACK_CAPACITY, score_threshold=0.3)
+    state, cpu_state = step.init(), tracker_init(TRACK_CAPACITY, "cpu")
+    reset_counts()
+    frame_ms, active, worst, exact = [], [], 0.0, True
+    for k, pts in enumerate(clouds):
+        dt = 0.0 if k == 0 else KEY_DT
+        (state, out), ms, _ = timed(lambda: step(state, pts, dt))
+        frame_ms.append(ms)
+        active.append(int(state["active"].sum()))
+        boxes, scores, labels, keep, vel = (t.cpu() for t in out)
+        scores = scores.float()
+        cpu_state = tracker_update(cpu_state, boxes, scores, labels, vel,
+                                   keep & (scores >= 0.3), dt, NUSC_GATES,
+                                   TRACK_LOST_TIME)
+        a = {key: t.cpu() for key, t in state.items()}
+        for key in ("tid", "label", "active", "next_tid"):
+            check(torch.equal(a[key], cpu_state[key]),
+                  f"CenterPoint tracking frame {k}: {key} card vs CPU")
+        for key in ("boxes", "vel", "score", "lost", "history"):
+            err = float((a[key] - cpu_state[key]).abs().max())
+            exact = exact and err == 0.0
+            worst = max(worst, err)
+            check(err <= 1e-5, f"CenterPoint tracking frame {k}: {key} "
+                               f"{err}")
+    n = len(clouds)
+    counts = read_counts()
+    check(counts == want_counts(rbox_iou_matrix=n, nms_scan=n),
+          f"CenterPoint tracking: launches {counts}")
+    check_nms_routes("CenterPoint tracking", n)
+    check(int(state["next_tid"]) > 1 and active[-1] > 0,
+          f"CenterPoint tracking: no track ({active})")
+    state = step.init()
+    det_ms, trk_ms = [], []
+    for k, pts in enumerate(clouds):
+        out, ms, _ = timed(lambda: detect.device_fn(pts))
+        det_ms.append(ms)
+        boxes, scores, labels, keep, vel = out
+        args = (boxes, scores.float(), labels, vel,
+                keep & (scores.float() >= 0.3), 0.0 if k == 0 else KEY_DT,
+                step_thresholds(dev), TRACK_LOST_TIME)
+        state, ms, _ = timed(lambda: tracker_update(state, *args))
+        trk_ms.append(ms)
+    log(f"CenterPoint tracking (two-stage, bf16, fused step): frame "
+        + ", ".join(f"{m:.2f}" for m in frame_ms) + " ms by CUDA events; "
+        f"active tracks {active}; slot tables card vs CPU: ids and masks "
+        f"equal, floats within {worst:.3g} (bit-equal: {exact}); apart: "
+        "detect " + ", ".join(f"{m:.2f}" for m in det_ms) + " ms, tracker "
+        + ", ".join(f"{m:.2f}" for m in trk_ms) + " ms")
+    return counts, dict(frame_ms=frame_ms, active=active, detect_ms=det_ms,
+                        tracker_ms=trk_ms, tables_max_err=worst,
+                        tables_bit_equal=exact)
+
+
+def cp_batch(dev, cfg, scene, clouds, keys=(0, 3)):
+    """A training batch of two keyframes: their pillars stacked, their
+    objects as ground truth with BEV velocities, padded to VN_MAX_GT. The
+    10-sweep preset has one class (the JAX package's preset), so every
+    object is labelled 0."""
+    from d3d_tpu_torch.models import pillarize
+
+    with torch.inference_mode():
+        pil = [pillarize(torch.from_numpy(clouds[k]).to(dev), cfg)
+               for k in keys]
+    batch = voxelnext_batch(dev, cfg, scene, pil, keys)
+    batch["gt_labels"] = torch.zeros_like(batch["gt_labels"])
+    return batch
+
+
+def check_collided_targets(dev, cfg, batch):
+    """Two ground-truth boxes in one centre cell (keyframe 0's first box
+    and a copy at its centre, the copy later and larger): assign_center_targets
+    on the card equal to the CPU's (heatmap and vec within 1e-6, mask
+    exact), the cell holding the later box's vector."""
+    from d3d_tpu_torch.models import assign_center_targets
+
+    gt = batch["gt_boxes"][0].clone()
+    mask = batch["gt_mask"][0].clone()
+    labels = batch["gt_labels"][0].clone()
+    vel = batch["gt_velocity"][0].clone()
+    j = min(int(mask.sum()), len(mask) - 1)
+    gt[j] = gt[0] + torch.tensor([0, 0, 0, 0.5, 0.2, 0, 0.1], device=dev)
+    mask[j], labels[j], vel[j] = True, labels[0], vel[0] + 1.0
+    outs = [assign_center_targets(cfg, *(t.to(d) for t in (gt, labels, mask,
+                                                           vel)))
+            for d in (dev, "cpu")]
+    a = {k: v.cpu() for k, v in outs[0].items()}
+    b = outs[1]
+    check(torch.equal(a["mask"], b["mask"]), "collided targets: mask")
+    err = max(float((a[k] - b[k]).abs().max()) for k in ("heatmap", "vec"))
+    check(err <= 1e-6, f"collided targets: card vs CPU {err}")
+    vx, vy, _ = cfg.voxel_size
+    ix = int((float(gt[0, 0]) - cfg.bounds[0]) / vx)
+    iy = int((float(gt[0, 1]) - cfg.bounds[2]) / vy)
+    check(ix == int((float(gt[j, 0]) - cfg.bounds[0]) / vx)
+          and iy == int((float(gt[j, 1]) - cfg.bounds[2]) / vy),
+          "collided targets: the boxes are not in one cell")
+    cell = a["vec"][ix, iy]
+    check(abs(math.exp(float(cell[3])) - float(gt[j, 3])) < 1e-4
+          and abs(float(cell[8]) - float(vel[j, 0])) < 1e-6,
+          "collided targets: the later box does not win its cell")
+    log(f"collided targets: two boxes in cell ({ix}, {iy}), the later one's "
+        f"vector kept; card equal to CPU within {err:.3g}")
+    return err
+
+
+def centerpoint_training(dev, cp, batch, dtype):
+    """make_train_step at full width, batch 2 (keyframes 0 and 3), from
+    the calibrated f32 weights in ``dtype`` (f32 with TF32 off), CP_STEPS
+    steps, counts read per step (dense convolutions: no kernel of the
+    port's). Losses finite. Returns (summed counts, stats)."""
+    from d3d_tpu_torch.models import CenterPoint
+    from d3d_tpu_torch.models.centerpoint import make_train_step
+    from d3d_tpu_torch.train import make_optimizer
+
+    cfg = cp_preset(dtype=dtype)
+    model = CenterPoint(cfg, point_features=5, device=dev)
+    model.load_state_dict(cp["model32"].state_dict())
+    opt, _ = make_optimizer(model.parameters(), total_steps=CP_STEPS)
+    step = make_train_step(model, opt, cfg)
+    total, losses, step_ms = {}, [], []
+    for i in range(CP_STEPS):
+        reset_counts()
+        aux, ms, _ = timed(lambda: step(batch))
+        c = read_counts()
+        check(c == want_counts(), f"CenterPoint training {dtype} step "
+                                  f"{i + 1}: launches {c}")
+        add_counts(total, c)
+        step_ms.append(ms)
+        losses.append({k: float(v) for k, v in aux.items()})
+        check(all(math.isfinite(v) for v in losses[-1].values()),
+              f"CenterPoint training {dtype}: loss {losses[-1]}")
+    check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+              for p in model.parameters()),
+          f"CenterPoint training {dtype}: a gradient not finite")
+    log(f"CenterPoint training {dtype} (batch 2): losses "
+        + ", ".join(f"{l['total']:.4f}" for l in losses) + "; step "
+        + ", ".join(f"{m:.2f}" for m in step_ms) + " ms (CUDA events)")
+    del model, opt
+    return total, dict(losses=[l["total"] for l in losses], step_ms=step_ms)
+
+
+def refine_training(dev, cp, batch):
+    """make_refine_train_step over the frozen f32 first stage (TF32 off),
+    batch 2, CP_STEPS steps, counts read per step: K1's float32 form once
+    a frame (the targets' IoU), nothing else; the first step's targets'
+    K1 matrix held to its plain version as ``check_k1`` holds it."""
+    from d3d_tpu_torch.models import CenterPointRefine
+    from d3d_tpu_torch.models.centerpoint import decode_centers
+    from d3d_tpu_torch.models.centerpoint2 import make_refine_train_step
+
+    cfg = cp["cfg32"]
+    refine = CenterPointRefine(cp["refine"].cfg, cp["feat_c"], device=dev)
+    refine.load_state_dict(cp["refine"].state_dict())
+    opt = torch.optim.AdamW(refine.parameters(), lr=1e-3)
+    step = make_refine_train_step(cp["model32"], None, refine, cfg,
+                                  refine.cfg, opt)
+    with torch.inference_mode():
+        out = {k: t[0] for k, t in cp["model32"](
+            batch["features"][:1], batch["coords"][:1],
+            batch["valid"][:1]).items()}
+        rois = decode_centers(cfg, out)[0]
+    bev = [torch.cat([b[:, 0:2], b[:, 3:5], b[:, 6:7]], -1).contiguous()
+           for b in (rois, batch["gt_boxes"][0])]
+    k1_err, _ = k1_case("refine targets (rois x gt)", *bev)
+    losses, step_ms, total = [], [], {}
+    for i in range(CP_STEPS):
+        reset_counts()
+        aux, ms, _ = timed(lambda: step(batch))
+        c = read_counts()
+        routes = read_routes()
+        check(c == want_counts(rbox_iou_matrix=2) and routes["k1_matrix"]
+              == 2 and routes["k1_bits"] == 0,
+              f"refine training step {i + 1}: launches {c}, routes {routes}")
+        add_counts(total, c)
+        step_ms.append(ms)
+        losses.append(float(aux["total"]))
+        check(math.isfinite(losses[-1]), f"refine training: {losses[-1]}")
+    log(f"refine training (frozen f32 first stage, batch 2): losses "
+        + ", ".join(f"{l:.4f}" for l in losses) + "; step "
+        + ", ".join(f"{m:.2f}" for m in step_ms) + " ms (CUDA events); K1's "
+        "f32 form 2 a step")
+    return total, dict(losses=losses, step_ms=step_ms, k1_err=k1_err)
+
+
+def nuscenes_rig():
+    """A seeded nuScenes-like camera rig in the port's TransformSet: six
+    pinhole cameras (CAM_SIZE, f = 630 px, rotate=True: FLU -> RDF folded
+    into the projection) at the nuScenes yaws, 1.5-1.8 m up around the
+    roof, the lidar at the base frame."""
+    from d3d_tpu_torch.abstraction import TransformSet
+
+    rng = np.random.default_rng(31)
+    ts = TransformSet("ego")
+    ts.set_intrinsic_lidar("LIDAR_TOP")
+    ts.set_extrinsic(np.eye(4), frame_to="LIDAR_TOP")
+    h, w = CAM_SIZE
+    for name, yaw in CAMERAS:
+        ts.set_intrinsic_pinhole(name, (w, h), w / 2, h / 2, 630.0, 630.0)
+        psi = np.deg2rad(yaw + rng.normal(0, 0.5))
+        pos = np.array([1.0 * np.cos(psi), 0.6 * np.sin(psi),
+                        rng.uniform(0.0, 0.3)])
+        rot = np.array([[np.cos(psi), np.sin(psi), 0],
+                        [-np.sin(psi), np.cos(psi), 0], [0, 0, 1]])
+        t = np.eye(4)
+        t[:3, :3] = rot
+        t[:3, 3] = -rot @ pos
+        ts.set_extrinsic(t, frame_to=name)
+    return ts
+
+
+def painting_path(dev, scene):
+    """PointPainting on keyframe 0's own sweep (4 columns): six seeded
+    camera images through a Seg2D segmenter (default channels,
+    CAM_SIZE, SEG_CLASSES classes), ``painting_rig`` of the nuScenes-like
+    rig, ``paint_points_multi`` on the card and on the CPU (within
+    1e-5), then the painted cloud (15 columns) through SECOND in bf16 (K5
+    at C = 15, padded; checked against its plain version at the first
+    layer), counts read over the request. Returns (counts, stats)."""
+    from d3d_tpu_torch.models import (SECOND, Seg2D, Seg2DConfig,
+                                      head_config, make_anchors,
+                                      make_second_detector, make_segmenter,
+                                      presets, second_voxelize)
+    from d3d_tpu_torch.ops.painting import paint_points_multi, painting_rig
+
+    seg = make_segmenter(Seg2D(Seg2DConfig(image_size=CAM_SIZE,
+                                           num_classes=SEG_CLASSES),
+                               device=dev,
+                               generator=torch.Generator().manual_seed(21)),
+                         device=dev)
+    rng = np.random.default_rng(22)
+    images = torch.from_numpy(rng.random((len(CAMERAS),) + CAM_SIZE + (3,),
+                                         dtype=np.float32)).to(dev)
+    seg(images[0])
+    scores, seg_ms, _ = timed(lambda: torch.stack([seg(im) for im in images]))
+    ks, exts = painting_rig(nuscenes_rig(), [c for c, _ in CAMERAS],
+                            frame_from="LIDAR_TOP")
+    ts_, world, inten = nuscenes_sweep_parts(scene, 0)[0]
+    sweep = np.concatenate([world - [ego_x(key_time(0)), 0.0, 0.0],
+                            inten[:, None]], 1).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (sweep, ks, exts)]
+    painted, paint_ms, _ = timed(lambda: paint_points_multi(
+        args[0].to(dev), scores, args[1].to(dev), args[2].to(dev)))
+    cpu = paint_points_multi(args[0], scores.cpu(), args[1], args[2])
+    err = float((painted.cpu() - cpu).abs().max())
+    check(painted.shape == (len(sweep), 4 + SEG_CLASSES) and err <= 1e-5,
+          f"painting card vs CPU: {tuple(painted.shape)}, {err}")
+    seen = float((painted[:, 4:].sum(-1) > 0).float().mean())
+    cfg16 = presets.second_kitti()
+    model = SECOND(cfg16, point_features=4 + SEG_CLASSES, device=dev,
+                   generator=torch.Generator().manual_seed(23))
+    pts = painted.cpu().numpy()
+    calibrate_heads(model, pts, dev, second_voxelize, occupied_only=True)
+    layers = second_layer_inputs(model, pts, dev)
+    k5_err, _ = check_k5({"subm0_0": layers["subm0_0"]}, None,
+                         "SECOND painted (C = 15)")
+    det = make_second_detector(model, None, cfg16,
+                               make_anchors(head_config(cfg16), device=dev),
+                               car_classes(), device=dev)
+    det(pts)
+    reset_counts()
+    out, req_ms, _ = timed(lambda: det(painted))
+    counts = read_counts()
+    check(counts == want_counts(rbox_iou_matrix=1, nms_scan=1,
+                                subm_conv=len(K5_LAYERS),
+                                subm_conv_rulebook=1),
+          f"painted SECOND request: launches {counts}")
+    check_nms_routes("painted SECOND request", 1)
+    kept = check_detections("painted SECOND", out)
+    log(f"PointPainting: Seg2D on {len(CAMERAS)} images {CAM_SIZE} "
+        f"({seg_ms:.2f} ms, CUDA events), paint_points_multi on "
+        f"{len(sweep)} points {paint_ms:.2f} ms ({seen:.1%} seen by a "
+        f"camera), card vs CPU within {err:.3g}; SECOND bf16 on the "
+        f"painted cloud (C = {4 + SEG_CLASSES}): {req_ms:.2f} ms, kept "
+        f"{kept}, launches {counts}")
+    return counts, dict(seg_ms=seg_ms, paint_ms=paint_ms, points=len(sweep),
+                        seen_share=seen, card_vs_cpu_err=err,
+                        second_request_ms=req_ms, k5_err_c15=k5_err,
+                        kept=kept)
+
+
+def point_ops_at_scale(dev, clouds):
+    """aligned_scatter (linear, 2D) of SCATTER_POINTS points on a
+    (1, 384, 512, 512) seeded map, forward and the map's gradient, card
+    against CPU (within 1e-5 of the largest magnitude: the card's
+    gradient adds by atomics); nearest_neighbor of NN_QUERIES queries
+    (keyframe 0) in NN_REFS references (keyframes 1-2) on the card, its
+    first NN_CPU_QUERIES against the CPU's (indices equal but at
+    near-ties, distances within the expansion's rounding of float64).
+    Returns stats."""
+    from d3d_tpu_torch.ops.point import aligned_scatter, nearest_neighbor
+
+    g = torch.Generator().manual_seed(41)
+    fmap = torch.rand((1, 384, 512, 512), generator=g)
+    coords = torch.cat([torch.zeros(SCATTER_POINTS, 1),
+                        torch.rand((SCATTER_POINTS, 2), generator=g) * 530
+                        - 9], 1)
+    ct = torch.randn((SCATTER_POINTS, 384), generator=g)
+    res = []
+    for d in (dev, "cpu"):
+        f = fmap.to(d).requires_grad_(True)
+        out, ms, _ = timed(lambda: aligned_scatter(coords.to(d), f,
+                                                   "linear"))
+        (out * ct.to(d)).sum().backward()
+        res.append((out.detach().cpu(), f.grad.cpu(), ms))
+    fwd_err = float((res[0][0] - res[1][0]).abs().max()
+                    / res[1][0].abs().max())
+    grad_err = float((res[0][1] - res[1][1]).abs().max()
+                     / res[1][1].abs().max())
+    check(fwd_err <= 1e-5 and grad_err <= 1e-5,
+          f"aligned_scatter card vs CPU: {fwd_err}, gradient {grad_err}")
+    del fmap, res[:]
+    q = clouds[0][:NN_QUERIES, :3]
+    r = np.concatenate([clouds[1], clouds[2]])[:NN_REFS, :3]
+    nearest_neighbor(q[:1024], r[:4096], device=dev)
+    (d_card, i_card), nn_ms, _ = timed(lambda: nearest_neighbor(q, r,
+                                                                device=dev))
+    t0 = time.perf_counter()
+    d_cpu, i_cpu = nearest_neighbor(q[:NN_CPU_QUERIES], r, device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    # each side recentres on its own queries' mean, so each rounds its
+    # expansion otherwise: a distance is held to the float64 one within
+    # the expansion's rounding (8 float32 epsilons of |q|^2 + |r|^2, both
+    # recentred), and the indices may differ only where the two picks lie
+    # that close in float64
+    qs, d2, bound = q[:NN_CPU_QUERIES].astype(np.float64), [], []
+    for d, i, origin in ((d_card, i_card, q.mean(0)),
+                         (d_cpu, i_cpu, qs.mean(0))):
+        d, i = d[:NN_CPU_QUERIES], i[:NN_CPU_QUERIES]
+        rr = r[i].astype(np.float64)
+        b = 8 * 2.0 ** -24 * (((qs - origin) ** 2).sum(1)
+                              + ((rr - origin) ** 2).sum(1))
+        exact = ((qs - rr) ** 2).sum(1)
+        check(bool((np.abs(d.astype(np.float64) ** 2 - exact) <= b).all()),
+              "nearest_neighbor: a distance off its float64 value")
+        d2.append(exact)
+        bound.append(b)
+    apart = i_card[:NN_CPU_QUERIES] != i_cpu
+    check(bool((np.abs(d2[0] - d2[1]) <= bound[0] + bound[1])[apart].all())
+          and len(d_card) == NN_QUERIES,
+          f"nearest_neighbor card vs CPU: {int(apart.sum())} apart")
+    d_err = float(np.abs(d_card[:NN_CPU_QUERIES] - d_cpu).max())
+    log(f"aligned_scatter linear: {SCATTER_POINTS} points on a 384 x 512 x "
+        f"512 map, card vs CPU within {fwd_err:.3g} (gradient "
+        f"{grad_err:.3g}); nearest_neighbor {NN_QUERIES} x {NN_REFS}: "
+        f"{nn_ms:.1f} ms on the card (CUDA events), its first "
+        f"{NN_CPU_QUERIES} held to float64 with the CPU's ({int(apart.sum())}"
+        f" near-ties apart, distances within {d_err:.3g} m of the CPU's; "
+        f"the CPU {cpu_ms:.0f} ms)")
+    return dict(scatter_fwd_err=fwd_err, scatter_grad_err=grad_err,
+                nn_ms=nn_ms, nn_cpu_ms=cpu_ms, nn_ties_apart=int(apart.sum()))
+
+
+def centerpoint_track(dev, vn):
+    """The centerpoint_track path. Returns ({path: counts}, stats)."""
+    t0 = time.perf_counter()
+    cp = centerpoint_setup(dev, vn)
+    counts, stats = {}, dict(occupied_share=cp["occupied_share"],
+                             calibrated_peaks=cp["peaks"])
+    counts["centerpoint_serving"], stats["serving"], dets = \
+        centerpoint_serving(dev, cp, vn["clouds"])
+    stats["card_vs_cpu"] = centerpoint_card_vs_cpu(dev, cp, vn["clouds"][2])
+    counts["centerpoint_track"], stats["tracking"] = centerpoint_tracking(
+        dev, dets["two"], vn["clouds"])
+    batch = cp_batch(dev, cp["cfg32"], vn["scene"], vn["clouds"])
+    stats["collided_targets_err"] = check_collided_targets(dev, cp["cfg32"],
+                                                           batch)
+    total = {}
+    for dtype in ("float32", "bfloat16"):
+        c, stats[f"train_{dtype}"] = centerpoint_training(dev, cp, batch,
+                                                          dtype)
+        add_counts(total, c)
+    counts["centerpoint_train"] = total
+    counts["refine_train"], stats["refine_train"] = refine_training(
+        dev, cp, batch)
+    counts["painting"], stats["painting"] = painting_path(dev, vn["scene"])
+    stats["point_ops"] = point_ops_at_scale(dev, vn["clouds"])
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"centerpoint_track: {stats['phase_s']:.1f} s")
+    del cp, dets, batch
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
 def add_cupti(a, b):
     """A sum of CUPTI times that is None where a term is."""
     return None if a is None or b is None else a + b
@@ -5724,6 +6477,7 @@ def main():
     pp_counts, pp_stats = pointpillars_train(dev)
     vn_counts, vn_stats = voxelnext_track(dev, vn, second)
     nte_counts, nte_stats = nuscenes_track_eval(dev, vn)
+    cp_counts, cp_stats = centerpoint_track(dev, vn)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     train_counts, train_stats = {}, {}
@@ -5749,7 +6503,8 @@ def main():
                       "kitti_eval": kitti_counts[name],
                       "pointpillars_train": pp_counts[name],
                       **{path: c[name] for path, c in vn_counts.items()},
-                      "nuscenes_track_eval": nte_counts[name]}
+                      "nuscenes_track_eval": nte_counts[name],
+                      **{path: c[name] for path, c in cp_counts.items()}}
                for name in serve_counts}
     meta = {
         "rbox_iou_matrix": ("cuda", "d3d_tpu_torch/csrc/rbox_iou.cu",
@@ -5801,6 +6556,9 @@ def main():
     rows["soft_nms_scan_f64"]["launches_by_route_in_checks"] = k4_routes
     rows["soft_nms_scan"]["global_state_16384"] = k4_wide["float32"]
     rows["soft_nms_scan_f64"]["global_state_16384"] = k4_wide["float64"]
+    for name, row in k4_wide["above_32768"].items():
+        rows["soft_nms_scan_f64" if name.endswith("float64")
+             else "soft_nms_scan"][f"wide_lanes_{name}"] = row
     rows["subm_conv"].update(
         max_abs_err_bf16=k5_err["bfloat16"], layer_shapes=k5_shapes,
         max_abs_err_backward=k5_bwd_err,
@@ -5836,7 +6594,8 @@ def main():
                               "kitti_eval": kitti_stats,
                               "pointpillars_train": pp_stats,
                               "voxelnext_track": vn_stats,
-                              "nuscenes_track_eval": nte_stats},
+                              "nuscenes_track_eval": nte_stats,
+                              "centerpoint_track": cp_stats},
                     "card": card}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -36,15 +36,18 @@
 //     word (a byte a word, saturated at 255) and keeps the decay factors of
 //     the row's first kListLen marks, computed there by the same expression;
 //   - pass 2, one block: lane g of NW warps owns the C boxes gC .. gC + C -
-//     1 (C <= 32: one warp up to 1024 boxes, 2 to 8 warps above), with
-//     their availability and suppression bits in registers, their scores
-//     and score keys in shared memory, the best key of each group of 4 of
-//     its boxes and its best (key, index). A step is a warp reduction
+//     1 (C <= 32: one warp up to 1024 boxes, 2 to 32 warps above; above
+//     32 768 boxes 32 warps of C = 64, 128 or 256 boxes a lane), with
+//     their availability and suppression bits in registers (C / 32 words
+//     a lane above 32 boxes), their scores and score keys in shared
+//     memory, the best key of each group of 4 of its boxes and its best
+//     (key, index). A step is a warp reduction
 //     (`redux.sync`: the largest key, then the least index holding it)
 //     and, for NW > 1, one double-buffered slot a warp, one barrier and the
 //     same reduction over the slots. Then every lane reads its word of the
 //     pick's marks: a marked available box of rank r in the row takes decay
 //     factor r from the list (r < kListLen) or computes it from its IoU.
+//     A lane of C > 32 boxes reads one word of marks for each 32 of them.
 //     A lane that decayed or froze a box rescans that box's group (4 keys)
 //     and its C / 4 group bests, not its C boxes. Past the loop over a
 //     lane's hits the step has no branch: in one warp the lanes' paths run
@@ -53,11 +56,14 @@
 //     decays: n = 512: 56 KB; 1024: 192 KB) are copied into shared memory
 //     first; above it, each step reads the pick's words from L2. Above
 //     kSharedStateMaxN boxes (8 warps of 32 boxes a lane) the block grows
-//     to 16 or 32 warps (1024 threads: up to kMaxN boxes), and the scores
-//     and keys, 128 KB at 16 384 boxes in f32 and 256 KB in f64, leave
-//     shared memory for a slice of the scratch in global memory: each lane
-//     reads and writes only its own boxes' entries there (coalesced across
-//     the warp), so they stay in L2 from step to step.
+//     to 16 or 32 warps (1024 threads), and the scores and keys, 128 KB at
+//     16 384 boxes in f32 and 256 KB in f64, leave shared memory for a
+//     slice of the scratch in global memory: each lane reads and writes
+//     only its own boxes' entries there (coalesced across the warp), so
+//     they stay in L2 from step to step. Above 32 768 boxes the 1024 lanes
+//     own 64, 128 or 256 boxes each (kMaxN = 262 144 boxes: a float32
+//     matrix of more is 275 GB, which no card holds, so the allocator
+//     refuses the input before the kernel is called).
 //
 // Rounding: built with -fmad=false (ops/_build.py) and without
 // --use_fast_math; the decay is the Pallas body's expression, with
@@ -80,10 +86,15 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
-constexpr int kMaxN = 32768;  // 32 warps of 32 boxes a lane
+// the widest layout: 32 warps of 256 boxes a lane (see the header)
+constexpr int kMaxN = 262144;
+// up to this many boxes a lane owns at most 32 (one word of bits); above,
+// 32 warps of 64, 128 or 256 boxes a lane (nms_cuda.py `_SOFT_WORD_MAX_N`)
+constexpr int kWordMaxN = 32768;
 // the most boxes whose scores and keys pass 2 keeps in shared memory (8
 // warps; nms_cuda.py `_SOFT_SHARED_STATE_MAX_N`); above, in global memory
 constexpr int kSharedStateMaxN = 8192;
@@ -113,10 +124,15 @@ __host__ __device__ constexpr size_t rows_words(int n) {
   return decs_words<T>(n) + marks_words(n) + (marks_words(n) + 3) / 4;
 }
 // above kSharedStateMaxN boxes: the cascade's warps (16 up to 16 384
-// boxes, else 32), and its scores and keys (C = 32 boxes a lane, T and a
-// key as wide a box) after the rows, from a 16-byte boundary
+// boxes, else 32), the boxes a lane (32 up to kWordMaxN, then the least of
+// 64, 128, 256 that covers n), and its scores and keys (T and a key as
+// wide a box) after the rows, from a 16-byte boundary
 __host__ __device__ constexpr int wide_warps(int n) {
   return n <= 2 * kSharedStateMaxN ? 16 : 32;
+}
+__host__ __device__ constexpr int wide_boxes(int n) {
+  return n <= kWordMaxN ? 32 : n <= 2 * kWordMaxN ? 64
+                             : n <= 4 * kWordMaxN ? 128 : 256;
 }
 template <typename T>
 __host__ __device__ constexpr size_t state_offset_of(int n) {
@@ -127,7 +143,8 @@ __host__ __device__ constexpr size_t scratch_words(int n) {
   return n <= kSharedStateMaxN
              ? rows_words<T>(n)
              : state_offset_of<T>(n) + static_cast<size_t>(wide_warps(n)) *
-                                           32 * 32 * 2 * (sizeof(T) / 4);
+                                           32 * wide_boxes(n) * 2 *
+                                           (sizeof(T) / 4);
 }
 
 template <typename T>
@@ -247,30 +264,52 @@ __device__ __forceinline__ void warp_pick(unsigned long long k, int i,
 }
 
 // a lane's C boxes in groups of kGroup keys: the best of each group is
-// kept, so a step that touches a box scans its group only
+// kept, so a step that touches a box scans its group only. Its bits are
+// kWords words (box k: bit k % 32 of word k / 32); a group lies in one
+// word, and `Dirty` holds a bit a group
 template <int C>
 struct Groups {
   static constexpr int kGroup = C < 4 ? C : 4;
   static constexpr int kCount = C / kGroup;
+  static constexpr int kWords = (C + 31) / 32;
+  using Dirty = std::conditional_t<(kCount > 32), unsigned long long,
+                                   unsigned>;
 };
+
+// word `w` of a lane's bits, `w` not known at compile time: a select a
+// word, so the words stay in registers
+template <int W>
+__device__ __forceinline__ uint32_t word_at(const uint32_t (&bits)[W],
+                                            int w) {
+  uint32_t out = bits[0];
+#pragma unroll
+  for (int i = 1; i < W; ++i) out = i == w ? bits[i] : out;
+  return out;
+}
+
+__device__ __forceinline__ int first_bit(unsigned v) { return __ffs(v) - 1; }
+__device__ __forceinline__ int first_bit(unsigned long long v) {
+  return __ffsll(static_cast<long long>(v)) - 1;
+}
 
 // the best (key, slot) of each group in `dirty` anew (usually one group:
 // kGroup loads and selects, no branch), then of the lane: the largest key,
 // and of equal keys the lowest slot (the least index)
 template <int C, int LANES, typename K>
-__device__ __forceinline__ void best_of(uint32_t avail, const K* s_kk, int g,
-                                        int j0, uint32_t dirty, K* gk,
-                                        int* gs, K& bk, int& bi) {
+__device__ __forceinline__ void best_of(
+    const uint32_t (&avail)[Groups<C>::kWords], const K* s_kk, int g, int j0,
+    typename Groups<C>::Dirty dirty, K* gk, int* gs, K& bk, int& bi) {
   constexpr int kGroup = Groups<C>::kGroup, kGroups = Groups<C>::kCount;
   while (dirty) {
-    const int q = __ffs(dirty) - 1;
+    const int q = first_bit(dirty);
     dirty &= dirty - 1u;
+    const uint32_t aw = word_at(avail, (q * kGroup) >> 5);
     K best = 0u;
     int slot = 0;
 #pragma unroll
     for (int e = 0; e < kGroup; ++e) {
       const int k = q * kGroup + e;
-      const K key = ((avail >> k) & 1u) ? s_kk[k * LANES + g] : K(0);
+      const K key = ((aw >> (k & 31)) & 1u) ? s_kk[k * LANES + g] : K(0);
       const bool better = key > best;
       best = better ? key : best;
       slot = better ? k : slot;
@@ -360,14 +399,16 @@ __global__ void __launch_bounds__(Block<NW>::kThreads)
 
   const int g = tid, lane = tid & 31, warp = tid >> 5;
   const int j0 = g * C;
-  uint32_t avail = 0u, supp = 0u;
+  using Dirty = typename Groups<C>::Dirty;
+  constexpr int kWords = Groups<C>::kWords;
+  uint32_t avail[kWords] = {}, supp[kWords] = {};
 #pragma unroll
   for (int k = 0; k < C; ++k) {
     if (j0 + k < n) {
       if (pre[j0 + k])
-        supp |= 1u << k;
+        supp[k >> 5] |= 1u << (k & 31);
       else
-        avail |= 1u << k;
+        avail[k >> 5] |= 1u << (k & 31);
     }
   }
   // the best (key, slot) of each group of kGroup boxes, and the lane's
@@ -375,8 +416,9 @@ __global__ void __launch_bounds__(Block<NW>::kThreads)
   int gs[kGroups] = {};
   K bk;
   int bi;
-  best_of<C, kLanes>(avail, s_kk, g, j0, (1u << kGroups) - 1u, gk, gs, bk,
-                     bi);
+  best_of<C, kLanes>(avail, s_kk, g, j0, ~Dirty(0) >> (8 * sizeof(Dirty) -
+                                                       kGroups),
+                     gk, gs, bk, bi);
 
   for (int step = 0; step < n; ++step) {
     K key;
@@ -399,21 +441,24 @@ __global__ void __launch_bounds__(Block<NW>::kThreads)
 
     // every lane, without a branch until its hits: a lane past n reads the
     // row's last word and owns no available box
-    uint32_t dirty = 0u;  // the groups whose best must be found anew
-    {
-      // this lane's boxes in the pick's marks: C bits of one word
-      const size_t at =
-          static_cast<size_t>(pick) * words + min(j0 >> 5, words - 1);
+    Dirty dirty = 0u;  // the groups whose best must be found anew
+#pragma unroll
+    for (int wd = 0; wd < kWords; ++wd) {
+      // this lane's boxes in the pick's marks: C bits of one word (C < 32)
+      // or word wd of its C / 32
+      const size_t at = static_cast<size_t>(pick) * words +
+                        min((j0 >> 5) + wd, words - 1);
       const uint32_t w = rows.marks[at];
       const int before = rows.before[at];
       const int bit0 = j0 & 31;
       uint32_t hit =
-          (C == 32 ? w : (w >> bit0) & ((1u << (C & 31)) - 1u)) & avail;
+          (C >= 32 ? w : (w >> bit0) & ((1u << (C & 31)) - 1u)) & avail[wd];
       if (hit) {
         do {
-          const int k = __ffs(hit) - 1;
+          const int kw = __ffs(hit) - 1;
           hit &= hit - 1u;
-          const int rank = before + __popc(w & ((1u << (bit0 + k)) - 1u));
+          const int k = wd * 32 + kw;
+          const int rank = before + __popc(w & ((1u << (bit0 + kw)) - 1u));
           const T dec =
               rank < kListLen
                   ? rows.decs[static_cast<size_t>(pick) * kListLen + rank]
@@ -424,23 +469,26 @@ __global__ void __launch_bounds__(Block<NW>::kThreads)
           s_sc[k * kLanes + g] = nsc;
           s_kk[k * kLanes + g] = nk;
           if (nsc < score_t) {
-            avail &= ~(1u << k);
-            supp |= 1u << k;
+            avail[wd] &= ~(1u << kw);
+            supp[wd] |= 1u << kw;
           }
-          dirty |= 1u << (k / kGroup);
+          dirty |= Dirty(1) << (k / kGroup);
         } while (hit);
       }
-      if (pick >= j0 && pick < j0 + C) {  // freeze the pick
-        avail &= ~(1u << (pick - j0));
-        dirty |= 1u << ((pick - j0) / kGroup);
-      }
+    }
+    if (pick >= j0 && pick < j0 + C) {  // freeze the pick
+      const int k = pick - j0;
+#pragma unroll
+      for (int wd = 0; wd < kWords; ++wd)
+        avail[wd] &= (k >> 5) == wd ? ~(1u << (k & 31)) : ~0u;
+      dirty |= Dirty(1) << (k / kGroup);
     }
     best_of<C, kLanes>(avail, s_kk, g, j0, dirty, gk, gs, bk, bi);
   }
 
 #pragma unroll
   for (int k = 0; k < C; ++k)
-    if (j0 + k < n) suppressed[j0 + k] = (supp >> k) & 1u;
+    if (j0 + k < n) suppressed[j0 + k] = (supp[k >> 5] >> (k & 31)) & 1u;
 }
 
 // cudaFuncSetAttribute costs host time on every launch it runs in: ask
@@ -512,15 +560,20 @@ int launch(const T* iou, const T* scores0, const uint8_t* pre,
   else if (n <= 4096) D3D_CASCADE(32, 4, false);
   else if (n <= kSharedStateMaxN) D3D_CASCADE(32, 8, false);
   else if (wide_warps(n) == 16) D3D_CASCADE(32, 16, false);
-  else D3D_CASCADE(32, 32, false);
+  else if (wide_boxes(n) == 32) D3D_CASCADE(32, 32, false);
+  else if (wide_boxes(n) == 64) D3D_CASCADE(64, 32, false);
+  else if (wide_boxes(n) == 128) D3D_CASCADE(128, 32, false);
+  else D3D_CASCADE(256, 32, false);
 #undef D3D_CASCADE
   return static_cast<int>(err);
 }
 
 template <typename T>
 int scan(const T* iou, const T* scores0, const uint8_t* pre,
-         uint8_t* suppressed, uint32_t* scratch, int scratch_words_given,
-         int n, T iou_t, T score_t, T param, int method, void* stream) {
+         uint8_t* suppressed, uint32_t* scratch,
+         long long scratch_words_given, int n, T iou_t, T score_t, T param,
+         int method, void* stream) {
+  // n past kMaxN has no layout, but its matrix exists on no card (header)
   if (n <= 0 || n > kMaxN || (method != 0 && method != 1) ||
       static_cast<size_t>(scratch_words_given) < scratch_words<T>(n))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -537,12 +590,13 @@ int scan(const T* iou, const T* scores0, const uint8_t* pre,
 // out, scratch of scratch_words_given int32 (at least nms_cuda.py
 // `_soft_scratch_words(n)`: above kSharedStateMaxN boxes it holds the
 // cascade's scores and keys too), all contiguous on the current device;
-// 1 <= n <= kMaxN (nms_cuda.py `_SOFT_MAX_N`). method: 0 = linear,
+// 1 <= n <= kMaxN. method: 0 = linear,
 // 1 = gaussian. Returns the first launch error.
 extern "C" int d3d_soft_nms_scan(const float* iou, const float* scores0,
                                  const uint8_t* pre, uint8_t* suppressed,
-                                 uint32_t* scratch, int scratch_words_given,
-                                 int n, float iou_t, float score_t,
+                                 uint32_t* scratch,
+                                 long long scratch_words_given, int n,
+                                 float iou_t, float score_t,
                                  float param, int method, void* stream) {
   return scan<float>(iou, scores0, pre, suppressed, scratch,
                      scratch_words_given, n, iou_t, score_t, param, method,
@@ -554,7 +608,7 @@ extern "C" int d3d_soft_nms_scan(const float* iou, const float* scores0,
 extern "C" int d3d_soft_nms_scan_f64(const double* iou, const double* scores0,
                                      const uint8_t* pre, uint8_t* suppressed,
                                      uint32_t* scratch,
-                                     int scratch_words_given, int n,
+                                     long long scratch_words_given, int n,
                                      double iou_t, double score_t,
                                      double param, int method, void* stream) {
   return scan<double>(iou, scores0, pre, suppressed, scratch,

@@ -1,5 +1,5 @@
-"""Carry weights from the JAX package's flax PointPillars, SECOND and
-VoxelNeXt to the port.
+"""Carry weights from the JAX package's flax PointPillars, CenterPoint (and
+its refinement stage), SECOND, VoxelNeXt and Seg2D to the port.
 
 The flax variables are a ``{"params", "batch_stats"}`` tree of nested dicts
 of arrays (numpy, or anything ``np.asarray`` takes); nothing here imports
@@ -7,15 +7,20 @@ JAX. Layout changes: Dense kernels (in, out) transpose to Linear (out, in);
 Conv kernels HWIO go to OIHW; the stride-f ConvTranspose kernel (kh, kw,
 in, out) flips spatially and goes to (in, out, kh, kw), because flax's
 ``transpose_kernel=False`` with SAME padding feeds output cell ``i*f + r``
-through tap ``f-1-r`` where torch uses tap ``r``.
+through tap ``f-1-r`` where torch uses tap ``r``; Seg2D's 4x4 stride-2
+ConvTranspose flips the same way (torch's ``padding=1`` then equals flax's
+SAME).
 """
 
 import numpy as np
 import torch
 
 __all__ = ["pointpillars_state_from_flax", "pointpillars_params_from_flax",
-           "second_state_from_flax", "second_params_from_flax",
-           "voxelnext_state_from_flax", "voxelnext_params_from_flax"]
+           "centerpoint_state_from_flax", "centerpoint_params_from_flax",
+           "centerpoint_refine_state_from_flax", "seg2d_state_from_flax",
+           "seg2d_params_from_flax", "second_state_from_flax",
+           "second_params_from_flax", "voxelnext_state_from_flax",
+           "voxelnext_params_from_flax"]
 
 
 def _oihw(kernel):
@@ -55,9 +60,15 @@ def _tensors(sd):
     return {k: torch.as_tensor(np.array(v)) for k, v in sd.items()}
 
 
-def _pointpillars(params, stats):
-    """PointPillars' entries; without ``stats`` the parameters only."""
-    sd = {}
+def _flipped(kernel):
+    """A flax ConvTranspose kernel (kh, kw, in, out) as torch's (in, out,
+    kh, kw), flipped in both spatial axes."""
+    return np.asarray(kernel)[::-1, ::-1].transpose(2, 3, 0, 1)
+
+
+def _pillar_backbone(sd, params, stats):
+    """The PFN, BEV blocks and upsampling PointPillars and CenterPoint
+    share, into ``sd``."""
     pfn = params["_PFN_0"]
     sd["pfn.dense.weight"] = np.asarray(pfn["Dense_0"]["kernel"]).T
     _bn(sd, "pfn.bn", pfn["BatchNorm_0"],
@@ -69,14 +80,19 @@ def _pointpillars(params, stats):
                     stats and stats[f"_ConvBlock_{i}"])
         up = params[f"_Upsample_{i}"]
         if "ConvTranspose_0" in up:
-            k = np.asarray(up["ConvTranspose_0"]["kernel"])
-            sd[f"ups.{i}.conv.weight"] = k[::-1, ::-1].transpose(2, 3, 0, 1)
+            sd[f"ups.{i}.conv.weight"] = _flipped(
+                up["ConvTranspose_0"]["kernel"])
         else:
             sd[f"ups.{i}.conv.weight"] = _oihw(up["Conv_0"]["kernel"])
         _bn(sd, f"ups.{i}.bn", up["BatchNorm_0"],
             stats and stats[f"_Upsample_{i}"]["BatchNorm_0"])
         i += 1
 
+
+def _pointpillars(params, stats):
+    """PointPillars' entries; without ``stats`` the parameters only."""
+    sd = {}
+    _pillar_backbone(sd, params, stats)
     _heads(sd, params)
     return _tensors(sd)
 
@@ -93,6 +109,76 @@ def pointpillars_params_from_flax(params):
     layouts (the gradient of a flipped or transposed kernel is the
     gradient flipped or transposed alike)."""
     return _pointpillars(params, None)
+
+
+def _centerpoint(params, stats):
+    """CenterPoint's entries: PointPillars' backbone, then each head's
+    ``{name}_conv`` (3x3) and ``{name}_out`` (1x1) with their biases."""
+    sd = {}
+    _pillar_backbone(sd, params, stats)
+    for name, p in params.items():
+        if name.endswith(("_conv", "_out")):
+            sd[f"heads.{name}.weight"] = _oihw(p["kernel"])
+            sd[f"heads.{name}.bias"] = p["bias"]
+    return _tensors(sd)
+
+
+def centerpoint_state_from_flax(variables):
+    """flax CenterPoint variables -> the port's ``state_dict``."""
+    return _centerpoint(variables["params"], variables["batch_stats"])
+
+
+def centerpoint_params_from_flax(params):
+    """A flax CenterPoint ``params`` tree alone (or a gradient tree of its
+    structure) -> ``{name: tensor}`` under the port's
+    ``named_parameters()`` names, in its layouts."""
+    return _centerpoint(params, None)
+
+
+def centerpoint_refine_state_from_flax(variables):
+    """flax CenterPointRefine variables (``{"params": ...}``, or the
+    params tree itself) -> the port's ``state_dict``: the Dense layers
+    ``fc{i}`` and ``out``, kernels (in, out) transposed to (out, in)."""
+    params = variables.get("params", variables)
+    sd = {}
+    i = 0
+    while f"fc{i}" in params:
+        sd[f"fcs.{i}.weight"] = np.asarray(params[f"fc{i}"]["kernel"]).T
+        sd[f"fcs.{i}.bias"] = params[f"fc{i}"]["bias"]
+        i += 1
+    sd["out.weight"] = np.asarray(params["out"]["kernel"]).T
+    sd["out.bias"] = params["out"]["bias"]
+    return _tensors(sd)
+
+
+def _seg2d(params, stats):
+    """Seg2D's entries: ``_Block_{i}`` (its Conv_0 or flipped
+    ConvTranspose_0 and BatchNorm_0) and the 1x1 head ``Conv_0``."""
+    sd = {}
+    i = 0
+    while f"_Block_{i}" in params:
+        blk = params[f"_Block_{i}"]
+        sd[f"blocks.{i}.conv.weight"] = (
+            _flipped(blk["ConvTranspose_0"]["kernel"])
+            if "ConvTranspose_0" in blk else _oihw(blk["Conv_0"]["kernel"]))
+        _bn(sd, f"blocks.{i}.bn", blk["BatchNorm_0"],
+            stats and stats[f"_Block_{i}"]["BatchNorm_0"])
+        i += 1
+    sd["head.weight"] = _oihw(params["Conv_0"]["kernel"])
+    sd["head.bias"] = params["Conv_0"]["bias"]
+    return _tensors(sd)
+
+
+def seg2d_state_from_flax(variables):
+    """flax Seg2D variables -> the port's ``state_dict``."""
+    return _seg2d(variables["params"], variables["batch_stats"])
+
+
+def seg2d_params_from_flax(params):
+    """A flax Seg2D ``params`` tree alone (or a gradient tree of its
+    structure) -> ``{name: tensor}`` under the port's
+    ``named_parameters()`` names, in its layouts."""
+    return _seg2d(params, None)
 
 
 def _sparse_middle(sd, params, stats):

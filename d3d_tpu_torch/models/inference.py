@@ -1,5 +1,6 @@
 """End-to-end inference: points in, :class:`Target3DArray` out (port of the
-PointPillars, SECOND and VoxelNeXt part of ``d3d_tpu.models.inference``).
+PointPillars, CenterPoint, SECOND and VoxelNeXt part of
+``d3d_tpu.models.inference``).
 
 One request runs points -> voxelize -> network -> top-k decode -> rotated
 NMS on one device with fixed shapes; only the final selection of kept rows
@@ -17,8 +18,8 @@ from ..utils import as_tensor, resolve_device
 from .pointpillars import decode_boxes, pillarize
 from .second import second_voxelize
 
-__all__ = ["make_pointpillars_detector", "make_second_detector",
-           "make_voxelnext_detector"]
+__all__ = ["make_pointpillars_detector", "make_centerpoint_detector",
+           "make_second_detector", "make_voxelnext_detector"]
 
 
 def _to_targets(boxes, scores, labels, keep, classes, frame, timestamp,
@@ -143,6 +144,83 @@ def make_pointpillars_detector(model, variables, cfg, anchors, classes,
     return _make_anchor_detector(model, variables, cfg, anchors, classes,
                                  pillarize, score_threshold, iou_threshold,
                                  top_k, device)
+
+
+def make_centerpoint_detector(model, variables, cfg, pillar_cfg, classes,
+                              score_threshold=0.3, iou_threshold=0.5,
+                              refine=None, device=None):
+    """Build ``detect(points, frame=None, timestamp=0)`` for a CenterPoint
+    model: pillarize -> network -> peak decode (top-k ``cfg.top_k``)
+    [-> second stage] -> rotated NMS (``nms2d``: K1's bit rows and the
+    scan on the card). ``detect.device_fn`` gives the 5-output contract
+    ``(boxes, scores, labels, keep, vel)`` (zero velocities without the
+    velocity head), the input of
+    :func:`~d3d_tpu_torch.tracking.make_tracking_step` and
+    :func:`~d3d_tpu_torch.models.make_tta_detector`; ``detect`` returns
+    ``TrackingTarget3D`` elements with ``cfg.predict_velocity``, plain
+    ones otherwise.
+
+    :param pillar_cfg: the config ``pillarize`` reads (a
+        ``CenterPointConfig`` serves)
+    :param refine: optional ``(refine_model, refine_variables,
+        refine_cfg)`` second stage (:mod:`.centerpoint2`; variables a
+        state_dict or None) — needs the first stage built with
+        ``return_feat=True``; applies the box residuals and fuses the
+        IoU-aware confidence into the score before NMS
+    Other arguments as :func:`make_pointpillars_detector`.
+    """
+    if refine is not None and not getattr(model, "return_feat", False):
+        raise ValueError(
+            "the refine stage pools the shared BEV map: build the first "
+            "stage with CenterPoint(cfg, return_feat=True)")
+    from .centerpoint import decode_centers
+    from .centerpoint2 import apply_refinements, roi_grid_features
+
+    dev = resolve_device(device)
+    if variables is not None:
+        model.load_state_dict(variables)
+    model = model.to(dev).eval()
+    if refine is not None:
+        rmodel, rvars, rcfg = refine
+        if rvars is not None:
+            rmodel.load_state_dict(rvars)
+        rmodel = rmodel.to(dev).eval()
+
+    @torch.inference_mode()
+    def device_fn(points):
+        points = as_tensor(points, device=dev, dtype=torch.float32)
+        feats, coords, valid = pillarize(points, pillar_cfg)
+        outputs = model(feats[None], coords[None], valid[None])
+        outputs = {k: v[0] for k, v in outputs.items()}
+        feat = outputs.pop("feat", None)
+        dec = decode_centers(cfg, outputs)
+        boxes, scores, labels = dec[:3]
+        vel = dec[3] if cfg.predict_velocity else boxes.new_zeros(
+            (boxes.shape[0], 2))
+        if refine is not None:
+            pooled = roi_grid_features(feat, boxes, cfg.bounds, cfg.grid,
+                                       rcfg.grid_points)
+            out = rmodel(pooled, boxes)
+            boxes = apply_refinements(boxes, out["deltas"])
+            a = rcfg.score_alpha
+            scores = scores ** (1 - a) * torch.sigmoid(out["conf"]) ** a
+        keep = ~nms2d(_bev(boxes), scores.to(torch.float32),
+                      iou_threshold=iou_threshold, iou_method="rbox")
+        return boxes, scores, labels, keep, vel
+
+    def detect(points, frame=None, timestamp=0):
+        """The kept detections of one frame as a Target3DArray (of
+        ``TrackingTarget3D`` with the velocity head)."""
+        out = [t.cpu().numpy() for t in device_fn(points)]
+        if not cfg.predict_velocity:
+            return _to_targets(*out[:4], classes, frame, timestamp,
+                               score_threshold)
+        return _to_tracking_targets(*out, classes, frame, timestamp,
+                                    score_threshold)
+
+    device_fn.device = dev
+    detect.device_fn = device_fn
+    return detect
 
 
 def make_second_detector(model, variables, cfg, anchors, classes,

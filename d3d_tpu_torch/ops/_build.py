@@ -28,6 +28,7 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _D = ctypes.c_double
 
@@ -45,9 +46,9 @@ _LIBRARIES = {
                   "d3d_nms_scan": [_P, _P, _P, _F, _P, _P, _I, _P]}),
     # -fmad=false: see the note on rounding at the top of soft_nms.cu
     "soft_nms": ("soft_nms.cu", ["-fmad=false"],
-                 {"d3d_soft_nms_scan": [_P, _P, _P, _P, _P, _I, _I, _F, _F,
+                 {"d3d_soft_nms_scan": [_P, _P, _P, _P, _P, _L, _I, _F, _F,
                                         _F, _I, _P],
-                  "d3d_soft_nms_scan_f64": [_P, _P, _P, _P, _P, _I, _I, _D,
+                  "d3d_soft_nms_scan_f64": [_P, _P, _P, _P, _P, _L, _I, _D,
                                             _D, _D, _I, _P]}),
     "subm_conv": ("subm_conv.cu", [],
                   {"d3d_subm_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -28,8 +28,13 @@ _MAX_N = 48 * 1024 * 8
 _WARP_MAX_N = 2048
 # nms2d's scan counts under K2 up to this many boxes, K3 above
 _K2_MAX_N = 1024
-# K4's cascade: up to 32 warps, each lane owning up to 32 boxes
-_SOFT_MAX_N = 32 * 32 * 32
+# K4's cascade: up to 32 warps; a lane owns up to 32 boxes (one word of
+# bits) up to this many boxes (csrc/soft_nms.cu kWordMaxN), and above it
+# 64, 128 or 256 (2, 4 or 8 words)
+_SOFT_WORD_MAX_N = 32 * 32 * 32
+# the widest layout, 1024 lanes of 256 boxes (csrc/soft_nms.cu kMaxN): a
+# float32 matrix of more boxes is 275 GB, so no card holds the input
+_SOFT_MAX_N = 8 * _SOFT_WORD_MAX_N
 # up to this many boxes (8 warps) the cascade keeps its scores and keys in
 # shared memory; above it, 16 or 32 warps keep them in a slice of the
 # scratch in global memory (csrc/soft_nms.cu kSharedStateMaxN)
@@ -54,18 +59,30 @@ def _soft_warps(n):
     return 16 if n <= 2 * _SOFT_SHARED_STATE_MAX_N else 32
 
 
+def _soft_boxes(n):
+    """The boxes a lane of K4's cascade owns above
+    ``_SOFT_SHARED_STATE_MAX_N`` boxes (csrc/soft_nms.cu `wide_boxes`): 32
+    up to ``_SOFT_WORD_MAX_N``, then the least of 64, 128 and 256 that
+    covers ``n`` with 1024 lanes."""
+    if n <= _SOFT_WORD_MAX_N:
+        return 32
+    return 64 if n <= 2 * _SOFT_WORD_MAX_N else (
+        128 if n <= 4 * _SOFT_WORD_MAX_N else 256)
+
+
 def _soft_scratch_words(n, itemsize=4):
     """K4's scratch in int32 words: per row, ``_SOFT_LIST_LEN`` decay
     factors (of ``itemsize`` bytes: 4 for float32, 8 for float64),
     ceil(n / 32) words of overlap marks and as many bytes of marks before
     each word; above ``_SOFT_SHARED_STATE_MAX_N`` boxes, from the next
-    16-byte boundary, the cascade's scores and keys (32 boxes a lane of
-    its warps, ``itemsize`` bytes each)."""
+    16-byte boundary, the cascade's scores and keys (:func:`_soft_boxes`
+    a lane of its warps, ``itemsize`` bytes each)."""
     marks = n * ((n + 31) // 32)
     rows = n * _SOFT_LIST_LEN * (itemsize // 4) + marks + (marks + 3) // 4
     if n <= _SOFT_SHARED_STATE_MAX_N:
         return rows
-    return -(-rows // 4) * 4 + _soft_warps(n) * 32 * 32 * 2 * (itemsize // 4)
+    return -(-rows // 4) * 4 + (_soft_warps(n) * 32 * _soft_boxes(n) * 2
+                                * (itemsize // 4))
 
 
 def _nms_scan_plain(overlap, pre):
@@ -249,9 +266,10 @@ def _soft_decay(row, p, tiny, method):
 def _soft_nms_scan_plain(iou, scores0, pre, iou_threshold, score_threshold,
                          param, method):
     """The soft-NMS cascade of ``nms_pallas.py`` ``_soft_nms_kernel``, one
-    step per box, in its operation order and in the matrix's dtype. The
-    parameters are tensors on the matrix's device (so a division by
-    ``param`` is a true division there, as in the kernel)."""
+    step per box, in its operation order and in the matrix's dtype, until
+    no box is available (the later steps change nothing). The parameters
+    are tensors on the matrix's device (so a division by ``param`` is a
+    true division there, as in the kernel)."""
     n = iou.shape[0]
     dev, dt = iou.device, iou.dtype
     iou_t, score_t, p = (torch.tensor(v, dtype=dt, device=dev)
@@ -263,6 +281,8 @@ def _soft_nms_scan_plain(iou, scores0, pre, iou_threshold, score_threshold,
     for _ in range(n):
         avail = ~fr & ~su
         any_avail = avail.any()
+        if not bool(any_avail):  # no box left: nothing changes any more
+            break
         masked = torch.where(avail, sc, -torch.inf)
         # first argmax
         pick = torch.where(masked == masked.max(), iota, n).min()
@@ -283,10 +303,12 @@ def soft_nms_scan(iou, scores0, pre, iou_threshold, score_threshold, param,
     """Soft-NMS cascade (K4): (N, N) IoU in input order, (N,) starting
     scores (pre-suppressed boxes at -inf), (N,) bool pre-suppression ->
     (N,) bool suppressed. ``method`` is "linear" or "gaussian". IoU and
-    scores share float32 or float64 (K4 on CUDA takes at most
-    ``_SOFT_MAX_N``, 32 768 boxes, where the (N, N) IoU matrix alone is 4
-    GB in float32; its launches count in ``soft_nms_scan.launches`` and
-    ``soft_nms_scan.launches_f64``)."""
+    scores share float32 or float64. K4 on CUDA takes any N whose matrix
+    the card holds (its layouts reach 262 144 boxes, a 275 GB float32
+    matrix; above 32 768 boxes its 1024 lanes own 64 to 256 boxes each);
+    a matrix too large fails in the allocator, before this call. Its
+    launches count in ``soft_nms_scan.launches`` and
+    ``soft_nms_scan.launches_f64``."""
     n = iou.shape[0]
     if iou.shape != (n, n) or scores0.shape != (n,) or pre.shape != (n,):
         raise ValueError(f"expected (N, N) iou, (N,) scores0 and (N,) pre, "
@@ -322,8 +344,6 @@ def _soft_launch(iou, scores0, pre, iou_threshold, score_threshold, param,
                  method):
     """K4 on checked CUDA tensors with N > 0 -> (N,) bool suppressed."""
     n = iou.shape[0]
-    if n > _SOFT_MAX_N:
-        raise ValueError(f"soft-NMS kernel takes at most {_SOFT_MAX_N} boxes")
     f64 = iou.dtype == torch.float64
     out = torch.empty(n, dtype=torch.bool, device=iou.device)
     scratch = torch.empty(_soft_scratch_words(n, iou.element_size()),
@@ -339,17 +359,21 @@ def _soft_launch(iou, scores0, pre, iou_threshold, score_threshold, param,
         raise RuntimeError(f"soft_nms kernel launch failed: CUDA error {err}")
     staged = n <= (_SOFT_STAGED_MAX_N_F64 if f64 else _SOFT_STAGED_MAX_N)
     route = ("shared" if staged else "l2" if n <= _SOFT_SHARED_STATE_MAX_N
-             else "global") + ("_f64" if f64 else "")
+             else "global" if n <= _SOFT_WORD_MAX_N else "wide") + (
+                 "_f64" if f64 else "")
     _soft_launch.routes[route] += 1
     return out
 
 
 # K4's launches by where its cascade reads the marks (shared memory, L2)
 # and, above ``_SOFT_SHARED_STATE_MAX_N`` boxes, keeps its scores
-# ("global": in the scratch, from L2), float32 and float64 apart (every
-# launch, checks included; ``soft_nms_scan.launches`` counts the path's)
-_soft_launch.routes = {"shared": 0, "l2": 0, "global": 0, "shared_f64": 0,
-                       "l2_f64": 0, "global_f64": 0}
+# ("global": in the scratch, from L2; "wide": the same above
+# ``_SOFT_WORD_MAX_N`` boxes, 64 to 256 boxes a lane), float32 and float64
+# apart (every launch, checks included; ``soft_nms_scan.launches`` counts
+# the path's)
+_soft_launch.routes = {"shared": 0, "l2": 0, "global": 0, "wide": 0,
+                       "shared_f64": 0, "l2_f64": 0, "global_f64": 0,
+                       "wide_f64": 0}
 
 
 # K4's launches on a path, float32 and float64 (its second C entry point)

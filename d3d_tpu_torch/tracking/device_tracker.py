@@ -198,8 +198,9 @@ def make_tracking_step(device_fn, thresholds, lost_time=0.3, capacity=128,
     ``step(state, points, dt) -> (state, (boxes, scores, labels, keep,
     vel))``, the serving loop body (the caller threads the state;
     ``step.init()`` makes an empty one on the detector's device). The
-    detector should emit the 5-output velocity contract (a
-    ``predict_velocity`` VoxelNeXt, or a TTA wrap of one); without
+    detector should emit the 5-output velocity contract: a
+    ``predict_velocity`` VoxelNeXt or CenterPoint (one- or two-stage,
+    ``make_centerpoint_detector``), or a TTA wrap of one; without
     velocities the tracks backcast and coast by zero.
 
     :param score_threshold: admission gate on top of the detector's NMS

@@ -241,3 +241,65 @@ def test_training_tail_is_covered_and_needs_cuda_or_an_explicit_cpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         sample_ground_truths(np.random.default_rng(0), db, pts, box + 9,
                              np.array([0]))
+
+
+def test_centerpoint_and_painting_entry_points_need_cuda_or_an_explicit_cpu():
+    """CenterPoint (one- and two-stage), Seg2D, the painting ops,
+    aligned_scatter and nearest_neighbor: without a device they need CUDA
+    (numpy inputs go to CUDA); asked for the CPU, or given CPU tensors,
+    they run there."""
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour without CUDA")
+    from d3d_tpu_torch.models import (CenterPoint, CenterPointRefine,
+                                      RefineConfig, Seg2D, Seg2DConfig,
+                                      make_centerpoint_detector,
+                                      make_segmenter)
+    from d3d_tpu_torch.ops.painting import paint_points, paint_points_multi
+    from d3d_tpu_torch.ops.point import aligned_scatter, nearest_neighbor
+
+    cfg = presets.centerpoint_nuscenes(
+        dtype="float32", bounds=(-3.2, 3.2, -3.2, 3.2, -3.0, 1.0),
+        grid=(16, 16), max_pillars=32, max_points_per_pillar=4,
+        pfn_features=8, backbone_channels=(8,), backbone_blocks=(1,),
+        upsample_channels=8, head_channels=8, top_k=4)
+    rcfg = RefineConfig(grid_points=2, hidden=(8,))
+    scfg = Seg2DConfig(image_size=(16, 16), channels=(4, 8))
+    pts = np.random.default_rng(0).uniform(-3, 3, (200, 4)).astype(
+        np.float32)
+    k, ext = np.eye(3, dtype=np.float32), np.eye(4, dtype=np.float32)
+    for make in (lambda: CenterPoint(cfg), lambda: Seg2D(scfg),
+                 lambda: CenterPointRefine(rcfg, 8)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    model = CenterPoint(cfg, return_feat=True, device="cpu")
+    refine = CenterPointRefine(rcfg, 8, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_centerpoint_detector(model, None, cfg, cfg, ["Car"],
+                                  refine=(refine, None, rcfg))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_segmenter(Seg2D(scfg, device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paint_points(pts, np.zeros((4, 4, 2), np.float32), k, ext)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paint_points_multi(pts, np.zeros((1, 4, 4, 2), np.float32), k[None],
+                           ext[None])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        aligned_scatter(np.zeros((3, 3), np.float32),
+                        np.zeros((1, 2, 4, 4), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        nearest_neighbor(pts[:, :3], pts[:8, :3])
+    # asked for the CPU, or given CPU tensors, they run there
+    det = make_centerpoint_detector(model, None, cfg, cfg, ["Car"],
+                                    refine=(refine, None, rcfg),
+                                    device="cpu")
+    out = det.device_fn(pts)
+    assert len(out) == 5 and out[0].device.type == "cpu"
+    seg = make_segmenter(Seg2D(scfg, device="cpu"), device="cpu")
+    assert seg(np.zeros((16, 16, 3), np.float32)).shape == (16, 16, 4)
+    t = torch.from_numpy(pts)
+    assert paint_points(t, torch.zeros((4, 4, 2)), torch.eye(3),
+                        torch.eye(4)).shape == (200, 6)
+    assert aligned_scatter(np.zeros((3, 3), np.float32),
+                           torch.zeros((1, 2, 4, 4))).shape == (3, 2)
+    assert nearest_neighbor(pts[:, :3], pts[:8, :3], device="cpu")[1].shape \
+        == (200,)

@@ -11,6 +11,7 @@ cascade with each lane's cached best and updates of marked boxes only)
 equals the plain cascade and the Pallas kernel. The kernels themselves run
 only on the card (``chip_smoke.py``)."""
 
+import inspect
 import math
 import re
 
@@ -58,6 +59,7 @@ def test_kernel_constants_match_the_wrappers():
     assert (_c_constant("soft_nms.cu", "kStagedMaxNF64")
             == TK._SOFT_STAGED_MAX_N_F64)
     assert _c_constant("soft_nms.cu", "kMaxN") == TK._SOFT_MAX_N
+    assert _c_constant("soft_nms.cu", "kWordMaxN") == TK._SOFT_WORD_MAX_N
     assert (_c_constant("soft_nms.cu", "kSharedStateMaxN")
             == TK._SOFT_SHARED_STATE_MAX_N)
     assert _c_constant("soft_nms.cu", "kListLen") == TK._SOFT_LIST_LEN
@@ -234,9 +236,12 @@ def test_k1_tiles_write_every_entry_once(rng, n, m):
 def _k4_layout(n):
     """Boxes a lane of K4's cascade, as csrc/soft_nms.cu `launch` picks
     them: one warp up to 1024 boxes (a power of two a lane), then 32 a
-    lane."""
+    lane up to 32 768 boxes, then 64, 128 or 256 (2, 4 or 8 words of
+    bits a lane), the least that covers n with 1024 lanes."""
     if n > TK._SOFT_MAX_N:
         raise ValueError(n)
+    if n > TK._SOFT_WORD_MAX_N:
+        return next(c for c in (64, 128, 256) if n <= 1024 * c)
     if n > TK._SOFT_STAGED_MAX_N:
         return 32
     return 1 << (-(-n // 32) - 1).bit_length()
@@ -292,7 +297,7 @@ def _warp_pick(lanes, wide):
 
 
 def _emulate_k4(iou, scores0, pre, iou_t, score_t, param, method,
-                c=None):
+                c=None, warps=None):
     """K4's schedule in numpy. Pass 1, per row: the marks (j != i,
     iou > t) as 32-bit words, the marks before each word (saturated at 255)
     and the decay factors of the first ``_SOFT_LIST_LEN`` marks. Pass 2:
@@ -301,14 +306,16 @@ def _emulate_k4(iou, scores0, pre, iou_t, score_t, param, method,
     then across warps; each thread with available boxes reads its word of
     the pick's marks and decays its marked boxes by the listed factor of
     their rank, or the row's own past the list; only changed threads
-    recompute their best. The decay factors are the plain version's
-    (``_soft_decay`` of a row). The dtype is the matrix's: float64 keeps
-    64-bit keys and reduces them as :func:`_warp_pick` does."""
+    recompute their best. A thread of more than 32 boxes reads a word of
+    the pick's marks for each 32 of them. The decay factors are the plain
+    version's (``_soft_decay`` of a row). The dtype is the matrix's:
+    float64 keeps 64-bit keys and reduces them as :func:`_warp_pick`
+    does. ``c`` and ``warps`` force a layout (default: the kernel's)."""
     n = iou.shape[0]
     c = c or _k4_layout(n)
     # the kernel's lanes: at least the boxes' (a layout of fewer boxes a
     # lane than the kernel's takes more), at most 32 warps
-    threads = max(-(-n // (32 * c)) * 32, 32 * _k4_warps(n))
+    threads = max(-(-n // (32 * c)) * 32, 32 * (warps or _k4_warps(n)))
     ll = TK._SOFT_LIST_LEN
     wide = iou.dtype == np.float64
     ft = iou.dtype.type
@@ -369,14 +376,21 @@ def _emulate_k4(iou, scores0, pre, iou_t, score_t, param, method,
             if not avail[t]:
                 continue
             j0 = t * c
-            word = int(marks[pick, j0 // 32])
             bit0 = j0 % 32
-            hit = (word >> bit0) & ((1 << c) - 1) & avail[t]
-            changed = bool(hit)
-            for k in range(c):
-                if hit >> k & 1:
-                    rank = before[pick, j0 // 32] + bin(
-                        word & ((1 << (bit0 + k)) - 1)).count("1")
+            width = min(c, 32)
+            changed = False
+            for wd in range(-(-c // 32)):
+                at = min(j0 // 32 + wd, words - 1)
+                word = int(marks[pick, at])
+                hit = ((word >> bit0) & ((1 << width) - 1)
+                       & (avail[t] >> (32 * wd)))
+                changed = changed or bool(hit)
+                for kw in range(width):
+                    if not hit >> kw & 1:
+                        continue
+                    k = 32 * wd + kw
+                    rank = before[pick, at] + bin(
+                        word & ((1 << (bit0 + kw)) - 1)).count("1")
                     dec = (decs[pick, rank] if rank < ll
                            else decay(iou[pick, j0 + k:j0 + k + 1])[0])
                     sc[j0 + k] = sc[j0 + k] * dec
@@ -541,16 +555,20 @@ def test_k4_wide_key_reduction(rng):
 
 
 def test_k4_layouts_cover_every_n():
-    """Every n up to 32 768 has a layout: up to 8192 boxes at most 8 warps
-    with the scores in shared memory, above them 16 warps up to 16 384
-    boxes and 32 up to 32 768 (1024 threads) with the scores in the
-    scratch, whose words the wrapper sizes for them; only above 32 768 the
-    kernel refuses."""
+    """Every n has a layout up to 262 144 boxes, whose float32 matrix
+    (275 GB) no card holds: up to 8192 boxes at most 8 warps with the
+    scores in shared memory, above them 16 warps up to 16 384 boxes and
+    32 above (1024 threads) with the scores in the scratch, whose words
+    the wrapper sizes for them; above 32 768 boxes a lane owns 64, 128 or
+    256 of them. The wrapper has no size check of its own."""
     for n in (1, 31, 32, 33, 100, 512, 1000, 1024, 1025, 2048, 4097, 8192,
-              8193, 16384, 16385, 32768):
+              8193, 16384, 16385, 32768, 32769, 65536, 65537, 131072,
+              131073, TK._SOFT_MAX_N):
         c, warps = _k4_layout(n), _k4_warps(n)
         lanes = -(-n // c)
-        assert c <= 32 and lanes <= 32 * warps <= 1024
+        assert c <= (32 if n <= TK._SOFT_WORD_MAX_N else 256)
+        assert lanes <= 32 * warps <= 1024
+        assert c == 32 or n <= TK._SOFT_STAGED_MAX_N or c == TK._soft_boxes(n)
         assert warps == TK._soft_warps(n)
         assert (lanes <= 32) == (n <= TK._SOFT_STAGED_MAX_N)
         assert (warps > 8) == (n > TK._SOFT_SHARED_STATE_MAX_N)
@@ -558,12 +576,15 @@ def test_k4_layouts_cover_every_n():
             marks = n * -(-n // 32)
             rows = (n * TK._SOFT_LIST_LEN * itemsize // 4 + marks
                     + -(-marks // 4))
-            # above 8192 boxes: the scores and keys of every lane's 32 boxes
+            # above 8192 boxes: the scores and keys of every lane's boxes
             state = (-(-rows // 4) * 4 - rows
-                     + warps * 1024 * 2 * itemsize // 4) if warps > 8 else 0
+                     + warps * 32 * c * 2 * itemsize // 4) if warps > 8 else 0
             assert TK._soft_scratch_words(n, itemsize) == rows + state
+    assert [_k4_layout(n) for n in (32769, 65536, 131072)] == [64, 64, 128]
     with pytest.raises(ValueError):
         _k4_layout(TK._SOFT_MAX_N + 1)
+    src = inspect.getsource(TK._soft_launch)
+    assert "_SOFT_MAX_N" not in src and "raise ValueError" not in src
 
 
 def _sparse_k4_inputs(rng, n, dtype, available=160):
@@ -589,20 +610,31 @@ def _sparse_k4_inputs(rng, n, dtype, available=160):
     return iou, init, pre
 
 
-@pytest.mark.parametrize("n,dtype,method,param", [
-    (8193, np.float64, "linear", 0.5), (16384, np.float32, "gaussian", 0.4)])
-def test_k4_wide_layout_matches_plain(rng, n, dtype, method, param):
+@pytest.mark.parametrize("n,dtype,method,param,c,warps", [
+    (8193, np.float64, "linear", 0.5, None, None),
+    (16384, np.float32, "gaussian", 0.4, None, None),
+    (4096, np.float32, "linear", 0.5, 64, 2),
+    (4096, np.float64, "gaussian", 0.4, 128, 1),
+    (8192, np.float32, "gaussian", 0.4, 128, 2),
+    (8192, np.float64, "linear", 0.5, 256, 1)])
+def test_k4_wide_layout_matches_plain(rng, n, dtype, method, param, c,
+                                      warps):
     """Above 8192 boxes (16 warps of 32 boxes a lane, the scores in the
     scratch), the emulated schedule equals the plain cascade on sparse
     clusters whose picks decay boxes of other lanes and warps (float64
-    linear at 8193 boxes, float32 gaussian at 16 384)."""
+    linear at 8193 boxes, float32 gaussian at 16 384); and so does the
+    layout above 32 768 boxes, lanes of 64, 128 or 256 boxes in 2 to 8
+    words of bits, forced at n <= 8192 in one or two warps (its dense
+    matrix at 32 769 boxes alone is 4.3 GB), float32 and float64, both
+    methods, clusters spanning words of a lane, lanes and warps."""
     iou, init, pre = _sparse_k4_inputs(rng, n, dtype)
-    assert _k4_warps(n) == 16
+    if c is None:
+        assert _k4_warps(n) == 16
     args = (0.3, 0.35, param, method)
     plain = TK._soft_nms_scan_plain(torch.from_numpy(iou),
                                     torch.from_numpy(init),
                                     torch.from_numpy(pre), *args).numpy()
-    got = _emulate_k4(iou, init, pre, *args)
+    got = _emulate_k4(iou, init, pre, *args, c=c, warps=warps)
     np.testing.assert_array_equal(got, plain)
     assert pre.sum() < plain.sum() < n
 

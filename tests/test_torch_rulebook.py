@@ -435,9 +435,9 @@ def test_maps_prepared_together_share_k():
 
 
 def _c_signatures():
-    """{C function: its parameters as 'P' (pointer), 'I' (int), 'F'
-    (float) or 'D' (double)} of every ``extern "C"`` function in
-    csrc/*.cu."""
+    """{C function: its parameters as 'P' (pointer), 'I' (int), 'L' (long
+    long), 'F' (float) or 'D' (double)} of every ``extern "C"`` function
+    in csrc/*.cu."""
     sigs = {}
     for src in sorted(_build.CSRC.glob("*.cu")):
         text = src.read_text()
@@ -449,6 +449,7 @@ def _c_signatures():
                 kinds.append("P" if "*" in p else
                              "F" if p.startswith("float") else
                              "D" if p.startswith("double") else
+                             "L" if p.startswith("long long") else
                              "I" if p.startswith("int") else p)
             sigs[name] = (src.name, "".join(kinds))
     return sigs
@@ -457,10 +458,11 @@ def _c_signatures():
 def test_argtypes_match_the_c_signatures():
     """Every C entry point is declared in ``_build._LIBRARIES`` with one
     argtype per parameter: c_void_p for each pointer (a missing one would
-    cut a pointer to 32 bits), c_int for each int, c_float for each float,
-    c_double for each double."""
-    letters = {_build._P: "P", _build._I: "I", _build._F: "F",
-               _build._D: "D"}
+    cut a pointer to 32 bits), c_int for each int, c_longlong for each
+    long long (K4's scratch size: above ~180 000 boxes its words pass
+    2^31), c_float for each float, c_double for each double."""
+    letters = {_build._P: "P", _build._I: "I", _build._L: "L",
+               _build._F: "F", _build._D: "D"}
     declared = {fn: (source, "".join(letters[t] for t in types))
                 for source, _, fns in _build._LIBRARIES.values()
                 for fn, types in fns.items()}
@@ -470,7 +472,7 @@ def test_argtypes_match_the_c_signatures():
     # tile's rows and builds rule books
     assert len(sigs) == 12 and set(sigs) == set(declared)
     for fn, (source, kinds) in sigs.items():
-        assert set(kinds) <= set("PIFD"), (fn, kinds)
+        assert set(kinds) <= set("PILFD"), (fn, kinds)
         assert declared[fn] == (source, kinds), fn
     assert sigs["d3d_subm_conv"][1] == "PPPPPP" + "I" * 8 + "P"
     assert sigs["d3d_subm_conv_dw"][1] == "P" * 7 + "I" * 9 + "P"
@@ -482,8 +484,8 @@ def test_argtypes_match_the_c_signatures():
     assert sigs["d3d_nms_pack"][1] == "PPIP"
     assert sigs["d3d_nms_scan"][1] == "PPPFPPIP"
     assert sigs["d3d_rbox_descriptors"][1] == "PPIP"
-    assert sigs["d3d_soft_nms_scan"][1] == "PPPPPIIFFFIP"
-    assert sigs["d3d_soft_nms_scan_f64"][1] == "PPPPPIIDDDIP"
+    assert sigs["d3d_soft_nms_scan"][1] == "PPPPPLIFFFIP"
+    assert sigs["d3d_soft_nms_scan_f64"][1] == "PPPPPLIDDDIP"
 
 
 # ---------------------------------------------------------------------------
