@@ -110,9 +110,23 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    Seg2D segmenter on six 448 x 800 images, ``painting_rig`` of a
    nuScenes-like rig, ``paint_points_multi`` card vs CPU, the painted
    15-column sweep through SECOND in bf16 (K5 at C = 15, padded);
-   ``aligned_scatter`` and ``nearest_neighbor`` at scale, card vs CPU);
-   each path must launch its kernels, and nms2d K1's bit form and the
-   scan only (``check_nms_routes``);
+   ``aligned_scatter`` and ``nearest_neighbor`` at scale, card vs CPU) and
+   ``mono3d_eval`` (``presets.mono3d_kitti`` uncut, bf16, on 384 x 1280
+   stand-in images of the KITTI split's frames: ``make_mono3d_detector``
+   into velo-frame Target3DArrays scored by ``DetectionEvaluator`` on the
+   card and the CPU; the f32 heads card vs CPU; targets then decode of a
+   perfect encoding; ``flip_camera_frame``'s mirrored targets; 5 + 5
+   training steps and one step's gradients card vs CPU) and
+   ``bevseg_kitti360`` (a KITTI-360 layout written with numpy: 4 scans of
+   ~120 000 points, a 600 000-point static and a dynamic window; the
+   ``KITTI360Loader``'s label transfer on the card, its first points
+   re-derived on the CPU; ``presets.bevseg_semantickitti`` uncut, bf16,
+   semantic and panoptic predictors scored by ``SegmentationEvaluator``
+   and ``device_panoptic_stats``; the panoptic targets as perfect
+   predictions; 5 + 5 panoptic training steps and one step's gradients
+   card vs CPU; ``device_panoptic_stats`` over 1 024 frames); these two
+   launch none of the kernels; each path must launch its kernels, and
+   nms2d K1's bit form and the scan only (``check_nms_routes``);
 4. checks the outputs: finite, of the expected shape, the keep masks equal
    to the plain scans on the kernels' own IoU matrices, the voxelizer
    equal to the port's CPU run, the box and voxel API's outputs equal to
@@ -5884,6 +5898,1214 @@ def centerpoint_track(dev, vn):
     return counts, stats
 
 
+# ---------------------------------------------------------------------------
+# mono3d_eval: KITTI frames in, scored camera detections out
+# ---------------------------------------------------------------------------
+
+MONO_STEPS = 5        # training steps a dtype
+MONO_MAX_GT = 32      # padded ground truth a frame (the split has 16 cars)
+# a trained SMOKE model's output spread over an image: heatmap logits sd 2
+# about the -2.19 bias, sub-cell offsets sd 0.3, depth logits sd 0.5 about
+# -3 (1 / sigmoid(-3) - 1 = 19 m), log-size residuals sd 0.1, (sin, cos)
+# sd 1
+MONO_HEAD_SD = dict(hm=2.0, offset=0.3, depth=0.5, dim=0.1, rot=1.0)
+MONO_DEPTH_BIAS = -3.0
+# KITTI's camera images (1242 x 375) are resized to the preset's 1280 x 384
+KITTI_IMAGE = (375, 1242)
+
+
+def kitti_classes():
+    from d3d_tpu_torch.dataset.kitti import KittiObjectClass
+
+    return [KittiObjectClass.Car, KittiObjectClass.Pedestrian,
+            KittiObjectClass.Cyclist]
+
+
+def mono3d_frames(root, cfg):
+    """The KITTI split of ``write_kitti_split`` read back through
+    ``KittiObjectLoader``: per frame the velo-frame ground truth, its
+    calibration trio (``calibration_data(idx, raw=True)``: no image
+    opened), the camera matrix P2 scaled to the preset's image size, the
+    cars as camera-frame boxes (``mono3d_gt_from_targets``) and a stand-in
+    image as a numpy array: noise with every car ahead of the camera
+    painted as a bright box where it projects."""
+    from d3d_tpu_torch.dataset.kitti import KittiObjectLoader
+    from d3d_tpu_torch.dataset.kitti.object import _cam_to_velo
+    from d3d_tpu_torch.models import mono3d_gt_from_targets
+
+    write_kitti_split(root)
+    loader = KittiObjectLoader(root, trainval_split=1.0)
+    h, w = cfg.image_size
+    scale = np.array([[w / KITTI_IMAGE[1]], [h / KITTI_IMAGE[0]], [1.0]])
+    lut = {c.value: i for i, c in enumerate(kitti_classes())}
+    rng = np.random.default_rng(810)
+    frames = []
+    for i in range(KITTI_FRAMES):
+        raw = loader.calibration_data(i, raw=True)
+        k = (raw["P2"].reshape(3, 4)[:, :3] * scale).astype(np.float32)
+        trio = _cam_to_velo(raw)
+        gt = loader.annotation_3dobject(i)
+        cam, labels = mono3d_gt_from_targets(gt, cam_to_velo=trio)
+        image = rng.random((h, w, 3), dtype=np.float32) * 0.1
+        for x, y, z, ln, _, ht, _ in cam:
+            if z < 2:
+                continue
+            u = int(k[0, 0] * x / z + k[0, 2])
+            v = int(k[1, 1] * (y - ht / 2) / z + k[1, 2])
+            su = max(int(k[0, 0] * ln / z / 2), 2)
+            sv = max(int(k[1, 1] * ht / z / 2), 2)
+            image[max(v - sv, 0):max(v + sv, 0),
+                  max(u - su, 0):max(u + su, 0)] = 1.0
+        frames.append(dict(gt=gt, trio=trio, k=k, cam=cam, image=image,
+                           labels=np.array([lut[int(l)] for l in labels],
+                                           np.int32)))
+    return frames
+
+
+def calibrate_mono3d(model, image, dev):
+    """Rescale the random heads to MONO_HEAD_SD over one image (the depth
+    head's bias set to MONO_DEPTH_BIAS). Returns the peaks above 0.3 and
+    the output map's size."""
+    from d3d_tpu_torch.models.mono3d import _top_indices
+
+    keys = dict(hm="heatmap")
+    with torch.inference_mode():
+        out = {k: t[0] for k, t in
+               model(torch.from_numpy(image)[None].to(dev)).items()}
+    for name, sd in MONO_HEAD_SD.items():
+        last = model.heads[f"{name}_out"]
+        o = out[keys.get(name, name)] - last.bias.detach()
+        with torch.no_grad():
+            last.weight.mul_(sd / float(o.std()))
+            if name == "depth":
+                last.bias.fill_(MONO_DEPTH_BIAS)
+    with torch.inference_mode():
+        out = {k: t[0] for k, t in
+               model(torch.from_numpy(image)[None].to(dev)).items()}
+        scores, _ = _top_indices(model.cfg, out)
+    return int((scores > 0.3).sum()), tuple(out["heatmap"].shape[:2])
+
+
+def mono3d_setup(dev, frames):
+    """Mono3D on the KITTI preset uncut: f32 and the bf16 preset on the
+    same seeded weights, heads calibrated on frame 0's image."""
+    from d3d_tpu_torch.models import Mono3D
+
+    cfg32 = mono_preset(dtype="float32")
+    model32 = Mono3D(cfg32, device=dev,
+                     generator=torch.Generator().manual_seed(51))
+    peaks, out_size = calibrate_mono3d(model32, frames[0]["image"], dev)
+    model16 = Mono3D(mono_preset(), device=dev)
+    model16.load_state_dict(model32.state_dict())
+    h, w = cfg32.out_size
+    log(f"Mono3D ({cfg32.image_size[0]} x {cfg32.image_size[1]} images, "
+        f"backbone {cfg32.backbone_channels}, {len(model32.blocks)} blocks "
+        f"to a {h} x {w} map, {sum(p.numel() for p in model32.parameters())}"
+        f" parameters) heads calibrated on frame 0 ({peaks} peaks above "
+        "0.3)")
+    check(out_size == (h, w), f"Mono3D output {out_size}, want {h} x {w}")
+    return dict(cfg32=cfg32, model32=model32, model16=model16, peaks=peaks)
+
+
+def mono_preset(**kw):
+    """The phase's configuration: the KITTI Mono3D preset, uncut."""
+    from d3d_tpu_torch.models import presets
+
+    return presets.mono3d_kitti(**kw)
+
+
+def mono3d_serving(dev, mono, frames):
+    """make_mono3d_detector (bf16 preset, the split's calibration trio)
+    on every frame, counts read over the requests (no kernel of the port's:
+    the heatmap's max-pool is the NMS), Target3DArrays in the velo frame
+    scored by DetectionEvaluator (calc_stats and device_calc_stats) on
+    the card and with device="cpu", counters equal; then the steady
+    request (median of 10 after a warm-up) and the card's busy share over
+    5 requests."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from d3d_tpu_torch.models import make_mono3d_detector
+
+    cfg = mono["model16"].cfg
+    trio = frames[0]["trio"]
+    check(all(np.array_equal(f["trio"][2], trio[2]) for f in frames),
+          "the split's frames do not share one calibration")
+    detect = make_mono3d_detector(mono["model16"], None, cfg,
+                                  kitti_classes(), cam_to_velo=trio,
+                                  device=dev)
+    dets, ms = [], []
+    reset_counts()
+    for f in frames:
+        out, dev_ms, _ = timed(lambda: detect(f["image"], f["k"]))
+        check(out.frame == "velo" and all(
+            np.isfinite(o.position).all() for o in out),
+              "Mono3D request: not finite velo-frame targets")
+        dets.append(out)
+        ms.append(dev_ms)
+    counts = read_counts()
+    check(counts == want_counts(), f"Mono3D requests: launches {counts}")
+    evals = evaluate_on_card_and_cpu("mono3d", [f["gt"] for f in frames],
+                                     dets, dev)
+    n = len(frames)
+    for i in range(3):
+        detect(frames[i % n]["image"], frames[i % n]["k"])
+    steady = [timed(lambda: detect(frames[i % n]["image"],
+                                   frames[i % n]["k"])) for i in range(10)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(5):
+            detect(frames[i % n]["image"], frames[i % n]["k"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = busy_share(prof, wall)
+    stats = dict(request_ms=ms, kept=[len(d) for d in dets],
+                 steady_ms=statistics.median(s[1] for s in steady),
+                 steady_host_ms=statistics.median(s[2] for s in steady),
+                 busy_share=busy, eval=evals)
+    log(f"Mono3D serving (bf16 preset): requests "
+        + ", ".join(f"{m:.2f}" for m in ms) + " ms by CUDA events (the "
+        f"first cold), steady {stats['steady_ms']:.2f} ms (host "
+        f"{stats['steady_host_ms']:.2f} ms, median of 10); busy share "
+        f"{busy if busy is None else round(busy, 3)}; kept {stats['kept']}; "
+        "evaluator counters card = CPU, AP(Car) "
+        + ", ".join(f"{o}: {v['ap']:.4f}" for o, v in evals.items()))
+    return counts, stats
+
+
+def mono3d_card_vs_cpu(dev, mono, frame):
+    """Frame ``frame`` through the f32 model on the card (TF32 off) and
+    the same weights on the CPU: every head within 1e-4 of its largest
+    magnitude, the decode's top-k indices equal, the decoded boxes within
+    2e-3 m / 2e-3 relative / 2e-2 rad and scores within 1e-4. Returns the
+    errors and the CPU network's ms."""
+    from d3d_tpu_torch.models import Mono3D, decode_mono3d
+    from d3d_tpu_torch.models.mono3d import _top_indices
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = mono["cfg32"]
+    cpu_model = Mono3D(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               mono["model32"].state_dict().items()})
+    raw, ms = [], []
+    for m, d in ((mono["model32"], dev), (cpu_model, "cpu")):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            raw.append({k: t[0] for k, t in m(torch.from_numpy(
+                frame["image"])[None].to(d)).items()})
+        if d != "cpu":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    g, c = {k: t.cpu() for k, t in raw[0].items()}, raw[1]
+    errs = {k: float((g[k] - c[k]).abs().max() / c[k].abs().max())
+            for k in c}
+    check(max(errs.values()) <= 1e-4, f"Mono3D card vs CPU: {errs}")
+    check(torch.equal(_top_indices(cfg, g)[1], _top_indices(cfg, c)[1]),
+          "Mono3D card vs CPU: the decode's top-k indices differ")
+    k = torch.from_numpy(frame["k"])
+    with torch.inference_mode():
+        bg, sg, _ = (t.cpu() for t in decode_mono3d(
+            cfg, raw[0], k.to(dev)))
+        bc, sc, _ = decode_mono3d(cfg, c, k)
+    pos_err = float((bg[:, :3] - bc[:, :3]).abs().max())
+    size_err = float(((bg[:, 3:6] - bc[:, 3:6]) / bc[:, 3:6]).abs().max())
+    dyaw = torch.remainder(bg[:, 6] - bc[:, 6] + math.pi,
+                           2 * math.pi) - math.pi
+    yaw_err = float(dyaw.abs().max())
+    score_err = float((sg - sc).abs().max())
+    check(pos_err <= 2e-3 and size_err <= 2e-3 and yaw_err <= 2e-2
+          and score_err <= 1e-4,
+          f"Mono3D decode card vs CPU: position {pos_err}, size "
+          f"{size_err}, yaw {yaw_err}, score {score_err}")
+    log(f"Mono3D card vs CPU (f32, TF32 off): heads within "
+        f"{max(errs.values()):.3g} of their largest magnitudes, top-"
+        f"{cfg.top_k} indices equal; boxes {pos_err:.3g} m, sizes "
+        f"{size_err:.3g}, yaw {yaw_err:.3g} rad, scores {score_err:.3g}; "
+        f"the network {ms[0]:.1f} ms on the card (first call), {ms[1]:.0f} "
+        "ms on the CPU")
+    return dict(head_err=errs, position_m=pos_err, size=size_err,
+                yaw_rad=yaw_err, score=score_err, cpu_network_ms=ms[1])
+
+
+def mono3d_perfect_decode(dev, cfg, frames):
+    """assign_mono3d_targets then decode_mono3d of outputs built from the
+    targets (heatmap logit 10 at each assigned cell, -12 elsewhere; the
+    regression maps the targets' vectors) on the card, every frame: each
+    assigned car alone in its cell decodes back to its box within 2e-3 m
+    + 1e-4 relative and 1e-3 rad (tests/test_mono3d.py's roundtrip).
+    Returns (boxes checked, largest errors)."""
+    from d3d_tpu_torch.models import assign_mono3d_targets, decode_mono3d
+    from d3d_tpu_torch.models.mono3d import _top_indices
+
+    h, w = cfg.out_size
+    nc = cfg.num_classes
+    checked, err, yaw_err = 0, 0.0, 0.0
+    for f in frames:
+        boxes = torch.from_numpy(f["cam"]).to(dev)
+        labels = torch.from_numpy(f["labels"]).to(dev)
+        k = torch.from_numpy(f["k"]).to(dev)
+        t = assign_mono3d_targets(cfg, k, boxes, labels,
+                                  torch.ones(len(boxes), dtype=torch.bool,
+                                             device=dev))
+        cell = t["cell"].cpu().numpy()
+        hm = torch.full((h * w, nc), -12.0, device=dev)
+        reg = torch.zeros((h * w, 8), device=dev)
+        for m in np.flatnonzero(cell >= 0):
+            hm[cell[m], int(f["labels"][m])] = 10.0
+            reg[cell[m]] = t["vec"][m]
+        outputs = dict(heatmap=hm.reshape(h, w, nc),
+                       offset=reg[:, 0:2].reshape(h, w, 2),
+                       depth=reg[:, 2:3].reshape(h, w, 1),
+                       dim=reg[:, 3:6].reshape(h, w, 3),
+                       rot=reg[:, 6:8].reshape(h, w, 2))
+        dec, scores, _ = decode_mono3d(cfg, outputs, k)
+        dcell = (_top_indices(cfg, outputs)[1] // nc).cpu().numpy()
+        dec = dec.cpu().numpy()
+        alone = [m for m in np.flatnonzero(cell >= 0)
+                 if (cell == cell[m]).sum() == 1]
+        for m in alone:
+            j = int(np.flatnonzero(dcell == cell[m])[0])
+            want = f["cam"][m]
+            e = np.abs(dec[j, :6] - want[:6]) / (2e-3 + 1e-4
+                                                 * np.abs(want[:6]))
+            err = max(err, float(e.max()))
+            yaw_err = max(yaw_err, abs(math.remainder(
+                float(dec[j, 6] - want[6]), 2 * math.pi)))
+        checked += len(alone)
+    check(checked > 0 and err <= 1.0 and yaw_err <= 1e-3,
+          f"Mono3D perfect decode: {checked} boxes, error {err} of the "
+          f"tolerance, yaw {yaw_err} rad")
+    log(f"Mono3D targets -> decode on the card: {checked} labelled cars "
+        f"recovered (largest error {err:.3g} of 2e-3 m + 1e-4 relative, "
+        f"yaw {yaw_err:.3g} rad)")
+    return dict(checked=checked, err_of_tolerance=err, yaw_rad=yaw_err)
+
+
+def mono3d_flip_check(dev, cfg, frame):
+    """flip_camera_frame on the card, then assign_mono3d_targets: every
+    assigned car's centre mirrors (u' = W - 1 - u within 1e-3 px, same
+    cell row), its heatmap peak of 1 sits at the mirrored cell, depth and
+    size targets equal; flipping twice gives the image back."""
+    from d3d_tpu_torch.augment import flip_camera_frame
+    from d3d_tpu_torch.models import assign_mono3d_targets
+
+    h, w = cfg.out_size
+    image = torch.from_numpy(frame["image"]).to(dev)
+    k = torch.from_numpy(frame["k"]).to(dev)
+    boxes = torch.from_numpy(frame["cam"]).to(dev)
+    labels = torch.from_numpy(frame["labels"]).to(dev)
+    mask = torch.ones(len(boxes), dtype=torch.bool, device=dev)
+    img2, k2, boxes2 = flip_camera_frame(image, k, boxes)
+    t0 = assign_mono3d_targets(cfg, k, boxes, labels, mask)
+    t1 = assign_mono3d_targets(cfg, k2, boxes2, labels, mask)
+    both = (t0["mask"] & t1["mask"]).cpu().numpy()
+    c0, c1 = t0["cell"].cpu().numpy(), t1["cell"].cpu().numpy()
+    v0, v1 = t0["vec"].cpu().numpy(), t1["vec"].cpu().numpy()
+    hm0, hm1 = t0["heatmap"].cpu().numpy(), t1["heatmap"].cpu().numpy()
+    u_err = 0.0
+    for m in np.flatnonzero(both):
+        u0 = (c0[m] % w + v0[m, 0]) * cfg.stride
+        u1 = (c1[m] % w + v1[m, 0]) * cfg.stride
+        u_err = max(u_err, abs(u1 - (image.shape[1] - 1 - u0)))
+        lab = int(frame["labels"][m])
+        check(c0[m] // w == c1[m] // w
+              and hm0.reshape(-1, cfg.num_classes)[c0[m], lab] == 1.0
+              and hm1.reshape(-1, cfg.num_classes)[c1[m], lab] == 1.0,
+              f"flip: car {m}'s peak is not mirrored")
+    vec_err = float(np.abs(v1[both, 2:6] - v0[both, 2:6]).max())
+    img3 = flip_camera_frame(img2, k2, boxes2)[0]
+    check(int(both.sum()) > 0 and u_err <= 1e-3 and vec_err <= 1e-5
+          and bool(torch.equal(img3, image))
+          and bool(torch.equal(img2, image.flip(1))),
+          f"flip: {int(both.sum())} cars, centres {u_err} px, depth/size "
+          f"{vec_err}")
+    log(f"flip_camera_frame on the card: {int(both.sum())} cars' centres "
+        f"mirrored within {u_err:.3g} px, their peaks at the mirrored "
+        f"cells, depth/size targets within {vec_err:.3g}")
+    return dict(cars=int(both.sum()), u_err_px=u_err, vec_err=vec_err)
+
+
+def mono3d_batch(dev, frames, keys=(0, 1)):
+    """A training batch of two frames: images, camera matrices, the cars
+    as camera-frame boxes padded to MONO_MAX_GT."""
+    m = MONO_MAX_GT
+    gt = np.zeros((len(keys), m, 7), np.float32)
+    gt[..., 3:6] = 1.0
+    labels = np.zeros((len(keys), m), np.int32)
+    mask = np.zeros((len(keys), m), bool)
+    for b, i in enumerate(keys):
+        n = min(len(frames[i]["cam"]), m)
+        gt[b, :n] = frames[i]["cam"][:n]
+        labels[b, :n] = frames[i]["labels"][:n]
+        mask[b, :n] = True
+    batch = dict(images=np.stack([frames[i]["image"] for i in keys]),
+                 intrinsics=np.stack([frames[i]["k"] for i in keys]),
+                 gt_boxes=gt, gt_labels=labels, gt_mask=mask)
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def mono3d_training(dev, mono, batch, dtype):
+    """make_train_step + make_optimizer from the calibrated f32 weights in
+    ``dtype`` (f32 with TF32 off), batch 2, MONO_STEPS steps, counts read
+    per step (dense convolutions only): losses finite and the last below
+    the first. Returns (summed counts, stats)."""
+    from d3d_tpu_torch.models import Mono3D
+    from d3d_tpu_torch.models.mono3d import make_train_step
+    from d3d_tpu_torch.train import make_optimizer
+
+    model = Mono3D(mono_preset(dtype=dtype), device=dev)
+    model.load_state_dict(mono["model32"].state_dict())
+    opt, _ = make_optimizer(model.parameters(), total_steps=MONO_STEPS)
+    step = make_train_step(model, opt, model.cfg)
+    total, losses, step_ms = {}, [], []
+    for i in range(MONO_STEPS):
+        reset_counts()
+        aux, ms, _ = timed(lambda: step(batch))
+        c = read_counts()
+        check(c == want_counts(), f"Mono3D training {dtype} step {i + 1}: "
+                                  f"launches {c}")
+        add_counts(total, c)
+        step_ms.append(ms)
+        losses.append(float(aux["total"]))
+        check(math.isfinite(losses[-1]), f"Mono3D training {dtype}: "
+                                         f"loss {losses[-1]}")
+    check(losses[-1] < losses[0], f"Mono3D training {dtype}: losses "
+                                  f"{losses} do not fall")
+    log(f"Mono3D training {dtype} (batch 2): losses "
+        + ", ".join(f"{l:.4f}" for l in losses) + "; step "
+        + ", ".join(f"{m:.2f}" for m in step_ms) + " ms (CUDA events)")
+    return total, dict(losses=losses, step_ms=step_ms)
+
+
+def grads_card_vs_cpu(name, dev, make_model, state, batch, step_fn):
+    """One step of the same weights and batch in f32 on the card and on
+    the CPU (TF32 off) and in float64 on the card (the reference): every
+    parameter's f32 gradient on either side within PP_GRAD_LIMIT of the
+    float64 one's largest |g| (the limit of an f32 step at full width
+    against float64, from PointPillars' readings: each side's f32
+    rounds the BatchNorm backward's cancellations in its own summation
+    order, and cuDNN's f32 algorithms are not the CPU's). Returns the
+    largest relative distances card vs CPU, card vs float64 and CPU vs
+    float64, and the CPU step's ms."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    grads, ms = {}, 0.0
+    for side, d, dtype in (("card", dev, "float32"), ("cpu", "cpu", "float32"),
+                           ("f64", dev, "float64")):
+        model = make_model(d, dtype)
+        model.load_state_dict({k: v.to(d) for k, v in state.items()})
+        t0 = time.perf_counter()
+        step_fn(model, torch.optim.SGD(model.parameters(), lr=0.0))(
+            {k: v.to(d) for k, v in batch.items()})
+        if side == "cpu":
+            ms = (time.perf_counter() - t0) * 1e3
+        grads[side] = {n: p.grad.cpu().double()
+                       for n, p in model.named_parameters()}
+
+    def rel(a, b):
+        return {n: float((g - b[n]).abs().max()
+                         / max(float(b[n].abs().max()), 1e-30))
+                for n, g in a.items()}
+
+    card, cpu = rel(grads["card"], grads["f64"]), rel(grads["cpu"],
+                                                      grads["f64"])
+    direct = rel(grads["card"], grads["cpu"])
+    errs = dict(card_vs_cpu=max(direct.values()),
+                card_vs_f64=max(card.values()), cpu_vs_f64=max(cpu.values()))
+    check(errs["card_vs_f64"] <= PP_GRAD_LIMIT
+          and errs["cpu_vs_f64"] <= PP_GRAD_LIMIT,
+          f"{name} gradients against float64: card {errs['card_vs_f64']}, "
+          f"CPU {errs['cpu_vs_f64']} > {PP_GRAD_LIMIT}")
+    errs = dict(card_vs_cpu=max(direct.values()),
+                card_vs_f64=max(card.values()), cpu_vs_f64=max(cpu.values()))
+    log(f"{name} gradients (f32, TF32 off) against a float64 step on the "
+        f"card: the card within {errs['card_vs_f64']:.3g} of each leaf's "
+        f"largest |g|, the CPU {errs['cpu_vs_f64']:.3g} (worst "
+        f"{max(card, key=card.get)} / {max(cpu, key=cpu.get)}); card vs CPU "
+        f"{errs['card_vs_cpu']:.3g}; the CPU step {ms:.0f} ms")
+    return errs, ms
+
+
+def mono3d_eval(dev):
+    """The mono3d_eval path. Returns ({path: counts}, stats)."""
+    import tempfile
+
+    from d3d_tpu_torch.models import Mono3D
+    from d3d_tpu_torch.models.mono3d import make_train_step
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        frames = mono3d_frames(Path(tmp), mono_preset())
+    mono = mono3d_setup(dev, frames)
+    counts, stats = {}, dict(calibrated_peaks=mono["peaks"])
+    counts["mono3d_serving"], stats["serving"] = mono3d_serving(dev, mono,
+                                                                frames)
+    stats["card_vs_cpu"] = mono3d_card_vs_cpu(dev, mono, frames[1])
+    stats["perfect_decode"] = mono3d_perfect_decode(dev, mono["cfg32"],
+                                                    frames)
+    stats["flip"] = mono3d_flip_check(dev, mono["cfg32"], frames[0])
+    batch = mono3d_batch(dev, frames)
+    total = {}
+    for dtype in ("float32", "bfloat16"):
+        c, stats[f"train_{dtype}"] = mono3d_training(dev, mono, batch, dtype)
+        add_counts(total, c)
+    counts["mono3d_train"] = total
+    cfg32 = mono["cfg32"]
+    stats["grad_err"], stats["cpu_step_ms"] = grads_card_vs_cpu(
+        "Mono3D", dev,
+        lambda d, dt: Mono3D(mono_preset(dtype=dt), device=d),
+        mono["model32"].state_dict(), batch,
+        lambda m, opt: make_train_step(m, opt, m.cfg))
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"mono3d_eval: {stats['phase_s']:.1f} s")
+    del mono, batch
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+# ---------------------------------------------------------------------------
+# bevseg_kitti360: KITTI-360 frames in, panoptic quality out
+# ---------------------------------------------------------------------------
+
+K360_SEQ = "2013_05_28_drive_0000_sync"
+K360_FRAMES = 4
+K360_SCAN_POINTS = 120_000     # an HDL-64E scan
+K360_WINDOW_POINTS = 600_000   # the static window's aggregated points
+K360_DYNAMIC_POINTS = 3_000    # the moving car's points a frame
+K360_SICK_POINTS = 1_000
+# KITTI-360 drives sit km from the world origin (the transfer recentres)
+K360_ORIGIN = np.array([1200.0, 3400.0, 110.0])
+K360_STEP = 1.0                # m a frame (36 km/h at 10 Hz)
+K360_YAW_STEP = 0.02           # rad a frame
+LIDAR_Z = 1.73
+# camera (RDF) -> pose (FLU); the same matrix as camera -> velo makes the
+# velodyne frame the pose frame
+K360_CAM = np.array([[0.0, 0.0, 1.0, 0.8], [-1.0, 0.0, 0.0, 0.3],
+                     [0.0, -1.0, 0.0, -0.1]])
+K360_SICK = np.array([[1.0, 0.0, 0.0, 0.2], [0.0, 0.0, -1.0, 0.0],
+                      [0.0, 1.0, 0.0, -0.4]])
+# kitti360Scripts label ids of the scene's surfaces
+K360_IDS = dict(road=7, sidewalk=8, building=11, pole=17, vegetation=21,
+                terrain=22, person=24, car=26)
+# parked cars (x, y) along both kerbs and pedestrians on the pavements, in
+# the drive's own frame (world minus K360_ORIGIN)
+K360_CARS = [(-40.0 + 8 * k, 4.5) for k in range(12)] \
+    + [(-36.0 + 8 * k, -4.5) for k in range(11)]
+K360_PERSONS = [(-42.0 + 9 * k, 7.2 * (-1) ** k) for k in range(11)]
+K360_POLES = [(-45.0 + 15 * k, 7.8 * (-1) ** k) for k in range(7)]
+K360_TREES = [(-45.0 + 6 * k, 15.0 * (-1) ** k) for k in range(17)]
+# the moving car: on the road at y = -2, 3 m a frame
+K360_MOVER = (5.0, -2.0, 3.0)
+# the Kitti360Class names mapped onto bevseg_semantickitti's 20 classes
+# (SemanticKITTI's learning map: 0 unlabeled, 1 car, 2 bicycle, 3
+# motorcycle, 4 truck, 5 other-vehicle, 6 person, 7 bicyclist, 8
+# motorcyclist, 9 road, 10 parking, 11 sidewalk, 12 other-ground, 13
+# building, 14 fence, 15 vegetation, 16 trunk, 17 terrain, 18 pole, 19
+# traffic-sign); every other class is 0
+SEMKITTI_OF_K360 = dict(
+    car=1, bicycle=2, motorcycle=3, truck=4, bus=5, train=5, caravan=5,
+    trailer=5, person=6, rider=7, road=9, parking=10, sidewalk=11,
+    ground=12, rail_track=12, building=13, garage=13, wall=13, bridge=13,
+    tunnel=13, fence=14, guard_rail=14, gate=14, vegetation=15, terrain=17,
+    pole=18, polegroup=18, smallpole=18, traffic_light=19, traffic_sign=19)
+THING_CLASSES = (1, 2, 3, 4, 5, 6, 7, 8)
+K360_CENTRES = 32              # the calibrated centre heatmap's peaks
+SEG_SCALE_FRAMES = 1024        # a quarter of SemanticKITTI's sequence 08
+SEG_SCALE_CHUNK = 128
+SEG_SCALE_CHECKED = 64
+BEV_STEPS = 5
+NN_CHECKED = 2048              # scan points whose labels the CPU re-derives
+
+
+def k360_lut():
+    """Kitti360Class value -> bevseg_semantickitti class (uint8 LUT)."""
+    from d3d_tpu_torch.dataset.kitti360 import Kitti360Class
+
+    lut = np.zeros(256, np.uint8)
+    for name, cls in SEMKITTI_OF_K360.items():
+        lut[Kitti360Class[name].value] = cls
+    return lut
+
+
+def k360_surfaces(rng, n, x0, x1):
+    """``n`` points of a street between x0 and x1 (the drive's frame):
+    road, pavements, terrain, tree crowns, building walls, poles, the
+    parked cars and the pedestrians, each class a fixed share. Returns
+    (xyz float64, kitti360Scripts label id, instance id) with instances
+    ``id * 1000 + k`` for the cars and pedestrians, 0 elsewhere."""
+    shares = dict(road=0.30, sidewalk=0.10, terrain=0.12, vegetation=0.10,
+                  building=0.23, pole=0.03, car=0.09, person=0.03)
+    parts = []
+    for name, share in shares.items():
+        m = int(n * share)
+        if name == "road":
+            xyz = np.stack([rng.uniform(x0, x1, m), rng.uniform(-6, 6, m),
+                            rng.normal(0, 0.02, m)], 1)
+        elif name == "sidewalk":
+            xyz = np.stack([rng.uniform(x0, x1, m),
+                            rng.uniform(6, 9, m) * rng.choice([-1, 1], m),
+                            0.15 + rng.normal(0, 0.02, m)], 1)
+        elif name == "terrain":
+            xyz = np.stack([rng.uniform(x0, x1, m),
+                            rng.uniform(9, 19, m) * rng.choice([-1, 1], m),
+                            rng.uniform(0, 0.2, m)], 1)
+        elif name == "building":
+            xyz = np.stack([rng.uniform(x0, x1, m),
+                            (20 + rng.normal(0, 0.05, m))
+                            * rng.choice([-1, 1], m), rng.uniform(0, 12, m)],
+                           1)
+        else:
+            objs = dict(vegetation=K360_TREES, pole=K360_POLES,
+                        car=K360_CARS, person=K360_PERSONS)[name]
+            objs = [o for o in objs if x0 <= o[0] < x1]
+            k = rng.integers(0, len(objs), m)
+            c = np.asarray(objs)[k]
+            if name == "vegetation":
+                xyz = np.stack([c[:, 0], c[:, 1], np.full(m, 3.0)], 1) \
+                    + rng.normal(0, [1.2, 1.2, 0.8], (m, 3))
+            elif name == "car":
+                xyz = np.stack([c[:, 0], c[:, 1], np.full(m, 0.75)], 1) \
+                    + rng.uniform(-1, 1, (m, 3)) * [2.1, 0.9, 0.75]
+            else:
+                r = 0.15 if name == "pole" else 0.3
+                a = rng.uniform(0, 2 * np.pi, m)
+                xyz = np.stack([c[:, 0] + r * np.cos(a),
+                                c[:, 1] + r * np.sin(a),
+                                rng.uniform(0, 6 if name == "pole" else 1.8,
+                                            m)], 1)
+        label = K360_IDS[name]
+        inst = (label * 1000 + 1
+                + np.asarray([dict(car=K360_CARS, person=K360_PERSONS)[
+                    name].index(tuple(o)) for o in objs])[k]
+                if name in ("car", "person") else np.zeros(m, np.int64))
+        parts.append((xyz, np.full(m, label), inst))
+    return tuple(np.concatenate(p) for p in zip(*parts))
+
+
+def k360_mover(rng, f, m):
+    """The moving car's ``m`` points at frame ``f`` (its instance 26500)."""
+    x0, y0, step = K360_MOVER
+    xyz = np.array([x0 + step * f, y0, 0.75]) \
+        + rng.uniform(-1, 1, (m, 3)) * [2.1, 0.9, 0.75]
+    return xyz, np.full(m, K360_IDS["car"]), np.full(m, 26500)
+
+
+def k360_pose(f):
+    """(rotation, translation) of frame ``f``: the drive's frame moved to
+    K360_ORIGIN, K360_STEP along x and K360_YAW_STEP of yaw a frame, the
+    lidar LIDAR_Z above the road."""
+    yaw = K360_YAW_STEP * f
+    c, s = math.cos(yaw), math.sin(yaw)
+    rot = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    return rot, K360_ORIGIN + [K360_STEP * f, 0.0, LIDAR_Z]
+
+
+def write_ply(path, xyz, semantic, instance, timestamp=None):
+    """A binary little-endian PLY of the data_3d_semantics windows:
+    x, y, z, red, green, blue, semantic, instance, visible[, timestamp]."""
+    fields = [("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("red", "u1"),
+              ("green", "u1"), ("blue", "u1"), ("semantic", "<i4"),
+              ("instance", "<i4"), ("visible", "u1")]
+    if timestamp is not None:
+        fields.append(("timestamp", "<i4"))
+    rec = np.zeros(len(xyz), np.dtype(fields))
+    for i, axis in enumerate("xyz"):
+        rec[axis] = xyz[:, i]
+    rec["red"] = semantic * 7
+    rec["semantic"], rec["instance"], rec["visible"] = semantic, instance, 1
+    if timestamp is not None:
+        rec["timestamp"] = timestamp
+    header = ("ply\nformat binary_little_endian 1.0\nelement vertex %d\n"
+              % len(xyz) + "".join(
+                  "property %s %s\n" % (dict(f4="float", u1="uchar",
+                                             i4="int")[t[-2:]], name)
+                  for name, t in fields) + "end_header\n")
+    path.write_bytes(header.encode() + rec.tobytes())
+
+
+def write_kitti360_scene(root):
+    """A KITTI-360 layout under ``root`` written with numpy: calibration
+    (cameras, velodyne, SICK, the fisheye YAMLs), poses, timestamps,
+    K360_FRAMES velodyne scans of K360_SCAN_POINTS points and their SICK
+    scans, one static window of K360_WINDOW_POINTS points and one dynamic
+    window (the moving car), as PLY. Returns the windows' point counts."""
+    rng = np.random.default_rng(900)
+    cal = root / "calibration"
+    cal.mkdir(parents=True)
+
+    def row(m):
+        return " ".join("%.12e" % v for v in np.ravel(m))
+
+    (cal / "calib_cam_to_pose.txt").write_text("".join(
+        f"image_{i:02d}: {row(K360_CAM)}\n" for i in range(4)))
+    p = np.array([[552.55, 0.0, 682.05, 0.0], [0.0, 552.55, 238.77, 0.0],
+                  [0.0, 0.0, 1.0, 0.0]])
+    (cal / "perspective.txt").write_text("".join(
+        f"P_rect_{i:02d}: {row(p)}\nS_rect_{i:02d}: 1408 376\n"
+        f"R_rect_{i:02d}: {row(np.eye(3))}\n" for i in range(2)))
+    (cal / "calib_cam_to_velo.txt").write_text(row(K360_CAM) + "\n")
+    (cal / "calib_sick_to_velo.txt").write_text(row(K360_SICK) + "\n")
+    mei = ("%YAML:1.0\n---\nmodel_type: MEI\ncamera_name: image_0{i}\n"
+           "image_width: 1400\nimage_height: 1400\nmirror_parameters:\n"
+           "   xi: 2.2134047507854890e+00\ndistortion_parameters:\n"
+           "   k1: 1.6798235660113681e-02\n   k2: 1.6548773243373522e+00\n"
+           "   p1: 4.2223943394772046e-04\n   p2: 4.2462134260997584e-04\n"
+           "projection_parameters:\n   gamma1: 1.3363220825849971e+03\n"
+           "   gamma2: 1.3357883350012958e+03\n"
+           "   u0: 7.1694323510126321e+02\n   v0: 7.0576498308221585e+02\n")
+    for i in (2, 3):
+        (cal / f"image_0{i}.yaml").write_text(mei.format(i=i))
+    stamps = "".join("2013-05-28 08:46:%02d.%09d\n" % (2 + f // 10,
+                                                       f % 10 * 10 ** 8)
+                     for f in range(K360_FRAMES))
+    raw = root / "data_3d_raw" / K360_SEQ
+    for sensor in ("velodyne_points", "sick_points"):
+        (raw / sensor / "data").mkdir(parents=True)
+        (raw / sensor / "timestamps.txt").write_text(stamps)
+    poses = []
+    for f in range(K360_FRAMES):
+        rot, t = k360_pose(f)
+        poses.append(f"{f} {row(np.hstack([rot, t[:, None]]))}")
+        cx = K360_STEP * f
+        xyz, _, _ = k360_surfaces(rng, K360_SCAN_POINTS
+                                  - K360_DYNAMIC_POINTS // 2, cx - 45,
+                                  cx + 45)
+        xyz = np.concatenate([xyz, k360_mover(rng, f, K360_DYNAMIC_POINTS
+                                              // 2)[0]])
+        xyz += rng.normal(0, 0.02, xyz.shape)
+        velo = (xyz + K360_ORIGIN - t) @ rot   # world -> velodyne (= pose)
+        scan = np.concatenate([velo, rng.random((len(velo), 1))], 1)
+        scan[rng.permutation(len(scan))].astype(np.float32).tofile(
+            raw / "velodyne_points" / "data" / ("%010d.bin" % f))
+        rng.uniform(-5, 5, (K360_SICK_POINTS, 2)).astype(np.float32).tofile(
+            raw / "sick_points" / "data" / ("%010d.bin" % f))
+    (root / "data_poses" / K360_SEQ).mkdir(parents=True)
+    (root / "data_poses" / K360_SEQ / "poses.txt").write_text(
+        "\n".join(poses) + "\n")
+    sem = root / "data_3d_semantics" / K360_SEQ
+    (sem / "static").mkdir(parents=True)
+    (sem / "dynamic").mkdir(parents=True)
+    xyz, label, inst = k360_surfaces(rng, K360_WINDOW_POINTS, -50, 55)
+    write_ply(sem / "static" / ("%010d_%010d.ply" % (0, K360_FRAMES - 1)),
+              xyz + K360_ORIGIN, label, inst)
+    dyn = [k360_mover(rng, f, K360_DYNAMIC_POINTS)
+           for f in range(K360_FRAMES)]
+    write_ply(sem / "dynamic" / ("%010d_%010d.ply" % (0, K360_FRAMES - 1)),
+              np.concatenate([d[0] for d in dyn]) + K360_ORIGIN,
+              np.concatenate([d[1] for d in dyn]),
+              np.concatenate([d[2] for d in dyn]),
+              timestamp=np.repeat(np.arange(K360_FRAMES),
+                                  K360_DYNAMIC_POINTS))
+    return dict(static=len(xyz), dynamic=K360_DYNAMIC_POINTS * K360_FRAMES)
+
+
+def k360_transfer(dev, root, windows):
+    """KITTI360Loader on the scene, its label transfer
+    (``_preload_3dsemantics`` through ``nearest_neighbor`` on the card)
+    timed; every frame's labels read back. Then the first NN_CHECKED
+    points of frame 0 re-derived on the CPU (the same windows, the same
+    strict ``<`` merge): equal but at near-ties, where the card's label
+    must be that of a window point whose float64 distance is within the
+    two searches' rounding (8 float32 epsilons of |q - o|^2 + |r - o|^2
+    for each side's recentring origin o) of the CPU pick's. Returns
+    (loader, frames, stats)."""
+    from d3d_tpu_torch.dataset.kitti360 import KITTI360Loader
+    from d3d_tpu_torch.dataset.kitti360.utils import id2label, load_ply
+    from d3d_tpu_torch.ops.point import nearest_neighbor
+
+    loader = KITTI360Loader(root, trainval_split=1, device=dev)
+    check(len(loader) == K360_FRAMES, f"KITTI-360: {len(loader)} frames")
+    t0 = time.perf_counter()
+    loader.annotation_3dpoints(0)
+    transfer_s = time.perf_counter() - t0
+    lut = k360_lut()
+    frames = []
+    for i in range(K360_FRAMES):
+        pts = loader.lidar_data(i)
+        seg = loader.annotation_3dpoints(i)
+        check(len(seg.semantic) == len(pts) == len(seg.instance),
+              f"KITTI-360 frame {i}: {len(pts)} points, "
+              f"{len(seg.semantic)} labels")
+        label = lut[seg.semantic]
+        ids = np.where(np.isin(label, THING_CLASSES), seg.instance,
+                       0).astype(np.uint16)
+        frames.append(dict(points=pts, semantic=seg.semantic,
+                           instance=seg.instance, labels=label, ids=ids))
+    # the CPU's transfer of frame 0's first NN_CHECKED points
+    idmap = np.zeros(max(id2label) + 1, np.uint8)
+    for i, lab in id2label.items():
+        if i >= 0:
+            idmap[i] = lab.name.value
+    world = loader._world_velo_cloud(K360_SEQ, 0)
+    q = world[:NN_CHECKED]
+    sem = root / "data_3d_semantics" / K360_SEQ
+    static = load_ply(sem / "static", "%010d_%010d.ply"
+                      % (0, K360_FRAMES - 1))
+    dyn = load_ply(sem / "dynamic", "%010d_%010d.ply"
+                   % (0, K360_FRAMES - 1))
+    dyn = dyn[dyn["timestamp"] == 0]
+    best_d = np.full(len(q), np.inf, np.float32)
+    best = np.zeros((len(q), 2), np.int64)
+    refs, fields = [], []
+    for win in (static, dyn):
+        xyz = np.stack([win["x"], win["y"], win["z"]], 1)
+        d, nn = nearest_neighbor(q, xyz, device="cpu")
+        sel = np.stack([idmap[win["semantic"][nn]], win["instance"][nn]], 1)
+        upd = d < best_d
+        best_d = np.where(upd, d, best_d)
+        best = np.where(upd[:, None], sel, best)
+        refs.append(xyz.astype(np.float64))
+        fields.append(np.stack([idmap[win["semantic"]], win["instance"]], 1))
+    refs, fields = np.concatenate(refs), np.concatenate(fields)
+    card = np.stack([frames[0]["semantic"][:NN_CHECKED],
+                     frames[0]["instance"][:NN_CHECKED]], 1).astype(np.int64)
+    apart = np.flatnonzero((card != best).any(1))
+    check(len(apart) <= NN_CHECKED // 100,
+          f"label transfer: {len(apart)} of {NN_CHECKED} labels card vs CPU")
+    origins = (world.mean(0), q.mean(0))
+    eps8 = 8 * 2.0 ** -24
+    for j in apart:
+        d2 = ((refs - q[j]) ** 2).sum(1)
+        bound = sum(eps8 * (((q[j] - o) ** 2).sum() + ((refs - o) ** 2).sum(1))
+                    for o in origins)
+        picks = []
+        for want in (card[j], best[j]):
+            cand = np.flatnonzero((fields == want).all(1))
+            picks.append(cand[np.argmin(d2[cand])])
+        gap = d2[picks[0]] - d2[picks[1]]
+        check(abs(gap) <= bound[picks[0]] + bound[picks[1]],
+              f"label transfer: point {j}'s card label {card[j]} is "
+              f"{gap} m^2 off the CPU's {best[j]}")
+    stats = dict(transfer_ms_per_frame=transfer_s * 1e3 / K360_FRAMES,
+                 points=[len(f["points"]) for f in frames],
+                 window_points=windows, cpu_checked=NN_CHECKED,
+                 near_ties_apart=len(apart))
+    log(f"KITTI-360 label transfer on the card: {K360_FRAMES} frames of "
+        f"{stats['points']} points against {windows['static']} static and "
+        f"{windows['dynamic']} dynamic window points, "
+        f"{stats['transfer_ms_per_frame']:.1f} ms a frame (velodyne and "
+        f"SICK scans, host included); the first {NN_CHECKED} points of "
+        f"frame 0 equal to the CPU's but {len(apart)} near-ties")
+    return loader, frames, stats
+
+
+def bev_preset(**kw):
+    """The phase's configuration: bevseg_semantickitti, uncut."""
+    from d3d_tpu_torch.models import presets
+
+    return presets.bevseg_semantickitti(**kw)
+
+
+def pano_preset(**kw):
+    return bev_preset(panoptic=True, thing_classes=THING_CLASSES, **kw)
+
+
+def bev_inputs(points, cfg, dev):
+    from d3d_tpu_torch.models import bevseg_pillarize, point_cell_coords
+
+    pts = torch.from_numpy(points).to(dev)
+    f, c, v = bevseg_pillarize(pts, cfg)
+    return f[None], c[None], v[None], point_cell_coords(pts, cfg)[None]
+
+
+def calibrate_bevseg(model, points, dev):
+    """Rescale the random panoptic heads as a trained model's: centre
+    logits sd 1.5 over the map, biased so that K360_CENTRES local maxima
+    of the map pass the grouping's 0.1 (about the scene's instance
+    count); offsets sd 0.5 m. Returns the centres above 0.1 after it."""
+    from torch.nn.functional import max_pool2d
+
+    with torch.inference_mode():
+        out = model(*bev_inputs(points, model.cfg, dev))
+    with torch.no_grad():
+        hm = (out["heatmap"][0] - model.head_center.bias)
+        scale = 1.5 / float(hm.std())
+        hm = hm * scale
+        maxima = hm[hm >= max_pool2d(hm[None, None], 3, 1, 1)[0, 0]]
+        kth = torch.sort(maxima, descending=True).values[K360_CENTRES - 1]
+        model.head_center.weight.mul_(scale)
+        model.head_center.bias.fill_(math.log(0.1 / 0.9) + 1e-3
+                                     - float(kth))
+        model.head_offset.weight.mul_(0.5 / float(out["offset"].std()))
+        out = model(*bev_inputs(points, model.cfg, dev))
+        hm = torch.sigmoid(out["heatmap"][0])
+        pooled = max_pool2d(hm[None, None], 3, 1, 1)[0, 0]
+    return int(((hm >= pooled) & (hm > 0.1)).sum())
+
+
+def bevseg_setup(dev, frames):
+    """The semantic preset (bf16) and its panoptic variant (the thing
+    classes 1-8), f32 copies of both, on seeded weights; the panoptic
+    heads calibrated on frame 0."""
+    from d3d_tpu_torch.models import BEVSeg
+
+    out = {}
+    for name, preset, seed in (("sem", bev_preset, 61),
+                               ("pano", pano_preset, 62)):
+        m32 = BEVSeg(preset(dtype="float32"), device=dev,
+                     generator=torch.Generator().manual_seed(seed))
+        if name == "pano":
+            out["centres"] = calibrate_bevseg(m32, frames[0]["points"], dev)
+        m16 = BEVSeg(preset(), device=dev)
+        m16.load_state_dict(m32.state_dict())
+        out[name] = dict(model32=m32, model16=m16)
+    cfg = bev_preset()
+    log(f"BEVSeg ({cfg.grid[0]} x {cfg.grid[1]} grid, {cfg.max_pillars} "
+        f"pillars x {cfg.max_points_per_pillar} points, encoder "
+        f"{cfg.enc_channels} x {cfg.enc_blocks}, decoder {cfg.dec_channels},"
+        f" {cfg.num_classes} classes; "
+        f"{sum(p.numel() for p in out['pano']['model32'].parameters())} "
+        f"parameters with the panoptic heads): {out['centres']} centres "
+        "above 0.1 on frame 0 after calibration")
+    return out
+
+
+def seg_stats_equal(name, a, b, classes):
+    """Two SegmentationStats: integer counters equal, cumiou within 1e-12
+    relative. Returns the largest relative cumiou difference."""
+    worst = 0.0
+    for f in ("tp", "fp", "fn", "itp", "ifp", "ifn"):
+        check(getattr(a, f) == getattr(b, f), f"{name}: {f} differs")
+    for k in classes:
+        x, y = a.cumiou[k], b.cumiou[k]
+        worst = max(worst, abs(x - y) / max(abs(y), 1e-300))
+    check(worst <= 1e-12, f"{name}: cumiou differs by {worst} relative")
+    return worst
+
+
+def bevseg_serving(dev, bev, frames):
+    """make_predictor (the semantic preset) and make_panoptic_predictor
+    (top_k 64) on every frame, counts read over the requests (no kernel
+    of the port's); the predictions scored by SegmentationEvaluator on
+    the host (per frame, timed) and by device_panoptic_stats on the card,
+    counters equal; then each predictor's steady request (median of 10
+    after a warm-up) and the card's busy share over 5 requests."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from d3d_tpu_torch.benchmarks import SegmentationEvaluator
+    from d3d_tpu_torch.benchmarks_device import (device_panoptic_stats,
+                                                 device_semantic_stats)
+    from d3d_tpu_torch.models import make_panoptic_predictor, make_predictor
+
+    classes = list(range(1, bev_preset().num_classes))
+    preds = {"semantic": make_predictor(bev["sem"]["model16"], bev_preset(),
+                                        device=dev),
+             "panoptic": make_panoptic_predictor(
+                 bev["pano"]["model16"], pano_preset(), top_k=64,
+                 device=dev)}
+    stats, out = {}, {}
+    reset_counts()
+    for name, predict in preds.items():
+        res, ms = [], []
+        for f in frames:
+            r, dev_ms, _ = timed(lambda: predict(None, f["points"]))
+            res.append(r)
+            ms.append(dev_ms)
+        n = len(frames)
+        for i in range(3):
+            predict(None, frames[i % n]["points"])
+        steady = [timed(lambda: predict(None, frames[i % n]["points"]))
+                  for i in range(10)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(5):
+                predict(None, frames[i % n]["points"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        stats[name] = dict(
+            request_ms=ms, steady_ms=statistics.median(s[1] for s in steady),
+            steady_host_ms=statistics.median(s[2] for s in steady),
+            busy_share=busy_share(prof, wall))
+        out[name] = res
+    counts = read_counts()
+    check(counts == want_counts(), f"BEVSeg requests: launches {counts}")
+    sem = [r.cpu().numpy().astype(np.uint8) for r in out["semantic"]]
+    pano_sem = [r[0].cpu().numpy().astype(np.uint8) for r in out["panoptic"]]
+    pano_ids = [r[1].cpu().numpy() for r in out["panoptic"]]
+    check(all(s.shape == f["labels"].shape for s, f in zip(sem, frames))
+          and all(i.dtype == np.uint16 for i in pano_ids)
+          and sum(int((i > 0).sum()) for i in pano_ids) > 0,
+          "BEVSeg predictions: shapes, dtypes or no instance")
+    gts = [f["labels"] for f in frames]
+    gids = [f["ids"] for f in frames]
+    host = SegmentationEvaluator(classes, background=0)
+    host_ms = []
+    for g, p, gi, pi in zip(gts, pano_sem, gids, pano_ids):
+        t0 = time.perf_counter()
+        host.add_stats(host.calc_stats(g, p, gi, pi))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    ev = SegmentationEvaluator(classes, background=0)
+    dev_stats, dev_ms, _ = timed(lambda: device_panoptic_stats(
+        ev, gts, pano_sem, gids, pano_ids, device=dev))
+    err = seg_stats_equal("BEVSeg panoptic scores host vs card",
+                          dev_stats, host.get_stats(), classes)
+    sem_host = SegmentationEvaluator(classes, background=0)
+    for g, p in zip(gts, sem):
+        sem_host.add_stats(sem_host.calc_stats(g, p))
+    sem_dev = device_semantic_stats(ev, gts, sem, device=dev)
+    for f in ("tp", "fp", "fn"):
+        check(getattr(sem_dev, f) == getattr(sem_host.get_stats(), f),
+              f"BEVSeg semantic scores host vs card: {f}")
+    ev.add_stats(dev_stats)
+    pq = [v for v in ev.pq().values() if not np.isnan(v)]
+    stats.update(host_eval_ms_per_frame=statistics.median(host_ms),
+                 device_eval_ms=dev_ms, cumiou_rel_err=err,
+                 miou=float(np.nanmean(list(ev.iou().values()))),
+                 mean_pq=float(np.mean(pq)) if pq else None)
+    log("BEVSeg serving (bf16 presets): "
+        + "; ".join(f"{k} requests " + ", ".join(
+            f"{m:.2f}" for m in v["request_ms"]) + f" ms (CUDA events, the "
+            f"first cold), steady {v['steady_ms']:.2f} ms (host "
+            f"{v['steady_host_ms']:.2f} ms), busy share "
+            f"{v['busy_share'] if v['busy_share'] is None else round(v['busy_share'], 3)}"
+            for k, v in stats.items() if isinstance(v, dict))
+        + f"; scored on the host {stats['host_eval_ms_per_frame']:.1f} ms a "
+        f"frame, by device_panoptic_stats {dev_ms:.1f} ms for "
+        f"{len(frames)} frames, counters equal, cumiou within {err:.3g}; "
+        f"mIoU {stats['miou']:.4f}, mean PQ {stats['mean_pq']}")
+    return counts, stats
+
+
+def bevseg_card_vs_cpu(dev, bev, points):
+    """Frame ``points`` through the f32 panoptic model on the card (TF32
+    off) and the same weights on the CPU: per-point logits, the centre
+    heatmap and the offsets within 1e-4 of each output's largest
+    magnitude. Returns the errors and the CPU network's ms."""
+    from d3d_tpu_torch.models import BEVSeg
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m32 = bev["pano"]["model32"]
+    cpu_model = BEVSeg(m32.cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               m32.state_dict().items()})
+    raw, ms = [], []
+    for m, d in ((m32, dev), (cpu_model, "cpu")):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            raw.append(m(*bev_inputs(points, m.cfg, d)))
+        if d != "cpu":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    errs = {k: float((raw[0][k].cpu() - raw[1][k]).abs().max()
+                     / raw[1][k].abs().max()) for k in raw[1]}
+    check(max(errs.values()) <= 1e-4, f"BEVSeg card vs CPU: {errs}")
+    log(f"BEVSeg card vs CPU (f32, TF32 off): logits, heatmap and offsets "
+        f"within {max(errs.values()):.3g} of their largest magnitudes; the "
+        f"network {ms[0]:.1f} ms on the card (first call), {ms[1]:.0f} ms "
+        "on the CPU")
+    return dict(errors=errs, cpu_network_ms=ms[1])
+
+
+def bevseg_perfect_panoptic(dev, frames):
+    """panoptic_targets of each frame's ground truth on the card, its
+    heatmap as logits and its offsets as the predictions, grouped by
+    group_instances (the gt labels as the semantic prediction):
+    device_panoptic_stats gives PQ = 1 for every class with a thing."""
+    from d3d_tpu_torch.benchmarks import SegmentationEvaluator
+    from d3d_tpu_torch.benchmarks_device import device_panoptic_stats
+    from d3d_tpu_torch.models import group_instances, panoptic_targets
+
+    cfg = pano_preset()
+    classes = list(range(1, cfg.num_classes))
+    ids = []
+    for f in frames:
+        pts = torch.from_numpy(f["points"]).to(dev)
+        labels = torch.from_numpy(f["labels"].astype(np.int32)).to(dev)
+        t = panoptic_targets(cfg, pts, labels, torch.from_numpy(
+            f["ids"].astype(np.int32)).to(dev))
+        hm = torch.clamp(t["heatmap"], 1e-6, 1 - 1e-6)
+        ids.append(group_instances(cfg, labels, pts, t["offset"],
+                                   torch.log(hm) - torch.log1p(-hm),
+                                   top_k=64).cpu().numpy())
+    ev = SegmentationEvaluator(classes, background=0)
+    gts = [f["labels"] for f in frames]
+    ev.add_stats(device_panoptic_stats(ev, gts, gts, [f["ids"] for f in
+                                                      frames], ids,
+                                       device=dev))
+    pq = {k: v for k, v in ev.pq().items() if not np.isnan(v)}
+    check(pq and all(abs(v - 1.0) <= 1e-12 for v in pq.values()),
+          f"perfect panoptic prediction: PQ {pq}")
+    things = sum(len(np.unique(f["ids"][f["ids"] > 0])) for f in frames)
+    log(f"panoptic_targets as predictions on the card: {things} thing "
+        f"instances over {len(frames)} frames regrouped, PQ = 1 for classes "
+        f"{sorted(pq)}")
+    return dict(instances=things, classes=sorted(pq))
+
+
+def bevseg_batch(dev, frames, keys=(0, 1)):
+    """A panoptic training batch of two frames: pillars, cell coordinates,
+    points, labels and instance ids, on the card."""
+    cfg = pano_preset()
+    parts = [bev_inputs(frames[i]["points"], cfg, dev) for i in keys]
+    batch = {k: torch.cat([p[j] for p in parts]) for j, k in enumerate(
+        ("features", "coords", "valid", "point_coords"))}
+    batch.update(
+        points=torch.stack([torch.from_numpy(frames[i]["points"])
+                            for i in keys]).to(dev),
+        labels=torch.stack([torch.from_numpy(frames[i]["labels"].astype(
+            np.int32)) for i in keys]).to(dev),
+        inst_ids=torch.stack([torch.from_numpy(frames[i]["ids"].astype(
+            np.int32)) for i in keys]).to(dev))
+    return batch
+
+
+def bevseg_training(dev, bev, batch, dtype):
+    """The panoptic make_train_step + make_optimizer from the calibrated
+    f32 weights in ``dtype`` (f32 with TF32 off), batch 2, BEV_STEPS
+    steps, counts read per step: losses finite, the last below the
+    first. Returns (summed counts, stats)."""
+    from d3d_tpu_torch.models import BEVSeg
+    from d3d_tpu_torch.models.bevseg import make_train_step
+    from d3d_tpu_torch.train import make_optimizer
+
+    model = BEVSeg(pano_preset(dtype=dtype), device=dev)
+    model.load_state_dict(bev["pano"]["model32"].state_dict())
+    opt, _ = make_optimizer(model.parameters(), total_steps=BEV_STEPS)
+    step = make_train_step(model, opt, model.cfg)
+    total, losses, step_ms = {}, [], []
+    for i in range(BEV_STEPS):
+        reset_counts()
+        aux, ms, _ = timed(lambda: step(batch))
+        c = read_counts()
+        check(c == want_counts(), f"BEVSeg training {dtype} step {i + 1}: "
+                                  f"launches {c}")
+        add_counts(total, c)
+        step_ms.append(ms)
+        losses.append(float(aux["total"]))
+        check(math.isfinite(losses[-1]), f"BEVSeg training {dtype}: loss "
+                                         f"{losses[-1]}")
+    check(losses[-1] < losses[0], f"BEVSeg training {dtype}: losses "
+                                  f"{losses} do not fall")
+    log(f"BEVSeg panoptic training {dtype} (batch 2): losses "
+        + ", ".join(f"{l:.4f}" for l in losses) + "; step "
+        + ", ".join(f"{m:.2f}" for m in step_ms) + " ms (CUDA events)")
+    return total, dict(losses=losses, step_ms=step_ms)
+
+
+def seg_scale_chunk(rng, frames, lo, hi):
+    """Frames lo..hi of the evaluation set: frame j is KITTI-360 frame
+    j % 4's ground truth, and its prediction that ground truth with 5% of
+    the labels redrawn and 5% of the thing ids shifted by one (seeded): a
+    good model's output, so most segments match."""
+    n = len(frames[0]["labels"])
+    idx = np.arange(lo, hi) % len(frames)
+    gts = np.stack([frames[i]["labels"] for i in idx])
+    gids = np.stack([frames[i]["ids"] for i in idx])
+    flip = rng.random((hi - lo, n)) < 0.05
+    sem = np.where(flip, rng.integers(0, 20, (hi - lo, n)), gts).astype(
+        np.uint8)
+    shift = rng.random((hi - lo, n)) < 0.05
+    ids = np.where(shift & (gids > 0), gids + 1, gids).astype(np.uint16)
+    return list(gts), list(sem), list(gids), list(ids)
+
+
+def seg_eval_at_scale(dev, frames):
+    """device_panoptic_stats over SEG_SCALE_FRAMES frames of the scan's
+    size in chunks of SEG_SCALE_CHUNK (the host packing timed apart from
+    the device counting and its copies), the first SEG_SCALE_CHECKED
+    frames' counters held to the host evaluator's."""
+    from d3d_tpu_torch import benchmarks_device as bd
+    from d3d_tpu_torch.benchmarks import SegmentationEvaluator
+
+    classes = list(range(1, bev_preset().num_classes))
+    ev = SegmentationEvaluator(classes, background=0)
+    rng = np.random.default_rng(950)
+    pack_s = device_s = make_s = 0.0
+    total = None
+    for lo in range(0, SEG_SCALE_FRAMES, SEG_SCALE_CHUNK):
+        t0 = time.perf_counter()
+        gts, sem, gids, ids = seg_scale_chunk(rng, frames, lo,
+                                              lo + SEG_SCALE_CHUNK)
+        t1 = time.perf_counter()
+        if lo == 0:
+            host = SegmentationEvaluator(classes, background=0)
+            h0 = time.perf_counter()
+            for a in zip(gts[:SEG_SCALE_CHECKED], sem, gids, ids):
+                host.add_stats(host.calc_stats(*a))
+            host_ms = (time.perf_counter() - h0) * 1e3 / SEG_SCALE_CHECKED
+            first = bd.device_panoptic_stats(
+                ev, gts[:SEG_SCALE_CHECKED], sem[:SEG_SCALE_CHECKED],
+                gids[:SEG_SCALE_CHECKED], ids[:SEG_SCALE_CHECKED],
+                device=dev)
+            seg_stats_equal(f"first {SEG_SCALE_CHECKED} frames host vs card",
+                            first, host.get_stats(), classes)
+        t2 = time.perf_counter()
+        gt, pr = bd._pack_labels(ev, gts, sem)
+        nmax = max(len(g) for g in gts)
+        gk = bd._panoptic_keys(ev, gts, gids, nmax, 0)
+        pk = bd._panoptic_keys(ev, sem, ids, nmax, 0)
+        t3 = time.perf_counter()
+        conf = bd._confusion_on(gt, pr, dev)
+        pano = bd._panoptic_on(gk, pk, ev._min_points, 0, dev)
+        t4 = time.perf_counter()
+        part = [conf] + pano
+        total = part if total is None else [a + b for a, b in
+                                            zip(total, part)]
+        make_s += t1 - t0
+        pack_s += t3 - t2
+        device_s += t4 - t3
+    stats = dict(frames=SEG_SCALE_FRAMES, points=len(frames[0]["labels"]),
+                 chunk=SEG_SCALE_CHUNK, host_pack_ms=pack_s * 1e3,
+                 device_ms=device_s * 1e3,
+                 device_ms_per_frame=device_s * 1e3 / SEG_SCALE_FRAMES,
+                 host_eval_ms_per_frame=host_ms, data_s=make_s,
+                 matched=int(total[1].sum()),
+                 pq=float(total[4].sum() / max(total[1].sum() + 0.5 * (
+                     total[2].sum() + total[3].sum()), 1)))
+    log(f"segmentation evaluation at scale: {SEG_SCALE_FRAMES} frames x "
+        f"{stats['points']} points in chunks of {SEG_SCALE_CHUNK}: device "
+        f"counting {stats['device_ms']:.0f} ms ({stats['device_ms_per_frame']:.2f}"
+        f" ms a frame, copies included), host packing "
+        f"{stats['host_pack_ms']:.0f} ms; the host evaluator "
+        f"{host_ms:.1f} ms a frame; the first {SEG_SCALE_CHECKED} frames' "
+        f"counters equal to the host's; {stats['matched']} segments matched, "
+        f"overall PQ {stats['pq']:.4f}")
+    return stats
+
+
+def bevseg_kitti360(dev):
+    """The bevseg_kitti360 path. Returns ({path: counts}, stats)."""
+    import shutil
+
+    from d3d_tpu_torch.models import BEVSeg
+    from d3d_tpu_torch.models.bevseg import make_train_step
+
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "bevseg_kitti360"
+    shutil.rmtree(root, ignore_errors=True)
+    windows = write_kitti360_scene(root)
+    stats = dict(write_s=time.perf_counter() - t0)
+    reset_counts()
+    loader, frames, stats["transfer"] = k360_transfer(dev, root, windows)
+    counts = {"kitti360_transfer": read_counts()}
+    check(counts["kitti360_transfer"] == want_counts(),
+          f"label transfer: launches {counts['kitti360_transfer']}")
+    bev = bevseg_setup(dev, frames)
+    stats["calibrated_centres"] = bev["centres"]
+    counts["bevseg_serving"], stats["serving"] = bevseg_serving(dev, bev,
+                                                                frames)
+    stats["card_vs_cpu"] = bevseg_card_vs_cpu(dev, bev, frames[0]["points"])
+    stats["perfect_panoptic"] = bevseg_perfect_panoptic(dev, frames)
+    batch = bevseg_batch(dev, frames)
+    total = {}
+    for dtype in ("float32", "bfloat16"):
+        c, stats[f"train_{dtype}"] = bevseg_training(dev, bev, batch, dtype)
+        add_counts(total, c)
+    counts["bevseg_train"] = total
+    stats["grad_err"], stats["cpu_step_ms"] = grads_card_vs_cpu(
+        "BEVSeg panoptic", dev,
+        lambda d, dt: BEVSeg(pano_preset(dtype=dt), device=d),
+        bev["pano"]["model32"].state_dict(), batch,
+        lambda m, opt: make_train_step(m, opt, m.cfg))
+    stats["eval_at_scale"] = seg_eval_at_scale(dev, frames)
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"bevseg_kitti360: {stats['phase_s']:.1f} s")
+    del bev, batch, loader
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
 def add_cupti(a, b):
     """A sum of CUPTI times that is None where a term is."""
     return None if a is None or b is None else a + b
@@ -6478,6 +7700,8 @@ def main():
     vn_counts, vn_stats = voxelnext_track(dev, vn, second)
     nte_counts, nte_stats = nuscenes_track_eval(dev, vn)
     cp_counts, cp_stats = centerpoint_track(dev, vn)
+    mono_counts, mono_stats = mono3d_eval(dev)
+    bev_counts, bev_stats = bevseg_kitti360(dev)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     train_counts, train_stats = {}, {}
@@ -6595,7 +7819,11 @@ def main():
                               "pointpillars_train": pp_stats,
                               "voxelnext_track": vn_stats,
                               "nuscenes_track_eval": nte_stats,
-                              "centerpoint_track": cp_stats},
+                              "centerpoint_track": cp_stats,
+                              "mono3d_eval": dict(mono_stats,
+                                                  launches=mono_counts),
+                              "bevseg_kitti360": dict(bev_stats,
+                                                      launches=bev_counts)},
                     "card": card}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,9 +14,13 @@ The tracking evaluator (CLEAR-MOT / AMOTA) keeps the JAX module's host
 bookkeeping in numpy; its ``device_match`` path and its sequence scan
 (``calc_stats_sequence``) compute the matching tables and the greedy
 matches with :mod:`d3d_tpu_torch.benchmarks_device` on the evaluator's
-device, one fetch a chunk of frames. The segmentation evaluator is not
-ported yet.
+device, one fetch a chunk of frames. The segmentation evaluator
+(semantic and panoptic) is host numpy, as the JAX module's; its batched
+counterparts are :func:`~d3d_tpu_torch.benchmarks_device.device_semantic_stats`
+and :func:`~d3d_tpu_torch.benchmarks_device.device_panoptic_stats`.
 """
+
+from enum import Enum
 
 import numpy as np
 import scipy.stats as sps
@@ -30,6 +34,8 @@ __all__ = [
     "DetectionEvaluator",
     "TrackingEvalStats",
     "TrackingEvaluator",
+    "SegmentationStats",
+    "SegmentationEvaluator",
 ]
 
 # numpy 2 renamed trapz
@@ -1466,3 +1472,262 @@ class TrackingEvaluator(DetectionEvaluator):
         lines.append("========== Summary End ==========")
         return "\n".join(lines)
 
+
+class SegmentationStats:
+    """Semantic + panoptic segmentation counters
+    (reference benchmarks.pyx:891-930)."""
+
+    def __init__(self, classes=()):
+        self.tp = {k: 0 for k in classes}
+        self.fp = {k: 0 for k in classes}
+        self.fn = {k: 0 for k in classes}
+        self.itp = {k: 0 for k in classes}
+        self.ifp = {k: 0 for k in classes}
+        self.ifn = {k: 0 for k in classes}
+        self.cumiou = {k: 0.0 for k in classes}
+
+    def as_object(self):
+        return dict(tp=self.tp, fp=self.fp, fn=self.fn, itp=self.itp,
+                    ifp=self.ifp, ifn=self.ifn, cumiou=self.cumiou)
+
+
+class SegmentationEvaluator:
+    """Semantic / panoptic segmentation benchmark modeled after the
+    cityscapesScripts panoptic evaluation (reference benchmarks.pyx:932-1213;
+    the JAX module's host evaluator). Pointwise counting is
+    vectorized with numpy instead of the reference's per-point nogil
+    loops.
+
+    :param classes: classes to consider (others count as background)
+    :param background: the background class
+    :param min_points: minimum segment size in the panoptic matching
+    """
+
+    def __init__(self, classes, background=0, min_points=0):
+        if not isinstance(classes, (list, tuple)):
+            classes = [classes]
+        assert len(classes) > 0
+        if isinstance(classes[0], Enum):
+            self._class_type = type(classes[0])
+            self._classes = [c.value for c in classes]
+        elif isinstance(classes[0], (int, np.integer)):
+            self._class_type = None
+            self._classes = list(classes)
+        else:
+            raise ValueError("Classes should be int or Enum")
+
+        if isinstance(background, Enum):
+            background = background.value
+        self._background = background if background >= 0 else 256 + background
+        self._min_points = min_points
+        self._stats = SegmentationStats(self._classes)
+        if len(self._classes) > 255:
+            raise ValueError("Only support up to 255 different categories!")
+
+    def reset(self):
+        self._stats = SegmentationStats(self._classes)
+
+    def _collect_labels(self, stats, gt_labels, pred_labels):
+        for k in self._classes:
+            if k == self._background:
+                continue
+            gt_k = gt_labels == k
+            stats.tp[k] += int(np.sum(gt_k & (pred_labels == k)))
+            stats.fn[k] += int(np.sum(gt_k & (pred_labels != k)))
+            stats.fp[k] += int(np.sum((pred_labels == k) & ~gt_k))
+
+    def _collect_labels_pano(self, stats, gt_labels, pred_labels, gt_ids,
+                             pred_ids):
+        self._collect_labels(stats, gt_labels, pred_labels)
+
+        bg_key = np.uint32(self._background) << np.uint32(16)
+        in_cls_gt = np.isin(gt_labels, self._classes)
+        in_cls_pred = np.isin(pred_labels, self._classes)
+        gt_key = np.where(
+            in_cls_gt,
+            (gt_labels.astype(np.uint32) << np.uint32(16)) | gt_ids,
+            bg_key)
+        pred_key = np.where(
+            in_cls_pred,
+            (pred_labels.astype(np.uint32) << np.uint32(16)) | pred_ids,
+            bg_key)
+
+        # joint histogram of (gt segment, pred segment)
+        pairs = (gt_key.astype(np.uint64) << np.uint64(32)) | pred_key
+        upairs, pcounts = np.unique(pairs, return_counts=True)
+        ugt = (upairs >> np.uint64(32)).astype(np.uint32)
+        upred = (upairs & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+        gt_sizes = {}
+        pred_sizes = {}
+        for g, p, c in zip(ugt, upred, pcounts):
+            gt_sizes[g] = gt_sizes.get(g, 0) + int(c)
+            pred_sizes[p] = pred_sizes.get(p, 0) + int(c)
+
+        bg_overlap = {int(p): int(c)
+                      for g, p, c in zip(ugt, upred, pcounts) if g == bg_key}
+
+        pred_matched = set()
+        gt_matched = set()
+        for g, p, c in zip(ugt, upred, pcounts):
+            gt_label = int(g) >> 16
+            pred_label = int(p) >> 16
+            if gt_label == self._background or pred_label == self._background:
+                continue
+            if gt_label != pred_label:
+                continue
+            if gt_sizes[g] < self._min_points:
+                continue
+            total = gt_sizes[g] + pred_sizes[p] - int(c)
+            # the reference subtracts the prediction's background overlap
+            # only when it is absent (an apparent logic slip, benchmarks.pyx
+            # :1056-1057); here the VOID overlap is subtracted when present,
+            # matching the cityscapes panoptic protocol
+            total -= bg_overlap.get(int(p), 0)
+            iou = int(c) / total
+            if iou > 0.5:
+                stats.itp[gt_label] += 1
+                stats.cumiou[gt_label] += iou
+                gt_matched.add(g)
+                pred_matched.add(p)
+
+        for g, size in gt_sizes.items():
+            gt_label = int(g) >> 16
+            if gt_label == self._background:
+                continue
+            if size < self._min_points:
+                continue
+            if g not in gt_matched:
+                stats.ifn[gt_label] += 1
+
+        for p, size in pred_sizes.items():
+            pred_label = int(p) >> 16
+            if pred_label == self._background:
+                continue
+            if size < self._min_points:
+                continue
+            if p not in pred_matched:
+                stats.ifp[pred_label] += 1
+
+    def calc_stats(self, gt_labels, pred_labels, gt_ids=None, pred_ids=None):
+        """Evaluate one frame of point/pixel labels (ids must be 0 for stuff
+        classes)."""
+        stats = SegmentationStats(self._classes)
+        gt_labels = np.asarray(gt_labels, dtype=np.uint8)
+        pred_labels = np.asarray(pred_labels, dtype=np.uint8)
+        if gt_ids is None or pred_ids is None:
+            self._collect_labels(stats, gt_labels, pred_labels)
+        else:
+            gt_ids = np.asarray(gt_ids)
+            pred_ids = np.asarray(pred_ids)
+            if gt_ids.dtype != np.uint16 or pred_ids.dtype != np.uint16:
+                raise ValueError("Please convert ids to uint16!")
+            self._collect_labels_pano(stats, gt_labels, pred_labels,
+                                      gt_ids.astype(np.uint32),
+                                      pred_ids.astype(np.uint32))
+        return stats
+
+    def add_stats(self, stats):
+        for k in self._classes:
+            self._stats.tp[k] += stats.tp[k]
+            self._stats.fp[k] += stats.fp[k]
+            self._stats.fn[k] += stats.fn[k]
+            self._stats.itp[k] += stats.itp[k]
+            self._stats.ifp[k] += stats.ifp[k]
+            self._stats.ifn[k] += stats.ifn[k]
+            self._stats.cumiou[k] += stats.cumiou[k]
+
+    def get_stats(self):
+        return self._stats
+
+    def _typed(self, d):
+        if self._class_type is None:
+            return dict(d)
+        return {self._class_type(k): v for k, v in d.items()}
+
+    def tp(self, instance=False):
+        return self._typed(self._stats.itp if instance else self._stats.tp)
+
+    def fp(self, instance=False):
+        return self._typed(self._stats.ifp if instance else self._stats.fp)
+
+    def fn(self, instance=False):
+        return self._typed(self._stats.ifn if instance else self._stats.fn)
+
+    def iou(self, instance=False):
+        result = {}
+        for k in self._classes:
+            if instance:
+                iou = (self._stats.cumiou[k] / self._stats.itp[k]
+                       if self._stats.itp[k] > 0 else np.nan)
+            else:
+                d = self._stats.tp[k] + self._stats.fp[k] + self._stats.fn[k]
+                iou = self._stats.tp[k] / d if d > 0 else np.nan
+            result[k if self._class_type is None else self._class_type(k)] = iou
+        return result
+
+    def sq(self):
+        """Segmentation quality (panoptic)."""
+        return self.iou(instance=True)
+
+    def rq(self):
+        """Recognition quality (panoptic)."""
+        result = {}
+        for k in self._classes:
+            d = self._stats.itp[k] + 0.5 * self._stats.ifp[k] + 0.5 * self._stats.ifn[k]
+            rq = self._stats.itp[k] / d if d > 0 else np.nan
+            result[k if self._class_type is None else self._class_type(k)] = rq
+        return result
+
+    def pq(self):
+        """Panoptic quality = SQ * RQ."""
+        sq, rq = self.sq(), self.rq()
+        return {k: sq[k] * rq[k] for k in sq}
+
+    def metrics_dict(self):
+        """Semantic + panoptic metrics as a JSON-serializable dict."""
+        def _f(x):
+            x = float(x)
+            return x if np.isfinite(x) else None
+
+        iou = self.iou()
+        sq, rq, pq = self.sq(), self.rq(), self.pq()
+        out = {}
+        for k in self._classes:
+            c = k if self._class_type is None else self._class_type(k)
+            name = getattr(c, "name", str(c))
+            out[name] = dict(iou=_f(iou[c]), sq=_f(sq[c]), rq=_f(rq[c]),
+                             pq=_f(pq[c]),
+                             tp=int(self._stats.tp[k]),
+                             fp=int(self._stats.fp[k]),
+                             fn=int(self._stats.fn[k]))
+        vals = [v["iou"] for v in out.values() if v["iou"] is not None]
+        out["mIoU"] = _f(np.mean(vals)) if vals else None
+        return out
+
+    def summary(self):
+        def mean_wo_nan(values):
+            valid = [v for v in values if not np.isnan(v)]
+            return np.nan if not valid else sum(valid) / len(valid)
+
+        lines = ["========== Benchmark Summary =========="]
+        iou = self.iou()
+        sq, rq, pq = self.sq(), self.rq(), self.pq()
+        for k in self._classes:
+            if k == self._background:
+                continue
+            tk = k if self._class_type is None else self._class_type(k)
+            name = (str(k).rjust(4) if self._class_type is None
+                    else tk.name.rjust(20))
+            if np.isnan(pq[tk]):
+                lines.append("%s: iou=%.3f" % (name, iou[tk]))
+            else:
+                lines.append("%s: iou=%.3f, sq=%.3f, rq=%.3f, pq=%.3f" % (
+                    name, iou[tk], sq[tk], rq[tk], pq[tk]))
+        lines.append("mean IoU: %.4f" % mean_wo_nan(iou.values()))
+        if not np.isnan(mean_wo_nan(pq.values())):
+            lines.append("mean SQ: %.4f" % mean_wo_nan(sq.values()))
+            lines.append("mean RQ: %.4f" % mean_wo_nan(rq.values()))
+            lines.append("mean PQ: %.4f" % mean_wo_nan(pq.values()))
+        lines.append("========== Summary End ==========")
+        return "\n".join(lines)

@@ -24,6 +24,12 @@ The tracking evaluator's sequence scan (:func:`tracking_match_scan`) chains
 the CLEAR-MOT matching of a chunk of frames on the same device: a Python
 loop over the chunk's frames in place of ``lax.scan``, one fetch a chunk.
 
+Semantic segmentation counts one ``bincount`` of ``gt * 256 + pred`` a
+chunk of frames (:func:`device_semantic_stats`); panoptic matching sorts
+every (frame, gt segment, pred segment) key of a chunk at once and reduces
+its runs (:func:`device_panoptic_stats`), counters exact in int64 and the
+IoU sums in float64, as the JAX module computes them with x64 on.
+
 Packing stays host numpy. Counter outputs (ngt/ndt/tp/fp/fn) are
 integer-exact against the host ``DetectionEvaluator.calc_stats``; accuracy
 sums are float32 (the host accumulates in float64). Where the JAX module
@@ -43,7 +49,8 @@ from .utils import as_tensor, resolve_device
 __all__ = ["pack_frames", "eval_frames_device", "device_calc_stats",
            "match_subsets_device", "matching_tables_device",
            "batched_matching_tables", "match_subsets_with_tables",
-           "max_dist_arrays", "tracking_match_scan"]
+           "max_dist_arrays", "tracking_match_scan",
+           "device_semantic_stats", "device_panoptic_stats"]
 
 _LOG_2PI = float(np.log(2.0 * np.pi))
 _BIG_RANK = 2 ** 30
@@ -655,3 +662,226 @@ def device_calc_stats(evaluator, gt_arrays, dt_arrays, calib=None,
                     tp_tot[i] > 0,
                     out[fld][:, i].sum(0) / np.maximum(tp_tot[i], 1), np.nan)
     return s
+
+
+# ---------------------------------------------------------------------------
+# semantic and panoptic segmentation
+# ---------------------------------------------------------------------------
+
+# points a device call counts at once (frames are chunked to stay below)
+_SEG_CHUNK_POINTS = 1 << 25
+
+
+def _row_chunks(rows, width):
+    step = max(1, _SEG_CHUNK_POINTS // max(width, 1))
+    return [(lo, min(lo + step, rows)) for lo in range(0, rows, step)]
+
+
+def _seg_device(evaluator, device, mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh sharding is not ported yet (d3d_tpu_torch has no "
+            "parallel.mesh); pass mesh=None")
+    return resolve_device(device if device is not None
+                          else getattr(evaluator, "_device", None))
+
+
+def _pack_labels(evaluator, gt_labels_list, pred_labels_list):
+    """Host packing of the semantic path: (F, N) uint8 gt and pred label
+    arrays, ragged frames padded with the background label (which counts
+    nowhere)."""
+    bg = evaluator._background
+    frames = [(np.asarray(g, np.uint8), np.asarray(p, np.uint8))
+              for g, p in zip(gt_labels_list, pred_labels_list)]
+    nmax = max((len(g) for g, _ in frames), default=1)
+    f = len(frames)
+    gt = np.full((max(f, 1), nmax), bg, np.uint8)
+    pr = np.full((max(f, 1), nmax), bg, np.uint8)
+    for i, (g, p) in enumerate(frames):
+        if len(g) != len(p):
+            raise ValueError("gt/pred label lengths differ in frame %d" % i)
+        gt[i, :len(g)] = g
+        pr[i, :len(p)] = p
+    return gt, pr
+
+
+def _semantic_confusion(gt, pred):
+    """(F, N) uint8 label tensors -> (256, 256) int64 confusion matrix
+    (rows gt, columns pred): one ``bincount`` of ``gt * 256 + pred``.
+    Exact at any count, where the JAX function's bf16 one-hot product
+    with float32 accumulation is exact only below 2^24 points per frame
+    and class pair."""
+    key = gt.to(torch.int32) * 256 + pred.to(torch.int32)
+    return torch.bincount(key.reshape(-1), minlength=256 * 256).reshape(
+        256, 256)
+
+
+def _confusion_on(gt, pr, dev):
+    """The confusion matrix of packed (F, N) uint8 arrays on ``dev``, in
+    chunks of frames, as numpy."""
+    conf = torch.zeros((256, 256), dtype=torch.int64, device=dev)
+    for lo, hi in _row_chunks(*gt.shape):
+        conf += _semantic_confusion(torch.from_numpy(gt[lo:hi]).to(dev),
+                                    torch.from_numpy(pr[lo:hi]).to(dev))
+    return conf.cpu().numpy()
+
+
+def device_semantic_stats(evaluator, gt_labels_list, pred_labels_list,
+                          mesh=None, device=None):
+    """Semantic confusion counting for many frames in one device pass.
+
+    Computes the tp/fp/fn counters of
+    :meth:`~d3d_tpu_torch.benchmarks.SegmentationEvaluator.calc_stats`
+    (semantic part) summed over a batch of frames, integer-exactly, as
+    ``bincount`` s of ``gt * 256 + pred`` (chunks of frames).
+
+    :param evaluator: a ``SegmentationEvaluator`` (classes/background read)
+    :param gt_labels_list: per-frame int label arrays (ragged allowed:
+        frames pad with the background label, which counts nowhere)
+    :param mesh: not supported yet (the port has no ``parallel.mesh``);
+        anything but None raises ``NotImplementedError``
+    :param device: where the counting runs (default CUDA; raises without
+        it)
+    :returns: a mergeable ``SegmentationStats`` (instance counters zero)
+    """
+    from .benchmarks import SegmentationStats
+
+    dev = _seg_device(evaluator, device, mesh)
+    gt, pr = _pack_labels(evaluator, gt_labels_list, pred_labels_list)
+    conf = _confusion_on(gt, pr, dev)
+    stats = SegmentationStats(evaluator._classes)
+    for k in evaluator._classes:
+        if k == evaluator._background:
+            continue
+        stats.tp[k] = int(conf[k, k])
+        stats.fn[k] = int(conf[k, :].sum() - conf[k, k])
+        stats.fp[k] = int(conf[:, k].sum() - conf[k, k])
+    return stats
+
+
+def _panoptic_keys(evaluator, labels, ids, nmax, bg):
+    """Host packing: (label << 16 | id) int32 keys, out-of-class labels
+    and padding routed to the background segment (the JAX function's
+    packing; host counterpart: the ``np.where(in_cls, ...)`` key build in
+    ``_collect_labels_pano``). Labels pass through ``np.uint8`` (-1 wraps
+    to 255); ids must be uint16."""
+    cls = np.asarray(evaluator._classes)
+    f = len(labels)
+    out = np.full((max(f, 1), nmax), np.int32(bg) << 16, np.int32)
+    for i, (lab, sid) in enumerate(zip(labels, ids)):
+        lab = np.asarray(lab, np.uint8)
+        sid = np.asarray(sid)
+        if sid.dtype != np.uint16:
+            raise ValueError("Please convert ids to uint16!")
+        key = np.where(np.isin(lab, cls),
+                       (lab.astype(np.int32) << 16) | sid.astype(np.int32),
+                       np.int32(bg) << 16)
+        out[i, :len(key)] = key
+    return out
+
+
+def _panoptic_frames(gt_key, pred_key, min_points, bg_label):
+    """(F, N) int32 segment keys on one device -> per-class (256,)
+    counters itp, ifn, ifp (int64) and cumiou (float64) summed over the
+    frames.
+
+    One sort of every point's (frame, gt key, pred key) gives the joint
+    pair histogram; its runs give the gt segments (sizes), a second
+    ``unique`` the pred segments (sizes and VOID overlaps: the points of
+    a pred segment whose gt label is the background). A pair matches when
+    its labels agree and are not the background, its gt segment has
+    ``min_points`` and its IoU ``c / (gt + pred - c - void)``, in float64,
+    is strictly above 0.5; unmatched segments of ``min_points`` count as
+    ifn / ifp. Host counterpart: ``SegmentationEvaluator.
+    _collect_labels_pano``."""
+    f, n = gt_key.shape
+    dev = gt_key.device
+    frame = torch.arange(f, dtype=torch.int64, device=dev)[:, None] << 48
+    pk = pred_key.to(torch.int64)
+    pairs, count = torch.unique(
+        (frame | (gt_key.to(torch.int64) << 24) | pk).reshape(-1),
+        return_counts=True)
+    mask24 = (1 << 24) - 1
+    gseg = pairs >> 24                                  # (frame, gt key)
+    pseg = ((pairs >> 48) << 24) | (pairs & mask24)     # (frame, pred key)
+    gl = (gseg >> 16) & 0xFF
+    pl = (pairs >> 16) & 0xFF
+    gu, ginv = torch.unique_consecutive(gseg, return_inverse=True)
+    pu, pinv = torch.unique(pseg, return_inverse=True)
+
+    def seg_sum(inv, nseg, values):
+        return torch.zeros(nseg, dtype=torch.int64, device=dev).index_add_(
+            0, inv, values)
+
+    g_size = seg_sum(ginv, len(gu), count)
+    p_size = seg_sum(pinv, len(pu), count)
+    p_void = seg_sum(pinv, len(pu), count * (gl == bg_label))
+
+    gsz = g_size[ginv]
+    denom = gsz + p_size[pinv] - count - p_void[pinv]
+    iou = torch.where(denom > 0, count.to(torch.float64)
+                      / torch.clamp_min(denom, 1).to(torch.float64), 0.0)
+    match = ((gl == pl) & (gl != bg_label) & (pl != bg_label)
+             & (gsz >= min_points) & (iou > 0.5))
+    itp = torch.bincount(gl[match], minlength=256)[:256]
+    cumiou = torch.zeros(256, dtype=torch.float64, device=dev).index_add_(
+        0, gl, torch.where(match, iou, 0.0))
+
+    def unmatched(inv, nseg, labels, sizes):
+        seg_label = torch.zeros(nseg, dtype=torch.int64,
+                                device=dev).scatter_(0, inv, labels)
+        matched = seg_sum(inv, nseg, match.to(torch.int64)) > 0
+        cnt = (seg_label != bg_label) & (sizes >= min_points) & ~matched
+        return torch.bincount(seg_label[cnt], minlength=256)[:256]
+
+    ifn = unmatched(ginv, len(gu), gl, g_size)
+    ifp = unmatched(pinv, len(pu), pl, p_size)
+    return itp, ifn, ifp, cumiou
+
+
+def _panoptic_on(gk, pk, min_points, bg, dev):
+    """:func:`_panoptic_frames` over packed (F, N) key arrays in chunks of
+    frames on ``dev``, summed, as numpy."""
+    out = None
+    for lo, hi in _row_chunks(*gk.shape):
+        part = _panoptic_frames(torch.from_numpy(gk[lo:hi]).to(dev),
+                                torch.from_numpy(pk[lo:hi]).to(dev),
+                                min_points, bg)
+        out = part if out is None else [a + b for a, b in zip(out, part)]
+    return [t.cpu().numpy() for t in out]
+
+
+def device_panoptic_stats(evaluator, gt_labels_list, pred_labels_list,
+                          gt_ids_list, pred_ids_list, mesh=None,
+                          device=None):
+    """Full panoptic + semantic stats for many frames on one device.
+
+    Equivalent to summing ``SegmentationEvaluator.calc_stats(gt, pred,
+    gt_ids, pred_ids)`` over the frames: semantic tp/fp/fn from the
+    confusion counts (:func:`device_semantic_stats`) and instance
+    itp/ifn/ifp/cumiou from sorted-run reductions, integer counters
+    exact and cumiou accumulated in float64 like the host (in another
+    order: within 1e-12 relative).
+
+    :param mesh: not supported yet; anything but None raises
+        ``NotImplementedError``
+    :param device: where the work runs (default CUDA; raises without it)
+    :returns: a mergeable ``SegmentationStats``
+    """
+    dev = _seg_device(evaluator, device, mesh)
+    stats = device_semantic_stats(evaluator, gt_labels_list,
+                                  pred_labels_list, device=dev)
+    bg = evaluator._background
+    nmax = max((len(g) for g in gt_labels_list), default=1)
+    gk = _panoptic_keys(evaluator, gt_labels_list, gt_ids_list, nmax, bg)
+    pk = _panoptic_keys(evaluator, pred_labels_list, pred_ids_list, nmax, bg)
+    itp, ifn, ifp, cumiou = _panoptic_on(gk, pk, evaluator._min_points, bg,
+                                         dev)
+    for k in evaluator._classes:
+        if k == bg:
+            continue
+        stats.itp[k] = int(itp[k])
+        stats.ifn[k] = int(ifn[k])
+        stats.ifp[k] = int(ifp[k])
+        stats.cumiou[k] = float(cumiou[k])
+    return stats

@@ -1,5 +1,6 @@
 """Carry weights from the JAX package's flax PointPillars, CenterPoint (and
-its refinement stage), SECOND, VoxelNeXt and Seg2D to the port.
+its refinement stage), SECOND, VoxelNeXt, Seg2D, Mono3D and BEVSeg to the
+port.
 
 The flax variables are a ``{"params", "batch_stats"}`` tree of nested dicts
 of arrays (numpy, or anything ``np.asarray`` takes); nothing here imports
@@ -8,8 +9,8 @@ Conv kernels HWIO go to OIHW; the stride-f ConvTranspose kernel (kh, kw,
 in, out) flips spatially and goes to (in, out, kh, kw), because flax's
 ``transpose_kernel=False`` with SAME padding feeds output cell ``i*f + r``
 through tap ``f-1-r`` where torch uses tap ``r``; Seg2D's 4x4 stride-2
-ConvTranspose flips the same way (torch's ``padding=1`` then equals flax's
-SAME).
+ConvTranspose (Mono3D's too) flips the same way (torch's ``padding=1``
+then equals flax's SAME), and so does BEVSeg's 2x2 stride-2 one.
 """
 
 import numpy as np
@@ -20,7 +21,9 @@ __all__ = ["pointpillars_state_from_flax", "pointpillars_params_from_flax",
            "centerpoint_refine_state_from_flax", "seg2d_state_from_flax",
            "seg2d_params_from_flax", "second_state_from_flax",
            "second_params_from_flax", "voxelnext_state_from_flax",
-           "voxelnext_params_from_flax"]
+           "voxelnext_params_from_flax", "mono3d_state_from_flax",
+           "mono3d_params_from_flax", "bevseg_state_from_flax",
+           "bevseg_params_from_flax"]
 
 
 def _oihw(kernel):
@@ -116,10 +119,7 @@ def _centerpoint(params, stats):
     ``{name}_conv`` (3x3) and ``{name}_out`` (1x1) with their biases."""
     sd = {}
     _pillar_backbone(sd, params, stats)
-    for name, p in params.items():
-        if name.endswith(("_conv", "_out")):
-            sd[f"heads.{name}.weight"] = _oihw(p["kernel"])
-            sd[f"heads.{name}.bias"] = p["bias"]
+    _conv_heads(sd, params, "heads.")
     return _tensors(sd)
 
 
@@ -151,10 +151,9 @@ def centerpoint_refine_state_from_flax(variables):
     return _tensors(sd)
 
 
-def _seg2d(params, stats):
-    """Seg2D's entries: ``_Block_{i}`` (its Conv_0 or flipped
-    ConvTranspose_0 and BatchNorm_0) and the 1x1 head ``Conv_0``."""
-    sd = {}
+def _blocks(sd, params, stats):
+    """Seg2D's ``_Block_{i}`` (its Conv_0 or flipped ConvTranspose_0 and
+    BatchNorm_0) into ``blocks.{i}``; Mono3D shares the block."""
     i = 0
     while f"_Block_{i}" in params:
         blk = params[f"_Block_{i}"]
@@ -164,6 +163,21 @@ def _seg2d(params, stats):
         _bn(sd, f"blocks.{i}.bn", blk["BatchNorm_0"],
             stats and stats[f"_Block_{i}"]["BatchNorm_0"])
         i += 1
+
+
+def _conv_heads(sd, params, prefix=""):
+    """Each flax Conv whose name ends in ``_conv``/``_out`` or starts with
+    ``head_`` (kernel and bias) under the same name."""
+    for name, p in params.items():
+        if name.endswith(("_conv", "_out")) or name.startswith("head_"):
+            sd[f"{prefix}{name}.weight"] = _oihw(p["kernel"])
+            sd[f"{prefix}{name}.bias"] = p["bias"]
+
+
+def _seg2d(params, stats):
+    """Seg2D's entries: its blocks and the 1x1 head ``Conv_0``."""
+    sd = {}
+    _blocks(sd, params, stats)
     sd["head.weight"] = _oihw(params["Conv_0"]["kernel"])
     sd["head.bias"] = params["Conv_0"]["bias"]
     return _tensors(sd)
@@ -240,3 +254,61 @@ def voxelnext_params_from_flax(params):
     structure) -> ``{name: tensor}`` under the port's
     ``named_parameters()`` names, in its layouts."""
     return _voxelnext(params, None)
+
+
+def _mono3d(params, stats):
+    """Mono3D's entries: its blocks (Seg2D's) and each head's
+    ``{name}_conv`` (3x3) and ``{name}_out`` (1x1) with their biases."""
+    sd = {}
+    _blocks(sd, params, stats)
+    _conv_heads(sd, params, "heads.")
+    return _tensors(sd)
+
+
+def mono3d_state_from_flax(variables):
+    """flax Mono3D variables -> the port's ``state_dict``."""
+    return _mono3d(variables["params"], variables["batch_stats"])
+
+
+def mono3d_params_from_flax(params):
+    """A flax Mono3D ``params`` tree alone (or a gradient tree of its
+    structure) -> ``{name: tensor}`` under the port's
+    ``named_parameters()`` names, in its layouts."""
+    return _mono3d(params, None)
+
+
+def _bevseg(params, stats):
+    """BEVSeg's entries: the PFN, the encoder's ``_ConvBlock_{i}`` (the
+    last ``_ConvBlock`` is the decoder's ``dec``), the ``_Up_{j}``
+    (flipped ConvTranspose_0, BatchNorm_0) and the 1x1 heads."""
+    sd = {}
+    pfn = params["_PFN_0"]
+    sd["pfn.dense.weight"] = np.asarray(pfn["Dense_0"]["kernel"]).T
+    _bn(sd, "pfn.bn", pfn["BatchNorm_0"],
+        stats and stats["_PFN_0"]["BatchNorm_0"])
+    nblocks = sum(1 for k in params if k.startswith("_ConvBlock_"))
+    for i in range(nblocks):
+        _conv_block(sd, "dec" if i == nblocks - 1 else f"blocks.{i}",
+                    params[f"_ConvBlock_{i}"],
+                    stats and stats[f"_ConvBlock_{i}"])
+    j = 0
+    while f"_Up_{j}" in params:
+        up = params[f"_Up_{j}"]
+        sd[f"ups.{j}.conv.weight"] = _flipped(up["ConvTranspose_0"]["kernel"])
+        _bn(sd, f"ups.{j}.bn", up["BatchNorm_0"],
+            stats and stats[f"_Up_{j}"]["BatchNorm_0"])
+        j += 1
+    _conv_heads(sd, params)
+    return _tensors(sd)
+
+
+def bevseg_state_from_flax(variables):
+    """flax BEVSeg variables -> the port's ``state_dict``."""
+    return _bevseg(variables["params"], variables["batch_stats"])
+
+
+def bevseg_params_from_flax(params):
+    """A flax BEVSeg ``params`` tree alone (or a gradient tree of its
+    structure) -> ``{name: tensor}`` under the port's
+    ``named_parameters()`` names, in its layouts."""
+    return _bevseg(params, None)

@@ -1,21 +1,25 @@
 """Ready-made model configurations (port of ``d3d_tpu.models.presets``).
 
-Ported so far: the KITTI PointPillars and SECOND presets, the nuScenes
-and Waymo CenterPoint presets and nuScenes VoxelNeXt. Like the JAX
+Ported so far: the KITTI PointPillars, SECOND and Mono3D presets, the
+nuScenes and Waymo CenterPoint presets, nuScenes VoxelNeXt and the
+SemanticKITTI BEV segmentation preset. Like the JAX
 package's, they default to ``bfloat16`` compute; pass ``dtype="float32"``
 to override.
 """
 
 from dataclasses import replace
 
+from .bevseg import BEVSegConfig
 from .centerpoint import CenterPointConfig
+from .mono3d import Mono3DConfig
 from .pointpillars import PointPillarsConfig
 from .second import SECONDConfig
 from .voxelnext import VoxelNeXtConfig
 
 __all__ = ["pointpillars_kitti", "pointpillars_kitti_3class",
            "centerpoint_nuscenes", "centerpoint_nuscenes_10sweep",
-           "centerpoint_waymo", "second_kitti", "voxelnext_nuscenes"]
+           "centerpoint_waymo", "second_kitti", "mono3d_kitti",
+           "voxelnext_nuscenes", "bevseg_semantickitti"]
 
 # KITTI car/pedestrian/cyclist anchor sizes (l, w, h) from the
 # PointPillars paper (Lang et al., CVPR 2019, Sec. 4.1)
@@ -90,6 +94,16 @@ def second_kitti(**overrides):
     return replace(cfg, **overrides)
 
 
+def mono3d_kitti(**overrides):
+    """KITTI monocular 3D (SMOKE recipe): 384x1280 resized images,
+    stride-4 heads, car/ped/cyclist dimension priors."""
+    cfg = Mono3DConfig(
+        image_size=(384, 1280), stride=4,
+        backbone_channels=(32, 64, 128, 256), head_channels=64,
+        num_classes=3, top_k=50, dtype="bfloat16")
+    return replace(cfg, **overrides)
+
+
 def voxelnext_nuscenes(**overrides):
     """nuScenes VoxelNeXt: 0.1 m voxels over the 108 m square, 10
     classes, velocity head on (the paper's detection-and-tracking
@@ -102,4 +116,14 @@ def voxelnext_nuscenes(**overrides):
         stage_sites=(60000, 30000, 15000, 8000), subm_per_stage=2,
         bev_sites=8000, head_channels=128, num_classes=10, top_k=200,
         predict_velocity=True, dtype="bfloat16")
+    return replace(cfg, **overrides)
+
+
+def bevseg_semantickitti(**overrides):
+    """SemanticKITTI-style BEV segmentation: 19 classes + unlabeled."""
+    cfg = BEVSegConfig(
+        bounds=(-48.0, 48.0, -48.0, 48.0, -3.0, 1.8), grid=(480, 480),
+        max_pillars=24000, max_points_per_pillar=32, pfn_features=64,
+        enc_channels=(64, 128, 256), enc_blocks=(2, 2, 2),
+        dec_channels=128, num_classes=20, ignore_index=0, dtype="bfloat16")
     return replace(cfg, **overrides)

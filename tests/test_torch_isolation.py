@@ -3,6 +3,7 @@ on the CPU only when asked, and its kernel wrappers take the plain version
 for CPU tensors without counting a launch."""
 
 import ast
+import dataclasses
 import pkgutil
 import subprocess
 import sys
@@ -303,3 +304,67 @@ def test_centerpoint_and_painting_entry_points_need_cuda_or_an_explicit_cpu():
                            torch.zeros((1, 2, 4, 4))).shape == (3, 2)
     assert nearest_neighbor(pts[:, :3], pts[:8, :3], device="cpu")[1].shape \
         == (200,)
+
+
+def test_camera_and_segmentation_families_need_cuda_or_an_explicit_cpu():
+    """Mono3D, BEVSeg, the segmentation evaluators' device functions and
+    the KITTI-360 loader are among the modules the import checks walk;
+    their entry points need CUDA unless given the CPU, and importing the
+    loader imports neither ``sortedcontainers`` nor PyYAML nor PIL."""
+    assert {"d3d_tpu_torch.models.mono3d", "d3d_tpu_torch.models.bevseg",
+            "d3d_tpu_torch.dataset.kitti360",
+            "d3d_tpu_torch.dataset.kitti360.loader",
+            "d3d_tpu_torch.dataset.kitti360.utils"} <= set(_submodules())
+    code = ("import sys\n"
+            "import d3d_tpu_torch.dataset.kitti360\n"
+            "bad = [m for m in ('sortedcontainers', 'yaml', 'PIL')\n"
+            "       if m in sys.modules]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour without CUDA")
+    from d3d_tpu_torch.benchmarks import SegmentationEvaluator
+    from d3d_tpu_torch.benchmarks_device import (device_panoptic_stats,
+                                                 device_semantic_stats)
+    from d3d_tpu_torch.models import (BEVSeg, Mono3D, make_mono3d_detector,
+                                      make_panoptic_predictor,
+                                      make_predictor)
+
+    mcfg = presets.mono3d_kitti(dtype="float32", image_size=(32, 32),
+                                backbone_channels=(4, 8), head_channels=4,
+                                top_k=4)
+    bcfg = presets.bevseg_semantickitti(
+        dtype="float32", bounds=(0.0, 6.4, -3.2, 3.2, -3.0, 1.0),
+        grid=(16, 16), max_pillars=32, max_points_per_pillar=4,
+        pfn_features=4, enc_channels=(4, 8), enc_blocks=(1, 1),
+        dec_channels=4, num_classes=3)
+    for make in (lambda: Mono3D(mcfg), lambda: BEVSeg(bcfg)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    pcfg = dataclasses.replace(bcfg, panoptic=True, thing_classes=(1,))
+    mono, seg = Mono3D(mcfg, device="cpu"), BEVSeg(bcfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mono3d_detector(mono, None, mcfg, ["Car"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_predictor(seg, bcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_panoptic_predictor(BEVSeg(pcfg, device="cpu"), pcfg)
+    ev = SegmentationEvaluator([1, 2])
+    labels = [np.array([1, 2], np.uint8)]
+    ids = [np.zeros(2, np.uint16)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_semantic_stats(ev, labels, labels)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_panoptic_stats(ev, labels, labels, ids, ids)
+    # asked for the CPU, they run there
+    k = np.array([[20.0, 0, 16], [0, 20.0, 16], [0, 0, 1]], np.float32)
+    boxes, scores, _ = make_mono3d_detector(
+        mono, None, mcfg, ["Car"], device="cpu").device_fn(
+            np.zeros((32, 32, 3), np.float32), k)
+    assert boxes.device.type == "cpu" and boxes.shape == (4, 7)
+    pts = np.random.default_rng(0).uniform(0, 3, (50, 4)).astype(np.float32)
+    assert make_predictor(seg, bcfg, device="cpu")(None, pts).shape == (50,)
+    assert device_semantic_stats(ev, labels, labels, device="cpu").tp[1] == 1
