@@ -125,8 +125,22 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    and ``device_panoptic_stats``; the panoptic targets as perfect
    predictions; 5 + 5 panoptic training steps and one step's gradients
    card vs CPU; ``device_panoptic_stats`` over 1 024 frames); these two
-   launch none of the kernels; each path must launch its kernels, and
-   nms2d K1's bit form and the scan only (``check_nms_routes``);
+   launch none of the kernels; ``sst_kitti`` (``presets.sst_kitti``
+   uncut, seeded weights, heads calibrated: ``make_sst_detector`` on 4
+   bench frames and 2 KITTI-like frames in f32 (TF32 off) and bf16, K1's
+   bit form and the scan once a request; one request held to the CPU;
+   steady request ms, busy share, the request's stages by events from
+   forward hooks and each frame's share of empty window slots; 5 f32 + 5
+   bf16 training steps, one step's gradients card vs CPU against a
+   float64 step, ``remat_blocks`` equal to the plain step; 3 bf16 steps
+   of ``sst_kitti(moe_experts=8)`` at the Switch bound, peak memory) and
+   ``export`` (the SST (bf16) and PointPillars (``pointpillars_kitti``)
+   detectors, Mono3D's two-input one and VoxelNeXt's through
+   ``torch.export``, saved under ``build/export/`` and loaded: outputs
+   bit-equal to the eager ``device_fn``, launches counted in the ops' CUDA
+   implementations equal to the eager request's, both requests timed);
+   each path must launch its kernels, and nms2d K1's bit form and the
+   scan only (``check_nms_routes``);
 4. checks the outputs: finite, of the expected shape, the keep masks equal
    to the plain scans on the kernels' own IoU matrices, the voxelizer
    equal to the port's CPU run, the box and voxel API's outputs equal to
@@ -1482,17 +1496,11 @@ def check_sync_free(dev, model, batch):
         "backward (4 K5, 3 K6 launches) ran without a host synchronisation")
 
 
-def train_batch(dev, cfg, frames):
-    """Two frames of bench.py's recipe through second_voxelize, stacked, and
-    six car-like ground-truth boxes a frame across the field (seeded; the
-    last box of frame 0 padded): the training batch."""
-    from d3d_tpu_torch.models import second_voxelize
-
-    with torch.inference_mode():
-        vox = [second_voxelize(torch.from_numpy(p).to(dev), cfg)
-               for p in frames]
+def car_gt(dev, b, m=6):
+    """``m`` car-like ground-truth boxes a frame across the field for ``b``
+    frames (seeded; the last box of frame 0 padded): gt_boxes, gt_labels,
+    gt_mask."""
     rng = np.random.default_rng(400)
-    b, m = len(frames), 6
     gt = np.stack([
         rng.uniform(2, 60, (b, m)), rng.uniform(-35, 35, (b, m)),
         np.full((b, m), -1.0), rng.uniform(3.5, 4.3, (b, m)),
@@ -1500,12 +1508,24 @@ def train_batch(dev, cfg, frames):
         rng.uniform(-np.pi, np.pi, (b, m))], -1).astype(np.float32)
     mask = np.ones((b, m), bool)
     mask[0, -1] = False
+    return dict(gt_boxes=torch.from_numpy(gt).to(dev),
+                gt_labels=torch.zeros((b, m), dtype=torch.int32,
+                                      device=dev),
+                gt_mask=torch.from_numpy(mask).to(dev))
+
+
+def train_batch(dev, cfg, frames):
+    """Two frames of bench.py's recipe through second_voxelize, stacked, and
+    six car-like ground-truth boxes a frame (``car_gt``): the training
+    batch."""
+    from d3d_tpu_torch.models import second_voxelize
+
+    with torch.inference_mode():
+        vox = [second_voxelize(torch.from_numpy(p).to(dev), cfg)
+               for p in frames]
     batch = {k: torch.stack([v[i] for v in vox]).clone()
              for i, k in enumerate(("features", "coords", "valid"))}
-    batch.update(gt_boxes=torch.from_numpy(gt).to(dev),
-                 gt_labels=torch.zeros((b, m), dtype=torch.int32,
-                                       device=dev),
-                 gt_mask=torch.from_numpy(mask).to(dev))
+    batch.update(car_gt(dev, len(frames)))
     return batch
 
 
@@ -7106,6 +7126,452 @@ def bevseg_kitti360(dev):
     return counts, stats
 
 
+# ---------------------------------------------------------------------------
+# sst_kitti: the transformer family served and trained at full width
+# ---------------------------------------------------------------------------
+
+SST_STEPS = 5          # training steps a dtype
+SST_MOE_EXPERTS = 8    # scripts/aot_parallel_scale.py's value for sst_kitti
+SST_MOE_STEPS = 3
+
+
+def sst_preset(**kw):
+    """The phase's configuration: the KITTI SST preset, uncut."""
+    from d3d_tpu_torch.models import presets
+
+    return presets.sst_kitti(**kw)
+
+
+def sst_setup(dev):
+    """SST on presets.sst_kitti uncut: f32 and the bf16 preset on the same
+    seeded weights (heads calibrated on bench frame 0 as PointPillars'),
+    4 of bench.py's 120k-point frames and 2 KITTI-like frames."""
+    from d3d_tpu_torch.models import SST, make_anchors
+
+    cfg32 = sst_preset(dtype="float32")
+    frames = [bench_points(np.random.default_rng(100 + i)) for i in range(4)]
+    frames += [kitti_like_points(600), kitti_like_points(601)]
+    model32 = SST(cfg32, device=dev,
+                  generator=torch.Generator().manual_seed(14))
+    calibrate_heads(model32, frames[0], dev)
+    model16 = SST(sst_preset(), device=dev)
+    model16.load_state_dict(model32.state_dict())
+    log(f"SST ({cfg32.grid[0]} x {cfg32.grid[1]} grid, {cfg32.depth} blocks "
+        f"of {cfg32.num_heads} heads over {cfg32.window} x {cfg32.window}-"
+        f"cell windows of {cfg32.capacity} slots, C = {cfg32.pfn_features}, "
+        f"{sum(p.numel() for p in model32.parameters())} parameters) heads "
+        "calibrated on bench frame 0")
+    return dict(cfg32=cfg32, model32=model32, model16=model16, frames=frames,
+                anchors=make_anchors(cfg32, device=dev))
+
+
+def sst_flops(cfg, batch=1):
+    """Multiply-adds x 2 of one SST forward at ``cfg``'s width, every
+    window slot counted (empty ones too, as the design computes them):
+    per block qkv, logits, attention x values, proj and the MLP on
+    n_windows x capacity tokens, then the neck's two 3x3 convolutions and
+    the heads on the full grid."""
+    from d3d_tpu_torch.models.sst import _tiling
+
+    c, w, h = cfg.pfn_features, cfg.grid[0], cfg.grid[1]
+    total = 0
+    for d in range(cfg.depth):
+        _, nwx, nwy = _tiling(cfg.grid, cfg.window, bool(d % 2))
+        t = nwx * nwy * cfg.capacity
+        total += 2 * t * (3 * c * c + 2 * cfg.capacity * c + c * c
+                          + 2 * cfg.mlp_ratio * c * c)
+    n = cfg.neck_channels
+    total += 2 * w * h * (9 * c * n + 9 * n * n
+                          + n * cfg.num_anchors_per_cell * (
+                              cfg.num_classes + 9))
+    return batch * total
+
+
+def hooked_stage_times(detect, model, pts, reps=5):
+    """Device ms of a request's stages by CUDA events recorded from forward
+    hooks (median of ``reps`` requests after one warm-up): pillarize (the
+    request's start to the network's), the PFN and positional embedding,
+    each block (with the routing before it), the neck and heads, then
+    decode and NMS (the network's end to the request's)."""
+    marks, hooks = [], []
+
+    def mark(name):
+        def hook(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+        return hook
+
+    hooks.append(model.register_forward_pre_hook(mark("network")))
+    for i, blk in enumerate(model.blocks):
+        hooks.append(blk.register_forward_pre_hook(mark(f"block{i}")))
+    hooks.append(model.neck.register_forward_pre_hook(mark("neck")))
+    hooks.append(model.register_forward_hook(mark("heads_end")))
+    names = (["pillarize", "pfn_embed"]
+             + [f"block{i}" for i in range(len(model.blocks))]
+             + ["neck_heads", "decode_nms"])
+    runs = []
+    try:
+        for r in range(reps + 1):
+            marks.clear()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            detect.device_fn(pts)
+            end.record()
+            end.synchronize()
+            evs = [start] + [e for _, e in marks] + [end]
+            if r:
+                runs.append([a.elapsed_time(b)
+                             for a, b in zip(evs[:-1], evs[1:])])
+    finally:
+        for h in hooks:
+            h.remove()
+    return {n: statistics.median(run[i] for run in runs)
+            for i, n in enumerate(names)}
+
+
+def sst_serving(dev, sst):
+    """make_sst_detector on the 6 frames in f32 (TF32 off) and the bf16
+    preset, counts read per request (K1's bit form and the scan once
+    each, nothing else); one request held to the CPU; steady request ms by
+    CUDA events (median of 10), the busy share over 5 requests, the
+    request's stages and each frame's share of empty window slots."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from d3d_tpu_torch.models import SST, make_sst_detector, pillarize
+    from d3d_tpu_torch.models.sst import empty_slot_share
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    frames, anchors = sst["frames"], sst["anchors"]
+    models = {"f32": sst["model32"], "bf16": sst["model16"]}
+    detect = {dt: make_sst_detector(m, None, m.cfg, anchors, car_classes(),
+                                    device=dev) for dt, m in models.items()}
+    stats, total = {}, {}
+    for dt, det in detect.items():
+        ms, kept = [], []
+        for i, pts in enumerate(frames):
+            reset_counts()
+            out, dev_ms, _ = timed(lambda: det(pts))
+            c = read_counts()
+            check(c == want_counts(rbox_iou_matrix=1, nms_scan=1),
+                  f"SST request ({dt}, frame {i}): launches {c}")
+            check_nms_routes(f"SST request ({dt}, frame {i})", 1)
+            add_counts(total, c)
+            kept.append(check_detections(f"SST {dt}", out))
+            ms.append(dev_ms)
+        steady = [timed(lambda: det(frames[i % 4])) for i in range(10)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(5):
+                det(frames[i % 4])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        stats[dt] = dict(
+            request_ms=ms, kept=kept,
+            steady_ms=statistics.median(s[1] for s in steady),
+            steady_host_ms=statistics.median(s[2] for s in steady),
+            busy_share=busy_share(prof, wall),
+            stages_ms=hooked_stage_times(det, models[dt], frames[0]))
+        s = stats[dt]
+        log(f"SST serving {dt}{' (TF32 off)' if dt == 'f32' else ''}: "
+            "requests " + ", ".join(f"{m:.2f}" for m in ms) + " ms (events,"
+            f" the first cold), steady {s['steady_ms']:.2f} ms (host "
+            f"{s['steady_host_ms']:.2f}; median of 10), busy share "
+            f"{s['busy_share'] if s['busy_share'] is None else round(s['busy_share'], 3)}"
+            f"; kept {kept}; stages " + ", ".join(
+                f"{k} {v:.2f}" for k, v in s["stages_ms"].items()) + " ms")
+    cfg = sst["cfg32"]
+    shares = []
+    with torch.inference_mode():
+        for pts in frames:
+            _, coords, valid = pillarize(torch.from_numpy(pts).to(dev), cfg)
+            shares.append(empty_slot_share(cfg, coords[None], valid[None]))
+    stats["empty_slot_share"] = shares
+    stats["gflop"] = sst_flops(cfg) / 1e9
+    log(f"SST empty window slots a request (bench frames, KITTI-like): "
+        + ", ".join(f"{s:.1%}" for s in shares) + f" of the "
+        f"{cfg.depth} blocks' slots; {stats['gflop']:.0f} GFLOP a request, "
+        "every slot counted")
+    stats["no_tf32_ms"], stats["cpu_ms"] = compare_with_cpu(
+        "sst", sst["model32"], SST(cfg, device="cpu"), frames[0],
+        detect["f32"], anchors, dev)
+    return total, stats, detect["bf16"]
+
+
+def sst_batch(dev, cfg, frames):
+    """Two bench frames through pillarize, stacked, with ``car_gt``'s six
+    boxes a frame."""
+    from d3d_tpu_torch.models import pillarize
+
+    with torch.inference_mode():
+        pil = [pillarize(torch.from_numpy(p).to(dev), cfg) for p in frames]
+    batch = {k: torch.stack([v[i] for v in pil]).clone()
+             for i, k in enumerate(("features", "coords", "valid"))}
+    return dict(batch, **car_gt(dev, len(frames)))
+
+
+def sst_steps(dev, model, batch, steps, name, falling=True):
+    """make_train_step + make_optimizer over ``steps`` steps, counts read
+    per step (no kernel of the port's: targets by axis-aligned IoU), the
+    loss finite and, with ``falling``, lower at the last step than at the
+    first. Returns (counts, losses, step ms, moe_aux)."""
+    from d3d_tpu_torch.models import make_anchors
+    from d3d_tpu_torch.models.pointpillars import make_train_step
+    from d3d_tpu_torch.train import make_optimizer
+
+    opt, _ = make_optimizer(model.parameters(), total_steps=steps)
+    step = make_train_step(model, opt, model.cfg,
+                           make_anchors(model.cfg, device=dev))
+    total, losses, step_ms, moe = {}, [], [], []
+    for i in range(steps):
+        reset_counts()
+        aux, ms, _ = timed(lambda: step(batch))
+        c = read_counts()
+        check(c == want_counts(), f"{name} step {i + 1}: launches {c}")
+        add_counts(total, c)
+        step_ms.append(ms)
+        losses.append(float(aux["total"]))
+        if "moe_aux" in aux:
+            moe.append(float(aux["moe_aux"]))
+        check(math.isfinite(losses[-1]), f"{name}: loss {losses[-1]}")
+    check(not falling or losses[-1] < losses[0],
+          f"{name}: losses {losses} do not fall")
+    log(f"{name} (batch 2): losses " + ", ".join(f"{l:.4f}" for l in losses)
+        + "; step " + ", ".join(f"{m:.2f}" for m in step_ms)
+        + " ms (CUDA events)"
+        + (f"; moe_aux " + ", ".join(f"{a:.4f}" for a in moe) if moe
+           else ""))
+    return total, losses, step_ms, moe
+
+
+def sst_remat_check(dev, sst, batch):
+    """remat_blocks=True: one f32 step (TF32 off, cuDNN deterministic)
+    equal to the plain step from the same weights, loss and every
+    gradient bit for bit."""
+    from d3d_tpu_torch.models import SST, make_anchors
+    from d3d_tpu_torch.models.pointpillars import make_train_step
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for remat in (False, True):
+            model = SST(sst_preset(dtype="float32", remat_blocks=remat),
+                        device=dev)
+            model.load_state_dict(sst["model32"].state_dict())
+            step = make_train_step(
+                model, torch.optim.SGD(model.parameters(), lr=0.0),
+                model.cfg, make_anchors(model.cfg, device=dev))
+            torch.cuda.reset_peak_memory_stats(dev)
+            aux = step(batch)
+            runs.append((float(aux["total"]),
+                         {n: p.grad.clone()
+                          for n, p in model.named_parameters()},
+                         torch.cuda.max_memory_allocated(dev) / 2 ** 30))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    check(runs[0][0] == runs[1][0]
+          and all(torch.equal(g, runs[1][1][n])
+                  for n, g in runs[0][1].items()),
+          "SST remat_blocks step differs from the plain step")
+    log(f"SST remat_blocks: one f32 step equal to the plain step bit for "
+        f"bit; peak memory {runs[0][2]:.2f} GiB plain, {runs[1][2]:.2f} GiB "
+        "with remat_blocks")
+    return dict(peak_gib_plain=runs[0][2], peak_gib_remat=runs[1][2])
+
+
+def sst_kitti(dev):
+    """The sst_kitti path. Returns ({path: counts}, stats, the bf16
+    detector and the frames)."""
+    from d3d_tpu_torch.models import SST
+    from d3d_tpu_torch.models import make_anchors
+    from d3d_tpu_torch.models.pointpillars import make_train_step
+
+    t0 = time.perf_counter()
+    sst = sst_setup(dev)
+    counts, stats = {}, {}
+    counts["sst_serving"], stats["serving"], detect16 = sst_serving(dev, sst)
+    batch = sst_batch(dev, sst["cfg32"], sst["frames"][:2])
+    total = {}
+    for dtype in ("float32", "bfloat16"):
+        model = SST(sst_preset(dtype=dtype), device=dev)
+        model.load_state_dict(sst["model32"].state_dict())
+        c, losses, ms, _ = sst_steps(dev, model, batch, SST_STEPS,
+                                     f"SST training {dtype}")
+        stats[f"train_{dtype}"] = dict(losses=losses, step_ms=ms)
+        add_counts(total, c)
+        del model
+    # one frame: the CPU's step at full width takes ~17 s a frame
+    stats["grad_err"], stats["cpu_step_ms"] = grads_card_vs_cpu(
+        "SST", dev, lambda d, dt: SST(sst_preset(dtype=dt), device=d),
+        sst["model32"].state_dict(), {k: v[:1] for k, v in batch.items()},
+        lambda m, opt: make_train_step(
+            m, opt, m.cfg, make_anchors(m.cfg,
+                                        device=next(m.parameters()).device)))
+    stats["remat_blocks"] = sst_remat_check(dev, sst, batch)
+    # the Switch-MoE variant: 8 experts, bf16
+    moe = SST(sst_preset(moe_experts=SST_MOE_EXPERTS), device=dev,
+              generator=torch.Generator().manual_seed(15))
+    moe.load_state_dict(sst["model32"].state_dict(), strict=False)
+    torch.cuda.reset_peak_memory_stats(dev)
+    c, losses, ms, aux = sst_steps(dev, moe, batch, SST_MOE_STEPS,
+                                   f"SST-MoE ({SST_MOE_EXPERTS} experts) "
+                                   "training bfloat16", falling=False)
+    add_counts(total, c)
+    depth = moe.cfg.depth
+    check(all(a >= depth * (1 - 1e-4) for a in aux),
+          f"SST-MoE moe_aux {aux} below the Switch bound {depth}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    stats["moe"] = dict(losses=losses, step_ms=ms, moe_aux=aux,
+                        peak_gib=peak)
+    log(f"SST-MoE: moe_aux >= depth ({depth}) every step; peak memory "
+        f"{peak:.2f} GiB (torch.cuda.max_memory_allocated, index dispatch)")
+    counts["sst_train"] = total
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"sst_kitti: {stats['phase_s']:.1f} s")
+    del moe, batch
+    torch.cuda.empty_cache()
+    return counts, stats, detect16, sst["frames"][:4]
+
+
+# ---------------------------------------------------------------------------
+# export: detectors through torch.export, saved, loaded and served
+# ---------------------------------------------------------------------------
+
+def export_roundtrip(name, device_fn, inputs, reps=10):
+    """``device_fn`` exported (example ``inputs[0]``) and saved under
+    build/export/ by ``save_detector``, then loaded; on every input of
+    ``inputs`` two eager requests equal, the loaded artifact's outputs
+    bit-equal to them and its kernel launches (counted in the ops' CUDA
+    implementations) equal to an eager request's; then both requests'
+    steady ms (CUDA events, median of ``reps``, in turns). Returns (the
+    loaded artifact's counts, stats)."""
+    from d3d_tpu_torch.export import load_detector, save_detector
+
+    path = ROOT / "build" / "export" / f"{name}.zip"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    save_detector(device_fn, inputs[0], path, meta={"family": name})
+    export_s = time.perf_counter() - t0
+    loaded = load_detector(path)
+    check(loaded.meta == {"family": name}
+          and loaded.platforms == ("cuda",),
+          f"export {name}: meta {loaded.meta}, platforms "
+          f"{loaded.platforms}")
+    ops = sorted({str(n.target) for n in loaded.program.graph.nodes
+                  if str(n.target).startswith("d3d_tpu_torch")})
+    total = {}
+    for i, args in enumerate(inputs):
+        reset_counts()
+        want = device_fn(*args)
+        torch.cuda.synchronize()
+        eager = read_counts()
+        check(all(torch.equal(a, b) for a, b in zip(want, device_fn(*args))),
+              f"export {name} input {i}: two eager requests differ")
+        reset_counts()
+        got = loaded(*args)
+        torch.cuda.synchronize()
+        c = read_counts()
+        check(c == eager, f"export {name} input {i}: the artifact launched "
+                          f"{c}, the eager request {eager}")
+        check(len(got) == len(want) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(got, want)),
+              f"export {name} input {i}: outputs differ from the eager "
+              "device_fn's: " + str([
+                  float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, want)]))
+        add_counts(total, c)
+    eager_ms, loaded_ms = [], []
+    for r in range(reps):
+        for fn, out in ((device_fn, eager_ms), (loaded, loaded_ms)):
+            out.append(timed(lambda: fn(*inputs[r % len(inputs)]))[1])
+    stats = dict(ops=ops, export_s=export_s,
+                 artifact_mb=path.stat().st_size / 2 ** 20,
+                 eager_ms=statistics.median(eager_ms),
+                 loaded_ms=statistics.median(loaded_ms))
+    log(f"export {name}: traced and saved in {export_s:.1f} s, "
+        f"{stats['artifact_mb']:.1f} MB, ops {ops}; {len(inputs)} inputs "
+        f"bit-equal to the eager "
+        f"device_fn with equal launches ({c} the last); request "
+        f"{stats['eager_ms']:.2f} ms eager, {stats['loaded_ms']:.2f} ms "
+        "loaded (CUDA events, median of 10 in turns)")
+    return total, stats
+
+
+def op_dispatch_cost(dev):
+    """The host cost of calling a kernel through its torch.library op
+    rather than its launch function: K1's bit form on nms2d's 100 boxes,
+    ms a call by CUDA events over back-to-back calls, both ways. The
+    counts these calls add are set to 0 after."""
+    from d3d_tpu_torch.ops import geometry_cuda
+
+    boxes = torch.from_numpy(bench_boxes(np.random.default_rng(62),
+                                         100)[0]).to(dev)
+    direct = time_launches(lambda: geometry_cuda._bits_launch(boxes, 0.5))
+    op = time_launches(
+        lambda: torch.ops.d3d_tpu_torch.rbox_overlap_bits(boxes, 0.5))
+    reset_counts()
+    log(f"K1's bit form on 100 boxes: {direct:.4f} ms a launch called "
+        f"directly, {op:.4f} ms through its torch.library op (events over "
+        "back-to-back calls)")
+    return dict(direct_ms=direct, op_ms=op)
+
+
+def export_phase(dev, sst_detect, frames, vn):
+    """The export path: the SST detector (bf16) and the PointPillars one
+    at pointpillars_kitti (bf16, heads calibrated) on the 4 bench frames,
+    Mono3D's two-input detector at mono3d_kitti and VoxelNeXt's at
+    voxelnext_nuscenes (bf16; K5 and the rule books as ops)."""
+    from d3d_tpu_torch.models import (Mono3D, PointPillars, make_anchors,
+                                      make_mono3d_detector,
+                                      make_pointpillars_detector,
+                                      make_voxelnext_detector, presets)
+
+    t0 = time.perf_counter()
+    counts, stats = {}, {}
+    args = [(f,) for f in frames]
+    counts["export_sst"], stats["sst"] = export_roundtrip(
+        "sst", sst_detect.device_fn, args)
+    cfg = presets.pointpillars_kitti()
+    pp = PointPillars(cfg, device=dev,
+                      generator=torch.Generator().manual_seed(0))
+    calibrate_heads(pp, frames[0], dev)
+    pp_detect = make_pointpillars_detector(
+        pp, None, cfg, make_anchors(cfg, device=dev), car_classes(),
+        device=dev)
+    counts["export_pointpillars"], stats["pointpillars"] = export_roundtrip(
+        "pointpillars", pp_detect.device_fn, args)
+    mcfg = mono_preset()
+    rng = np.random.default_rng(61)
+    images = [rng.random(mcfg.image_size + (3,)).astype(np.float32)
+              for _ in range(2)]
+    mono = Mono3D(mcfg, device=dev,
+                  generator=torch.Generator().manual_seed(51))
+    calibrate_mono3d(mono, images[0], dev)
+    k = KITTI_P_BASE[:, :3] * np.array([[mcfg.image_size[1]
+                                         / KITTI_IMAGE[1]],
+                                        [mcfg.image_size[0]
+                                         / KITTI_IMAGE[0]], [1.0]])
+    mdet = make_mono3d_detector(mono, None, mcfg, kitti_classes(),
+                                device=dev)
+    counts["export_mono3d"], stats["mono3d"] = export_roundtrip(
+        "mono3d", mdet.device_fn,
+        [(im, k.astype(np.float32)) for im in images])
+    vdet = make_voxelnext_detector(vn["model16"], None, vn["model16"].cfg,
+                                   nusc_classes(), device=dev)
+    n = min(len(c) for c in vn["clouds"][:2])
+    counts["export_voxelnext"], stats["voxelnext"] = export_roundtrip(
+        "voxelnext", vdet.device_fn,
+        [(np.ascontiguousarray(c[:n]),) for c in vn["clouds"][:2]])
+    stats["op_dispatch"] = op_dispatch_cost(dev)
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"export: {stats['phase_s']:.1f} s")
+    return counts, stats
+
+
 def add_cupti(a, b):
     """A sum of CUPTI times that is None where a term is."""
     return None if a is None or b is None else a + b
@@ -7702,6 +8168,9 @@ def main():
     cp_counts, cp_stats = centerpoint_track(dev, vn)
     mono_counts, mono_stats = mono3d_eval(dev)
     bev_counts, bev_stats = bevseg_kitti360(dev)
+    sst_counts, sst_stats, sst_detect, sst_frames = sst_kitti(dev)
+    export_counts, export_stats = export_phase(dev, sst_detect, sst_frames,
+                                               vn)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     train_counts, train_stats = {}, {}
@@ -7728,7 +8197,9 @@ def main():
                       "pointpillars_train": pp_counts[name],
                       **{path: c[name] for path, c in vn_counts.items()},
                       "nuscenes_track_eval": nte_counts[name],
-                      **{path: c[name] for path, c in cp_counts.items()}}
+                      **{path: c[name] for path, c in cp_counts.items()},
+                      "sst_kitti": sum(c[name] for c in sst_counts.values()),
+                      "export": sum(c[name] for c in export_counts.values())}
                for name in serve_counts}
     meta = {
         "rbox_iou_matrix": ("cuda", "d3d_tpu_torch/csrc/rbox_iou.cu",
@@ -7823,7 +8294,11 @@ def main():
                               "mono3d_eval": dict(mono_stats,
                                                   launches=mono_counts),
                               "bevseg_kitti360": dict(bev_stats,
-                                                      launches=bev_counts)},
+                                                      launches=bev_counts),
+                              "sst_kitti": dict(sst_stats,
+                                                launches=sst_counts),
+                              "export": dict(export_stats,
+                                             launches=export_counts)},
                     "card": card}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,10 +18,11 @@ from .second import (SECOND, SECONDConfig, head_config, make_train_step,
                      second_voxelize, sparse_stage_loop)
 from .voxelnext import (VoxelNeXt, VoxelNeXtConfig, decode_voxelnext,
                         voxelnext_voxelize)
+from .sst import SST, SSTConfig, window_slots
 from . import presets
 from .inference import (make_centerpoint_detector,
                         make_pointpillars_detector, make_second_detector,
-                        make_voxelnext_detector)
+                        make_sst_detector, make_voxelnext_detector)
 from .tta import make_tta_detector
 from .convert import (bevseg_params_from_flax, bevseg_state_from_flax,
                       centerpoint_params_from_flax,
@@ -31,7 +32,8 @@ from .convert import (bevseg_params_from_flax, bevseg_state_from_flax,
                       pointpillars_state_from_flax, second_params_from_flax,
                       mono3d_params_from_flax, mono3d_state_from_flax,
                       second_state_from_flax, seg2d_params_from_flax,
-                      seg2d_state_from_flax, voxelnext_params_from_flax,
+                      seg2d_state_from_flax, sst_params_from_flax,
+                      sst_state_from_flax, voxelnext_params_from_flax,
                       voxelnext_state_from_flax)
 
 __all__ = [
@@ -59,5 +61,7 @@ __all__ = [
     "segmentation_loss", "panoptic_targets", "panoptic_loss",
     "group_instances", "make_predictor", "make_panoptic_predictor",
     "mono3d_state_from_flax", "mono3d_params_from_flax",
-    "bevseg_state_from_flax", "bevseg_params_from_flax",
+    "bevseg_state_from_flax", "bevseg_params_from_flax", "SST",
+    "SSTConfig", "window_slots", "make_sst_detector", "sst_state_from_flax",
+    "sst_params_from_flax",
 ]

@@ -1,6 +1,6 @@
 """Carry weights from the JAX package's flax PointPillars, CenterPoint (and
-its refinement stage), SECOND, VoxelNeXt, Seg2D, Mono3D and BEVSeg to the
-port.
+its refinement stage), SECOND, VoxelNeXt, Seg2D, Mono3D, BEVSeg and SST to
+the port.
 
 The flax variables are a ``{"params", "batch_stats"}`` tree of nested dicts
 of arrays (numpy, or anything ``np.asarray`` takes); nothing here imports
@@ -23,7 +23,8 @@ __all__ = ["pointpillars_state_from_flax", "pointpillars_params_from_flax",
            "second_params_from_flax", "voxelnext_state_from_flax",
            "voxelnext_params_from_flax", "mono3d_state_from_flax",
            "mono3d_params_from_flax", "bevseg_state_from_flax",
-           "bevseg_params_from_flax"]
+           "bevseg_params_from_flax", "sst_state_from_flax",
+           "sst_params_from_flax"]
 
 
 def _oihw(kernel):
@@ -312,3 +313,52 @@ def bevseg_params_from_flax(params):
     structure) -> ``{name: tensor}`` under the port's
     ``named_parameters()`` names, in its layouts."""
     return _bevseg(params, None)
+
+
+def _dense_into(sd, prefix, p):
+    """A flax Dense (kernel (in, out), bias) as a Linear's entries."""
+    sd[prefix + ".weight"] = np.asarray(p["kernel"]).T
+    sd[prefix + ".bias"] = p["bias"]
+
+
+def _sst(params, stats):
+    """SST's entries: the PFN, ``pos_embed``, each ``block{d}``
+    (LayerNorm_0/1 as ``norm1``/``norm2``, qkv, proj, then mlp1/mlp2 or
+    the ``moe_*`` leaves in the JAX layouts), the ``_ConvBlock_0`` neck
+    and the 1x1 heads."""
+    sd = {}
+    pfn = params["_PFN_0"]
+    sd["pfn.dense.weight"] = np.asarray(pfn["Dense_0"]["kernel"]).T
+    _bn(sd, "pfn.bn", pfn["BatchNorm_0"],
+        stats and stats["_PFN_0"]["BatchNorm_0"])
+    _dense_into(sd, "pos_embed", params["pos_embed"])
+    d = 0
+    while f"block{d}" in params:
+        blk, pre = params[f"block{d}"], f"blocks.{d}."
+        for i, name in enumerate(("norm1", "norm2")):
+            sd[pre + name + ".weight"] = blk[f"LayerNorm_{i}"]["scale"]
+            sd[pre + name + ".bias"] = blk[f"LayerNorm_{i}"]["bias"]
+        for name in ("qkv", "proj", "mlp1", "mlp2"):
+            if name in blk:
+                _dense_into(sd, pre + name, blk[name])
+        for name in ("moe_router", "moe_w1", "moe_b1", "moe_w2", "moe_b2"):
+            if name in blk:
+                sd[pre + name] = blk[name]
+        d += 1
+    _conv_block(sd, "neck", params["_ConvBlock_0"],
+                stats and stats["_ConvBlock_0"])
+    _heads(sd, params)
+    return _tensors(sd)
+
+
+def sst_state_from_flax(variables):
+    """flax SST variables (MoE leaves included) -> the port's
+    ``state_dict``."""
+    return _sst(variables["params"], variables["batch_stats"])
+
+
+def sst_params_from_flax(params):
+    """A flax SST ``params`` tree alone (or a gradient tree of its
+    structure) -> ``{name: tensor}`` under the port's
+    ``named_parameters()`` names, in its layouts."""
+    return _sst(params, None)

@@ -1,5 +1,5 @@
 """End-to-end inference: points in, :class:`Target3DArray` out (port of the
-PointPillars, CenterPoint, SECOND and VoxelNeXt part of
+PointPillars, SST, CenterPoint, SECOND and VoxelNeXt part of
 ``d3d_tpu.models.inference``).
 
 One request runs points -> voxelize -> network -> top-k decode -> rotated
@@ -18,8 +18,9 @@ from ..utils import as_tensor, resolve_device
 from .pointpillars import decode_boxes, pillarize
 from .second import second_voxelize
 
-__all__ = ["make_pointpillars_detector", "make_centerpoint_detector",
-           "make_second_detector", "make_voxelnext_detector"]
+__all__ = ["make_pointpillars_detector", "make_sst_detector",
+           "make_centerpoint_detector", "make_second_detector",
+           "make_voxelnext_detector"]
 
 
 def _to_targets(boxes, scores, labels, keep, classes, frame, timestamp,
@@ -141,6 +142,20 @@ def make_pointpillars_detector(model, variables, cfg, anchors, classes,
     :param device: where the model and every request run (default CUDA;
         raises when CUDA is missing and no device is given)
     """
+    return _make_anchor_detector(model, variables, cfg, anchors, classes,
+                                 pillarize, score_threshold, iou_threshold,
+                                 top_k, device)
+
+
+def make_sst_detector(model, variables, cfg, anchors, classes,
+                      score_threshold=0.3, iou_threshold=0.5, top_k=100,
+                      device=None):
+    """Build ``detect(points, frame=None, timestamp=0) -> Target3DArray``
+    for an SST model (PointPillars' anchor head at the full single-stride
+    grid): pillarize -> network -> top-k decode -> ``nms2d`` (K1's bit
+    rows and the scan on the card). Arguments as
+    :func:`make_pointpillars_detector` (``variables`` e.g. from
+    :func:`d3d_tpu_torch.models.convert.sst_state_from_flax`)."""
     return _make_anchor_detector(model, variables, cfg, anchors, classes,
                                  pillarize, score_threshold, iou_threshold,
                                  top_k, device)

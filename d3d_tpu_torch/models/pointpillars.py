@@ -647,12 +647,20 @@ def make_train_step(model, optimizer, cfg: PointPillarsConfig, anchors,
         model's buffers are put back as they were after it
         (:func:`_buffers_kept`): loss, gradients and statistics equal the
         step without ``remat``.
+
+    A model that sows auxiliary losses (SST with ``moe_experts``: its
+    ``sown_losses`` after the forward) adds ``cfg.moe_aux_weight`` times
+    their sum to the loss and reports the sum as ``aux["moe_aux"]``
+    (``aux["total"]`` stays the detection loss), as the JAX step does.
     """
     dev = next(model.parameters()).device
     anchors = as_tensor(anchors, device=dev, dtype=torch.float32)
 
     def forward(features, coords, valid):
-        return model(features, coords, valid, train=True)
+        # the model's sown losses (SST's MoE load-balance terms) come out
+        # beside the heads, so a checkpointed forward carries them too
+        outputs = model(features, coords, valid, train=True)
+        return outputs, tuple(getattr(model, "sown_losses", ()))
 
     if remat:
         def run_forward(*inputs):
@@ -667,8 +675,8 @@ def make_train_step(model, optimizer, cfg: PointPillarsConfig, anchors,
         batch = {k: (v if k == "targets" else as_tensor(v, device=dev))
                  for k, v in batch.items()}
         optimizer.zero_grad(set_to_none=True)
-        outputs = run_forward(batch["features"], batch["coords"],
-                              batch["valid"])
+        outputs, sown = run_forward(batch["features"], batch["coords"],
+                                    batch["valid"])
         if external_targets:
             targets = {k: as_tensor(v, device=dev).detach()
                        for k, v in batch["targets"].items()}
@@ -677,6 +685,10 @@ def make_train_step(model, optimizer, cfg: PointPillarsConfig, anchors,
                 targets = prepare_targets(anchors, batch, cfg=cfg)["targets"]
         loss, aux = detection_loss(outputs, targets, cfg, anchors,
                                    riou_weight)
+        if sown:
+            aux_total = sum(sown)
+            loss = loss + getattr(cfg, "moe_aux_weight", 0.0) * aux_total
+            aux["moe_aux"] = aux_total
         loss.backward()
         optimizer.step()
         return {k: v.detach() for k, v in aux.items()}

@@ -1,8 +1,8 @@
 """Ready-made model configurations (port of ``d3d_tpu.models.presets``).
 
 Ported so far: the KITTI PointPillars, SECOND and Mono3D presets, the
-nuScenes and Waymo CenterPoint presets, nuScenes VoxelNeXt and the
-SemanticKITTI BEV segmentation preset. Like the JAX
+nuScenes and Waymo CenterPoint presets, nuScenes VoxelNeXt, the
+SemanticKITTI BEV segmentation preset and KITTI SST. Like the JAX
 package's, they default to ``bfloat16`` compute; pass ``dtype="float32"``
 to override.
 """
@@ -14,12 +14,13 @@ from .centerpoint import CenterPointConfig
 from .mono3d import Mono3DConfig
 from .pointpillars import PointPillarsConfig
 from .second import SECONDConfig
+from .sst import SSTConfig
 from .voxelnext import VoxelNeXtConfig
 
 __all__ = ["pointpillars_kitti", "pointpillars_kitti_3class",
            "centerpoint_nuscenes", "centerpoint_nuscenes_10sweep",
            "centerpoint_waymo", "second_kitti", "mono3d_kitti",
-           "voxelnext_nuscenes", "bevseg_semantickitti"]
+           "voxelnext_nuscenes", "bevseg_semantickitti", "sst_kitti"]
 
 # KITTI car/pedestrian/cyclist anchor sizes (l, w, h) from the
 # PointPillars paper (Lang et al., CVPR 2019, Sec. 4.1)
@@ -126,4 +127,17 @@ def bevseg_semantickitti(**overrides):
         max_pillars=24000, max_points_per_pillar=32, pfn_features=64,
         enc_channels=(64, 128, 256), enc_blocks=(2, 2, 2),
         dec_channels=128, num_classes=20, ignore_index=0, dtype="bfloat16")
+    return replace(cfg, **overrides)
+
+
+def sst_kitti(**overrides):
+    """KITTI car SST: the PointPillars KITTI grid (432x496, 0.16 m
+    pillars) through a 4-block windowed transformer (8x8-cell windows, 64
+    token slots each), single-stride detection at full resolution. Pass
+    ``moe_experts=N`` for the Switch-MoE variant."""
+    cfg = SSTConfig(
+        bounds=(0.0, 69.12, -39.68, 39.68, -3.0, 1.0), grid=(432, 496),
+        max_pillars=12000, max_points_per_pillar=32, pfn_features=128,
+        window=8, capacity=64, depth=4, num_heads=4, neck_channels=128,
+        num_classes=1, anchor_sizes=(_KITTI_CAR,), dtype="bfloat16")
     return replace(cfg, **overrides)

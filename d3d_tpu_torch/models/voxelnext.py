@@ -88,10 +88,13 @@ def compress_height(features, coords, valid, grid, max_out):
     """Sparse height compression of one frame: (N, C) 3D sites -> (M, C)
     unique-(x, y) BEV sites with the features SUMMED over z.
 
-    One stable sort by the BEV key and a segment sum (``index_add``), in
-    the JAX module's order; a cell's (x, y) is the segment max of its
-    sites' cells. Cells past ``max_out`` are dropped (masked, not
-    aliased).
+    One stable sort by the BEV key and a segment sum in the JAX module's
+    order: an accumulating ``index_put`` (on CUDA a sort-based kernel that
+    adds each cell's sites in row order; ``index_add``'s float atomics
+    would add them in no fixed order, so two equal requests could differ
+    in their last bits), every row outside a kept cell into a row of its
+    own past ``max_out``; a cell's (x, y) is the segment max of its sites'
+    cells. Cells past ``max_out`` are dropped (masked, not aliased).
 
     :returns: (bev_features (M, C), bev_xy (M, 2) int32, bev_valid (M,))
     """
@@ -107,8 +110,10 @@ def compress_height(features, coords, valid, grid, max_out):
     seg = torch.cumsum(first.to(torch.int32), 0) - 1
     inb = ok & (seg < max_out) & (seg >= 0)
     segc = seg.clamp(0, max_out - 1)
-    bev_f = sf.new_zeros((max_out, sf.shape[1])).index_add(
-        0, segc, sf * inb[:, None].to(sf.dtype))
+    n = sf.shape[0]
+    rows = torch.where(inb, segc, max_out + torch.arange(n, device=dev))
+    bev_f = sf.new_zeros((max_out + n, sf.shape[1])).index_put(
+        (rows.to(torch.int64),), sf, accumulate=True)[:max_out]
     bev_xy = torch.full((max_out, 2), -1, dtype=torch.int32, device=dev)
     bev_xy = bev_xy.scatter_reduce(
         0, segc[:, None].expand(-1, 2),

@@ -9,6 +9,13 @@ and runs the IoU chain on the rest. A CPU tensor goes to the plain version
 tensor goes to the kernel or the call raises. K1 has a second output form
 for ``nms2d`` alone (:func:`_rbox_overlap_bits`): the NMS scan's bit rows,
 thresholded in the kernel, for the pairs above the diagonal only.
+
+Both forms are ``torch.library`` custom ops, ``d3d_tpu_torch::rbox_iou_matrix``
+and ``d3d_tpu_torch::rbox_overlap_bits``, so that ``torch.export`` keeps
+them as nodes of a traced detector: a CUDA implementation that launches
+K1 and counts the launch, a CPU one that is the plain version and counts
+none, and a fake one that gives the output's shape and dtype. The wrappers
+check their inputs and call the ops.
 """
 
 import torch
@@ -101,19 +108,35 @@ def rbox_iou_matrix(b1, b2):
                          f"{tuple(b1.shape)} and {tuple(b2.shape)}")
     if b1.device != b2.device:
         raise ValueError(f"boxes on {b1.device} and {b2.device}")
-    if b1.device.type == "cpu":
-        return _rbox_iou_matrix_plain(b1, b2)
-    if b1.device.type != "cuda":
+    if b1.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no K1 kernel for device {b1.device}")
+    return torch.ops.d3d_tpu_torch.rbox_iou_matrix(b1, b2)
+
+
+rbox_iou_matrix.launches = 0
+
+
+@torch.library.custom_op("d3d_tpu_torch::rbox_iou_matrix", mutates_args=(),
+                         device_types="cpu")
+def _k1_matrix_op(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """K1's f32 form as an op; its CPU implementation is the plain
+    version."""
+    return _rbox_iou_matrix_plain(b1, b2)
+
+
+@_k1_matrix_op.register_kernel("cuda")
+def _k1_matrix_cuda(b1, b2):
     n, m = b1.shape[0], b2.shape[0]
-    if n == 0 or m == 0:
+    if n == 0 or m == 0:  # nothing to launch
         return torch.empty((n, m), dtype=torch.float32, device=b1.device)
     out = _launch(b1.contiguous(), b2.contiguous())
     rbox_iou_matrix.launches += 1
     return out
 
 
-rbox_iou_matrix.launches = 0
+@_k1_matrix_op.register_fake
+def _k1_matrix_fake(b1, b2):
+    return b1.new_empty((b1.shape[0], b2.shape[0]), dtype=torch.float32)
 
 
 def _launch(b1, b2, chains=None, out=None):
@@ -156,16 +179,34 @@ def _rbox_overlap_bits(boxes, iou_threshold):
     boxes = boxes.to(torch.float32)
     if boxes.ndim != 2 or boxes.shape[1] != 5:
         raise ValueError(f"expected (N, 5) boxes, got {tuple(boxes.shape)}")
-    if boxes.device.type == "cpu":
-        return _rbox_overlap_bits_plain(boxes, iou_threshold)
-    if boxes.device.type != "cuda":
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no K1 kernel for device {boxes.device}")
+    return torch.ops.d3d_tpu_torch.rbox_overlap_bits(boxes,
+                                                     float(iou_threshold))
+
+
+@torch.library.custom_op("d3d_tpu_torch::rbox_overlap_bits", mutates_args=(),
+                         device_types="cpu")
+def _k1_bits_op(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """K1's bit-row form as an op; its CPU implementation is the plain
+    version."""
+    return _rbox_overlap_bits_plain(boxes, iou_threshold)
+
+
+@_k1_bits_op.register_kernel("cuda")
+def _k1_bits_cuda(boxes, iou_threshold):
     n = boxes.shape[0]
-    if n == 0:
+    if n == 0:  # nothing to launch
         return torch.empty((0, 0), dtype=torch.int64, device=boxes.device)
     out = _bits_launch(boxes.contiguous(), iou_threshold)
     rbox_iou_matrix.launches += 1
     return out
+
+
+@_k1_bits_op.register_fake
+def _k1_bits_fake(boxes, iou_threshold):
+    n = boxes.shape[0]
+    return boxes.new_empty((n, (n + 63) // 64), dtype=torch.int64)
 
 
 def _bits_launch(boxes, iou_threshold, chains=None, out=None):

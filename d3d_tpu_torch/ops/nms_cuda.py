@@ -13,7 +13,16 @@ float64 (one kernel source, a C entry point each). A CPU tensor
 goes to the plain version (:func:`_nms_scan_plain`,
 :func:`_nms_scan_sorted_plain`, :func:`_soft_nms_scan_plain`); a CUDA
 tensor goes to the kernel or the call raises.
+
+Each scan is a ``torch.library`` custom op in the ``d3d_tpu_torch``
+namespace (``nms_scan``, ``nms_scan_blocked``, ``nms_scan_sorted``,
+``soft_nms_scan``), so that ``torch.export`` keeps it as a node of a
+traced detector: its CUDA implementation launches the kernel and counts
+the launch, its CPU implementation is the plain version and counts none,
+and a fake implementation gives the output's shape and dtype.
 """
+
+from typing import Optional
 
 import torch
 
@@ -145,10 +154,23 @@ def _nms_scan_sorted(bits, order, neg_scores, score_threshold, pre=None):
     dtypes. On CUDA one launch of the scan kernel, counted under K2
     (``nms_scan``) up to 1024 boxes and K3 above; on the CPU the plain
     version."""
+    return torch.ops.d3d_tpu_torch.nms_scan_sorted(
+        bits, order, neg_scores, float(score_threshold), pre)
+
+
+@torch.library.custom_op("d3d_tpu_torch::nms_scan_sorted", mutates_args=(),
+                         device_types="cpu")
+def _scan_sorted_op(bits: torch.Tensor, order: torch.Tensor,
+                    neg_scores: torch.Tensor, score_threshold: float,
+                    pre: Optional[torch.Tensor]) -> torch.Tensor:
+    """nms2d's scan as an op (see :func:`_nms_scan_sorted`)."""
+    return _nms_scan_sorted_plain(bits, order, neg_scores, score_threshold,
+                                  pre)
+
+
+@_scan_sorted_op.register_kernel("cuda")
+def _scan_sorted_cuda(bits, order, neg_scores, score_threshold, pre):
     n = bits.shape[0]
-    if bits.device.type == "cpu":
-        return _nms_scan_sorted_plain(bits, order, neg_scores,
-                                      score_threshold, pre)
     out = torch.empty(n, dtype=torch.bool, device=bits.device)
     if n == 0:  # nothing to launch
         return out
@@ -157,6 +179,11 @@ def _nms_scan_sorted(bits, order, neg_scores, score_threshold, pre=None):
                  score_threshold=score_threshold, order=order)
     (nms_scan if n <= _K2_MAX_N else nms_scan_blocked).launches += 1
     return out
+
+
+@_scan_sorted_op.register_fake
+def _scan_sorted_fake(bits, order, neg_scores, score_threshold, pre):
+    return bits.new_empty(bits.shape[0], dtype=torch.bool)
 
 
 def _check(overlap, pre):
@@ -227,29 +254,44 @@ def nms_scan(overlap, pre):
     CUDA the rows are packed into bits, then scanned: two launches, one
     call counted."""
     _check(overlap, pre)
-    if overlap.device.type == "cpu":
-        return _nms_scan_plain(overlap, pre)
-    if overlap.shape[0] == 0:  # nothing to launch
-        return pre.clone()
-    out = _launch(overlap, pre)
-    nms_scan.launches += 1
-    return out
+    return torch.ops.d3d_tpu_torch.nms_scan(overlap, pre)
 
 
 def nms_scan_blocked(overlap, pre):
     """Same contract and mask as :func:`nms_scan`, for N > 1024 (K3)."""
     _check(overlap, pre)
-    if overlap.device.type == "cpu":
-        return _nms_scan_plain(overlap, pre)
-    if overlap.shape[0] == 0:  # nothing to launch
-        return pre.clone()
-    out = _launch(overlap, pre)
-    nms_scan_blocked.launches += 1
-    return out
+    return torch.ops.d3d_tpu_torch.nms_scan_blocked(overlap, pre)
 
 
 nms_scan.launches = 0
 nms_scan_blocked.launches = 0
+
+
+def _bool_scan_op(name, counted):
+    """The bool route of K2 or K3 as the op ``d3d_tpu_torch::{name}``,
+    counted in ``counted.launches``."""
+    @torch.library.custom_op(f"d3d_tpu_torch::{name}", mutates_args=(),
+                             device_types="cpu")
+    def op(overlap: torch.Tensor, pre: torch.Tensor) -> torch.Tensor:
+        return _nms_scan_plain(overlap, pre)
+
+    @op.register_kernel("cuda")
+    def _cuda(overlap, pre):
+        if overlap.shape[0] == 0:  # nothing to launch
+            return pre.clone()
+        out = _launch(overlap, pre)
+        counted.launches += 1
+        return out
+
+    @op.register_fake
+    def _fake(overlap, pre):
+        return torch.empty_like(pre)
+
+    return op
+
+
+_nms_scan_op = _bool_scan_op("nms_scan", nms_scan)
+_nms_scan_blocked_op = _bool_scan_op("nms_scan_blocked", nms_scan_blocked)
 
 
 def _soft_decay(row, p, tiny, method):
@@ -324,12 +366,28 @@ def soft_nms_scan(iou, scores0, pre, iou_threshold, score_threshold, param,
         raise ValueError(f"unknown soft-NMS method {method!r}")
     if len({iou.device, scores0.device, pre.device}) != 1:
         raise ValueError("iou, scores0 and pre on different devices")
-    if iou.device.type == "cpu":
-        return _soft_nms_scan_plain(iou, scores0, pre, iou_threshold,
-                                    score_threshold, param, method)
-    if iou.device.type != "cuda":
+    if iou.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no soft-NMS kernel for device {iou.device}")
-    if n == 0:  # nothing to launch
+    return torch.ops.d3d_tpu_torch.soft_nms_scan(
+        iou, scores0, pre, float(iou_threshold), float(score_threshold),
+        float(param), method)
+
+
+@torch.library.custom_op("d3d_tpu_torch::soft_nms_scan", mutates_args=(),
+                         device_types="cpu")
+def _soft_op(iou: torch.Tensor, scores0: torch.Tensor, pre: torch.Tensor,
+             iou_threshold: float, score_threshold: float, param: float,
+             method: str) -> torch.Tensor:
+    """K4 as an op (float32 or float64 by the matrix's dtype); its CPU
+    implementation is the plain cascade."""
+    return _soft_nms_scan_plain(iou, scores0, pre, iou_threshold,
+                                score_threshold, param, method)
+
+
+@_soft_op.register_kernel("cuda")
+def _soft_cuda(iou, scores0, pre, iou_threshold, score_threshold, param,
+               method):
+    if iou.shape[0] == 0:  # nothing to launch
         return pre.clone()
     out = _soft_launch(iou, scores0, pre, iou_threshold, score_threshold,
                        param, method)
@@ -338,6 +396,12 @@ def soft_nms_scan(iou, scores0, pre, iou_threshold, score_threshold, param,
     else:
         soft_nms_scan.launches += 1
     return out
+
+
+@_soft_op.register_fake
+def _soft_fake(iou, scores0, pre, iou_threshold, score_threshold, param,
+               method):
+    return torch.empty_like(pre)
 
 
 def _soft_launch(iou, scores0, pre, iou_threshold, score_threshold, param,

@@ -24,9 +24,15 @@ flat scan and a scatter. Nothing waits for the device (no ``nonzero``, no
 boolean indexing, no ``.item()``). One rule book serves every launch on
 its map: the forward and both backward kernels of every layer that shares
 the map.
+
+The build is the ``torch.library`` custom op
+``d3d_tpu_torch::subm_conv_rulebook`` (CUDA: the kernels, counted; CPU:
+the plain version; a fake implementation for tracing), so that
+``torch.export`` keeps it as a node of a traced detector.
 """
 
 import ctypes
+from typing import List, Tuple
 
 import torch
 
@@ -104,8 +110,30 @@ def subm_conv_rulebook(nbrs):
     calls counted in ``subm_conv_rulebook.launches``), on the CPU its plain
     version: both give the masks and the stable sort of each map's rows by
     mask, bit for bit."""
-    if nbrs[0].device.type == "cpu":
-        return _subm_conv_rulebook_plain(nbrs)
+    nqs = [n.shape[0] for n in nbrs]
+    masks, order = torch.ops.d3d_tpu_torch.subm_conv_rulebook(list(nbrs))
+    return list(masks.split(nqs)), list(order.split(nqs))
+
+
+@torch.library.custom_op("d3d_tpu_torch::subm_conv_rulebook",
+                         mutates_args=(), device_types="cpu")
+def _rulebook_op(nbrs: List[torch.Tensor]) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """The rule-book build as an op: every map's masks, then every map's
+    order, each laid end to end."""
+    masks, order = _subm_conv_rulebook_plain(nbrs)
+    return torch.cat(masks), torch.cat(order)
+
+
+@_rulebook_op.register_fake
+def _rulebook_fake(nbrs):
+    rows = sum(n.shape[0] for n in nbrs)
+    return (nbrs[0].new_empty(rows, dtype=torch.int32),
+            nbrs[0].new_empty(rows, dtype=torch.int64))
+
+
+@_rulebook_op.register_kernel("cuda")
+def _rulebook_cuda(nbrs):
     nqs = [n.shape[0] for n in nbrs]
     dev = nbrs[0].device
     masks = torch.empty(sum(nqs), dtype=torch.int32, device=dev)
@@ -128,7 +156,7 @@ def subm_conv_rulebook(nbrs):
                 "subm_conv").d3d_subm_conv_rulebook_resident()
         _ROUTES["one_launch" if chunks <= _RESIDENT[dev.index]
                 else "per_phase"] += 1
-    return list(masks.split(nqs)), list(order.split(nqs))
+    return masks, order
 
 
 subm_conv_rulebook.launches = 0

@@ -27,7 +27,15 @@ A CPU tensor goes to the plain versions (:func:`_subm_conv_plain`,
 :func:`_subm_conv_dw_plain`), which also take float64 so that
 ``torch.autograd.gradcheck`` can check the gradient; a CUDA tensor goes to
 the kernels or the call raises.
+
+K5's forward is the ``torch.library`` custom op ``d3d_tpu_torch::subm_conv``
+(a CUDA implementation that launches K5 and counts the launch, the plain
+version on the CPU, a fake one for tracing), so that ``torch.export``
+keeps it as a node of a traced detector. K6 and :class:`SubmConv`'s
+backward are training only and call their launches directly.
 """
+
+from typing import Optional
 
 import torch
 
@@ -179,8 +187,28 @@ def subm_conv(features, nbr, weights, valid):
     Cout) weights of the same dtype, (Nq,) bool valid -> (Nq, Cout) in the
     features' dtype (K5; launches counted in ``subm_conv.launches``)."""
     _check(features, _nbr_tensor(nbr), weights, valid)
-    if features.device.type == "cpu":
-        return _subm_conv_plain(features, _nbr_tensor(nbr), weights, valid)
+    if features.device.type == "cuda":
+        nbr = prepare_neighbor_map(nbr)
+    order = nbr.order if isinstance(nbr, RuleBook) else None
+    return torch.ops.d3d_tpu_torch.subm_conv(features, _nbr_tensor(nbr),
+                                             order, weights, valid)
+
+
+subm_conv.launches = 0
+
+
+@torch.library.custom_op("d3d_tpu_torch::subm_conv", mutates_args=(),
+                         device_types="cpu")
+def _k5_op(features: torch.Tensor, nbr: torch.Tensor,
+           order: Optional[torch.Tensor], weights: torch.Tensor,
+           valid: torch.Tensor) -> torch.Tensor:
+    """K5 as an op on a map and its rule book's ``order`` (the CPU's plain
+    version reads the map alone)."""
+    return _subm_conv_plain(features, nbr, weights, valid)
+
+
+@_k5_op.register_kernel("cuda")
+def _k5_cuda(features, nbr, order, weights, valid):
     (n, c), (nq, cout) = features.shape, (nbr.shape[0], weights.shape[2])
     if nq == 0 or cout == 0:  # nothing to launch
         return torch.empty((nq, cout), dtype=features.dtype,
@@ -188,12 +216,17 @@ def subm_conv(features, nbr, weights, valid):
     if n == 0 or c == 0:  # every sum is empty
         return torch.zeros((nq, cout), dtype=features.dtype,
                            device=features.device)
-    out = _launch(features, prepare_neighbor_map(nbr), weights, valid)
+    if order is None:
+        raise ValueError("K5 on CUDA walks the map's rule book: pass its "
+                         "order")
+    out = _launch(features, RuleBook(nbr, (None, order)), weights, valid)
     subm_conv.launches += 1
     return out
 
 
-subm_conv.launches = 0
+@_k5_op.register_fake
+def _k5_fake(features, nbr, order, weights, valid):
+    return features.new_empty((nbr.shape[0], weights.shape[2]))
 
 
 def _check_dw(features, nbr, grad):
