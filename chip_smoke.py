@@ -138,7 +138,20 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    detectors, Mono3D's two-input one and VoxelNeXt's through
    ``torch.export``, saved under ``build/export/`` and loaded: outputs
    bit-equal to the eager ``device_fn``, launches counted in the ops' CUDA
-   implementations equal to the eager request's, both requests timed);
+   implementations equal to the eager request's, both requests timed)
+   and ``parallel`` (a world of one under NCCL through
+   ``parallel.initialize`` with a FileStore under ``build/parallel/``:
+   ``make_mesh``, ``make_global_mesh``, ``make_pp_mesh`` and an ep mesh
+   on cuda; ``shard_inference`` of the PointPillars detector on 4 bench
+   frames bit-equal to 4 eager requests; ``device_calc_stats(mesh=)``
+   over 512 val-split frames and ``device_panoptic_stats(mesh=)`` on the
+   KITTI-360 frames equal to ``mesh=None``; ``shard_train_step`` of
+   SECOND, 3 f32 (TF32 off) and 3 bf16 steps equal to the plain steps;
+   PointPillars bf16 with ``spatial_constrain``; ``pipeline_sst_trunk``
+   on ``sst_kitti`` in f32 and bf16 against ``SST(stage="trunk")``;
+   ``moe_mlp(mesh=)`` at ep = 1; the sharded step, the sharded request,
+   one NCCL all_reduce of SECOND's gradient bytes and the evaluator with
+   and without the mesh timed, the busy share of a sharded bf16 step);
    each path must launch its kernels, and nms2d K1's bit form and the
    scan only (``check_nms_routes``);
 4. checks the outputs: finite, of the expected shape, the keep masks equal
@@ -7085,7 +7098,8 @@ def seg_eval_at_scale(dev, frames):
 
 
 def bevseg_kitti360(dev):
-    """The bevseg_kitti360 path. Returns ({path: counts}, stats)."""
+    """The bevseg_kitti360 path. Returns ({path: counts}, stats, the
+    KITTI-360 frames with their transferred labels)."""
     import shutil
 
     from d3d_tpu_torch.models import BEVSeg
@@ -7123,7 +7137,7 @@ def bevseg_kitti360(dev):
     log(f"bevseg_kitti360: {stats['phase_s']:.1f} s")
     del bev, batch, loader
     torch.cuda.empty_cache()
-    return counts, stats
+    return counts, stats, frames
 
 
 # ---------------------------------------------------------------------------
@@ -7569,6 +7583,470 @@ def export_phase(dev, sst_detect, frames, vn):
     stats["op_dispatch"] = op_dispatch_cost(dev)
     stats["phase_s"] = time.perf_counter() - t0
     log(f"export: {stats['phase_s']:.1f} s")
+    return counts, stats
+
+
+# ---------------------------------------------------------------------------
+# parallel: the scale-out layer as a world of one under NCCL
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 3          # sharded and plain training steps a dtype
+PAR_EVAL_FRAMES = 512  # the first val-split frames of kitti_eval's bank
+PAR_SEG_FRAMES = 16
+
+
+def median_ms(fn, reps=10, warmup=2):
+    """The median of ``reps`` calls of ``fn`` by CUDA events, after
+    ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        _, ms, _ = timed(fn)
+        times.append(ms)
+    return statistics.median(times)
+
+
+def parallel_serving(dev, mesh, detect, frames):
+    """shard_inference of the PointPillars detector (pointpillars_kitti,
+    full width) over the mesh's dp axis on the 4 bench frames: every
+    output bit-equal to 4 eager requests; K1's bit form and the scan 4
+    times. Times one frame's share of the sharded call against one eager
+    request."""
+    from d3d_tpu_torch.parallel.mesh import shard_inference
+
+    batched = shard_inference(detect.device_fn, mesh)
+    pts = np.stack(frames)
+    reset_counts()
+    with torch.inference_mode():
+        out = batched(pts)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    routes = check_nms_routes("parallel serving", 4)
+    check(counts == want_counts(rbox_iou_matrix=4, nms_scan=4),
+          f"parallel serving: launches {counts}")
+    eager = [detect.device_fn(p) for p in frames]
+    for i, e in enumerate(eager):
+        for k, t in enumerate(e):
+            check(torch.equal(out[k][i], t),
+                  f"parallel serving: frame {i} output {k} differs from "
+                  "the eager request")
+    sharded_ms = median_ms(lambda: batched(pts)) / len(frames)
+    eager_ms = median_ms(lambda: detect.device_fn(frames[0]))
+    log(f"parallel serving: shard_inference of 4 frames bit-equal to 4 "
+        f"eager requests; {sharded_ms:.3f} ms a frame against "
+        f"{eager_ms:.3f} ms an eager request (CUDA events, median of 10); "
+        f"routes {routes}")
+    return counts, dict(sharded_ms_per_frame=sharded_ms,
+                        eager_ms_per_request=eager_ms)
+
+
+def parallel_eval(dev, mesh, bev_frames):
+    """device_calc_stats(mesh=) over the first PAR_EVAL_FRAMES of
+    kitti_eval's val-split bank and device_panoptic_stats(mesh=) on
+    bevseg_kitti360's frames (seg_scale_chunk's predictions), each equal
+    to mesh=None (counters exact, accuracies 1e-6, cumulative IoU
+    1e-12); both timed with and without the mesh (host clock around the
+    call: it packs on the host)."""
+    from d3d_tpu_torch import benchmarks_device as bd
+    from d3d_tpu_torch.benchmarks import (DetectionEvaluator,
+                                          SegmentationEvaluator)
+    from d3d_tpu_torch.dataset.kitti import KittiObjectClass
+
+    gts, dts = val_scale_frames()
+    gts, dts = gts[:PAR_EVAL_FRAMES], dts[:PAR_EVAL_FRAMES]
+    ev = DetectionEvaluator([KittiObjectClass.Car], EVAL_OVERLAPS[0],
+                            device=dev)
+    reset_counts()
+    sharded = bd.device_calc_stats(ev, gts, dts, mesh=mesh)
+    counts = read_counts()
+    plain = bd.device_calc_stats(ev, gts, dts)
+    same_stats("parallel device_calc_stats mesh vs none", sharded, plain,
+               rtol=1e-6)
+    car = KittiObjectClass.Car.value
+    check(int(sharded.tp[car].sum()) > 0, "parallel eval: no true positive")
+    times = {}
+    for name, m in (("mesh", mesh), ("none", None)):
+        times[name] = host_ms(
+            lambda: bd.device_calc_stats(ev, gts, dts, mesh=m), reps=2)
+    classes = list(range(1, bev_preset().num_classes))
+    sev = SegmentationEvaluator(classes, background=0)
+    seg = seg_scale_chunk(np.random.default_rng(951), bev_frames, 0,
+                          PAR_SEG_FRAMES)
+    reset_counts()
+    pano = bd.device_panoptic_stats(sev, *seg, mesh=mesh, device=dev)
+    add_counts(counts, read_counts())
+    want = bd.device_panoptic_stats(sev, *seg, device=dev)
+    seg_stats_equal("parallel device_panoptic_stats mesh vs none", pano,
+                    want, classes)
+    check(counts == want_counts(), f"parallel eval: launches {counts}")
+    log(f"parallel eval: device_calc_stats over {len(gts)} frames equal "
+        f"with and without the mesh, {times['mesh']:.1f} ms against "
+        f"{times['none']:.1f} ms (host clock, median of 2); "
+        f"device_panoptic_stats over {PAR_SEG_FRAMES} frames equal")
+    return counts, dict(calc_stats_mesh_ms=times["mesh"],
+                        calc_stats_ms=times["none"])
+
+
+def max_param_diff(a, b, grads=None, names=None):
+    """The largest difference between two models' state dicts (the entries
+    ``names`` only, where given), over entries whose gradient (``grads``)
+    is above 1e-4 of its leaf's largest: Adam's first step is about lr *
+    sign(g), so a gradient at rounding level may flip its update."""
+    worst = 0.0
+    for k, w in b.items():
+        if not w.dtype.is_floating_point or (names is not None
+                                             and k not in names):
+            continue
+        d = (a[k].float() - w.float()).abs()
+        if grads is not None and k in grads:
+            g = grads[k].abs()
+            d = torch.where(g > 1e-4 * g.max(), d, 0.0)
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def parallel_training(dev, mesh, state, batch):
+    """shard_train_step of SECOND (second_kitti, full width, batch 2) on
+    the one-rank mesh against the plain step from the same weights:
+    PAR_STEPS f32 steps (TF32 off) and PAR_STEPS bf16 steps, each loss
+    and the updated parameters equal (a one-rank mesh sums nothing: its
+    statistics are the plain step's) within the larger of 1e-6 (losses,
+    relative) / 1e-5 (parameters) and twice the gap between two plain
+    runs. The comparison runs with cuDNN deterministic and
+    ``torch.use_deterministic_algorithms`` (warnings only): otherwise the
+    backward's scatter-adds sum in no fixed order, and two plain runs
+    differ by about 1.5e-6 of a loss term by step 3 (NVIDIA H100 80GB
+    HBM3). K5 13, K6 8 and one rule book a step, read per step. Times the
+    steady step of both and the busy share of a sharded bf16 step."""
+    from d3d_tpu_torch.models import head_config, make_anchors, presets
+    from d3d_tpu_torch.models import make_train_step
+    from d3d_tpu_torch.parallel import shard_train_step
+    from d3d_tpu_torch.train import make_optimizer
+
+    total, stats = {}, {}
+    deterministic = (torch.backends.cudnn.deterministic,
+                     torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    timing = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = presets.second_kitti(dtype=dtype)
+        runs = {}
+        for name in ("plain", "sharded", "plain_again"):
+            model = train_model(cfg, state, dev)
+            opt, _ = make_optimizer(model.parameters(),
+                                    total_steps=PAR_STEPS)
+            step = make_train_step(model, opt, cfg,
+                                   make_anchors(head_config(cfg),
+                                                device=dev),
+                                   riou_weight=RIOU_WEIGHT)
+            run = (shard_train_step(step, mesh) if name == "sharded"
+                   else step)
+            losses, ms, grads = [], [], None
+            for i in range(PAR_STEPS):
+                reset_counts()
+                aux, t, _ = timed(lambda: run(batch))
+                c = read_counts()
+                check(c == want_counts(subm_conv=13, subm_conv_dw=8,
+                                       subm_conv_rulebook=1),
+                      f"parallel {name} SECOND {dtype} step {i + 1}: "
+                      f"launches {c}")
+                if name == "sharded":
+                    add_counts(total, c)
+                losses.append({k: float(v) for k, v in aux.items()})
+                ms.append(t)
+                if i == 0:
+                    grads = {n: p.grad.detach().clone()
+                             for n, p in model.named_parameters()}
+            runs[name] = dict(losses=losses, ms=ms, grads=grads,
+                              state=model.state_dict(), run=run)
+        plain, sharded = runs["plain"], runs["sharded"]
+        noise = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                    for a, b in zip(runs["plain_again"]["losses"],
+                                    plain["losses"]) for k in b)
+        for i, (a, b) in enumerate(zip(sharded["losses"], plain["losses"])):
+            for k in b:
+                check(abs(a[k] - b[k]) <= max(1e-6, 2 * noise) * abs(b[k])
+                      + 1e-7, f"parallel SECOND {dtype} step {i + 1} {k}: "
+                      f"{a[k]} vs the plain step's {b[k]} (two plain runs "
+                      f"{noise:.3g} apart)")
+        param_noise = max_param_diff(runs["plain_again"]["state"],
+                                     plain["state"], plain["grads"])
+        diff = max_param_diff(sharded["state"], plain["state"],
+                              plain["grads"])
+        check(diff <= max(1e-5, 2 * param_noise),
+              f"parallel SECOND {dtype}: parameters {diff} from the plain "
+              f"step's (two plain runs {param_noise:.3g} apart)")
+        stats[dtype] = dict(
+            losses=[l["total"] for l in sharded["losses"]],
+            max_param_diff=diff, plain_runs_loss_gap=noise,
+            plain_runs_param_gap=param_noise, sharded_ms=sharded["ms"],
+            plain_ms=plain["ms"],
+            plain_again_ms=runs["plain_again"]["ms"])
+        timing[dtype] = dict(plain=plain["run"], sharded=sharded["run"])
+        log(f"parallel SECOND {dtype}: {PAR_STEPS} sharded steps equal to "
+            f"the plain ones (parameters within {diff:.3g}; two plain runs "
+            f"{noise:.3g} / {param_noise:.3g} apart; deterministic mode)")
+        del runs
+    torch.backends.cudnn.deterministic = deterministic[0]
+    torch.use_deterministic_algorithms(deterministic[1],
+                                       warn_only=deterministic[2])
+    # the steady steps as the paths run them (no deterministic mode), in
+    # turns plain, sharded, sharded, plain
+    for dtype, runs in timing.items():
+        ms = {"plain": [], "sharded": []}
+        for name in ("plain", "sharded", "sharded", "plain"):
+            ms[name].append(median_ms(lambda: runs[name](batch), reps=5,
+                                      warmup=1))
+        stats[dtype].update(sharded_steady_ms=statistics.median(
+            ms["sharded"]), plain_steady_ms=statistics.median(ms["plain"]),
+            turns_ms=ms)
+        log(f"parallel SECOND {dtype} steady step (median of 5 a turn, "
+            f"turns P S S P): sharded {ms['sharded']} ms, plain "
+            f"{ms['plain']} ms")
+    run = timing["bfloat16"]["sharded"]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    stats["busy_share_bf16"] = busy_share(prof, wall)
+    log(f"parallel SECOND bf16 sharded step: busy share "
+        f"{stats['busy_share_bf16']} over {wall * 1e3:.1f} ms "
+        "(torch.profiler)")
+    return total, stats
+
+
+def parallel_spatial(dev, mesh):
+    """PointPillars (pointpillars_kitti, bf16) with spatial_constrain on
+    the one-rank mesh through shard_train_step against the plain step:
+    PAR_STEPS steps from the same weights on 2 bench frames. The slab path
+    (the halo convolution's explicit padding, the heads' gather) may pick
+    other cuDNN algorithms than the plain path, so the losses are held to
+    the bf16 bound of the network (bf16_bound(16, 9 x 256), relative) and
+    the parameters to twice the sum of the Adam steps' largest update
+    (lr * (1 - b1) / sqrt(1 - b2) each): the two runs agree at least as
+    closely as two steps of rounding noise could make them. The
+    BatchNorm running statistics' gap is reported, relative to each
+    statistic's largest entry."""
+    from d3d_tpu_torch.models import (PointPillars, make_anchors,
+                                      pillarize, presets)
+    from d3d_tpu_torch.models.pointpillars import make_train_step
+    from d3d_tpu_torch.parallel import shard_train_step, spatial_constrain
+    from d3d_tpu_torch.train import make_optimizer
+
+    cfg = presets.pointpillars_kitti()
+    frames = [bench_points(np.random.default_rng(100 + i)) for i in range(2)]
+    with torch.inference_mode():
+        pil = [pillarize(torch.from_numpy(p).to(dev), cfg) for p in frames]
+    batch = {k: torch.stack([v[i] for v in pil]).clone()
+             for i, k in enumerate(("features", "coords", "valid"))}
+    batch.update(car_gt(dev, 2))
+    ref = PointPillars(cfg, device=dev,
+                       generator=torch.Generator().manual_seed(0))
+    calibrate_heads(ref, frames[0], dev)
+    runs, counts, total = {}, {}, {}
+    for name in ("plain", "spatial"):
+        hook = spatial_constrain(mesh) if name == "spatial" else None
+        model = PointPillars(cfg, device=dev, constrain=hook)
+        model.load_state_dict(ref.state_dict())
+        opt, lr = make_optimizer(model.parameters(), total_steps=PAR_STEPS)
+        step = make_train_step(model, opt, cfg, make_anchors(cfg,
+                                                             device=dev))
+        run = step if hook is None else shard_train_step(step, mesh)
+        losses, ms = [], []
+        for i in range(PAR_STEPS):
+            reset_counts()
+            aux, t, _ = timed(lambda: run(batch))
+            c = read_counts()
+            counts[name] = c if i == 0 else counts[name]
+            check(c == counts[name], f"parallel spatial {name}: launches "
+                                     f"{c} then {counts[name]}")
+            if hook is not None:
+                add_counts(total, c)
+            losses.append(float(aux["total"]))
+            ms.append(t)
+        runs[name] = dict(losses=losses, ms=ms, state=model.state_dict(),
+                          hook=hook)
+    check(counts["spatial"] == counts["plain"],
+          f"parallel spatial: launches {counts}")
+    bound = bf16_bound(16, 9 * 256)
+    for i, (a, b) in enumerate(zip(runs["spatial"]["losses"],
+                                   runs["plain"]["losses"])):
+        check(math.isfinite(a) and abs(a - b) <= bound * abs(b),
+              f"parallel spatial step {i + 1}: loss {a} vs {b}")
+    step_bound = 2 * sum(lr(i) for i in range(PAR_STEPS)) \
+        * (1 - 0.9) / math.sqrt(1 - 0.999)
+    names = {n for n, _ in model.named_parameters()}
+    diff = max_param_diff(runs["spatial"]["state"], runs["plain"]["state"],
+                          names=names)
+    check(diff <= step_bound, f"parallel spatial: parameters {diff} apart, "
+                              f"bound {step_bound}")
+    stat_diff = max(
+        float((runs["spatial"]["state"][k] - w).abs().max()
+              / w.abs().max().clamp_min(1e-30))
+        for k, w in runs["plain"]["state"].items()
+        if k.endswith(("running_mean", "running_var")))
+    hook = runs["spatial"]["hook"]
+    check(hook.counts["gather"] == 3 * PAR_STEPS,
+          f"parallel spatial: gathers {hook.counts}")
+    log(f"parallel spatial: PointPillars bf16 on the one-rank sp hook, "
+        f"losses {runs['spatial']['losses']} against "
+        f"{runs['plain']['losses']}; parameters {diff:.3g} apart (bound "
+        f"{step_bound:.3g}), running statistics {stat_diff:.3g} relative; "
+        f"steps {runs['spatial']['ms']} ms against {runs['plain']['ms']} "
+        "ms")
+    return total, dict(
+        losses=runs["spatial"]["losses"],
+        plain_losses=runs["plain"]["losses"], max_param_diff=diff,
+        running_stat_rel_diff=stat_diff,
+        step_ms=runs["spatial"]["ms"], plain_step_ms=runs["plain"]["ms"],
+        hook_counts=dict(hook.counts))
+
+
+def parallel_pipeline(dev, pp_mesh, ep_mesh):
+    """pipeline_sst_trunk on sst_kitti uncut, M = 2 microbatches of one
+    bench frame each, against SST(stage="trunk") on the 2 frames: f32
+    (TF32 off) within atol 2e-5, and bf16 on two seeds' weights, held to
+    bf16_bound(5 depth, C mlp_ratio) of the trunk's largest output (the
+    measured errors are returned); moe_mlp(mesh=) at ep = 1 equal to the
+    dense call at sst_kitti(moe_experts=8)'s width (atol 1e-5, aux rtol
+    1e-6)."""
+    from d3d_tpu_torch.models import SST
+    from d3d_tpu_torch.models.sst import pipeline_sst_trunk
+    from d3d_tpu_torch.parallel import (init_moe_params, microbatch, moe_mlp,
+                                        unmicrobatch)
+
+    frames = [bench_points(np.random.default_rng(100 + i)) for i in range(2)]
+    stats, counts = {}, {}
+    reset_counts()
+    for dtype, seeds in (("float32", (14,)), ("bfloat16", (14, 15))):
+        cfg = sst_preset(dtype=dtype)
+        batch = sst_batch(dev, cfg, frames)
+        args = (batch["features"], batch["coords"], batch["valid"])
+        errs = []
+        for seed in seeds:
+            gen = torch.Generator().manual_seed(seed)
+            model = SST(cfg, device=dev, generator=gen)
+            embed = SST(cfg, stage="embed", device=dev)
+            trunk = SST(cfg, stage="trunk", device=dev)
+            for m in (embed, trunk):
+                m.load_state_dict(model.state_dict())
+            with torch.inference_mode():
+                pf0 = embed(*args)
+                want = trunk(*args)
+                got, ms, _ = timed(lambda: unmicrobatch(pipeline_sst_trunk(
+                    model, cfg, pp_mesh, microbatch(pf0, 2),
+                    microbatch(args[1], 2), microbatch(args[2], 2))))
+                _, trunk_ms, _ = timed(lambda: trunk(*args))
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            errs.append(dict(seed=seed, max_abs_err=err, scale=scale,
+                             pipeline_ms=ms, trunk_ms=trunk_ms))
+            if dtype == "float32":
+                check(err <= 2e-5, f"pipelined SST trunk f32: {err}")
+            else:
+                bound = bf16_bound(cfg.depth * 5,
+                                   cfg.pfn_features * cfg.mlp_ratio)
+                check(err <= bound * scale,
+                      f"pipelined SST trunk bf16 seed {seed}: {err}, "
+                      f"bound {bound * scale}")
+            del model, embed, trunk
+        stats[f"trunk_{dtype}"] = errs
+        log(f"parallel pipeline: SST trunk {dtype} pipelined (pp = 1, "
+            f"M = 2) against stage='trunk': {errs}")
+    cfg = sst_preset(moe_experts=SST_MOE_EXPERTS, dtype="float32")
+    c = cfg.pfn_features
+    params = init_moe_params(torch.Generator().manual_seed(16),
+                             SST_MOE_EXPERTS, c, cfg.mlp_ratio * c,
+                             device=dev)
+    x = torch.randn((2, cfg.max_pillars, c),
+                    generator=torch.Generator().manual_seed(17)).to(dev)
+    with torch.inference_mode():
+        y0, a0 = moe_mlp(params, x, cfg.moe_capacity,
+                         group_size=cfg.moe_group)
+        y1, a1 = moe_mlp(params, x, cfg.moe_capacity, mesh=ep_mesh,
+                         group_size=cfg.moe_group)
+    moe_err = float((y1 - y0).abs().max())
+    check(moe_err <= 1e-5 and abs(float(a1) - float(a0))
+          <= 1e-6 * abs(float(a0)),
+          f"moe_mlp(mesh=) at ep = 1: {moe_err}, aux {float(a1)} vs "
+          f"{float(a0)}")
+    stats["moe_ep1_max_abs_err"] = moe_err
+    add_counts(counts, read_counts())
+    check(counts == want_counts(), f"parallel pipeline: launches {counts}")
+    log(f"parallel pipeline: moe_mlp(mesh=) at ep = 1 within {moe_err:.3g} "
+        f"of the dense call ({SST_MOE_EXPERTS} experts, C = {c})")
+    return counts, stats
+
+
+def nccl_all_reduce_ms(dev, numel):
+    """One NCCL all_reduce of ``numel`` float32 (a SECOND step's gradient
+    bytes) on the world's group: median of 10 by CUDA events."""
+    import torch.distributed as dist
+
+    buf = torch.ones(numel, device=dev)
+    return median_ms(lambda: dist.all_reduce(buf))
+
+
+def parallel_phase(dev, pp_detect, frames, state, batch, bev_frames):
+    """The parallel path: a world of one under NCCL through the port's
+    ``initialize`` (a FileStore under build/), the meshes of every axis
+    on cuda, and the scale-out layer's serving, evaluation, training,
+    pipeline and expert paths on it. Returns ({path: counts}, stats)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from d3d_tpu_torch import parallel as par
+    from d3d_tpu_torch.models import presets
+    from d3d_tpu_torch.parallel.mesh import Mesh
+
+    t0 = time.perf_counter()
+    store = ROOT / "build" / "parallel"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    check(par.initialize("file://" + str(store / "store"), 1, 0),
+          "parallel: initialize did not start the process group")
+    try:
+        check(dist.get_backend() is not None and par.process_count() == 1,
+              "parallel: the world is not one rank")
+        mesh = par.make_mesh(1)
+        check(mesh.shape == {"dp": 1, "sp": 1, "tp": 1},
+              f"parallel: make_mesh(1) {mesh.shape}")
+        check(par.make_global_mesh().shape == {"dp": 1, "tp": 1},
+              "parallel: make_global_mesh")
+        pp_mesh = par.make_pp_mesh(1)
+        ep_mesh = Mesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                       mesh_dim_names=("dp", "ep"))
+        counts, stats = {}, {}
+        counts["parallel_serving"], stats["serving"] = parallel_serving(
+            dev, mesh, pp_detect, frames)
+        counts["parallel_eval"], stats["eval"] = parallel_eval(
+            dev, mesh, bev_frames)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        counts["parallel_train"], stats["train"] = parallel_training(
+            dev, mesh, state, batch)
+        counts["parallel_spatial"], stats["spatial"] = parallel_spatial(
+            dev, mesh)
+        counts["parallel_pipeline"], stats["pipeline"] = parallel_pipeline(
+            dev, pp_mesh, ep_mesh)
+        numel = sum(p.numel() for p in train_model(
+            presets.second_kitti(), state, dev).parameters())
+        stats["nccl_all_reduce_ms"] = nccl_all_reduce_ms(dev, numel)
+        stats["grad_bytes"] = 4 * numel
+        log(f"parallel: NCCL all_reduce of SECOND's {4 * numel} gradient "
+            f"bytes {stats['nccl_all_reduce_ms']:.4f} ms (world of one, "
+            "CUDA events, median of 10)")
+    finally:
+        dist.destroy_process_group()
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"parallel: {stats['phase_s']:.1f} s")
     return counts, stats
 
 
@@ -8167,10 +8645,14 @@ def main():
     nte_counts, nte_stats = nuscenes_track_eval(dev, vn)
     cp_counts, cp_stats = centerpoint_track(dev, vn)
     mono_counts, mono_stats = mono3d_eval(dev)
-    bev_counts, bev_stats = bevseg_kitti360(dev)
+    bev_counts, bev_stats, bev_frames = bevseg_kitti360(dev)
     sst_counts, sst_stats, sst_detect, sst_frames = sst_kitti(dev)
     export_counts, export_stats = export_phase(dev, sst_detect, sst_frames,
                                                vn)
+    par_counts, par_stats = parallel_phase(
+        dev, pp_detect, [bench_points(np.random.default_rng(100 + i))
+                         for i in range(4)], state, batch, bev_frames)
+    del bev_frames
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     train_counts, train_stats = {}, {}
@@ -8199,7 +8681,8 @@ def main():
                       "nuscenes_track_eval": nte_counts[name],
                       **{path: c[name] for path, c in cp_counts.items()},
                       "sst_kitti": sum(c[name] for c in sst_counts.values()),
-                      "export": sum(c[name] for c in export_counts.values())}
+                      "export": sum(c[name] for c in export_counts.values()),
+                      "parallel": sum(c[name] for c in par_counts.values())}
                for name in serve_counts}
     meta = {
         "rbox_iou_matrix": ("cuda", "d3d_tpu_torch/csrc/rbox_iou.cu",
@@ -8298,7 +8781,9 @@ def main():
                               "sst_kitti": dict(sst_stats,
                                                 launches=sst_counts),
                               "export": dict(export_stats,
-                                             launches=export_counts)},
+                                             launches=export_counts),
+                              "parallel": dict(par_stats,
+                                               launches=par_counts)},
                     "card": card}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

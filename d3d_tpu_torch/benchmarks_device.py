@@ -570,8 +570,11 @@ def device_calc_stats(evaluator, gt_arrays, dt_arrays, calib=None,
         stats = device_calc_stats(evaluator, gt_list, dt_list)
         evaluator.add_stats(stats)
 
-    :param mesh: not supported yet (the port has no ``parallel.mesh``);
-        anything but None raises ``NotImplementedError``.
+    :param mesh: optional mesh with a ``dp`` axis (every rank calls with
+        all the frames): with ``merge=True`` the frames are padded with
+        empty ones to a dp multiple, each dp rank evaluates its share and
+        one :func:`~d3d_tpu_torch.parallel.reduce_stats_arrays` merges
+        them, the same stats on every rank; ``merge=False`` ignores it.
     :param packed: optional precomputed :func:`pack_frames` output for
         these (gt, dt) lists — packing is threshold-independent, so
         multi-threshold protocols pack once and evaluate many times.
@@ -585,10 +588,6 @@ def device_calc_stats(evaluator, gt_arrays, dt_arrays, calib=None,
     from .benchmarks import DetectionEvalStats
     from .tracking.matcher import DistanceTypes
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "device_calc_stats: mesh sharding is not ported yet "
-            "(d3d_tpu_torch has no parallel.mesh); pass mesh=None")
     dev = resolve_device(device if device is not None
                          else getattr(evaluator, "_device", None))
     gt_arrays = list(gt_arrays)
@@ -608,9 +607,19 @@ def device_calc_stats(evaluator, gt_arrays, dt_arrays, calib=None,
             hi = min(lo + chunk_frames, nframes)
             parts.append(device_calc_stats(
                 evaluator, gt_arrays[lo:hi], dt_arrays[lo:hi], calib=calib,
-                merge=True, gt_ignored=None if gt_ignored is None
+                merge=True, mesh=mesh, gt_ignored=None if gt_ignored is None
                 else list(gt_ignored)[lo:hi], device=dev))
         return _merge_stats(evaluator, parts)
+    sharded = mesh is not None and merge
+    if sharded:
+        dp = mesh.shape["dp"]
+        pad = (-nframes) % dp
+        if pad:
+            empty = Target3DArray([], frame=gt_arrays[0].frame)
+            gt_arrays += [empty] * pad
+            dt_arrays += [empty] * pad
+            if gt_ignored is not None:
+                gt_ignored = list(gt_ignored) + [None] * pad
     for i, (g, d) in enumerate(zip(gt_arrays, dt_arrays)):
         if g.frame != d.frame:
             if calib is None:
@@ -624,12 +633,19 @@ def device_calc_stats(evaluator, gt_arrays, dt_arrays, calib=None,
         packed = pack_frames(gt_arrays, dt_arrays, classes,
                              gt_ignored=gt_ignored)
     md, md_strict = max_dist_arrays(evaluator)
+    if sharded:
+        group = mesh.get_group("dp")
+        per = len(gt_arrays) // dp
+        lo = torch.distributed.get_rank(group) * per
+        packed = {k: v[lo:lo + per] for k, v in packed.items()}
     metric = ("position" if getattr(evaluator, "_distance_metric", None)
               == DistanceTypes.Position else "riou")
     out = eval_frames_device(
         packed, np.ascontiguousarray(evaluator._pr_thresholds,
                                      np.float32), md,
         md_strict, nclasses=len(classes), metric=metric, device=dev)
+    if sharded:
+        return _reduce_frames(out, classes, group)
     out = {k: v.cpu().numpy() for k, v in out.items()}
 
     def frame_stats(f):
@@ -664,6 +680,23 @@ def device_calc_stats(evaluator, gt_arrays, dt_arrays, calib=None,
     return s
 
 
+def _reduce_frames(out, classes, group):
+    """One dp rank's per-frame device sums merged over its frames into the
+    :func:`~d3d_tpu_torch.parallel.stats_to_arrays` form, then over the
+    ranks of ``group`` by one
+    :func:`~d3d_tpu_torch.parallel.reduce_stats_arrays`."""
+    from .parallel import arrays_to_stats, reduce_stats_arrays
+
+    local = {k: out[k].sum(0).to(torch.int64)
+             for k in ("ngt", "ndt", "tp", "fp", "fn")}
+    tp = local["tp"]
+    for fld in _ACC_FIELDS:
+        local[fld] = torch.where(
+            tp > 0, out[fld].sum(0).to(torch.float64)
+            / torch.clamp_min(tp, 1), float("nan"))
+    return arrays_to_stats(reduce_stats_arrays(local, group), classes)
+
+
 # ---------------------------------------------------------------------------
 # semantic and panoptic segmentation
 # ---------------------------------------------------------------------------
@@ -677,13 +710,32 @@ def _row_chunks(rows, width):
     return [(lo, min(lo + step, rows)) for lo in range(0, rows, step)]
 
 
-def _seg_device(evaluator, device, mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh sharding is not ported yet (d3d_tpu_torch has no "
-            "parallel.mesh); pass mesh=None")
+def _seg_device(evaluator, device):
     return resolve_device(device if device is not None
                           else getattr(evaluator, "_device", None))
+
+
+def _own_frames(arrays, fill, mesh):
+    """This dp rank's rows of packed (F, N) arrays, F padded to a dp
+    multiple with rows of ``fill`` (the background, which counts nowhere),
+    and the dp group (without a mesh: every row, and None)."""
+    if mesh is None:
+        return arrays, None
+    group = mesh.get_group("dp")
+    dp = torch.distributed.get_world_size(group)
+    f, n = arrays[0].shape
+    per = -(-f // dp)
+    lo = torch.distributed.get_rank(group) * per
+    return [np.concatenate([a, np.full((per * dp - f, n), fill, a.dtype)])[
+        lo:lo + per] for a in arrays], group
+
+
+def _summed(tensors, group):
+    """``tensors`` summed over the ranks of ``group`` (as they are for
+    None)."""
+    for t in tensors if group is not None else ():
+        torch.distributed.all_reduce(t, group=group)
+    return tensors
 
 
 def _pack_labels(evaluator, gt_labels_list, pred_labels_list):
@@ -716,14 +768,14 @@ def _semantic_confusion(gt, pred):
         256, 256)
 
 
-def _confusion_on(gt, pr, dev):
+def _confusion_on(gt, pr, dev, group=None):
     """The confusion matrix of packed (F, N) uint8 arrays on ``dev``, in
-    chunks of frames, as numpy."""
+    chunks of frames, summed over the ranks of ``group``, as numpy."""
     conf = torch.zeros((256, 256), dtype=torch.int64, device=dev)
     for lo, hi in _row_chunks(*gt.shape):
         conf += _semantic_confusion(torch.from_numpy(gt[lo:hi]).to(dev),
                                     torch.from_numpy(pr[lo:hi]).to(dev))
-    return conf.cpu().numpy()
+    return _summed([conf], group)[0].cpu().numpy()
 
 
 def device_semantic_stats(evaluator, gt_labels_list, pred_labels_list,
@@ -738,17 +790,20 @@ def device_semantic_stats(evaluator, gt_labels_list, pred_labels_list,
     :param evaluator: a ``SegmentationEvaluator`` (classes/background read)
     :param gt_labels_list: per-frame int label arrays (ragged allowed:
         frames pad with the background label, which counts nowhere)
-    :param mesh: not supported yet (the port has no ``parallel.mesh``);
-        anything but None raises ``NotImplementedError``
+    :param mesh: optional mesh with a ``dp`` axis (every rank calls with
+        all the frames): each dp rank counts its share of the frames and
+        the counts are summed over the ranks, the same on every rank
     :param device: where the counting runs (default CUDA; raises without
         it)
     :returns: a mergeable ``SegmentationStats`` (instance counters zero)
     """
     from .benchmarks import SegmentationStats
 
-    dev = _seg_device(evaluator, device, mesh)
-    gt, pr = _pack_labels(evaluator, gt_labels_list, pred_labels_list)
-    conf = _confusion_on(gt, pr, dev)
+    dev = _seg_device(evaluator, device)
+    (gt, pr), group = _own_frames(
+        _pack_labels(evaluator, gt_labels_list, pred_labels_list),
+        evaluator._background, mesh)
+    conf = _confusion_on(gt, pr, dev, group)
     stats = SegmentationStats(evaluator._classes)
     for k in evaluator._classes:
         if k == evaluator._background:
@@ -839,16 +894,17 @@ def _panoptic_frames(gt_key, pred_key, min_points, bg_label):
     return itp, ifn, ifp, cumiou
 
 
-def _panoptic_on(gk, pk, min_points, bg, dev):
+def _panoptic_on(gk, pk, min_points, bg, dev, group=None):
     """:func:`_panoptic_frames` over packed (F, N) key arrays in chunks of
-    frames on ``dev``, summed, as numpy."""
+    frames on ``dev``, summed (over the ranks of ``group`` too), as
+    numpy."""
     out = None
     for lo, hi in _row_chunks(*gk.shape):
         part = _panoptic_frames(torch.from_numpy(gk[lo:hi]).to(dev),
                                 torch.from_numpy(pk[lo:hi]).to(dev),
                                 min_points, bg)
         out = part if out is None else [a + b for a, b in zip(out, part)]
-    return [t.cpu().numpy() for t in out]
+    return [t.cpu().numpy() for t in _summed(out, group)]
 
 
 def device_panoptic_stats(evaluator, gt_labels_list, pred_labels_list,
@@ -863,20 +919,22 @@ def device_panoptic_stats(evaluator, gt_labels_list, pred_labels_list,
     exact and cumiou accumulated in float64 like the host (in another
     order: within 1e-12 relative).
 
-    :param mesh: not supported yet; anything but None raises
-        ``NotImplementedError``
+    :param mesh: optional mesh with a ``dp`` axis: as
+        :func:`device_semantic_stats`'s
     :param device: where the work runs (default CUDA; raises without it)
     :returns: a mergeable ``SegmentationStats``
     """
-    dev = _seg_device(evaluator, device, mesh)
+    dev = _seg_device(evaluator, device)
     stats = device_semantic_stats(evaluator, gt_labels_list,
-                                  pred_labels_list, device=dev)
+                                  pred_labels_list, mesh=mesh, device=dev)
     bg = evaluator._background
     nmax = max((len(g) for g in gt_labels_list), default=1)
-    gk = _panoptic_keys(evaluator, gt_labels_list, gt_ids_list, nmax, bg)
-    pk = _panoptic_keys(evaluator, pred_labels_list, pred_ids_list, nmax, bg)
+    (gk, pk), group = _own_frames([
+        _panoptic_keys(evaluator, gt_labels_list, gt_ids_list, nmax, bg),
+        _panoptic_keys(evaluator, pred_labels_list, pred_ids_list, nmax,
+                       bg)], np.int32(bg) << 16, mesh)
     itp, ifn, ifp, cumiou = _panoptic_on(gk, pk, evaluator._min_points, bg,
-                                         dev)
+                                         dev, group)
     for k in evaluator._classes:
         if k == bg:
             continue

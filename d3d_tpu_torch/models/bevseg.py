@@ -29,8 +29,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.point import aligned_scatter
 from ..utils import as_tensor, resolve_device
-from .pointpillars import (_BN_EPS, _PFN, _ConvBlock, _bn, _bn_train,
-                           _buffers_kept, pillarize as _pp_pillarize,
+from .pointpillars import (_BN_EPS, _PFN, _ConvBlock, _bev_hooks,
+                           _buffers_kept, _norm, pillarize as _pp_pillarize,
                            scatter_to_bev)
 
 __all__ = ["BEVSegConfig", "BEVSeg", "bevseg_pillarize", "point_cell_coords",
@@ -98,10 +98,10 @@ class _Up(nn.Module):
                                        bias=False)
         self.bn = nn.BatchNorm2d(channels, eps=_BN_EPS)
 
-    def forward(self, x, skip, train):
+    def forward(self, x, skip, train, sp=None):
         dt = self.dtype
         x = F.conv_transpose2d(x.to(dt), self.conv.weight.to(dt), stride=2)
-        x = F.relu((_bn_train if train else _bn)(x, self.bn))
+        x = F.relu(_norm(x, self.bn, train, sp))
         return torch.cat([x, skip.to(x.dtype)], dim=1)
 
 
@@ -113,8 +113,11 @@ class BEVSeg(nn.Module):
     (the last ``_ConvBlock``), ``head_seg`` and, with ``cfg.panoptic``,
     ``head_center`` (bias -2.19) and ``head_offset``.
 
-    :param constrain: the JAX module's activation-sharding hook; the port
-        has no mesh yet, so anything but None raises
+    :param constrain: optional activation hook ``(x, kind) -> x`` called
+        on the BEV canvas (NCHW) with kind "bev";
+        :func:`~d3d_tpu_torch.parallel.mesh.spatial_constrain`'s runs the
+        U-Net and heads on this rank's slab of rows and joins the head
+        maps whole before the per-point sampling
     :param point_features: channels per input point (4: x, y, z,
         intensity); the PFN sees 5 more
     :param device: where the parameters live (default CUDA; raises when
@@ -126,12 +129,9 @@ class BEVSeg(nn.Module):
     def __init__(self, cfg: BEVSegConfig, constrain=None, point_features=4,
                  device=None, generator=None):
         super().__init__()
-        if constrain is not None:
-            raise NotImplementedError(
-                "constrain (spatial sharding over a mesh) needs the "
-                "parallel package, which the port does not have yet")
         dev = resolve_device(device)
         self.cfg = cfg
+        self.constrain = constrain
         self.pfn = _PFN(point_features + 5, cfg.pfn_features, cfg.dtype)
         blocks, ch_in = [], cfg.pfn_features
         for i, (ch, nb) in enumerate(zip(cfg.enc_channels, cfg.enc_blocks)):
@@ -194,18 +194,21 @@ class BEVSeg(nn.Module):
         pmask = (features != 0).any(dim=-1)
         pf = self.pfn(features, pmask, train)
         pf = pf * valid[..., None].to(pf.dtype)
-        x = scatter_to_bev(pf, coords, valid, cfg.grid).permute(0, 3, 1, 2)
+        con, sp = _bev_hooks(self.constrain)
+        x = con(scatter_to_bev(pf, coords, valid, cfg.grid).permute(
+            0, 3, 1, 2), "bev")
 
         skips = []
         for block in self.blocks:
-            x = block(x, train)
+            x = block(x, train, sp)
             skips.append(x)
         for up, skip in zip(self.ups, skips[-2::-1]):
-            x = up(x, skip, train)
-        x = self.dec(x, train).to(dt)
+            x = up(x, skip, train, sp)
+        x = self.dec(x, train, sp).to(dt)
 
         def conv(head):
-            return F.conv2d(x, head.weight.to(dt), head.bias.to(dt))
+            y = F.conv2d(x, head.weight.to(dt), head.bias.to(dt))
+            return y if sp is None else sp.gather(y)
 
         # per-point bilinear gather off the (B, C, W, H) map, a leading
         # batch column on the coordinates

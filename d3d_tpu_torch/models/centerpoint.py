@@ -28,8 +28,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.voxel import _to_int32
 from ..utils import as_tensor, resolve_device
-from .pointpillars import (_PFN, _ConvBlock, _Upsample, _buffers_kept,
-                           scatter_to_bev)
+from .pointpillars import (_PFN, _ConvBlock, _Upsample, _bev_hooks,
+                           _buffers_kept, scatter_to_bev)
 
 __all__ = ["CenterPointConfig", "CenterPoint", "assign_center_targets",
            "center_loss", "decode_centers", "prepare_center_targets",
@@ -83,8 +83,11 @@ class CenterPoint(nn.Module):
     ``heads.hm_out``, ...); the heatmap's output bias starts at -2.19
     (logit 0.1, the focal-loss start).
 
-    :param constrain: the JAX module's activation-sharding hook; the port
-        has no mesh yet, so anything but None raises
+    :param constrain: optional activation hook ``(x, kind) -> x`` called
+        on the BEV canvas (NCHW) with kind "bev";
+        :func:`~d3d_tpu_torch.parallel.mesh.spatial_constrain`'s runs the
+        backbone and heads on this rank's slab of rows and joins the head
+        maps whole
     :param return_feat: also return the shared BEV map (key ``feat``) for
         the two-stage refinement (:mod:`.centerpoint2`)
     :param point_features: channels per input point (4: x, y, z,
@@ -99,10 +102,6 @@ class CenterPoint(nn.Module):
                  return_feat=False, point_features=4, device=None,
                  generator=None):
         super().__init__()
-        if constrain is not None:
-            raise NotImplementedError(
-                "constrain (spatial sharding over a mesh) needs the "
-                "parallel package, which the port does not have yet")
         dev = resolve_device(device)
         self.cfg = cfg
         self.constrain = constrain
@@ -163,24 +162,28 @@ class CenterPoint(nn.Module):
         pmask = (features != 0).any(dim=-1)
         pf = self.pfn(features, pmask, train)
         pf = pf * valid[..., None].to(pf.dtype)
-        x = scatter_to_bev(pf, coords, valid, cfg.grid).permute(0, 3, 1, 2)
+        con, sp = _bev_hooks(self.constrain)
+        x = con(scatter_to_bev(pf, coords, valid, cfg.grid).permute(
+            0, 3, 1, 2), "bev")
         ups = []
         for block, up in zip(self.blocks, self.ups):
-            x = block(x, train)
-            ups.append(up(x, train))
+            x = block(x, train, sp)
+            ups.append(up(x, train, sp))
         feat = torch.cat(ups, dim=1).to(dt)
+        whole = (lambda t: t) if sp is None else sp.gather
 
         def head(name):
             conv, last = self.heads[f"{name}_conv"], self.heads[f"{name}_out"]
-            y = F.relu(F.conv2d(feat, conv.weight.to(dt), conv.bias.to(dt),
-                                padding=1))
+            w, bias = conv.weight.to(dt), conv.bias.to(dt)
+            y = F.relu(F.conv2d(feat, w, bias, padding=1) if sp is None
+                       else sp.conv2d(feat, w, 1, bias))
             y = F.conv2d(y, last.weight.to(dt), last.bias.to(dt))
-            return y.permute(0, 2, 3, 1).to(out_dt)
+            return whole(y).permute(0, 2, 3, 1).to(out_dt)
 
         keys = dict(hm="heatmap")
         out = {keys.get(name, name): head(name) for name, _ in _heads(cfg)}
         if self.return_feat:
-            out["feat"] = feat.permute(0, 2, 3, 1).to(out_dt)
+            out["feat"] = whole(feat).permute(0, 2, 3, 1).to(out_dt)
         return out
 
 

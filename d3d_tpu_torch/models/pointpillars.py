@@ -31,6 +31,8 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.geometry import aabox_iou
 from ..ops.geometry_soa import rbox_iou
 from ..ops.voxel import voxelize_dense_padded
+from ..parallel.comm import (SpatialHook, all_reduce_sum, batch_groups,
+                             batch_sum, live, loss_share)
 from ..utils import as_tensor, resolve_device
 
 __all__ = ["PointPillarsConfig", "PointPillars", "pillarize", "scatter_to_bev",
@@ -174,7 +176,7 @@ def _bn(x, bn):
                         bn.bias, training=False, eps=bn.eps)
 
 
-def _bn_train(x, bn):
+def _bn_train(x, bn, groups=None):
     """Training BatchNorm over dim 1 with flax ``nn.BatchNorm``'s semantics
     (momentum 0.99, ``use_fast_variance``): batch statistics over every
     other dim in float32 (float64 for a float64 ``x``, as flax promotes),
@@ -182,11 +184,25 @@ def _bn_train(x, bn):
     variance in that precision and output in x's dtype; the running
     statistics move ``0.99 * old + 0.01 * batch``, the variance biased.
     (``F.batch_norm(training=True)`` moves the running variance by 0.1 of
-    the unbiased one.)"""
+    the unbiased one.)
+
+    :param groups: process groups whose ranks hold the rest of the batch
+        (default: the sharded step's dp groups,
+        :func:`~d3d_tpu_torch.parallel.comm.batch_groups`): the sums of x
+        and x^2 and the count are summed over them, so the statistics are
+        the whole batch's on every rank"""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     dims = [d for d in range(x.ndim) if d != 1]
-    mean = xf.mean(dim=dims)
-    var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+    groups = live(batch_groups() if groups is None else groups)
+    if groups:
+        c = x.shape[1]
+        sums = all_reduce_sum(torch.cat([
+            xf.sum(dim=dims), (xf * xf).sum(dim=dims),
+            xf.new_full((1,), xf.numel() // c)]), groups)
+        mean, ex2 = sums[:c] / sums[2 * c], sums[c:2 * c] / sums[2 * c]
+    else:
+        mean, ex2 = xf.mean(dim=dims), (xf * xf).mean(dim=dims)
+    var = torch.clamp_min(ex2 - mean * mean, 0.0)
     with torch.no_grad():
         bn.running_mean.copy_(0.99 * bn.running_mean + 0.01 * mean)
         bn.running_var.copy_(0.99 * bn.running_var + 0.01 * var)
@@ -249,14 +265,25 @@ class _ConvBlock(nn.Module):
         self.bns = nn.ModuleList(nn.BatchNorm2d(channels, eps=_BN_EPS)
                                  for _ in range(blocks))
 
-    def forward(self, x, train=False):
+    def forward(self, x, train=False, sp=None):
+        """``sp``: a :class:`~d3d_tpu_torch.parallel.comm.SpatialHook`
+        when ``x`` is this rank's slab of the canvas (halo convolutions,
+        statistics over the slabs)."""
         dt = self.dtype
-        norm = _bn_train if train else _bn
         for i, (conv, bn) in enumerate(zip(self.convs, self.bns)):
-            x = _conv_same(x.to(dt), conv.weight.to(dt),
-                           self.stride if i == 0 else 1)
-            x = F.relu(norm(x, bn))
+            stride = self.stride if i == 0 else 1
+            x = (sp.conv2d if sp is not None else _conv_same)(
+                x.to(dt), conv.weight.to(dt), stride)
+            x = F.relu(_norm(x, bn, train, sp))
         return x
+
+
+def _norm(x, bn, train, sp=None):
+    """BatchNorm of a BEV map: running statistics, or the batch's (over
+    the slabs of ``sp`` too)."""
+    if not train:
+        return _bn(x, bn)
+    return _bn_train(x, bn, None if sp is None else sp.stat_groups())
 
 
 class _Upsample(nn.Module):
@@ -274,14 +301,14 @@ class _Upsample(nn.Module):
             self.conv = nn.Conv2d(in_channels, channels, 1, bias=False)
         self.bn = nn.BatchNorm2d(channels, eps=_BN_EPS)
 
-    def forward(self, x, train=False):
+    def forward(self, x, train=False, sp=None):
         dt = self.dtype
         w = self.conv.weight.to(dt)
         if self.factor > 1:
             x = F.conv_transpose2d(x.to(dt), w, stride=self.factor)
         else:
             x = F.conv2d(x.to(dt), w)
-        return F.relu((_bn_train if train else _bn)(x, self.bn))
+        return F.relu(_norm(x, self.bn, train, sp))
 
 
 class PointPillars(nn.Module):
@@ -290,6 +317,10 @@ class PointPillars(nn.Module):
 
     :param point_features: channels per input point (4: x, y, z,
         intensity); the PFN sees ``point_features + 5`` after decoration
+    :param constrain: optional activation hook ``(x, kind) -> x``, called
+        on the BEV canvas (NCHW) with kind "bev" (:func:`_bev_hooks`);
+        :func:`~d3d_tpu_torch.parallel.mesh.spatial_constrain`'s runs the
+        backbone and heads on this rank's slab of rows
     :param device: where the parameters live (default CUDA; raises when
         CUDA is missing and no device is given)
     :param generator: ``torch.Generator`` for the random initial weights
@@ -297,10 +328,11 @@ class PointPillars(nn.Module):
     """
 
     def __init__(self, cfg: PointPillarsConfig, point_features=4,
-                 device=None, generator=None):
+                 device=None, generator=None, constrain=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
+        self.constrain = constrain
         self.pfn = _PFN(point_features + 5, cfg.pfn_features, cfg.dtype)
         blocks, ups = [], []
         ch_in = cfg.pfn_features
@@ -355,28 +387,49 @@ class PointPillars(nn.Module):
         pf = pf * valid[..., None].to(pf.dtype)  # (B, P, F)
 
         # BEV canvas, NCHW with x along the first spatial axis
-        x = scatter_to_bev(pf, coords, valid, cfg.grid).permute(0, 3, 1, 2)
+        con, sp = _bev_hooks(self.constrain)
+        x = con(scatter_to_bev(pf, coords, valid, cfg.grid).permute(
+            0, 3, 1, 2), "bev")
 
         # backbone + FPN-style upsampling
         ups = []
         for block, up in zip(self.blocks, self.ups):
-            x = block(x, train)
-            ups.append(up(x, train))
+            x = block(x, train, sp)
+            ups.append(up(x, train, sp))
         feat = torch.cat(ups, dim=1).to(dt)  # (B, 3*U, W, H)
 
-        return (_head(feat, self.head_cls, cfg.num_classes, dt),
-                _head(feat, self.head_box, 7, dt),
-                _head(feat, self.head_dir, 2, dt))
+        return (_head(feat, self.head_cls, cfg.num_classes, dt, sp),
+                _head(feat, self.head_box, 7, dt, sp),
+                _head(feat, self.head_dir, 2, dt, sp))
 
 
-def _head(feat, conv, c, dt):
+def _no_constrain(x, kind):
+    return x
+
+
+def _bev_hooks(constrain):
+    """``(con, sp)``: the hook to call on the whole canvas (identity for
+    None) and, for a :class:`~d3d_tpu_torch.parallel.comm.SpatialHook`,
+    the hook again as the slab helper the BEV layers take (None
+    otherwise). The spatial hook partitions the canvas once; the layers
+    after it run on the slab, so the JAX module's later ``"bev"``
+    constraints have no counterpart here."""
+    con = constrain or _no_constrain
+    return con, (con if isinstance(con, SpatialHook) else None)
+
+
+def _head(feat, conv, c, dt, sp=None):
     """SSD head (per cell: A anchors): a 1x1 conv in ``dt`` on the NCHW
     map, back to the JAX module's NHWC order before the reshape so the
     outputs line up with :func:`make_anchors`; float32 out, float64 for a
     float64 model (the JAX module casts to float32 there too; the port
     keeps float64 so a float64 step is a float64 reference end to end:
-    heads, loss and cotangent)."""
+    heads, loss and cotangent). On a slab (``sp``) the map is whole again
+    (:meth:`~d3d_tpu_torch.parallel.comm.SpatialHook.gather`) before the
+    reshape."""
     out = F.conv2d(feat, conv.weight.to(dt), conv.bias.to(dt))
+    if sp is not None:
+        out = sp.gather(out)
     return out.permute(0, 2, 3, 1).reshape(feat.shape[0], -1, c).to(
         torch.promote_types(dt, torch.float32))
 
@@ -531,7 +584,7 @@ def detection_loss(outputs, targets, cfg: PointPillarsConfig, anchors=None,
     if "cls_onehot" in targets:
         posf = targets["posf"]
         pos = posf > 0
-        npos = torch.clamp_min(posf.sum(), 1.0)
+        npos = torch.clamp_min(batch_sum(posf.sum()), 1.0)
         cls_loss = _focal_terms(cls_logits, targets["cls_onehot"],
                                 targets["weight"][..., None]) / npos
         reg_loss = torch.sum(reg * posf[..., None]) / npos
@@ -539,7 +592,7 @@ def detection_loss(outputs, targets, cfg: PointPillarsConfig, anchors=None,
                              * posf) / npos
     else:
         pos = targets["pos"]
-        npos = torch.clamp_min(pos.sum(), 1).float()
+        npos = torch.clamp_min(batch_sum(pos.sum()), 1).float()
         cls_loss = _focal_loss(cls_logits, targets["cls_target"], pos,
                                targets["neg"], cfg.num_classes) / npos
         reg_loss = torch.sum(reg * pos[..., None]) / npos
@@ -652,6 +705,13 @@ def make_train_step(model, optimizer, cfg: PointPillarsConfig, anchors,
     ``sown_losses`` after the forward) adds ``cfg.moe_aux_weight`` times
     their sum to the loss and reports the sum as ``aux["moe_aux"]``
     (``aux["total"]`` stays the detection loss), as the JAX step does.
+
+    The step carries ``model``, ``optimizer`` and ``backward`` (the step
+    without ``zero_grad`` and ``optimizer.step()``: forward, loss and
+    backward on a batch, returning ``aux``) as attributes, and
+    ``global_aux``, the ``aux`` keys that are whole on every rank of a
+    sharded step; :func:`~d3d_tpu_torch.parallel.mesh.shard_train_step`
+    runs them over a mesh.
     """
     dev = next(model.parameters()).device
     anchors = as_tensor(anchors, device=dev, dtype=torch.float32)
@@ -671,10 +731,9 @@ def make_train_step(model, optimizer, cfg: PointPillarsConfig, anchors,
     else:
         run_forward = forward
 
-    def train_step(batch):
+    def backward(batch):
         batch = {k: (v if k == "targets" else as_tensor(v, device=dev))
                  for k, v in batch.items()}
-        optimizer.zero_grad(set_to_none=True)
         outputs, sown = run_forward(batch["features"], batch["coords"],
                                     batch["valid"])
         if external_targets:
@@ -686,11 +745,21 @@ def make_train_step(model, optimizer, cfg: PointPillarsConfig, anchors,
         loss, aux = detection_loss(outputs, targets, cfg, anchors,
                                    riou_weight)
         if sown:
+            # a sharded step computes the load-balance loss whole on every
+            # rank (global routing statistics): each adds its share
             aux_total = sum(sown)
-            loss = loss + getattr(cfg, "moe_aux_weight", 0.0) * aux_total
+            loss = loss + (getattr(cfg, "moe_aux_weight", 0.0)
+                           * loss_share()) * aux_total
             aux["moe_aux"] = aux_total
         loss.backward()
-        optimizer.step()
         return {k: v.detach() for k, v in aux.items()}
 
+    def train_step(batch):
+        optimizer.zero_grad(set_to_none=True)
+        aux = backward(batch)
+        optimizer.step()
+        return aux
+
+    train_step.model, train_step.optimizer = model, optimizer
+    train_step.backward, train_step.global_aux = backward, ("moe_aux",)
     return train_step

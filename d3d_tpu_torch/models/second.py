@@ -31,8 +31,9 @@ from ..ops.sparse_conv import (build_neighbor_map, build_neighbor_map_strided,
                                downsample_coords, prepare_neighbor_maps,
                                sparse_to_dense, subm_conv_apply)
 from ..ops.voxel import voxelize_dense_padded
+from ..parallel.comm import all_reduce_sum, batch_groups, live
 from ..utils import as_tensor, resolve_device
-from .pointpillars import PointPillarsConfig, _ConvBlock, _head
+from .pointpillars import PointPillarsConfig, _ConvBlock, _bev_hooks, _head
 from .pointpillars import make_train_step as _pp_make_train_step
 
 __all__ = ["SECONDConfig", "SECOND", "second_voxelize", "head_config",
@@ -131,7 +132,10 @@ class _MaskedBN(nn.Module):
 
     With ``train`` the statistics are the batch's: a masked two-pass mean
     and (biased) variance over every valid row, and the running statistics
-    move ``0.99 * old + 0.01 * batch``; otherwise the running statistics."""
+    move ``0.99 * old + 0.01 * batch``; otherwise the running statistics.
+    In a sharded step each pass's sums and the count are summed over the
+    dp ranks (:func:`~d3d_tpu_torch.parallel.comm.batch_groups`), so the
+    statistics are the whole batch's."""
 
     def __init__(self, channels):
         super().__init__()
@@ -144,9 +148,18 @@ class _MaskedBN(nn.Module):
         if train:
             xf = x.float()
             w = valid[:, None].to(torch.float32)
-            n = torch.clamp_min(w.sum(), 1.0)
-            mean = (xf * w).sum(dim=0) / n
-            var = (((xf - mean) ** 2) * w).sum(dim=0) / n
+            groups = live(batch_groups())
+            if groups:
+                s = all_reduce_sum(torch.cat([(xf * w).sum(dim=0),
+                                              w.sum().reshape(1)]), groups)
+                n = torch.clamp_min(s[-1], 1.0)
+                mean = s[:-1] / n
+                var = all_reduce_sum((((xf - mean) ** 2) * w).sum(dim=0),
+                                     groups) / n
+            else:
+                n = torch.clamp_min(w.sum(), 1.0)
+                mean = (xf * w).sum(dim=0) / n
+                var = (((xf - mean) ** 2) * w).sum(dim=0) / n
             with torch.no_grad():
                 self.running_mean.copy_(0.99 * self.running_mean
                                         + 0.01 * mean)
@@ -355,13 +368,19 @@ class SECOND(nn.Module):
         CUDA is missing and no device is given)
     :param generator: ``torch.Generator`` for the random initial weights
         (default: a generator seeded with 0)
+    :param constrain: optional activation hook ``(x, kind) -> x`` called
+        on the dense BEV map (NCHW) with kind "bev"; with
+        :func:`~d3d_tpu_torch.parallel.mesh.spatial_constrain`'s only the
+        BEV head runs on this rank's slab of rows, as in the JAX module
+        (the sparse middle is site-parallel and stays whole)
     """
 
     def __init__(self, cfg: SECONDConfig, point_features=4, device=None,
-                 generator=None):
+                 generator=None, constrain=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
+        self.constrain = constrain
         dense = cfg.middle_mode() == "dense"
         layers = {}
         c_in = point_features
@@ -435,11 +454,13 @@ class SECOND(nn.Module):
         dt = getattr(torch, cfg.dtype)
         # fold z into channels z-major, as the JAX module's reshape does,
         # then NCHW with x along the first spatial axis
+        con, sp = _bev_hooks(self.constrain)
         bev = self.head_block(
-            dense.reshape(b, nx, ny, -1).permute(0, 3, 1, 2), train)
-        return (_head(bev, self.head_cls, cfg.num_classes, dt),
-                _head(bev, self.head_box, 7, dt),
-                _head(bev, self.head_dir, 2, dt))
+            con(dense.reshape(b, nx, ny, -1).permute(0, 3, 1, 2), "bev"),
+            train, sp)
+        return (_head(bev, self.head_cls, cfg.num_classes, dt, sp),
+                _head(bev, self.head_box, 7, dt, sp),
+                _head(bev, self.head_dir, 2, dt, sp))
 
 
 def make_train_step(model, optimizer, cfg: SECONDConfig, anchors,

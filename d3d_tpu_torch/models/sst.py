@@ -36,8 +36,8 @@ after detokenization; the blocks' load-balance losses are kept in
 ``SST.sown_losses`` after every forward, and ``make_train_step`` adds
 them to the loss.
 
-``pipeline_sst_trunk`` waits for the port of ``d3d_tpu.parallel``'s
-pipeline helpers.
+:func:`pipeline_sst_trunk` runs the trunk's blocks as GPipe stages over
+a pipeline mesh axis (:func:`~d3d_tpu_torch.parallel.pipeline_apply`).
 
 Reference: Fan et al., "Embracing Single Stride 3D Object Detector with
 Sparse Transformer", CVPR 2022 (arXiv:2112.06375); window shifting from
@@ -55,11 +55,11 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.gather import table_gather
 from ..parallel.moe import gelu_tanh, moe_mlp
 from ..utils import resolve_device
-from .pointpillars import (PointPillarsConfig, _ConvBlock, _PFN, _head,
-                           scatter_to_bev)
+from .pointpillars import (PointPillarsConfig, _ConvBlock, _PFN, _bev_hooks,
+                           _head, scatter_to_bev)
 
 __all__ = ["SSTConfig", "SST", "window_slots", "route_tokens",
-           "detok_tokens", "empty_slot_share"]
+           "detok_tokens", "empty_slot_share", "pipeline_sst_trunk"]
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm's default epsilon
 
@@ -186,13 +186,14 @@ class _WindowBlock(nn.Module):
     detokenization (the caller passes the pillars and gets them back)."""
 
     def __init__(self, channels, num_heads, mlp_ratio, dtype, moe_experts=0,
-                 moe_capacity=1.25, moe_group=4096):
+                 moe_capacity=1.25, moe_group=4096, moe_constrain=None):
         super().__init__()
         self.dtype = getattr(torch, dtype)
         self.num_heads = num_heads
         self.moe_experts = moe_experts
         self.moe_capacity = moe_capacity
         self.moe_group = moe_group
+        self.moe_constrain = moe_constrain
         c, h = channels, mlp_ratio * channels
         self.norm1 = nn.LayerNorm(c)
         self.qkv = nn.Linear(c, 3 * c)
@@ -239,6 +240,7 @@ class _WindowBlock(nn.Module):
                          for n in ("w1", "b1", "w2", "b2")}}
             y, aux = moe_mlp(params, _layer_norm(pf, self.norm2, dt),
                              self.moe_capacity, mask=valid,
+                             constrain=self.moe_constrain,
                              group_size=self.moe_group)
             return pf + y, aux   # y is already zero on invalid rows
         y = _dense(_layer_norm(tok, self.norm2, dt), self.mlp1, dt)
@@ -253,8 +255,13 @@ class SST(nn.Module):
     :param stage: "full"; "embed" returns the pillar features after the
         PFN and the positional embedding, "trunk" after the transformer
         blocks (before the validity mask)
-    :param constrain: / ``moe_constrain``: the JAX module's sharding
-        hooks; the port has no mesh yet, so anything but None raises
+    :param constrain: optional activation hook ``(x, kind) -> x`` called
+        on the BEV canvas (NCHW) with kind "bev";
+        :func:`~d3d_tpu_torch.parallel.mesh.spatial_constrain`'s runs the
+        neck and heads on this rank's slab of rows
+    :param moe_constrain: the MoE blocks' expert hook
+        (:func:`~d3d_tpu_torch.parallel.mesh.expert_constrain`: the
+        experts split over the mesh's ``ep`` axis)
     :param device: where the parameters live (default CUDA; raises when
         CUDA is missing and no device is given)
     :param generator: ``torch.Generator`` for the random initial weights
@@ -267,24 +274,19 @@ class SST(nn.Module):
     def __init__(self, cfg: SSTConfig, constrain=None, moe_constrain=None,
                  stage="full", point_features=4, device=None, generator=None):
         super().__init__()
-        for name, hook in (("constrain", constrain),
-                           ("moe_constrain", moe_constrain)):
-            if hook is not None:
-                raise NotImplementedError(
-                    f"{name} (sharding over a mesh) needs the parallel "
-                    "package's mesh helpers, which the port does not have "
-                    "yet")
         if stage not in ("full", "embed", "trunk"):
             raise ValueError(f"unknown stage {stage!r}")
         dev = resolve_device(device)
         self.cfg = cfg
         self.stage = stage
+        self.constrain = constrain
         c = cfg.pfn_features
         self.pfn = _PFN(point_features + 5, c, cfg.dtype)
         self.pos_embed = nn.Linear(2, c)
         self.blocks = nn.ModuleList(
             _WindowBlock(c, cfg.num_heads, cfg.mlp_ratio, cfg.dtype,
-                         cfg.moe_experts, cfg.moe_capacity, cfg.moe_group)
+                         cfg.moe_experts, cfg.moe_capacity, cfg.moe_group,
+                         moe_constrain)
             for _ in range(cfg.depth))
         self.neck = _ConvBlock(c, cfg.neck_channels, 2, 1, cfg.dtype)
         a = cfg.num_anchors_per_cell
@@ -370,8 +372,78 @@ class SST(nn.Module):
         pf = pf * valid[..., None].to(pf.dtype)
 
         # single-stride BEV neck + SSD head (full-resolution detection)
-        x = scatter_to_bev(pf, coords, valid, cfg.grid).permute(0, 3, 1, 2)
-        x = self.neck(x, train)
-        return (_head(x, self.head_cls, cfg.num_classes, dt),
-                _head(x, self.head_box, 7, dt),
-                _head(x, self.head_dir, 2, dt))
+        con, sp = _bev_hooks(self.constrain)
+        x = con(scatter_to_bev(pf, coords, valid, cfg.grid).permute(
+            0, 3, 1, 2), "bev")
+        x = self.neck(x, train, sp)
+        return (_head(x, self.head_cls, cfg.num_classes, dt, sp),
+                _head(x, self.head_box, 7, dt, sp),
+                _head(x, self.head_dir, 2, dt, sp))
+
+
+def pipeline_sst_trunk(model, cfg: SSTConfig, mesh, pf_mb, coords_mb,
+                       valid_mb, batch_axis=None, axis="pp"):
+    """Run ``model``'s windowed-transformer trunk pipelined over the mesh's
+    pipeline axis: the ``cfg.depth`` blocks are GPipe stages, a contiguous
+    run of them a rank (:func:`~d3d_tpu_torch.parallel.pipeline_apply`).
+
+    A stage's state is its block's parameters and its routing tables for
+    every microbatch: the ``slot`` and ``inv`` tables of its tiling (the
+    two alternating tilings, the ``inv`` tables padded with empty slots to
+    the larger one so every stage has one shape) and the ``nwcap`` that
+    masks the padding in :func:`detok_tokens`; an MoE trunk carries the
+    validity mask too.
+
+    :param model: an :class:`SST` (its ``blocks`` give the weights)
+    :param pf_mb: (M, mb, P, C) ``SST(cfg, stage="embed")`` outputs,
+        microbatched (:func:`~d3d_tpu_torch.parallel.microbatch`)
+    :param coords_mb: / ``valid_mb``: (M, mb, P, 2) / (M, mb, P)
+    :param batch_axis: optional mesh axis splitting ``mb`` (dp x pp)
+    :returns: (M, mb, P, C), ``SST(cfg, stage="trunk")``'s output on the
+        same inputs, on every rank
+    """
+    from torch.func import functional_call
+
+    from ..parallel.pipeline import pipeline_apply
+
+    depth = cfg.depth
+    par = []
+    for shift in (False, True)[:min(depth, 2)]:
+        sl, iv = window_slots(coords_mb, valid_mb, cfg.grid, cfg.window,
+                              cfg.capacity, shift)
+        par.append((sl, iv, iv.shape[-1]))
+    length = max(p[2] for p in par)
+    p = pf_mb.shape[-2]
+
+    def pad(iv):
+        return torch.cat([iv, iv.new_full(iv.shape[:-1] + (
+            length - iv.shape[-1],), p)], dim=-1)
+
+    names = [n for n, _ in model.blocks[0].named_parameters()]
+    state = dict(
+        params={n: torch.stack([dict(blk.named_parameters())[n]
+                                for blk in model.blocks]) for n in names},
+        slot=torch.stack([par[d % 2][0] for d in range(depth)]),
+        inv=torch.stack([pad(par[d % 2][1]) for d in range(depth)]),
+        nwcap=torch.tensor([par[d % 2][2] for d in range(depth)],
+                           device=pf_mb.device))
+    specs = dict(params={n: (axis,) for n in names},
+                 slot=(axis, None, batch_axis), inv=(axis, None, batch_axis),
+                 nwcap=(axis,))
+    if cfg.moe_experts:
+        state["valid"] = torch.stack([valid_mb] * depth)
+        specs["valid"] = (axis, None, batch_axis)
+    block = model.blocks[0]
+
+    def stage(st, pf, mb):
+        tok, tmask = route_tokens(pf, st["inv"][mb], cfg.capacity)
+        if cfg.moe_experts:
+            out, _ = functional_call(block, st["params"], (
+                tok, tmask, pf, st["valid"][mb], st["slot"][mb],
+                st["nwcap"]))
+            return out
+        tok = functional_call(block, st["params"], (tok, tmask))
+        return detok_tokens(pf, tok, st["slot"][mb], st["nwcap"])
+
+    return pipeline_apply(stage, state, pf_mb, mesh, axis=axis,
+                          batch_axis=batch_axis, state_specs=specs)

@@ -19,18 +19,29 @@ gathers' backward passes are gathers too
 entry of the one-hot products is one product of one token, so the two
 forms give the same numbers.
 
-Sharding the experts over a mesh axis (``mesh=``, ``expert_sharding``)
-waits for the port of ``d3d_tpu.parallel``'s mesh helpers.
+Expert parallelism (``mesh=`` or the :func:`~.mesh.expert_constrain`
+hook): every rank of the ``ep`` group routes every token (the router is
+replicated, the load-balance loss the dense one), takes its share of the
+routing groups, dispatches their token blocks to the experts' owners by
+one all-to-all, runs its E/ep experts on the blocks of every group, sends
+the outputs back by a second all-to-all, combines its groups' tokens, and
+all-gathers the tokens' outputs. The expert weights are either the whole
+stack (each rank then uses its E/ep of them, and their gradients are
+gathered whole) or a rank's E/ep experts already
+(:func:`~.mesh.shard_train_step`, :func:`expert_sharding`).
 """
 
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor.placement_types import Replicate, Shard
 
 from ..ops.gather import inverse_table, table_gather
+from .comm import all_to_all, batch_sum, gather_slabs, take_own
+from .mesh import ExpertHook, expert_constrain
 
-__all__ = ["init_moe_params", "moe_mlp", "gelu_tanh"]
+__all__ = ["init_moe_params", "moe_mlp", "gelu_tanh", "expert_sharding"]
 
 
 def init_moe_params(generator, n_experts, d_model, d_hidden,
@@ -69,11 +80,52 @@ def gelu_tanh(x):
     return x * (0.5 * (1.0 + torch.tanh(c * (x + a * (x * x * x)))))
 
 
-def _not_ported(what):
-    return NotImplementedError(
-        f"moe_mlp({what}=...) shards the experts over a mesh axis, which "
-        "waits for the port of d3d_tpu.parallel's mesh helpers "
-        "(d3d_tpu_torch.parallel); call it without it")
+def expert_sharding(mesh, axis="ep"):
+    """Placements (one per mesh axis) of each parameter: the expert axis
+    (dim 0) of ``w1``/``b1``/``w2``/``b2`` over ``axis``, the router
+    replicated."""
+    ex = tuple(Shard(0) if a == axis else Replicate()
+               for a in mesh.mesh_dim_names)
+    rep = tuple(Replicate() for _ in mesh.mesh_dim_names)
+    return {"router": rep, "w1": ex, "b1": ex, "w2": ex, "b2": ex}
+
+
+def _experts(xe, w1, b1, w2, b2):
+    """The expert MLPs on their (G, E, cap, C) token blocks."""
+    h = torch.einsum("gecd,edh->gech", xe, w1) + b1[None, :, None, :]
+    h = gelu_tanh(h)
+    return torch.einsum("gech,ehd->gecd", h, w2) + b2[None, :, None, :]
+
+
+def _ep_branch(hook, params, e, cap, xg, slot, gate):
+    """The expert branch with the experts split over ``hook``'s group:
+    (Gp * g, C) outputs of the (G, g) tokens, groups padded to a multiple
+    of the group's size."""
+    n, r, group = hook.size, hook.rank, hook.group
+    ng, g, c = xg.shape
+    pad = (-ng) % n
+    if pad:
+        xg = torch.cat([xg, xg.new_zeros((pad, g, c))])
+        slot = torch.cat([slot, slot.new_full((pad, g), e * cap)])
+        gate = torch.cat([gate, gate.new_zeros((pad, g))])
+    gl = (ng + pad) // n
+    own = slice(r * gl, (r + 1) * gl)
+    # this rank's groups: their tokens into (E, cap) blocks, block k of
+    # experts to rank k
+    inv = inverse_table(slot[own], e * cap)
+    xe = table_gather(take_own(xg, 0, group), inv).reshape(
+        gl, n, e // n, cap, c).transpose(0, 1)
+    xe = all_to_all(xe.reshape(n * gl, e // n, cap, c), group)
+    local = []
+    for k in ("w1", "b1", "w2", "b2"):
+        w = params[k]
+        local.append(take_own(w, 0, group) if w.shape[0] == e else w)
+    ye = all_to_all(_experts(xe, *local), group)         # (n*gl, E/n, ...)
+    ye = ye.reshape(n, gl, e // n, cap, c).transpose(0, 1).reshape(
+        gl, e * cap, c)
+    y = table_gather(ye, slot[own]) * take_own(gate, 0, group).to(
+        ye.dtype)[..., None]
+    return gather_slabs(y.reshape(gl * g, c), 0, group)
 
 
 def moe_mlp(params, x, capacity_factor=1.25, mesh=None, axis="ep",
@@ -86,15 +138,18 @@ def moe_mlp(params, x, capacity_factor=1.25, mesh=None, axis="ep",
         capacity, zero output, left out of the load-balance statistics)
     :param group_size: tokens per routing group (default: one group of
         every token); a short last group is padded with masked tokens
-    :param mesh: / ``constrain``: the JAX module's expert-sharding hooks;
-        anything but None raises ``NotImplementedError``
+    :param mesh: optional mesh with an ``axis`` dim: the experts run split
+        over it (the module docstring); ``x`` is the same on every rank
+    :param constrain: :func:`~.mesh.expert_constrain`'s hook instead of
+        ``mesh``, or any ``t -> t`` applied to the (G, E, cap, ...) expert
+        blocks as in the JAX module
     :returns: ``(y, aux)``: the expert branch (x's shape and dtype, zero
-        for dropped tokens) and the float32 Switch load-balance loss
+        for dropped tokens) and the float32 Switch load-balance loss. In a
+        sharded step (:func:`~.comm.sharded`) the load-balance statistics
+        are the whole batch's.
     """
-    if mesh is not None:
-        raise _not_ported("mesh")
-    if constrain is not None:
-        raise _not_ported("constrain")
+    if mesh is not None and constrain is None:
+        constrain = expert_constrain(mesh, axis)
     lead = x.shape[:-2]
     n, c = x.shape[-2], x.shape[-1]
     dev = x.device
@@ -108,7 +163,7 @@ def moe_mlp(params, x, capacity_factor=1.25, mesh=None, axis="ep",
         x2 = torch.cat([x2, x2.new_zeros((padrows, c))])
         m2 = torch.cat([m2, m2.new_zeros(padrows)])
     ng = x2.shape[0] // g
-    e = params["w1"].shape[0]
+    e = params["router"].shape[1]
     cap = int(math.ceil(g / e * capacity_factor))
 
     xg = x2.reshape(ng, g, c)
@@ -128,20 +183,22 @@ def moe_mlp(params, x, capacity_factor=1.25, mesh=None, axis="ep",
     # take the trash slot E * cap
     trash = e * cap
     slot = torch.where(keep, expert * cap + pos_tok, trash)   # (G, g)
-    # the token that fills each slot (g: none), then the blocks
-    inv = inverse_table(slot, trash)
-    xe = table_gather(xg, inv).reshape(ng, e, cap, c)         # (G, E, cap, C)
+    if isinstance(constrain, ExpertHook):
+        y = _ep_branch(constrain, params, e, cap, xg, slot, gate)
+    else:
+        # the token that fills each slot (g: none), then the blocks
+        inv = inverse_table(slot, trash)
+        xe = table_gather(xg, inv).reshape(ng, e, cap, c)  # (G, E, cap, C)
+        con = constrain or (lambda t: t)
+        ye = con(_experts(con(xe), *(params[k]
+                                     for k in ("w1", "b1", "w2", "b2"))))
+        y = table_gather(ye.reshape(ng, trash, c), slot)
+        # dropped tokens read the zero row
+        y = (y * gate.to(ye.dtype)[..., None]).reshape(-1, c)
+    y = y[:ntok]
 
-    w1, b1, w2, b2 = (params[k] for k in ("w1", "b1", "w2", "b2"))
-    h = torch.einsum("gecd,edh->gech", xe, w1) + b1[None, :, None, :]
-    h = gelu_tanh(h)
-    ye = torch.einsum("gech,ehd->gecd", h, w2) + b2[None, :, None, :]
-    y = table_gather(ye.reshape(ng, trash, c), slot)
-    y = y * gate.to(ye.dtype)[..., None]   # dropped tokens read the zero row
-    y = y.reshape(-1, c)[:ntok]
-
-    denom = torch.clamp_min(mg.sum(), 1.0)
-    frac = onehot.sum(dim=(0, 1)) / denom
-    pmean = (probs * mg[..., None]).sum(dim=(0, 1)) / denom
+    denom = torch.clamp_min(batch_sum(mg.sum()), 1.0)
+    frac = batch_sum(onehot.sum(dim=(0, 1))) / denom
+    pmean = batch_sum((probs * mg[..., None]).sum(dim=(0, 1))) / denom
     aux = e * (frac * pmean).sum()
     return y.reshape(*lead, n, c), aux

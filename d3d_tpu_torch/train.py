@@ -119,7 +119,12 @@ class ClippedAdamW(torch.optim.Optimizer):
         return [p for group in self.param_groups for p in group["params"]]
 
     @torch.no_grad()
-    def step(self):
+    def step(self, sq_norm=None):
+        """One update. ``sq_norm(params, grads)``, where given, returns the
+        squared global norm of the (accumulated) gradients: a sharded step
+        whose ranks hold parts of some leaves sums those parts' squares
+        over their ranks (:func:`~d3d_tpu_torch.parallel.shard_train_step`);
+        the default sums every gradient's squares here."""
         params = self._params()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
@@ -138,7 +143,8 @@ class ClippedAdamW(torch.optim.Optimizer):
             grads = [g.clone() for g in grads]
 
         group = self.param_groups[0]
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads)
+                          if sq_norm is None else sq_norm(params, grads))
         clip = ~(norm < group["clip_norm"])
         for g in grads:
             g.copy_(torch.where(clip, g / norm * group["clip_norm"], g))
@@ -344,16 +350,16 @@ def prefetch(iterable, depth=2):
 def shard_frames_across_hosts(frames, index=None, count=None):
     """Strided split of a frame stream across processes: process ``index``
     yields items index, index + count, index + 2 count, ... Defaults come
-    from ``torch.distributed`` (rank and world size) when its process
-    group is initialised, else the identity split (0 of 1). Pair it with
+    from the job (:func:`d3d_tpu_torch.parallel.process_index` /
+    ``process_count``: the rank and world size once a process group is
+    initialised, else the identity split, 0 of 1). Pair it with
     ``drop_last=True`` batching so every process steps the same number of
     times."""
     if index is None or count is None:
-        dist = torch.distributed
-        live = dist.is_available() and dist.is_initialized()
-        index = (dist.get_rank() if live else 0) if index is None else index
-        count = ((dist.get_world_size() if live else 1) if count is None
-                 else count)
+        from .parallel import process_count, process_index
+
+        index = process_index() if index is None else index
+        count = process_count() if count is None else count
     for i, frame in enumerate(frames):
         if i % count == index:
             yield frame

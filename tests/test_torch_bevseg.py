@@ -137,13 +137,23 @@ def _inputs(bank):
             ("features", "coords", "valid", "point_coords")]
 
 
-def test_preset_and_constrain():
-    """bevseg_semantickitti equals the JAX preset; ``constrain`` raises
-    until the port has a mesh."""
+def test_preset_and_constrain(bank):
+    """bevseg_semantickitti equals the JAX preset; a ``constrain`` hook is
+    called once, on the NCHW canvas with kind "bev", and an identity hook
+    leaves the outputs as they are (the spatial hook runs on ranks:
+    tests/test_torch_parallel.py)."""
     assert dataclasses.asdict(t_presets.bevseg_semantickitti()) == \
         dataclasses.asdict(presets.bevseg_semantickitti())
-    with pytest.raises(NotImplementedError, match="parallel"):
-        TB.BEVSeg(T_SEM, constrain=lambda x, kind: x, device="cpu")
+    seen = []
+    outs = []
+    for hook in (None, lambda x, kind: seen.append((kind, x.shape)) or x):
+        model = TB.BEVSeg(T_SEM, constrain=hook, device="cpu",
+                          generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            outs.append(model(*_inputs(bank)))
+    assert torch.equal(outs[0], outs[1])
+    b = bank["batch"]["features"].shape[0]
+    assert seen == [("bev", (b, T_SEM.pfn_features) + tuple(T_SEM.grid))]
 
 
 def test_pillars_and_cell_coords_match(bank):

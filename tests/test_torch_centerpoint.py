@@ -154,9 +154,22 @@ def test_presets_match():
     assert tuple(cfg.voxel_size[:2]) == pytest.approx((0.2, 0.2))
 
 
-def test_constrain_raises():
-    with pytest.raises(NotImplementedError, match="parallel"):
-        TC.CenterPoint(TCFG, constrain=lambda x, kind: x, device="cpu")
+def test_constrain_raises(bank):
+    """``constrain`` no longer raises: the hook is called once, on the
+    NCHW canvas with kind "bev", and an identity hook leaves the head
+    maps as they are (the spatial hook runs on ranks:
+    tests/test_torch_parallel.py)."""
+    seen, outs = [], []
+    args = [torch.from_numpy(bank["batch"][k])
+            for k in ("features", "coords", "valid")]
+    for hook in (None, lambda x, kind: seen.append((kind, x.shape)) or x):
+        model = TC.CenterPoint(TCFG, constrain=hook, device="cpu",
+                               generator=torch.Generator().manual_seed(2))
+        with torch.no_grad():
+            outs.append(model(*args))
+    assert all(torch.equal(outs[0][k], outs[1][k]) for k in outs[0])
+    assert seen == [("bev", (args[0].shape[0], TCFG.pfn_features)
+                     + tuple(TCFG.grid))]
 
 
 def test_forward_matches(bank):

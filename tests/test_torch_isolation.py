@@ -57,7 +57,7 @@ def _imported_roots(path):
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix()
      for p in (ROOT / "d3d_tpu_torch").rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "tests/_torch_dist_worker.py"]))
 def test_source_imports_no_jax(path):
     bad = [m for m in _imported_roots(ROOT / path) if m in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
@@ -368,3 +368,31 @@ def test_camera_and_segmentation_families_need_cuda_or_an_explicit_cpu():
     pts = np.random.default_rng(0).uniform(0, 3, (50, 4)).astype(np.float32)
     assert make_predictor(seg, bcfg, device="cpu")(None, pts).shape == (50,)
     assert device_semantic_stats(ev, labels, labels, device="cpu").tp[1] == 1
+
+
+def test_rank_worker_loads_no_jax():
+    """The multi-rank tests' worker entry imports only the port: every
+    case function's imports, run in a fresh process."""
+    code = (
+        "import sys, inspect\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import _torch_dist_worker as w\n"
+        "import d3d_tpu_torch.parallel, d3d_tpu_torch.benchmarks_device\n"
+        "import d3d_tpu_torch.models.sst\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(bad, sorted(w.CASES))\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_default_mesh_needs_cuda():
+    """A mesh's ``device_type`` defaults to CUDA (NCCL) and raises without
+    it; gloo meshes on the CPU are asked for with ``device_type="cpu"``."""
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour without CUDA")
+    from d3d_tpu_torch.parallel.mesh import _mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _mesh("cuda", [0], (1,), ("dp",))

@@ -146,17 +146,22 @@ def test_gradient_matches_jax_grad(params):
 
 
 def test_init_and_mesh_hooks():
-    """init_moe_params' layouts from a torch.Generator; mesh= and
-    constrain= raise until the mesh helpers are ported."""
+    """init_moe_params' layouts from a torch.Generator; a ``t -> t``
+    constrain hook sees the (G, E, cap, C) expert blocks, as the JAX
+    module's does, and an identity hook leaves the output as it is (the
+    mesh= path runs on ranks: tests/test_torch_pipeline.py)."""
     p = init_moe_params(torch.Generator().manual_seed(0), E, C, H)
     assert {k: tuple(v.shape) for k, v in p.items()} == dict(
         router=(C, E), w1=(E, C, H), b1=(E, H), w2=(E, H, C), b2=(E, C))
     again = init_moe_params(torch.Generator().manual_seed(0), E, C, H)
     assert all(torch.equal(p[k], again[k]) for k in p)
-    x = torch.zeros(N, C)
-    for kw in (dict(mesh=object()), dict(constrain=lambda t: t)):
-        with pytest.raises(NotImplementedError, match="parallel"):
-            t_moe_mlp(p, x, **kw)
+    x = torch.randn(N, C, generator=torch.Generator().manual_seed(1))
+    seen = []
+    y, aux = t_moe_mlp(p, x, constrain=lambda t: seen.append(t.shape) or t)
+    y0, aux0 = t_moe_mlp(p, x)
+    assert torch.equal(y, y0) and torch.equal(aux, aux0)
+    cap = int(np.ceil(N / E * 1.25))
+    assert seen and all(s[:3] == (1, E, cap) for s in seen)
 
 
 def test_table_gather_backward_equals_scatter_add():

@@ -171,9 +171,9 @@ def test_device_perfect_prediction():
 
 
 def test_device_errors():
-    """Ids that are not uint16 raise ValueError, as in JAX; ``mesh=``
-    raises NotImplementedError until the port has a mesh; a device
-    call without CUDA and without an explicit CPU raises."""
+    """Ids that are not uint16 raise ValueError, as in JAX; a device call
+    without CUDA and without an explicit CPU raises (``mesh=`` runs on
+    ranks: tests/test_torch_distributed.py)."""
     gts, preds, gids, pids = _frames(6)
     ev = SegmentationEvaluator(CLASSES)
     with pytest.raises(ValueError, match="uint16"):
@@ -184,8 +184,6 @@ def test_device_errors():
         TD.device_semantic_stats(ev, gts, preds[::-1], device="cpu")
     for fn, args in ((TD.device_semantic_stats, (gts, preds)),
                      (TD.device_panoptic_stats, (gts, preds, gids, pids))):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            fn(ev, *args, mesh=object(), device="cpu")
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA"):
                 fn(ev, *args)

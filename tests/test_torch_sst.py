@@ -318,12 +318,26 @@ def test_detector_matches(bank):
     assert len(out) == int(want[3].sum()) > 0 and out.frame == "velo"
 
 
-def test_mesh_hooks_raise():
-    """constrain / moe_constrain wait for the port's mesh helpers."""
-    for kw in (dict(constrain=lambda x, kind: x),
-               dict(moe_constrain=lambda t: t)):
-        with pytest.raises(NotImplementedError, match="parallel"):
-            TSST(_tcfg(TINY), device="cpu", **kw)
+def test_mesh_hooks_raise(bank):
+    """constrain / moe_constrain no longer raise: ``constrain`` is called
+    once, on the neck's NCHW canvas with kind "bev", ``moe_constrain``
+    (a ``t -> t`` hook) on each MoE block's expert blocks, and identity
+    hooks leave the outputs as they are (the mesh hooks run on ranks:
+    tests/test_torch_parallel.py, test_torch_pipeline.py)."""
+    args = [torch.from_numpy(np.asarray(bank["batch"][k]))
+            for k in ("features", "coords", "valid")]
+    for cfg, kw in ((TINY, "constrain"), (MOE, "moe_constrain")):
+        seen, outs = [], []
+        hook = ((lambda x, kind: seen.append(kind) or x) if kw == "constrain"
+                else (lambda t: seen.append(t.ndim) or t))
+        for h in (None, hook):
+            model = TSST(_tcfg(cfg), device="cpu", **{kw: h},
+                         generator=torch.Generator().manual_seed(3))
+            with torch.no_grad():
+                outs.append(model(*args))
+        assert all(torch.equal(a, b) for a, b in zip(*outs))
+        assert seen == (["bev"] if kw == "constrain"
+                        else [4] * 2 * cfg.depth)
 
 
 def test_empty_slot_share(bank):
