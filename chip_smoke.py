@@ -151,7 +151,24 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    on ``sst_kitti`` in f32 and bf16 against ``SST(stage="trunk")``;
    ``moe_mlp(mesh=)`` at ep = 1; the sharded step, the sharded request,
    one NCCL all_reduce of SECOND's gradient bytes and the evaluator with
-   and without the mesh timed, the busy share of a sharded bf16 step);
+   and without the mesh timed, the busy share of a sharded bf16 step;
+   ``shard_train_step`` of CenterPoint, BEVSeg and VoxelNeXt, 3 f32 steps
+   each against the plain steps, bit-equal where two plain runs are)
+   and ``datasets`` (scenes written once under ``build/datasets/``: two
+   KITTI tracking sequences of 40 frames of ~120 000 points, one zipped,
+   through ``KittiTrackingLoader``, PointPillars (``pointpillars_kitti``,
+   full width) and ``make_tracking_step``, the tracks dumped in the
+   devkit's format and scored by ``TrackingEvaluator``; the ground truth
+   through the device tracker (card equal to CPU), dumped and read back,
+   MOTA 1; a SemanticKITTI sequence through ``KittiOdometryLoader`` into
+   BEVSeg (``bevseg_semantickitti``), the labels as predictions mIoU 1; a
+   Waymo segment through ``WaymoLoader`` into CenterPoint
+   (``centerpoint_waymo`` on a 472 x 472 grid) and
+   ``evaluate_waymo_detection``, the ground truth AP 1 in both levels,
+   ``painting_rig`` against the loader's projection; a KITTI raw drive
+   (its tracklets through ``DeviceCenterTracker``, MOTA 1) and a CADC
+   drive through PointPillars; ``io.hdf5`` round trip; the native C++
+   oracle against K1 and ``box2d_nms(precise=True)`` at 4096 boxes);
    each path must launch its kernels, and nms2d K1's bit form and the
    scan only (``check_nms_routes``);
 4. checks the outputs: finite, of the expected shape, the keep masks equal
@@ -1563,7 +1580,7 @@ def second_training(dev, state, batch, dtype):
     loss must be finite every step and lower at step 5 than at step 1.
     Returns (the summed counts, stats)."""
     from d3d_tpu_torch.models import head_config, make_anchors, presets
-    from d3d_tpu_torch.models import make_train_step
+    from d3d_tpu_torch.models.second import make_train_step
     from d3d_tpu_torch.train import make_optimizer
 
     cfg = presets.second_kitti(dtype=dtype)
@@ -1664,9 +1681,9 @@ def train_card_vs_cpu(dev, state, batch):
     side cannot change them): every gradient leaf within 1e-4 of the
     leaf's largest |g| (the two sum in other orders; stated), the loss to
     rtol 1e-5. Returns the worst leaf's error relative to its max."""
-    from d3d_tpu_torch.models import (head_config, make_anchors,
-                                      make_train_step, presets)
+    from d3d_tpu_torch.models import head_config, make_anchors, presets
     from d3d_tpu_torch.models.pointpillars import prepare_targets
+    from d3d_tpu_torch.models.second import make_train_step
     from d3d_tpu_torch.train import make_optimizer
 
     cfg = presets.second_kitti(dtype="float32")
@@ -5300,37 +5317,54 @@ def cp_preset(**kw):
     return presets.centerpoint_nuscenes_10sweep(**kw)
 
 
-def calibrate_centerpoint(model, refine, pts, dev):
-    """Rescale the random heads so their outputs over the occupied BEV
-    cells (those whose shared feature is not 0) spread like a trained
-    model's (heatmap logits sd 2 about the -2.19 bias, regressions sd
-    0.3), and the refine stage's output so its confidence logits spread
-    with sd 1 and its residuals with sd 0.05 on this frame's proposals.
-    Returns (occupied share of the canvas, peaks above 0.3)."""
-    from d3d_tpu_torch.models import pillarize, roi_grid_features
+def calibrate_center_heads(model, pts, dev):
+    """Rescale CenterPoint's random heads (a model built with
+    ``return_feat=True``) so their outputs over the occupied BEV cells
+    (those whose shared feature is not 0) spread like a trained model's:
+    heatmap logits sd 2 about the -2.19 bias, regressions sd 0.3
+    (CP_HEAD_SD). Returns (occupied share of the canvas, peaks above
+    0.3)."""
+    from d3d_tpu_torch.models import pillarize
     from d3d_tpu_torch.models.centerpoint import _heads, decode_centers
 
     cfg = model.cfg
-    keys = dict(hm="heatmap")
     with torch.inference_mode():
         f, c, v = pillarize(torch.from_numpy(pts).to(dev), cfg)
         out = {k: t[0] for k, t in model(f[None], c[None], v[None]).items()}
     occupied = (out["feat"] != 0).any(dim=-1)
     for name, _ in _heads(cfg):
         last = model.heads[f"{name}_out"]
-        o = out[keys.get(name, name)][occupied] - last.bias.detach()
+        o = out["heatmap" if name == "hm" else name][occupied] \
+            - last.bias.detach()
         with torch.no_grad():
             last.weight.mul_(CP_HEAD_SD[name] / float(o.std()))
     with torch.inference_mode():
         out = {k: t[0] for k, t in model(f[None], c[None], v[None]).items()}
-        boxes, scores = decode_centers(cfg, out)[:2]
+        scores = decode_centers(cfg, out)[1]
+    return float(occupied.float().mean()), int((scores > 0.3).sum())
+
+
+def calibrate_centerpoint(model, refine, pts, dev):
+    """``calibrate_center_heads``, then the refine stage's output rescaled
+    so its confidence logits spread with sd 1 and its residuals with sd
+    0.05 on this frame's proposals. Returns (occupied share of the canvas,
+    peaks above 0.3)."""
+    from d3d_tpu_torch.models import pillarize, roi_grid_features
+    from d3d_tpu_torch.models.centerpoint import decode_centers
+
+    share, peaks = calibrate_center_heads(model, pts, dev)
+    cfg = model.cfg
+    with torch.inference_mode():
+        f, c, v = pillarize(torch.from_numpy(pts).to(dev), cfg)
+        out = {k: t[0] for k, t in model(f[None], c[None], v[None]).items()}
+        boxes = decode_centers(cfg, out)[0]
         pooled = roi_grid_features(out["feat"], boxes, cfg.bounds, cfg.grid,
                                    refine.cfg.grid_points)
         r = refine(pooled, boxes)
     with torch.no_grad():
         refine.out.weight[0].mul_(1.0 / float(r["conf"].std()))
         refine.out.weight[1:].mul_(0.05 / float(r["deltas"].std()))
-    return float(occupied.float().mean()), int((scores > 0.3).sum())
+    return share, peaks
 
 
 def centerpoint_setup(dev, vn):
@@ -7706,93 +7740,54 @@ def max_param_diff(a, b, grads=None, names=None):
     return worst
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN deterministic and ``torch.use_deterministic_algorithms``
+    (warnings only) for the enclosed code, the previous settings restored
+    after it."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
+
+
 def parallel_training(dev, mesh, state, batch):
     """shard_train_step of SECOND (second_kitti, full width, batch 2) on
     the one-rank mesh against the plain step from the same weights:
-    PAR_STEPS f32 steps (TF32 off) and PAR_STEPS bf16 steps, each loss
-    and the updated parameters equal (a one-rank mesh sums nothing: its
-    statistics are the plain step's) within the larger of 1e-6 (losses,
-    relative) / 1e-5 (parameters) and twice the gap between two plain
-    runs. The comparison runs with cuDNN deterministic and
-    ``torch.use_deterministic_algorithms`` (warnings only): otherwise the
+    PAR_STEPS f32 steps (TF32 off) and PAR_STEPS bf16 steps through
+    ``sharded_vs_plain`` under ``deterministic_algorithms`` (otherwise the
     backward's scatter-adds sum in no fixed order, and two plain runs
     differ by about 1.5e-6 of a loss term by step 3 (NVIDIA H100 80GB
-    HBM3). K5 13, K6 8 and one rule book a step, read per step. Times the
+    HBM3)). K5 13, K6 8 and one rule book a step, read per step. Times the
     steady step of both and the busy share of a sharded bf16 step."""
     from d3d_tpu_torch.models import head_config, make_anchors, presets
-    from d3d_tpu_torch.models import make_train_step
-    from d3d_tpu_torch.parallel import shard_train_step
+    from d3d_tpu_torch.models.second import make_train_step
     from d3d_tpu_torch.train import make_optimizer
 
-    total, stats = {}, {}
-    deterministic = (torch.backends.cudnn.deterministic,
-                     torch.are_deterministic_algorithms_enabled(),
-                     torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.backends.cudnn.deterministic = True
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    timing = {}
-    for dtype in ("float32", "bfloat16"):
-        cfg = presets.second_kitti(dtype=dtype)
-        runs = {}
-        for name in ("plain", "sharded", "plain_again"):
-            model = train_model(cfg, state, dev)
-            opt, _ = make_optimizer(model.parameters(),
-                                    total_steps=PAR_STEPS)
-            step = make_train_step(model, opt, cfg,
-                                   make_anchors(head_config(cfg),
-                                                device=dev),
-                                   riou_weight=RIOU_WEIGHT)
-            run = (shard_train_step(step, mesh) if name == "sharded"
-                   else step)
-            losses, ms, grads = [], [], None
-            for i in range(PAR_STEPS):
-                reset_counts()
-                aux, t, _ = timed(lambda: run(batch))
-                c = read_counts()
-                check(c == want_counts(subm_conv=13, subm_conv_dw=8,
-                                       subm_conv_rulebook=1),
-                      f"parallel {name} SECOND {dtype} step {i + 1}: "
-                      f"launches {c}")
-                if name == "sharded":
-                    add_counts(total, c)
-                losses.append({k: float(v) for k, v in aux.items()})
-                ms.append(t)
-                if i == 0:
-                    grads = {n: p.grad.detach().clone()
-                             for n, p in model.named_parameters()}
-            runs[name] = dict(losses=losses, ms=ms, grads=grads,
-                              state=model.state_dict(), run=run)
-        plain, sharded = runs["plain"], runs["sharded"]
-        noise = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
-                    for a, b in zip(runs["plain_again"]["losses"],
-                                    plain["losses"]) for k in b)
-        for i, (a, b) in enumerate(zip(sharded["losses"], plain["losses"])):
-            for k in b:
-                check(abs(a[k] - b[k]) <= max(1e-6, 2 * noise) * abs(b[k])
-                      + 1e-7, f"parallel SECOND {dtype} step {i + 1} {k}: "
-                      f"{a[k]} vs the plain step's {b[k]} (two plain runs "
-                      f"{noise:.3g} apart)")
-        param_noise = max_param_diff(runs["plain_again"]["state"],
-                                     plain["state"], plain["grads"])
-        diff = max_param_diff(sharded["state"], plain["state"],
-                              plain["grads"])
-        check(diff <= max(1e-5, 2 * param_noise),
-              f"parallel SECOND {dtype}: parameters {diff} from the plain "
-              f"step's (two plain runs {param_noise:.3g} apart)")
-        stats[dtype] = dict(
-            losses=[l["total"] for l in sharded["losses"]],
-            max_param_diff=diff, plain_runs_loss_gap=noise,
-            plain_runs_param_gap=param_noise, sharded_ms=sharded["ms"],
-            plain_ms=plain["ms"],
-            plain_again_ms=runs["plain_again"]["ms"])
-        timing[dtype] = dict(plain=plain["run"], sharded=sharded["run"])
-        log(f"parallel SECOND {dtype}: {PAR_STEPS} sharded steps equal to "
-            f"the plain ones (parameters within {diff:.3g}; two plain runs "
-            f"{noise:.3g} / {param_noise:.3g} apart; deterministic mode)")
-        del runs
-    torch.backends.cudnn.deterministic = deterministic[0]
-    torch.use_deterministic_algorithms(deterministic[1],
-                                       warn_only=deterministic[2])
+    total, stats, timing = {}, {}, {}
+    with deterministic_algorithms():
+        for dtype in ("float32", "bfloat16"):
+            cfg = presets.second_kitti(dtype=dtype)
+
+            def build(cfg=cfg):
+                model = train_model(cfg, state, dev)
+                opt, _ = make_optimizer(model.parameters(),
+                                        total_steps=PAR_STEPS)
+                return model, make_train_step(
+                    model, opt, cfg, make_anchors(head_config(cfg),
+                                                  device=dev),
+                    riou_weight=RIOU_WEIGHT)
+            counts, stats[dtype], timing[dtype] = sharded_vs_plain(
+                f"SECOND {dtype}", dev, mesh, build, batch,
+                want_counts(subm_conv=13, subm_conv_dw=8,
+                            subm_conv_rulebook=1))
+            add_counts(total, counts)
     # the steady steps as the paths run them (no deterministic mode), in
     # turns plain, sharded, sharded, plain
     for dtype, runs in timing.items():
@@ -7818,6 +7813,144 @@ def parallel_training(dev, mesh, state, batch):
     log(f"parallel SECOND bf16 sharded step: busy share "
         f"{stats['busy_share_bf16']} over {wall * 1e3:.1f} ms "
         "(torch.profiler)")
+    return total, stats
+
+
+def sharded_vs_plain(name, dev, mesh, build, batch, want):
+    """``build()`` -> (model, step) three times from the same weights: the
+    plain step, the step through shard_train_step on the one-rank mesh
+    and the plain step again, PAR_STEPS steps each with counts read per
+    step (``want``). The sharded steps' losses and updated state equal
+    the plain ones bit for bit where the two plain runs are bit-equal;
+    otherwise within the SECOND check's limits (the larger of 1e-6 / 1e-5
+    and twice the plain runs' gap). Returns (summed sharded counts,
+    stats, {"plain": step, "sharded": step} for timing)."""
+    from d3d_tpu_torch.parallel import shard_train_step
+
+    runs, total = {}, {}
+    for run_name in ("plain", "sharded", "plain_again"):
+        model, step = build()
+        run = (shard_train_step(step, mesh) if run_name == "sharded"
+               else step)
+        losses, ms, grads = [], [], None
+        for i in range(PAR_STEPS):
+            reset_counts()
+            aux, t, _ = timed(lambda: run(batch))
+            c = read_counts()
+            check(c == want, f"parallel {name} {run_name} step {i + 1}: "
+                             f"launches {c}, want {want}")
+            if run_name == "sharded":
+                add_counts(total, c)
+            losses.append({k: float(v) for k, v in aux.items()})
+            check(all(math.isfinite(v) for v in losses[-1].values()),
+                  f"parallel {name} {run_name}: loss {losses[-1]}")
+            ms.append(t)
+            if i == 0:
+                grads = {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()}
+        runs[run_name] = dict(losses=losses, ms=ms, grads=grads, run=run,
+                              state={k: v.detach().clone() for k, v in
+                                     model.state_dict().items()})
+    plain, sharded, again = (runs[k] for k in ("plain", "sharded",
+                                               "plain_again"))
+
+    def same(a, b):
+        return a["losses"] == b["losses"] and all(
+            torch.equal(a["state"][k], b["state"][k]) for k in b["state"])
+    plain_exact, exact = same(again, plain), same(sharded, plain)
+    if plain_exact:
+        check(exact, f"parallel {name}: the sharded steps are not bit-equal "
+                     "to the plain ones, which two plain runs are")
+    noise = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                for a, b in zip(again["losses"], plain["losses"]) for k in b)
+    for i, (a, b) in enumerate(zip(sharded["losses"], plain["losses"])):
+        for k in b:
+            check(abs(a[k] - b[k]) <= max(1e-6, 2 * noise) * abs(b[k])
+                  + 1e-7, f"parallel {name} step {i + 1} {k}: {a[k]} vs "
+                  f"the plain step's {b[k]} (two plain runs {noise:.3g} "
+                  "apart)")
+    param_noise = max_param_diff(again["state"], plain["state"],
+                                 plain["grads"])
+    diff = max_param_diff(sharded["state"], plain["state"], plain["grads"])
+    check(diff <= max(1e-5, 2 * param_noise),
+          f"parallel {name}: parameters {diff} from the plain step's (two "
+          f"plain runs {param_noise:.3g} apart)")
+    log(f"parallel {name}: {PAR_STEPS} sharded steps "
+        + ("bit-equal to the plain ones" if exact else
+           f"equal to the plain ones within {diff:.3g} (two plain runs "
+           f"{noise:.3g} / {param_noise:.3g} apart)")
+        + "; losses " + ", ".join(f"{l['total']:.4f}"
+                                  for l in sharded["losses"])
+        + "; step " + ", ".join(f"{m:.2f}" for m in sharded["ms"])
+        + " ms sharded, " + ", ".join(f"{m:.2f}" for m in plain["ms"])
+        + " ms plain (CUDA events, deterministic mode)")
+    return total, dict(bit_equal=exact, plain_runs_bit_equal=plain_exact,
+                       max_param_diff=diff, plain_runs_loss_gap=noise,
+                       plain_runs_param_gap=param_noise,
+                       losses=[l["total"] for l in sharded["losses"]],
+                       sharded_ms=sharded["ms"], plain_ms=plain["ms"],
+                       plain_again_ms=again["ms"]), dict(
+        plain=plain["run"], sharded=sharded["run"])
+
+
+def parallel_families(dev, mesh, vn, bev_frames):
+    """shard_train_step of CenterPoint (the 10-sweep preset, one block a
+    backbone stage, on VoxelNeXt's keyframes 0 and 3), BEVSeg (the
+    panoptic semantickitti preset, one block an encoder stage, on the
+    KITTI-360 frames) and VoxelNeXt (voxelnext_nuscenes at full width, its
+    training batch) in f32 (TF32 off) on the one-rank mesh against each
+    family's plain step from the same weights (``sharded_vs_plain``),
+    under ``deterministic_algorithms``. CenterPoint and BEVSeg launch no
+    kernel of the
+    port's; VoxelNeXt K5 18, K6 11 and one rule book a step."""
+    import dataclasses
+
+    from d3d_tpu_torch.models import BEVSeg, CenterPoint, VoxelNeXt, presets
+    from d3d_tpu_torch.models import bevseg, centerpoint, voxelnext
+    from d3d_tpu_torch.train import make_optimizer
+
+    cp_cfg = cp_preset(dtype="float32")
+    cp_cfg = dataclasses.replace(
+        cp_cfg, backbone_blocks=(1,) * len(cp_cfg.backbone_blocks))
+    bev_cfg = pano_preset(dtype="float32")
+    bev_cfg = dataclasses.replace(
+        bev_cfg, enc_blocks=(1,) * len(bev_cfg.enc_blocks))
+    vn_cfg = presets.voxelnext_nuscenes(dtype="float32")
+    cp_state = CenterPoint(cp_cfg, point_features=5, device=dev,
+                           generator=torch.Generator().manual_seed(21)
+                           ).state_dict()
+    bev_state = BEVSeg(bev_cfg, device=dev,
+                       generator=torch.Generator().manual_seed(22)
+                       ).state_dict()
+    families = {
+        "CenterPoint": (lambda: CenterPoint(cp_cfg, point_features=5,
+                                            device=dev), cp_state,
+                        centerpoint.make_train_step, cp_cfg,
+                        cp_batch(dev, cp_cfg, vn["scene"], vn["clouds"]),
+                        want_counts()),
+        "BEVSeg": (lambda: BEVSeg(bev_cfg, device=dev), bev_state,
+                   bevseg.make_train_step, bev_cfg,
+                   bevseg_batch(dev, bev_frames), want_counts()),
+        "VoxelNeXt": (lambda: VoxelNeXt(vn_cfg, point_features=5,
+                                        device=dev),
+                      vn["model32"].state_dict(), voxelnext.make_train_step,
+                      vn_cfg, vn["batch"],
+                      want_counts(subm_conv=18, subm_conv_dw=11,
+                                  subm_conv_rulebook=1))}
+    total, stats = {}, {}
+    with deterministic_algorithms():
+        for name, (make, state, make_step, cfg, batch, want) in \
+                families.items():
+            def build(make=make, state=state, make_step=make_step,
+                      cfg=cfg):
+                model = make()
+                model.load_state_dict(state)
+                opt, _ = make_optimizer(model.parameters(),
+                                        total_steps=PAR_STEPS)
+                return model, make_step(model, opt, cfg)
+            counts, stats[name], _ = sharded_vs_plain(
+                name, dev, mesh, build, batch, want)
+            add_counts(total, counts)
     return total, stats
 
 
@@ -7993,7 +8126,8 @@ def nccl_all_reduce_ms(dev, numel):
     return median_ms(lambda: dist.all_reduce(buf))
 
 
-def parallel_phase(dev, pp_detect, frames, state, batch, bev_frames):
+def parallel_phase(dev, pp_detect, frames, state, batch, bev_frames,
+                   vn):
     """The parallel path: a world of one under NCCL through the port's
     ``initialize`` (a FileStore under build/), the meshes of every axis
     on cuda, and the scale-out layer's serving, evaluation, training,
@@ -8034,6 +8168,8 @@ def parallel_phase(dev, pp_detect, frames, state, batch, bev_frames):
             dev, mesh, state, batch)
         counts["parallel_spatial"], stats["spatial"] = parallel_spatial(
             dev, mesh)
+        counts["parallel_families"], stats["families"] = parallel_families(
+            dev, mesh, vn, bev_frames)
         counts["parallel_pipeline"], stats["pipeline"] = parallel_pipeline(
             dev, pp_mesh, ep_mesh)
         numel = sum(p.numel() for p in train_model(
@@ -8047,6 +8183,1166 @@ def parallel_phase(dev, pp_detect, frames, state, batch, bev_frames):
         dist.destroy_process_group()
     stats["phase_s"] = time.perf_counter() - t0
     log(f"parallel: {stats['phase_s']:.1f} s")
+    return counts, stats
+
+
+# ---------------------------------------------------------------------------
+# datasets: the sequence loaders, from files on disk to scores
+# ---------------------------------------------------------------------------
+
+DS_POINTS = 120_000           # a KITTI HDL-64E sweep
+DS_TRACK_FRAMES = 40          # frames a KITTI tracking sequence
+DS_SEQ_FRAMES = 20            # odometry, Waymo and raw frames
+DS_CADC_FRAMES = 10
+DS_CADC_POINTS = 60_000
+DS_WAYMO_POINTS = 150_000     # Waymo's top lidar
+DS_DT = 0.1                   # the lidars at 10 Hz
+DS_KITTI_IMAGE = (1242, 375)
+DS_LIDAR_Z = -1.73            # the KITTI ground below the velodyne
+DS_CLASSES = ("Car", "Pedestrian", "Cyclist")
+# the tracker's centre-distance gates (m), a few frames' motion of each
+# class at 10 Hz and below the lanes' spacing
+DS_GATES = (2.0, 0.5, 1.0)
+DS_SIZES = {"Car": (3.9, 1.6, 1.56), "Pedestrian": (0.8, 0.6, 1.73),
+            "Cyclist": (1.76, 0.6, 1.73)}
+# the tracking scene: (class, lane y (m), x at frame 0 (m), speed along x
+# (m/s)); lanes 1.5 m or more apart, every object ahead of the camera
+# over the 4 s of a sequence; the second sequence mirrors y
+DS_OBJECTS = (("Car", -6.0, 20.0, 6.0), ("Car", -3.0, 55.0, -6.0),
+              ("Car", 0.0, 15.0, 6.0), ("Car", 0.0, 35.0, 6.0),
+              ("Car", 3.0, 50.0, -6.0), ("Car", 6.0, 25.0, 6.0),
+              ("Pedestrian", -9.0, 30.0, 1.2),
+              ("Pedestrian", 9.0, 32.0, -1.2),
+              ("Pedestrian", -10.5, 40.0, 1.0),
+              ("Cyclist", -7.5, 45.0, -4.0), ("Cyclist", 7.5, 22.0, 4.0),
+              ("Cyclist", 10.5, 38.0, 3.0))
+DS_TRACK_ROWS = 32            # the ground truth's padded rows a frame
+DS_EVAL_OVERLAP = 0.5
+DS_NATIVE_BOXES = 4096
+DS_NATIVE_THRESHOLD = 0.25
+# the devkit's calibration of a tracking sequence (velo -> camera of the
+# KITTI rig, rectification identity)
+DS_TRACKING_CALIB = (
+    "P0: 7.215e+02 0.0 6.095e+02 0.0 0.0 7.215e+02 1.728e+02 0.0 0.0 0.0 "
+    "1.0 0.0\n"
+    "P1: 7.215e+02 0.0 6.095e+02 -40.0 0.0 7.215e+02 1.728e+02 0.0 0.0 "
+    "0.0 1.0 0.0\n"
+    "P2: 7.215e+02 0.0 6.095e+02 -80.0 0.0 7.215e+02 1.728e+02 0.0 0.0 "
+    "0.0 1.0 0.0\n"
+    "P3: 7.215e+02 0.0 6.095e+02 -120.0 0.0 7.215e+02 1.728e+02 0.0 0.0 "
+    "0.0 1.0 0.0\n"
+    "R_rect: 1.0 0.0 0.0 0.0 1.0 0.0 0.0 0.0 1.0\n"
+    "Tr_velo_cam: 0.0 -1.0 0.0 0.0 0.0 0.0 -1.0 -0.08 1.0 0.0 0.0 -0.27\n"
+    "Tr_imu_velo: 1.0 0.0 0.0 0.8 0.0 1.0 0.0 -0.3 0.0 0.0 1.0 0.9\n")
+DS_VELO_TO_CAM = np.array([[0.0, -1.0, 0.0, 0.0], [0.0, 0.0, -1.0, -0.08],
+                           [1.0, 0.0, 0.0, -0.27]])
+# an oxts packet: lat, lon, alt, roll, pitch, yaw, 19 rates and
+# accuracies, then 5 integer status fields
+DS_OXTS_TAIL = ("1.0 2.0 2.2 0.1 0.0 0.1 0.2 9.8 0.1 0.2 9.8 0.01 0.02 "
+                "0.03 0.01 0.02 0.03 0.5 0.1 4 11 6 6 6")
+
+
+def ds_png(size, value=90):
+    """One stand-in camera image's PNG bytes (the loaders read its size)."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.new("RGB", size, (value,) * 3).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+class DsWriter:
+    """Writes a dataset's files under ``root``, or into zip archives
+    (``ZIP_STORED``) named by the first matching prefix of ``archives``
+    (``{arcname prefix: zip path relative to root}``)."""
+
+    def __init__(self, root, archives=None):
+        import zipfile
+
+        self.root = Path(root)
+        self.archives = archives or {}
+        self.zips = {}
+        self._zipfile = zipfile
+
+    def write(self, name, data):
+        if isinstance(data, str):
+            data = data.encode()
+        for prefix, zname in self.archives.items():
+            if name.startswith(prefix):
+                if zname not in self.zips:
+                    path = self.root / zname
+                    path.parent.mkdir(parents=True, exist_ok=True)
+                    self.zips[zname] = self._zipfile.ZipFile(
+                        path, "w", self._zipfile.ZIP_STORED)
+                self.zips[zname].writestr(name, data)
+                return
+        path = self.root / name
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(data)
+
+    def close(self):
+        for z in self.zips.values():
+            z.close()
+
+
+def ds_cloud(rng, n, boxes=(), per_box=200, half=(0.0, 70.0, -40.0, 40.0),
+             z=(-2.0, 1.5), cols=4):
+    """``n`` points spread over the field plus ``per_box`` inside each
+    box (x, y, z, l, w, h, yaw), float32 with ``cols`` columns."""
+    parts = [np.stack([rng.uniform(half[0], half[1], n),
+                       rng.uniform(half[2], half[3], n),
+                       rng.uniform(z[0], z[1], n)], axis=1)]
+    for b in boxes:
+        local = (rng.random((per_box, 3)) - 0.5) * b[3:6] * 0.9
+        c, s = np.cos(b[6]), np.sin(b[6])
+        parts.append(np.stack([b[0] + c * local[:, 0] - s * local[:, 1],
+                               b[1] + s * local[:, 0] + c * local[:, 1],
+                               b[2] + local[:, 2]], axis=1))
+    xyz = np.concatenate(parts)
+    extra = rng.random((len(xyz), cols - 3))
+    return np.concatenate([xyz, extra], axis=1).astype(np.float32)
+
+
+def ds_track_boxes(f, mirror=False):
+    """The tracking scene's boxes at frame ``f`` (velo frame): (classes,
+    tids, (M, 7) float64 x, y, z, l, w, h, yaw)."""
+    rows = []
+    for cls, y, x0, v in DS_OBJECTS:
+        l, w, h = DS_SIZES[cls]
+        rows.append((x0 + v * f * DS_DT, -y if mirror else y,
+                     DS_LIDAR_Z + h / 2, l, w, h, 0.0 if v > 0 else np.pi))
+    return ([c for c, *_ in DS_OBJECTS], list(range(1, len(rows) + 1)),
+            np.asarray(rows))
+
+
+def ds_label_line(f, tid, cls, box):
+    """One KITTI tracking label row of a velo-frame box: the camera frame
+    through the sequence's Tr_velo_cam (rectification identity), the
+    bottom centre, rotation_y = -yaw - pi/2, the 2D box of the centre's
+    projection, values printed %.2f as the devkit's files are."""
+    x, y, z, l, w, h, yaw = box
+    cam = DS_VELO_TO_CAM[:, :3] @ np.array([x, y, z]) + DS_VELO_TO_CAM[:, 3]
+    ry = (-yaw - np.pi / 2 + np.pi) % (2 * np.pi) - np.pi
+    u = 721.5 * cam[0] / cam[2] + 609.5 - 80.0 / cam[2]
+    v = 721.5 * cam[1] / cam[2] + 172.8
+    half = 721.5 * max(l, w) / cam[2] / 2
+    return ("%d %d %s 0 0 0.00 %.2f %.2f %.2f %.2f %.2f %.2f %.2f %.2f %.2f "
+            "%.2f %.2f" % (f, tid, cls, u - half, v - half, u + half,
+                           v + half, h, w, l, cam[0], cam[1] + h / 2,
+                           cam[2], ry))
+
+
+def write_tracking_sequence(root, seq, zipped, seed):
+    """A KITTI tracking sequence of DS_TRACK_FRAMES frames: ~120 000
+    velodyne points a frame (the field plus 200 in each object), 1242 x
+    375 images, the objects of DS_OBJECTS (mirrored for odd sequences)
+    and one or two DontCare regions a frame, one oxts packet a frame
+    (the ego at 5 m/s north), the devkit's calibration; zipped into the
+    data_tracking_*.zip archives or as files. Returns the written clouds
+    and each frame's boxes."""
+    rng = np.random.default_rng(seed)
+    archives = ({f"training/{sub}/": f"data_tracking_{z}.zip" for sub, z in (
+        ("calib", "calib"), ("label_02", "label_2"), ("oxts", "oxts"),
+        ("velodyne", "velodyne"), ("image_02", "image_2"))}
+        if zipped else {})
+    out = DsWriter(root, archives)
+    png = ds_png(DS_KITTI_IMAGE)
+    clouds, boxes, labels, oxts = [], [], [], []
+    for f in range(DS_TRACK_FRAMES):
+        classes, tids, b = ds_track_boxes(f, mirror=seq % 2 == 1)
+        cloud = ds_cloud(rng, DS_POINTS, b)
+        clouds.append(cloud)
+        boxes.append((classes, tids, b))
+        out.write("training/velodyne/%04d/%06d.bin" % (seq, f),
+                  cloud.tobytes())
+        out.write("training/image_02/%04d/%06d.png" % (seq, f), png)
+        labels += [ds_label_line(f, t, c, bx)
+                   for c, t, bx in zip(classes, tids, b)]
+        for _ in range(1 + f % 2):
+            u, v = rng.uniform(100, 1100), rng.uniform(150, 300)
+            labels.append("%d -1 DontCare -1 -1 -10.00 %.2f %.2f %.2f %.2f "
+                          "-1.00 -1.00 -1.00 -1000.00 -1000.00 -1000.00 "
+                          "-10.00" % (f, u, v, u + 40, v + 30))
+        oxts.append("%.10f 8.4228601000 112.80 0.03 0.01 0.50 %s"
+                    % (49.011212 + 5.0 * f * DS_DT / 111_319.0,
+                       DS_OXTS_TAIL))
+    out.write("training/label_02/%04d.txt" % seq, "\n".join(labels) + "\n")
+    out.write("training/oxts/%04d.txt" % seq, "\n".join(oxts) + "\n")
+    out.write("training/calib/%04d.txt" % seq, DS_TRACKING_CALIB)
+    out.close()
+    return clouds, boxes
+
+
+def ds_loader_ms(loader, indices, fetch):
+    """Host ms a frame of ``fetch(loader, idx)`` over ``indices`` (the
+    files read from disk or zip, parsed)."""
+    t0 = time.perf_counter()
+    out = [fetch(loader, idx) for idx in indices]
+    return out, (time.perf_counter() - t0) * 1e3 / len(indices)
+
+
+def ds_same_boxes(name, arr, classes, b, pos_tol=0.006, dim_tol=0.006,
+                  yaw_tol=0.006):
+    """A loaded or dumped Target3DArray holds the boxes ``b`` of
+    ``classes`` within the %.2f format (matched by position: each box's
+    nearest); returns the largest position error."""
+    check(len(arr) == len(b), f"{name}: {len(arr)} boxes, want {len(b)}")
+    if not len(b):
+        return 0.0
+    c = arr.columns()
+    worst = 0.0
+    for cls, box in zip(classes, b):
+        d = np.linalg.norm(c["position"] - box[:3], axis=1)
+        i = int(np.argmin(d))
+        dyaw = (c["yaw"][i] - box[6] + np.pi) % (2 * np.pi) - np.pi
+        check(d[i] <= pos_tol * 2 and np.abs(c["dimension"][i] - box[3:6])
+              .max() <= dim_tol and abs(dyaw) <= yaw_tol
+              and arr[i].tag_top.name == cls,
+              f"{name}: box {box} came back as {c['position'][i]}, "
+              f"{c['dimension'][i]}, {c['yaw'][i]}, {arr[i].tag_top.name}")
+        worst = max(worst, float(d[i]))
+    return worst
+
+
+def ds_parse_dump(path, raw_calib, frames):
+    """A KITTI tracking dump read back through the loader's own
+    ``parse_label``: {frame: Target3DArray}."""
+    from d3d_tpu_torch.abstraction import Target3DArray
+    from d3d_tpu_torch.dataset.kitti import KittiObjectClass
+    from d3d_tpu_torch.dataset.kitti.tracking import parse_label
+
+    rows = {}
+    for line in Path(path).read_text().splitlines():
+        if line.strip():
+            fields = line.split(" ")
+            rows.setdefault(int(fields[0]), []).append(
+                [int(fields[1]), KittiObjectClass[fields[2]]]
+                + [float(v) for v in fields[3:]])
+    return {f: (parse_label(rows[f], raw_calib) if f in rows
+                else Target3DArray(frame="velo")) for f in range(frames)}
+
+
+def ds_gt_rows(arr, classes):
+    """A frame's ground truth as the device tracker's padded detections:
+    boxes (x, y, z, l, w, h, yaw), scores 1, class indices, zero
+    velocities, the valid mask (numpy)."""
+    n = len(arr)
+    check(n <= DS_TRACK_ROWS, f"{n} ground-truth boxes in a frame")
+    boxes = np.zeros((DS_TRACK_ROWS, 7), np.float32)
+    boxes[:, 3:6] = 1.0
+    labels = np.zeros(DS_TRACK_ROWS, np.int32)
+    valid = np.zeros(DS_TRACK_ROWS, bool)
+    if n:
+        c = arr.columns()
+        boxes[:n, :3], boxes[:n, 3:6] = c["position"], c["dimension"]
+        boxes[:n, 6] = c["yaw"]
+        names = [c_.name for c_ in classes]
+        labels[:n] = [names.index(o.tag_top.name) for o in arr]
+        valid[:n] = True
+    return (boxes, valid.astype(np.float32), labels,
+            np.zeros((DS_TRACK_ROWS, 3), np.float32), valid)
+
+
+def ds_gt_through_tracker(dev, loader, seq, gts, classes, path):
+    """The ground truth of every frame fed as detections through the
+    device tracker (``tracker_update``, DS_GATES) on the card and on the
+    CPU (ids, labels, masks and the next id exact, slot values within
+    1e-5), reported, dumped by ``dump_tracking_output`` and read back by
+    ``parse_label``: the tracks' boxes within %.2f of the ground truth
+    and the sequence's MOTA 1 with no identity switch. Returns (stats,
+    the card's ms a frame of the tracker)."""
+    from d3d_tpu_torch.tracking.device_tracker import (tracker_init,
+                                                       tracker_report,
+                                                       tracker_update)
+
+    gates = torch.tensor(DS_GATES, dtype=torch.float32)
+    states = {d: tracker_init(TRACK_CAPACITY, d) for d in (dev, "cpu")}
+    tracks, worst, ms = {}, 0.0, []
+    for f, gt in enumerate(gts):
+        fr = ds_gt_rows(gt, classes)
+        for d in states:
+            call = (lambda d=d: tracker_update(
+                states[d], *fr, 0.0 if f == 0 else DS_DT, gates.to(d),
+                TRACK_LOST_TIME))
+            if d == dev:
+                states[d], t, _ = timed(call)
+                ms.append(t)
+            else:
+                states[d] = call()
+        a = {k: t.cpu() for k, t in states[dev].items()}
+        b = states["cpu"]
+        for k in ("tid", "label", "active", "next_tid"):
+            check(torch.equal(a[k], b[k]),
+                  f"tracking GT frame {f}: {k} card vs CPU")
+        for k in ("boxes", "vel", "score", "lost", "history"):
+            err = float((a[k] - b[k]).abs().max())
+            worst = max(worst, err)
+            check(err <= 1e-5, f"tracking GT frame {f}: {k} {err}")
+        rep = tracker_report(states[dev], classes, "velo")
+        tracks[f] = rep
+    loader.dump_tracking_output(seq, tracks, path)
+    back = ds_parse_dump(path, loader.calibration_data((seq, 0), raw=True),
+                         len(gts))
+    pos = max(ds_same_boxes(f"tracking GT dump frame {f}", back[f],
+                            [o.tag_top.name for o in gt], np.stack(
+                                [np.r_[o.position, o.dimension, o.yaw]
+                                 for o in gt]), pos_tol=0.011)
+              for f, gt in enumerate(gts))
+    ev = ds_tracking_evaluator(dev)
+    ev.calc_stats_sequence(gts, [back[f] for f in range(len(gts))])
+    mota = {c.name: float(ev.mota(0.0)[c]) for c in classes}
+    ids = {c.name: int(ev.id_switches(0.0)[c]) for c in classes}
+    check(all(v == 1.0 for v in mota.values())
+          and not any(ids.values()),
+          f"tracking GT through the tracker: MOTA {mota}, switches {ids}")
+    return dict(mota=mota, id_switches=ids, card_vs_cpu=worst,
+                dump_pos_err=pos, tracks=int(states["cpu"]["next_tid"]) - 1
+                ), statistics.median(ms)
+
+
+def ds_tracking_evaluator(dev):
+    from d3d_tpu_torch.benchmarks import TrackingEvaluator
+    from d3d_tpu_torch.dataset.kitti import KittiObjectClass
+
+    return TrackingEvaluator([KittiObjectClass[c] for c in DS_CLASSES],
+                             DS_EVAL_OVERLAP, device=dev)
+
+
+def ds_detector(dev, frame):
+    """make_pointpillars_detector on presets.pointpillars_kitti at full
+    width (f32), seeded weights, heads calibrated on ``frame``."""
+    from d3d_tpu_torch.models import (PointPillars, make_anchors,
+                                      make_pointpillars_detector, presets)
+
+    cfg = presets.pointpillars_kitti(dtype="float32")
+    model = PointPillars(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(16))
+    calibrate_heads(model, frame, dev)
+    anchors = make_anchors(cfg, device=dev)
+    detect = make_pointpillars_detector(model, None, cfg, anchors,
+                                        car_classes(), device=dev)
+    return dict(cfg=cfg, model=model, anchors=anchors, detect=detect)
+
+
+def kitti_tracking_path(dev, root):
+    """Two KITTI tracking sequences (one zipped) through the port's
+    KittiTrackingLoader, PointPillars at full width and the device
+    tracker (make_tracking_step), reported, dumped in the devkit's format
+    and scored by TrackingEvaluator against the loader's labels; the
+    ground truth through the tracker scores MOTA 1; one request held to
+    the CPU; the unzipped sequence through io.hdf5 and back where h5py is
+    installed (``ds_hdf5_round_trip``). Returns (counts, stats, the
+    detector)."""
+    from d3d_tpu_torch.dataset.kitti import (KittiObjectClass,
+                                             KittiTrackingLoader)
+    from d3d_tpu_torch.models import PointPillars
+    from d3d_tpu_torch.tracking import make_tracking_step
+    from d3d_tpu_torch.tracking.device_tracker import tracker_report
+
+    t0 = time.perf_counter()
+    written, loaders = {}, {}
+    for seq, zipped in ((0, False), (1, True)):
+        path = root / ("tracking_zip" if zipped else "tracking_dir")
+        written[seq] = write_tracking_sequence(path, seq, zipped, 160 + seq)
+        loaders[seq] = KittiTrackingLoader(path, inzip=zipped,
+                                           phase="training",
+                                           trainval_split=1)
+    stats = dict(write_s=time.perf_counter() - t0, loader_ms={})
+    classes = [KittiObjectClass[c] for c in DS_CLASSES]
+    gts = {}
+    for seq, ld in loaders.items():
+        check(ld.sequence_sizes == {seq: DS_TRACK_FRAMES},
+              f"tracking loader sizes {ld.sequence_sizes}")
+        frames, ms = ds_loader_ms(ld, [(seq, f) for f in range(
+            DS_TRACK_FRAMES)], lambda l, i: (
+                l.lidar_data(i), l.annotation_3dobject(i), l.pose(i),
+                l.calibration_data(i), l.timestamp(i)))
+        stats["loader_ms"]["zip" if seq else "dir"] = ms
+        clouds, boxes = written[seq]
+        for f, (pts, ann, pose, _, _) in enumerate(frames):
+            check(pts.dtype == np.float32
+                  and pts.tobytes() == clouds[f].tobytes(),
+                  f"tracking seq {seq} frame {f}: points differ from the "
+                  "written file")
+            ds_same_boxes(f"tracking seq {seq} frame {f} labels", ann,
+                          boxes[f][0], boxes[f][2])
+            check(np.isfinite(pose.position).all(), "tracking pose")
+        gts[seq] = [a for _, a, _, _, _ in frames]
+    log(f"kitti_tracking: 2 sequences x {DS_TRACK_FRAMES} frames of "
+        f"~{DS_POINTS} points written in {stats['write_s']:.1f} s; loader "
+        f"{stats['loader_ms']['dir']:.2f} ms a frame unzipped, "
+        f"{stats['loader_ms']['zip']:.2f} ms zipped (points, labels, pose, "
+        "calibration); points bit-equal, labels within %.2f")
+
+    pp = ds_detector(dev, written[0][0][0])
+    step = make_tracking_step(pp["detect"].device_fn, [DS_GATES[0]],
+                              lost_time=TRACK_LOST_TIME,
+                              capacity=TRACK_CAPACITY, score_threshold=0.3)
+    reset_counts()
+    frame_ms, tracks, kept = [], {0: {}, 1: {}}, []
+    for seq, ld in loaders.items():
+        state = step.init()
+        for f in range(DS_TRACK_FRAMES):
+            pts = ld.lidar_data((seq, f))
+            (state, out), ms, _ = timed(
+                lambda: step(state, pts, 0.0 if f == 0 else DS_DT))
+            frame_ms.append(ms)
+            kept.append(int(out[3].sum()))
+            tracks[seq][f] = tracker_report(state, car_classes(), "velo")
+    n = 2 * DS_TRACK_FRAMES
+    counts = read_counts()
+    check(counts == want_counts(rbox_iou_matrix=n, nms_scan=n),
+          f"kitti_tracking requests: launches {counts}")
+    check_nms_routes("kitti_tracking", n)
+    # the request and the tracker apart, on the unzipped sequence
+    from d3d_tpu_torch.tracking.device_tracker import tracker_update
+
+    state = step.init()
+    gate = torch.tensor([DS_GATES[0]], dtype=torch.float32, device=dev)
+    det_ms, trk_ms, rows = [], [], []
+    for f in range(DS_TRACK_FRAMES):
+        pts = loaders[0].lidar_data((0, f))
+        out, ms, _ = timed(lambda: pp["detect"].device_fn(pts))
+        det_ms.append(ms)
+        boxes, scores, labels, keep = out[:4]
+        scores = scores.float()
+        args = (boxes, scores, labels, boxes.new_zeros((len(boxes), 3)),
+                keep & (scores >= 0.3), 0.0 if f == 0 else DS_DT, gate,
+                TRACK_LOST_TIME)
+        r0 = tracker_update.rows
+        state, ms, _ = timed(lambda: tracker_update(state, *args))
+        trk_ms.append(ms)
+        rows.append(tracker_update.rows - r0)
+    ev_ms, scores = [], {}
+    for seq, ld in loaders.items():
+        path = root / f"tracking_{seq:04d}.txt"
+        ld.dump_tracking_output(seq, tracks[seq], path)
+        back = ds_parse_dump(path, ld.calibration_data((seq, 0), raw=True),
+                             DS_TRACK_FRAMES)
+        ev = ds_tracking_evaluator(dev)
+        _, ms, host = timed(lambda: ev.calc_stats_sequence(
+            gts[seq], [back[f] for f in range(DS_TRACK_FRAMES)]))
+        ev_ms.append(host / DS_TRACK_FRAMES)
+        car = KittiObjectClass.Car
+        scores[seq] = dict(mota_car=float(ev.mota(0.3)[car]),
+                           tp_car=int(ev.tp(0.3)[car]),
+                           fp_car=int(ev.fp(0.3)[car]))
+    gt_stats, tracker_ms = {}, []
+    for seq, ld in loaders.items():
+        gt_stats[seq], t = ds_gt_through_tracker(
+            dev, ld, seq, gts[seq], classes, root / f"gt_{seq:04d}.txt")
+        tracker_ms.append(t)
+    reset_counts()
+    compare_with_cpu("kitti_tracking", pp["model"],
+                     PointPillars(pp["cfg"], device="cpu"),
+                     written[0][0][0], pp["detect"], pp["anchors"], dev)
+    add_counts(counts, read_counts())
+    h5_s = ds_hdf5_round_trip(loaders[0], root / "tracking.h5",
+                              written[0][0])
+    stats.update(frame_ms=statistics.median(frame_ms), kept=kept,
+                 request_ms=statistics.median(det_ms),
+                 tracker_ms=statistics.median(trk_ms), tracker_rows=rows,
+                 gt_tracker_ms=statistics.median(tracker_ms),
+                 evaluator_ms=statistics.median(ev_ms), scores=scores,
+                 gt_through_tracker=gt_stats, hdf5_s=h5_s)
+    log(f"kitti_tracking: {n} frames (PointPillars f32 through "
+        f"make_tracking_step) {stats['frame_ms']:.2f} ms a frame (CUDA "
+        f"events, median), launches {counts}; apart, the request "
+        f"{stats['request_ms']:.2f} ms and the tracker "
+        f"{stats['tracker_ms']:.2f} ms a frame walking {rows} admitted "
+        f"rows; the tracker on the 12 ground-truth rows "
+        f"{stats['gt_tracker_ms']:.3f} ms a frame; TrackingEvaluator "
+        f"{stats['evaluator_ms']:.2f} ms a frame (host clock); the random "
+        f"detector's scores {scores}; ground truth through the tracker, "
+        f"dumped and read back: {gt_stats}; io.hdf5 round trip: {h5_s}")
+    return counts, stats, pp
+
+
+def ds_hdf5_round_trip(loader, path, clouds):
+    """``io.hdf5.dump_sequence_dataset`` of the loader's first sequence,
+    read back equal to ``clouds``. Returns its seconds, or the reason it
+    did not run: the module needs h5py, which a machine may lack (the
+    H100 machine has none); tests/test_torch_io_vis.py holds it on the
+    CPU then."""
+    import importlib.util
+
+    if importlib.util.find_spec("h5py") is None:
+        log("io.hdf5 round trip not run: h5py is not installed here "
+            "(tests/test_torch_io_vis.py holds io.hdf5 on the CPU)")
+        return "not run: h5py is not installed"
+    import h5py
+
+    from d3d_tpu_torch.io.hdf5 import dump_sequence_dataset
+
+    seq = loader.sequence_ids[0]
+    t0 = time.perf_counter()
+    dump_sequence_dataset(loader, path, sequences=[seq])
+    seconds = time.perf_counter() - t0
+    with h5py.File(path) as h5:
+        for f, cloud in enumerate(clouds):
+            check(np.array_equal(h5[f"dataset/{seq}/f{f}/velo"][()], cloud),
+                  f"io.hdf5 frame {f} differs from the written points")
+    return seconds
+
+
+def write_odometry_sequence(root, frames, seed):
+    """A SemanticKITTI sequence 00: ~120 000 points a frame in the
+    classes road (raw 40), car (10, five instances), building (50) and
+    vegetation (70), labels instance << 16 | class, 1226 x 370 images,
+    the calibration, times and camera-frame poses (1 m a frame forward).
+    Returns the clouds and raw labels."""
+    rng = np.random.default_rng(seed)
+    out = DsWriter(root)
+    seq = Path("dataset", "sequences", "00")
+    png = ds_png((1226, 370), 70)
+    clouds, labels, poses = [], [], []
+    for f in range(frames):
+        n_road, n_car = DS_POINTS // 2, DS_POINTS // 10
+        n_rest = DS_POINTS - n_road - n_car
+        road = np.c_[rng.uniform(-45, 45, (n_road, 2)),
+                     DS_LIDAR_Z + rng.normal(0, 0.02, n_road)]
+        centres = rng.uniform(-30, 30, (5, 2))
+        car = np.c_[np.repeat(centres, n_car // 5, axis=0)
+                    + rng.uniform(-2, 2, (n_car, 2)),
+                    rng.uniform(-1.7, -0.3, n_car)]
+        rest = np.c_[rng.uniform(-45, 45, (n_rest, 2)),
+                     rng.uniform(-1.5, 1.5, n_rest)]
+        xyz = np.concatenate([road, car, rest])
+        sem = np.concatenate([np.full(n_road, 40), np.full(n_car, 10),
+                              np.where(rng.random(n_rest) < 0.5, 50, 70)])
+        inst = np.concatenate([np.zeros(n_road), np.repeat(np.arange(
+            1, 6), n_car // 5), np.zeros(n_rest)])
+        cloud = np.c_[xyz, rng.random(len(xyz))].astype(np.float32)
+        label = ((inst.astype(np.uint32) << np.uint32(16))
+                 | sem.astype(np.uint32))
+        clouds.append(cloud)
+        labels.append(label)
+        out.write(str(seq / "velodyne" / ("%06d.bin" % f)), cloud.tobytes())
+        out.write(str(seq / "labels" / ("%06d.label" % f)),
+                  label.astype("<u4").tobytes())
+        out.write(str(seq / "image_2" / ("%06d.png" % f)), png)
+        rt = np.hstack([np.eye(3), [[0.0], [0.0], [1.0 * f]]])
+        poses.append(" ".join("%e" % v for v in rt.ravel()))
+    calib = []
+    for i in range(4):
+        p = np.array([[718.86, 0.0, 607.19, -386.14 * (i % 2)],
+                      [0.0, 718.86, 185.22, 0.0], [0.0, 0.0, 1.0, 0.0]])
+        calib.append("P%d: " % i + " ".join("%.6e" % v for v in p.ravel()))
+    calib.append("Tr: " + " ".join("%.6e" % v for v in
+                                   DS_VELO_TO_CAM.ravel()))
+    out.write(str(seq / "calib.txt"), "\n".join(calib) + "\n")
+    out.write(str(seq / "times.txt"),
+              "".join("%e\n" % (DS_DT * f) for f in range(frames)))
+    out.write("dataset/poses/00.txt", "\n".join(poses) + "\n")
+    out.close()
+    return clouds, labels
+
+
+def semantickitti_path(dev, root):
+    """A SemanticKITTI sequence through KittiOdometryLoader (points
+    bit-equal, the labels' raw ids and their learning map) into BEVSeg on
+    presets.bevseg_semantickitti (uncut, bf16, seeded weights) and
+    SegmentationEvaluator: the ground truth as predictions scores IoU 1
+    exactly in every present class. Returns (counts, stats)."""
+    from d3d_tpu_torch.benchmarks import SegmentationEvaluator
+    from d3d_tpu_torch.dataset.kitti import KittiOdometryLoader
+    from d3d_tpu_torch.models import BEVSeg, make_predictor
+
+    t0 = time.perf_counter()
+    clouds, raw = write_odometry_sequence(root / "odometry", DS_SEQ_FRAMES,
+                                          170)
+    write_s = time.perf_counter() - t0
+    ld = KittiOdometryLoader(root / "odometry", inzip=False,
+                             phase="training", trainval_split=1)
+    check(ld.sequence_sizes == {0: DS_SEQ_FRAMES},
+          f"odometry sizes {ld.sequence_sizes}")
+    frames, loader_ms = ds_loader_ms(ld, range(DS_SEQ_FRAMES), lambda l, i: (
+        l.lidar_data(i), l.annotation_3dpoints(i),
+        l.annotation_3dpoints(i, convert_tag=False), l.pose(i)))
+    learn = {40: 9, 10: 1, 50: 13, 70: 15}
+    for f, (pts, seg, seg_raw, pose) in enumerate(frames):
+        check(pts.tobytes() == clouds[f].tobytes(),
+              f"odometry frame {f}: points differ from the written file")
+        check(np.array_equal(seg_raw.semantic, raw[f] & 0xFFFF)
+              and np.array_equal(seg.instance, raw[f] >> 16),
+              f"odometry frame {f}: raw labels or instances differ")
+        want = np.vectorize(learn.get)(raw[f] & 0xFFFF)
+        check(np.array_equal(seg.semantic, want),
+              f"odometry frame {f}: learning map")
+        check(np.isfinite(pose.position).all(), f"odometry frame {f}: pose")
+    cfg = bev_preset()
+    model = BEVSeg(cfg, device=dev,
+                   generator=torch.Generator().manual_seed(17))
+    predict = make_predictor(model, cfg, device=dev)
+    classes = list(range(1, cfg.num_classes))
+    evs = {k: SegmentationEvaluator(classes, background=0)
+           for k in ("gt", "model")}
+    reset_counts()
+    req_ms = []
+    for pts, seg, _, _ in frames:
+        pred, ms, _ = timed(lambda: predict(None, pts))
+        req_ms.append(ms)
+        pred = pred.cpu().numpy().astype(seg.semantic.dtype)
+        check(pred.shape == seg.semantic.shape, "BEVSeg prediction shape")
+        evs["model"].add_stats(evs["model"].calc_stats(seg.semantic, pred))
+        evs["gt"].add_stats(evs["gt"].calc_stats(seg.semantic,
+                                                 seg.semantic.copy()))
+    counts = read_counts()
+    check(counts == want_counts(), f"semantickitti: launches {counts}")
+    ious = evs["gt"].iou()
+    present = {k: v for k, v in ious.items() if not np.isnan(v)}
+    check(len(present) == 4 and all(v == 1.0 for v in present.values()),
+          f"semantickitti: ground truth as predictions, IoU {present}")
+    model_iou = evs["model"].iou()
+    stats = dict(write_s=write_s, loader_ms=loader_ms,
+                 request_ms=statistics.median(req_ms),
+                 gt_miou=float(np.mean(list(present.values()))),
+                 model_miou=float(np.nanmean([model_iou[k] for k in
+                                              present])))
+    log(f"semantickitti: {DS_SEQ_FRAMES} frames of ~{DS_POINTS} points "
+        f"(written in {write_s:.1f} s); KittiOdometryLoader "
+        f"{loader_ms:.2f} ms a frame (points, both label forms, pose); "
+        f"BEVSeg bf16 request {stats['request_ms']:.2f} ms (CUDA events, "
+        f"median); ground truth as predictions mIoU "
+        f"{stats['gt_miou']} over {len(present)} classes; the random "
+        f"model's mIoU {stats['model_miou']:.4f}")
+    return counts, stats
+
+
+def ds_waymo_tid(i):
+    import base64
+    import struct
+
+    return base64.urlsafe_b64encode(struct.pack("Q", 9100 + i)
+                                    + b"seg0").decode()
+
+
+def write_waymo_segment(root, frames, seed):
+    """A converted Waymo segment (the converter's layout) of ``frames``
+    frames: the top lidar at ~150 000 points (x, y, z, intensity,
+    elongation) in its sensor frame, mounted at (1.43, 0, 2.18) in the
+    vehicle frame; 24 objects (16 vehicles, 5 pedestrians, 3 cyclists)
+    moving along x with 100 points in each; a 1920 x 1280 front camera
+    (the loader's rotated FLU pinhole); poses 1 m a frame forward.
+    Returns the vehicle-frame clouds and each frame's (labels, boxes)."""
+    import json
+
+    rng = np.random.default_rng(seed)
+    seg = "9100000000_000_000_9100000000_000"
+    out = DsWriter(root / "training" / seg)
+    mount = np.array([1.43, 0.0, 2.18])
+    lid = np.eye(4)
+    lid[:3, 3] = mount
+    cam = np.eye(4)
+    cam[:3, 3] = [1.5, 0.0, 2.1]
+    out.write("context/stats.json", json.dumps(dict(frame_count=frames,
+                                                    context=seg)))
+    out.write("context/calib_lidars.json",
+              json.dumps({"top": dict(extrinsic=lid.ravel().tolist())}))
+    out.write("context/calib_cams.json", json.dumps({"front": dict(
+        intrinsic=[2055.5, 2055.5, 939.6, 641.0, 0.01, -0.005, 0.0002,
+                   -0.0001, 0.0], extrinsic=cam.ravel().tolist(),
+        width=1920, height=1280)}))
+    kinds = [(1, (4.6, 2.0, 1.7), 8.0)] * 16 + [(2, (0.8, 0.8, 1.8),
+                                                 1.2)] * 5 \
+        + [(4, (1.8, 0.7, 1.7), 4.0)] * 3
+    lanes = rng.permutation(np.arange(-36, 36, 3.0))[:len(kinds)]
+    x0 = rng.uniform(-50, 30, len(kinds))
+    jpg = None
+    clouds, truth = [], []
+    for f in range(frames):
+        boxes = np.array([[x0[i] + v * f * DS_DT, lanes[i], 1.0 + s[2] / 2,
+                           *s, 0.0] for i, (_, s, v) in enumerate(kinds)])
+        cloud = ds_cloud(rng, DS_WAYMO_POINTS - 100 * len(kinds), boxes,
+                         per_box=100, half=(-75.0, 75.0, -75.0, 75.0),
+                         z=(0.0, 4.0), cols=5)
+        clouds.append(cloud)
+        sensor = cloud.copy()
+        sensor[:, :3] -= mount.astype(np.float32)
+        out.write("lidar_top/%04d.bin" % f, sensor.tobytes())
+        if jpg is None:
+            import io
+
+            from PIL import Image
+
+            buf = io.BytesIO()
+            Image.new("RGB", (1920, 1280), (50,) * 3).save(buf, "JPEG")
+            jpg = buf.getvalue()
+        out.write("camera_front/%04d.jpg" % f, jpg)
+        out.write("label_lidars/%04d.json" % f, json.dumps([dict(
+            center=b[:3].tolist(), size=b[3:6].tolist(), heading=0.0,
+            label=k, id=ds_waymo_tid(i), num_points=100)
+            for i, ((k, _, _), b) in enumerate(zip(kinds, boxes))]))
+        pose = np.eye(4)
+        pose[0, 3] = 1.0 * f
+        out.write("pose/%04d.bin" % f, pose.astype("<f8").tobytes())
+        out.write("timestamp/%04d.txt" % f,
+                  str(1_560_000_000_000_000 + 100_000 * f))
+        truth.append(([k for k, _, _ in kinds], boxes))
+    out.close()
+    return clouds, truth
+
+
+def waymo_preset(**kw):
+    """presets.centerpoint_waymo on a 472 x 472 grid of its 0.32 m pillars
+    (bounds +-75.52 m): the preset's 470 is not a multiple of the
+    backbone's stride 8, so its three upsampled maps come out 470, 470
+    and 472 wide and CenterPoint raises at the concatenation, in the JAX
+    package as in the port (ROADMAP.md queue 3, F4)."""
+    from d3d_tpu_torch.models import presets
+
+    return presets.centerpoint_waymo(
+        grid=(472, 472), bounds=(-75.52, 75.52, -75.52, 75.52, -2.0, 4.0),
+        **kw)
+
+
+def waymo_eval_path(dev, root):
+    """A converted Waymo segment through WaymoLoader (the clouds in the
+    vehicle frame within 1e-5 m of the written ones, the labels' ids
+    decoded) into CenterPoint on presets.centerpoint_waymo (full width on
+    ``waymo_preset``'s grid, bf16, seeded weights, heads calibrated; K1's
+    bit rows and the scan
+    once a request) and evaluate_waymo_detection with the boxes' point
+    counts on the card (gt_num_points card equal to CPU): the ground
+    truth as detections scores AP 1 in both levels; painting_rig on the
+    loader's calibration pixel-matches project_points_to_camera. Returns
+    (counts, stats)."""
+    from d3d_tpu_torch.abstraction import ObjectTag, ObjectTarget3D
+    from d3d_tpu_torch.abstraction import Target3DArray
+    from d3d_tpu_torch.benchmarks import DetectionEvaluator
+    from d3d_tpu_torch.benchmarks_waymo import (evaluate_waymo_detection,
+                                                gt_num_points)
+    from d3d_tpu_torch.dataset.waymo import WaymoLoader, WaymoObjectClass
+    from d3d_tpu_torch.models import CenterPoint, make_centerpoint_detector
+    from d3d_tpu_torch.ops.painting import _project, painting_rig
+
+    t0 = time.perf_counter()
+    clouds, truth = write_waymo_segment(root / "waymo", DS_SEQ_FRAMES, 180)
+    write_s = time.perf_counter() - t0
+    ld = WaymoLoader(root / "waymo", phase="training")
+    check(len(ld) == DS_SEQ_FRAMES, f"Waymo loader of {len(ld)} frames")
+    frames, loader_ms = ds_loader_ms(ld, range(DS_SEQ_FRAMES), lambda l, i: (
+        l.lidar_data(i), l.annotation_3dobject(i), l.pose(i),
+        l.timestamp(i)))
+    for f, (pts, gt, _, _) in enumerate(frames):
+        check(pts.shape == clouds[f].shape and float(np.abs(
+            pts - clouds[f]).max()) <= 1e-5,
+            f"Waymo frame {f}: points off the written ones")
+        check([o.tid for o in gt] == [9100 + i for i in range(len(gt))],
+              f"Waymo frame {f}: track ids not decoded")
+        # the data model stores float32: 1e-5 m at 75 m
+        ds_same_boxes(f"Waymo frame {f} labels", gt, [
+            WaymoObjectClass(k).name for k in truth[f][0]], truth[f][1],
+            pos_tol=1e-5, dim_tol=1e-5, yaw_tol=1e-6)
+    classes = [WaymoObjectClass.Vehicle, WaymoObjectClass.Pedestrian,
+               WaymoObjectClass.Cyclist]
+    cfg32 = waymo_preset(dtype="float32")
+    model32 = CenterPoint(cfg32, return_feat=True, point_features=5,
+                          device=dev,
+                          generator=torch.Generator().manual_seed(18))
+    share, peaks = calibrate_center_heads(model32, frames[0][0], dev)
+    model16 = CenterPoint(waymo_preset(), return_feat=True,
+                          point_features=5, device=dev)
+    model16.load_state_dict(model32.state_dict())
+    detect = make_centerpoint_detector(model16, None, model16.cfg,
+                                       model16.cfg, classes, device=dev)
+    reset_counts()
+    dets, req_ms = [], []
+    for f, (pts, _, _, ts) in enumerate(frames):
+        out, ms, _ = timed(lambda: detect(pts, frame="vehicle",
+                                          timestamp=ts))
+        dets.append(out)
+        req_ms.append(ms)
+    counts = read_counts()
+    n = DS_SEQ_FRAMES
+    check(counts == want_counts(rbox_iou_matrix=n, nms_scan=n),
+          f"waymo_eval requests: launches {counts}")
+    check_nms_routes("waymo_eval", n)
+    gts = [gt for _, gt, _, _ in frames]
+    pts_all = [p for p, _, _, _ in frames]
+    for f in (0, n - 1):
+        a = gt_num_points(gts[f], pts_all[f], device=dev)
+        b = gt_num_points(gts[f], pts_all[f], device="cpu")
+        check(np.array_equal(np.asarray(a), np.asarray(b))
+              and (np.asarray(a) >= 100).all(),
+              f"Waymo gt_num_points card {a} vs CPU {b}")
+    # the ground truth as detections, scored apart (0.95 down to 0.5: the
+    # PR curve's thresholds need scores that tell them apart)
+    as_dets = [Target3DArray([ObjectTarget3D(
+        o.position, o.orientation, o.dimension,
+        ObjectTag(o.tag_top, WaymoObjectClass, float(sc)))
+        for o, sc in zip(gt, np.linspace(0.95, 0.5, len(gt)))],
+        frame=gt.frame, timestamp=gt.timestamp) for gt in gts]
+    overlaps = [0.7, 0.5, 0.5]
+    t0 = time.perf_counter()
+    res = evaluate_waymo_detection(
+        lambda: DetectionEvaluator(classes, overlaps, device=dev), gts,
+        as_dets, clouds=pts_all)
+    eval_s = time.perf_counter() - t0
+    aps = {}
+    for level in ("LEVEL_1", "LEVEL_2"):
+        ap = res[level].ap()
+        aps[level] = {c.name: float(ap[c]) for c in classes}
+        check(all(v == 1.0 for v in aps[level].values()),
+              f"Waymo ground truth as detections: {level} AP {aps[level]}")
+    model_res = evaluate_waymo_detection(
+        lambda: DetectionEvaluator(classes, overlaps, device=dev), gts,
+        dets, clouds=pts_all)
+    model_ap = {c.name: float(model_res["LEVEL_2"].ap()[c])
+                for c in classes}
+    # painting_rig on the loader's calibration against the projection
+    calib = ld.calibration_data(0)
+    cams = [c for c in ld.VALID_CAM_NAMES if c in calib.intrinsics]
+    for cam in cams:
+        calib.intrinsics_meta[cam].distort_coeffs = np.asarray([])
+    ks, exts = painting_rig(calib, cams, frame_from="lidar_top")
+    rng = np.random.default_rng(181)
+    probe = np.stack([rng.uniform(5, 40, 256), rng.uniform(-8, 8, 256),
+                      rng.uniform(-2, 1, 256)], axis=1)
+    worst_px = 0.0
+    for i, cam in enumerate(cams):
+        uv, _, dmask = calib.project_points_to_camera(
+            probe, frame_to=cam, frame_from="lidar_top",
+            remove_outlier=False, return_dmask=True)
+        u, v, ahead = _project(
+            torch.from_numpy(probe.astype(np.float32)).to(dev),
+            torch.from_numpy(ks[i]).to(dev),
+            torch.from_numpy(exts[i]).to(dev))
+        sel = np.zeros(len(probe), bool)
+        sel[dmask] = True
+        check(np.array_equal(ahead.cpu().numpy(), sel),
+              f"painting_rig {cam}: points ahead differ")
+        got = np.stack([u.cpu().numpy(), v.cpu().numpy()], axis=1)[sel]
+        err = np.abs(got - uv[sel])
+        check(bool((err <= 0.3 + 1e-4 * np.abs(uv[sel])).all()),
+              f"painting_rig {cam}: {err.max()} px off")
+        worst_px = max(worst_px, float(err.max()))
+    stats = dict(write_s=write_s, loader_ms=loader_ms,
+                 request_ms=statistics.median(req_ms),
+                 occupied_share=share, peaks=peaks, gt_ap=aps,
+                 model_ap_level2=model_ap, eval_s=eval_s,
+                 painting_px=worst_px)
+    log(f"waymo_eval: {n} frames of {len(clouds[0])} points (written in "
+        f"{write_s:.1f} s); WaymoLoader {loader_ms:.2f} ms a frame; "
+        f"CenterPoint (centerpoint_waymo, bf16; heads over {share:.1%} "
+        f"occupied cells, {peaks} peaks) {stats['request_ms']:.2f} ms a "
+        f"request (CUDA events, median), launches {counts}; ground truth "
+        f"as detections AP {aps}; the random model's LEVEL_2 AP {model_ap}; "
+        f"evaluate_waymo_detection {eval_s:.2f} s for the 20 frames "
+        f"(host clock, 8 strata); painting_rig within {worst_px:.3g} px")
+    return counts, stats
+
+
+def write_raw_drive(root, frames, seed):
+    """A KITTI raw synced drive 2011_09_26_drive_0001: ~120 000 points a
+    frame, the tracklets of the tracking scene's objects, one oxts packet
+    a frame, timestamps of every sensor, the date's three calibration
+    files; images of cam2 only (the path reads none). Returns the clouds
+    and each frame's (classes, boxes)."""
+    rng = np.random.default_rng(seed)
+    date, drive = "2011_09_26", "2011_09_26_drive_0001_sync"
+    out = DsWriter(root)
+    cam = ["calib_time: 09-Jan-2012 13:57:47"]
+    for i in range(4):
+        p = np.array([[721.5, 0.0, 609.5, -40.0 * i],
+                      [0.0, 721.5, 172.8, 0.0], [0.0, 0.0, 1.0, 0.0]])
+        cam += ["S_rect_%02d: 1242 375" % i,
+                "R_rect_%02d: 1 0 0 0 1 0 0 0 1" % i,
+                "P_rect_%02d: " % i + " ".join("%.6e" % v for v in p.ravel())]
+    out.write(f"{date}/calib_cam_to_cam.txt", "\n".join(cam) + "\n")
+
+    def rt(r, t):
+        return ("R: " + " ".join("%.6e" % v for v in np.ravel(r))
+                + "\nT: " + " ".join("%.6e" % v for v in t) + "\n")
+    out.write(f"{date}/calib_imu_to_velo.txt", rt(np.eye(3),
+                                                 [0.8, -0.3, 0.9]))
+    out.write(f"{date}/calib_velo_to_cam.txt", rt(DS_VELO_TO_CAM[:, :3],
+                                                 DS_VELO_TO_CAM[:, 3]))
+    stamps = "".join("2011-09-26 13:02:%02d.%06d000\n"
+                     % (25 + f // 10, 100000 * (f % 10))
+                     for f in range(frames))
+    base = f"{date}/{drive}"
+    for folder in ("image_00", "image_01", "image_02", "image_03",
+                   "velodyne_points", "oxts"):
+        out.write(f"{base}/{folder}/timestamps.txt", stamps)
+    png = ds_png(DS_KITTI_IMAGE)
+    clouds, truth = [], []
+    for f in range(frames):
+        classes, _, b = ds_track_boxes(f)
+        cloud = ds_cloud(rng, DS_POINTS, b)
+        clouds.append(cloud)
+        truth.append((classes, b))
+        out.write(f"{base}/velodyne_points/data/%010d.bin" % f,
+                  cloud.tobytes())
+        out.write(f"{base}/image_02/data/%010d.png" % f, png)
+        out.write(f"{base}/oxts/data/%010d.txt" % f, "%.10f 8.4228601000 "
+                  "112.80 0.03 0.01 0.50 %s\n" % (
+                      49.011212 + 5.0 * f * DS_DT / 111_319.0,
+                      DS_OXTS_TAIL))
+    items = []
+    for k, (cls, _, _, _) in enumerate(DS_OBJECTS):
+        l, w, h = DS_SIZES[cls]
+        poses = "\n".join(
+            "      <item><tx>%r</tx><ty>%r</ty><tz>%r</tz><rx>0</rx>"
+            "<ry>0</ry><rz>%r</rz><state>1</state><occlusion>0</occlusion>"
+            "<occlusion_kf>0</occlusion_kf><truncation>0</truncation>"
+            "<amt_occlusion>0</amt_occlusion><amt_border_l>0</amt_border_l>"
+            "</item>" % (float(truth[f][1][k, 0]), float(truth[f][1][k, 1]),
+                         float(truth[f][1][k, 2] - h / 2),
+                         float(truth[f][1][k, 6])) for f in range(frames))
+        items.append(
+            f"  <item>\n    <objectType>{cls}</objectType>\n"
+            f"    <h>{h}</h><w>{w}</w><l>{l}</l>\n"
+            f"    <first_frame>0</first_frame>\n    <poses>\n"
+            f"      <count>{frames}</count>\n"
+            f"      <item_version>2</item_version>\n{poses}\n    </poses>\n"
+            "    <finished>1</finished>\n  </item>")
+    out.write(f"{base}/tracklet_labels.xml",
+              '<?xml version="1.0" encoding="UTF-8"?>\n'
+              '<boost_serialization signature="serialization::archive" '
+              'version="9">\n<tracklets class_id="0" tracking_level="0" '
+              f'version="0">\n  <count>{len(items)}</count>\n'
+              "  <item_version>1</item_version>\n" + "\n".join(items)
+              + "\n</tracklets>\n</boost_serialization>\n")
+    out.close()
+    return clouds, truth
+
+
+def write_cadc_drive(root, frames, seed):
+    """A CADC labeled drive 2018_03_06/0001: ~60 000 points a frame
+    around the car, 8 camera calibrations and the extrinsics YAML, one
+    INSPVAX packet and timestamps a frame, two cuboids a frame (a moving
+    car, a parked semi truck); images of camera 0 only. Returns the
+    clouds."""
+    import json
+
+    import yaml
+
+    rng = np.random.default_rng(seed)
+    out = DsWriter(root)
+    date, drive = "2018_03_06", "0001"
+    cam_yaml = ("image_width: 1280\nimage_height: 1024\ncamera_name: F\n"
+                "camera_matrix:\n  rows: 3\n  cols: 3\n  data: [653.0, 0.0, "
+                "653.6, 0.0, 650.0, 508.4, 0.0, 0.0, 1.0]\ndistortion_model:"
+                " plumb_bob\ndistortion_coefficients:\n  rows: 1\n  cols: 5\n"
+                "  data: [-0.17, 0.08, 0.0002, -0.0005, 0.0]\n")
+
+    def mat(t, about_z=0.0):
+        c, s = np.cos(about_z), np.sin(about_z)
+        m = np.eye(4)
+        m[:2, :2] = [[c, -s], [s, c]]
+        m[:3, 3] = t
+        return m.tolist()
+    ext = {"T_BASELINK_LIDAR": mat([0.0, 0.0, 1.6]),
+           "T_00CAMERA_00IMU": mat([0.0, 0.1, 0.0]),
+           "T_03CAMERA_03IMU": mat([0.0, -0.1, 0.0]),
+           "T_LIDAR_GPSIMU": mat([-0.5, 0.0, -1.2])}
+    for i in range(8):
+        ext["T_LIDAR_CAM%02d" % i] = mat([0.1 * i, 0.0, -0.3],
+                                         about_z=i * np.pi / 4)
+        out.write(f"{date}/calib/%02d.yaml" % i, cam_yaml)
+    out.write(f"{date}/calib/extrinsics.yaml", yaml.safe_dump(ext))
+    stamps = "".join("2018-03-06T14:17:%02d.%06d\n" % (2 + f, 1000 * f)
+                     for f in range(frames))
+    base = f"{date}/{drive}/labeled"
+    for i in range(8):
+        out.write(f"{base}/image_%02d/timestamps.txt" % i, stamps)
+    png = ds_png((1280, 1024), 200)
+    clouds, anns = [], []
+    for f in range(frames):
+        cloud = ds_cloud(rng, DS_CADC_POINTS, half=(-40.0, 40.0, -40.0,
+                                                    40.0), z=(-3.0, 2.0))
+        clouds.append(cloud)
+        out.write(f"{base}/lidar_points/data/%010d.bin" % f, cloud.tobytes())
+        out.write(f"{base}/image_00/data/%010d.png" % f, png)
+        out.write(f"{base}/novatel/data/%010d.txt" % f,
+                  "%.8f -80.54 335.8 -36.5 0.01 0.01 0.02 0.5 -0.3 271.9 "
+                  "0.02 0.02 0.08 3 56\n" % (43.47 + 1e-5 * f))
+        anns.append(dict(cuboids=[
+            dict(uuid="aaaabbbb-cccc-dddd-eeee-%012d" % f, label="Car",
+                 yaw=0.2, position=dict(x=12.0 + f, y=3.0, z=0.8),
+                 dimensions=dict(x=2.0, y=4.6, z=1.6),
+                 attributes=dict(state="Moving")),
+            dict(uuid="11112222-3333-4444-5555-%012d" % f, label="Truck",
+                 yaw=-0.4, position=dict(x=-8.0, y=-6.0, z=1.0),
+                 dimensions=dict(x=2.6, y=8.5, z=3.2),
+                 attributes=dict(truck_type="Semi_Truck",
+                                 state="Parked"))]))
+    for folder in ("lidar_points", "novatel"):
+        out.write(f"{base}/{folder}/timestamps.txt", stamps)
+    out.write(f"{date}/{drive}/3d_ann.json", json.dumps(anns))
+    out.close()
+    return clouds
+
+
+def raw_cadc_path(dev, root, pp):
+    """A KITTI raw drive and a CADC drive through their loaders (points
+    bit-equal) into one PointPillars request a frame; the raw drive's
+    tracklets through DeviceCenterTracker and TrackingEvaluator (the
+    ground truth tracked scores MOTA 1), as examples/kitti_raw_pipeline.py
+    does on the host. Returns (counts, stats)."""
+    from d3d_tpu_torch.dataset.cadc import CADCDLoader
+    from d3d_tpu_torch.dataset.kitti import (KittiObjectClass,
+                                             KittiRawLoader)
+    from d3d_tpu_torch.tracking.device_tracker import DeviceCenterTracker
+
+    t0 = time.perf_counter()
+    raw_clouds, truth = write_raw_drive(root / "raw", DS_SEQ_FRAMES, 190)
+    cadc_clouds = write_cadc_drive(root / "cadc", DS_CADC_FRAMES, 191)
+    write_s = time.perf_counter() - t0
+    raw = KittiRawLoader(root / "raw", inzip=False, phase="training",
+                         trainval_split=1)
+    cadc = CADCDLoader(root / "cadc", inzip=False, phase="training",
+                       trainval_split=1)
+    check(len(raw) == DS_SEQ_FRAMES and len(cadc) == DS_CADC_FRAMES,
+          f"raw {len(raw)} / CADC {len(cadc)} frames")
+    raw_frames, raw_ms = ds_loader_ms(raw, range(DS_SEQ_FRAMES), lambda l, i: (
+        l.lidar_data(i), l.annotation_3dobject(i), l.pose(i),
+        l.timestamp(i), l.calibration_data(i)))
+    cadc_frames, cadc_ms = ds_loader_ms(
+        cadc, range(DS_CADC_FRAMES), lambda l, i: (
+            l.lidar_data(i), l.annotation_3dobject(i), l.pose(i),
+            l.timestamp(i), l.calibration_data(i)))
+    for f, (pts, gt, _, _, _) in enumerate(raw_frames):
+        check(pts.tobytes() == raw_clouds[f].tobytes(),
+              f"raw frame {f}: points differ from the written file")
+        ds_same_boxes(f"raw frame {f} tracklets", gt, truth[f][0],
+                      truth[f][1], pos_tol=1e-5, dim_tol=1e-5,
+                      yaw_tol=1e-6)
+    for f, (pts, gt, pose, _, _) in enumerate(cadc_frames):
+        check(pts.tobytes() == cadc_clouds[f].tobytes(),
+              f"CADC frame {f}: points differ from the written file")
+        check(len(gt) == 2 and np.isfinite(pose.position).all(),
+              f"CADC frame {f}: annotation or pose")
+    classes = [KittiObjectClass[c] for c in DS_CLASSES]
+    tracker = DeviceCenterTracker(
+        classes, {c.value: g for c, g in zip(classes, DS_GATES)},
+        lost_time=TRACK_LOST_TIME, capacity=TRACK_CAPACITY, device=dev)
+    reset_counts()
+    req_ms, kept = [], []
+    for pts in [f[0] for f in raw_frames] + [f[0] for f in cadc_frames]:
+        out, ms, _ = timed(lambda: pp["detect"](pts))
+        req_ms.append(ms)
+        kept.append(len(out))
+    counts = read_counts()
+    n = DS_SEQ_FRAMES + DS_CADC_FRAMES
+    check(counts == want_counts(rbox_iou_matrix=n, nms_scan=n),
+          f"raw_cadc requests: launches {counts}")
+    check_nms_routes("raw_cadc", n)
+    ev = ds_tracking_evaluator(dev)
+    for _, gt, _, ts, _ in raw_frames:
+        gt.timestamp = ts
+        tracker.update(gt)
+        ev.add_stats(ev.calc_stats(gt, tracker.report()))
+    mota = {c.name: float(ev.mota(0.0)[c]) for c in classes}
+    check(all(v == 1.0 for v in mota.values()),
+          f"raw drive's tracklets tracked: MOTA {mota}")
+    stats = dict(write_s=write_s, loader_ms=dict(raw=raw_ms, cadc=cadc_ms),
+                 request_ms=statistics.median(req_ms), kept=kept, mota=mota)
+    log(f"raw_cadc: a raw drive of {DS_SEQ_FRAMES} frames and a CADC drive "
+        f"of {DS_CADC_FRAMES} frames of ~{DS_CADC_POINTS} points (written "
+        f"in {write_s:.1f} s); KittiRawLoader {raw_ms:.2f} ms a frame, "
+        f"CADCDLoader {cadc_ms:.2f} ms a frame; PointPillars requests "
+        f"{stats['request_ms']:.2f} ms (CUDA events, median), launches "
+        f"{counts}; the tracklets through DeviceCenterTracker: MOTA {mota}")
+    return counts, stats
+
+
+def native_oracle(dev):
+    """The port's native host oracle (built with g++ into build/) against
+    the card at DS_NATIVE_BOXES detector-like boxes: K1's float32 matrix
+    off the oracle's float64 IoU by no more than its plain float32
+    version is (computed on the card in blocks of 512 rows) plus K1's 2e-5
+    from that version (the triangle inequality: float32 itself is up to
+    ~2e-5 off float64 on thin overlaps); box2d_nms(precise=True)
+    on the card (the float64 matrix, then the scan) keeping what the
+    oracle's nms2d keeps, a differing box allowed only where a pair's
+    float64 IoU lies within 4 ulp of the threshold. Returns (counts,
+    stats)."""
+    from d3d_tpu_torch import native
+    from d3d_tpu_torch.ops import geometry_cuda
+    from d3d_tpu_torch.ops.box import box2d_nms
+
+    t0 = time.perf_counter()
+    check(native.available(), f"native oracle did not build: "
+                              f"{native._BUILD_ERROR!r}")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(195)
+    boxes, scores = bench_boxes(rng, DS_NATIVE_BOXES)
+    b64, s64 = boxes.astype(np.float64), scores.astype(np.float64)
+    reset_counts()
+    k1, k1_ms, _ = timed(lambda: geometry_cuda.rbox_iou_matrix(
+        torch.from_numpy(boxes).to(dev), torch.from_numpy(boxes).to(dev)))
+    t0 = time.perf_counter()
+    ref = native.rbox_iou_matrix(b64, b64)
+    iou_s = time.perf_counter() - t0
+    from d3d_tpu_torch.ops import geometry_soa
+
+    tb = torch.from_numpy(boxes).to(dev)
+    plain = torch.cat([geometry_soa._rbox_iou_matrix_plain(tb[i:i + 512], tb)
+                       for i in range(0, len(tb), 512)]).cpu().numpy()
+    err = float(np.abs(k1.cpu().numpy() - ref).max())
+    plain_err = float(np.abs(plain - ref).max())
+    check(err <= plain_err + 2e-5,
+          f"native oracle: K1 {err} from the float64 IoU, its plain "
+          f"float32 version {plain_err}")
+    keep, nms_ms, _ = timed(lambda: box2d_nms(
+        b64, s64, iou_method="rbox", iou_threshold=DS_NATIVE_THRESHOLD,
+        precise=True, device=dev))
+    counts = read_counts()
+    keep = np.asarray(keep.cpu() if torch.is_tensor(keep) else keep)
+    t0 = time.perf_counter()
+    want = native.nms2d(b64, s64, iou_method="rbox",
+                        iou_threshold=DS_NATIVE_THRESHOLD)
+    nms_s = time.perf_counter() - t0
+    diff = np.flatnonzero(keep != want)
+    near = np.abs(ref - DS_NATIVE_THRESHOLD) <= 4 * np.spacing(
+        DS_NATIVE_THRESHOLD)
+    np.fill_diagonal(near, False)
+    check(len(diff) == 0 or bool(near.any()),
+          f"native oracle: box2d_nms keeps {len(diff)} boxes otherwise, "
+          "no pair within 4 ulp of the threshold")
+    check(counts["rbox_iou_matrix"] == 1
+          and counts["nms_scan"] + counts["nms_scan_blocked"] == 1,
+          f"native oracle: launches {counts}")
+    stats = dict(build_s=build_s, k1_err=err, plain_f32_err=plain_err,
+                 k1_ms=k1_ms,
+                 native_iou_s=iou_s, native_nms_s=nms_s,
+                 card_nms_precise_ms=nms_ms, kept=int(want.sum()),
+                 mask_diffs=len(diff), near_threshold_pairs=int(near.sum()))
+    log(f"native_oracle: built in {build_s:.2f} s; {DS_NATIVE_BOXES} boxes: "
+        f"K1 f32 {k1_ms:.3f} ms vs the oracle's float64 IoU {iou_s:.2f} s "
+        f"(max error {err:.3g}, the plain float32 version's {plain_err:.3g}"
+        "); box2d_nms(precise=True) on the card "
+        f"{nms_ms:.2f} ms vs the oracle's nms2d {nms_s:.3f} s, keep masks "
+        f"{'equal' if not len(diff) else f'{len(diff)} apart'} "
+        f"({int(want.sum())} kept, {int(near.sum())} pairs within 4 ulp of "
+        f"the threshold); launches {counts}")
+    return counts, stats
+
+
+def datasets_phase(dev):
+    """The datasets path: each scene written once under build/datasets/,
+    then kitti_tracking, semantickitti, waymo_eval, raw_cadc and
+    native_oracle. Returns ({path: counts}, stats)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "datasets"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    counts, stats = {}, {}
+    counts["kitti_tracking"], stats["kitti_tracking"], pp = \
+        kitti_tracking_path(dev, root)
+    counts["semantickitti"], stats["semantickitti"] = semantickitti_path(
+        dev, root)
+    counts["waymo_eval"], stats["waymo_eval"] = waymo_eval_path(dev, root)
+    counts["raw_cadc"], stats["raw_cadc"] = raw_cadc_path(dev, root, pp)
+    counts["native_oracle"], stats["native_oracle"] = native_oracle(dev)
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"datasets: {stats['phase_s']:.1f} s")
     return counts, stats
 
 
@@ -8651,8 +9947,9 @@ def main():
                                                vn)
     par_counts, par_stats = parallel_phase(
         dev, pp_detect, [bench_points(np.random.default_rng(100 + i))
-                         for i in range(4)], state, batch, bev_frames)
+                         for i in range(4)], state, batch, bev_frames, vn)
     del bev_frames
+    ds_counts, ds_stats = datasets_phase(dev)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     train_counts, train_stats = {}, {}
@@ -8682,7 +9979,8 @@ def main():
                       **{path: c[name] for path, c in cp_counts.items()},
                       "sst_kitti": sum(c[name] for c in sst_counts.values()),
                       "export": sum(c[name] for c in export_counts.values()),
-                      "parallel": sum(c[name] for c in par_counts.values())}
+                      "parallel": sum(c[name] for c in par_counts.values()),
+                      **{path: c[name] for path, c in ds_counts.items()}}
                for name in serve_counts}
     meta = {
         "rbox_iou_matrix": ("cuda", "d3d_tpu_torch/csrc/rbox_iou.cu",
@@ -8783,7 +10081,9 @@ def main():
                               "export": dict(export_stats,
                                              launches=export_counts),
                               "parallel": dict(par_stats,
-                                               launches=par_counts)},
+                                               launches=par_counts),
+                              "datasets": dict(ds_stats,
+                                               launches=ds_counts)},
                     "card": card}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

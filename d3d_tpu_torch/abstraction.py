@@ -42,8 +42,8 @@ __all__ = [
 # ---------------------------------------------------------------------------
 # Tag enum registry (reference hardcodes KITTI=1, Waymo=2, Nuscenes=3,
 # NuscenesDetection=4, abstraction.pyx:19-27; here it is an open registry,
-# pre-populated lazily with the built-in dataset taxonomies). The port has
-# the KITTI taxonomy so far; codes 2-4 stay reserved for the others.
+# pre-populated lazily with the built-in dataset taxonomies: KITTI 1, Waymo
+# 2, nuScenes 3 and nuScenes detection 4, as the JAX package registers them).
 # ---------------------------------------------------------------------------
 _TAG_ENUMS = {}
 _BUILTINS_LOADED = False
@@ -58,8 +58,14 @@ def _enum_mapping():
     global _BUILTINS_LOADED
     if not _BUILTINS_LOADED:
         from .dataset.kitti.utils import KittiObjectClass
+        from .dataset.nuscenes.constants import (NuscenesDetectionClass,
+                                                 NuscenesObjectClass)
+        from .dataset.waymo.constants import WaymoObjectClass
 
         _TAG_ENUMS.setdefault(KittiObjectClass, 1)
+        _TAG_ENUMS.setdefault(WaymoObjectClass, 2)
+        _TAG_ENUMS.setdefault(NuscenesObjectClass, 3)
+        _TAG_ENUMS.setdefault(NuscenesDetectionClass, 4)
         _BUILTINS_LOADED = True
     return _TAG_ENUMS
 

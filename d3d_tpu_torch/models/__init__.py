@@ -1,11 +1,12 @@
 from .pointpillars import (PointPillars, PointPillarsConfig, assign_targets,
                            decode_boxes, detection_loss, encode_boxes,
-                           make_anchors, pillarize, prepare_targets,
-                           scatter_to_bev)
+                           make_anchors, make_train_step, pillarize,
+                           prepare_targets, scatter_to_bev)
 from .centerpoint import (CenterPoint, CenterPointConfig,
                           assign_center_targets, center_loss, decode_centers)
 from .centerpoint2 import (CenterPointRefine, RefineConfig,
-                           apply_refinements, roi_grid_features)
+                           apply_refinements, encode_refinement_targets,
+                           make_refine_train_step, roi_grid_features)
 from .seg2d import Seg2D, Seg2DConfig, make_segmenter
 from .mono3d import (Mono3D, Mono3DConfig, assign_mono3d_targets,
                      decode_mono3d, make_mono3d_detector,
@@ -14,8 +15,8 @@ from .bevseg import (BEVSeg, BEVSegConfig, bevseg_pillarize,
                      group_instances, make_panoptic_predictor,
                      make_predictor, panoptic_loss, panoptic_targets,
                      point_cell_coords, segmentation_loss)
-from .second import (SECOND, SECONDConfig, head_config, make_train_step,
-                     second_voxelize, sparse_stage_loop)
+from .second import (SECOND, SECONDConfig, head_config, second_voxelize,
+                     sparse_stage_loop)
 from .voxelnext import (VoxelNeXt, VoxelNeXtConfig, decode_voxelnext,
                         voxelnext_voxelize)
 from .sst import SST, SSTConfig, window_slots
@@ -42,7 +43,8 @@ __all__ = [
     "detection_loss", "prepare_targets", "CenterPoint", "CenterPointConfig",
     "assign_center_targets", "center_loss", "decode_centers",
     "CenterPointRefine", "RefineConfig", "roi_grid_features",
-    "apply_refinements", "Seg2D", "Seg2DConfig", "make_segmenter",
+    "apply_refinements", "encode_refinement_targets",
+    "make_refine_train_step", "Seg2D", "Seg2DConfig", "make_segmenter",
     "SECOND", "SECONDConfig",
     "head_config", "second_voxelize", "sparse_stage_loop", "make_train_step",
     "presets", "make_pointpillars_detector", "make_centerpoint_detector",

@@ -28,10 +28,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.point import aligned_scatter
+from ..parallel.comm import batch_mean, batch_sum
 from ..utils import as_tensor, resolve_device
 from .pointpillars import (_BN_EPS, _PFN, _ConvBlock, _bev_hooks,
-                           _buffers_kept, _norm, pillarize as _pp_pillarize,
-                           scatter_to_bev)
+                           _buffers_kept, _norm, _train_step,
+                           pillarize as _pp_pillarize, scatter_to_bev)
 
 __all__ = ["BEVSegConfig", "BEVSeg", "bevseg_pillarize", "point_cell_coords",
            "segmentation_loss", "make_train_step", "make_predictor",
@@ -241,7 +242,8 @@ def segmentation_loss(logits, labels, cfg: BEVSegConfig, label_smooth=0.0):
 
     :param logits: (B, N, C) float32
     :param labels: (B, N) int
-    :return: scalar loss, dict(seg, acc)
+    :return: scalar loss, dict(seg, acc); the count of labelled points is
+        the whole batch's in a sharded step
     """
     c = cfg.num_classes
     mask = (labels != cfg.ignore_index).to(torch.float32)
@@ -250,7 +252,7 @@ def segmentation_loss(logits, labels, cfg: BEVSegConfig, label_smooth=0.0):
         onehot = onehot * (1 - label_smooth) + label_smooth / c
     logp = F.log_softmax(logits, dim=-1)
     ce = -(onehot * logp).sum(dim=-1)
-    denom = torch.clamp_min(mask.sum(), 1.0)
+    denom = torch.clamp_min(batch_sum(mask.sum()), 1.0)
     loss = (ce * mask).sum() / denom
     acc = ((logits.argmax(dim=-1) == labels) * mask).sum() / denom
     return loss, {"seg": loss, "acc": acc}
@@ -329,13 +331,15 @@ def panoptic_targets(cfg: BEVSegConfig, points, labels, inst_ids):
 def panoptic_loss(outputs, targets, cfg: BEVSegConfig, labels,
                   label_smooth=0.0, center_weight=100.0, offset_weight=1.0):
     """Semantic CE + MSE heatmap + masked-L1 offsets (Panoptic-PolarNet's
-    loss mix). Returns ``(total, dict(seg, acc, hm, offset, total))``."""
+    loss mix). Returns ``(total, dict(seg, acc, hm, offset, total))``. The
+    heatmap's mean and the offset count are the whole batch's in a sharded
+    step."""
     sem_loss, aux = segmentation_loss(outputs["sem"], labels, cfg,
                                       label_smooth)
     hm = torch.sigmoid(outputs["heatmap"])
-    hm_loss = ((hm - targets["heatmap"]) ** 2).mean()
+    hm_loss = batch_mean((hm - targets["heatmap"]) ** 2)
     om = targets["offset_mask"][..., None].to(torch.float32)
-    denom = torch.clamp_min(om.sum(), 1.0)
+    denom = torch.clamp_min(batch_sum(om.sum()), 1.0)
     off_loss = ((outputs["offset"] - targets["offset"]).abs() * om).sum() \
         / denom
     total = sem_loss + center_weight * hm_loss + offset_weight * off_loss
@@ -439,6 +443,11 @@ def make_train_step(model, optimizer, cfg: BEVSegConfig, remat=False,
     :param remat: recompute the forward in the backward
         (``torch.utils.checkpoint``), the BatchNorm buffers put back after
         the recompute
+
+    The step carries ``model``, ``optimizer``, ``backward`` (forward, loss
+    and backward on a batch, returning ``aux``) and ``global_aux`` (none),
+    which :func:`~d3d_tpu_torch.parallel.mesh.shard_train_step` runs over
+    a mesh, as the PointPillars step does.
     """
     dev = next(model.parameters()).device
 
@@ -454,9 +463,8 @@ def make_train_step(model, optimizer, cfg: BEVSegConfig, remat=False,
     else:
         run_forward = forward
 
-    def train_step(batch):
+    def backward(batch):
         batch = {k: as_tensor(v, device=dev) for k, v in batch.items()}
-        optimizer.zero_grad(set_to_none=True)
         out = run_forward(batch["features"], batch["coords"], batch["valid"],
                           batch["point_coords"])
         if cfg.panoptic:
@@ -471,10 +479,9 @@ def make_train_step(model, optimizer, cfg: BEVSegConfig, remat=False,
             loss, aux = segmentation_loss(out, batch["labels"], cfg,
                                           label_smooth)
         loss.backward()
-        optimizer.step()
         return {k: v.detach() for k, v in dict(aux, total=loss).items()}
 
-    return train_step
+    return _train_step(model, optimizer, backward)
 
 
 def make_predictor(model, cfg: BEVSegConfig, device=None):

@@ -27,9 +27,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.voxel import _to_int32
+from ..parallel.comm import batch_sum
 from ..utils import as_tensor, resolve_device
 from .pointpillars import (_PFN, _ConvBlock, _Upsample, _bev_hooks,
-                           _buffers_kept, scatter_to_bev)
+                           _buffers_kept, _train_step, scatter_to_bev)
 
 __all__ = ["CenterPointConfig", "CenterPoint", "assign_center_targets",
            "center_loss", "decode_centers", "prepare_center_targets",
@@ -311,11 +312,12 @@ def assign_center_targets(cfg: CenterPointConfig, gt_boxes, gt_labels,
 
 def center_loss(outputs, targets, reg_weight=2.0):
     """Penalty-reduced focal (CornerNet, alpha=2 beta=4) + masked L1.
-    Returns ``(total, dict(hm, reg, total))``."""
+    Returns ``(total, dict(hm, reg, total))``. The positive count is the
+    whole batch's in a sharded step (:func:`~.parallel.comm.batch_sum`)."""
     hm = torch.clamp(torch.sigmoid(outputs["heatmap"]), 1e-5, 1 - 1e-5)
     t = targets["heatmap"]
     pos = t >= 1.0 - 1e-6
-    npos = torch.clamp_min(pos.sum(), 1).to(hm.dtype)
+    npos = torch.clamp_min(batch_sum(pos.sum()), 1).to(hm.dtype)
     pos_l = -((1 - hm) ** 2) * torch.log(hm) * pos
     neg_l = -((1 - t) ** 4) * (hm ** 2) * torch.log(1 - hm) * ~pos
     hm_loss = (pos_l.sum() + neg_l.sum()) / npos
@@ -421,6 +423,11 @@ def make_train_step(model, optimizer, cfg: CenterPointConfig, remat=False,
     :param external_targets: take ``batch["targets"]`` from
         :func:`prepare_center_targets` instead of rendering them in the
         step
+
+    The step carries ``model``, ``optimizer``, ``backward`` (forward, loss
+    and backward on a batch, returning ``aux``) and ``global_aux`` (none),
+    which :func:`~d3d_tpu_torch.parallel.mesh.shard_train_step` runs over
+    a mesh, as the PointPillars step does.
     """
     dev = next(model.parameters()).device
 
@@ -436,10 +443,9 @@ def make_train_step(model, optimizer, cfg: CenterPointConfig, remat=False,
     else:
         run_forward = forward
 
-    def train_step(batch):
+    def backward(batch):
         batch = {k: (v if k == "targets" else as_tensor(v, device=dev))
                  for k, v in batch.items()}
-        optimizer.zero_grad(set_to_none=True)
         outputs = run_forward(batch["features"], batch["coords"],
                               batch["valid"])
         if external_targets:
@@ -449,7 +455,7 @@ def make_train_step(model, optimizer, cfg: CenterPointConfig, remat=False,
             targets = prepare_center_targets(cfg, batch)["targets"]
         loss, aux = center_loss(outputs, targets)
         loss.backward()
-        optimizer.step()
         return {k: v.detach() for k, v in aux.items()}
 
-    return train_step
+    return _train_step(model, optimizer, backward)
+

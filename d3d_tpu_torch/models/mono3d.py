@@ -32,7 +32,8 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.voxel import _to_int64
 from ..utils import as_tensor, resolve_device
 from .centerpoint import _gaussian_radius
-from .pointpillars import _buffers_kept
+from ..parallel.comm import batch_sum
+from .pointpillars import _buffers_kept, _train_step
 from .seg2d import _Block
 
 __all__ = ["Mono3DConfig", "Mono3D", "assign_mono3d_targets",
@@ -265,11 +266,12 @@ def assign_mono3d_targets(cfg: Mono3DConfig, intrinsics, gt_boxes,
 
 def mono3d_loss(outputs, targets):
     """Penalty-reduced focal + masked L1 at centre cells (batched).
-    Returns ``(total, dict(hm, reg, total))``."""
+    Returns ``(total, dict(hm, reg, total))``. The positive count is the
+    whole batch's in a sharded step."""
     hm = torch.clamp(torch.sigmoid(outputs["heatmap"]), 1e-5, 1 - 1e-5)
     t = targets["heatmap"]
     pos = t >= 1.0 - 1e-6
-    npos = torch.clamp_min(pos.sum(), 1).to(torch.float32)
+    npos = torch.clamp_min(batch_sum(pos.sum()), 1).to(torch.float32)
     pos_l = -((1 - hm) ** 2) * torch.log(hm) * pos
     neg_l = -((1 - t) ** 4) * (hm ** 2) * torch.log(1 - hm) * ~pos
     hm_loss = (pos_l.sum() + neg_l.sum()) / npos
@@ -359,6 +361,11 @@ def make_train_step(model, optimizer, cfg: Mono3DConfig, remat=False):
     :param remat: recompute the forward in the backward
         (``torch.utils.checkpoint``, the JAX step's ``jax.checkpoint``),
         the BatchNorm buffers put back after the recompute
+
+    The step carries ``model``, ``optimizer``, ``backward`` (forward, loss
+    and backward on a batch, returning ``aux``) and ``global_aux`` (none),
+    which :func:`~d3d_tpu_torch.parallel.mesh.shard_train_step` runs over
+    a mesh, as the PointPillars step does.
     """
     dev = next(model.parameters()).device
 
@@ -374,16 +381,14 @@ def make_train_step(model, optimizer, cfg: Mono3DConfig, remat=False):
     else:
         run_forward = forward
 
-    def train_step(batch):
+    def backward(batch):
         batch = {k: as_tensor(v, device=dev) for k, v in batch.items()}
-        optimizer.zero_grad(set_to_none=True)
         outputs = run_forward(batch["images"])
         loss, aux = mono3d_loss(outputs, _frame_targets(cfg, batch))
         loss.backward()
-        optimizer.step()
         return {k: v.detach() for k, v in aux.items()}
 
-    return train_step
+    return _train_step(model, optimizer, backward)
 
 
 def mono3d_to_targets(boxes, scores, labels, classes, cam_to_velo=None,

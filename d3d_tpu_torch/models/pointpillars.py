@@ -754,6 +754,16 @@ def make_train_step(model, optimizer, cfg: PointPillarsConfig, anchors,
         loss.backward()
         return {k: v.detach() for k, v in aux.items()}
 
+    return _train_step(model, optimizer, backward, global_aux=("moe_aux",))
+
+
+def _train_step(model, optimizer, backward, global_aux=()):
+    """``step(batch) -> aux``: ``zero_grad``, ``backward(batch)`` (forward,
+    loss and backward, returning ``aux``), ``optimizer.step()``. The step
+    carries ``model``, ``optimizer``, ``backward`` and ``global_aux`` (the
+    ``aux`` keys that are whole on every rank of a sharded step), which
+    :func:`~d3d_tpu_torch.parallel.mesh.shard_train_step` reads; every
+    family's ``make_train_step`` builds its step here."""
     def train_step(batch):
         optimizer.zero_grad(set_to_none=True)
         aux = backward(batch)
@@ -761,5 +771,5 @@ def make_train_step(model, optimizer, cfg: PointPillarsConfig, anchors,
         return aux
 
     train_step.model, train_step.optimizer = model, optimizer
-    train_step.backward, train_step.global_aux = backward, ("moe_aux",)
+    train_step.backward, train_step.global_aux = backward, tuple(global_aux)
     return train_step

@@ -27,7 +27,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..utils import as_tensor, resolve_device
 from .centerpoint import _gaussian_radius
-from .pointpillars import _buffers_kept
+from ..parallel.comm import batch_sum
+from .pointpillars import _buffers_kept, _train_step
 from .second import _MaskedBN, _SpConv, second_voxelize, sparse_stage_loop
 
 __all__ = ["VoxelNeXtConfig", "VoxelNeXt", "compress_height",
@@ -302,12 +303,13 @@ def assign_voxelnext_targets(cfg: VoxelNeXtConfig, site_xy, site_valid,
 def voxelnext_loss(outputs, targets):
     """Penalty-reduced focal loss over the active sites + L1 at the
     assigned sites (batched: every leaf has a leading batch axis).
-    Returns ``(total, dict(hm, reg, total))``."""
+    Returns ``(total, dict(hm, reg, total))``. The positive count is the
+    whole batch's in a sharded step."""
     hm = torch.clamp(torch.sigmoid(outputs["heatmap"]), 1e-5, 1 - 1e-5)
     t = targets["heat"]
     valid = outputs["site_valid"][..., None]
     pos = (t >= 1.0 - 1e-6) & valid
-    npos = torch.clamp_min(pos.sum(), 1).to(torch.float32)
+    npos = torch.clamp_min(batch_sum(pos.sum()), 1).to(torch.float32)
     pos_l = -((1 - hm) ** 2) * torch.log(hm) * pos
     neg_l = -((1 - t) ** 4) * (hm ** 2) * torch.log(1 - hm) * (~pos & valid)
     hm_loss = (pos_l.sum() + neg_l.sum()) / npos
@@ -368,6 +370,11 @@ def make_train_step(model, optimizer, cfg: VoxelNeXtConfig, remat=False):
     :param remat: recompute the forward in the backward
         (``torch.utils.checkpoint``, the JAX step's ``jax.checkpoint``),
         with the BatchNorm buffers put back after the recompute
+
+    The step carries ``model``, ``optimizer``, ``backward`` (forward, loss
+    and backward on a batch, returning ``aux``) and ``global_aux`` (none),
+    which :func:`~d3d_tpu_torch.parallel.mesh.shard_train_step` runs over
+    a mesh, as the PointPillars step does.
     """
     dev = next(model.parameters()).device
 
@@ -383,9 +390,8 @@ def make_train_step(model, optimizer, cfg: VoxelNeXtConfig, remat=False):
     else:
         run_forward = forward
 
-    def train_step(batch):
+    def backward(batch):
         batch = {k: as_tensor(v, device=dev) for k, v in batch.items()}
-        optimizer.zero_grad(set_to_none=True)
         outputs = run_forward(batch["features"], batch["coords"],
                               batch["valid"])
         gv = batch.get("gt_velocity")
@@ -400,7 +406,6 @@ def make_train_step(model, optimizer, cfg: VoxelNeXtConfig, remat=False):
             targets = {k: torch.stack([p[k] for p in per]) for k in per[0]}
         loss, aux = voxelnext_loss(outputs, targets)
         loss.backward()
-        optimizer.step()
         return {k: v.detach() for k, v in aux.items()}
 
-    return train_step
+    return _train_step(model, optimizer, backward)

@@ -30,7 +30,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["sharded", "batch_groups", "loss_share", "live", "all_reduce_sum",
-           "batch_sum", "gather_slabs", "take_own", "all_to_all",
+           "batch_sum", "batch_mean", "gather_slabs", "take_own", "all_to_all",
            "SpatialHook"]
 
 _PARTITION = contextvars.ContextVar("d3d_tpu_torch_partition",
@@ -100,6 +100,15 @@ def all_reduce_sum(x, groups):
 def batch_sum(x):
     """:func:`all_reduce_sum` over :func:`batch_groups`."""
     return all_reduce_sum(x, batch_groups())
+
+
+def batch_mean(x):
+    """This rank's share of the whole batch's mean of ``x``: its sum over
+    the count of every rank's elements, so that the shares sum to the mean
+    once; ``x.mean()`` outside a sharded step (or on one rank)."""
+    if not live(batch_groups()):
+        return x.mean()
+    return x.sum() / batch_sum(x.new_tensor(float(x.numel())))
 
 
 class _GatherRows(torch.autograd.Function):

@@ -238,14 +238,16 @@ class _Leaf:
 def shard_train_step(train_step, mesh, donate=True, check_tp=True):
     """Run a ``make_train_step`` step over the mesh.
 
-    The step (``step(batch) -> aux`` from
-    :func:`~d3d_tpu_torch.models.pointpillars.make_train_step`, SECOND's
-    or SST's) carries its ``model``, ``optimizer`` and ``backward``. The
-    returned ``call(batch) -> aux`` takes the whole batch on every rank:
+    The step (``step(batch) -> aux`` from any family's
+    ``make_train_step``: PointPillars, SECOND, SST, CenterPoint, BEVSeg,
+    VoxelNeXt or Mono3D) carries its ``model``, ``optimizer`` and
+    ``backward``. The returned ``call(batch) -> aux`` takes the whole batch
+    on every rank:
 
-    - ``dp`` splits the batch rows; BatchNorm statistics, the detection
-      loss's positive count and the MoE load-balance statistics are the
-      whole batch's (:func:`~.comm.sharded`), and the gradients are summed
+    - ``dp`` splits the batch rows; BatchNorm statistics, the losses'
+      normalisers (positive, labelled-point and offset counts, the
+      heatmap mean) and the MoE load-balance statistics are the whole
+      batch's (:func:`~.comm.sharded`), and the gradients are summed
       over dp (and over sp, whose ranks each back-propagate their slab);
     - each parameter that :func:`param_partition_spec` partitions over
       ``tp`` is kept as a 1/tp shard along its output axis on each tp

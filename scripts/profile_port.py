@@ -34,11 +34,11 @@ from d3d_tpu_torch.dataset.kitti import KittiObjectClass  # noqa: E402
 from d3d_tpu_torch.models import (SECOND, PointPillars,  # noqa: E402
                                   decode_boxes, head_config, make_anchors,
                                   make_pointpillars_detector,
-                                  make_second_detector, make_train_step,
-                                  pillarize, presets, second_voxelize)
+                                  make_second_detector, pillarize, presets,
+                                  second_voxelize)
 from d3d_tpu_torch.models.inference import _bev  # noqa: E402
 from d3d_tpu_torch.models.second import (_batch_stage_maps,  # noqa: E402
-                                          _run_stages)
+                                          _run_stages, make_train_step)
 from d3d_tpu_torch.ops import geometry_cuda, nms_cuda  # noqa: E402
 from d3d_tpu_torch.ops._build import build  # noqa: E402
 from d3d_tpu_torch.ops.nms import nms2d  # noqa: E402

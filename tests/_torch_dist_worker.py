@@ -155,6 +155,65 @@ def _gt_boxes(rng, b, m=3):
             torch.as_tensor(mask))
 
 
+# the loss function each family's step calls, and the local count of what
+# it normalises by (the spies below read it on each rank)
+_FAMILY_LOSSES = {
+    "centerpoint": ("centerpoint", "center_loss",
+                    lambda a: int(a[1]["mask"].sum())),
+    "bevseg": ("bevseg", "segmentation_loss",
+               lambda a: int((a[1] != a[2].ignore_index).sum())),
+    "voxelnext": ("voxelnext", "voxelnext_loss",
+                  lambda a: int(a[1]["pos_mask"].sum())),
+    "mono3d": ("mono3d", "mono3d_loss", lambda a: int(a[1]["mask"].sum())),
+}
+
+
+def _family_steps(inputs, mesh):
+    """CenterPoint, BEVSeg (panoptic), VoxelNeXt and Mono3D TINY: each
+    family's plain step on the whole batch against its sharded step on
+    ``mesh``, and the count each rank's loss saw locally."""
+    import importlib
+
+    import torch
+
+    from d3d_tpu_torch.parallel import shard_train_step
+    from d3d_tpu_torch.train import make_optimizer
+
+    out = {}
+    for name, (cls, cfg, state, batch) in inputs["families"].items():
+        modname, fn, count = _FAMILY_LOSSES[name]
+        module = importlib.import_module(f"d3d_tpu_torch.models.{modname}")
+
+        def build():
+            model = cls(cfg, device="cpu")
+            model.load_state_dict(state)
+            opt, _ = make_optimizer(list(model.parameters()), 10,
+                                    base_lr=1e-3, schedule="constant")
+            return model, module.make_train_step(model, opt, cfg)
+
+        model, step = build()
+        res = {"plain_loss": {k: float(v) for k, v in step(batch).items()},
+               "plain_state": _state(model), "plain_grads": _grads(model)}
+        model, step = build()
+        counts, orig = [], getattr(module, fn)
+
+        def spy(*args, **kw):
+            counts.append(count(args))
+            return orig(*args, **kw)
+        setattr(module, fn, spy)
+        try:
+            sharded = shard_train_step(step, mesh, check_tp=False)
+            aux = sharded(batch)
+        finally:
+            setattr(module, fn, orig)
+        res.update(sharded_loss={k: float(v) for k, v in aux.items()},
+                   sharded_grads=_grads(model), local_count=counts[0],
+                   sharded_state={k: v.clone() for k, v in
+                                  sharded.full_state_dict().items()})
+        out[name] = res
+    return out
+
+
 def case_dp_tp(rank, world, inputs):
     import torch.distributed as dist
     from torch import nn
@@ -246,6 +305,9 @@ def case_dp_tp(rank, world, inputs):
     out["second_sharded_grads"] = _grads(model)
     out["second_sharded_state"] = sharded.full_state_dict()
     out["second_tp_names"] = tp_param_report(model, mesh)[0]
+
+    # the other families' steps (each carries model, optimizer, backward)
+    out["families"] = _family_steps(inputs, mesh)
     dist.barrier()
     return out
 

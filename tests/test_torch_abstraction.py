@@ -175,6 +175,46 @@ def test_pickle_round_trip():
         assert copy.frame == ta.frame and copy.timestamp == ta.timestamp
 
 
+def _taxonomies():
+    """(JAX enum, port enum, code) for every registered taxonomy."""
+    from d3d_tpu.dataset.nuscenes import constants as JN
+    from d3d_tpu.dataset.waymo.constants import WaymoObjectClass as JW
+
+    from d3d_tpu_torch.dataset.nuscenes import constants as TN
+    from d3d_tpu_torch.dataset.waymo.constants import WaymoObjectClass as TW
+    return [(JK, TK, 1), (JW, TW, 2),
+            (JN.NuscenesObjectClass, TN.NuscenesObjectClass, 3),
+            (JN.NuscenesDetectionClass, TN.NuscenesDetectionClass, 4)]
+
+
+@pytest.mark.parametrize("case", range(4), ids=["kitti", "waymo",
+                                                "nuscenes",
+                                                "nuscenes_detection"])
+def test_every_taxonomy_serializes_with_its_code(case):
+    """A tag of each built-in taxonomy carries the JAX package's code in
+    ``serialize()``, dumps to the same msgpack bytes and keeps its
+    ``mapping`` through a pickle round trip (a tag of a taxonomy left
+    unregistered would come back with ``mapping=None``)."""
+    jenum, tenum, code = _taxonomies()[case]
+    member = list(tenum)[1]
+    jtag = JA.ObjectTag(jenum[member.name], jenum, 0.5)
+    ttag = TA.ObjectTag(member, tenum, 0.5)
+    assert ttag.serialize()[0] == jtag.serialize()[0] == code
+    assert ttag.serialize() == jtag.serialize()
+    back = pickle.loads(pickle.dumps(ttag))
+    assert back.mapping is tenum and back.labels == ttag.labels
+    arrs = [mod.Target3DArray([mod.ObjectTarget3D(
+        [1.0, 2, 3], np.array([0, 0, 0, 1], np.float32), [4, 2, 1.6], tag,
+        tid=7)], frame="f") for mod, tag in ((JA, jtag), (TA, ttag))]
+    bufs = [io.BytesIO(), io.BytesIO()]
+    for arr, buf in zip(arrs, bufs):
+        arr.dump(buf)
+    assert bufs[1].getvalue() == bufs[0].getvalue()
+    loaded = TA.Target3DArray.load(io.BytesIO(bufs[0].getvalue()))
+    assert loaded[0].tag.mapping is tenum
+    assert loaded[0].tag_top is member
+
+
 def _transform_sets():
     out = []
     for mod, _ in SIDES:

@@ -183,7 +183,8 @@ def test_training_runs_on_the_cpu_only_when_asked():
     versions of K5 and K6, which count no launch."""
     if torch.cuda.is_available():
         pytest.skip("this checks the behaviour without CUDA")
-    from d3d_tpu_torch.models import make_train_step, second_voxelize
+    from d3d_tpu_torch.models import second_voxelize
+    from d3d_tpu_torch.models.second import make_train_step
     from d3d_tpu_torch.train import make_optimizer
 
     cfg = _tiny_second()
@@ -396,3 +397,47 @@ def test_default_mesh_needs_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         _mesh("cuda", [0], (1,), ("dp",))
+
+
+def test_new_modules_read_nothing_of_the_jax_package(tmp_path):
+    """The sequence loaders, ``io``, ``vis`` and ``native`` are among the
+    modules the import checks walk, and in a fresh process that imports
+    every module of the port, builds the native oracle from scratch and
+    reads a KITTI tracking sequence, no file under ``d3d_tpu/`` is opened
+    and no command names one (an audit hook sees every ``open`` and
+    ``subprocess.Popen``)."""
+    assert {"d3d_tpu_torch.dataset.kitti.tracking",
+            "d3d_tpu_torch.dataset.kitti.raw",
+            "d3d_tpu_torch.dataset.kitti.odometry",
+            "d3d_tpu_torch.dataset.waymo.loader",
+            "d3d_tpu_torch.dataset.cadc.loader", "d3d_tpu_torch.io.hdf5",
+            "d3d_tpu_torch.io.ros", "d3d_tpu_torch.vis.pcl",
+            "d3d_tpu_torch.native"} <= set(_submodules())
+    code = (
+        "import importlib, sys\n"
+        f"ref = {str(ROOT / 'd3d_tpu')!r}\n"
+        "seen = []\n"
+        "def hook(event, args):\n"
+        "    if event in ('open', 'subprocess.Popen'):\n"
+        "        if ref + '/' in repr(args):\n"
+        "            seen.append((event, repr(args)[:200]))\n"
+        "sys.addaudithook(hook)\n"
+        f"for m in ['d3d_tpu_torch'] + {_submodules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import d3d_tpu_torch.native as n\n"
+        f"n.BUILD_DIR = __import__('pathlib').Path({str(tmp_path)!r})\n"
+        "assert n.available(), n._BUILD_ERROR\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import kitti_fixture as kfx\n"
+        "from d3d_tpu_torch.dataset.kitti import KittiTrackingLoader\n"
+        f"kfx.build_tracking({str(tmp_path / 'trk')!r}, seqs=(0,),"
+        " frames_per_seq=2)\n"
+        f"ld = KittiTrackingLoader({str(tmp_path / 'trk')!r},"
+        " trainval_split=1)\n"
+        "ld.lidar_data(0), ld.annotation_3dobject(1), ld.pose(1)\n"
+        "print(seen)\n"
+        "sys.exit(1 if seen else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert list(tmp_path.glob("libd3dhost-*.so"))

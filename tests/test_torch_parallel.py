@@ -1,8 +1,9 @@
 """The port's ``parallel`` package against the JAX package's: the mesh
 rules and stat merges in this process, and sharded training on gloo ranks
-(``tests/_torch_dist_worker.py``): PointPillars TINY and SECOND TINY on a
-dp2 x tp2 mesh of 4 ranks, and PointPillars on a dp2 x sp2 mesh with its
-BEV backbone split into slabs of rows.
+(``tests/_torch_dist_worker.py``): PointPillars TINY, SECOND TINY and the
+CenterPoint, BEVSeg, VoxelNeXt and Mono3D TINY steps on a dp2 x tp2 mesh
+of 4 ranks, and PointPillars on a dp2 x sp2 mesh with its BEV backbone
+split into slabs of rows.
 
 The JAX side runs on the 8 virtual CPU devices of ``tests/conftest.py``,
 with the flax weights carried to the port by ``models/convert.py``. The
@@ -120,13 +121,156 @@ def pp_jax():
                 loss_sp=loss(sp_mesh, JP.spatial_constrain(sp_mesh)))
 
 
+_BOUNDS = (0.0, 16.0, -8.0, 8.0, -3.0, 1.0)
+CP_TINY = dict(bounds=_BOUNDS, grid=(32, 32), max_pillars=256,
+               max_points_per_pillar=16, pfn_features=32,
+               backbone_channels=(32, 64), backbone_blocks=(1, 1),
+               upsample_channels=32, head_channels=16, window=9, top_k=8)
+BEV_TINY = dict(bounds=_BOUNDS, grid=(32, 32), max_pillars=256,
+                max_points_per_pillar=16, pfn_features=16,
+                enc_channels=(16, 32), enc_blocks=(1, 1), dec_channels=16,
+                num_classes=4, ignore_index=0, panoptic=True,
+                thing_classes=(1, 2), max_instances=8, center_sigma=1.0,
+                center_radius=2.0)
+VN_TINY = dict(bounds=_BOUNDS, grid=(32, 32, 8), max_voxels=512,
+               stage_channels=(8, 16, 32), stage_sites=(512, 256, 128),
+               subm_per_stage=1, bev_sites=128, head_channels=16,
+               num_classes=2, top_k=16)
+MONO_TINY = dict(image_size=(96, 128), stride=4,
+                 backbone_channels=(8, 16, 32), head_channels=16,
+                 num_classes=2, top_k=8,
+                 dim_priors=((3.88, 1.63, 1.53), (0.84, 0.66, 1.76)))
+FAMILIES = ("centerpoint", "bevseg", "voxelnext", "mono3d")
+
+
+def _family_batches(b=4):
+    """Batches of 4 frames whose halves differ: the first two frames hold
+    three boxes (BEVSeg: three instances, few unlabelled points), the
+    last two one box (one instance, a third of the points unlabelled)
+    and 4x the intensities. Pillars and voxels by the port (held to the
+    JAX package's in the families' own test files)."""
+    from d3d_tpu_torch.models import (bevseg_pillarize, pillarize,
+                                      point_cell_coords, voxelnext_voxelize)
+    from d3d_tpu_torch.models import BEVSegConfig as TBC
+    from d3d_tpu_torch.models import CenterPointConfig as TCC
+    from d3d_tpu_torch.models import VoxelNeXtConfig as TVC
+
+    rng = np.random.default_rng(16)
+    n = 2048
+    clouds = np.stack([np.stack([
+        rng.random(n) * 16, rng.random(n) * 16 - 8, rng.random(n) * 4 - 3,
+        rng.random(n) * (1.0 if i < b // 2 else 4.0)], axis=1)
+        for i in range(b)]).astype(np.float32)
+    m = 3
+    gt = np.stack([np.stack([
+        rng.random(m) * 12 + 2, rng.random(m) * 12 - 6, np.full(m, -1.0),
+        np.full(m, 3.9), np.full(m, 1.6), np.full(m, 1.56),
+        rng.random(m) * np.pi - np.pi / 2], axis=1)
+        for _ in range(b)]).astype(np.float32)
+    mask = np.ones((b, m), bool)
+    mask[b // 2:, 1:] = False
+    labels = rng.integers(0, 2, (b, m)).astype(np.int32)
+    boxes = dict(gt_boxes=gt, gt_labels=labels, gt_mask=mask)
+
+    def stack(fn, cfg):
+        frames = [fn(torch.from_numpy(c), cfg) for c in clouds]
+        return {k: torch.stack([f[i] for f in frames]).numpy()
+                for i, k in enumerate(("features", "coords", "valid"))}
+
+    out = {"centerpoint": dict(stack(pillarize, TCC(**CP_TINY)),
+                               gt_boxes=gt, gt_labels=np.zeros_like(labels),
+                               gt_mask=mask),
+           "voxelnext": dict(stack(voxelnext_voxelize, TVC(**VN_TINY)),
+                             **boxes)}
+    bcfg = TBC(**BEV_TINY)
+    sem = np.full((b, n), 3, np.int32)
+    inst = np.zeros((b, n), np.int32)
+    pts = clouds.copy()
+    for i in range(b):
+        for k in range(3 if i < b // 2 else 1):
+            s = slice(k * 200, (k + 1) * 200)
+            pts[i, s, :2] = gt[i, k, :2] + rng.normal(0, 0.4, (200, 2))
+            sem[i, s], inst[i, s] = 1 + k % 2, k + 1
+        sem[i, rng.random(n) < (0.04 if i < b // 2 else 0.33)] = 0
+    out["bevseg"] = dict(
+        stack(bevseg_pillarize, bcfg), points=pts, labels=sem,
+        inst_ids=inst, point_coords=np.stack([point_cell_coords(
+            torch.from_numpy(p[:, :3]), bcfg).numpy() for p in pts]))
+    k = np.array([[60.0, 0.0, 64.0], [0.0, 60.0, 48.0], [0.0, 0.0, 1.0]],
+                 np.float32)
+    cam = gt[..., [1, 2, 0, 3, 4, 5, 6]] * [-1, -1, 1, 1, 1, 1, 1]
+    cam[..., 1] = 1.5
+    out["mono3d"] = dict(
+        images=rng.random((b, *MONO_TINY["image_size"], 3)).astype(
+            np.float32),
+        intrinsics=np.stack([k] * b), gt_boxes=cam.astype(np.float32),
+        gt_labels=labels, gt_mask=mask)
+    return out
+
+
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory, pp_jax):
+def fam_jax():
+    """The families' batches, flax weights (CenterPoint, BEVSeg,
+    VoxelNeXt) carried to the port, and the JAX package's
+    ``shard_train_step`` loss on a dp2 x tp2 mesh of its CPU devices;
+    Mono3D, which the JAX package does not shard, from the port's own
+    seeded initialisation."""
+    from d3d_tpu.models import BEVSeg as JB, BEVSegConfig as JBC
+    from d3d_tpu.models import CenterPoint as JC, CenterPointConfig as JCC
+    from d3d_tpu.models import VoxelNeXt as JV
+    from d3d_tpu.models.bevseg import make_train_step as jb_step
+    from d3d_tpu.models.centerpoint import make_train_step as jc_step
+    from d3d_tpu.models.voxelnext import VoxelNeXtConfig as JVC
+    from d3d_tpu.models.voxelnext import make_train_step as jv_step
+    from d3d_tpu_torch.models import (BEVSeg, BEVSegConfig, CenterPoint,
+                                      CenterPointConfig, Mono3D,
+                                      Mono3DConfig, VoxelNeXt,
+                                      VoxelNeXtConfig,
+                                      bevseg_state_from_flax,
+                                      centerpoint_state_from_flax,
+                                      voxelnext_state_from_flax)
+
+    batches = _family_batches()
+    mesh = JP.make_mesh(4, dp=2, tp=2)
+    opt = optax.adam(1e-3)
+    fams, losses = {}, {}
+    for name, jcls, jcfg, jstep, tcls, tcfg, conv, args in (
+            ("centerpoint", JC, JCC(**CP_TINY), jc_step, CenterPoint,
+             CenterPointConfig(**CP_TINY), centerpoint_state_from_flax,
+             ("features", "coords", "valid")),
+            ("bevseg", JB, JBC(**BEV_TINY), jb_step, BEVSeg,
+             BEVSegConfig(**BEV_TINY), bevseg_state_from_flax,
+             ("features", "coords", "valid", "point_coords")),
+            ("voxelnext", JV, JVC(**VN_TINY), jv_step, VoxelNeXt,
+             VoxelNeXtConfig(**VN_TINY), voxelnext_state_from_flax,
+             ("features", "coords", "valid"))):
+        batch = batches[name]
+        model = jcls(jcfg)
+        variables = jax.jit(model.init)(
+            jax.random.PRNGKey(0), *(jnp.asarray(batch[k]) for k in args))
+        fn = JP.shard_train_step(jstep(model, opt, jcfg), mesh,
+                                 donate=False, check_tp=False)
+        _, _, _, aux = fn(variables["params"], variables["batch_stats"],
+                          opt.init(variables["params"]),
+                          {k: jnp.asarray(v) for k, v in batch.items()})
+        losses[name] = {k: float(v) for k, v in aux.items()}
+        fams[name] = (tcls, tcfg, conv(variables), _to_torch(batch))
+    mcfg = Mono3DConfig(**MONO_TINY)
+    mono = Mono3D(mcfg, device="cpu",
+                  generator=torch.Generator().manual_seed(4))
+    fams["mono3d"] = (Mono3D, mcfg, mono.state_dict(),
+                      _to_torch(batches["mono3d"]))
+    return dict(families=fams, losses=losses)
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory, pp_jax, fam_jax):
     """The dp x tp and dp x sp groups' results (4 ranks each, in turn)."""
     out = tmp_path_factory.mktemp("parallel")
     torch.save(dict(pp_cfg=TConfig(**TINY),
                     pp_state=pointpillars_state_from_flax(pp_jax["variables"]),
-                    pp_batch=_to_torch(pp_jax["batch"])), out / "inputs.pt")
+                    pp_batch=_to_torch(pp_jax["batch"]),
+                    families=fam_jax["families"]), out / "inputs.pt")
     dp_tp = Group("dp_tp", 4, out)
     dp_sp = Group("dp_sp", 4, out)
     return dict(dp_tp=dp_tp.results(), dp_sp=dp_sp.results())
@@ -440,6 +584,59 @@ def test_second_dp_tp_step_equals_the_single_process_step(ranks):
                                    rtol=1e-6, atol=1e-7)
         _assert_state_close(r["second_sharded_state"],
                             r["second_plain_state"])
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_family_sharded_step_equals_the_single_process_step(ranks, family):
+    """CenterPoint, BEVSeg (panoptic), VoxelNeXt and Mono3D steps carry
+    what ``shard_train_step`` reads; on dp2 x tp2 their loss terms equal
+    the plain step's on the whole batch (rtol 1e-6), each leaf's summed
+    gradient is within 3e-5 of its largest entry (a head bias sums 4 096
+    float32 terms a frame in two halves: 1.02e-5 seen; a bias before a
+    batch-statistics BatchNorm, whose gradient is zero but for rounding,
+    is held to 3e-7 of the step's largest entry instead: 6e-8 seen) and
+    the updated state within 1e-5 (but for such a bias, which Adam's first
+    step moves by lr times the sign of its rounding), though the dp
+    halves' normalisers differ (a per-rank count would be off by a
+    factor, not by rounding)."""
+    counts = {}
+    for rank, r in enumerate(ranks["dp_tp"]):
+        got = r["families"][family]
+        assert set(got["sharded_loss"]) == set(got["plain_loss"])
+        for k, want in got["plain_loss"].items():
+            np.testing.assert_allclose(got["sharded_loss"][k], want,
+                                       rtol=1e-6, atol=1e-7, err_msg=k)
+        top = max(float(w.abs().max()) for w in got["plain_grads"].values())
+        for k, w in got["plain_grads"].items():
+            g = got["sharded_grads"][k]
+            if g.shape != w.shape:
+                axis = [d for d in range(w.ndim) if g.shape[d] != w.shape[d]]
+                w = w.chunk(2, axis[0])[r["tp_rank"]]
+            scale = max(float(w.abs().max()), 1e-2 * top)
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                       atol=3e-5 * scale, err_msg=k)
+        noise = {k for k, w in got["plain_grads"].items()
+                 if float(w.abs().max()) < 1e-6 * top}
+        _assert_state_close(
+            {k: v for k, v in got["sharded_state"].items() if k not in noise},
+            {k: v for k, v in got["plain_state"].items() if k not in noise})
+        counts.setdefault(rank // 2, got["local_count"])
+    assert counts[0] != counts[1], counts
+
+
+@pytest.mark.parametrize("family", ["centerpoint", "bevseg", "voxelnext"])
+def test_family_sharded_loss_equals_the_jax_sharded_step(ranks, fam_jax,
+                                                        family):
+    """The port's sharded loss against the JAX package's
+    ``shard_train_step`` on the same mesh shape, weights and batch (both
+    float32: rtol 1e-5)."""
+    want = fam_jax["losses"][family]
+    for r in ranks["dp_tp"]:
+        got = r["families"][family]["sharded_loss"]
+        for k in ("total",) + tuple(k for k in want if k in got
+                                    and k != "total"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
+                                       atol=1e-7, err_msg=k)
 
 
 # ---------------------------------------------------------------------------

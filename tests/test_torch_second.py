@@ -31,7 +31,7 @@ from d3d_tpu_torch.models import head_config as t_head_config
 from d3d_tpu_torch.models import make_anchors as t_make_anchors
 from d3d_tpu_torch.models import make_second_detector as t_make_detector
 from d3d_tpu_torch.models import presets as t_presets
-from d3d_tpu_torch.models import make_train_step as t_make_train_step
+from d3d_tpu_torch.models.second import make_train_step as t_make_train_step
 from d3d_tpu_torch.models import second_params_from_flax
 from d3d_tpu_torch.models import second_state_from_flax
 from d3d_tpu_torch.models import second_voxelize as t_second_voxelize
