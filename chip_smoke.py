@@ -168,7 +168,17 @@ imports no JAX and nothing of ``d3d_tpu``. In order, it
    ``painting_rig`` against the loader's projection; a KITTI raw drive
    (its tracklets through ``DeviceCenterTracker``, MOTA 1) and a CADC
    drive through PointPillars; ``io.hdf5`` round trip; the native C++
-   oracle against K1 and ``box2d_nms(precise=True)`` at 4096 boxes);
+   oracle against K1 and ``box2d_nms(precise=True)`` at 4096 boxes) and,
+   after SECOND's training, ``examples`` (the seven
+   ``examples/torch_*.py`` in this process at their originals' defaults,
+   ``train_pointpillars`` at 10 steps then resumed from its checkpoint,
+   each example's launches counted apart; the evaluator's counters, the
+   trackers' metrics and the serving loop's first 3 live counts equal to
+   the same runs on the CPU; the detector's export round trip) and
+   ``dryrun`` (``d3d_tpu_torch.dryrun``: ``entry()``'s forward, then
+   ``dryrun_multichip`` over every card under NCCL, its child ranks'
+   launches summed; on one card a world of one, where the pp and ep
+   branches do not run);
    each path must launch its kernels, and nms2d K1's bit form and the
    scan only (``check_nms_routes``);
 4. checks the outputs: finite, of the expected shape, the keep masks equal
@@ -1773,10 +1783,11 @@ def read_routes():
             route_counters().items()}
 
 
-def check_nms_routes(name, calls, scan="scan_warp"):
+def check_nms_routes(name, calls, scan="scan_warp", routes=None):
     """``calls`` nms2d calls ran K1's bit form and the scan (``scan``
-    route) once each, and neither K1's f32 form nor the pack kernel."""
-    routes = read_routes()
+    route) once each, and neither K1's f32 form nor the pack kernel:
+    ``routes`` (this process's since ``reset_counts`` when None)."""
+    routes = read_routes() if routes is None else routes
     want = dict(k1_matrix=0, k1_bits=calls, pack=0, scan_warp=0,
                 scan_block=0)
     want[scan] = calls
@@ -9346,6 +9357,318 @@ def datasets_phase(dev):
     return counts, stats
 
 
+# ---------------------------------------------------------------------------
+# examples and the dry run: the user-facing scripts and the repo's entry
+# points, on the card
+# ---------------------------------------------------------------------------
+
+EX_PP_STEPS = 10      # train_pointpillars' --steps (its default is 50)
+EX_PP_RESUME = 2      # steps of the run that resumes from its checkpoint
+EX_SERVE_CPU = 3      # serve_tracking frames held to the CPU
+
+
+def example_module(name):
+    """``examples/<name>.py`` imported from the checkout."""
+    import importlib
+
+    path = str(ROOT / "examples")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(name)
+
+
+def run_example(name, fn):
+    """(result, launch counts, wall s) of one example's run on the card,
+    the counts set to 0 just before and read just after; logs both."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"examples: {name}: {wall:.2f} s, K1 {counts['rbox_iou_matrix']}, "
+        f"K2 {counts['nms_scan']}")
+    return out, counts, wall
+
+
+def same_metrics(name, card, cpu, path=""):
+    """Nested metrics card vs CPU: ints exact, floats within 1e-5 (f32
+    IoU accumulations in another order); returns the largest float
+    difference."""
+    if isinstance(cpu, dict):
+        check(card.keys() == cpu.keys(), f"{name}: keys {path}")
+        return max([same_metrics(name, card[k], cpu[k], f"{path}/{k}")
+                    for k in cpu] + [0.0])
+    if isinstance(cpu, float) and isinstance(card, float):
+        if math.isnan(cpu):
+            check(math.isnan(card), f"{name}: {path} {card} vs nan")
+            return 0.0
+        err = abs(card - cpu)
+        check(err <= 1e-5, f"{name}: {path} {card} vs {cpu}")
+        return err
+    check(card == cpu, f"{name}: {path} {card} vs {cpu}")
+    return 0.0
+
+
+def examples_evaluate(dev, stats, counts):
+    demo = example_module("torch_evaluate_detections")
+    ev, counts["evaluate_detections"], stats["evaluate_detections_s"] = \
+        run_example("evaluate_detections", lambda: demo.run(128, dev))
+    cpu = demo.run(128, "cpu")
+    card, want = ev.metrics_dict(), cpu.metrics_dict()
+    stats["evaluate_detections_max_err"] = same_metrics(
+        "evaluate_detections", card, want)
+    check(card["Car"]["tp"] > 0 and card["Pedestrian"]["tp"] > 0,
+          "evaluate_detections: no true positive")
+    stats["evaluate_detections_map"] = card["mAP"]
+
+
+def examples_tracking(dev, stats, counts):
+    demo = example_module("torch_track_sequence")
+    got, counts["track_sequence"], stats["track_sequence_s"] = run_example(
+        "track_sequence", lambda: demo.run(40, 6, dev))
+    want = demo.run(40, 6, "cpu")
+    for name in want:
+        for k, v in want[name].items():
+            same = got[name][k] == v or (
+                isinstance(v, float) and math.isnan(v)
+                and math.isnan(got[name][k]))
+            check(same, f"track_sequence: {name} {k} card {got[name][k]} "
+                  f"vs CPU {v}")
+    stats["track_sequence"] = {name: {k: v for k, v in m.items()
+                                      if k != "tids"}
+                               for name, m in got.items()}
+
+
+def examples_kitti_raw(dev, stats, counts, root):
+    sys.path.insert(0, str(ROOT / "tests"))
+    from dataset_fixtures import build_kitti_raw
+
+    from d3d_tpu_torch.dataset.kitti.utils import KittiObjectClass
+
+    demo = example_module("torch_kitti_raw_pipeline")
+    build_kitti_raw(root / "kitti_raw", nframes=3)
+    ev, counts["kitti_raw_pipeline"], stats["kitti_raw_pipeline_s"] = \
+        run_example("kitti_raw_pipeline",
+                    lambda: demo.run(root / "kitti_raw", device=dev))
+    check(ev.mota()[KittiObjectClass.Car] == 1.0
+          and not any(ev.id_switches().values()),
+          "kitti_raw_pipeline: the ground truth tracked imperfectly")
+
+
+def examples_viewer(dev, stats, counts, root):
+    """The viewer's frame loop with a recording renderer (the card's
+    machine has neither pcl nor matplotlib)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from dataset_fixtures import build_waymo
+
+    demo = example_module("torch_dataset_viewer")
+    build_waymo(root / "waymo", nframes=3)
+    seen = []
+
+    def render(cloud, lidar_frame, objs, calib):
+        seen.append((len(cloud), len(objs), lidar_frame))
+
+    _, counts["dataset_viewer"], stats["dataset_viewer_s"] = run_example(
+        "dataset_viewer", lambda: demo.dataset_visualize_pcl(
+            root / "waymo", "waymo", "1234567890_000_000_1234567890_000",
+            device=dev, render=render, ask=lambda prompt: ""))
+    check(len(seen) == 3 and all(n > 0 and m > 0 for n, m, _ in seen),
+          f"dataset_viewer: frames {seen}")
+    stats["dataset_viewer_frames"] = seen
+
+
+def check_keep_masks(name, dets, iou_threshold=0.5):
+    """Each frame's keep mask from the card (K1's bit rows and the scan)
+    equal to the CPU's nms2d (the plain IoU and scan) on the card's own
+    boxes and scores, so box rounding cannot explain a difference."""
+    from d3d_tpu_torch.models.inference import _bev
+    from d3d_tpu_torch.ops.nms import nms2d
+
+    for t, (boxes, scores, keep) in enumerate(dets):
+        want = ~nms2d(_bev(boxes), scores.float(),
+                      iou_threshold=iou_threshold, iou_method="rbox")
+        check(torch.equal(keep, want), f"{name} frame {t}: keep mask card "
+              f"({int(keep.sum())} kept) vs CPU ({int(want.sum())} kept)")
+
+
+def examples_serving(dev, stats, counts):
+    """serve_tracking: 20 frames and the reloaded artifact's one step on
+    the card; every frame's keep mask held to the CPU's NMS on the card's
+    boxes (top-k 32), and the first frames' scores, kept scores and live
+    tracks held to the same run on the CPU with the same weights."""
+    demo = example_module("torch_serve_tracking")
+    got, counts["serve_tracking"], stats["serve_tracking_s"] = run_example(
+        "serve_tracking", lambda: demo.run(20, dev))
+    check_nms_routes("serve_tracking", 21)
+    check_keep_masks("serve_tracking", got["dets"])
+    cpu = demo.run(EX_SERVE_CPU, "cpu")
+    # f32 on both sides (TF32 off), summed in other orders: scores within
+    # 1e-4, compare_with_cpu's bound. The k-th largest score moves no
+    # more than the scores do, so the sorted top-k is compared whatever
+    # order near-ties take; so are the kept scores, sorted
+    score_err = 0.0
+    for t in range(EX_SERVE_CPU):
+        (_, sg, kg), (_, sc, kc) = got["dets"][t], cpu["dets"][t]
+        top = float((sg.sort().values - sc.sort().values).abs().max())
+        check(top <= 1e-4, f"serve_tracking frame {t}: top-k scores card "
+              f"vs CPU {top}")
+        check(int(kg.sum()) == int(kc.sum()), f"serve_tracking frame {t}: "
+              f"kept card {int(kg.sum())} vs CPU {int(kc.sum())}")
+        kept = float((sg[kg].sort().values - sc[kc].sort().values)
+                     .abs().max()) if bool(kg.any()) else 0.0
+        check(kept <= 1e-4, f"serve_tracking frame {t}: kept scores card "
+              f"vs CPU {kept}")
+        score_err = max(score_err, top, kept)
+    card = got["live"][:EX_SERVE_CPU]
+    if card != cpu["live"]:
+        # an ulp between the card's and the CPU's f32 scores (the trap of
+        # compare_with_cpu) may move a score across the admission gate;
+        # only a score that close explains a different count
+        near = min([float((s[k] - demo.SCORE_GATE).abs().min())
+                    for run in (got, cpu)
+                    for _, s, k in run["dets"][:EX_SERVE_CPU] if k.any()]
+                   + [math.inf])
+        check(near <= 1e-5, f"serve_tracking: live tracks card {card} vs "
+              f"CPU {cpu['live']}, the nearest score {near} off the gate")
+        log(f"examples: serve_tracking live tracks card {card} vs CPU "
+            f"{cpu['live']}: a score {near:.2e} from the gate")
+    check(got["export_bytes"] > 0 and got["export_live"] > 0,
+          "serve_tracking: the export round trip")
+    kept_n = [int(k.sum()) for _, _, k in got["dets"]]
+    log(f"examples: serve_tracking keep masks of {len(kept_n)} frames equal "
+        f"to the CPU's NMS on the card's boxes (kept {kept_n}); frames "
+        f"0-{EX_SERVE_CPU - 1} scores card vs CPU within {score_err:.3g}")
+    stats["serve_tracking"] = dict(
+        live=got["live"], cpu_live=cpu["live"], kept=kept_n,
+        score_err=score_err, steady_ms=statistics.median(got["ms"][2:]),
+        first_ms=got["ms"][0], export_bytes=got["export_bytes"],
+        export_live=got["export_live"])
+
+
+def examples_mono3d(dev, stats, counts):
+    demo = example_module("torch_train_mono3d")
+    got, counts["train_mono3d"], stats["train_mono3d_s"] = run_example(
+        "train_mono3d", lambda: demo.run(150, dev))
+    losses = [s["total"] for s in got["losses"]]
+    check(len(losses) == 150 and np.isfinite(losses).all()
+          and np.isfinite(got["ap"]), "train_mono3d: non-finite")
+    stats["train_mono3d"] = dict(first_loss=losses[0], last_loss=losses[-1],
+                                 ap=got["ap"], depth_err=got["depth_err"])
+
+
+def examples_pointpillars(dev, stats, counts, root):
+    import shutil
+
+    import torch.distributed as dist
+
+    demo = example_module("torch_train_pointpillars")
+    ckpt = root / "pp_ckpts"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    check(not dist.is_initialized(), "train_pointpillars: a process group "
+          "is left from an earlier phase")
+    got, counts["train_pointpillars"], stats["train_pointpillars_s"] = \
+        run_example("train_pointpillars", lambda: demo.run(
+            steps=EX_PP_STEPS, ckpt_dir=str(ckpt), device=dev))
+    resumed, c2, s2 = run_example("train_pointpillars (resumed)",
+                                  lambda: demo.run(steps=EX_PP_RESUME,
+                                                   ckpt_dir=str(ckpt),
+                                                   device=dev))
+    add_counts(counts["train_pointpillars"], c2)
+    stats["train_pointpillars_s"] += s2
+    check(len(got["losses"]) == EX_PP_STEPS
+          and np.isfinite(got["losses"] + resumed["losses"]).all(),
+          f"train_pointpillars: losses {got['losses']} {resumed['losses']}")
+    check((resumed["start"], resumed["step"])
+          == (EX_PP_STEPS, EX_PP_STEPS + EX_PP_RESUME),
+          f"train_pointpillars: resumed {resumed['start']} -> "
+          f"{resumed['step']}")
+    check(not dist.is_initialized(),
+          "train_pointpillars: its world of one was not ended")
+    stats["train_pointpillars"] = dict(losses=got["losses"],
+                                       resumed_losses=resumed["losses"])
+
+
+def examples_phase(dev):
+    """The seven ``examples/torch_*.py`` in this process on the card at
+    their originals' defaults (train_pointpillars at ``--steps 10``), each
+    example's launches counted apart and its wall time logged; the
+    evaluator's counters, the trackers' metrics and the serving loop's
+    first live tracks held to the same runs on the CPU. Returns (counts
+    summed over the examples, stats)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "examples"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    counts, stats = {}, {}
+    examples_evaluate(dev, stats, counts)
+    examples_tracking(dev, stats, counts)
+    examples_kitti_raw(dev, stats, counts, root)
+    examples_viewer(dev, stats, counts, root)
+    examples_serving(dev, stats, counts)
+    examples_mono3d(dev, stats, counts)
+    examples_pointpillars(dev, stats, counts, root)
+    total = {}
+    for c in counts.values():
+        add_counts(total, c)
+    stats["launches"] = counts
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"examples: {stats['phase_s']:.1f} s")
+    return total, stats
+
+
+def dryrun_phase(dev):
+    """``d3d_tpu_torch.dryrun``: ``entry()``'s forward on the card, then
+    ``dryrun_multichip`` over every card under NCCL (its ranks are child
+    processes; their launches come back summed). Returns (counts, stats)."""
+    from d3d_tpu_torch import dryrun
+
+    t0 = time.perf_counter()
+    reset_counts()
+    fn, args = dryrun.entry(dev)
+    out, ms, _ = timed(lambda: fn(*args))
+    check([tuple(o.shape) for o in out]
+          == [(1, 131072, 1), (1, 131072, 7), (1, 131072, 2)]
+          and all(bool(torch.isfinite(o).all()) for o in out),
+          f"dryrun: entry forward {[tuple(o.shape) for o in out]}")
+    stats = dict(entry_first_ms=ms,
+                 entry_ms=median_ms(lambda: fn(*args), reps=10))
+    counts = read_counts()
+    n = torch.cuda.device_count()
+    t1 = time.perf_counter()
+    res = dryrun.dryrun_multichip(n, device="cuda")
+    stats["dryrun_s"] = time.perf_counter() - t1
+    for k, v in res["launches"].items():
+        counts[k] = counts.get(k, 0) + v
+    check(np.isfinite(res["loss"]) and res["ap"] > 0.99,
+          f"dryrun: loss {res['loss']}, ap {res['ap']}")
+    # every rank serves its dp share (one frame): n nms2d calls, on K1's
+    # bit rows and the scan; the gathered keep masks (top-k 16) held to
+    # the CPU's NMS on the card's boxes
+    check_nms_routes("dryrun shard_inference", n, routes=res["routes"])
+    boxes, scores, keep = res["serve"]
+    check_keep_masks("dryrun shard_inference", list(zip(boxes, scores, keep)))
+    log(f"dryrun: shard_inference keep masks of {len(keep)} frame(s) equal "
+        f"to the CPU's NMS on the card's boxes (kept "
+        f"{[int(k.sum()) for k in keep]} of {keep.shape[1]})")
+    if n % 4:
+        check(res["pp_loss"] is None and res["ep_loss"] is None,
+              "dryrun: pp/ep ran on a world that is not a multiple of 4")
+        log(f"dryrun: a world of {n}: the pp and ep branches do not run "
+            "(n % 4 != 0), as the JAX function skips them")
+    stats.update({k: res[k] for k in ("mesh", "loss", "ap", "pp_loss",
+                                      "ep_loss", "seconds")})
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"dryrun: entry forward {stats['entry_ms']:.3f} ms (median of 10), "
+        f"dry run {stats['dryrun_s']:.1f} s on {n} rank(s), K1 "
+        f"{counts['rbox_iou_matrix']}, K2 {counts['nms_scan']}; "
+        f"{stats['phase_s']:.1f} s")
+    return counts, stats
+
+
 def add_cupti(a, b):
     """A sum of CUPTI times that is None where a term is."""
     return None if a is None or b is None else a + b
@@ -9959,6 +10282,8 @@ def main():
             train_counts[k] = train_counts.get(k, 0) + v
     train_stats["card_vs_cpu_grad_err"] = train_card_vs_cpu(dev, state,
                                                             batch)
+    ex_counts, ex_stats = examples_phase(dev)
+    dr_counts, dr_stats = dryrun_phase(dev)
     times = kernel_times(dev, ns_inputs, (tb2048, ts2048), soft_inputs,
                          soft_stats, k4_api_inputs, k5_layers, train_layers,
                          kitti_layers, kitti_train_layers)
@@ -9980,7 +10305,9 @@ def main():
                       "sst_kitti": sum(c[name] for c in sst_counts.values()),
                       "export": sum(c[name] for c in export_counts.values()),
                       "parallel": sum(c[name] for c in par_counts.values()),
-                      **{path: c[name] for path, c in ds_counts.items()}}
+                      **{path: c[name] for path, c in ds_counts.items()},
+                      "examples": ex_counts[name],
+                      "dryrun": dr_counts[name]}
                for name in serve_counts}
     meta = {
         "rbox_iou_matrix": ("cuda", "d3d_tpu_torch/csrc/rbox_iou.cu",
@@ -10083,7 +10410,10 @@ def main():
                               "parallel": dict(par_stats,
                                                launches=par_counts),
                               "datasets": dict(ds_stats,
-                                               launches=ds_counts)},
+                                               launches=ds_counts),
+                              "examples": ex_stats,
+                              "dryrun": dict(dr_stats,
+                                             launches=dr_counts)},
                     "card": card}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,7 +7,9 @@ optimizer)``: parameters and buffers by name, the optimizer's
 tensors to the host, then a background thread writes them under a
 temporary name and renames the file into place, so a crash never leaves a
 partial checkpoint under a step's name. The newest ``keep`` checkpoints
-are kept.
+are kept. In a process group the ranks share the directory, as orbax's
+do: rank 0 writes, every rank saves and restores the same steps, and
+:meth:`TrainCheckpointer.wait` (so also ``restore``) is a barrier.
 
 Usage::
 
@@ -69,6 +71,7 @@ class TrainCheckpointer:
         self._lock = threading.Lock()
         self._threads = []
         self._pending = set()
+        self._recorded = set()  # steps rank 0 writes for this rank
         self._error = None
 
     def _path(self, step):
@@ -82,17 +85,24 @@ class TrainCheckpointer:
     def all_steps(self):
         """The steps saved or being saved, in increasing order."""
         with self._lock:
-            return sorted(set(self._saved_steps()) | self._pending)
+            return sorted(set(self._saved_steps()) | self._pending
+                          | self._recorded)
 
     # -- save ---------------------------------------------------------------
     def save(self, step, params, batch_stats, opt_state):
         """Copy the train state to the host and write it at ``step`` on a
         background thread. A step that already exists (saved or being
         saved) is left as it is and the call returns False."""
+        from .parallel import process_index
+
         step = int(step)
         with self._lock:
-            if step in self._pending or os.path.exists(self._path(step)):
+            if (step in self._pending or step in self._recorded
+                    or os.path.exists(self._path(step))):
                 return False
+            if process_index() != 0:
+                self._recorded.add(step)
+                return True
             self._pending.add(step)
         state = _to_host({"params": params, "batch_stats": batch_stats,
                           "opt_state": opt_state})
@@ -154,10 +164,14 @@ class TrainCheckpointer:
                              "opt_state": opt_state})
 
     def wait(self):
-        """Block until the queued saves are written; raise the first error
-        a writer met."""
+        """Block until the queued saves are written (in a process group,
+        rank 0's: a barrier); raise the first error a writer met."""
+        import torch.distributed as dist
+
         while self._threads:
             self._threads.pop(0).join()
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

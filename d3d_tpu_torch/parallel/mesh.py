@@ -264,7 +264,10 @@ def shard_train_step(train_step, mesh, donate=True, check_tp=True):
     on the whole batch up to float rounding; ``aux`` holds the whole
     batch's loss terms on every rank. Between steps a sharded leaf holds
     only its shard: ``call.full_state_dict()`` gathers the model's
-    ``state_dict`` whole.
+    ``state_dict`` whole, and ``call.train_state()`` the ``(params,
+    batch_stats, opt_state)`` that :class:`~d3d_tpu_torch.train.Trainer`
+    checkpoints. A state restored into the model and optimizer before the
+    first call is cut into shards by that call.
 
     :param donate: accepted for the JAX signature; it has no effect (the
         step updates the model and optimizer in place anyway)
@@ -308,11 +311,13 @@ def shard_train_step(train_step, mesh, donate=True, check_tp=True):
                     st[key] = cut(lf, v)
         done.append(True)
 
-    def whole(lf):
+    def whole(lf, t=None):
+        """``t`` (default the leaf's shard) gathered whole over its axis."""
+        t = lf.param.data if t is None else t
         group = groups[lf.axis]
-        parts = [torch.empty_like(lf.param.data)
+        parts = [torch.empty_like(t)
                  for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, lf.param.data.contiguous(), group=group)
+        dist.all_gather(parts, t.contiguous(), group=group)
         return torch.cat(parts, dim=lf.dim)
 
     def sq_norm(params, grads):
@@ -377,7 +382,34 @@ def shard_train_step(train_step, mesh, donate=True, check_tp=True):
                 sd[names[id(lf.param)]] = whole(lf)
         return sd
 
+    def full_train_state():
+        """``train.train_state(model, optimizer)`` with every sharded leaf
+        and its optimizer state (the tensors of the shard's shape)
+        gathered whole: what a checkpoint saves, and what a model and
+        optimizer restored before the first step are cut from again (a
+        collective: every rank of the mesh calls it)."""
+        from ..train import train_state
+
+        params, buffers, opt_state = train_state(model, optimizer)
+        if not done:
+            return params, buffers, opt_state
+        names = {id(p): n for n, p in model.named_parameters()}
+        index = {id(p): i for i, p in enumerate(
+            p for g in optimizer.param_groups for p in g["params"])}
+        params = dict(params)
+        state = dict(opt_state["state"])
+        for lf in (lf for lf in leaves if lf.axis):
+            params[names[id(lf.param)]] = whole(lf)
+            shape, st = lf.param.data.shape, state.get(index[id(lf.param)])
+            if st is None:
+                continue
+            state[index[id(lf.param)]] = {
+                k: whole(lf, v) if torch.is_tensor(v) and v.ndim
+                and v.shape == shape else v for k, v in st.items()}
+        return params, buffers, dict(opt_state, state=state)
+
     call.full_state_dict = full_state_dict
+    call.train_state = full_train_state
     return call
 
 

@@ -424,7 +424,10 @@ class Trainer:
         (augmentation, ``prepare_targets``); the next batch's prep is
         dispatched before the current step runs
     :param checkpointer: optional
-        :class:`d3d_tpu_torch.checkpoint.TrainCheckpointer`
+        :class:`d3d_tpu_torch.checkpoint.TrainCheckpointer`; a step
+        that carries ``train_state()`` (``shard_train_step``'s) has its
+        sharded leaves saved whole, and is restored by :meth:`restore_or`
+        before its first call
     :param log_every: read and record the metrics every N steps (reading
         them waits for the card, so this sets the host's sync cadence; the
         steps between do not synchronise in the Trainer)
@@ -508,12 +511,20 @@ class Trainer:
                 self.log_fn(f"eval @ {step}: {result}")
             if (self.ckpt is not None and self.ckpt_every
                     and step % self.ckpt_every == 0):
-                self.ckpt.save(step, *train_state(model, optimizer))
+                self.ckpt.save(step, *self._state(model, optimizer))
             if nxt is None:
                 break
 
         if self.ckpt is not None:
             if self.ckpt.latest_step != step:
-                self.ckpt.save(step, *train_state(model, optimizer))
+                self.ckpt.save(step, *self._state(model, optimizer))
             self.ckpt.wait()
         return step
+
+    def _state(self, model, optimizer):
+        """What a checkpoint saves: the step's ``train_state()`` when it
+        holds its state sharded (a ``shard_train_step``, whose gather is a
+        collective every rank runs here), else ``train_state``."""
+        whole = getattr(self.step_fn, "train_state", None)
+        return whole() if whole is not None else train_state(model,
+                                                             optimizer)

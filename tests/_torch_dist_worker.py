@@ -14,51 +14,31 @@ Usage: python _torch_dist_worker.py CASE RANK WORLD OUTDIR
 """
 
 import os
-import subprocess
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-GROUP_TIMEOUT_S = 150
+from d3d_tpu_torch.parallel.launch import (  # noqa: E402
+    GROUP_TIMEOUT_S, RankGroup)
 
 
-class Group:
+class Group(RankGroup):
     """N ranks of one case, started together; :meth:`results` waits for
     them (killing the group on a failure or at ``timeout``) and returns
     each rank's saved results."""
 
     def __init__(self, case, world, outdir, timeout=GROUP_TIMEOUT_S):
-        self.case, self.world, self.outdir = case, world, str(outdir)
-        self.deadline = time.monotonic() + timeout
-        env = dict(os.environ, OMP_NUM_THREADS="1")
-        self.procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), case, str(r),
-             str(world), self.outdir], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True, env=env)
-            for r in range(world)]
+        self.case, self.outdir = case, str(outdir)
+        super().__init__(
+            case, lambda r: [sys.executable, os.path.abspath(__file__), case,
+                             str(r), str(world), self.outdir],
+            world, outdir, timeout, env=dict(OMP_NUM_THREADS="1"))
 
     def results(self):
         import torch
 
-        outs = []
-        try:
-            for p in self.procs:
-                out, _ = p.communicate(
-                    timeout=max(self.deadline - time.monotonic(), 1))
-                outs.append(out)
-        except subprocess.TimeoutExpired:
-            for p in self.procs:
-                p.kill()
-            for p in self.procs:
-                p.communicate()
-            raise AssertionError("rank group %r timed out" % self.case)
-        for r, (p, out) in enumerate(zip(self.procs, outs)):
-            if p.returncode != 0 or f"RANK {r} OK" not in out:
-                for q in self.procs:
-                    q.kill()
-                raise AssertionError(f"{self.case} rank {r} failed:\n{out}")
+        self.wait()
         return [torch.load(os.path.join(self.outdir, f"{self.case}_{r}.pt"),
                            weights_only=False) for r in range(self.world)]
 
@@ -214,6 +194,34 @@ def _family_steps(inputs, mesh):
     return out
 
 
+def _sharded_resume(inputs, mesh):
+    """PointPillars TINY's dp2 x tp2 step in a Trainer with one checkpoint
+    directory for every rank: two steps straight, against one step, then
+    a fresh model and optimizer resumed from the checkpoint and one more
+    step. Returns the start steps, the whole states and the files."""
+    from d3d_tpu_torch.checkpoint import TrainCheckpointer
+    from d3d_tpu_torch.parallel import shard_train_step
+    from d3d_tpu_torch.train import Trainer
+
+    batch = inputs["pp_batch"]
+    directory = os.path.join(inputs["outdir"], "dp_tp_ckpt")
+
+    def run(steps, ckpt):
+        model, opt, step = _pp_setup(inputs)
+        sharded = shard_train_step(step, mesh)
+        trainer = Trainer(sharded, checkpointer=ckpt, log_every=0)
+        start = trainer.restore_or(model, opt)
+        trainer.run(model, opt, iter([batch] * steps), num_steps=steps,
+                    start_step=start)
+        return start, sharded.train_state()
+
+    _, straight = run(2, None)
+    first, _ = run(1, TrainCheckpointer(directory))
+    start, resumed = run(1, TrainCheckpointer(directory))
+    return dict(starts=(first, start), straight=straight, resumed=resumed,
+                files=sorted(os.listdir(directory)))
+
+
 def case_dp_tp(rank, world, inputs):
     import torch.distributed as dist
     from torch import nn
@@ -278,6 +286,7 @@ def case_dp_tp(rank, world, inputs):
     # a second step keeps working from the shards
     aux2 = sharded(batch)
     out["pp_second_loss"] = float(aux2["total"])
+    out["pp_resume"] = _sharded_resume(inputs, mesh)
 
     # check_tp: a model none of whose kernels divide by tp raises
     odd = nn.Linear(4, 7, bias=False)
@@ -743,6 +752,7 @@ def main():
     inputs_path = os.path.join(outdir, "inputs.pt")
     inputs = (torch.load(inputs_path, weights_only=False)
               if os.path.exists(inputs_path) else {})
+    inputs["outdir"] = outdir
     out = CASES[case](rank, world, inputs)
     torch.save(out, os.path.join(outdir, f"{case}_{rank}.pt"))
     torch.distributed.destroy_process_group()

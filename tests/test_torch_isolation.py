@@ -56,7 +56,8 @@ def _imported_roots(path):
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix()
-     for p in (ROOT / "d3d_tpu_torch").rglob("*.py")]
+     for p in [*(ROOT / "d3d_tpu_torch").rglob("*.py"),
+               *(ROOT / "examples").glob("torch_*.py")]]
     + ["chip_smoke.py", "tests/_torch_dist_worker.py"]))
 def test_source_imports_no_jax(path):
     bad = [m for m in _imported_roots(ROOT / path) if m in FORBIDDEN]

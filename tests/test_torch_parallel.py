@@ -505,6 +505,31 @@ def test_dp_tp_loss_equals_the_single_process_and_jax_steps(ranks, pp_jax):
         assert np.isfinite(r["pp_second_loss"])
 
 
+def test_sharded_trainer_resumes_from_one_shared_checkpoint(ranks):
+    """A dp2 x tp2 Trainer run checkpointed into one directory by its four
+    ranks (rank 0 writes the tp leaves and their Adam moments gathered
+    whole) and resumed by a fresh model and optimizer equals the straight
+    run, bit for bit: the gather and the cut move values exactly."""
+    for r in ranks["dp_tp"]:
+        res = r["pp_resume"]
+        assert res["starts"] == (0, 1)
+        assert res["files"] == ["step_1.pt", "step_2.pt"]
+        (p1, b1, o1), (p2, b2, o2) = res["straight"], res["resumed"]
+        assert p1.keys() == p2.keys() and b1.keys() == b2.keys()
+        for k in p1:
+            assert p1[k].shape == r["pp_plain_state"][k].shape, k
+            assert torch.equal(p1[k], p2[k]), k
+        for k in b1:
+            assert torch.equal(b1[k], b2[k]), k
+        assert (o1["count"], o1["mini_step"]) == (o2["count"],
+                                                  o2["mini_step"])
+        assert o1["state"].keys() == o2["state"].keys()
+        for i, st in o1["state"].items():
+            for k, v in st.items():
+                assert torch.equal(torch.as_tensor(v),
+                                   torch.as_tensor(o2["state"][i][k])), (i, k)
+
+
 def test_dp_halves_differ_in_positives_and_statistics(ranks):
     """The two dp rows see different positive counts and canvas
     statistics, so the equal losses above need the global ones."""

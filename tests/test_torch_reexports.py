@@ -10,6 +10,7 @@ import ast
 import importlib
 import inspect
 import pkgutil
+import tomllib
 import types
 from pathlib import Path
 
@@ -78,3 +79,21 @@ def test_reexports_match_the_reference(name):
             continue
         assert _source(getattr(port, n)) == \
             "d3d_tpu_torch" + want[len("d3d_tpu"):], f"{name}.{n}"
+
+
+def test_every_console_script_has_a_port():
+    """Each ``d3d_tpu_*`` console script of ``pyproject.toml`` has a
+    ``d3d_tpu_torch_*`` counterpart calling the function of the same name
+    in the port's counterpart module, and that function exists."""
+    scripts = tomllib.loads((ROOT / "pyproject.toml").read_text())[
+        "project"]["scripts"]
+    ref = {k: v for k, v in scripts.items()
+           if not k.startswith("d3d_tpu_torch_")}
+    assert len(ref) == 4
+    for name, target in ref.items():
+        port = scripts.get("d3d_tpu_torch_" + name[len("d3d_tpu_"):])
+        assert port is not None, f"{name} has no port"
+        module, func = target.split(":")
+        assert port == f"d3d_tpu_torch{module[len('d3d_tpu'):]}:{func}"
+        assert callable(getattr(importlib.import_module(
+            port.split(":")[0]), func))
