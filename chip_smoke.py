@@ -3312,13 +3312,19 @@ def busy_share(prof, wall_s):
     """The card's busy share over a profiled stretch of ``wall_s`` seconds:
     the union of the trace's device activity intervals (kernels, copies
     and sets, on every stream; overlap counted once) over the wall clock.
-    Reads the raw trace events: key_averages() would take tens of seconds
-    over a Trainer run's ~10^5 events."""
+    A ``record_function`` range (the port's ``d3d.*`` spans, the
+    optimizer's step) is mirrored on the device's timeline over the
+    kernels it encloses: it is no work of the card's, so a device event
+    that is a user annotation, or shares its name with a host event, is
+    left out. Reads the raw trace events: key_averages() would take tens
+    of seconds over a Trainer run's ~10^5 events."""
     from torch.autograd import DeviceType
 
-    spans = sorted((e.start_ns(), e.end_ns())
-                   for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == DeviceType.CUDA)
+    events = prof.profiler.kineto_results.events()
+    host = {e.name() for e in events if e.device_type() == DeviceType.CPU}
+    spans = sorted((e.start_ns(), e.end_ns()) for e in events
+                   if e.device_type() == DeviceType.CUDA
+                   and not e.is_user_annotation() and e.name() not in host)
     busy_ns, end = 0, None
     for s0, s1 in spans:
         if end is None or s0 >= end:

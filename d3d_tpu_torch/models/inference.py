@@ -5,6 +5,9 @@ PointPillars, SST, CenterPoint, SECOND and VoxelNeXt part of
 One request runs points -> voxelize -> network -> top-k decode -> rotated
 NMS on one device with fixed shapes; only the final selection of kept rows
 and the ``Target3DArray`` assembly run on the host.
+
+Under a profiler every ``detect`` records its stages as
+:func:`~d3d_tpu_torch.profiler.span` ranges (README lists the names).
 """
 
 import math
@@ -14,6 +17,7 @@ import torch
 
 from ..abstraction import ObjectTag, Target3DArray
 from ..ops.nms import nms2d
+from ..profiler import span
 from ..utils import as_tensor, resolve_device
 from .pointpillars import decode_boxes, pillarize
 from .second import second_voxelize
@@ -43,6 +47,12 @@ def _to_targets(boxes, scores, labels, keep, classes, frame, timestamp,
 def _bev(boxes):
     return torch.cat([boxes[:, 0:2], boxes[:, 3:5], boxes[:, 6:7]],
                      dim=-1).to(torch.float32)
+
+
+def _readback(outputs):
+    """A request's device outputs as host numpy arrays."""
+    with span("detect.readback"):
+        return [t.cpu().numpy() for t in outputs]
 
 
 def _to_tracking_targets(boxes, scores, labels, keep, vel, classes, frame,
@@ -99,31 +109,39 @@ def _make_anchor_detector(model, variables, cfg, anchors, classes,
 
     @torch.inference_mode()
     def device_fn(points):
-        points = as_tensor(points, device=dev, dtype=torch.float32)
-        feats, coords, valid = voxelize_fn(points, cfg)
-        cls_logits, box_preds, dir_logits = model(
-            feats[None], coords[None], valid[None])
-        scores_all = torch.sigmoid(cls_logits[0])        # (N, C)
-        best = scores_all.max(dim=-1).values
-        # lax.top_k order: descending, equal scores lowest index first
-        idx = torch.sort(best, descending=True, stable=True).indices[:top_k]
-        top_scores = best[idx]
-        boxes = decode_boxes(anchors[idx], box_preds[0][idx])
-        # direction head disambiguates the arcsin yaw (residual mod 2pi >
-        # pi -> class 1 -> add pi)
-        flip = dir_logits[0][idx].argmax(dim=-1).to(boxes.dtype)
-        boxes[:, 6] = boxes[:, 6] + flip * math.pi
-        labels = scores_all.argmax(dim=-1)[idx]
-        keep = ~nms2d(_bev(boxes), top_scores.to(torch.float32),
-                      iou_threshold=iou_threshold, iou_method="rbox")
+        with span("detect.upload"):
+            points = as_tensor(points, device=dev, dtype=torch.float32)
+        with span("detect.voxelize"):
+            feats, coords, valid = voxelize_fn(points, cfg)
+        with span("detect.network"):
+            cls_logits, box_preds, dir_logits = model(
+                feats[None], coords[None], valid[None])
+        with span("detect.select"):
+            scores_all = torch.sigmoid(cls_logits[0])        # (N, C)
+            best = scores_all.max(dim=-1).values
+            # lax.top_k order: descending, equal scores lowest index first
+            idx = torch.sort(best, descending=True,
+                             stable=True).indices[:top_k]
+            top_scores = best[idx]
+            boxes = decode_boxes(anchors[idx], box_preds[0][idx])
+            # direction head disambiguates the arcsin yaw (residual mod 2pi
+            # > pi -> class 1 -> add pi)
+            flip = dir_logits[0][idx].argmax(dim=-1).to(boxes.dtype)
+            boxes[:, 6] = boxes[:, 6] + flip * math.pi
+            labels = scores_all.argmax(dim=-1)[idx]
+            keep = ~nms2d(_bev(boxes), top_scores.to(torch.float32),
+                          iou_threshold=iou_threshold, iou_method="rbox")
         return boxes, top_scores, labels, keep
 
     def detect(points, frame=None, timestamp=0):
         """The kept detections of one frame as a Target3DArray: a tag
         ``ObjectTag(classes[label], type(classes[label]), score)`` per box
         (``classes`` are Enum members), in ``frame`` at ``timestamp``."""
-        return _to_targets(*(t.cpu().numpy() for t in device_fn(points)),
-                           classes, frame, timestamp, score_threshold)
+        with span("detect"):
+            out = _readback(device_fn(points))
+            with span("detect.assemble"):
+                return _to_targets(*out, classes, frame, timestamp,
+                                   score_threshold)
 
     device_fn.device = dev
     detect.device_fn = device_fn
@@ -203,35 +221,42 @@ def make_centerpoint_detector(model, variables, cfg, pillar_cfg, classes,
 
     @torch.inference_mode()
     def device_fn(points):
-        points = as_tensor(points, device=dev, dtype=torch.float32)
-        feats, coords, valid = pillarize(points, pillar_cfg)
-        outputs = model(feats[None], coords[None], valid[None])
-        outputs = {k: v[0] for k, v in outputs.items()}
-        feat = outputs.pop("feat", None)
-        dec = decode_centers(cfg, outputs)
-        boxes, scores, labels = dec[:3]
-        vel = dec[3] if cfg.predict_velocity else boxes.new_zeros(
-            (boxes.shape[0], 2))
-        if refine is not None:
-            pooled = roi_grid_features(feat, boxes, cfg.bounds, cfg.grid,
-                                       rcfg.grid_points)
-            out = rmodel(pooled, boxes)
-            boxes = apply_refinements(boxes, out["deltas"])
-            a = rcfg.score_alpha
-            scores = scores ** (1 - a) * torch.sigmoid(out["conf"]) ** a
-        keep = ~nms2d(_bev(boxes), scores.to(torch.float32),
-                      iou_threshold=iou_threshold, iou_method="rbox")
+        with span("detect.upload"):
+            points = as_tensor(points, device=dev, dtype=torch.float32)
+        with span("detect.voxelize"):
+            feats, coords, valid = pillarize(points, pillar_cfg)
+        with span("detect.network"):
+            outputs = model(feats[None], coords[None], valid[None])
+        # the second stage, which refines decoded boxes, counts as select
+        with span("detect.select"):
+            outputs = {k: v[0] for k, v in outputs.items()}
+            feat = outputs.pop("feat", None)
+            dec = decode_centers(cfg, outputs)
+            boxes, scores, labels = dec[:3]
+            vel = dec[3] if cfg.predict_velocity else boxes.new_zeros(
+                (boxes.shape[0], 2))
+            if refine is not None:
+                pooled = roi_grid_features(feat, boxes, cfg.bounds, cfg.grid,
+                                           rcfg.grid_points)
+                out = rmodel(pooled, boxes)
+                boxes = apply_refinements(boxes, out["deltas"])
+                a = rcfg.score_alpha
+                scores = scores ** (1 - a) * torch.sigmoid(out["conf"]) ** a
+            keep = ~nms2d(_bev(boxes), scores.to(torch.float32),
+                          iou_threshold=iou_threshold, iou_method="rbox")
         return boxes, scores, labels, keep, vel
 
     def detect(points, frame=None, timestamp=0):
         """The kept detections of one frame as a Target3DArray (of
         ``TrackingTarget3D`` with the velocity head)."""
-        out = [t.cpu().numpy() for t in device_fn(points)]
-        if not cfg.predict_velocity:
-            return _to_targets(*out[:4], classes, frame, timestamp,
-                               score_threshold)
-        return _to_tracking_targets(*out, classes, frame, timestamp,
-                                    score_threshold)
+        with span("detect"):
+            out = _readback(device_fn(points))
+            with span("detect.assemble"):
+                if not cfg.predict_velocity:
+                    return _to_targets(*out[:4], classes, frame, timestamp,
+                                       score_threshold)
+                return _to_tracking_targets(*out, classes, frame, timestamp,
+                                            score_threshold)
 
     device_fn.device = dev
     detect.device_fn = device_fn
@@ -271,13 +296,17 @@ def make_voxelnext_detector(model, variables, cfg, classes,
 
     @torch.inference_mode()
     def device_fn(points):
-        points = as_tensor(points, device=dev, dtype=torch.float32)
-        feats, coords, valid = voxelnext_voxelize(points, cfg)
-        outputs = model(feats[None], coords[None], valid[None])
-        dec = decode_voxelnext(cfg, {k: v[0] for k, v in outputs.items()})
-        boxes, scores, labels = dec[:3]
-        keep = ~nms2d(_bev(boxes), scores.to(torch.float32),
-                      iou_threshold=iou_threshold, iou_method="rbox")
+        with span("detect.upload"):
+            points = as_tensor(points, device=dev, dtype=torch.float32)
+        with span("detect.voxelize"):
+            feats, coords, valid = voxelnext_voxelize(points, cfg)
+        with span("detect.network"):
+            outputs = model(feats[None], coords[None], valid[None])
+        with span("detect.select"):
+            dec = decode_voxelnext(cfg, {k: v[0] for k, v in outputs.items()})
+            boxes, scores, labels = dec[:3]
+            keep = ~nms2d(_bev(boxes), scores.to(torch.float32),
+                          iou_threshold=iou_threshold, iou_method="rbox")
         if cfg.predict_velocity:
             return boxes, scores, labels, keep, dec[3]
         return boxes, scores, labels, keep
@@ -285,11 +314,14 @@ def make_voxelnext_detector(model, variables, cfg, classes,
     def detect(points, frame=None, timestamp=0):
         """The kept detections of one frame as a Target3DArray (of
         ``TrackingTarget3D`` with the velocity head)."""
-        out = [t.cpu().numpy() for t in device_fn(points)]
-        if len(out) > 4:
-            return _to_tracking_targets(*out, classes, frame, timestamp,
-                                        score_threshold)
-        return _to_targets(*out, classes, frame, timestamp, score_threshold)
+        with span("detect"):
+            out = _readback(device_fn(points))
+            with span("detect.assemble"):
+                if len(out) > 4:
+                    return _to_tracking_targets(*out, classes, frame,
+                                                timestamp, score_threshold)
+                return _to_targets(*out, classes, frame, timestamp,
+                                   score_threshold)
 
     device_fn.device = dev
     detect.device_fn = device_fn

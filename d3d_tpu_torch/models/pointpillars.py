@@ -33,6 +33,7 @@ from ..ops.geometry_soa import rbox_iou
 from ..ops.voxel import voxelize_dense_padded
 from ..parallel.comm import (SpatialHook, all_reduce_sum, batch_groups,
                              batch_sum, live, loss_share)
+from ..profiler import span
 from ..utils import as_tensor, resolve_device
 
 __all__ = ["PointPillarsConfig", "PointPillars", "pillarize", "scatter_to_bev",
@@ -382,25 +383,29 @@ class PointPillars(nn.Module):
         dt = getattr(torch, cfg.dtype)
 
         # pillar encoder
-        pmask = (features != 0).any(dim=-1)  # (B, P, K)
-        pf = self.pfn(features, pmask, train)
-        pf = pf * valid[..., None].to(pf.dtype)  # (B, P, F)
+        with span("pointpillars.pfn"):
+            pmask = (features != 0).any(dim=-1)  # (B, P, K)
+            pf = self.pfn(features, pmask, train)
+            pf = pf * valid[..., None].to(pf.dtype)  # (B, P, F)
 
         # BEV canvas, NCHW with x along the first spatial axis
-        con, sp = _bev_hooks(self.constrain)
-        x = con(scatter_to_bev(pf, coords, valid, cfg.grid).permute(
-            0, 3, 1, 2), "bev")
+        with span("pointpillars.scatter"):
+            con, sp = _bev_hooks(self.constrain)
+            x = con(scatter_to_bev(pf, coords, valid, cfg.grid).permute(
+                0, 3, 1, 2), "bev")
 
         # backbone + FPN-style upsampling
-        ups = []
-        for block, up in zip(self.blocks, self.ups):
-            x = block(x, train, sp)
-            ups.append(up(x, train, sp))
-        feat = torch.cat(ups, dim=1).to(dt)  # (B, 3*U, W, H)
+        with span("pointpillars.backbone"):
+            ups = []
+            for block, up in zip(self.blocks, self.ups):
+                x = block(x, train, sp)
+                ups.append(up(x, train, sp))
+            feat = torch.cat(ups, dim=1).to(dt)  # (B, 3*U, W, H)
 
-        return (_head(feat, self.head_cls, cfg.num_classes, dt, sp),
-                _head(feat, self.head_box, 7, dt, sp),
-                _head(feat, self.head_dir, 2, dt, sp))
+        with span("pointpillars.head"):
+            return (_head(feat, self.head_cls, cfg.num_classes, dt, sp),
+                    _head(feat, self.head_box, 7, dt, sp),
+                    _head(feat, self.head_dir, 2, dt, sp))
 
 
 def _no_constrain(x, kind):
@@ -732,26 +737,31 @@ def make_train_step(model, optimizer, cfg: PointPillarsConfig, anchors,
         run_forward = forward
 
     def backward(batch):
-        batch = {k: (v if k == "targets" else as_tensor(v, device=dev))
-                 for k, v in batch.items()}
-        outputs, sown = run_forward(batch["features"], batch["coords"],
-                                    batch["valid"])
-        if external_targets:
-            targets = {k: as_tensor(v, device=dev).detach()
-                       for k, v in batch["targets"].items()}
-        else:
-            with torch.no_grad():
-                targets = prepare_targets(anchors, batch, cfg=cfg)["targets"]
-        loss, aux = detection_loss(outputs, targets, cfg, anchors,
-                                   riou_weight)
-        if sown:
-            # a sharded step computes the load-balance loss whole on every
-            # rank (global routing statistics): each adds its share
-            aux_total = sum(sown)
-            loss = loss + (getattr(cfg, "moe_aux_weight", 0.0)
-                           * loss_share()) * aux_total
-            aux["moe_aux"] = aux_total
-        loss.backward()
+        with span("train.forward"):
+            batch = {k: (v if k == "targets" else as_tensor(v, device=dev))
+                     for k, v in batch.items()}
+            outputs, sown = run_forward(batch["features"], batch["coords"],
+                                        batch["valid"])
+        with span("train.loss"):
+            if external_targets:
+                targets = {k: as_tensor(v, device=dev).detach()
+                           for k, v in batch["targets"].items()}
+            else:
+                with torch.no_grad():
+                    targets = prepare_targets(anchors, batch,
+                                              cfg=cfg)["targets"]
+            loss, aux = detection_loss(outputs, targets, cfg, anchors,
+                                       riou_weight)
+            if sown:
+                # a sharded step computes the load-balance loss whole on
+                # every rank (global routing statistics): each adds its
+                # share
+                aux_total = sum(sown)
+                loss = loss + (getattr(cfg, "moe_aux_weight", 0.0)
+                               * loss_share()) * aux_total
+                aux["moe_aux"] = aux_total
+        with span("train.backward"):
+            loss.backward()
         return {k: v.detach() for k, v in aux.items()}
 
     return _train_step(model, optimizer, backward, global_aux=("moe_aux",))

@@ -26,6 +26,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor.placement_types import Replicate, Shard
 
+from ..profiler import span
 from ..utils import as_tensor
 from .comm import SpatialHook, sharded
 
@@ -351,15 +352,16 @@ def shard_train_step(train_step, mesh, donate=True, check_tp=True):
             for lf, data in zip(tp_leaves, shard_data):
                 lf.param.data = data
         # one flat all-reduce of every gradient over dp and sp
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        for group in sum_groups:
-            dist.all_reduce(flat, group=group)
-        off = 0
-        for lf, g in zip(leaves, grads):
-            full = flat[off:off + g.numel()].view(g.shape)
-            off += g.numel()
-            lf.param.grad = (cut(lf, full) if lf.axis == "tp"
-                             else full.clone())
+        with span("train.all_reduce"):
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            for group in sum_groups:
+                dist.all_reduce(flat, group=group)
+            off = 0
+            for lf, g in zip(leaves, grads):
+                full = flat[off:off + g.numel()].view(g.shape)
+                off += g.numel()
+                lf.param.grad = (cut(lf, full) if lf.axis == "tp"
+                                 else full.clone())
         if isinstance(optimizer, ClippedAdamW):
             optimizer.step(sq_norm=sq_norm)
         else:

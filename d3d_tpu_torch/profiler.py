@@ -1,7 +1,8 @@
 """Profiling utilities (port of ``d3d_tpu.profiler``; the reference d3d's
 timer synchronises CUDA, as this one does for the tensors it is given).
 :func:`tap_arrays` walks live torch tensors; :func:`trace` wraps
-``torch.profiler`` and writes a Chrome trace."""
+``torch.profiler`` and writes a Chrome trace; :func:`span` names a stage
+of the port's hot path on the profiler's timeline."""
 
 import gc
 import logging
@@ -9,14 +10,16 @@ import os
 import tempfile
 import time
 import weakref
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import torch
 
 _timers = {}
 _logger = logging.getLogger("d3d_tpu_torch.profiler")
 
-__all__ = ["tap_time", "tap_arrays", "trace", "ArrayRef"]
+__all__ = ["tap_time", "tap_arrays", "trace", "span", "ArrayRef"]
+
+_NO_SPAN = nullcontext()
 
 
 def _sync(tree):
@@ -125,3 +128,16 @@ def trace(log_dir=None):
     with torch.profiler.profile(activities=acts) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def span(name):
+    """A ``torch.profiler.record_function`` range named ``"d3d." + name``
+    while a profiler records, else one shared no-op context (the check
+    costs a fraction of a microsecond, a range with no profiler many
+    times that). The profiler that is running holds the ranges, on the
+    clock of the device's events: :func:`trace`'s Chrome trace, or a
+    caller's own ``torch.profiler.profile``. A range neither synchronises
+    the device nor changes what runs."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function("d3d." + name)

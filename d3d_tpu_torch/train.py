@@ -17,6 +17,8 @@ import time
 import numpy as np
 import torch
 
+from .profiler import span
+
 __all__ = ["Trainer", "prefetch", "batch_frames",
            "shard_frames_across_hosts", "ema_init", "ema_update",
            "make_optimizer", "ClippedAdamW", "init_variables",
@@ -472,46 +474,57 @@ class Trainer:
         step = start_step
         if num_steps is not None and num_steps <= 0:
             return step
+
+        def next_batch():
+            """The iterator's next batch, prepared (StopIteration at its
+            end)."""
+            with span("train.next"):
+                b = next(it)
+            with span("train.prep"):
+                return prep(b)
+
         try:
-            nxt = prep(next(it))
+            nxt = next_batch()
         except StopIteration:
             return step
 
         t0 = time.perf_counter()
         last_log_step = step
         while num_steps is None or step < start_step + num_steps:
-            batch = nxt
-            # the next batch's prep goes before the step; none past the
-            # last step (a persistent iterator would lose a batch)
-            last = num_steps is not None and step + 1 >= start_step + num_steps
-            if last:
-                nxt = None
-            else:
-                try:
-                    nxt = prep(next(it))
-                except StopIteration:
+            with span("train.step"):
+                batch = nxt
+                # the next batch's prep goes before the step; none past
+                # the last step (a persistent iterator would lose a batch)
+                last = (num_steps is not None
+                        and step + 1 >= start_step + num_steps)
+                if last:
                     nxt = None
-            metrics = self.step_fn(batch)
-            step += 1
+                else:
+                    try:
+                        nxt = next_batch()
+                    except StopIteration:
+                        nxt = None
+                metrics = self.step_fn(batch)
+                step += 1
 
-            if self.log_every and step % self.log_every == 0:
-                vals = {k: float(v) for k, v in metrics.items()}
-                dt = time.perf_counter() - t0
-                t0 = time.perf_counter()
-                rate = (step - last_log_step) / max(dt, 1e-9)
-                last_log_step = step
-                self.history.append(dict(step=step, **vals))
-                self.log_fn(f"step {step}: " + " ".join(
-                    f"{k}={v:.4f}" for k, v in sorted(vals.items()))
-                    + f" ({rate:.2f} steps/s)")
-            if (self.eval_fn is not None and self.eval_every
-                    and step % self.eval_every == 0):
-                result = self.eval_fn(step, model)
-                self.history.append(dict(step=step, eval=result))
-                self.log_fn(f"eval @ {step}: {result}")
-            if (self.ckpt is not None and self.ckpt_every
-                    and step % self.ckpt_every == 0):
-                self.ckpt.save(step, *self._state(model, optimizer))
+                if self.log_every and step % self.log_every == 0:
+                    vals = {k: float(v) for k, v in metrics.items()}
+                    dt = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    rate = (step - last_log_step) / max(dt, 1e-9)
+                    last_log_step = step
+                    self.history.append(dict(step=step, **vals))
+                    self.log_fn(f"step {step}: " + " ".join(
+                        f"{k}={v:.4f}" for k, v in sorted(vals.items()))
+                        + f" ({rate:.2f} steps/s)")
+                if (self.eval_fn is not None and self.eval_every
+                        and step % self.eval_every == 0):
+                    result = self.eval_fn(step, model)
+                    self.history.append(dict(step=step, eval=result))
+                    self.log_fn(f"eval @ {step}: {result}")
+                if (self.ckpt is not None and self.ckpt_every
+                        and step % self.ckpt_every == 0):
+                    self.ckpt.save(step, *self._state(model, optimizer))
             if nxt is None:
                 break
 
