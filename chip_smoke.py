@@ -1065,6 +1065,117 @@ def k4_wide_times(launch, plain_ms, n, suppressed, itemsize):
     return row
 
 
+# PointPillars' serving maps at full width, (C, W, H): the outputs of its
+# three blocks' convolutions (3, 5 and 5 of them a frame) and of its three
+# upsamplings, each a 128-channel slice of the heads' 384-channel input;
+# and the pillar net's linear output, (pillars x points, channels) rows
+EPILOGUE_MAPS = (((64, 432, 496), 3), ((128, 216, 248), 5),
+                 ((256, 108, 124), 5))
+EPILOGUE_UP = ((128, 432, 496), 3)
+EPILOGUE_CAT = 384
+EPILOGUE_ROWS = ((12000 * 32, 64), 1)
+
+
+def check_epilogue(dev):
+    """The BEV epilogue (``ops/epilogue.py`` ``bn_relu``: relu((x - mean) *
+    mul + beta) a channel) against its plain version on the card,
+    bit-equal: in place at the serving maps and the pillar net's rows,
+    into each 128-channel slice of the heads' input (the rest of the
+    buffer left as it was), a batch of 2 into a slice, bfloat16 and
+    float64, planes, rows and slices that take no 16-byte vectors,
+    NaN and infinities. Returns the kernels-line row: per serving map the
+    CUDA-event ms over back-to-back launches, CUPTI's kernel ms, the bound
+    (the map read and written once) and the plain version's ms, and their
+    sums over a frame's 17 maps."""
+    from d3d_tpu_torch.ops import epilogue as E
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def stats(c, dtype):
+        ct = torch.float64 if dtype == torch.float64 else torch.float32
+        return (torch.randn(c, generator=gen, device=dev).to(ct),
+                torch.rand(c, generator=gen, device=dev).to(ct) + 0.5,
+                torch.randn(c, generator=gen, device=dev).to(ct))
+
+    def case(shape, dtype=torch.float32, at=None, total=None, special=False):
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        st = stats(shape[1], dtype)
+        if special:
+            x.view(-1)[:4] = torch.tensor(
+                [float("nan"), float("inf"), -float("inf"), -0.0],
+                dtype=dtype)
+        want = torch.empty_like(x)
+        E._bn_relu_plain(x, *st, want)
+        if at is None:
+            got = E.bn_relu(x.clone(), *st)
+        else:
+            buf = torch.full((shape[0], total) + tuple(shape[2:]),
+                             float("nan"), dtype=dtype, device=dev)
+            got = E.bn_relu(x, *st, out=buf[:, at:at + shape[1]])
+            rest = torch.cat([buf[:, :at], buf[:, at + shape[1]:]], 1)
+            check(bool(rest.isnan().all()), f"epilogue {shape} into "
+                  f"[{at}, {at + shape[1]}) of {total}: wrote outside")
+        torch.cuda.synchronize()
+        check(same_with_nan(got, want), f"epilogue {shape} {dtype} (at "
+              f"{at}): differs from its plain version")
+
+    launches = E.bn_relu.launches
+    for (c, w, h), _ in EPILOGUE_MAPS:
+        case((1, c, w, h))
+    (c, w, h), _ = EPILOGUE_UP
+    for at in range(0, EPILOGUE_CAT, c):
+        case((1, c, w, h), at=at, total=EPILOGUE_CAT)
+    case((2, 128, 216, 248), at=128, total=EPILOGUE_CAT)
+    case((1, 64, 432, 496), torch.bfloat16, special=True)
+    case((1, 16, 40, 40), torch.float64, special=True)
+    case((2, 3, 7, 5), special=True)                 # planes of 35
+    case((1, 5, 8, 8), at=1, total=7)                # a slice off 16 bytes
+    case(EPILOGUE_ROWS[0])
+    case((1000, 64), torch.bfloat16, special=True)
+    case((500, 16), torch.float64, special=True)
+    case((1000, 10), special=True)                   # rows of 40 bytes
+    checked = E.bn_relu.launches - launches
+    check(checked == 15, f"epilogue checks launched {checked}, not 15")
+
+    # timed cold: launches go round enough maps (the upsamplings' inputs
+    # and buffers) to pass twice the 50 MB L2 between two visits
+    maps, frame = [], dict(ms=0.0, cupti_ms=0.0, bound_ms=0.0, plain_ms=0.0)
+    for shape, per_frame in EPILOGUE_MAPS + (EPILOGUE_UP, EPILOGUE_ROWS):
+        shape = (1,) + shape if len(shape) == 3 else shape
+        numel = math.prod(shape)
+        up = shape[1:] == EPILOGUE_UP[0]
+        c = shape[1]
+        nbytes = numel * 4 * (1 + up * EPILOGUE_CAT // c)
+        ring = [(torch.randn(shape, generator=gen, device=dev),
+                 stats(c, torch.float32),
+                 torch.empty((1, EPILOGUE_CAT) + shape[2:], device=dev)[
+                     :, c:2 * c] if up else None)
+                for _ in range(-(-100_000_000 // nbytes))]
+        turn = iter(range(1 << 62))
+
+        def run(plain=False):
+            x, st, out = ring[next(turn) % len(ring)]
+            if plain:
+                E._bn_relu_plain(x, *st, x if out is None else out)
+            else:
+                E.bn_relu(x, *st, out=out)
+        row = dict(shape=list(shape), per_frame=per_frame, ring=len(ring),
+                   ms=time_launches(run),
+                   cupti_ms=cupti_ms(run, kernels=["bn_relu"]),
+                   bound_ms=bound(2 * numel * 4, 3 * numel)[0],
+                   plain_ms=time_launches(lambda: run(plain=True)))
+        del ring
+        maps.append(row)
+        for k in frame:
+            frame[k] = (None if row[k] is None or frame[k] is None
+                        else frame[k] + row[k] * per_frame)
+    log("epilogue (bn_relu): " + "; ".join(
+        f"{r['shape']}: {fmt_ms(r['ms'])} (CUPTI {fmt_ms(r['cupti_ms'])}, "
+        f"bound {fmt_ms(r['bound_ms'])}, plain {fmt_ms(r['plain_ms'])})"
+        for r in maps) + f"; a frame's 17 maps: {frame}")
+    return dict(maps=maps, frame=frame, checks=checked)
+
+
 def second_model(dev):
     """SECOND on presets.second_kitti at full width in f32, seeded random
     weights with calibrated heads, and 4 frames of bench.py's recipe."""
@@ -2039,6 +2150,7 @@ def serving(dev):
     bf16 preset as pinned."""
     from d3d_tpu_torch.models import (PointPillars, make_anchors,
                                       make_pointpillars_detector, presets)
+    from d3d_tpu_torch.ops.epilogue import bn_relu
 
     cfg = presets.pointpillars_kitti(dtype="float32")
     frames = [bench_points(np.random.default_rng(100 + i)) for i in range(4)]
@@ -2052,14 +2164,21 @@ def serving(dev):
     reset_counts()
     request_ms = []
     kept = []
+    epilogue = bn_relu.launches
     for pts in frames:
         t0 = time.perf_counter()
         out = detect(pts)
         request_ms.append((time.perf_counter() - t0) * 1e3)
         kept.append(check_detections("detect", out))
     counts = read_counts()
-    log(f"serving launches (4 requests): {counts}; detections kept per "
-        f"request: {kept}")
+    epilogue = bn_relu.launches - epilogue
+    log(f"serving launches (4 requests): {counts}, epilogue {epilogue}; "
+        f"detections kept per request: {kept}")
+    # an epilogue for the pillar net, each convolution and each
+    # upsampling, every request
+    layers = 1 + sum(cfg.backbone_blocks) + len(cfg.backbone_blocks)
+    check(epilogue == 4 * layers, f"serving ran the BEV epilogue {epilogue} "
+          f"times, not {4 * layers}")
     check(counts["rbox_iou_matrix"] == 4 and counts["nms_scan"] == 4,
           f"serving did not run K1 and K2 once per request: {counts}")
     log(f"serving routes: {check_nms_routes('serving', 4)}")
@@ -2098,7 +2217,7 @@ def serving(dev):
         f"bf16 {steady['bf16']:.2f} ms")
     return counts, dict(request_ms=request_ms, no_tf32_ms=no_tf32_ms,
                         bf16_ms=bf16_ms, steady_ms=steady,
-                        cpu_ms=cpu_ms), detect
+                        cpu_ms=cpu_ms, epilogue_launches=epilogue), detect
 
 
 def second_serving(dev, model, frames):
@@ -10207,6 +10326,7 @@ def main():
     k1_bits_err, k1_bits_shares = check_k1_bits(dev)
     scan_err, scan_routes = check_scans(dev)
     k4_err, k4_routes, k4_wide = check_k4(dev)
+    epilogue = check_epilogue(dev)
     check_nan_voxels(dev)
     second, second_frames = second_model(dev)
     k5_layers = second_layer_inputs(second, second_frames[0], dev)
@@ -10353,6 +10473,14 @@ def main():
             **{k: v for k, v in row.items()
                if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
                             "library_ms", "shape")}))
+    kernels.append(dict(
+        name="bn_relu", route="cuda",
+        source="d3d_tpu_torch/csrc/bn_relu.cu", replaces=None,
+        launches=serve["epilogue_launches"], max_abs_err=0.0,
+        bound_by="bytes", launches_by_path={
+            "serving": serve["epilogue_launches"]},
+        launches_in_checks=epilogue["checks"], **epilogue["frame"],
+        shape="a PointPillars frame's 17 maps", maps=epilogue["maps"]))
     rows = {row["name"]: row for row in kernels}
     rows["rbox_iou_matrix"]["chain_share_by_check"] = k1_shares
     rows["rbox_iou_matrix"].update(max_abs_err_bits=k1_bits_err,

@@ -29,8 +29,9 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.voxel import _to_int32
 from ..parallel.comm import batch_sum
 from ..utils import as_tensor, resolve_device
-from .pointpillars import (_PFN, _ConvBlock, _Upsample, _bev_hooks,
-                           _buffers_kept, _train_step, scatter_to_bev)
+from .pointpillars import (_PFN, _ConvBlock, _Upsample, _bev_backbone,
+                           _bev_hooks, _buffers_kept, _train_step,
+                           scatter_to_bev)
 
 __all__ = ["CenterPointConfig", "CenterPoint", "assign_center_targets",
            "center_loss", "decode_centers", "prepare_center_targets",
@@ -166,11 +167,7 @@ class CenterPoint(nn.Module):
         con, sp = _bev_hooks(self.constrain)
         x = con(scatter_to_bev(pf, coords, valid, cfg.grid).permute(
             0, 3, 1, 2), "bev")
-        ups = []
-        for block, up in zip(self.blocks, self.ups):
-            x = block(x, train, sp)
-            ups.append(up(x, train, sp))
-        feat = torch.cat(ups, dim=1).to(dt)
+        feat = _bev_backbone(self.blocks, self.ups, x, train, sp, dt)
         whole = (lambda t: t) if sp is None else sp.gather
 
         def head(name):

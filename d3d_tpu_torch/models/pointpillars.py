@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.epilogue import bn_relu
 from ..ops.geometry import aabox_iou
 from ..ops.geometry_soa import rbox_iou
 from ..ops.voxel import voxelize_dense_padded
@@ -208,7 +209,7 @@ def _bn_train(x, bn, groups=None):
         bn.running_mean.copy_(0.99 * bn.running_mean + 0.01 * mean)
         bn.running_var.copy_(0.99 * bn.running_var + 0.01 * var)
     shape = [1, -1] + [1] * (x.ndim - 2)
-    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    mul = _bn_mul(var, bn)
     y = (xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
     return y.to(x.dtype)
 
@@ -230,6 +231,48 @@ def _conv_same(x, weight, stride):
     return F.conv2d(F.pad(x, (l, r, t, b)), weight, stride=stride)
 
 
+def _fused(train, sp=None):
+    """Whether the BEV layers take their inference route: running
+    statistics (``train`` False), the whole canvas (``sp`` None) and no
+    gradients (``torch.inference_mode`` or ``no_grad``). There each layer
+    is its linear part and one epilogue pass, BatchNorm and ReLU
+    (``ops/epilogue.py`` ``bn_relu``, from :func:`_bn_stats`), on
+    NCHW-contiguous maps. Any other forward takes the layers as they are
+    written: linear part, BatchNorm, ReLU."""
+    return not train and sp is None and not torch.is_grad_enabled()
+
+
+def _bn_mul(var, bn):
+    """flax's BatchNorm multiplier ``rsqrt(var + eps) * scale``."""
+    return torch.rsqrt(var + bn.eps) * bn.weight
+
+
+def _bn_stats(owner, slot, bn, dt):
+    """``(mean, mul, beta)`` of the inference BatchNorm ``bn`` for the
+    epilogue of a ``dt`` map, in float32 (float64 for a float64 map) as
+    :func:`_bn_train` normalises, ``mul`` by :func:`_bn_mul`. Kept in
+    ``owner._folds[slot]`` until a statistic changes: its storage or
+    version (``load_state_dict``, an optimizer step, a training forward,
+    ``.to()``; an update through ``.data`` counts no version and is not
+    seen), the dtype or the device. A statistic that is an inference
+    tensor counts no versions either: its fold is made on every call and
+    not kept, as is one made while ``torch.export`` traces. Each fold
+    runs in the span ``bev.fold``."""
+    src = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
+    key = None if any(t.is_inference() for t in src) else (
+        tuple((t.data_ptr(), t._version) for t in src), dt, src[0].device)
+    hit = owner._folds.get(slot)
+    if key is not None and hit is not None and hit[0] == key:
+        return hit[1]
+    ct = torch.promote_types(dt, torch.float32)
+    with span("bev.fold"), torch.no_grad():
+        stats = (bn.running_mean.to(ct), _bn_mul(bn.running_var.to(ct), bn),
+                 bn.bias.to(ct))
+    if key is not None and not torch.compiler.is_compiling():
+        owner._folds[slot] = (key, stats)
+    return stats
+
+
 class _PFN(nn.Module):
     """Per-pillar PointNet: linear + BN + ReLU + masked max over points."""
 
@@ -238,12 +281,19 @@ class _PFN(nn.Module):
         self.dtype = getattr(torch, dtype)
         self.dense = nn.Linear(in_features, features, bias=False)
         self.bn = nn.BatchNorm1d(features, eps=_BN_EPS)
+        self._folds = {}
 
     def forward(self, x, pmask, train=False):
+        """On the inference route (:func:`_fused`) BatchNorm and the ReLU
+        are one epilogue pass over the linear layer's output."""
         dt = self.dtype
-        norm = _bn_train if train else _bn
         x = F.linear(x.to(dt), self.dense.weight.to(dt))
-        x = F.relu(norm(x.reshape(-1, x.shape[-1]), self.bn).reshape(x.shape))
+        if _fused(train):
+            bn_relu(x.view(-1, x.shape[-1]), *_bn_stats(self, 0, self.bn, dt))
+        else:
+            norm = _bn_train if train else _bn
+            x = F.relu(norm(x.reshape(-1, x.shape[-1]),
+                            self.bn).reshape(x.shape))
         # masked max over points: post-relu values are >= 0, so -1 is a
         # safe sentinel and empty pillars come out exactly 0 via the clamp.
         # The max is an integer argmax (the first maximal point) and a
@@ -265,17 +315,24 @@ class _ConvBlock(nn.Module):
                       bias=False) for i in range(blocks))
         self.bns = nn.ModuleList(nn.BatchNorm2d(channels, eps=_BN_EPS)
                                  for _ in range(blocks))
+        self._folds = {}
 
     def forward(self, x, train=False, sp=None):
         """``sp``: a :class:`~d3d_tpu_torch.parallel.comm.SpatialHook`
         when ``x`` is this rank's slab of the canvas (halo convolutions,
-        statistics over the slabs)."""
+        statistics over the slabs). On the inference route
+        (:func:`_fused`) the map is made NCHW-contiguous once, at the
+        first layer, so that no convolution runs channels-last."""
         dt = self.dtype
+        fused = _fused(train, sp)
+        if fused:
+            x = x.contiguous()
         for i, (conv, bn) in enumerate(zip(self.convs, self.bns)):
             stride = self.stride if i == 0 else 1
             x = (sp.conv2d if sp is not None else _conv_same)(
                 x.to(dt), conv.weight.to(dt), stride)
-            x = F.relu(_norm(x, bn, train, sp))
+            x = (bn_relu(x, *_bn_stats(self, i, bn, dt)) if fused
+                 else F.relu(_norm(x, bn, train, sp)))
         return x
 
 
@@ -301,15 +358,46 @@ class _Upsample(nn.Module):
         else:
             self.conv = nn.Conv2d(in_channels, channels, 1, bias=False)
         self.bn = nn.BatchNorm2d(channels, eps=_BN_EPS)
+        self._folds = {}
 
-    def forward(self, x, train=False, sp=None):
+    def forward(self, x, train=False, sp=None, out=None):
+        """``out``: a map of the output's shape to write it into (a channel
+        slice of the heads' input); the output is returned either way."""
         dt = self.dtype
         w = self.conv.weight.to(dt)
         if self.factor > 1:
             x = F.conv_transpose2d(x.to(dt), w, stride=self.factor)
         else:
             x = F.conv2d(x.to(dt), w)
-        return F.relu(_norm(x, self.bn, train, sp))
+        if _fused(train, sp):
+            return bn_relu(x, *_bn_stats(self, 0, self.bn, dt), out=out)
+        x = F.relu(_norm(x, self.bn, train, sp))
+        return x if out is None else out.copy_(x)
+
+
+def _bev_backbone(blocks, ups, x, train, sp, dt):
+    """The BEV blocks, each followed by its upsampling: ``(B, sum of the
+    upsamplings' channels, W, H)`` in ``dt``, the upsampled maps one after
+    another along the channels. On the inference route (:func:`_fused`)
+    each upsampling writes its slice of that map; otherwise they are
+    concatenated."""
+    if not _fused(train, sp):
+        outs = []
+        for block, up in zip(blocks, ups):
+            x = block(x, train, sp)
+            outs.append(up(x, train, sp))
+        return torch.cat(outs, dim=1).to(dt)
+    feat, at = None, 0
+    for block, up in zip(blocks, ups):
+        x = block(x, train, sp)
+        if feat is None:
+            b, _, w, h = x.shape
+            feat = x.new_empty((b, sum(u.conv.out_channels for u in ups),
+                                w * up.factor, h * up.factor), dtype=dt)
+        width = up.conv.out_channels
+        up(x, train, sp, out=feat[:, at:at + width])
+        at += width
+    return feat
 
 
 class PointPillars(nn.Module):
@@ -396,11 +484,8 @@ class PointPillars(nn.Module):
 
         # backbone + FPN-style upsampling
         with span("pointpillars.backbone"):
-            ups = []
-            for block, up in zip(self.blocks, self.ups):
-                x = block(x, train, sp)
-                ups.append(up(x, train, sp))
-            feat = torch.cat(ups, dim=1).to(dt)  # (B, 3*U, W, H)
+            feat = _bev_backbone(self.blocks, self.ups, x, train, sp,
+                                 dt)  # (B, 3*U, W, H)
 
         with span("pointpillars.head"):
             return (_head(feat, self.head_cls, cfg.num_classes, dt, sp),

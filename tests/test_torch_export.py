@@ -61,7 +61,13 @@ FAMILIES = ("pointpillars", "sst", "mono3d", "voxelnext")
 # rule book: the CUDA graphs add d3d_tpu_torch::subm_conv_rulebook)
 NMS_OPS = {"d3d_tpu_torch.rbox_overlap_bits.default",
            "d3d_tpu_torch.nms_scan_sorted.default"}
-GRAPH_OPS = dict(pointpillars=NMS_OPS, sst=NMS_OPS, mono3d=set(),
+# the BEV layers' epilogue: in place after the pillar net's linear layer
+# and each convolution, and into the upsamplings' slices of the heads'
+# input (SST has no upsampling)
+EPILOGUE = "d3d_tpu_torch.bn_relu.default"
+GRAPH_OPS = dict(pointpillars=NMS_OPS | {
+                     EPILOGUE, "d3d_tpu_torch.bn_relu_into.default"},
+                 sst=NMS_OPS | {EPILOGUE}, mono3d=set(),
                  voxelnext=NMS_OPS | {"d3d_tpu_torch.subm_conv.default"})
 
 

@@ -469,8 +469,8 @@ def test_argtypes_match_the_c_signatures():
     sigs = _c_signatures()
     # K2, K3 share the scan and the pack; K1's library also gives its bit
     # rows and its descriptors, K4's has a float64 entry, K5's answers its
-    # tile's rows and builds rule books
-    assert len(sigs) == 12 and set(sigs) == set(declared)
+    # tile's rows and builds rule books; the BEV layers' epilogue has one
+    assert len(sigs) == 13 and set(sigs) == set(declared)
     for fn, (source, kinds) in sigs.items():
         assert set(kinds) <= set("PILFD"), (fn, kinds)
         assert declared[fn] == (source, kinds), fn
@@ -478,6 +478,7 @@ def test_argtypes_match_the_c_signatures():
     assert sigs["d3d_subm_conv_dw"][1] == "P" * 7 + "I" * 9 + "P"
     assert sigs["d3d_subm_conv_tile_rows"][1] == "I"
     assert sigs["d3d_subm_conv_rulebook_resident"][1] == ""
+    assert sigs["d3d_bn_relu"][1] == "P" * 5 + "III" + "LI" + "L" * 5 + "P"
     assert sigs["d3d_subm_conv_rulebook"][1] == "PPIIPPPIP"
     assert sigs["d3d_rbox_iou_matrix"][1] == "PPPIIPP"
     assert sigs["d3d_rbox_overlap_bits"][1] == "PPIFPP"
