@@ -15,8 +15,8 @@ from .bevseg import (BEVSeg, BEVSegConfig, bevseg_pillarize,
                      group_instances, make_panoptic_predictor,
                      make_predictor, panoptic_loss, panoptic_targets,
                      point_cell_coords, segmentation_loss)
-from .second import (SECOND, SECONDConfig, head_config, second_voxelize,
-                     sparse_stage_loop)
+from .second import (SECOND, SECONDConfig, SECONDLayout, head_config,
+                     second_voxelize, sparse_stage_loop)
 from .voxelnext import (VoxelNeXt, VoxelNeXtConfig, decode_voxelnext,
                         voxelnext_voxelize)
 from .sst import SST, SSTConfig, window_slots
@@ -45,7 +45,7 @@ __all__ = [
     "CenterPointRefine", "RefineConfig", "roi_grid_features",
     "apply_refinements", "encode_refinement_targets",
     "make_refine_train_step", "Seg2D", "Seg2DConfig", "make_segmenter",
-    "SECOND", "SECONDConfig",
+    "SECOND", "SECONDConfig", "SECONDLayout",
     "head_config", "second_voxelize", "sparse_stage_loop", "make_train_step",
     "presets", "make_pointpillars_detector", "make_centerpoint_detector",
     "make_second_detector",

@@ -11,6 +11,7 @@ Under a profiler every ``detect`` records its stages as
 """
 
 import math
+from functools import partial
 
 import numpy as np
 import torch
@@ -265,14 +266,17 @@ def make_centerpoint_detector(model, variables, cfg, pillar_cfg, classes,
 
 def make_second_detector(model, variables, cfg, anchors, classes,
                          score_threshold=0.3, iou_threshold=0.5, top_k=100,
-                         device=None):
+                         device=None, exact_mean=False):
     """Build ``detect(points, frame=None, timestamp=0)`` for a SECOND model (head outputs are
     PointPillars-compatible; only the voxelization front end differs).
     Arguments as :func:`make_pointpillars_detector`; ``anchors`` come from
-    ``make_anchors(head_config(cfg))``."""
+    ``make_anchors(head_config(cfg, model.layout))``; ``exact_mean`` is
+    :func:`~d3d_tpu_torch.models.second.second_voxelize`'s."""
     return _make_anchor_detector(model, variables, cfg, anchors, classes,
-                                 second_voxelize, score_threshold,
-                                 iou_threshold, top_k, device)
+                                 partial(second_voxelize,
+                                         exact_mean=exact_mean),
+                                 score_threshold, iou_threshold, top_k,
+                                 device)
 
 
 def make_voxelnext_detector(model, variables, cfg, classes,

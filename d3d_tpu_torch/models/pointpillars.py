@@ -306,10 +306,20 @@ class _PFN(nn.Module):
 
 
 class _ConvBlock(nn.Module):
-    def __init__(self, in_channels, channels, blocks, stride, dtype):
+    """``blocks`` 3x3 convolutions, each with BatchNorm and ReLU, the first
+    at ``stride``. ``in_slices`` > 1: the input is that many equal slices
+    stacked along the channels (SECOND's height fold), and the first
+    convolution runs as one convolution a slice, summed: for 2 x 128
+    channels at 176 x 200 in float32 cuDNN's heuristics pick an FFT engine
+    for the whole (242 ms, 33 000 launches, 16 GB of workspace on an H100)
+    and an implicit GEMM for a slice (0.36 ms)."""
+
+    def __init__(self, in_channels, channels, blocks, stride, dtype,
+                 in_slices=1):
         super().__init__()
         self.dtype = getattr(torch, dtype)
         self.stride = stride
+        self.in_slices = in_slices
         self.convs = nn.ModuleList(
             nn.Conv2d(in_channels if i == 0 else channels, channels, 3,
                       bias=False) for i in range(blocks))
@@ -327,10 +337,17 @@ class _ConvBlock(nn.Module):
         fused = _fused(train, sp)
         if fused:
             x = x.contiguous()
+        conv_fn = sp.conv2d if sp is not None else _conv_same
         for i, (conv, bn) in enumerate(zip(self.convs, self.bns)):
             stride = self.stride if i == 0 else 1
-            x = (sp.conv2d if sp is not None else _conv_same)(
-                x.to(dt), conv.weight.to(dt), stride)
+            x, w = x.to(dt), conv.weight.to(dt)
+            if i == 0 and self.in_slices > 1:
+                xs, ws = x.chunk(self.in_slices, 1), w.chunk(self.in_slices, 1)
+                x = conv_fn(xs[0], ws[0], stride)
+                for xi, wi in zip(xs[1:], ws[1:]):
+                    x = x + conv_fn(xi, wi, stride)
+            else:
+                x = conv_fn(x, w, stride)
             x = (bn_relu(x, *_bn_stats(self, i, bn, dt)) if fused
                  else F.relu(_norm(x, bn, train, sp)))
         return x
@@ -373,6 +390,21 @@ class _Upsample(nn.Module):
             return bn_relu(x, *_bn_stats(self, 0, self.bn, dt), out=out)
         x = F.relu(_norm(x, self.bn, train, sp))
         return x if out is None else out.copy_(x)
+
+
+def _bev_layers(in_channels, channels, convs, up_channels, dtype,
+                in_slices=1):
+    """The BEV blocks of ``convs[i]`` 3x3 convolutions of ``channels[i]``,
+    the first block at stride 1 (its input ``in_slices`` slices, as
+    :class:`_ConvBlock` takes them) and the rest at 2, and each block's
+    upsampling by ``2**i`` to ``up_channels[i]``: two ``nn.ModuleList``."""
+    blocks, ups = [], []
+    for i, (ch, nb, up) in enumerate(zip(channels, convs, up_channels)):
+        blocks.append(_ConvBlock(in_channels, ch, nb, 2 if i > 0 else 1,
+                                 dtype, in_slices if i == 0 else 1))
+        ups.append(_Upsample(ch, up, 2 ** i, dtype))
+        in_channels = ch
+    return nn.ModuleList(blocks), nn.ModuleList(ups)
 
 
 def _bev_backbone(blocks, ups, x, train, sp, dt):
@@ -423,18 +455,10 @@ class PointPillars(nn.Module):
         self.cfg = cfg
         self.constrain = constrain
         self.pfn = _PFN(point_features + 5, cfg.pfn_features, cfg.dtype)
-        blocks, ups = [], []
-        ch_in = cfg.pfn_features
-        for i, (ch, nb) in enumerate(zip(cfg.backbone_channels,
-                                         cfg.backbone_blocks)):
-            blocks.append(_ConvBlock(ch_in, ch, nb, 2 if i > 0 else 1,
-                                     cfg.dtype))
-            ups.append(_Upsample(ch, cfg.upsample_channels, 2 ** i,
-                                 cfg.dtype))
-            ch_in = ch
-        self.blocks = nn.ModuleList(blocks)
-        self.ups = nn.ModuleList(ups)
-        feat = cfg.upsample_channels * len(blocks)
+        self.blocks, self.ups = _bev_layers(
+            cfg.pfn_features, cfg.backbone_channels, cfg.backbone_blocks,
+            (cfg.upsample_channels,) * len(cfg.backbone_channels), cfg.dtype)
+        feat = cfg.upsample_channels * len(self.blocks)
         a = cfg.num_anchors_per_cell
         self.head_cls = nn.Conv2d(feat, a * cfg.num_classes, 1)
         self.head_box = nn.Conv2d(feat, a * 7, 1)

@@ -17,6 +17,10 @@ canvas instead (:func:`dense_stage_loop`): a masked 3D convolution a layer,
 ``F.conv3d``, as the JAX module's ``lax.conv_general_dilated``. It never
 truncates, so it equals the sparse path wherever the site caps do not
 bind.
+
+``SECOND(cfg, layout=SECONDLayout())`` runs OpenPCDet's structure instead
+(:class:`SECONDLayout`): strided layers by spconv's rule, a last strided
+layer along z, and the two-block BEV network of PointPillars' layers.
 """
 
 from dataclasses import dataclass
@@ -28,16 +32,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.sparse_conv import (build_neighbor_map, build_neighbor_map_strided,
-                               downsample_coords, prepare_neighbor_maps,
-                               sparse_to_dense, subm_conv_apply)
-from ..ops.voxel import voxelize_dense_padded
+                               conv_out_grid, downsample_coords,
+                               prepare_neighbor_maps, sparse_to_dense,
+                               subm_conv_apply)
+from ..ops.voxel import voxelize_dense_padded, voxelize_mean_fm_exact
 from ..parallel.comm import all_reduce_sum, batch_groups, live
+from ..profiler import span
 from ..utils import as_tensor, resolve_device
-from .pointpillars import PointPillarsConfig, _ConvBlock, _bev_hooks, _head
+from .pointpillars import (PointPillarsConfig, _bev_backbone, _bev_hooks,
+                           _bev_layers, _ConvBlock, _head)
 from .pointpillars import make_train_step as _pp_make_train_step
 
-__all__ = ["SECONDConfig", "SECOND", "second_voxelize", "head_config",
-           "sparse_stage_loop", "dense_stage_loop", "make_train_step"]
+__all__ = ["SECONDConfig", "SECONDLayout", "SECOND", "second_voxelize",
+           "head_config", "sparse_stage_loop", "dense_stage_loop",
+           "make_train_step"]
 
 _K = 27  # 3x3x3 kernel offsets
 
@@ -99,27 +107,88 @@ class SECONDConfig:
         return self._downsampled_grid()
 
 
-def head_config(cfg: SECONDConfig) -> PointPillarsConfig:
+@dataclass(frozen=True)
+class SECONDLayout:
+    """OpenPCDet's structure of SECOND (``VoxelBackBone8x`` and
+    ``BaseBEVBackbone`` of ``tools/cfgs/kitti_models/second.yaml``; the
+    defaults are its KITTI values), chosen by ``SECOND(cfg, layout=...)``.
+    The stages' channels, submanifold layers and site caps stay ``cfg``'s.
+
+    - ``z_extent``: the middle's sparse z extent (the voxel grid's + 1);
+    - ``down_padding``: the padding (x, y, z) of the strided layer after
+      each stage but the last; kernel 3, stride 2, outputs by spconv's
+      rule (:func:`~d3d_tpu_torch.ops.sparse_conv.downsample_coords`);
+    - ``out_*``: the strided layer after the last stage (``conv_out``),
+      padding 0, and its site cap;
+    - ``bev_*``: the BEV blocks, 3x3 convolutions, the first block at
+      stride 1 and the rest at 2, each followed by its upsampling by
+      ``2**i`` (PointPillars' ``_ConvBlock`` and ``_Upsample``); the heads
+      read the upsampled maps one after another along the channels.
+    """
+
+    z_extent: int = 41
+    down_padding: Tuple[Tuple[int, int, int], ...] = ((1, 1, 1), (1, 1, 1),
+                                                      (1, 1, 0))
+    out_channels: int = 128
+    out_kernel: Tuple[int, int, int] = (1, 1, 3)
+    out_stride: Tuple[int, int, int] = (1, 1, 2)
+    out_sites: int = 16000
+    bev_channels: Tuple[int, ...] = (128, 256)
+    bev_convs: Tuple[int, ...] = (6, 6)
+    bev_up_channels: Tuple[int, ...] = (256, 256)
+
+    def down(self, cfg, s):
+        """(kernel, stride, padding, site cap) of the strided layer after
+        stage ``s``."""
+        if s + 1 == cfg.n_stages:
+            return self.out_kernel, self.out_stride, 0, self.out_sites
+        return 3, 2, self.down_padding[s], cfg.stage_sites[s + 1]
+
+    def grids(self, cfg):
+        """The sparse extents (x, y, z): each stage's, then the last
+        strided layer's output."""
+        g = [(cfg.grid[0], cfg.grid[1], self.z_extent)]
+        for s in range(cfg.n_stages):
+            kernel, stride, pad, _ = self.down(cfg, s)
+            g.append(conv_out_grid(g[-1], kernel, stride, pad))
+        return g
+
+
+def head_config(cfg: SECONDConfig, layout=None) -> PointPillarsConfig:
     """A PointPillarsConfig describing the 2D head's anchor grid, so SECOND
-    reuses :func:`make_anchors` and the detector factory unchanged."""
+    reuses :func:`make_anchors` and the detector factory unchanged (with a
+    :class:`SECONDLayout`, its BEV grid)."""
+    grid = cfg.bev_grid if layout is None else layout.grids(cfg)[-1][:2]
     return PointPillarsConfig(
-        bounds=cfg.bounds, grid=cfg.bev_grid, num_classes=cfg.num_classes,
+        bounds=cfg.bounds, grid=grid, num_classes=cfg.num_classes,
         anchor_sizes=cfg.anchor_sizes, anchor_z=cfg.anchor_z,
         anchor_rotations=cfg.anchor_rotations, pos_iou=cfg.pos_iou,
         neg_iou=cfg.neg_iou, dtype=cfg.dtype)
 
 
-def second_voxelize(points, cfg: SECONDConfig):
+def second_voxelize(points, cfg: SECONDConfig, exact_mean=False):
     """Points (N, 4) -> (features (V, 4) per-voxel means, coords (V, 3)
     int32 [ix, iy, iz], valid (V,)) with static shapes, voxels in cell-key
-    order. A tensor stays on its device, anything else goes to CUDA."""
+    order. A tensor stays on its device, anything else goes to CUDA.
+
+    The means are the JAX module's: differences of a float32 prefix sum
+    over every point, off by centimetres where the sums reach ~10^6. With
+    ``exact_mean`` each voxel's sums are exact integer sums of its points
+    (:func:`~d3d_tpu_torch.ops.voxel.voxelize_mean_fm_exact`), and the
+    means are right to float32 rounding."""
     points = as_tensor(points)
     bounds = torch.tensor(cfg.bounds, dtype=points.dtype,
                           device=points.device)
-    vox = voxelize_dense_padded(points, cfg.grid, bounds, 1, cfg.max_voxels,
-                                "mean", order_mode="sorted")
-    feats = vox.aggregates                        # (V, 4) means
-    coords = vox.coords.to(torch.int32)           # (V, 3)
+    if exact_mean:
+        vox = voxelize_mean_fm_exact(points.T, cfg.grid, bounds,
+                                     cfg.max_voxels)
+        feats, coords = vox.aggregates.T, vox.coords.T.to(torch.int32)
+    else:
+        vox = voxelize_dense_padded(points, cfg.grid, bounds, 1,
+                                    cfg.max_voxels, "mean",
+                                    order_mode="sorted")
+        feats = vox.aggregates                    # (V, 4) means
+        coords = vox.coords.to(torch.int32)       # (V, 3)
     valid = (torch.arange(cfg.max_voxels, dtype=torch.int32,
                           device=points.device) < vox.nvoxels)
     return feats * valid[:, None].to(feats.dtype), coords, valid
@@ -176,11 +245,11 @@ class _SpConv(nn.Module):
     """One sparse conv layer (submanifold or strided, as the neighbour map
     says) + masked BN + ReLU. ``weight`` is (K, C, Cout), the flax layout."""
 
-    def __init__(self, in_channels, channels, dtype, symmetric=False):
+    def __init__(self, in_channels, channels, dtype, symmetric=False, k=_K):
         super().__init__()
         self.dtype = getattr(torch, dtype)
         self.symmetric = symmetric
-        self.weight = nn.Parameter(torch.empty(_K, in_channels, channels))
+        self.weight = nn.Parameter(torch.empty(k, in_channels, channels))
         self.bn = _MaskedBN(channels)
 
     def forward(self, x, nbr, valid, train=False):
@@ -257,25 +326,35 @@ def dense_stage_loop(cfg, layers, x, coords, valid, train=False):
     return canvas, mask
 
 
-def _stage_maps(cfg, coords, valid):
+def _stage_maps(cfg, coords, valid, layout=None):
     """The neighbour maps of the sparse stages of one frame (they depend
     on the geometry only): per stage ``(nbr, valid, nbr_down, valid_down)``
     -- the submanifold map of the stage's sites, and the strided map to
-    the next stage's sites with their mask (None after the last stage) --
-    and the final sites' (coords, valid, grid)."""
-    grid = tuple(cfg.grid)
+    the next stage's sites with their mask (None after the last stage; a
+    :class:`SECONDLayout`'s last stage has its ``out_*`` layer) -- and the
+    final sites' (coords, valid, grid)."""
+    grid = tuple(cfg.grid) if layout is None else layout.grids(cfg)[0]
     maps = []
     for s in range(cfg.n_stages):
         nbr = build_neighbor_map(coords, valid, grid)
-        if s + 1 == cfg.n_stages:
+        if layout is None and s + 1 == cfg.n_stages:
             maps.append((nbr, valid, None, None))
             break
-        oc, ov = downsample_coords(coords, valid, grid, 2,
-                                   cfg.stage_sites[s + 1])
-        nbr_s = build_neighbor_map_strided(oc, ov, coords, valid, grid, 2)
+        if layout is None:
+            oc, ov = downsample_coords(coords, valid, grid, 2,
+                                       cfg.stage_sites[s + 1])
+            nbr_s = build_neighbor_map_strided(oc, ov, coords, valid, grid,
+                                               2)
+            out_grid = tuple(-(-g // 2) for g in grid)
+        else:
+            kernel, stride, pad, cap = layout.down(cfg, s)
+            oc, ov = downsample_coords(coords, valid, grid, stride, cap,
+                                       kernel=kernel, padding=pad)
+            nbr_s = build_neighbor_map_strided(oc, ov, coords, valid, grid,
+                                               stride, kernel, padding=pad)
+            out_grid = conv_out_grid(grid, kernel, stride, pad)
         maps.append((nbr, valid, nbr_s, ov))
-        coords, valid = oc, ov
-        grid = tuple(-(-g // 2) for g in grid)
+        coords, valid, grid = oc, ov, out_grid
     return maps, (coords, valid, grid)
 
 
@@ -284,7 +363,7 @@ def _offset(nbr, base):
     return torch.where(nbr >= 0, nbr + base, nbr)
 
 
-def _batch_stage_maps(cfg, coords, valid):
+def _batch_stage_maps(cfg, coords, valid, layout=None):
     """:func:`_stage_maps` of each frame of (B, V, 3) coords and (B, V)
     valid, joined into the maps of ONE site list: frame b's rows of a stage
     with R rows a frame are rows ``b*R ... b*R + R - 1``, and its neighbour
@@ -296,7 +375,7 @@ def _batch_stage_maps(cfg, coords, valid):
     built here once for every launch on them; the CPU's plain versions
     read the bare maps. Returns the joined maps and the final stage's
     (coords (B, R, 3), valid (B, R), grid)."""
-    frames = [_stage_maps(cfg, c, v) for c, v in zip(coords, valid)]
+    frames = [_stage_maps(cfg, c, v, layout) for c, v in zip(coords, valid)]
     maps = []
     for s in range(cfg.n_stages):
         per = [f[0][s] for f in frames]
@@ -320,10 +399,17 @@ def _batch_stage_maps(cfg, coords, valid):
 def _prepare_maps(maps):
     """:func:`_batch_stage_maps`' maps with every neighbour map (each
     stage's submanifold map and strided map) replaced by its rule book,
-    all built together (:func:`prepare_neighbor_maps`)."""
-    books = iter(prepare_neighbor_maps(
-        [m for nbr, _, nbr_s, _ in maps for m in (nbr, nbr_s)
-         if m is not None]))
+    built together, one call of :func:`prepare_neighbor_maps` for the maps
+    of each kernel size."""
+    flat = [m for nbr, _, nbr_s, _ in maps for m in (nbr, nbr_s)
+            if m is not None]
+    books = [None] * len(flat)
+    for k in sorted({m.shape[1] for m in flat}):
+        rows = [i for i, m in enumerate(flat) if m.shape[1] == k]
+        for i, book in zip(rows, prepare_neighbor_maps([flat[i]
+                                                        for i in rows])):
+            books[i] = book
+    books = iter(books)
     return [(next(books), valid, None if nbr_s is None else next(books),
              valid_s) for _, valid, nbr_s, valid_s in maps]
 
@@ -339,21 +425,27 @@ def _run_stages(cfg, layers, x, maps, train=False):
     return x
 
 
-def sparse_stage_loop(cfg, layers, x, coords, valid, train=False):
+def sparse_stage_loop(cfg, layers, x, coords, valid, train=False,
+                      layout=None):
     """The sparse-backbone stage loop (SECOND, later VoxelNeXt): submanifold
     convs on the active set, a strided downsample between stages. The B
     frames run as one joined site list (:func:`_batch_stage_maps`): one K5
-    launch a layer for the batch.
+    launch a layer for the batch. The maps run in the span
+    ``second.maps``, the layers in ``second.middle``.
 
     :param x: (B, V, C) site features; ``coords`` (B, V, 3) int32;
         ``valid`` (B, V)
     :param train: BatchNorm with batch statistics (see :class:`_MaskedBN`)
+    :param layout: a :class:`SECONDLayout`, whose last stage is followed
+        by its ``out_*`` layer (``layers["down{n_stages - 1}"]``)
     :returns: (features (B, R, C'), coords (B, R, 3), valid (B, R),
         final_grid) of the final stage's R sites a frame
     """
     b, v = valid.shape
-    maps, (oc, ov, grid) = _batch_stage_maps(cfg, coords, valid)
-    y = _run_stages(cfg, layers, x.reshape(b * v, -1), maps, train)
+    with span("second.maps"):
+        maps, (oc, ov, grid) = _batch_stage_maps(cfg, coords, valid, layout)
+    with span("second.middle"):
+        y = _run_stages(cfg, layers, x.reshape(b * v, -1), maps, train)
     return y.reshape(b, -1, y.shape[-1]), oc, ov, grid
 
 
@@ -373,15 +465,27 @@ class SECOND(nn.Module):
         :func:`~d3d_tpu_torch.parallel.mesh.spatial_constrain`'s only the
         BEV head runs on this rank's slab of rows, as in the JAX module
         (the sparse middle is site-parallel and stays whole)
+    :param layout: a :class:`SECONDLayout` to run OpenPCDet's structure
+        on the sparse middle (its last strided layer is
+        ``middle.down{n_stages - 1}``, its BEV network ``blocks`` and
+        ``ups``); None runs the JAX module's
     """
 
     def __init__(self, cfg: SECONDConfig, point_features=4, device=None,
-                 generator=None, constrain=None):
+                 generator=None, constrain=None, layout=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         self.constrain = constrain
+        self.layout = layout
         dense = cfg.middle_mode() == "dense"
+        if layout is not None and (
+                dense or len(layout.down_padding) + 1 != cfg.n_stages):
+            raise ValueError(
+                "a SECONDLayout runs on the sparse middle, with a padding "
+                f"for each of the {cfg.n_stages - 1} strided layers between "
+                f"stages; got middle={cfg.middle!r} and "
+                f"{len(layout.down_padding)} paddings")
         layers = {}
         c_in = point_features
         for s, ch in enumerate(cfg.stage_channels):
@@ -396,13 +500,26 @@ class SECOND(nn.Module):
                     _SpConvDense(c_in, c_out, cfg.dtype, stride=2) if dense
                     else _SpConv(c_in, c_out, cfg.dtype))
                 c_in = c_out
+        if layout is not None:
+            layers[f"down{cfg.n_stages - 1}"] = _SpConv(
+                c_in, layout.out_channels, cfg.dtype,
+                k=int(np.prod(layout.out_kernel)))
         self.middle = nn.ModuleDict(layers)
-        self.head_block = _ConvBlock(cfg.final_grid[2] * c_in,
-                                     cfg.head_channels, 2, 1, cfg.dtype)
+        if layout is None:
+            self.head_block = _ConvBlock(cfg.final_grid[2] * c_in,
+                                         cfg.head_channels, 2, 1, cfg.dtype)
+            feat = cfg.head_channels
+        else:
+            nz = layout.grids(cfg)[-1][2]
+            self.blocks, self.ups = _bev_layers(
+                nz * layout.out_channels, layout.bev_channels,
+                layout.bev_convs, layout.bev_up_channels, cfg.dtype,
+                in_slices=nz)
+            feat = sum(layout.bev_up_channels)
         a = len(cfg.anchor_sizes) * len(cfg.anchor_rotations)
-        self.head_cls = nn.Conv2d(cfg.head_channels, a * cfg.num_classes, 1)
-        self.head_box = nn.Conv2d(cfg.head_channels, a * 7, 1)
-        self.head_dir = nn.Conv2d(cfg.head_channels, a * 2, 1)
+        self.head_cls = nn.Conv2d(feat, a * cfg.num_classes, 1)
+        self.head_box = nn.Conv2d(feat, a * 7, 1)
+        self.head_dir = nn.Conv2d(feat, a * 2, 1)
         self.reset_parameters(generator)
         self.to(dev)
 
@@ -414,10 +531,11 @@ class SECOND(nn.Module):
             generator = torch.Generator().manual_seed(0)
         heads = (self.head_cls, self.head_box, self.head_dir)
         for mod in self.modules():
-            if isinstance(mod, (nn.Conv2d, _SpConv)):
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, _SpConv)):
                 w = mod.weight
-                fan_in = w[0].numel() if isinstance(mod, nn.Conv2d) \
-                    else w.shape[0] * w.shape[1]
+                fan_in = (w[0].numel() if isinstance(mod, nn.Conv2d) else
+                          w.shape[0] if isinstance(mod, nn.ConvTranspose2d)
+                          else w.shape[0] * w.shape[1])
                 gain = 1.0 if mod in heads else 2.0
                 w.copy_(torch.randn(w.shape, generator=generator)
                         * (gain / fan_in) ** 0.5)
@@ -442,10 +560,11 @@ class SECOND(nn.Module):
                                         coords, valid, train)
             return self.bev_head(dense, train)
         x, oc, ov, fg = sparse_stage_loop(self.cfg, self.middle, features,
-                                          coords, valid, train)
-        dense = [sparse_to_dense(xi, ci, vi, fg)  # (X, Y, Z, C) a frame
-                 for xi, ci, vi in zip(x, oc, ov)]
-        return self.bev_head(torch.stack(dense), train)
+                                          coords, valid, train, self.layout)
+        with span("second.bev"):
+            dense = [sparse_to_dense(xi, ci, vi, fg)  # (X, Y, Z, C) a frame
+                     for xi, ci, vi in zip(x, oc, ov)]
+            return self.bev_head(torch.stack(dense), train)
 
     def bev_head(self, dense, train=False):
         """(B, X, Y, Z, C) final-stage canvas -> the three head outputs."""
@@ -455,9 +574,9 @@ class SECOND(nn.Module):
         # fold z into channels z-major, as the JAX module's reshape does,
         # then NCHW with x along the first spatial axis
         con, sp = _bev_hooks(self.constrain)
-        bev = self.head_block(
-            con(dense.reshape(b, nx, ny, -1).permute(0, 3, 1, 2), "bev"),
-            train, sp)
+        x = con(dense.reshape(b, nx, ny, -1).permute(0, 3, 1, 2), "bev")
+        bev = (self.head_block(x, train, sp) if self.layout is None
+               else _bev_backbone(self.blocks, self.ups, x, train, sp, dt))
         return (_head(bev, self.head_cls, cfg.num_classes, dt, sp),
                 _head(bev, self.head_box, 7, dt, sp),
                 _head(bev, self.head_dir, 2, dt, sp))

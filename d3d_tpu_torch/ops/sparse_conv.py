@@ -23,22 +23,51 @@ transient) build their maps on the canvas; larger ones (a 150 m Waymo
 extent at 0.1 m is 90.5M cells) take the JAX module's tagged sort join
 (:func:`match_sorted`), all kernel offsets in one batched stable sort.
 Both routes give the same map.
+
+Strided maps take a kernel, stride and padding per axis where asked
+(``kernel``/``padding`` of :func:`downsample_coords` and
+:func:`build_neighbor_map_strided`): output site ``o`` reads the inputs
+``s*o - p + j`` for ``j`` in the kernel's raster, and it is active when
+that window holds an active input, as spconv's ``SparseConv3d`` has it
+(:func:`conv_out_grid` gives the output extent).
 """
 
 import numpy as np
 import torch
 
+from ..profiler import span
 from ..utils import as_tensor
 from .rulebook import RuleBook, prepare_neighbor_map, prepare_neighbor_maps
 from .sparse_conv_cuda import SubmConv
 
 __all__ = ["kernel_offsets", "linearize", "match_sorted", "build_neighbor_map",
-           "build_neighbor_map_strided", "prepare_neighbor_map",
-           "prepare_neighbor_maps", "RuleBook",
+           "build_neighbor_map_strided", "conv_out_grid",
+           "prepare_neighbor_map", "prepare_neighbor_maps", "RuleBook",
            "subm_conv_apply", "downsample_coords", "sparse_to_dense"]
 
 _DENSE_CANVAS_MAX_CELLS = 1 << 26
 _BIG_KEY = 2 ** 30 - 1
+
+# small int32 constants (kernel offsets, strides, extents) by what they
+# hold and their device, made once: a constant copied to the card on every
+# call would wait for the device
+_CONSTS = {}
+
+
+def _cached(key, make):
+    """``make()``, kept under ``key``; made anew while ``torch.export``
+    traces, whose tensors are no constants to keep."""
+    if torch.compiler.is_compiling():
+        return make()
+    if key not in _CONSTS:
+        _CONSTS[key] = make()
+    return _CONSTS[key]
+
+
+def _const(values, device):
+    """``values`` (ints) as an int32 tensor on ``device``."""
+    return _cached((values, device), lambda: torch.tensor(
+        values, dtype=torch.int32, device=device))
 
 
 def kernel_offsets(kernel_size=3, ndim=3):
@@ -84,11 +113,12 @@ def match_sorted(ref_keys, ref_valid, query_keys, query_valid):
                     & (half[..., 1:] == half[..., :-1]))
     prev = torch.cat([row[..., :1], row[..., :-1]], dim=-1)
     val = torch.where(hit, prev, -1)
-    # back to query-row order: each query row sits once among the queries
-    out = torch.empty(batch + (m,), dtype=torch.int32, device=qk.device)
-    out.scatter_(-1, row[is_query].reshape(batch + (m,)).to(torch.int64),
-                 val[is_query].reshape(batch + (m,)))
-    return torch.where(query_valid, out, -1)
+    # back to query-row order: each query row sits once among the queries;
+    # the refs all write a spare last column (no boolean index, which
+    # would wait for the device)
+    out = torch.empty(batch + (m + 1,), dtype=torch.int32, device=qk.device)
+    out.scatter_(-1, torch.where(is_query, row, m).to(torch.int64), val)
+    return torch.where(query_valid, out[..., :m], -1)
 
 
 def _dense_row_canvas(keys, valid, volume):
@@ -104,21 +134,56 @@ def _dense_row_canvas(keys, valid, volume):
     return canvas
 
 
+def _axes(v):
+    """An int or a 3-sequence as a tuple of three ints."""
+    return (int(v),) * 3 if np.ndim(v) == 0 else tuple(int(x) for x in v)
+
+
+def _window_offsets(kernel, padding):
+    """``j - padding`` for every kernel tap ``j`` in raster (ij) order,
+    (K, 3) int32 numpy: the input offsets of an output site at stride
+    times its coordinates."""
+    kernel, padding = _axes(kernel), _axes(padding)
+    grids = np.meshgrid(*(np.arange(k) - p for k, p in zip(kernel, padding)),
+                        indexing="ij")
+    return np.stack([g.ravel() for g in grids], axis=1).astype(np.int32)
+
+
+def _offsets_on(kernel, padding, device):
+    """:func:`_window_offsets` as an int32 tensor on ``device``."""
+    return _cached(("offsets", _axes(kernel), _axes(padding), device),
+                   lambda: torch.as_tensor(_window_offsets(kernel, padding),
+                                           device=device))
+
+
+def conv_out_grid(grid, kernel, stride, padding):
+    """The output extent of a strided sparse conv on ``grid``, per axis
+    ``(n + 2p - k) // s + 1``."""
+    return tuple((n + 2 * p - k) // s + 1 for n, k, s, p in
+                 zip(grid, _axes(kernel), _axes(stride), _axes(padding)))
+
+
 def _neighbor_map_impl(query_coords, query_valid, ref_keys, ref_valid, grid,
-                       kernel_size, stride=1):
+                       kernel, padding, stride=1):
     """Query site q looks up the input row at ``q * stride + off`` for
-    every kernel offset: (Nq, K) int32, -1 where absent."""
+    every offset ``off`` of :func:`_window_offsets` (``kernel``,
+    ``padding`` and ``stride`` each an int or one a axis): (Nq, K) int32,
+    -1 where absent."""
     volume = int(np.prod(grid))
     dev = query_coords.device
-    offs = torch.as_tensor(kernel_offsets(kernel_size), device=dev)
-    gmax = torch.tensor(grid, dtype=torch.int32, device=dev)
+    offs = _offsets_on(kernel, padding, dev)
+    if np.ndim(stride):
+        stride = _const(tuple(stride), dev)
+    gmax = _const(tuple(grid), dev)
     qc = query_coords.to(torch.int32)[:, None, :] * stride + offs[None]
     inb = ((qc >= 0) & (qc < gmax)).all(dim=-1) & query_valid[:, None]
     d0, d1, d2 = grid
     qk = qc[..., 0] * (d1 * d2) + qc[..., 1] * d2 + qc[..., 2]
     if volume > _DENSE_CANVAS_MAX_CELLS:
         # one join per kernel offset, (K, Nq) -> (Nq, K)
-        return match_sorted(ref_keys, ref_valid, qk.T, inb.T).T.contiguous()
+        with span("sparse.sort_join"):
+            return match_sorted(ref_keys, ref_valid, qk.T,
+                                inb.T).T.contiguous()
     canvas = _dense_row_canvas(ref_keys, ref_valid, volume)
     return canvas[torch.where(inb, qk, volume).to(torch.int64)]
 
@@ -133,17 +198,25 @@ def build_neighbor_map(coords, valid, grid, kernel_size=3):
         where absent, out of bounds or invalid
     """
     keys = linearize(coords, grid)
-    return _neighbor_map_impl(coords, valid, keys, valid, grid, kernel_size)
+    return _neighbor_map_impl(coords, valid, keys, valid, grid, kernel_size,
+                              kernel_size // 2)
 
 
 def build_neighbor_map_strided(out_coords, out_valid, in_coords, in_valid,
-                               grid, stride=2, kernel_size=3):
+                               grid, stride=2, kernel_size=3, padding=None):
     """Neighbour map of a strided sparse conv: for each OUTPUT site, the
     input row at ``out * stride + off`` per kernel offset (``grid`` is the
-    INPUT grid). Returns (M, K) int32, -1 where absent."""
+    INPUT grid). Returns (M, K) int32, -1 where absent.
+
+    Without ``padding`` the kernel is the cubic ``kernel_size`` centred on
+    ``out * stride``. With it, ``kernel_size``, ``stride`` and ``padding``
+    may each be an int or one a axis, and the offsets are ``j - padding``
+    for the kernel's taps ``j`` in raster order: spconv's window."""
     in_keys = linearize(in_coords, grid)
+    if padding is None:
+        padding = kernel_size // 2
     return _neighbor_map_impl(out_coords, out_valid, in_keys, in_valid,
-                              grid, kernel_size, stride=stride)
+                              grid, kernel_size, padding, stride=stride)
 
 
 def subm_conv_apply(features, nbr, weights, valid, symmetric=False):
@@ -179,24 +252,44 @@ def subm_conv_apply(features, nbr, weights, valid, symmetric=False):
     return SubmConv.apply(features, nbr, weights, valid, symmetric)
 
 
-def downsample_coords(coords, valid, grid, stride=2, max_out=None):
+def downsample_coords(coords, valid, grid, stride=2, max_out=None,
+                      kernel=None, padding=0):
     """Active sites of a stride-``s`` sparse conv output: the unique
     ``coords // s`` in ascending key order, capped to the first ``max_out``
     (default N) keys.
+
+    With ``kernel`` (and ``stride``, ``padding``: each an int or one a
+    axis) the output rule is spconv's instead: a site ``o`` of the
+    :func:`conv_out_grid` is active when its window ``[s*o - p, s*o - p +
+    k - 1]`` holds an active input on every axis.
 
     :returns: (out_coords (M, 3) int32, out_valid (M,) bool). Rows past
         the last unique site are padding in no meaningful order.
     """
     n = coords.shape[0]
     m = max_out or n
-    og = tuple(-(-g // stride) for g in grid)
-    down = torch.div(coords.to(torch.int32), stride, rounding_mode="floor")
+    if kernel is None:
+        og = tuple(-(-g // stride) for g in grid)
+        down = torch.div(coords.to(torch.int32), stride,
+                         rounding_mode="floor")
+    else:
+        # every (input, tap) pair names the output whose window puts the
+        # input at that tap, where the stride divides it and it is inside
+        og = conv_out_grid(grid, kernel, stride, padding)
+        dev = coords.device
+        st = _const(_axes(stride), dev)
+        num = (coords.to(torch.int32)[:, None, :]
+               - _offsets_on(kernel, padding, dev)[None])
+        down = torch.div(num, st, rounding_mode="floor")
+        hit = ((num - down * st == 0) & (down >= 0) & (down < _const(og, dev))
+               ).all(dim=-1) & valid[:, None]
+        down, valid = down.reshape(-1, 3), hit.reshape(-1)
     keys = torch.where(valid, linearize(down, og), _BIG_KEY)
     sk, perm = torch.sort(keys, stable=True)
     first = torch.cat([torch.ones(1, dtype=torch.bool, device=sk.device),
                        sk[1:] != sk[:-1]]) & (sk < _BIG_KEY)
     # compact the first row of each key to the front, keys ascending
-    pos = torch.arange(n, dtype=torch.int32, device=sk.device)
+    pos = torch.arange(keys.shape[0], dtype=torch.int32, device=sk.device)
     _, perm2 = torch.sort(torch.where(first, pos, _BIG_KEY), stable=True)
     rows = perm[perm2][:m]
     return down[rows], first[perm2][:m]
