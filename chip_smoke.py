@@ -1603,6 +1603,197 @@ def check_rulebooks(map_sets):
     return 0.0, routes
 
 
+def stage_map_frames(rng, batch, rows, grid, box, fill=None):
+    """(B, rows, 3) int32 coords and (B, rows) valid on the CPU: frame b
+    has ``fill[b]`` (default ~80% of the rows less 10% a frame) valid
+    sites at distinct cells of a box of ``box`` cells at the grid's origin
+    or far corner, in random rows; the rest hold arbitrary coords."""
+    coords = rng.integers(-4, max(grid) + 4, (batch, rows, 3)).astype(
+        np.int32)
+    valid = np.zeros((batch, rows), bool)
+    box = tuple(min(b, g) for b, g in zip(box, grid))
+    for b in range(batch):
+        n = (fill[b] if fill is not None else
+             min(int(np.prod(box)), rows * (8 - b) // 10))
+        keys = rng.choice(int(np.prod(box)), n, replace=False)
+        corner = [0 if (b + a) % 2 == 0 else g - x
+                  for a, (g, x) in enumerate(zip(grid, box))]
+        at = rng.choice(rows, n, replace=False)
+        coords[b, at] = np.stack(np.unravel_index(keys, box), -1) + corner
+        valid[b, at] = True
+    return torch.from_numpy(coords), torch.from_numpy(valid)
+
+
+def published_second():
+    """The benchmark's SECOND at OpenPCDet's KITTI widths (its
+    ``second_kitti_f32`` configuration): config and layout."""
+    from d3d_tpu_torch.models import SECONDLayout, presets
+
+    cfg = presets.second_kitti(
+        dtype="float32", grid=(1408, 1600, 40), max_voxels=40000,
+        stage_channels=(16, 32, 64, 64),
+        stage_sites=(40000, 90000, 60000, 20000))
+    return cfg, SECONDLayout(out_sites=12000)
+
+
+def stage_maps_equal(label, cfg, layout, coords, valid, plain_on="cuda"):
+    """M1's outputs against the plain version's (its torch ops on
+    ``plain_on``) for one batch: maps and valid bit for bit, coords on
+    valid rows. Returns the frames' valid sites after each strided
+    layer."""
+    from d3d_tpu_torch.models.second import _stage_plan
+    from d3d_tpu_torch.ops import stage_maps as M
+
+    grid, downs = _stage_plan(cfg, layout)
+    plan = M._plan(valid.shape[1], grid, downs)
+    got = torch.ops.d3d_tpu_torch.build_stage_maps(coords, valid, plan)
+    stages, _ = M._build_stage_maps_plain(coords.to(plain_on),
+                                          valid.to(plain_on), grid, downs)
+    want = []
+    for nbr, _, nbr_s, oc, ov in stages:
+        want += [nbr] if nbr_s is None else [nbr, nbr_s, oc,
+                                             ov.reshape(valid.shape[0], -1)]
+    check(len(got) == len(want), f"stage maps {label}: {len(got)} outputs")
+    sites = []
+    for i in range(len(want)):
+        g, w = got[i], want[i]
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"stage maps {label}: output {i} {tuple(g.shape)} {g.dtype}, "
+              f"plain {tuple(w.shape)} {w.dtype}")
+        g, w = g.to(plain_on), w.to(plain_on)
+        if w.ndim == 3:  # a strided layer's coords: on its valid rows
+            v = want[i + 1].to(plain_on)
+            check(torch.equal(g[v], w[v].to(torch.int32)),
+                  f"stage maps {label}: output coords {i} differ")
+            sites.append(v.sum(dim=1).tolist())
+        else:
+            check(torch.equal(g, w), f"stage maps {label}: output {i} "
+                  "differs from the plain version")
+    return sites
+
+
+def check_stage_maps(dev):
+    """M1 (``csrc/stage_maps.cu``) against its plain version on the card:
+    the benchmark cell's 16 seeded KITTI-like frames at the published
+    extents (exact voxels, one frame a call and all 16 in one) and the edge
+    cases (an empty frame, caps that bind, an empty output extent, the
+    ``coords // 2`` rule on odd extents, VoxelNeXt, the 1504 x 1504 x 40
+    Waymo-size extent, duplicate coords); then one frame's launches inside
+    ``d3d.second.maps`` (maps and rule books) on M1 and on the plain
+    route, and M1's time by CUDA events and CUPTI against the plain
+    route's and its bound (coords read once, maps, coords and valid
+    written once)."""
+    from d3d_tpu_torch.models import SECONDLayout, presets, second_voxelize
+    from d3d_tpu_torch.models.second import (_batch_stage_maps,
+                                             _prepare_maps, _stage_plan)
+    from d3d_tpu_torch.ops import stage_maps as M
+
+    cfg, layout = published_second()
+    frames = []
+    for i in range(16):  # the serving cell's pool under seed 2147483801
+        fs = int(np.random.SeedSequence([2147483801, 0, i]).generate_state(
+            1, np.uint64)[0])
+        pts = torch.from_numpy(kitti_like_points(fs)).to(dev)
+        _, c, v = second_voxelize(pts, cfg, exact_mean=True)
+        frames.append((c, v))
+    sites = []
+    for i, (c, v) in enumerate(frames):
+        sites.append(stage_maps_equal(f"KITTI-like frame {i}", cfg, layout,
+                                      c[None], v[None]))
+    batch = (torch.stack([c for c, _ in frames]),
+             torch.stack([v for _, v in frames]))
+    stage_maps_equal("16 KITTI-like frames in one call", cfg, layout, *batch)
+    voxels = [int(v.sum()) for _, v in frames]
+    log(f"stage maps: M1 equal to the plain version on 16 KITTI-like "
+        f"frames at the published extents ({min(voxels)}-{max(voxels)} "
+        f"voxels; sites after each strided layer, frame 0: {sites[0]}), a "
+        "frame a call and all 16 in one")
+
+    rng = np.random.default_rng(29)
+    small = presets.second_kitti(
+        dtype="float32", grid=(24, 20, 40), max_voxels=400,
+        stage_channels=(4, 8, 8, 8), stage_sites=(400, 900, 500, 300))
+    small_layout = SECONDLayout(z_extent=41, out_sites=200)
+    g0 = small_layout.grids(small)[0]
+    tight = presets.second_kitti(
+        dtype="float32", grid=(24, 20, 40), max_voxels=400,
+        stage_channels=(4, 8, 8, 8), stage_sites=(400, 60, 30, 12))
+    flat = presets.second_kitti(
+        dtype="float32", grid=(16, 14, 8), max_voxels=300,
+        stage_channels=(4, 8, 8, 8), stage_sites=(300, 600, 300, 200))
+    flat_layout = SECONDLayout(z_extent=9, out_sites=100)
+    odd = presets.second_kitti(grid=(21, 19, 9), max_voxels=300,
+                               stage_sites=(300, 100, 40))
+    vnx = presets.voxelnext_nuscenes(grid=(26, 22, 10), max_voxels=350,
+                                     stage_sites=(350, 200, 120, 60))
+    waymo = presets.voxelnext_nuscenes(
+        bounds=(-75.2, 75.2, -75.2, 75.2, -2.0, 4.0), grid=(1504, 1504, 40),
+        max_voxels=20000, stage_sites=(20000, 15000, 8000, 4000))
+    dup = stage_map_frames(rng, 2, 350, vnx.grid, (14, 12, 10))
+    for t in dup:
+        t[:, 1::7] = t[:, ::7][:, :t[:, 1::7].shape[1]]
+    edges = {
+        "random": (small, small_layout,
+                   stage_map_frames(rng, 3, 400, g0, (12, 12, 41))),
+        "empty frame": (small, small_layout, stage_map_frames(
+            rng, 2, 400, g0, (12, 12, 41), fill=(0, 300))),
+        "caps bind": (tight, SECONDLayout(z_extent=41, out_sites=5),
+                      stage_map_frames(rng, 2, 400, g0, (12, 12, 41))),
+        "empty output extent": (flat, flat_layout, stage_map_frames(
+            rng, 2, 300, flat_layout.grids(flat)[0], (10, 10, 9))),
+        "coords // 2, odd extents": (odd, None, stage_map_frames(
+            rng, 2, 300, odd.grid, (11, 11, 9))),
+        "VoxelNeXt": (vnx, None, stage_map_frames(rng, 2, 350, vnx.grid,
+                                                  (14, 12, 10))),
+        "Waymo-size extent": (waymo, None, stage_map_frames(
+            rng, 1, 20000, waymo.grid, (120, 120, 40))),
+        "duplicates": (vnx, None, dup),
+    }
+    for label, (c_, lay, (co, va)) in edges.items():
+        # duplicate rows: the canvas's scatter on the card keeps any one of
+        # them, the CPU's the last, as M1 and the sort join do
+        stage_maps_equal(label, c_, lay, co.to(dev), va.to(dev),
+                         "cpu" if label == "duplicates" else dev.type)
+    log(f"stage maps: M1 equal to the plain version on the edge cases "
+        f"{list(edges)}")
+
+    c, v = frames[0][0][None], frames[0][1][None]
+    grid, downs = _stage_plan(cfg, layout)
+
+    def plain():
+        stages, final = M._build_stage_maps_plain(c, v, grid, downs)
+        return _prepare_maps([(n, vv, ns, ov)
+                              for n, vv, ns, _, ov in stages]), final
+
+    calls = M.build_stage_maps.launches
+    m1 = kernel_launches(lambda: _batch_stage_maps(cfg, c, v, layout))
+    old = kernel_launches(plain)
+    check(M.build_stage_maps.launches > calls, "M1 never ran")
+    check(sum(m1) <= 40, f"a frame's maps took {m1} launches")
+    plan = M._plan(v.shape[1], grid, downs)
+    op = torch.ops.d3d_tpu_torch.build_stage_maps
+    ms = time_each(lambda: op(c, v, plan), 20)
+    cupti = cupti_ms(lambda: op(c, v, plan))
+    plain_ms = time_each(lambda: M._build_stage_maps_plain(c, v, grid,
+                                                           downs), 5)
+    outs = op(c, v, plan)
+    nbytes = c.numel() * 4 + v.numel() + sum(
+        t.numel() * t.element_size() for t in outs)
+    bound_ms, bound_by = bound(nbytes, 0)
+    host = host_ms(lambda: _batch_stage_maps(cfg, c, v, layout))
+    log(f"stage maps, one published frame ({int(v.sum())} voxels): "
+        f"launches (kernels, memory operations) in d3d.second.maps "
+        f"{m1} with M1, {old} on the plain route; M1 {ms:.3f} ms by CUDA "
+        f"events, CUPTI {cupti}, bound {bound_ms:.4f} ms ({bound_by}, "
+        f"{nbytes} bytes), plain route {plain_ms:.3f} ms; the host "
+        f"{host:.3f} ms to issue the maps and rule books")
+    return dict(frame_launches=list(m1), plain_frame_launches=list(old),
+                ms=ms,
+                cupti_ms=cupti, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, host_ms=host,
+                shape=f"one published frame, {int(v.sum())} voxels")
+
+
 def check_sync_free(dev, model, batch):
     """The rule books of the training batch's first stage (its submanifold
     and strided maps) are built, and that stage's three layers run forward
@@ -1727,7 +1918,8 @@ def second_training(dev, state, batch, dtype):
         step_ms.append(start.elapsed_time(end))
         want = dict(rbox_iou_matrix=0, nms_scan=0, nms_scan_blocked=0,
                     soft_nms_scan=0, subm_conv=13, subm_conv_dw=8,
-                    subm_conv_rulebook=1, soft_nms_scan_f64=0)
+                    subm_conv_rulebook=1, build_stage_maps=1,
+                    soft_nms_scan_f64=0)
         check(counts == want, f"SECOND training {dtype} step {i + 1}: "
                               f"launches {counts}, want {want}")
         check(not any(read_routes().values()),
@@ -1847,12 +2039,12 @@ def train_card_vs_cpu(dev, state, batch):
 
 def counters():
     from d3d_tpu_torch.ops import (geometry_cuda, nms_cuda, rulebook,
-                                   sparse_conv_cuda)
+                                   sparse_conv_cuda, stage_maps)
 
     return (geometry_cuda.rbox_iou_matrix, nms_cuda.nms_scan,
             nms_cuda.nms_scan_blocked, nms_cuda.soft_nms_scan,
             sparse_conv_cuda.subm_conv, sparse_conv_cuda.subm_conv_dw,
-            rulebook.subm_conv_rulebook)
+            rulebook.subm_conv_rulebook, stage_maps.build_stage_maps)
 
 
 def route_counters():
@@ -2244,9 +2436,11 @@ def second_serving(dev, model, frames):
         f"per request: {kept}")
     want = dict(rbox_iou_matrix=4, nms_scan=4, nms_scan_blocked=0,
                 soft_nms_scan=0, subm_conv=4 * len(K5_LAYERS),
-                subm_conv_dw=0, subm_conv_rulebook=4, soft_nms_scan_f64=0)
+                subm_conv_dw=0, subm_conv_rulebook=4, build_stage_maps=4,
+                soft_nms_scan_f64=0)
     check(counts == want, f"SECOND serving: launches {counts}, want {want}: "
-                          "8 of K5, 1 of K1 and 1 of K2 per request")
+                          "8 of K5, 1 of M1, 1 of K1 and 1 of K2 per "
+                          "request")
     log(f"SECOND serving routes: {check_nms_routes('SECOND serving', 4)}")
     log("SECOND serving f32: " + ", ".join(f"{ms:.2f}" for ms in request_ms)
         + " ms per request (the first one cold)")
@@ -2306,7 +2500,8 @@ def soft_nms_path(dev):
     log(f"soft_nms2d launches (linear + gaussian): {counts}")
     check(counts == dict(rbox_iou_matrix=2, nms_scan=0, nms_scan_blocked=0,
                          soft_nms_scan=2, subm_conv=0, subm_conv_dw=0,
-                         subm_conv_rulebook=0, soft_nms_scan_f64=0),
+                         subm_conv_rulebook=0, build_stage_maps=0,
+                         soft_nms_scan_f64=0),
           f"soft_nms2d did not run K1 and K4 once per call: {counts}")
     routes = read_routes()
     check(routes == dict(k1_matrix=2, k1_bits=0, pack=0, scan_warp=0,
@@ -2355,7 +2550,8 @@ NMS_CASES = (("hard", 0.0),) + SOFT_NMS_CASES
 NMS_SIZES = (512, 4096)  # the north star's; OpenPCDet's NMS_PRE_MAXSIZE
 NO_LAUNCHES = dict(rbox_iou_matrix=0, nms_scan=0, nms_scan_blocked=0,
                    soft_nms_scan=0, subm_conv=0, subm_conv_dw=0,
-                   subm_conv_rulebook=0, soft_nms_scan_f64=0)
+                   subm_conv_rulebook=0, build_stage_maps=0,
+                   soft_nms_scan_f64=0)
 
 
 def add_counts(total, counts):
@@ -3064,7 +3260,8 @@ def kitti_eval(dev, second, pp_detect):
               f"{stats['stand_in'][overlap]['ap']}")
     want = dict(rbox_iou_matrix=3 * KITTI_FRAMES, nms_scan=3 * KITTI_FRAMES,
                 subm_conv=len(K5_LAYERS) * KITTI_FRAMES,
-                subm_conv_rulebook=KITTI_FRAMES)
+                subm_conv_rulebook=KITTI_FRAMES,
+                build_stage_maps=KITTI_FRAMES)
     check(all(counts[k] == v for k, v in want.items()),
           f"kitti_eval launches {counts}, want {want}: K1's bit form and "
           "the scan per detector and frame, SECOND's K5 layers")
@@ -4276,7 +4473,7 @@ def timed(fn):
 def want_counts(**kw):
     want = dict(rbox_iou_matrix=0, nms_scan=0, nms_scan_blocked=0,
                 soft_nms_scan=0, subm_conv=0, subm_conv_dw=0,
-                subm_conv_rulebook=0, soft_nms_scan_f64=0)
+                subm_conv_rulebook=0, build_stage_maps=0, soft_nms_scan_f64=0)
     want.update(kw)
     return want
 
@@ -4312,7 +4509,8 @@ def voxelnext_serving(dev, vn):
     n = len(vn["clouds"])
     counts = read_counts()
     want = want_counts(rbox_iou_matrix=n, nms_scan=n,
-                       subm_conv=len(VN_LAYERS) * n, subm_conv_rulebook=n)
+                       subm_conv=len(VN_LAYERS) * n, subm_conv_rulebook=n,
+                       build_stage_maps=n)
     check(counts == want, f"VoxelNeXt serving: launches {counts}, want "
                           f"{want}: 11 of K5, 1 rule-book call, 1 K1 and "
                           "1 K2 a request")
@@ -4448,7 +4646,8 @@ def voxelnext_tracking(dev, detect, clouds):
     n = len(clouds)
     counts = read_counts()
     want = want_counts(rbox_iou_matrix=n, nms_scan=n,
-                       subm_conv=len(VN_LAYERS) * n, subm_conv_rulebook=n)
+                       subm_conv=len(VN_LAYERS) * n, subm_conv_rulebook=n,
+                       build_stage_maps=n)
     check(counts == want, f"tracking step: launches {counts}, want {want}")
     check_nms_routes("tracking step", n)
     check(int(state["next_tid"]) > 1 and active[-1] > 0,
@@ -4607,7 +4806,8 @@ def voxelnext_training(dev, vn, dtype):
     opt, _ = make_optimizer(model.parameters(), total_steps=VN_TRAIN_STEPS)
     step = make_train_step(model, opt, cfg)
     total, losses, step_ms = {}, [], []
-    want = want_counts(subm_conv=18, subm_conv_dw=11, subm_conv_rulebook=1)
+    want = want_counts(subm_conv=18, subm_conv_dw=11, subm_conv_rulebook=1,
+                       build_stage_maps=1)
     for i in range(VN_TRAIN_STEPS):
         reset_counts()
         aux, ms, _ = timed(lambda: step(vn["batch"]))
@@ -4636,12 +4836,14 @@ def sort_join_path(dev, vn, detect):
     the canvas cap) the stage maps built by the canvas and by the sort
     join (forced by ``_DENSE_CANVAS_MAX_CELLS`` = 0) equal, each build
     timed; then one request on a 150.4 m extent at 0.1 m (1504 x 1504 x
-    40, 90.5M cells, over the cap), which takes the sort join, with its
-    launches counted."""
+    40, 90.5M cells, over the cap), whose stage loop builds its maps with
+    M1 (on the card the stage loops take no canvas and no sort join), with
+    its launches counted."""
     from d3d_tpu_torch.models import (VoxelNeXt, make_voxelnext_detector,
                                       presets, voxelnext_voxelize)
-    from d3d_tpu_torch.models.second import _stage_maps
+    from d3d_tpu_torch.models.second import _stage_plan
     from d3d_tpu_torch.ops import sparse_conv
+    from d3d_tpu_torch.ops.stage_maps import frame_stage_maps
 
     cfg = presets.voxelnext_nuscenes()
     with torch.inference_mode():
@@ -4652,8 +4854,9 @@ def sort_join_path(dev, vn, detect):
     try:
         for route, cells in (("canvas", cap), ("sort_join", 0)):
             sparse_conv._DENSE_CANVAS_MAX_CELLS = cells
-            _stage_maps(cfg, c, v)
-            built[route] = timed(lambda: _stage_maps(cfg, c, v))
+            frame_stage_maps(c, v, *_stage_plan(cfg))
+            built[route] = timed(
+                lambda: frame_stage_maps(c, v, *_stage_plan(cfg)))
     finally:
         sparse_conv._DENSE_CANVAS_MAX_CELLS = cap
     (maps_a, _), ms_a, _ = built["canvas"]
@@ -4667,7 +4870,7 @@ def sort_join_path(dev, vn, detect):
     wcfg = presets.voxelnext_nuscenes(
         bounds=(-75.2, 75.2, -75.2, 75.2, -2.0, 4.0), grid=(1504, 1504, 40))
     cells = int(np.prod(wcfg.grid))
-    check(cells > cap, f"{cells} cells do not take the sort join")
+    check(cells > cap, f"{cells} cells are not above the canvas's cap")
     model = VoxelNeXt(wcfg, point_features=5, device=dev)
     model.load_state_dict(vn["model16"].state_dict())
     wdet = make_voxelnext_detector(model, None, wcfg, nusc_classes(),
@@ -4677,15 +4880,16 @@ def sort_join_path(dev, vn, detect):
     out, ms, host = timed(lambda: wdet.device_fn(vn["clouds"][1]))
     counts = read_counts()
     want = want_counts(rbox_iou_matrix=1, nms_scan=1,
-                       subm_conv=len(VN_LAYERS), subm_conv_rulebook=1)
-    check(counts == want, f"sort-join request: launches {counts}")
+                       subm_conv=len(VN_LAYERS), subm_conv_rulebook=1,
+                       build_stage_maps=1)
+    check(counts == want, f"Waymo-size request: launches {counts}")
     check(all(bool(torch.isfinite(t.float()).all()) for t in out),
-          "sort-join request: outputs not finite")
+          "Waymo-size request: outputs not finite")
     log(f"sort join: keyframe 0's {nmaps} stage maps equal by both routes "
         f"(canvas {ms_a:.2f} ms, sort join {ms_b:.2f} ms a build of all "
         f"four stages, CUDA events); a request on the {wcfg.grid} grid "
-        f"({cells} cells) {ms:.2f} ms (host {host:.2f} ms), launches "
-        f"{counts}")
+        f"({cells} cells; its maps by M1) {ms:.2f} ms (host {host:.2f} ms), "
+        f"launches {counts}")
     return counts, dict(maps=nmaps, canvas_build_ms=ms_a,
                         sort_join_build_ms=ms_b, request_ms=ms,
                         request_host_ms=host)
@@ -4744,7 +4948,7 @@ def second_more(dev, second):
     c = read_counts()
     check(c == want_counts(rbox_iou_matrix=4, nms_scan=4,
                            subm_conv=4 * len(K5_LAYERS),
-                           subm_conv_rulebook=4),
+                           subm_conv_rulebook=4, build_stage_maps=4),
           f"SECOND KITTI-like: launches {c}")
     add_counts(counts, c)
     no_tf32, cpu_ms = compare_with_cpu(
@@ -4769,7 +4973,8 @@ def second_more(dev, second):
     out, m5, _ = timed(lambda: det5(pts5))
     c = read_counts()
     check(c == want_counts(rbox_iou_matrix=1, nms_scan=1,
-                           subm_conv=len(K5_LAYERS), subm_conv_rulebook=1),
+                           subm_conv=len(K5_LAYERS), subm_conv_rulebook=1,
+                           build_stage_maps=1),
           f"SECOND 5-column bf16: launches {c}")
     add_counts(counts, c)
     stats["five_column_bf16"] = dict(request_ms=m5,
@@ -5386,7 +5591,8 @@ def nuscenes_track_eval(dev, vn):
     per_request = []
     tracks, dets_ego, gts = [], [], []
     want = want_counts(rbox_iou_matrix=1, nms_scan=1,
-                       subm_conv=len(VN_LAYERS), subm_conv_rulebook=1)
+                       subm_conv=len(VN_LAYERS), subm_conv_rulebook=1,
+                       build_stage_maps=1)
     for k, pts in enumerate(clouds):
         before = read_counts()
         state, out = step(state, pts, 0.0 if k == 0 else KEY_DT)
@@ -5982,7 +6188,7 @@ def painting_path(dev, scene):
     counts = read_counts()
     check(counts == want_counts(rbox_iou_matrix=1, nms_scan=1,
                                 subm_conv=len(K5_LAYERS),
-                                subm_conv_rulebook=1),
+                                subm_conv_rulebook=1, build_stage_maps=1),
           f"painted SECOND request: launches {counts}")
     check_nms_routes("painted SECOND request", 1)
     kept = check_detections("painted SECOND", out)
@@ -7922,7 +8128,7 @@ def parallel_training(dev, mesh, state, batch):
             counts, stats[dtype], timing[dtype] = sharded_vs_plain(
                 f"SECOND {dtype}", dev, mesh, build, batch,
                 want_counts(subm_conv=13, subm_conv_dw=8,
-                            subm_conv_rulebook=1))
+                            subm_conv_rulebook=1, build_stage_maps=1))
             add_counts(total, counts)
     # the steady steps as the paths run them (no deterministic mode), in
     # turns plain, sharded, sharded, plain
@@ -8072,7 +8278,8 @@ def parallel_families(dev, mesh, vn, bev_frames):
                       vn["model32"].state_dict(), voxelnext.make_train_step,
                       vn_cfg, vn["batch"],
                       want_counts(subm_conv=18, subm_conv_dw=11,
-                                  subm_conv_rulebook=1))}
+                                  subm_conv_rulebook=1,
+                                  build_stage_maps=1))}
     total, stats = {}, {}
     with deterministic_algorithms():
         for name, (make, state, make_step, cfg, batch, want) in \
@@ -10369,6 +10576,7 @@ def main():
         **{f"{name[1:]} offsets": [rules.nbr] for name, (_, rules, _, _)
            in wide_layers.items()},
         **sort_edge_maps(dev)})
+    stage_maps = check_stage_maps(dev)
 
     serve_counts, serve, pp_detect = serving(dev)
     ns_counts, ns, ns_inputs = north_star(dev)
@@ -10481,6 +10689,13 @@ def main():
             "serving": serve["epilogue_launches"]},
         launches_in_checks=epilogue["checks"], **epilogue["frame"],
         shape="a PointPillars frame's 17 maps", maps=epilogue["maps"]))
+    launches = sum(by_path["build_stage_maps"].values())
+    check(launches > 0, "build_stage_maps was never launched on a path")
+    kernels.append(dict(
+        name="build_stage_maps", route="cuda",
+        source="d3d_tpu_torch/csrc/stage_maps.cu", replaces=None,
+        launches=launches, max_abs_err=0.0,
+        launches_by_path=by_path["build_stage_maps"], **stage_maps))
     rows = {row["name"]: row for row in kernels}
     rows["rbox_iou_matrix"]["chain_share_by_check"] = k1_shares
     rows["rbox_iou_matrix"].update(max_abs_err_bits=k1_bits_err,

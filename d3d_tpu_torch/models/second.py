@@ -3,10 +3,11 @@
 Yan et al., "SECOND: Sparsely Embedded Convolutional Detection", Sensors
 2018: voxelize -> sparse 3D middle extractor -> collapse z -> 2D RPN with
 anchors. The middle extractor runs on the port's sparse-conv core
-(:mod:`d3d_tpu_torch.ops.sparse_conv`: dense-canvas neighbour maps, the
-gather-GEMM K5 on CUDA with K6 and K5 in its backward, sort-unique
-downsampling); the anchor head, target assignment, loss and train step are
-PointPillars', so anchors, decoding and the detector factory are shared.
+(:mod:`d3d_tpu_torch.ops.sparse_conv`: the gather-GEMM K5 on CUDA with K6
+and K5 in its backward; every stage's neighbour maps and downsampled sites
+by :mod:`d3d_tpu_torch.ops.stage_maps`, the kernel chain M1 on CUDA); the
+anchor head, target assignment, loss and train step are PointPillars', so
+anchors, decoding and the detector factory are shared.
 
 Parameters stay float32 and the compute runs in ``cfg.dtype``. Shapes are
 static: per-stage active-site caps, masked padding. The sparse stages run
@@ -31,10 +32,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.sparse_conv import (build_neighbor_map, build_neighbor_map_strided,
-                               conv_out_grid, downsample_coords,
-                               prepare_neighbor_maps, sparse_to_dense,
-                               subm_conv_apply)
+from ..ops.sparse_conv import (conv_out_grid, prepare_neighbor_maps,
+                               sparse_to_dense, subm_conv_apply)
+from ..ops.stage_maps import Down, build_stage_maps
 from ..ops.voxel import voxelize_dense_padded, voxelize_mean_fm_exact
 from ..parallel.comm import all_reduce_sum, batch_groups, live
 from ..profiler import span
@@ -326,74 +326,41 @@ def dense_stage_loop(cfg, layers, x, coords, valid, train=False):
     return canvas, mask
 
 
-def _stage_maps(cfg, coords, valid, layout=None):
-    """The neighbour maps of the sparse stages of one frame (they depend
-    on the geometry only): per stage ``(nbr, valid, nbr_down, valid_down)``
-    -- the submanifold map of the stage's sites, and the strided map to
-    the next stage's sites with their mask (None after the last stage; a
-    :class:`SECONDLayout`'s last stage has its ``out_*`` layer) -- and the
-    final sites' (coords, valid, grid)."""
-    grid = tuple(cfg.grid) if layout is None else layout.grids(cfg)[0]
-    maps = []
+def _stage_plan(cfg, layout=None):
+    """(grid, downs) of the sparse stages
+    (:func:`~d3d_tpu_torch.ops.stage_maps.build_stage_maps`): the JAX
+    module's ``coords // 2`` after each stage but the last, capped by the
+    next stage's sites; a :class:`SECONDLayout`'s strided layers by
+    spconv's rule after every stage, the last its ``out_*`` layer."""
+    if layout is None:
+        return tuple(cfg.grid), [Down(2, cfg.stage_sites[s + 1])
+                                 for s in range(cfg.n_stages - 1)] + [None]
+    downs = []
     for s in range(cfg.n_stages):
-        nbr = build_neighbor_map(coords, valid, grid)
-        if layout is None and s + 1 == cfg.n_stages:
-            maps.append((nbr, valid, None, None))
-            break
-        if layout is None:
-            oc, ov = downsample_coords(coords, valid, grid, 2,
-                                       cfg.stage_sites[s + 1])
-            nbr_s = build_neighbor_map_strided(oc, ov, coords, valid, grid,
-                                               2)
-            out_grid = tuple(-(-g // 2) for g in grid)
-        else:
-            kernel, stride, pad, cap = layout.down(cfg, s)
-            oc, ov = downsample_coords(coords, valid, grid, stride, cap,
-                                       kernel=kernel, padding=pad)
-            nbr_s = build_neighbor_map_strided(oc, ov, coords, valid, grid,
-                                               stride, kernel, padding=pad)
-            out_grid = conv_out_grid(grid, kernel, stride, pad)
-        maps.append((nbr, valid, nbr_s, ov))
-        coords, valid, grid = oc, ov, out_grid
-    return maps, (coords, valid, grid)
-
-
-def _offset(nbr, base):
-    """A frame's neighbour map moved to its rows in the batch's list."""
-    return torch.where(nbr >= 0, nbr + base, nbr)
+        kernel, stride, pad, cap = layout.down(cfg, s)
+        downs.append(Down(stride, cap, kernel, pad))
+    return layout.grids(cfg)[0], downs
 
 
 def _batch_stage_maps(cfg, coords, valid, layout=None):
-    """:func:`_stage_maps` of each frame of (B, V, 3) coords and (B, V)
-    valid, joined into the maps of ONE site list: frame b's rows of a stage
-    with R rows a frame are rows ``b*R ... b*R + R - 1``, and its neighbour
-    indices move by ``b`` times the rows of the stage they point into (-1
-    stays). Every layer then runs once on the whole batch, and a masked
-    BatchNorm reduces over the whole batch, as the JAX module's statistics
-    over (B, V) do. On CUDA the joined maps come with their rule books
-    (:func:`prepare_neighbor_maps`, all maps of the batch in one call),
-    built here once for every launch on them; the CPU's plain versions
-    read the bare maps. Returns the joined maps and the final stage's
-    (coords (B, R, 3), valid (B, R), grid)."""
-    frames = [_stage_maps(cfg, c, v, layout) for c, v in zip(coords, valid)]
-    maps = []
-    for s in range(cfg.n_stages):
-        per = [f[0][s] for f in frames]
-        rows = per[0][0].shape[0]
-        nbr = torch.cat([_offset(p[0], b * rows) for b, p in enumerate(per)])
-        valid_s = torch.cat([p[1] for p in per])
-        if per[0][2] is None:
-            maps.append((nbr, valid_s, None, None))
-        else:
-            maps.append((nbr, valid_s,
-                         torch.cat([_offset(p[2], b * rows)
-                                    for b, p in enumerate(per)]),
-                         torch.cat([p[3] for p in per])))
+    """The maps of every frame of (B, V, 3) coords and (B, V) valid,
+    joined into the maps of ONE site list
+    (:func:`~d3d_tpu_torch.ops.stage_maps.build_stage_maps`: M1 on CUDA,
+    :func:`~d3d_tpu_torch.ops.stage_maps.frame_stage_maps` a frame on the
+    CPU): frame b's rows of a stage with R rows a frame are rows
+    ``b*R ... b*R + R - 1``. Every layer then
+    runs once on the whole batch, and a masked BatchNorm reduces over the
+    whole batch, as the JAX module's statistics over (B, V) do. On CUDA the
+    joined maps come with their rule books (:func:`prepare_neighbor_maps`,
+    all maps of the batch in one call a kernel size), built here once for
+    every launch on them; the CPU's plain versions read the bare maps.
+    Returns the joined maps and the final stage's (coords (B, R, 3), valid
+    (B, R), grid)."""
+    maps, final = build_stage_maps(coords, valid,
+                                   *_stage_plan(cfg, layout))
     if coords.device.type == "cuda":
         maps = _prepare_maps(maps)
-    final_coords = torch.stack([f[1][0] for f in frames])
-    final_valid = torch.stack([f[1][1] for f in frames])
-    return maps, (final_coords, final_valid, frames[0][1][2])
+    return maps, final
 
 
 def _prepare_maps(maps):

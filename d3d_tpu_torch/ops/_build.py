@@ -61,6 +61,8 @@ _LIBRARIES = {
                      {"d3d_subm_conv_dw": [_P, _P, _P, _P, _P, _P, _P, _I,
                                            _I, _I, _I, _I, _I, _I, _I, _I,
                                            _P]}),
+    "stage_maps": ("stage_maps.cu", [],
+                   {"d3d_stage_maps": [_P, _P, _I, _P, _I, _P, _P, _L, _P]}),
     "bn_relu": ("bn_relu.cu", [],
                 {"d3d_bn_relu": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _L,
                                  _L, _L, _L, _L, _P]}),

@@ -22,7 +22,10 @@ Grids up to ``_DENSE_CANVAS_MAX_CELLS`` (2^26 cells, a 268 MB int32
 transient) build their maps on the canvas; larger ones (a 150 m Waymo
 extent at 0.1 m is 90.5M cells) take the JAX module's tagged sort join
 (:func:`match_sorted`), all kernel offsets in one batched stable sort.
-Both routes give the same map.
+Both routes give the same map. The stage loops of the models build their
+maps through :mod:`d3d_tpu_torch.ops.stage_maps`: on CUDA by its kernel
+chain M1, on the CPU by these functions, which are M1's plain version
+(and, on the card, its reference).
 
 Strided maps take a kernel, stride and padding per axis where asked
 (``kernel``/``padding`` of :func:`downsample_coords` and
@@ -48,26 +51,10 @@ __all__ = ["kernel_offsets", "linearize", "match_sorted", "build_neighbor_map",
 _DENSE_CANVAS_MAX_CELLS = 1 << 26
 _BIG_KEY = 2 ** 30 - 1
 
-# small int32 constants (kernel offsets, strides, extents) by what they
-# hold and their device, made once: a constant copied to the card on every
-# call would wait for the device
-_CONSTS = {}
-
-
-def _cached(key, make):
-    """``make()``, kept under ``key``; made anew while ``torch.export``
-    traces, whose tensors are no constants to keep."""
-    if torch.compiler.is_compiling():
-        return make()
-    if key not in _CONSTS:
-        _CONSTS[key] = make()
-    return _CONSTS[key]
-
 
 def _const(values, device):
     """``values`` (ints) as an int32 tensor on ``device``."""
-    return _cached((values, device), lambda: torch.tensor(
-        values, dtype=torch.int32, device=device))
+    return torch.tensor(values, dtype=torch.int32, device=device)
 
 
 def kernel_offsets(kernel_size=3, ndim=3):
@@ -151,9 +138,7 @@ def _window_offsets(kernel, padding):
 
 def _offsets_on(kernel, padding, device):
     """:func:`_window_offsets` as an int32 tensor on ``device``."""
-    return _cached(("offsets", _axes(kernel), _axes(padding), device),
-                   lambda: torch.as_tensor(_window_offsets(kernel, padding),
-                                           device=device))
+    return torch.as_tensor(_window_offsets(kernel, padding), device=device)
 
 
 def conv_out_grid(grid, kernel, stride, padding):

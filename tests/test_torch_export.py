@@ -41,7 +41,7 @@ from d3d_tpu_torch.models import pointpillars as TP
 from d3d_tpu_torch.models import sst as TS
 from d3d_tpu_torch.models import voxelnext as TV
 from d3d_tpu_torch.ops import geometry_cuda, nms_cuda, rulebook
-from d3d_tpu_torch.ops import sparse_conv_cuda
+from d3d_tpu_torch.ops import sparse_conv_cuda, stage_maps
 
 from tests.test_mono3d import K, TINY as MONO
 from tests.test_sst import TINY as SST_TINY
@@ -266,7 +266,35 @@ def _op_cases():
                       (torch.randn(10, 4), nbr, None, torch.randn(27, 4, 3),
                        torch.from_numpy(rng.random(8) < 0.8))),
         "subm_conv_rulebook": (ops.subm_conv_rulebook, ([nbr, nbr2],)),
+        "build_stage_maps": (ops.build_stage_maps, _stage_maps_case(rng)),
     }
+
+
+def _stage_maps_case(rng):
+    """Two frames of 40 sites (30 and 20 valid) on a 6 x 5 x 9 grid, the
+    JAX module's ``coords // 2`` after stage 0 and spconv's window after
+    stage 1: the op's (coords, valid, plan)."""
+    coords = torch.from_numpy(rng.integers(0, 5, (2, 40, 3)).astype(np.int32))
+    valid = torch.from_numpy(np.arange(40) < np.array([[30], [20]]))
+    plan = stage_maps._plan(40, (6, 5, 9), [
+        stage_maps.Down(2, 30), stage_maps.Down((1, 1, 2), 20, (1, 1, 3), 0),
+        None])
+    return coords, valid, plan
+
+
+def test_stage_maps_fake_gives_the_plain_shapes():
+    """Under FakeTensorMode the stage maps' op gives the shapes and dtypes
+    of the plain route's outputs (the CPU kernel's)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    coords, valid, plan = _stage_maps_case(np.random.default_rng(4))
+    real = torch.ops.d3d_tpu_torch.build_stage_maps(coords, valid, plan)
+    with FakeTensorMode() as mode:
+        fake = torch.ops.d3d_tpu_torch.build_stage_maps(
+            mode.from_tensor(coords), mode.from_tensor(valid), plan)
+    assert len(fake) == len(real) == 9
+    assert [(f.shape, f.dtype) for f in fake] == [(r.shape, r.dtype)
+                                                   for r in real]
 
 
 @pytest.mark.parametrize("case", sorted(_op_cases()))
@@ -282,7 +310,8 @@ def test_cpu_ops_count_no_launch():
     launch."""
     counters = (geometry_cuda.rbox_iou_matrix, nms_cuda.nms_scan,
                 nms_cuda.nms_scan_blocked, nms_cuda.soft_nms_scan,
-                sparse_conv_cuda.subm_conv, rulebook.subm_conv_rulebook)
+                sparse_conv_cuda.subm_conv, rulebook.subm_conv_rulebook,
+                stage_maps.build_stage_maps)
     before = [f.launches for f in counters]
     for op, args in _op_cases().values():
         op(*args)

@@ -26,6 +26,7 @@ from d3d_tpu_torch.models import presets
 from d3d_tpu_torch.ops import _build
 from d3d_tpu_torch.ops import sparse_conv as TS
 from d3d_tpu_torch.ops import sparse_conv_cuda as TK
+from d3d_tpu_torch.ops import stage_maps as TSM
 from d3d_tpu_torch.ops import rulebook as RB
 from d3d_tpu_torch.ops.rulebook import RuleBook, prepare_neighbor_map
 
@@ -58,7 +59,7 @@ def _jax_map(rng, kind):
     maps = [np.array(S.build_neighbor_map(jnp.asarray(c), jnp.asarray(v),
                                           GRID)) for c, v in
             ((coords, valid), (c2, v2))]
-    joined = torch.cat([TSEC._offset(torch.from_numpy(m), b * 192)
+    joined = torch.cat([TSM._offset(torch.from_numpy(m), b * 192)
                         for b, m in enumerate(maps)])
     return joined.numpy(), np.concatenate([valid, v2]), 384
 
@@ -469,8 +470,9 @@ def test_argtypes_match_the_c_signatures():
     sigs = _c_signatures()
     # K2, K3 share the scan and the pack; K1's library also gives its bit
     # rows and its descriptors, K4's has a float64 entry, K5's answers its
-    # tile's rows and builds rule books; the BEV layers' epilogue has one
-    assert len(sigs) == 13 and set(sigs) == set(declared)
+    # tile's rows and builds rule books; the BEV layers' epilogue has one,
+    # the stage maps' chain M1 one
+    assert len(sigs) == 14 and set(sigs) == set(declared)
     for fn, (source, kinds) in sigs.items():
         assert set(kinds) <= set("PILFD"), (fn, kinds)
         assert declared[fn] == (source, kinds), fn
@@ -480,6 +482,7 @@ def test_argtypes_match_the_c_signatures():
     assert sigs["d3d_subm_conv_rulebook_resident"][1] == ""
     assert sigs["d3d_bn_relu"][1] == "P" * 5 + "III" + "LI" + "L" * 5 + "P"
     assert sigs["d3d_subm_conv_rulebook"][1] == "PPIIPPPIP"
+    assert sigs["d3d_stage_maps"][1] == "PPIPIPPLP"
     assert sigs["d3d_rbox_iou_matrix"][1] == "PPPIIPP"
     assert sigs["d3d_rbox_overlap_bits"][1] == "PPIFPP"
     assert sigs["d3d_nms_pack"][1] == "PPIP"
