@@ -14,6 +14,8 @@ Usage: python _torch_dist_worker.py CASE RANK WORLD OUTDIR
 """
 
 import os
+import signal
+import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -26,14 +28,30 @@ from d3d_tpu_torch.parallel.launch import (  # noqa: E402
 class Group(RankGroup):
     """N ranks of one case, started together; :meth:`results` waits for
     them (killing the group on a failure or at ``timeout``) and returns
-    each rank's saved results."""
+    each rank's saved results. A rank still running when the group is
+    killed first writes every thread's stack to its log, which the
+    failure quotes."""
 
     def __init__(self, case, world, outdir, timeout=GROUP_TIMEOUT_S):
         self.case, self.outdir = case, str(outdir)
         super().__init__(
-            case, lambda r: [sys.executable, os.path.abspath(__file__), case,
-                             str(r), str(world), self.outdir],
+            case, lambda r: [sys.executable, "-X", "faulthandler",
+                             os.path.abspath(__file__), case, str(r),
+                             str(world), self.outdir],
             world, outdir, timeout, env=dict(OMP_NUM_THREADS="1"))
+
+    def _kill(self):
+        """SIGABRT to the live ranks, which their faulthandler answers with
+        their stacks, then the kill."""
+        live = [p for p in self.procs if p.poll() is None]
+        for p in live:
+            p.send_signal(signal.SIGABRT)
+        for p in live:
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                pass
+        super()._kill()
 
     def results(self):
         import torch

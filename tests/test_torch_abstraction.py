@@ -7,13 +7,13 @@ packages (msgpack, tqdm, PIL)."""
 
 import io
 import pickle
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+
+from _limits import run_python
 
 from d3d_tpu import abstraction as JA
 from d3d_tpu.dataset.kitti.utils import KittiObjectClass as JK
@@ -338,6 +338,5 @@ def test_new_modules_import_without_host_only_packages():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'd3d_tpu')]\n"
         "sys.exit(1 if bad else 0)\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+    res = run_python(code, ROOT)
     assert res.returncode == 0, res.stdout + res.stderr

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 from d3d_tpu import benchmarks as JBM
 from d3d_tpu import benchmarks_device as JBD
 from d3d_tpu.dataset.kitti.utils import KittiObjectClass as JK

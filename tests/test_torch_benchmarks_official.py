@@ -26,6 +26,8 @@ such metrics are held within 1e-6 on that route, 1e-12 on the host loop."""
 import numpy as np
 import pytest
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 from d3d_tpu import abstraction as JA
 from d3d_tpu import benchmarks as JBM
 from d3d_tpu import benchmarks_kitti as JKI

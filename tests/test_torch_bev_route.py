@@ -25,6 +25,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 from d3d_tpu_torch.models import BEVSeg, CenterPoint, SST
 from d3d_tpu_torch.models import PointPillars, PointPillarsConfig
 from d3d_tpu_torch.models import make_anchors, make_pointpillars_detector

@@ -10,6 +10,8 @@ the guard of the forward-only K1 matrix."""
 import numpy as np
 import pytest
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import jax
 import jax.numpy as jnp
 import torch

@@ -9,6 +9,8 @@ import io
 import numpy as np
 import pytest
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import kitti_fixture as fx
 from d3d_tpu.dataset import base as JB
 from d3d_tpu.dataset.kitti import KittiObjectLoader as JLoader

@@ -18,6 +18,8 @@ import shutil
 import numpy as np
 import pytest
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import dataset_fixtures as dfx
 from d3d_tpu.dataset.kitti360 import KITTI360Loader as JLoader
 

@@ -28,6 +28,8 @@ import pytest
 from PIL import Image
 from scipy.spatial.transform import Rotation
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import dataset_fixtures as dfx
 import kitti_fixture as kfx
 from d3d_tpu.dataset import cadc as JCadc

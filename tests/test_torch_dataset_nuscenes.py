@@ -12,13 +12,14 @@ files), and ``accumulate_sweeps`` the same cloud. The port's loader also
 runs without ``msgpack`` (no metadata cache written)."""
 
 import json
-import subprocess
 import sys
 import zipfile
 from pathlib import Path
 
 import numpy as np
 import pytest
+
+from _limits import run_python
 
 import test_dataset
 
@@ -246,8 +247,7 @@ def test_loader_runs_without_msgpack(trees, tmp_path):
         "from d3d_tpu_torch.dataset.nuscenes import NuscenesLoader\n"
         f"l = NuscenesLoader({str(tree)!r}, phase='training')\n"
         "print(len(l), l.metadata(1).sample_token)\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+    res = run_python(code, ROOT)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split() == ["2", "s1"]
     assert not (tree / "trainval" / "metadata.msg").exists()

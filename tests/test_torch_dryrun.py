@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+from _limits import time_limit
+
 import jax
 import jax.numpy as jnp
 import optax
@@ -105,6 +107,7 @@ def _jax_dryrun():
 
 
 @pytest.fixture(scope="module")
+@time_limit(120)
 def runs():
     return _jax_dryrun()
 

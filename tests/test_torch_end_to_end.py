@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import kitti_fixture as fx
 from d3d_tpu.abstraction import Target3DArray as JArray
 from d3d_tpu.benchmarks import DetectionEvaluator as JEvaluator

@@ -33,6 +33,8 @@ import numpy as np
 import pytest
 import torch
 
+from _limits import time_limit
+
 import jax
 
 import dataset_fixtures as dfx
@@ -327,6 +329,7 @@ def _jax_draws(key):
             np.array(jax.random.normal(kt, (3,), dt) * 0.2))
 
 
+@time_limit(120)
 def test_train_pointpillars(examples, monkeypatch, tmp_path):
     import d3d_tpu.models.pointpillars as JPP
     from d3d_tpu_torch.augment import _global_transform

@@ -13,12 +13,12 @@ JAX program compiles once."""
 
 import dataclasses
 import json
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
+
+from _limits import run_python
 
 import jax
 import jax.numpy as jnp
@@ -206,7 +206,8 @@ def test_platform_must_be_the_traced_device(family):
 def test_loads_without_model_code(tmp_path):
     """A fresh process loads an artifact (VoxelNeXt's, which holds the
     most kernel ops) and reproduces the eager outputs, importing neither
-    the port's models nor JAX."""
+    the port's models nor JAX. It runs on this process's torch threads:
+    the eager outputs' last bits follow the thread count."""
     _, tdet, args = _family("voxelnext", np.random.default_rng(5))
     path = texport.save_detector(tdet.device_fn, args, tmp_path / "v.zip",
                                  meta={"family": "voxelnext"})
@@ -217,6 +218,7 @@ def test_loads_without_model_code(tmp_path):
     code = (
         "import json, sys\n"
         "import numpy as np, torch\n"
+        f"torch.set_num_threads({torch.get_num_threads()})\n"
         "from d3d_tpu_torch.export import load_detector\n"
         f"det = load_detector({str(path)!r})\n"
         f"x = np.load({str(inputs)!r})\n"
@@ -228,8 +230,7 @@ def test_loads_without_model_code(tmp_path):
         "('d3d_tpu_torch.models', 'jax', 'flax', 'd3d_tpu.'))\n"
         "    or m == 'd3d_tpu']\n"
         "print(json.dumps(dict(same=same, mods=mods, meta=det.meta)))\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+    res = run_python(code, ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out == dict(same=True, mods=[], meta={"family": "voxelnext"})

@@ -10,6 +10,8 @@ channels, which is the last axis of a flax kernel but axis 0 of a torch
 import numpy as np
 import pytest
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import jax
 import jax.numpy as jnp
 import torch

@@ -7,6 +7,8 @@ against ``d3d_tpu.ops.geometry``."""
 import numpy as np
 import pytest
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import jax
 import jax.numpy as jnp
 import torch

@@ -21,6 +21,8 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 from scipy.spatial.transform import Rotation  # noqa: E402
 
+import _limits  # noqa: E402,F401  (one torch thread a process)
+
 import kitti_fixture as kfx  # noqa: E402
 import d3d_tpu.abstraction as JA  # noqa: E402
 import d3d_tpu.io.hdf5 as JH  # noqa: E402

@@ -5,13 +5,13 @@ for CPU tensors without counting a launch."""
 import ast
 import dataclasses
 import pkgutil
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+
+from _limits import run_python
 
 import d3d_tpu_torch
 from d3d_tpu_torch.models import SECOND, PointPillars, head_config, presets
@@ -39,8 +39,7 @@ def test_import_loads_no_jax():
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+    res = run_python(code, ROOT)
     assert res.returncode == 0, res.stdout + res.stderr
 
 
@@ -323,8 +322,7 @@ def test_camera_and_segmentation_families_need_cuda_or_an_explicit_cpu():
             "       if m in sys.modules]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+    res = run_python(code, ROOT)
     assert res.returncode == 0, res.stdout + res.stderr
     if torch.cuda.is_available():
         pytest.skip("this checks the behaviour without CUDA")
@@ -384,8 +382,7 @@ def test_rank_worker_loads_no_jax():
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad, sorted(w.CASES))\n"
         "sys.exit(1 if bad else 0)\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+    res = run_python(code, ROOT)
     assert res.returncode == 0, res.stdout + res.stderr
 
 
@@ -438,7 +435,6 @@ def test_new_modules_read_nothing_of_the_jax_package(tmp_path):
         "ld.lidar_data(0), ld.annotation_3dobject(1), ld.pose(1)\n"
         "print(seen)\n"
         "sys.exit(1 if seen else 0)\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+    res = run_python(code, ROOT)
     assert res.returncode == 0, res.stdout + res.stderr
     assert list(tmp_path.glob("libd3dhost-*.so"))

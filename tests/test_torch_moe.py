@@ -9,6 +9,8 @@ Tolerances are stated per test."""
 import numpy as np
 import pytest
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import jax
 import jax.numpy as jnp
 import torch

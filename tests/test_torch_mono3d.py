@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import jax
 import jax.numpy as jnp
 import optax

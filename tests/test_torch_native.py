@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 from d3d_tpu import native as J
 
 import d3d_tpu_torch.native as T

@@ -8,6 +8,8 @@ exact, with rotated and axis-aligned IoU."""
 import numpy as np
 import pytest
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import jax.numpy as jnp
 import torch
 

@@ -18,6 +18,8 @@ import re
 import numpy as np
 import pytest
 
+from _limits import time_limit
+
 import jax.numpy as jnp
 import torch
 
@@ -868,16 +870,16 @@ def _k1_bit_rows(n):
     return 8
 
 
-def _emulate_k1_bits(b, thr, rows):
+def _emulate_k1_bits(rej, iou, thr, rows):
     """K1's bit-row blocks into a buffer of garbage: the own-word block
     zeroes its rows' words left of it; phase 1 sets a rejected pair's bit
     to 0.0 > thr and queues the pairs j > i that are not rejected; phase 2
     sets the chain's bits (the plain IoU of (row, column)); each block
-    writes its rows' word. Returns the rows and each word's write count."""
-    n = b.shape[0]
+    writes its rows' word. ``rej`` and ``iou``: the boxes' reject test and
+    plain IoU matrix against themselves. Returns the rows and each word's
+    write count."""
+    n = rej.shape[0]
     words = (n + 63) // 64
-    rej = TC._reject_plain(b, b).numpy()
-    iou = TS._rbox_iou_matrix_plain(b, b).numpy()
     out = [[0xDEAD] * words for _ in range(n)]
     writes = np.zeros((n, words), np.int64)
     for row0, w in _bit_tiles(n, rows):
@@ -920,16 +922,19 @@ def _boxes_with_odd_ones(rng, n, spread, apart=False):
 
 
 @pytest.mark.parametrize("n", [1, 63, 65, 100, 200])
+@time_limit(120)
 def test_k1_bit_tiles_write_every_word_once(rng, n):
     """K1's bit-row tiles cover every (row, word) once, at the tile rows it
     picks and at every other, and give the plain version's bits at each
     threshold, NaN and degenerate boxes among them."""
     b = torch.from_numpy(_boxes_with_odd_ones(rng, n, np.sqrt(n) * 2.0))
-    for rows in sorted({_k1_bit_rows(n), 8, 64}):
-        for thr in THRESHOLDS:
-            got, writes = _emulate_k1_bits(b, thr, rows)
+    rej = TC._reject_plain(b, b).numpy()
+    iou = TS._rbox_iou_matrix_plain(b, b).numpy()
+    for thr in THRESHOLDS:
+        want = _words(TC._rbox_overlap_bits_plain(b, thr))
+        for rows in sorted({_k1_bit_rows(n), 8, 64}):
+            got, writes = _emulate_k1_bits(rej, iou, thr, rows)
             assert (writes == 1).all(), (rows, thr)
-            want = _words(TC._rbox_overlap_bits_plain(b, thr))
             assert got == want, (rows, thr)
 
 

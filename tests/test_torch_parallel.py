@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from _limits import time_limit
+
 import jax
 import jax.numpy as jnp
 import optax
@@ -89,6 +91,7 @@ def _to_torch(batch):
 
 
 @pytest.fixture(scope="module")
+@time_limit(120)
 def pp_jax():
     """JAX PointPillars TINY variables and batch; the JAX shard_train_step
     losses on dp2 x tp2, dp4 and dp2 x sp2."""
@@ -209,6 +212,7 @@ def _family_batches(b=4):
 
 
 @pytest.fixture(scope="module")
+@time_limit(120)
 def fam_jax():
     """The families' batches, flax weights (CenterPoint, BEVSeg,
     VoxelNeXt) carried to the port, and the JAX package's

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import jax
 import jax.numpy as jnp
 

@@ -16,6 +16,8 @@ from pathlib import Path
 
 import pytest
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import d3d_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -15,6 +15,8 @@ import re
 import numpy as np
 import pytest
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import jax.numpy as jnp
 import torch
 

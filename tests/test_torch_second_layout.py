@@ -11,6 +11,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import jax.numpy as jnp
 
 from d3d_tpu.ops.voxel import voxelize_mean_fm_exact

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 from d3d_tpu.benchmarks import SegmentationEvaluator as JEvaluator
 from d3d_tpu.benchmarks_device import (device_panoptic_stats,
                                        device_semantic_stats)

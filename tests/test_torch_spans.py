@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 from d3d_tpu_torch import profiler
 from d3d_tpu_torch.dataset.kitti.utils import KittiObjectClass
 from d3d_tpu_torch.models import (PointPillars, PointPillarsConfig,

@@ -7,6 +7,8 @@ the same numpy-seeded inputs."""
 import numpy as np
 import pytest
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import jax
 import jax.numpy as jnp
 import torch

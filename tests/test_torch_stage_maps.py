@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 from d3d_tpu_torch.models import SECONDLayout, presets
 from d3d_tpu_torch.models import second as TSEC
 from d3d_tpu_torch.ops import stage_maps as M

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from _limits import time_limit
+
 from tracking_sequence import evaluator_fingerprint, make_tracking_sequence
 
 from d3d_tpu import benchmarks as JBM
@@ -159,11 +161,14 @@ def _shifted_calib(mod):
 
 
 @pytest.fixture(scope="module")
+@time_limit(120)
 def case_bank():
     """Each case through the JAX package's ``calc_stats_sequence`` (its
     scan; the JAX package's own tests hold its per-frame route equal to
     it) and the port's scan and per-frame routes, the dt frames of the
-    calib case handed over in a shifted ego frame with its TransformSet."""
+    calib case handed over in a shifted ego frame with its TransformSet.
+    ``(case, bookkeeping)``: the JAX package's fingerprint and the port's
+    evaluator; ``(case, "jax")``: the JAX package's evaluator."""
     from d3d_tpu import abstraction as JA
 
     out = {}
@@ -181,8 +186,9 @@ def case_bank():
                 jkw["calib"], tkw["calib"] = jc, tc
             jseqs.append((gts, dts, jkw))
             tseqs.append((tg, td, tkw))
-        want = evaluator_fingerprint(_calls(JBM.TrackingEvaluator, classes,
-                                            jseqs, True, port=False))
+        out[name, "jax"] = _calls(JBM.TrackingEvaluator, classes, jseqs,
+                                  True, port=False)
+        want = evaluator_fingerprint(out[name, "jax"])
         for bk in (True, False):
             out[name, bk] = (want, _calls(TBM.TrackingEvaluator, classes,
                                           tseqs, bk, port=True))
@@ -271,8 +277,7 @@ def test_metrics_and_summary_match_jax(case_bank):
     """metrics_dict (detection and CLEAR-MOT fields), summary text and the
     per-class metric calls of the port equal the JAX package's on the
     windowed case (floats of the IoU within 1e-6, others 1e-12)."""
-    classes, seqs = _case("windowed")
-    jev = _calls(JBM.TrackingEvaluator, classes, seqs, True, port=False)
+    jev = case_bank["windowed", "jax"]
     tev = case_bank["windowed", True][1]
     jd, td = jev.metrics_dict(), tev.metrics_dict()
     assert set(jd) == set(td)

@@ -6,6 +6,8 @@ term), and the optimizer recipe (learning-rate schedules and updates)."""
 import numpy as np
 import pytest
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import jax
 import jax.numpy as jnp
 import torch

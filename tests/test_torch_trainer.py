@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import jax.numpy as jnp
 
 from d3d_tpu.train import ema_init as j_ema_init

@@ -6,6 +6,8 @@ ulp (bit-equal on these arguments); other dtypes take torch's own."""
 import numpy as np
 import pytest
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import jax
 import jax.numpy as jnp
 import torch

@@ -11,6 +11,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import _limits  # noqa: F401  (one torch thread a process)
+
 import jax.numpy as jnp
 import torch
 
